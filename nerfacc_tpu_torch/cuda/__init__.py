@@ -11,7 +11,10 @@ import torch
 
 from ._build import check, load
 
-LAUNCHES = {"cp_level_fwd": 0, "march": 0, "composite_fwd": 0}
+LAUNCHES = {
+    "cp_level_fwd": 0, "cp_level_bwd": 0, "march": 0, "composite_fwd": 0,
+    "composite_bwd": 0,
+}
 
 
 def reset_launches() -> None:

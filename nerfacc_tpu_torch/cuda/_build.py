@@ -33,6 +33,8 @@ _F = ctypes.c_float
 _SIGNATURES = {
     # (u, lines, out, n, R, rank, bf16, stream)
     "cp_level_fwd": [_P, _P, _P, ctypes.c_int64, _I, _I, _I, _P],
+    # (u, g, lines, dlines, n, R, rank, bf16, stream)
+    "cp_level_bwd": [_P] * 4 + [ctypes.c_int64, _I, _I, _I, _P],
     # (rays_o, rays_d, near, far, mask, binaries, aabbs, n_rays, m, rx, ry,
     #  rz, step, cone, tau, base, counts, term, stream)
     "march_count": [_P] * 7 + [_I] * 5 + [_F] * 4 + [_P, _P, _P],
@@ -41,6 +43,10 @@ _SIGNATURES = {
     # (t_starts, t_ends, sigmas, rgbs, seg_starts, seg_ends, prefix_trans,
     #  n_rays, colors, opacities, depths, weights, stream)
     "composite_fwd": [_P] * 7 + [_I] + [_P] * 5,
+    # (t_starts, t_ends, sigmas, rgbs, seg_starts, seg_ends, prefix_trans,
+    #  n_rays, g_colors, g_opacities, g_depths, d_sigmas, d_rgbs, scratch,
+    #  stream)
+    "composite_bwd": [_P] * 7 + [_I] + [_P] * 7,
 }
 
 _lib: Optional[ctypes.CDLL] = None

@@ -6,11 +6,13 @@ PyTorch counterpart of nerfacc_tpu/data/procedural.py's
 ``np.random.default_rng(1234)`` draws and the camera rays from the same
 numpy arithmetic, so both packages build the identical scene and rays; the
 ground truth is integrated in PyTorch on the loader's device (no disk
-cache).  Ported: the test split.  Training ray batches come with the trainer.
+cache).  Ported: the test split and the train split's random ray batches,
+whose pixels come from the same ``np.random.default_rng(seed)`` call
+sequence as the JAX loader's, so both loaders yield identical batches.
 """
 from __future__ import annotations
 
-from typing import Union
+from typing import Optional, Union
 
 import numpy as np
 import torch
@@ -35,9 +37,14 @@ class ProceduralSceneLoader:
     """Analytic-blob scene with the SubjectLoader interface.
 
     Args:
-        split: "train" or "test" camera ring; items are whole views.
+        split: "train" or "test" camera ring.
         n_train / n_test: camera counts on a ring, looking at the origin.
         width / height: image resolution.
+        num_rays: train-split ray batch; None (or the test split) makes
+            every item a whole view.
+        color_bkgd_aug: background of a train batch, "white", "black" or
+            "random" (one colour per batch).
+        seed: seeds the batches' pixel draws.
         device: where the ground truth is rendered and items are returned.
     """
 
@@ -54,10 +61,17 @@ class ProceduralSceneLoader:
         n_test: int = 4,
         width: int = 320,
         height: int = 320,
+        num_rays: Optional[int] = None,
+        color_bkgd_aug: str = "white",
+        seed: int = 42,
         device: Union[str, torch.device] = "cpu",
     ):
         self.split = split
         self.WIDTH, self.HEIGHT = width, height
+        self.num_rays = num_rays
+        self.training = num_rays is not None and split == "train"
+        self.color_bkgd_aug = color_bkgd_aug
+        self.rng = np.random.default_rng(seed)
         self.device = torch.device(device)
         half, n_blobs = self.AABB_HALF, self.NUM_BLOBS
         self.aabb = np.array([-half] * 3 + [half] * 3, dtype=np.float32)
@@ -144,6 +158,9 @@ class ProceduralSceneLoader:
     def __len__(self):
         return len(self.camtoworlds)
 
+    def update_num_rays(self, num_rays: int) -> None:
+        self.num_rays = num_rays
+
     def _pixel_grid(self):
         x, y = np.meshgrid(np.arange(self.WIDTH), np.arange(self.HEIGHT), indexing="xy")
         return x.reshape(-1), y.reshape(-1)
@@ -168,12 +185,34 @@ class ProceduralSceneLoader:
             torch.tensor(viewdirs.astype(np.float32), device=self.device),
         )
 
+    def _select_pixels(self, index: int):
+        """(image ids, x, y, background) of one item, drawn from ``self.rng``
+        in the JAX loader's order when training."""
+        if self.training:
+            n = self.num_rays
+            image_id = self.rng.integers(0, len(self), size=(n,))
+            x = self.rng.integers(0, self.WIDTH, size=(n,))
+            y = self.rng.integers(0, self.HEIGHT, size=(n,))
+            if self.color_bkgd_aug == "random":
+                color_bkgd = self.rng.random(3, dtype=np.float32)
+            elif self.color_bkgd_aug == "white":
+                color_bkgd = np.ones(3, np.float32)
+            else:
+                color_bkgd = np.zeros(3, np.float32)
+        else:
+            x, y = self._pixel_grid()
+            image_id = np.full_like(x, index)
+            color_bkgd = np.ones(3, np.float32)
+        return image_id, x, y, color_bkgd
+
     def __getitem__(self, index: int):
-        """One full test view: rays, GT rgb over a white background."""
-        x, y = self._pixel_grid()
-        rgba = self.images[index].reshape(-1, 4).to(torch.float32) / 255.0
-        origins, viewdirs = self._rays_for_pixels(np.full_like(x, index), x, y)
-        color_bkgd = torch.ones(3, device=self.device)
+        """A train ray batch or one full view: rays and the ground truth
+        alpha-blended over the item's background."""
+        image_id, x, y, color_bkgd = self._select_pixels(index)
+        pick = tuple(torch.as_tensor(a, device=self.device) for a in (image_id, y, x))
+        rgba = self.images[pick].to(torch.float32) / 255.0
+        origins, viewdirs = self._rays_for_pixels(image_id, x, y)
+        color_bkgd = torch.tensor(color_bkgd, device=self.device)
         pixels = rgba[:, :3] * rgba[:, 3:] + color_bkgd * (1.0 - rgba[:, 3:])
         return {
             "rgb": pixels,

@@ -1,19 +1,20 @@
 """Occupancy-grid state and its dense EMA refresh.
 
 PyTorch counterpart of nerfacc_tpu/estimators/occ_grid.py.  Ported: the
-state, its initialisation, and ``update_occ_grid`` on the dense path (every
-cell re-evaluated at each update, the JAX warmup path) with binarisation.
+state, its initialisation, ``update_occ_grid`` on the dense path (every
+cell re-evaluated at each update, the JAX warmup path) with binarisation,
+and ``sampling`` (the padded path's stratified near planes, then the march).
 The sampled and striped updates, the OO estimator and invisible-cell marking
 are not ported yet.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Sequence, Tuple, Union
+from typing import Callable, Optional, Sequence, Tuple, Union
 
 import torch
 
-from ..grid import _enlarge_aabb
+from ..grid import MarchResult, _enlarge_aabb, march
 
 
 @dataclasses.dataclass
@@ -142,3 +143,33 @@ def update_occ_grid(
     thre = torch.clamp(mean_occ, max=occ_thre)
     binaries = (occs > thre).reshape(state.binaries.shape)
     return OccGridState(aabbs=state.aabbs, occs=occs, binaries=binaries)
+
+
+def sampling(
+    state: OccGridState,
+    rays_o: torch.Tensor,
+    rays_d: torch.Tensor,
+    near_plane: float = 0.0,
+    far_plane: float = 1e10,
+    render_step_size: float = 1e-3,
+    cone_angle: float = 0.0,
+    near_jitter: Optional[torch.Tensor] = None,
+) -> MarchResult:
+    """March the occupied cells along every ray, packed exactly (kernel G2).
+
+    The JAX package's ``sampling_padded`` with stratified sampling moves each
+    ray's near plane by ``jitter * render_step_size`` with a uniform
+    ``jitter`` in [0, 1); here that draw is the explicit (n_rays,)
+    ``near_jitter`` (None: no jitter), so a caller can feed the JAX draw.
+    """
+    n_rays = rays_o.shape[0]
+    like = dict(dtype=rays_o.dtype, device=rays_o.device)
+    near_planes = torch.full((n_rays,), near_plane, **like)
+    if near_jitter is not None:
+        near_planes = near_planes + near_jitter * render_step_size
+    return march(
+        rays_o, rays_d, state.binaries, state.aabbs,
+        near_planes=near_planes,
+        far_planes=torch.full((n_rays,), far_plane, **like),
+        step_size=render_step_size, cone_angle=cone_angle,
+    )

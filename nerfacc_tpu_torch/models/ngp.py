@@ -10,14 +10,30 @@ from typing import List, Sequence
 import torch
 
 
+class _TruncExp(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x):
+        ctx.save_for_backward(x)
+        return torch.exp(x.clamp(max=30.0))
+
+    @staticmethod
+    def backward(ctx, g):
+        (x,) = ctx.saved_tensors
+        return g * torch.exp(x.clamp(max=15.0))
+
+
 def trunc_exp(x: torch.Tensor) -> torch.Tensor:
-    """``exp`` with the forward capped at exp(30) ~ 1e13.
+    """``exp`` with the forward capped at exp(30) ~ 1e13 and the backward
+    ``g * exp(min(x, 15))`` for every ``x``, as nerfacc_tpu/models/ngp.py's
+    custom VJP.
 
     A density of 1e13 is already opacity 1 within any step size, while an
     uncapped exp overflows f32 near 88 and turns the transmittance chain NaN
-    on hard surfaces.  (The clamped backward comes with the trainer.)
+    on hard surfaces; the clipped backward keeps hard-surface gradients
+    finite and nonzero where plain autograd of the capped forward would give
+    ``exp(x)`` below 30 and 0 above.
     """
-    return torch.exp(x.clamp(max=30.0))
+    return _TruncExp.apply(x)
 
 
 def contract_to_unisphere(x: torch.Tensor, aabb: torch.Tensor) -> torch.Tensor:

@@ -2,13 +2,14 @@
 
 PyTorch counterpart of nerfacc_tpu/utils/rendering.py.  The JAX package
 compacts a padded candidate lattice into a fixed sample budget; here the
-march (kernel G2) counts, scans and fills an exact-size buffer, so there is
-no budget and nothing is truncated.  Per chunk of rays the flow is: march,
-pack, field, composite (kernel G3), background blend.
+march (kernel G2) counts, scans and fills an exact-size buffer, which
+:func:`compact_samples` cuts at an optional budget with the JAX package's
+truncation contract.  Per chunk of rays the flow is: march, pack, field,
+composite (kernel G3, differentiable through kernel G5), background blend.
 """
 from __future__ import annotations
 
-from typing import Callable, NamedTuple
+from typing import Callable, NamedTuple, Optional
 
 import torch
 
@@ -24,8 +25,11 @@ class CompactSamples(NamedTuple):
             leaves no fill slots; consumers still treat an id ``n_rays`` as
             fill, as in the JAX package's budgeted buffers.
         t_starts / t_ends: (n,) f32 sample bounds.
-        num_valid: total samples, exact.
-        overflow: samples dropped past a budget; always 0 here.
+        num_valid: samples kept, ``min(total, budget)``.
+        overflow: samples dropped past the budget.
+        first_incomplete_ray: the first ray whose samples were cut by the
+            budget (rays from it on render wrong and must not train);
+            ``n_rays`` when nothing was dropped.
         seg_starts / seg_ends: (n_rays,) int32 first and last slot of each
             ray (ends inclusive; ends < starts for empty rays).
     """
@@ -35,21 +39,37 @@ class CompactSamples(NamedTuple):
     t_ends: torch.Tensor
     num_valid: int
     overflow: int
+    first_incomplete_ray: int
     seg_starts: torch.Tensor
     seg_ends: torch.Tensor
 
 
-def compact_samples(samples: MarchResult) -> CompactSamples:
-    """Segment bounds of a march's packed samples, from its per-ray counts."""
+def compact_samples(samples: MarchResult, budget: Optional[int] = None) -> CompactSamples:
+    """Segment bounds of a march's packed samples, from its per-ray counts,
+    keeping the first ``min(total, budget)`` samples (all with no budget).
+
+    The march packs in (ray, orbit) order, so the cut drops a suffix of
+    rays: ``first_incomplete_ray`` is the ray of the last kept sample when
+    anything was dropped (the JAX package's ``compact_samples`` contract),
+    and ``seg_starts = min(ends - counts, budget)``, ``seg_ends =
+    min(ends, budget) - 1``.
+    """
+    n_rays = samples.counts.shape[0]
+    total = samples.ray_indices.shape[0]
+    keep = total if budget is None else min(total, budget)
     ends = torch.cumsum(samples.counts, 0, dtype=torch.int64)
+    first_incomplete = n_rays
+    if keep < total:
+        first_incomplete = int(samples.ray_indices[keep - 1]) if keep else n_rays
     return CompactSamples(
-        ray_indices=samples.ray_indices,
-        t_starts=samples.t_starts,
-        t_ends=samples.t_ends,
-        num_valid=samples.ray_indices.shape[0],
-        overflow=0,
-        seg_starts=(ends - samples.counts).to(torch.int32),
-        seg_ends=(ends - 1).to(torch.int32),
+        ray_indices=samples.ray_indices[:keep],
+        t_starts=samples.t_starts[:keep],
+        t_ends=samples.t_ends[:keep],
+        num_valid=keep,
+        overflow=total - keep,
+        first_incomplete_ray=first_incomplete,
+        seg_starts=(ends - samples.counts).clamp(max=keep).to(torch.int32),
+        seg_ends=(ends.clamp(max=keep) - 1).to(torch.int32),
     )
 
 
@@ -60,7 +80,8 @@ def render_rays_with_occgrid(
     samples: CompactSamples,
     render_bkgd: torch.Tensor,
 ):
-    """Composite a packed sample buffer.
+    """Composite a packed sample buffer, differentiably in whatever
+    ``rgb_sigma_fn`` computes from its parameters.
 
     Args:
         rgb_sigma_fn: ``(positions (N, 3), dirs (N, 3)) ->
@@ -70,7 +91,9 @@ def render_rays_with_occgrid(
 
     Returns:
         colors (n_rays, 3), opacities (n_rays, 1), depths (n_rays, 1)
-        (expected depth: the weighted mean of sample midpoints).
+        (expected depth: the weighted mean of sample midpoints), and extras
+        ``{"weights": (n,) per-sample weights (no gradient),
+        "n_rendering_samples": int}``.
     """
     n_rays = rays_o.shape[0]
     ids = samples.ray_indices.long()
@@ -78,12 +101,13 @@ def render_rays_with_occgrid(
     d = rays_d[ids]
     positions = rays_o[ids] + t_mid[:, None] * d
     rgbs, sigmas = rgb_sigma_fn(positions, d)
-    colors, opacities, depths, _ = composite_sorted(
+    colors, opacities, depths, weights = composite_sorted(
         samples.t_starts, samples.t_ends, sigmas, rgbs, samples.ray_indices,
-        n_rays, samples.seg_starts, samples.seg_ends,
+        n_rays, samples.seg_starts, samples.seg_ends, return_weights=True,
     )
     depths = depths / opacities.clamp_min(torch.finfo(colors.dtype).eps)
-    return colors + render_bkgd * (1.0 - opacities), opacities, depths
+    extras = {"weights": weights, "n_rendering_samples": samples.num_valid}
+    return colors + render_bkgd * (1.0 - opacities), opacities, depths, extras
 
 
 def render_image_with_occgrid(
@@ -126,7 +150,7 @@ def render_image_with_occgrid(
         )
         n_samples += samples.num_valid
         outs.append(
-            render_rays_with_occgrid(field_fn, o, d, samples, render_bkgd)
+            render_rays_with_occgrid(field_fn, o, d, samples, render_bkgd)[:3]
         )
     colors, opacities, depths = (torch.cat(parts) for parts in zip(*outs))
     return colors, opacities, depths, n_samples

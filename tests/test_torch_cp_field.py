@@ -125,3 +125,15 @@ def test_encoder_levels_concatenate(bf16):
     with torch.no_grad():
         feats = field.encoder(u)
     assert feats.shape == (100, 24) and torch.isfinite(feats).all()
+
+
+def test_trunc_exp_gradient_matches_jax_custom_vjp():
+    """The backward is g * exp(min(x, 15)) for every x (JAX's custom VJP):
+    at 20 it is exp(15), not exp(20), and at 40, past the forward cap, it
+    is exp(15), not 0."""
+    x = np.array([-5.0, 10.0, 15.0, 20.0, 40.0], np.float32)
+    ref = np.asarray(jax.vmap(jax.grad(jax_trunc_exp))(jnp.asarray(x)))
+    t = torch.tensor(x, requires_grad=True)
+    trunc_exp(t).sum().backward()
+    np.testing.assert_allclose(t.grad.numpy(), ref, rtol=1e-6)
+    assert t.grad[3] == t.grad[4] == torch.exp(torch.tensor(15.0))

@@ -7,14 +7,18 @@ import numpy as np
 import pytest
 import torch
 
+from nerfacc_tpu import grid as jgrid
 from nerfacc_tpu.data.procedural import ProceduralSceneLoader as JaxLoader
 from nerfacc_tpu.estimators.occ_grid import init_occ_grid as jax_init_occ_grid
 from nerfacc_tpu.estimators.occ_grid import update_occ_grid as jax_update_occ_grid
 from nerfacc_tpu.models.cp_field import CPRadianceField as JaxField
+from nerfacc_tpu.utils.rendering import compact_samples as jax_compact_samples
 from nerfacc_tpu.utils.rendering import render_image_with_occgrid
+from nerfacc_tpu_torch.grid import MarchResult
 from nerfacc_tpu_torch.data.procedural import ProceduralSceneLoader
 from nerfacc_tpu_torch.models.cp_field import CPRadianceField
 from nerfacc_tpu_torch.trainers.ngp_occ import NGPOccTrainer, TrainState
+from nerfacc_tpu_torch.utils.rendering import compact_samples
 from nerfacc_tpu_torch.utils.jax_bridge import (
     cp_field_params_from_numpy,
     occ_state_from_numpy,
@@ -66,10 +70,12 @@ def test_render_image_matches_jax(loaders):
         aabb=AABB, grid_resolution=32, render_step_size=STEP,
     )
     state = TrainState(
-        cp_field_params_from_numpy(jax.tree.map(np.asarray, jparams)),
-        occ_state_from_numpy(
+        params=cp_field_params_from_numpy(jax.tree.map(np.asarray, jparams)),
+        opt_state=None,
+        occ_state=occ_state_from_numpy(
             *(np.asarray(a) for a in (jstate.aabbs, jstate.occs, jstate.binaries))
         ),
+        step=0,
     )
 
     def field_fn(p, d):
@@ -122,3 +128,47 @@ def test_trainer_eval_path_on_the_port_alone():
     for v in m["views"]:
         assert v["finite"] and v["n_samples"] > 0 and v["n_rays"] == 256
         assert 0.0 <= v["opacity_min"] <= v["opacity_max"] <= 1.0 + 1e-4
+
+
+@pytest.mark.parametrize("budget_share", [0.37, 0.5, 1.0, 1.5])
+def test_budgeted_compaction_matches_jax(budget_share):
+    """compact_samples(samples, budget) against JAX's compact_samples(res,
+    budget) on the same traversal: the kept slots, the counts and the
+    segment bounds, with a budget below and above the demand."""
+    rng = np.random.default_rng(3)
+    n_rays = 96
+    theta = rng.uniform(0, 2 * np.pi, n_rays)
+    o = np.stack([4 * np.cos(theta), 4 * np.sin(theta), rng.uniform(-1, 1, n_rays)], -1)
+    d = rng.uniform(-1.5, 1.5, (n_rays, 3)) - o
+    d = (d / np.linalg.norm(d, axis=-1, keepdims=True)).astype(np.float32)
+    o = o.astype(np.float32)
+    binaries = rng.uniform(size=(1, 32, 32, 32)) < 0.3
+    res = jgrid.traverse_grids_padded(
+        jnp.asarray(o), jnp.asarray(d), jnp.asarray(binaries),
+        jnp.asarray([AABB], jnp.float32), step_size=STEP, max_samples=1400,
+    )
+    valid = np.asarray(res.valid)
+    total = int(valid.sum())
+    budget = int(budget_share * total)
+    ray, k = np.nonzero(valid)
+    samples = MarchResult(  # the same traversal, packed in (ray, orbit) order
+        torch.tensor(ray, dtype=torch.int32),
+        torch.tensor(np.asarray(res.t_starts)[ray, k]),
+        torch.tensor(np.asarray(res.t_ends)[ray, k]),
+        torch.tensor(valid.sum(-1), dtype=torch.int32),
+        torch.tensor(np.asarray(res.termination_planes)),
+    )
+    out = compact_samples(samples, budget)
+    ref = jax_compact_samples(res, budget)
+    keep = min(total, budget)
+    assert out.num_valid == int(ref.num_valid) == keep
+    assert out.overflow == int(ref.overflow) == total - keep
+    assert out.first_incomplete_ray == int(ref.first_incomplete_ray)
+    if budget < total:
+        assert out.first_incomplete_ray < n_rays
+    np.testing.assert_array_equal(out.ray_indices.numpy(), np.asarray(ref.ray_indices)[:keep])
+    np.testing.assert_array_equal(out.t_starts.numpy(), np.asarray(ref.t_starts)[:keep])
+    np.testing.assert_array_equal(out.t_ends.numpy(), np.asarray(ref.t_ends)[:keep])
+    np.testing.assert_array_equal(out.seg_starts.numpy(), np.asarray(ref.seg_starts))
+    np.testing.assert_array_equal(out.seg_ends.numpy(), np.asarray(ref.seg_ends))
+    assert (np.asarray(ref.ray_indices)[keep:] == n_rays).all()  # JAX's fill
