@@ -11,6 +11,10 @@ It builds the CUDA kernels from ``nerfacc_tpu_torch/csrc`` and runs:
 1. each forward kernel (G1 CP level, G2 march, G3 composite) against its
    PyTorch twin on the card at the slice's shapes, timed with CUDA events;
    1b. the backward kernels (G4 CP level, G5 composite) likewise;
+   1c. the hash-encode kernels (G6 forward, G7 table gradient) at the NGP
+   field's full width (2^18 points, 16 levels, 2^19 rows per level), with
+   ``F.embedding_bag`` and ``index_add_`` timed on the precomputed corner
+   rows as the library's gather and scatter stages;
 2. the serving slice: ``NGPOccTrainer`` with the full-width
    ``CPRadianceField`` (resolutions 32/128/512, rank 32, bf16), parameters
    from seed 42, four dense refreshes of the 128^3 occupancy grid, then
@@ -25,13 +29,18 @@ It builds the CUDA kernels from ``nerfacc_tpu_torch/csrc`` and runs:
    plain twins, from phase 4's state with the same batch and jitter, for
    the bf16 field and for an f32 field on the same parameters;
 6. ``eval_metrics`` on phase 4's trained field, which must beat phase 2's
-   untrained PSNR by 3 dB.
+   untrained PSNR by 3 dB;
+7. phase 2 with the full-width hash-grid ``NGPRadianceField`` (16 levels x
+   2 features, 2^19 rows per level, resolutions 16..4096, bf16 MLPs);
+8. phase 4 with that field;
+9. phase 5 with that field;
+10. phase 6 with that field, against phase 7's PSNR.
 
 Every check raises on failure, so the exit code is nonzero and the result
 line is not printed.  The last line of standard output is a JSON object with
 ``"ok": true`` and the device; the line before it lists each kernel's launch
-count over the training phase, error and times.  Without a CUDA device the
-script fails at once.
+count over the two training phases, error, times and bound.  Without a
+CUDA device the script fails at once.
 """
 import json
 import os
@@ -49,11 +58,20 @@ from nerfacc_tpu_torch.cuda import _build  # noqa: E402
 from nerfacc_tpu_torch.data.procedural import ProceduralSceneLoader  # noqa: E402
 from nerfacc_tpu_torch.grid import march, march_plain  # noqa: E402
 from nerfacc_tpu_torch.models.cp_field import CPRadianceField  # noqa: E402
+from nerfacc_tpu_torch.models.encoders import HashGridEncoder  # noqa: E402
+from nerfacc_tpu_torch.models.ngp import NGPRadianceField  # noqa: E402
 from nerfacc_tpu_torch.ops.cp_level import (  # noqa: E402
     cp_level_backward,
     cp_level_backward_plain,
     cp_level_encode,
     cp_level_encode_plain,
+)
+from nerfacc_tpu_torch.ops.hash_encode import (  # noqa: E402
+    hash_corners_plain,
+    hash_encode_backward,
+    hash_encode_backward_plain,
+    hash_encode_forward,
+    hash_encode_plain,
 )
 from nerfacc_tpu_torch.ops.sorted_segments import (  # noqa: E402
     composite_sorted,
@@ -68,6 +86,8 @@ from nerfacc_tpu_torch.utils.rendering import compact_samples  # noqa: E402
 AABB = [-1.5, -1.5, -1.5, 1.5, 1.5, 1.5]
 N_REFRESH = 4
 G1_N = 2**18
+HASH_N = 2**18  # phase 1c: the train step's sample budget
+HASH_OUTSIDE = 0.01  # share of phase 1c's points outside [0, 1]^3
 G2_RAYS = 8192
 FLIP_ALLOWANCE = 1e-3  # share of rays whose sample count may differ
 TRAIN_STEPS = 1000  # not a multiple of the refresh interval: phase 5's step
@@ -86,6 +106,23 @@ TRAIN_BUDGET = 2**18
 STEP_REPEATS = 8
 F32_STEP_FRO = 1e-4
 BF16_STEP_FRO = 5e-3
+
+
+# The least time the card could take for a kernel's work: the bytes the
+# function must move over the H100's memory rate, or
+# its f32 operations over the f32 peak outside the tensor cores, whichever
+# is larger.  Operations are counted from the kernel's arithmetic per item
+# (a fused multiply-add counts two), a lower count of the work.
+HBM_BYTES_PER_S = 3.35e12
+F32_FLOPS = 67e12
+
+# field kind -> full-width field in a compute dtype
+FIELDS = {
+    "cp": lambda dtype: CPRadianceField(AABB, compute_dtype=dtype),
+    "ngp": lambda dtype: NGPRadianceField(AABB, compute_dtype=dtype),
+}
+# field kind -> its encoder's kernels, forward then backward
+ENCODER_KERNELS = {"cp": ("cp_level_fwd", "cp_level_bwd"), "ngp": ("hash_fwd", "hash_bwd")}
 
 
 def require(ok, what):
@@ -108,9 +145,25 @@ def cuda_ms(fn, reps=10):
     return statistics.median(times)
 
 
-def make_trainer(dev):
-    field = CPRadianceField(AABB, compute_dtype=torch.bfloat16)
-    return NGPOccTrainer(field=field, aabb=AABB, device=dev)
+def nbytes(*args):
+    """Bytes of the tensors among ``args``."""
+    return sum(t.numel() * t.element_size() for t in args if isinstance(t, torch.Tensor))
+
+
+def measured(err, ms, plain_ms, moved, ops, library_ms=None):
+    """One kernel's record: its error and times, and the bound of its work
+    (``moved`` bytes, ``ops`` f32 operations)."""
+    t_bytes, t_ops = moved / HBM_BYTES_PER_S, ops / F32_FLOPS
+    return {
+        "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+        "bound_ms": 1e3 * max(t_bytes, t_ops),
+        "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+        "library_ms": library_ms,
+    }
+
+
+def make_trainer(dev, kind="cp"):
+    return NGPOccTrainer(field=FIELDS[kind](torch.bfloat16), aabb=AABB, device=dev)
 
 
 def refreshed_state(trainer):
@@ -143,8 +196,12 @@ def phase_kernels(dev, trainer, state, ds):
                   f"(scale {scale:.3g}) kernel {ms:.4f} ms, twin {plain:.4f} ms")
             worst = max(worst, err)
             if R == 512 and dtype == torch.bfloat16:
-                g1_ms, g1_plain_ms = ms, plain
-    report["cp_level_fwd"] = (worst, g1_ms, g1_plain_ms)
+                g1_ms, g1_plain_ms, g1_bytes = ms, plain, nbytes(u, line, out)
+    # per point three cell weights (scale, floor, subtract); per point and
+    # rank three lerps (subtract, fused multiply-add) and two products
+    report["cp_level_fwd"] = measured(
+        worst, g1_ms, g1_plain_ms, g1_bytes, G1_N * (9 + 32 * 8)
+    )
 
     # G2: the middle 8192 rays of test view 0 on the refreshed grid, and on
     # that grid with half its cells cleared at random (an untrained field
@@ -184,11 +241,13 @@ def phase_kernels(dev, trainer, state, ds):
     # timed on the refreshed grid, the one the slice marches
     args = (o, d, occ.binaries, occ.aabbs, near, far, trainer.render_step_size)
     out = march(*args)
-    report["march"] = (
-        t_err, cuda_ms(lambda: march(*args)), cuda_ms(lambda: march_plain(*args))
+    # per sample its bounds, midpoint, position and cell (~15 operations)
+    report["march"] = measured(
+        t_err, cuda_ms(lambda: march(*args)), cuda_ms(lambda: march_plain(*args)),
+        nbytes(*args, *out), 15 * out.ray_indices.shape[0],
     )
     print(f"G2 march: t max_abs_err={t_err:.3g}, kernel "
-          f"{report['march'][1]:.4f} ms, twin {report['march'][2]:.4f} ms")
+          f"{report['march']['ms']:.4f} ms, twin {report['march']['plain_ms']:.4f} ms")
 
     # G3: on that buffer, seeded densities and colours
     s = compact_samples(out)
@@ -197,20 +256,23 @@ def phase_kernels(dev, trainer, state, ds):
     rgbs = torch.rand((n_s, 3), generator=g, device=dev)
     cargs = (s.t_starts, s.t_ends, sigmas, rgbs, s.ray_indices, G2_RAYS,
              s.seg_starts, s.seg_ends)
-    c, a, dep, _ = composite_sorted(*cargs)
+    c, a, dep, weights = composite_sorted(*cargs)
     rc, ra, rdep, _ = composite_sorted_plain(*cargs)
     err = max(float((c - rc).abs().max()), float((a - ra).abs().max()))
     dep_err = float((dep - rdep).abs().max())
     require(err <= 1e-5, f"G3: rgb/opacity differ by {err}")
     require(dep_err <= 1e-4, f"G3: depth differs by {dep_err}")
-    report["composite_fwd"] = (
+    # per sample its optical depth, alpha, transmittance, weight and four
+    # weighted sums (~12 operations, the exponential counted as one)
+    report["composite_fwd"] = measured(
         err,
         cuda_ms(lambda: composite_sorted(*cargs)),
         cuda_ms(lambda: composite_sorted_plain(*cargs)),
+        nbytes(*cargs, c, a, dep, weights), 12 * n_s,
     )
     print(f"G3 composite: {n_s} samples, rgb/opacity max_abs_err={err:.3g}, "
-          f"depth {dep_err:.3g}, kernel {report['composite_fwd'][1]:.4f} ms, "
-          f"twin {report['composite_fwd'][2]:.4f} ms")
+          f"depth {dep_err:.3g}, kernel {report['composite_fwd']['ms']:.4f} ms, "
+          f"twin {report['composite_fwd']['plain_ms']:.4f} ms")
 
     # 1b. G4: every level at N = 2^18, both compute dtypes, seeded cotangent;
     # its sums run in atomic order, hence 1e-4 of the largest entry
@@ -230,8 +292,12 @@ def phase_kernels(dev, trainer, state, ds):
                   f"(scale {scale:.3g}) kernel {ms:.4f} ms, twin {plain:.4f} ms")
             worst = max(worst, err)
             if R == 512 and dtype == torch.bfloat16:
-                g4_ms, g4_plain_ms = ms, plain
-    report["cp_level_bwd"] = (worst, g4_ms, g4_plain_ms)
+                g4_ms, g4_plain_ms, g4_bytes = ms, plain, nbytes(u, cot, line, out)
+    # per point three cell weights; per point, rank and axis the product of
+    # the other two axes' lerps and two weighted taps
+    report["cp_level_bwd"] = measured(
+        worst, g4_ms, g4_plain_ms, g4_bytes, G1_N * (9 + 32 * 3 * 4)
+    )
 
     # G5: G3's buffer, seeded cotangents of the three per-ray sums
     cots = [torch.randn((G2_RAYS, c), generator=g, device=dev) for c in (3, 1, 1)]
@@ -243,22 +309,106 @@ def phase_kernels(dev, trainer, state, ds):
         e, scale = float((a - b).abs().max()), float(b.abs().max())
         require(e <= 1e-5 * scale, f"G5 {name}: err {e} scale {scale}")
         err = max(err, e)
-    report["composite_bwd"] = (
+    # per sample the forward's ~12 operations again and ~8 for the two
+    # gradients from the suffix sums
+    report["composite_bwd"] = measured(
         err,
         cuda_ms(lambda: composite_sorted_backward(*bargs)),
         cuda_ms(lambda: composite_sorted_backward_plain(*bargs)),
+        nbytes(*bargs, *out), 20 * n_s,
     )
     print(f"G5 composite_bwd: {n_s} samples, max_abs_err={err:.3g}, kernel "
-          f"{report['composite_bwd'][1]:.4f} ms, twin "
-          f"{report['composite_bwd'][2]:.4f} ms")
+          f"{report['composite_bwd']['ms']:.4f} ms, twin "
+          f"{report['composite_bwd']['plain_ms']:.4f} ms")
     return report
 
 
-def phase_slice(dev, ds):
+@torch.inference_mode()
+def phase_hash_kernels(dev):
+    """1c. G6 and G7 against their twins at the NGP field's full width:
+    ``HASH_N`` points uniform in [0, 1]^3 but ``HASH_OUTSIDE`` of them
+    pushed out (their corners below 0 wrap in uint32), an O(1) table and a
+    seeded cotangent."""
+    g = torch.Generator(device=dev).manual_seed(6)
+    enc = HashGridEncoder()
+    L, T, res = enc.n_levels, enc.table_size, enc.resolutions
+    x = torch.rand((HASH_N, 3), generator=g, device=dev)
+    n_out = int(HASH_OUTSIDE * HASH_N)
+    below = torch.rand(n_out, generator=g, device=dev) < 0.5
+    push = 0.1 * torch.rand(n_out, generator=g, device=dev)
+    x[:n_out, 0] = torch.where(below, -push, 1.0 + push)
+    table = torch.rand((L, T, 2), generator=g, device=dev) * 2.0 - 1.0
+    cot = torch.randn((HASH_N, 2 * L), generator=g, device=dev)
+    report = {}
+
+    # the corner rows and weights, for the library calls and the bound
+    idx, w = hash_corners_plain(x, res, T)
+    rows = (idx + T * torch.arange(L, device=dev)[None, :, None]).reshape(-1, 8)
+    w = w.reshape(-1, 8).contiguous()
+    touched = int(torch.unique(rows).numel())
+
+    # G6: the twin emulates each fused multiply-add in f64 and rounds once
+    # to f32, which can differ from the kernel's single rounding in the last
+    # bit where the f64 sum lands on an f32 tie (double rounding): hence
+    # 1e-6 of the largest entry, with the count of unequal entries printed
+    out = hash_encode_forward(x, table, res)
+    ref = hash_encode_plain(x, table, res)
+    err, scale = float((out - ref).abs().max()), float(ref.abs().max())
+    unequal = int((out != ref).sum())
+    require(err <= 1e-6 * scale, f"G6: err {err} scale {scale}")
+    flat = table.reshape(-1, 2)
+    bag = torch.nn.functional.embedding_bag(
+        rows, flat, mode="sum", per_sample_weights=w
+    )
+    bag_err = float((bag.reshape(HASH_N, -1) - ref).abs().max())
+    # per point and level: position, floor and fraction per axis (9), the
+    # eight corners' weights (3 complements, 16 products) and 16 fused
+    # multiply-adds (32)
+    report["hash_fwd"] = measured(
+        err,
+        cuda_ms(lambda: hash_encode_forward(x, table, res)),
+        cuda_ms(lambda: hash_encode_plain(x, table, res)),
+        nbytes(x, out) + touched * 2 * 4, HASH_N * L * (9 + 19 + 32),
+        cuda_ms(lambda: torch.nn.functional.embedding_bag(
+            rows, flat, mode="sum", per_sample_weights=w)),
+    )
+    r = report["hash_fwd"]
+    print(f"G6 hash_fwd N={HASH_N} L={L} T={T}: max_abs_err={err:.3g} (scale "
+          f"{scale:.3g}, {unequal} of {out.numel()} entries unequal), kernel "
+          f"{r['ms']:.4f} ms, twin {r['plain_ms']:.4f} ms; {touched} table rows "
+          f"touched, bound {r['bound_ms']:.4f} ms; embedding_bag on the "
+          f"precomputed rows (gather stage only) {r['library_ms']:.4f} ms, "
+          f"max_abs_err {bag_err:.3g}")
+
+    # G7: its f32 sums run in atomic order (as index_add_'s on the card),
+    # hence 1e-5 of the largest entry
+    out = hash_encode_backward(x, cot, (L, T, 2), res)
+    ref = hash_encode_backward_plain(x, cot, (L, T, 2), res)
+    err, scale = float((out - ref).abs().max()), float(ref.abs().max())
+    require(err <= 1e-5 * scale, f"G7: err {err} scale {scale}")
+    upd = (w[:, :, None] * cot.reshape(-1, 1, 2)).reshape(-1, 2)
+    acc = torch.zeros_like(flat)
+    # per point and level: the forward's 28 for the corners, 16 products
+    report["hash_bwd"] = measured(
+        err,
+        cuda_ms(lambda: hash_encode_backward(x, cot, (L, T, 2), res)),
+        cuda_ms(lambda: hash_encode_backward_plain(x, cot, (L, T, 2), res)),
+        nbytes(x, cot, out), HASH_N * L * (9 + 19 + 16),
+        cuda_ms(lambda: acc.index_add_(0, rows.reshape(-1), upd)),
+    )
+    r = report["hash_bwd"]
+    print(f"G7 hash_bwd N={HASH_N} L={L} T={T}: max_abs_err={err:.3g} (scale "
+          f"{scale:.3g}), kernel {r['ms']:.4f} ms, twin {r['plain_ms']:.4f} ms, "
+          f"bound {r['bound_ms']:.4f} ms; index_add_ on the precomputed rows "
+          f"and updates (scatter stage only) {r['library_ms']:.4f} ms")
+    return report
+
+
+def phase_slice(dev, ds, kind="cp"):
     """The serving path through the user's entry points, launches counted."""
     cuda.reset_launches()
     t0 = time.perf_counter()
-    trainer = make_trainer(dev)
+    trainer = make_trainer(dev, kind)
     state = refreshed_state(trainer)
     torch.cuda.synchronize()
     t_refresh = time.perf_counter() - t0
@@ -267,11 +417,11 @@ def phase_slice(dev, ds):
     launches = dict(cuda.LAUNCHES)
 
     occupied = float(state.occ_state.binaries.float().mean())
-    print(f"slice: init + {N_REFRESH} dense refreshes of the "
+    print(f"slice {kind}: init + {N_REFRESH} dense refreshes of the "
           f"{trainer.grid_resolution}^3 grid {t_refresh:.3f} s; occupied "
           f"share {occupied:.4f}")
     for i, v in enumerate(metrics["views"]):
-        print(f"slice view {i}: {v['seconds']:.4f} s, "
+        print(f"slice {kind} view {i}: {v['seconds']:.4f} s, "
               f"{v['n_samples'] / v['n_rays']:.2f} samples/ray, "
               f"{v['n_samples'] / v['seconds']:.4g} rendered samples/s, "
               f"psnr {v['psnr']:.3f}, opacity [{v['opacity_min']:.4g}, "
@@ -280,17 +430,29 @@ def phase_slice(dev, ds):
         require(v["opacity_min"] >= 0.0 and v["opacity_max"] <= 1.0 + 1e-4,
                 f"view {i}: opacity out of [0, 1]")
         require(v["n_rays"] == ds.WIDTH * ds.HEIGHT, f"view {i}: ray count")
-    print(f"slice: psnr vs GT {metrics['psnr']:.3f} (random field), ssim "
+    print(f"slice {kind}: psnr vs GT {metrics['psnr']:.3f} (random field), ssim "
           f"{metrics['ssim']:.4f}, launches {launches}")
-    for name in ("cp_level_fwd", "march", "composite_fwd"):
+    for name in (ENCODER_KERNELS[kind][0], "march", "composite_fwd"):
         require(launches[name] > 0, f"kernel {name} never launched on the slice")
     return trainer, state, metrics["psnr"]
 
 
-def render_through_twins(trainer, o, d, occ, near, level, composite, budget=None):
-    """Rays rendered through the plain twins alone: march, CP levels (by
-    ``level``), composite (by ``composite``).  Returns colours before the
-    background blend, opacities and the packed samples."""
+def plain_features(field):
+    """The field's encoder through its plain twins, differentiable in its
+    tables: the CP levels on clamped points, or the hash encode."""
+    enc = field.encoder
+    if isinstance(enc, HashGridEncoder):
+        return lambda u: PlainHash.apply(u, enc.table, enc.resolutions)
+    return lambda u: torch.cat(
+        [PlainCPLevel.apply(u.clamp(0.0, 1.0), line, field.compute_dtype)
+         for line in enc.lines], dim=-1,
+    )
+
+
+def render_through_twins(trainer, o, d, occ, near, composite, budget=None):
+    """Rays rendered through the plain twins alone: march, the encoder
+    (:func:`plain_features`), composite (by ``composite``).  Returns colours
+    before the background blend, opacities and the packed samples."""
     field = trainer.field
     n = o.shape[0]
     far = torch.full((n,), trainer.far_plane, device=o.device)
@@ -303,11 +465,9 @@ def render_through_twins(trainer, o, d, occ, near, level, composite, budget=None
     t_mid = 0.5 * (smp.t_starts + smp.t_ends)
     dirs = d[ids]
     u, selector = field.normalize(o[ids] + t_mid[:, None] * dirs)
-    u = u.clamp(0.0, 1.0)
-    feats = torch.cat(
-        [level(u, line, field.compute_dtype) for line in field.encoder.lines], dim=-1
+    density, embedding = field.density_from_features(
+        plain_features(field)(u), selector, True
     )
-    density, embedding = field.density_from_features(feats, selector, True)
     rgb = field.query_rgb(dirs, embedding)
     colors, opacities = composite(
         smp.t_starts, smp.t_ends, density[:, 0], rgb, smp.ray_indices, n,
@@ -326,8 +486,7 @@ def render_view_plain(trainer, state, data, chunk=8192):
         o, d = rays_o[s : s + chunk], rays_d[s : s + chunk]
         near = torch.full((o.shape[0],), trainer.near_plane, device=o.device)
         colors, opacities, _ = render_through_twins(
-            trainer, o, d, state.occ_state, near, cp_level_encode_plain,
-            composite_sorted_plain,
+            trainer, o, d, state.occ_state, near, composite_sorted_plain,
         )
         out.append(colors + data["color_bkgd"] * (1.0 - opacities))
     return torch.cat(out)
@@ -346,6 +505,23 @@ class PlainCPLevel(torch.autograd.Function):
     def backward(ctx, g):
         u, lines = ctx.saved_tensors
         return None, cp_level_backward_plain(u, g.contiguous(), lines, ctx.compute_dtype), None
+
+
+class PlainHash(torch.autograd.Function):
+    """The hash encode through its plain twins, forward and backward."""
+
+    @staticmethod
+    def forward(ctx, u, table, resolutions):
+        ctx.save_for_backward(u)
+        ctx.table_shape, ctx.resolutions = tuple(table.shape), resolutions
+        return hash_encode_plain(u, table, resolutions)
+
+    @staticmethod
+    def backward(ctx, g):
+        (u,) = ctx.saved_tensors
+        return None, hash_encode_backward_plain(
+            u, g.contiguous(), ctx.table_shape, ctx.resolutions
+        ), None
 
 
 class PlainComposite(torch.autograd.Function):
@@ -377,8 +553,7 @@ def train_loss_plain(trainer, params, occ, batch, near_jitter):
     n = o.shape[0]
     near = trainer.near_plane + near_jitter * trainer.render_step_size
     colors, opacities, smp = render_through_twins(
-        trainer, o, d, occ, near, PlainCPLevel.apply, PlainComposite.apply,
-        trainer.sample_budget,
+        trainer, o, d, occ, near, PlainComposite.apply, trainer.sample_budget,
     )
     colors = colors + batch["color_bkgd"] * (1.0 - opacities)
     ray_ok = (torch.arange(n, device=o.device) < smp.first_incomplete_ray)[:, None]
@@ -389,14 +564,14 @@ def train_loss_plain(trainer, params, occ, batch, near_jitter):
     return float(loss.detach()), {k: p.grad for k, p in field.named_parameters()}
 
 
-def phase_train(dev):
+def phase_train(dev, kind="cp"):
     """The training path through the user's entry points, launches counted."""
     t0 = time.perf_counter()
     ds = ProceduralSceneLoader(
         split="train", n_train=6, width=256, height=256, num_rays=TRAIN_RAYS,
         device=dev,
     )
-    field = CPRadianceField(AABB, compute_dtype=torch.bfloat16)
+    field = FIELDS[kind](torch.bfloat16)
     trainer = NGPOccTrainer(
         field=field, aabb=AABB, max_steps=TRAIN_STEPS, sample_budget=TRAIN_BUDGET,
         device=dev,
@@ -405,7 +580,7 @@ def phase_train(dev):
     # batches drawn and staged on the card before the clock, as bench.py does
     batches = [ds[0] for _ in range(TRAIN_STEPS + 1)]
     torch.cuda.synchronize()
-    print(f"train: {len(ds)} views {ds.WIDTH}x{ds.HEIGHT}, {TRAIN_RAYS} rays, "
+    print(f"train {kind}: {len(ds)} views {ds.WIDTH}x{ds.HEIGHT}, {TRAIN_RAYS} rays, "
           f"budget {TRAIN_BUDGET}, set-up {time.perf_counter() - t0:.2f} s")
 
     cuda.reset_launches()
@@ -418,7 +593,7 @@ def phase_train(dev):
         n_samples += aux["n_rendering_samples"]
         n_total += aux["n_total_samples"]
         if i % 100 == 0 or i == TRAIN_STEPS - 1:
-            print(f"train step {i}: loss {float(aux['loss']):.6f}, "
+            print(f"train {kind} step {i}: loss {float(aux['loss']):.6f}, "
                   f"{aux['n_rendering_samples']} samples of {aux['n_total_samples']}, "
                   f"{int(aux['n_rays_ok'])} rays in the loss")
     torch.cuda.synchronize()
@@ -428,23 +603,28 @@ def phase_train(dev):
     losses = torch.stack(losses).cpu()
     require(bool(torch.isfinite(losses).all()), "train: non-finite loss")
     first, last = float(losses[:50].mean()), float(losses[-50:].mean())
-    refreshes = -(-TRAIN_STEPS // trainer.update_interval)
-    work = (n_samples * flops.cp_field_flops_per_sample(field)
-            + refreshes * trainer.grid_resolution**3
-            * flops.cp_density_query_flops_per_sample(field))
     masked = 1.0 - float(torch.stack(n_ok).sum()) / (TRAIN_RAYS * TRAIN_STEPS)
-    print(f"train: {TRAIN_STEPS} steps in {seconds:.3f} s, "
+    rate = ""
+    if kind == "cp":  # utils/flops.py counts the CP field's matmuls
+        refreshes = -(-TRAIN_STEPS // trainer.update_interval)
+        work = (n_samples * flops.cp_field_flops_per_sample(field)
+                + refreshes * trainer.grid_resolution**3
+                * flops.cp_density_query_flops_per_sample(field))
+        rate = (f", {work / seconds / 1e12:.4f} TFLOP/s = "
+                f"{100 * work / seconds / flops.H100_PEAK_BF16_FLOPS:.4f}% of 989 "
+                f"bf16 TFLOP/s")
+    print(f"train {kind}: {TRAIN_STEPS} steps in {seconds:.3f} s, "
           f"{1e3 * seconds / TRAIN_STEPS:.3f} ms/step, "
           f"{n_samples / seconds:.6g} train samples/s "
           f"({n_samples / TRAIN_STEPS:.1f} rendered, {n_total / TRAIN_STEPS:.1f} "
-          f"demanded per step), {work / seconds / 1e12:.4f} TFLOP/s = "
-          f"{100 * work / seconds / flops.H100_PEAK_BF16_FLOPS:.4f}% of 989 "
-          f"bf16 TFLOP/s; {100 * masked:.2f}% of rays masked by the budget")
-    print(f"train: mean loss of the first 50 steps {first:.6f}, of the last "
-          f"50 {last:.6f}; launches {launches}")
-    require(last < 0.5 * first, f"train: loss {first} -> {last} did not halve")
-    for name, count in launches.items():
-        require(count > 0, f"kernel {name} never launched in training")
+          f"demanded per step){rate}; {100 * masked:.2f}% of rays masked by "
+          f"the budget")
+    print(f"train {kind}: mean loss of the first 50 steps {first:.6f}, of the "
+          f"last 50 {last:.6f}; launches {launches}, per step "
+          + ", ".join(f"{k} {v / TRAIN_STEPS:.3f}" for k, v in launches.items()))
+    require(last < 0.5 * first, f"train {kind}: loss {first} -> {last} did not halve")
+    for name in (*ENCODER_KERNELS[kind], "march", "composite_fwd", "composite_bwd"):
+        require(launches[name] > 0, f"kernel {name} never launched in training")
     return trainer, state, batches[TRAIN_STEPS], launches
 
 
@@ -465,7 +645,7 @@ def relative_fro(grads, ref):
             for k, g in grads.items()}
 
 
-def phase_train_twins(trainer, state, batch):
+def phase_train_twins(trainer, state, batch, kind="cp"):
     """One train step through the kernels against the same step through the
     plain twins: the same state, batch and near-plane jitter, for the
     trained bf16 field and for the same parameters in an f32 field.  Each
@@ -475,7 +655,7 @@ def phase_train_twins(trainer, state, batch):
     gen = torch.Generator(device=trainer.device).manual_seed(5)
     near = torch.rand(TRAIN_RAYS, generator=gen, device=trainer.device)
     f32 = NGPOccTrainer(
-        field=CPRadianceField(AABB, compute_dtype=torch.float32), aabb=AABB,
+        field=FIELDS[kind](torch.float32), aabb=AABB,
         max_steps=TRAIN_STEPS, sample_budget=TRAIN_BUDGET, device=trainer.device,
     )
     plain = {}
@@ -491,7 +671,7 @@ def phase_train_twins(trainer, state, batch):
             for k, v in relative_fro(grads, grads_plain).items():
                 worst[k] = max(worst.get(k, 0.0), v)
         readings = sorted(worst.values())
-        print(f"train step {mode}, kernels vs twins over {STEP_REPEATS} runs: "
+        print(f"train step {kind} {mode}, kernels vs twins over {STEP_REPEATS} runs: "
               f"loss {loss:.7g} vs {loss_plain:.7g} (relative <= {max(rels):.3g}); "
               f"worst relative Frobenius per leaf (limit {limit:g}): "
               + ", ".join(f"{k} {v:.3g}" for k, v in worst.items()))
@@ -499,25 +679,26 @@ def phase_train_twins(trainer, state, batch):
                 f"{readings[-1]} > {limit}")
         require(max(rels) <= 1e-5, f"train step {mode}: losses differ by {max(rels)}")
     contract = relative_fro(plain["f32"], plain["bf16"])
-    print("train step, twins f32 field vs bf16 field (what lost bf16 roundings read): "
+    print(f"train step {kind}, twins f32 field vs bf16 field (what lost bf16 "
+          "roundings read): "
           + ", ".join(f"{k} {v:.3g}" for k, v in contract.items()))
 
 
-def phase_serve_trained(trainer, state, ds, untrained_psnr):
+def phase_serve_trained(trainer, state, ds, untrained_psnr, kind="cp"):
     """The serving path on the trained field and its grid."""
     metrics = trainer.eval_metrics(state, ds)
     occupied = float(state.occ_state.binaries.float().mean())
     for i, v in enumerate(metrics["views"]):
-        print(f"trained view {i}: {v['seconds']:.4f} s, "
+        print(f"trained {kind} view {i}: {v['seconds']:.4f} s, "
               f"{v['n_samples'] / v['n_rays']:.2f} samples/ray, psnr "
               f"{v['psnr']:.3f}, ssim {v['ssim']:.4f}")
         require(v["finite"], f"trained view {i}: non-finite output")
     seconds = sum(v["seconds"] for v in metrics["views"]) / len(metrics["views"])
-    print(f"trained field: {seconds:.4f} s/frame, occupied share {occupied:.4f}, "
+    print(f"trained {kind} field: {seconds:.4f} s/frame, occupied share {occupied:.4f}, "
           f"psnr {metrics['psnr']:.3f} (untrained {untrained_psnr:.3f}), ssim "
           f"{metrics['ssim']:.4f}")
     require(metrics["psnr"] >= untrained_psnr + 3.0,
-            f"trained psnr {metrics['psnr']} not 3 dB above {untrained_psnr}")
+            f"trained {kind} psnr {metrics['psnr']} not 3 dB above {untrained_psnr}")
 
 
 def main():
@@ -550,6 +731,8 @@ def main():
 
     trainer = make_trainer(dev)
     report = phase_kernels(dev, trainer, refreshed_state(trainer), ds)
+    del trainer
+    report.update(phase_hash_kernels(dev))
     trainer, state, untrained_psnr = phase_slice(dev, ds)
 
     with torch.inference_mode():
@@ -562,6 +745,15 @@ def main():
     trainer, state, batch, launches = phase_train(dev)
     phase_train_twins(trainer, state, batch)
     phase_serve_trained(trainer, state, ds, untrained_psnr)
+    del trainer, state
+
+    # 7-10: the hash-grid NGP field through the same entry points
+    _, _, untrained_psnr = phase_slice(dev, ds, "ngp")
+    trainer, state, batch, ngp_launches = phase_train(dev, "ngp")
+    phase_train_twins(trainer, state, batch, "ngp")
+    phase_serve_trained(trainer, state, ds, untrained_psnr, "ngp")
+    # each kernel's launches over the two training runs (phases 4 and 8)
+    launches = {k: v + ngp_launches[k] for k, v in launches.items()}
 
     sources = {
         "cp_level_fwd": ("nerfacc_tpu_torch/csrc/cp_level.cu",
@@ -573,14 +765,17 @@ def main():
                           "nerfacc_tpu/volrend.py:60"),
         "composite_bwd": ("nerfacc_tpu_torch/csrc/composite.cu",
                           "nerfacc_tpu/ops/sorted_segments.py:238"),
+        "hash_fwd": ("nerfacc_tpu_torch/csrc/hash_encode.cu",
+                     "nerfacc_tpu/ops/hash_vmem.py:133"),
+        "hash_bwd": ("nerfacc_tpu_torch/csrc/hash_encode.cu",
+                     "nerfacc_tpu/models/encoders.py:94"),
     }
     kernels = []
     for name, (src, replaces) in sources.items():
-        err, ms, plain_ms = report[name]
+        require(launches[name] > 0, f"kernel {name} never launched in training")
         kernels.append({
             "name": name, "route": "cuda", "source": src, "replaces": replaces,
-            "launches": launches[name], "max_abs_err": err, "ms": ms,
-            "plain_ms": plain_ms,
+            "launches": launches[name], **report[name],
         })
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({

@@ -1,7 +1,8 @@
 """Build and load the hand-written CUDA kernels.
 
 Every ``nerfacc_tpu_torch/csrc/*.cu`` is compiled by ``nvcc`` for Hopper
-(``sm_90a``) into one shared library with a plain C interface, which is
+(``sm_90a``), one ``nvcc`` per source, all started together, and the objects
+are linked into one shared library with a plain C interface, which is
 loaded with :mod:`ctypes`.  The build runs at the first kernel launch of the
 process, never at import, and lands in ``build/nerfacc_tpu_torch/`` at the
 root of the checkout, keyed by a hash of the sources and flags so that an
@@ -24,7 +25,7 @@ SRC_DIR = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "nerfacc_tpu_torch"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
 _P = ctypes.c_void_p
@@ -47,6 +48,10 @@ _SIGNATURES = {
     #  n_rays, g_colors, g_opacities, g_depths, d_sigmas, d_rgbs, scratch,
     #  stream)
     "composite_bwd": [_P] * 7 + [_I] + [_P] * 7,
+    # (x, table, res, out, n, L, log2T, stream)
+    "hash_fwd": [_P] * 4 + [ctypes.c_int64, _I, _I, _P],
+    # (x, cot, res, g_table, n, L, log2T, stream)
+    "hash_bwd": [_P] * 4 + [ctypes.c_int64, _I, _I, _P],
 }
 
 _lib: Optional[ctypes.CDLL] = None
@@ -78,17 +83,31 @@ def build() -> Path:
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_name(f"{out.stem}.tmp{os.getpid()}.so")
-    srcs = [str(p) for p in sorted(SRC_DIR.glob("*.cu"))]
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *srcs]
+    tag = f"{out.stem}.tmp{os.getpid()}"
+    nvcc = _nvcc()
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    build_seconds = time.perf_counter() - t0
-    build_log = proc.stdout + proc.stderr
-    if proc.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n{build_log}"
+    jobs = []
+    for src in sorted(SRC_DIR.glob("*.cu")):
+        obj = BUILD_DIR / f"{tag}.{src.stem}.o"
+        cmd = [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
+        proc = subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True
         )
+        jobs.append((cmd, obj, proc))
+    logs = [(cmd, proc.communicate()[0], proc.returncode) for cmd, _, proc in jobs]
+    objs = [str(obj) for _, obj, _ in jobs]
+    tmp = BUILD_DIR / f"{tag}.so"
+    link = [nvcc, *NVCC_FLAGS[:2], "-shared", "-o", str(tmp), *objs]
+    if all(rc == 0 for _, _, rc in logs):
+        proc = subprocess.run(link, capture_output=True, text=True)
+        logs.append((link, proc.stdout + proc.stderr, proc.returncode))
+    build_seconds = time.perf_counter() - t0
+    build_log = "".join(text for _, text, _ in logs)
+    for path in objs:
+        Path(path).unlink(missing_ok=True)
+    for cmd, text, rc in logs:
+        if rc != 0:
+            raise RuntimeError(f"nvcc failed ({rc}):\n{' '.join(cmd)}\n{text}")
     os.replace(tmp, out)
     return out
 

@@ -45,7 +45,8 @@ class ProceduralSceneLoader:
         color_bkgd_aug: background of a train batch, "white", "black" or
             "random" (one colour per batch).
         seed: seeds the batches' pixel draws.
-        device: where the ground truth is rendered and items are returned.
+        device: where the ground truth is rendered and items are returned
+            (the card unless the caller asks for another).
     """
 
     NEAR, FAR = 2.0, 6.0
@@ -64,7 +65,7 @@ class ProceduralSceneLoader:
         num_rays: Optional[int] = None,
         color_bkgd_aug: str = "white",
         seed: int = 42,
-        device: Union[str, torch.device] = "cpu",
+        device: Union[str, torch.device] = "cuda",
     ):
         self.split = split
         self.WIDTH, self.HEIGHT = width, height

@@ -50,9 +50,9 @@ def init_occ_grid(
     roi_aabb: Union[Sequence[float], torch.Tensor],
     resolution: Union[int, Sequence[int]] = 128,
     levels: int = 1,
-    device: Union[str, torch.device] = "cpu",
+    device: Union[str, torch.device] = "cuda",
 ) -> OccGridState:
-    """An all-empty occupancy grid."""
+    """An all-empty occupancy grid on ``device`` (the card by default)."""
     if isinstance(resolution, int):
         resolution = [resolution] * 3
     resolution = tuple(int(r) for r in resolution)

@@ -10,14 +10,13 @@ parallelism and the TPU layout options are not.
 """
 from __future__ import annotations
 
-from typing import Sequence, Tuple
+from typing import Sequence
 
 import torch
 from torch import nn
 
 from ..ops.cp_level import cp_level_encode
-from .encoders import spherical_harmonics_16
-from .ngp import _mlp_apply, _mlp_init, contract_to_unisphere, trunc_exp
+from .ngp import MLPField
 
 
 class CPGridEncoder(nn.Module):
@@ -71,16 +70,9 @@ class CPGridEncoder(nn.Module):
         )
 
 
-class CPRadianceField(nn.Module):
-    """Radiance field with CP line features and small bias-free MLPs.
-
-    ``density = trunc_exp(raw - 1)``, zeroed outside the AABB (bounded
-    scenes); rgb is a sigmoid of the head MLP on [SH-16(dir), geo feats].
-    The MLPs are 64 wide with 15 geometry features, as in the JAX package.
-    """
-
-    HIDDEN_DIM = 64
-    GEO_FEAT_DIM = 15
+class CPRadianceField(MLPField):
+    """Radiance field with CP line features and small bias-free MLPs (see
+    :class:`~nerfacc_tpu_torch.models.ngp.MLPField`)."""
 
     def __init__(
         self,
@@ -90,65 +82,7 @@ class CPRadianceField(nn.Module):
         ranks: Sequence[int] = (32, 32, 32),
         compute_dtype=torch.bfloat16,
     ):
-        super().__init__()
-        self.register_buffer(
-            "aabb", torch.tensor(list(aabb), dtype=torch.float32), persistent=False
+        super().__init__(
+            list(aabb), unbounded, CPGridEncoder(resolutions, ranks, compute_dtype),
+            compute_dtype,
         )
-        self.unbounded = unbounded
-        self.compute_dtype = compute_dtype
-        self.encoder = CPGridEncoder(resolutions, ranks, compute_dtype)
-        hidden, geo = self.HIDDEN_DIM, self.GEO_FEAT_DIM
-        self.base_dims = [self.encoder.output_dim, hidden, 1 + geo]
-        self.head_dims = [16 + geo, hidden, hidden, 3]
-        self.mlp_base = _weights(self.base_dims)
-        self.mlp_head = _weights(self.head_dims)
-
-    @torch.no_grad()
-    def init(self, generator: torch.Generator) -> "CPRadianceField":
-        """Draw every parameter from ``generator`` (JAX's distributions)."""
-        self.encoder.init(generator)
-        for params, dims in (
-            (self.mlp_base, self.base_dims), (self.mlp_head, self.head_dims)
-        ):
-            for p, w in zip(params, _mlp_init(generator, dims)):
-                p.copy_(w)
-        return self
-
-    def normalize(self, x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-        """World points -> (encoder coordinates, inside-the-AABB selector)."""
-        if self.unbounded:
-            u = contract_to_unisphere(x, self.aabb)
-            return u, torch.ones(x.shape[:-1], dtype=torch.bool, device=x.device)
-        lo, hi = self.aabb[:3], self.aabb[3:]
-        u = (x - lo) / (hi - lo)
-        return u, ((u > 0.0) & (u < 1.0)).all(dim=-1)
-
-    def query_density(self, x: torch.Tensor, return_feat: bool = False):
-        u, selector = self.normalize(x)
-        return self.density_from_features(self.encoder(u), selector, return_feat)
-
-    def density_from_features(
-        self, feats: torch.Tensor, selector: torch.Tensor, return_feat: bool = False
-    ):
-        """Base MLP on encoder features: (N, 1) density [, (N, geo) feats]."""
-        h = _mlp_apply(self.mlp_base, feats, self.compute_dtype)
-        raw_density, geo_feat = h[..., :1], h[..., 1:]
-        density = trunc_exp(raw_density - 1.0) * selector[..., None]
-        if return_feat:
-            return density, geo_feat
-        return density
-
-    def query_rgb(self, dirs: torch.Tensor, embedding: torch.Tensor) -> torch.Tensor:
-        h = torch.cat([spherical_harmonics_16(dirs), embedding], dim=-1)
-        return torch.sigmoid(_mlp_apply(self.mlp_head, h, self.compute_dtype))
-
-    def forward(self, positions: torch.Tensor, directions: torch.Tensor):
-        """(N, 3) points and unit directions -> (rgb (N, 3), density (N, 1))."""
-        density, embedding = self.query_density(positions, return_feat=True)
-        return self.query_rgb(directions, embedding), density
-
-
-def _weights(dims: Sequence[int]) -> nn.ParameterList:
-    return nn.ParameterList(
-        [nn.Parameter(torch.zeros(i, o)) for i, o in zip(dims[:-1], dims[1:])]
-    )

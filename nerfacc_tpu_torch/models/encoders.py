@@ -1,9 +1,84 @@
-"""View-direction encoding (PyTorch counterpart of
-nerfacc_tpu/models/encoders.py; the hash and sinusoidal encoders are not
-ported yet)."""
+"""Input encoders: the multiresolution hash grid and the view-direction
+encoding (PyTorch counterpart of nerfacc_tpu/models/encoders.py; the
+sinusoidal encoder is not ported yet)."""
 from __future__ import annotations
 
+import math
+from typing import Tuple
+
 import torch
+from torch import nn
+
+from ..ops.hash_encode import hash_encode
+
+
+class HashGridEncoder(nn.Module):
+    """Multiresolution hash-grid encoder (Instant-NGP), through kernels
+    G6/G7 on the card (:func:`~nerfacc_tpu_torch.ops.hash_encode.hash_encode`).
+
+    Args:
+        n_levels: resolution levels (L).
+        n_features_per_level: features per level (F).
+        log2_hashmap_size: log2 of the rows per level (T).
+        base_resolution / max_resolution: coarsest and finest resolution.
+
+    The table gradient is the exact scatter sum (the JAX package's
+    ``table_grad`` modes give the same values); positions get no gradient.
+    """
+
+    def __init__(
+        self,
+        n_levels: int = 16,
+        n_features_per_level: int = 2,
+        log2_hashmap_size: int = 19,
+        base_resolution: int = 16,
+        max_resolution: int = 4096,
+    ):
+        super().__init__()
+        self.n_levels = n_levels
+        self.n_features_per_level = n_features_per_level
+        self.log2_hashmap_size = log2_hashmap_size
+        self.base_resolution = base_resolution
+        self.max_resolution = max_resolution
+        self.table = nn.Parameter(
+            torch.zeros(n_levels, self.table_size, n_features_per_level)
+        )
+
+    @property
+    def table_size(self) -> int:
+        return 1 << self.log2_hashmap_size
+
+    @property
+    def output_dim(self) -> int:
+        return self.n_levels * self.n_features_per_level
+
+    @property
+    def resolutions(self) -> Tuple[int, ...]:
+        """``floor(base * growth^l)``, growth the L-1'th root of max/base,
+        evaluated as the JAX package does (the finest can fall one short)."""
+        if self.n_levels == 1:
+            return (self.base_resolution,)
+        growth = math.exp(
+            (math.log(self.max_resolution) - math.log(self.base_resolution))
+            / (self.n_levels - 1)
+        )
+        return tuple(
+            int(math.floor(self.base_resolution * growth**l))
+            for l in range(self.n_levels)
+        )
+
+    @torch.no_grad()
+    def init(self, generator: torch.Generator) -> "HashGridEncoder":
+        """Table ``U(-1e-4, 1e-4)`` (tcnn's hash-grid init)."""
+        u = torch.rand(self.table.shape, generator=generator, device=generator.device)
+        self.table.copy_(u * 2e-4 - 1e-4)
+        return self
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        """(..., 3) points, [0, 1]^3 inside the grid (not clamped) ->
+        (..., L*F) features."""
+        feats = hash_encode(x.reshape(-1, 3), self.table, self.resolutions)
+        return feats.reshape(x.shape[:-1] + (self.output_dim,))
 
 
 def spherical_harmonics_16(d: torch.Tensor) -> torch.Tensor:

@@ -1,13 +1,19 @@
-"""Shared pieces of the NGP-style fields: activations, contraction, MLPs.
+"""Instant-NGP radiance field, and the pieces the NGP-style fields share:
+activations, contraction, MLPs and the field around an encoder.
 
-PyTorch counterpart of nerfacc_tpu/models/ngp.py.  Only what the CP field
-uses is here; the hash-grid NGP fields are not ported yet.
+PyTorch counterpart of nerfacc_tpu/models/ngp.py.  Ported: ``trunc_exp``,
+``contract_to_unisphere``, the bias-free MLPs, ``_cubify_aabb`` and
+``NGPRadianceField`` (view directions always on); ``NGPDensityField`` (the
+proposal path's field) is not ported yet.
 """
 from __future__ import annotations
 
-from typing import List, Sequence
+from typing import List, Sequence, Tuple
 
 import torch
+from torch import nn
+
+from .encoders import HashGridEncoder, spherical_harmonics_16
 
 
 class _TruncExp(torch.autograd.Function):
@@ -88,3 +94,125 @@ def _round(x: torch.Tensor, dtype) -> torch.Tensor:
     if dtype == torch.float32:
         return x
     return x.to(dtype).to(torch.float32)
+
+
+def _weights(dims: Sequence[int]) -> nn.ParameterList:
+    return nn.ParameterList(
+        [nn.Parameter(torch.zeros(i, o)) for i, o in zip(dims[:-1], dims[1:])]
+    )
+
+
+def _cubify_aabb(aabb: Sequence[float]) -> torch.Tensor:
+    """The cube with ``aabb``'s centre and its longest side (f32)."""
+    aabb = torch.as_tensor(list(aabb), dtype=torch.float32)
+    center = (aabb[:3] + aabb[3:]) / 2.0
+    size = torch.max(aabb[3:] - aabb[:3])
+    return torch.cat([center - size / 2.0, center + size / 2.0])
+
+
+class MLPField(nn.Module):
+    """A radiance field from an encoder and two small bias-free MLPs.
+
+    ``density = trunc_exp(raw - 1)`` of the base MLP on the encoder's
+    features, zeroed outside the AABB (bounded scenes); rgb is a sigmoid of
+    the head MLP on [SH-16(dir), geo feats].  The MLPs are 64 wide with 15
+    geometry features, as in the JAX package.
+
+    Args:
+        aabb: the scene box (6 floats) the encoder's [0, 1]^3 spans.
+        unbounded: contract points to the unit sphere instead of zeroing
+            the density outside ``aabb``.
+        encoder: an ``nn.Module`` with ``output_dim``, ``init(generator)``
+            and ``forward(u) -> (N, output_dim)``.
+        compute_dtype: the MLPs' operand dtype (f32 results).
+    """
+
+    HIDDEN_DIM = 64
+    GEO_FEAT_DIM = 15
+
+    def __init__(self, aabb, unbounded: bool, encoder: nn.Module, compute_dtype):
+        super().__init__()
+        self.register_buffer(
+            "aabb", torch.as_tensor(aabb, dtype=torch.float32), persistent=False
+        )
+        self.unbounded = unbounded
+        self.compute_dtype = compute_dtype
+        self.encoder = encoder
+        hidden, geo = self.HIDDEN_DIM, self.GEO_FEAT_DIM
+        self.base_dims = [encoder.output_dim, hidden, 1 + geo]
+        self.head_dims = [16 + geo, hidden, hidden, 3]
+        self.mlp_base = _weights(self.base_dims)
+        self.mlp_head = _weights(self.head_dims)
+
+    @torch.no_grad()
+    def init(self, generator: torch.Generator) -> "MLPField":
+        """Draw every parameter from ``generator`` (JAX's distributions)."""
+        self.encoder.init(generator)
+        for params, dims in (
+            (self.mlp_base, self.base_dims), (self.mlp_head, self.head_dims)
+        ):
+            for p, w in zip(params, _mlp_init(generator, dims)):
+                p.copy_(w)
+        return self
+
+    def normalize(self, x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+        """World points -> (encoder coordinates, inside-the-AABB selector)."""
+        if self.unbounded:
+            u = contract_to_unisphere(x, self.aabb)
+            return u, torch.ones(x.shape[:-1], dtype=torch.bool, device=x.device)
+        lo, hi = self.aabb[:3], self.aabb[3:]
+        u = (x - lo) / (hi - lo)
+        return u, ((u > 0.0) & (u < 1.0)).all(dim=-1)
+
+    def query_density(self, x: torch.Tensor, return_feat: bool = False):
+        u, selector = self.normalize(x)
+        return self.density_from_features(self.encoder(u), selector, return_feat)
+
+    def density_from_features(
+        self, feats: torch.Tensor, selector: torch.Tensor, return_feat: bool = False
+    ):
+        """Base MLP on encoder features: (N, 1) density [, (N, geo) feats]."""
+        h = _mlp_apply(self.mlp_base, feats, self.compute_dtype)
+        raw_density, geo_feat = h[..., :1], h[..., 1:]
+        density = trunc_exp(raw_density - 1.0) * selector[..., None]
+        if return_feat:
+            return density, geo_feat
+        return density
+
+    def query_rgb(self, dirs: torch.Tensor, embedding: torch.Tensor) -> torch.Tensor:
+        h = torch.cat([spherical_harmonics_16(dirs), embedding], dim=-1)
+        return torch.sigmoid(_mlp_apply(self.mlp_head, h, self.compute_dtype))
+
+    def forward(self, positions: torch.Tensor, directions: torch.Tensor):
+        """(N, 3) points and unit directions -> (rgb (N, 3), density (N, 1))."""
+        density, embedding = self.query_density(positions, return_feat=True)
+        return self.query_rgb(directions, embedding), density
+
+
+class NGPRadianceField(MLPField):
+    """Instant-NGP radiance field: a hash grid (16 levels x 2 features,
+    2^19 rows per level, resolutions 16..4096) through kernels G6/G7 on the
+    card, a 32 -> 64 -> 16 density MLP and a 31 -> 64 -> 64 -> 3 colour MLP.
+
+    The AABB is cubified (its centre and longest side), as in the JAX
+    package; encoder coordinates are not clamped.
+    """
+
+    def __init__(
+        self,
+        aabb: Sequence[float],
+        unbounded: bool = False,
+        base_resolution: int = 16,
+        max_resolution: int = 4096,
+        n_levels: int = 16,
+        log2_hashmap_size: int = 19,
+        compute_dtype=torch.bfloat16,
+    ):
+        encoder = HashGridEncoder(
+            n_levels=n_levels,
+            n_features_per_level=2,
+            log2_hashmap_size=log2_hashmap_size,
+            base_resolution=base_resolution,
+            max_resolution=max_resolution,
+        )
+        super().__init__(_cubify_aabb(aabb), unbounded, encoder, compute_dtype)

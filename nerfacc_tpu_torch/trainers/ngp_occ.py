@@ -87,7 +87,8 @@ class NGPOccTrainer:
             cut leaves incomplete are masked out of the loss.
         stratified: jitter each ray's near plane by up to one step.
         seed: seeds the parameters and every step's noise.
-        device: where the state lives and everything runs.
+        device: where the state lives and everything runs: the card
+            unless the caller asks for another (the tests pass "cpu").
     """
 
     field: Any
@@ -105,7 +106,7 @@ class NGPOccTrainer:
     sample_budget: int = 2**18
     stratified: bool = True
     seed: int = 42
-    device: Union[str, torch.device] = "cpu"
+    device: Union[str, torch.device] = "cuda"
 
     def __post_init__(self):
         self.device = torch.device(self.device)

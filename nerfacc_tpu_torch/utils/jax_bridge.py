@@ -1,9 +1,11 @@
-"""Move CP-field parameters and occupancy grids between the two packages.
+"""Move field parameters and occupancy grids between the two packages.
 
 The JAX package keeps parameters as a pytree of arrays; this package keeps
-them in a :class:`~nerfacc_tpu_torch.models.cp_field.CPRadianceField`'s
-``state_dict``.  The bridge speaks numpy on the JAX side, so it needs no JAX
-import: convert a JAX tree with ``jax.tree.map(np.asarray, params)`` first.
+them in a field's ``state_dict`` (:class:`~nerfacc_tpu_torch.models.cp_field.
+CPRadianceField`, :class:`~nerfacc_tpu_torch.models.ngp.NGPRadianceField`).
+The bridge speaks numpy on the JAX side, so it needs no JAX import: convert
+a JAX tree with ``jax.tree.map(np.asarray, params)`` first.  Tensors land on
+the card unless ``device`` says otherwise.
 """
 from __future__ import annotations
 
@@ -18,7 +20,7 @@ _MLPS = ("mlp_base", "mlp_head")
 
 
 def cp_field_params_from_numpy(
-    tree: Dict, device: Union[str, torch.device] = "cpu"
+    tree: Dict, device: Union[str, torch.device] = "cuda"
 ) -> Dict[str, torch.Tensor]:
     """``{"encoder": {"lines": [(3, R, rank)...]}, "mlp_base": [W...],
     "mlp_head": [W...]}`` -> a CPRadianceField state dict (f32 tensors)."""
@@ -26,30 +28,35 @@ def cp_field_params_from_numpy(
         f"encoder.lines.{i}": _tensor(line, device)
         for i, line in enumerate(tree["encoder"]["lines"])
     }
-    for name in _MLPS:
-        for i, w in enumerate(tree[name]):
-            params[f"{name}.{i}"] = _tensor(w, device)
-    return params
+    return {**params, **_mlps_from_numpy(tree, device)}
 
 
 def cp_field_params_to_numpy(params: Dict[str, torch.Tensor]) -> Dict:
     """The inverse of :func:`cp_field_params_from_numpy`."""
+    return {"encoder": {"lines": _listed(params, "encoder.lines.")},
+            **_mlps_to_numpy(params)}
 
-    def listed(prefix):
-        n = sum(1 for k in params if k.startswith(prefix))
-        return [params[f"{prefix}{i}"].detach().cpu().numpy() for i in range(n)]
 
-    tree = {"encoder": {"lines": listed("encoder.lines.")}}
-    for name in _MLPS:
-        tree[name] = listed(f"{name}.")
-    return tree
+def ngp_field_params_from_numpy(
+    tree: Dict, device: Union[str, torch.device] = "cuda"
+) -> Dict[str, torch.Tensor]:
+    """``{"encoder": (L, T, F), "mlp_base": [W...], "mlp_head": [W...]}``
+    -> an NGPRadianceField state dict (f32 tensors)."""
+    return {"encoder.table": _tensor(tree["encoder"], device),
+            **_mlps_from_numpy(tree, device)}
+
+
+def ngp_field_params_to_numpy(params: Dict[str, torch.Tensor]) -> Dict:
+    """The inverse of :func:`ngp_field_params_from_numpy`."""
+    return {"encoder": params["encoder.table"].detach().cpu().numpy(),
+            **_mlps_to_numpy(params)}
 
 
 def occ_state_from_numpy(
     aabbs: np.ndarray,
     occs: np.ndarray,
     binaries: np.ndarray,
-    device: Union[str, torch.device] = "cpu",
+    device: Union[str, torch.device] = "cuda",
 ) -> OccGridState:
     """JAX ``OccGridState`` arrays -> this package's ``OccGridState``."""
     return OccGridState(
@@ -64,6 +71,23 @@ def occ_state_to_numpy(state: OccGridState):
     return tuple(
         t.detach().cpu().numpy() for t in (state.aabbs, state.occs, state.binaries)
     )
+
+
+def _mlps_from_numpy(tree: Dict, device) -> Dict[str, torch.Tensor]:
+    return {
+        f"{name}.{i}": _tensor(w, device)
+        for name in _MLPS
+        for i, w in enumerate(tree[name])
+    }
+
+
+def _mlps_to_numpy(params: Dict[str, torch.Tensor]) -> Dict:
+    return {name: _listed(params, f"{name}.") for name in _MLPS}
+
+
+def _listed(params: Dict[str, torch.Tensor], prefix: str):
+    n = sum(1 for k in params if k.startswith(prefix))
+    return [params[f"{prefix}{i}"].detach().cpu().numpy() for i in range(n)]
 
 
 def _tensor(a, device) -> torch.Tensor:

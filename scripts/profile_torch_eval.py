@@ -6,10 +6,13 @@ Run from the root of a checkout:
 
     python3 scripts/profile_torch_eval.py [--view 0] [--out build/profile]
     python3 scripts/profile_torch_eval.py --train [--warmup 1000]
+    python3 scripts/profile_torch_eval.py --field ngp [--train]
 
 Serving (the default) sets up the slice as ``chip_smoke.py`` does
-(full-width ``CPRadianceField`` 32/128/512 x rank 32 in bf16, parameters
-from seed 42, four dense refreshes of the 128^3 grid), times a dense refresh
+(``--field cp``: the full-width ``CPRadianceField`` 32/128/512 x rank 32;
+``--field ngp``: the full-width hash-grid ``NGPRadianceField``, 16 levels x
+2 features, 2^19 rows per level; both bf16, parameters from seed 42, four
+dense refreshes of the 128^3 grid), times a dense refresh
 and three renders of one test view on the host clock, then renders the view
 once more under ``torch.profiler``.  ``--train`` sets up the train slice of
 ``chip_smoke.py``'s phase 4 (6 views at 256x256, 2048 rays, a 2^18-sample
@@ -19,15 +22,16 @@ grid; the refresh is timed on its own).  It prints:
 
 - the device busy share: the union of all kernel and memcpy intervals over
   the profiled frame's or step's wall time;
-- each kernel class's share of device time (the port's kernels G1-G5, the
+- each kernel class's share of device time (the port's kernels G1-G7, the
   MLP GEMMs, concatenation, Adam, other PyTorch kernels);
 - the PyTorch ops with the most self device time.
 
-The Chrome trace goes to ``<out>/profile_torch_{eval,train}_trace.json``.
+The Chrome trace goes to ``<out>/profile_torch_<field>_{eval,train}_trace.json``.
 Imports torch and the port only.
 """
 import argparse
 import os
+import subprocess
 import sys
 import time
 
@@ -40,6 +44,7 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 from nerfacc_tpu_torch import cuda  # noqa: E402
 from nerfacc_tpu_torch.data.procedural import ProceduralSceneLoader  # noqa: E402
 from nerfacc_tpu_torch.models.cp_field import CPRadianceField  # noqa: E402
+from nerfacc_tpu_torch.models.ngp import NGPRadianceField  # noqa: E402
 from nerfacc_tpu_torch.trainers.ngp_occ import NGPOccTrainer  # noqa: E402
 
 AABB = [-1.5, -1.5, -1.5, 1.5, 1.5, 1.5]
@@ -47,6 +52,7 @@ N_REFRESH = 4
 
 TRAIN_RAYS = 2048
 TRAIN_BUDGET = 2**18
+FIELDS = {"cp": CPRadianceField, "ngp": NGPRadianceField}
 
 # kernel-name substring -> class, first match wins
 CLASSES = (
@@ -56,6 +62,8 @@ CLASSES = (
     ("composite_fwd_kernel", "G3 composite"),
     ("cp_level_bwd_kernel", "G4 cp_level backward"),
     ("composite_bwd_kernel", "G5 composite backward"),
+    ("hash_fwd_kernel", "G6 hash encode"),
+    ("hash_bwd_kernel", "G7 hash encode backward"),
     ("gemm", "GEMM (MLPs)"),
     ("multi_tensor_apply", "Adam (foreach)"),
     ("CatArrayBatchedCopy", "cat"),
@@ -86,11 +94,11 @@ def self_device_us(evt):
     return value if value is not None else evt.self_cuda_time_total
 
 
-def eval_target(dev, view):
+def eval_target(dev, field, view):
     """The serving slice; returns the profiled call and its label."""
     ds = ProceduralSceneLoader(split="test", device=dev)
     trainer = NGPOccTrainer(
-        field=CPRadianceField(AABB, compute_dtype=torch.bfloat16),
+        field=FIELDS[field](AABB, compute_dtype=torch.bfloat16),
         aabb=AABB, device=dev,
     )
     state = trainer.init_state()
@@ -105,7 +113,7 @@ def eval_target(dev, view):
     return run, f"view {view}", "eval"
 
 
-def train_target(dev, warmup):
+def train_target(dev, field, warmup):
     """The train slice after ``warmup`` steps; the profiled call is one
     train step that does not refresh the grid."""
     ds = ProceduralSceneLoader(
@@ -113,7 +121,7 @@ def train_target(dev, warmup):
         device=dev,
     )
     trainer = NGPOccTrainer(
-        field=CPRadianceField(AABB, compute_dtype=torch.bfloat16), aabb=AABB,
+        field=FIELDS[field](AABB, compute_dtype=torch.bfloat16), aabb=AABB,
         max_steps=warmup + 8, sample_budget=TRAIN_BUDGET, device=dev,
     )
     state = trainer.init_state()
@@ -149,6 +157,8 @@ def time_refresh(trainer, state, step):
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--view", type=int, default=0)
+    ap.add_argument("--field", choices=sorted(FIELDS), default="cp",
+                    help="the radiance field: CP lines or the hash grid")
     ap.add_argument("--train", action="store_true",
                     help="profile a train step instead of a frame")
     ap.add_argument("--warmup", type=int, default=1000,
@@ -158,14 +168,18 @@ def main():
     if not torch.cuda.is_available():
         raise SystemExit("profile_torch_eval: torch.cuda.is_available() is false")
     dev = torch.device("cuda", 0)
-    print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
-          f"{torch.cuda.get_device_name(0)}")
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True,
+    ).stdout.strip()
+    print(f"card: {smi}; torch {torch.__version__}, CUDA {torch.version.cuda}")
 
     cuda.load()
     if args.train:
-        run, label, kind = train_target(dev, args.warmup)
+        run, label, kind = train_target(dev, args.field, args.warmup)
     else:
-        run, label, kind = eval_target(dev, args.view)
+        run, label, kind = eval_target(dev, args.field, args.view)
+    print(f"field: {args.field}")
     for _ in range(3):
         t0 = time.perf_counter()
         what = run()
@@ -208,7 +222,7 @@ def main():
               f"{e.count:5d} calls  {e.key}")
 
     os.makedirs(args.out, exist_ok=True)
-    path = os.path.join(args.out, f"profile_torch_{kind}_trace.json")
+    path = os.path.join(args.out, f"profile_torch_{args.field}_{kind}_trace.json")
     prof.export_chrome_trace(path)
     print(f"trace: {path}")
 

@@ -38,7 +38,7 @@ def _fields(seed, jax_dtype, torch_dtype, unbounded=False):
         AABB, unbounded=unbounded, compute_dtype=torch_dtype, **SMALL
     )
     field.load_state_dict(
-        cp_field_params_from_numpy(jax.tree.map(np.asarray, jparams))
+        cp_field_params_from_numpy(jax.tree.map(np.asarray, jparams), device="cpu")
     )
     return jfield, jparams, field
 
@@ -105,7 +105,7 @@ def test_init_distributions_and_bridge_round_trip():
 
     jparams = JaxField(aabb=AABB, **SMALL).init(jax.random.PRNGKey(5))
     tree = jax.tree.map(np.asarray, jparams)
-    params = cp_field_params_from_numpy(tree)
+    params = cp_field_params_from_numpy(tree, device="cpu")
     assert set(params) == set(field.state_dict())
     back = cp_field_params_to_numpy(params)
     assert jax.tree.structure(back) == jax.tree.structure(tree)

@@ -1,4 +1,8 @@
-"""The port imports without JAX, without CUDA, and builds nothing."""
+"""The port imports without JAX, without CUDA, and builds nothing; its
+entry points put their state on the card unless asked for another device."""
+import dataclasses
+import importlib
+import inspect
 import pathlib
 import re
 import subprocess
@@ -27,8 +31,36 @@ def test_import_pulls_in_no_jax_and_builds_nothing():
 
 
 @pytest.mark.parametrize(
-    "path", sorted((ROOT / "nerfacc_tpu_torch").rglob("*.py")), ids=lambda p: p.name
+    "path",
+    sorted((ROOT / "nerfacc_tpu_torch").rglob("*.py"))
+    + [ROOT / "chip_smoke.py", ROOT / "scripts" / "profile_torch_eval.py"],
+    ids=lambda p: p.name,
 )
 def test_no_source_imports_jax(path):
     src = path.read_text()
     assert not re.search(r"^\s*(import|from)\s+(jax|nerfacc_tpu)\b", src, re.M)
+
+
+def _default_device(fn):
+    if dataclasses.is_dataclass(fn):
+        return {f.name: f.default for f in dataclasses.fields(fn)}["device"]
+    return inspect.signature(fn).parameters["device"].default
+
+
+@pytest.mark.parametrize(
+    "name",
+    [
+        "trainers.ngp_occ.NGPOccTrainer",
+        "data.procedural.ProceduralSceneLoader",
+        "estimators.occ_grid.init_occ_grid",
+        "utils.jax_bridge.cp_field_params_from_numpy",
+        "utils.jax_bridge.ngp_field_params_from_numpy",
+        "utils.jax_bridge.occ_state_from_numpy",
+    ],
+)
+def test_entry_points_default_to_the_card(name):
+    """Read from the signature or the dataclass field: nothing is built on
+    a card here, and nothing falls back to the CPU."""
+    module, attr = name.rsplit(".", 1)
+    fn = getattr(importlib.import_module(f"nerfacc_tpu_torch.{module}"), attr)
+    assert _default_device(fn) == "cuda"

@@ -1,4 +1,4 @@
-"""Kernels G1-G5 against their PyTorch twins on the card, and the
+"""Kernels G1-G7 against their PyTorch twins on the card, and the
 gradients that reach the train step through them.
 
 These need an NVIDIA Hopper GPU and nvcc; elsewhere they skip.  Run them on
@@ -12,11 +12,20 @@ from nerfacc_tpu_torch import cuda
 from nerfacc_tpu_torch.grid import march, march_plain
 from nerfacc_tpu_torch.data.procedural import ProceduralSceneLoader
 from nerfacc_tpu_torch.models.cp_field import CPRadianceField
+from nerfacc_tpu_torch.models.encoders import HashGridEncoder
+from nerfacc_tpu_torch.models.ngp import NGPRadianceField
 from nerfacc_tpu_torch.ops.cp_level import (
     cp_level_backward,
     cp_level_backward_plain,
     cp_level_encode,
     cp_level_encode_plain,
+)
+from nerfacc_tpu_torch.ops.hash_encode import (
+    hash_encode,
+    hash_encode_backward,
+    hash_encode_backward_plain,
+    hash_encode_forward,
+    hash_encode_plain,
 )
 from nerfacc_tpu_torch.ops.sorted_segments import (
     composite_sorted,
@@ -200,19 +209,72 @@ def test_composite_output_carries_a_gradient_on_the_card(dev):
     torch.testing.assert_close(rgbs.grad, ref[1], rtol=0, atol=1e-5 * float(ref[1].abs().max()))
 
 
-def test_train_step_on_the_card_reaches_every_parameter(dev):
+def _hash_inputs(dev, n=2**15, levels=16, log2_t=14):
+    """Points in [-0.1, 1.1]^3 (corners below 0 wrap in uint32), an O(1)
+    table and a cotangent."""
+    g = torch.Generator(device=dev).manual_seed(levels)
+    res = HashGridEncoder(n_levels=levels, log2_hashmap_size=log2_t).resolutions
+    x = torch.rand((n, 3), generator=g, device=dev) * 1.2 - 0.1
+    table = torch.rand((levels, 1 << log2_t, 2), generator=g, device=dev) * 2 - 1
+    cot = torch.randn((n, 2 * levels), generator=g, device=dev)
+    return x, table, cot, res
+
+
+@pytest.mark.parametrize("levels,log2_t", [(16, 14), (5, 19)])
+def test_hash_encode_kernels_match_twins(dev, levels, log2_t):
+    """G6 within 1e-6 of the largest entry: the twin emulates each fused
+    multiply-add by one f64 sum rounded to f32, which double-rounds where
+    that sum lands on an f32 tie.  G7 within 1e-5 (atomic order)."""
+    x, table, cot, res = _hash_inputs(dev, levels=levels, log2_t=log2_t)
+    n0 = dict(cuda.LAUNCHES)
+    out = hash_encode_forward(x, table, res)
+    g_table = hash_encode_backward(x, cot, table.shape, res)
+    assert cuda.LAUNCHES["hash_fwd"] == n0["hash_fwd"] + 1
+    assert cuda.LAUNCHES["hash_bwd"] == n0["hash_bwd"] + 1
+    ref = hash_encode_plain(x, table, res)
+    torch.testing.assert_close(out, ref, rtol=0, atol=1e-6 * float(ref.abs().max()))
+    ref = hash_encode_backward_plain(x, cot, table.shape, res)
+    torch.testing.assert_close(g_table, ref, rtol=0, atol=1e-5 * float(ref.abs().max()))
+
+
+def test_hash_encode_carries_the_table_gradient_on_the_card(dev):
+    x, table, cot, res = _hash_inputs(dev, n=4099, levels=4, log2_t=12)
+    table.requires_grad_()
+    out = hash_encode(x, table, res)
+    assert out.grad_fn is not None
+    out.backward(cot)
+    ref_table = table.detach().clone().requires_grad_()
+    hash_encode_plain(x, ref_table, res).backward(cot)
+    ref = ref_table.grad
+    torch.testing.assert_close(table.grad, ref, rtol=0, atol=1e-5 * float(ref.abs().max()))
+
+
+def test_hash_encode_refuses_what_the_kernels_do_not_take(dev):
+    """F != 2, or a non-power-of-two T, raises before a launch."""
+    x = torch.rand((64, 3), device=dev)
+    n0 = cuda.LAUNCHES["hash_fwd"]
+    for shape in ((2, 256, 4), (2, 300, 2)):
+        with pytest.raises(ValueError, match="hash_encode"):
+            hash_encode_forward(x, torch.zeros(shape, device=dev), (16, 32))
+    assert cuda.LAUNCHES["hash_fwd"] == n0
+
+
+@pytest.mark.parametrize("kind", ["cp", "ngp"])
+def test_train_step_on_the_card_reaches_every_parameter(dev, kind):
     """A train step through the kernels leaves a finite, nonzero gradient on
-    every encoder table and MLP weight, and launches both backward kernels."""
+    every encoder table and MLP weight, and launches the field's encoder
+    kernels and the march and composite kernels."""
     aabb = (-1.5, -1.5, -1.5, 1.5, 1.5, 1.5)
     ds = ProceduralSceneLoader("train", n_train=2, width=32, height=32,
                                num_rays=256, device=dev)
-    trainer = NGPOccTrainer(
-        field=CPRadianceField(aabb), aabb=aabb, grid_resolution=32, device=dev,
-    )
+    field = CPRadianceField(aabb) if kind == "cp" else NGPRadianceField(aabb)
+    trainer = NGPOccTrainer(field=field, aabb=aabb, grid_resolution=32, device=dev)
     state = trainer.init_state()
     cuda.reset_launches()
     state, aux = trainer.train_step(state, ds[0])
-    assert all(count > 0 for count in cuda.LAUNCHES.values()), cuda.LAUNCHES
+    encoder = ("cp_level_fwd", "cp_level_bwd") if kind == "cp" else ("hash_fwd", "hash_bwd")
+    for name in (*encoder, "march", "composite_fwd", "composite_bwd"):
+        assert cuda.LAUNCHES[name] > 0, cuda.LAUNCHES
     assert torch.isfinite(aux["loss"]) and aux["n_rendering_samples"] > 0
     for name, p in state.params.items():
         assert p.grad is not None and torch.isfinite(p.grad).all(), name

@@ -31,10 +31,10 @@ def test_ssim_refuses_images_smaller_than_the_window():
 
 
 def test_eval_metrics_reports_ssim():
-    ds = ProceduralSceneLoader(split="test", width=16, height=16, n_test=2)
+    ds = ProceduralSceneLoader(split="test", width=16, height=16, n_test=2, device="cpu")
     trainer = NGPOccTrainer(
         field=CPRadianceField(AABB, resolutions=(16, 32, 64), ranks=(8, 8, 8)),
-        aabb=AABB, grid_resolution=32,
+        aabb=AABB, grid_resolution=32, device="cpu",
     )
     state = trainer.refresh_occ_grid(trainer.init_state(), 0)
     m = trainer.eval_metrics(state, ds)

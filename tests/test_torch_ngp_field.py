@@ -1,0 +1,153 @@
+"""Port vs JAX: the hash-grid NGPRadianceField, forward and every parameter
+gradient, from the same parameters through the bridge."""
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from nerfacc_tpu.models.ngp import NGPRadianceField as JaxField
+from nerfacc_tpu.models.ngp import _cubify_aabb as jax_cubify_aabb
+from nerfacc_tpu_torch.models.ngp import NGPRadianceField, _cubify_aabb
+from nerfacc_tpu_torch.utils.jax_bridge import (
+    ngp_field_params_from_numpy,
+    ngp_field_params_to_numpy,
+)
+
+AABB = (-1.5, -1.5, -1.5, 1.5, 1.5, 1.5)
+SMALL = dict(n_levels=4, log2_hashmap_size=12, max_resolution=64)
+
+
+def _points(seed, n, scale=1.7):
+    rng = np.random.default_rng(seed)
+    x = rng.uniform(-scale, scale, (n, 3)).astype(np.float32)  # some outside
+    d = rng.standard_normal((n, 3))
+    d = (d / np.linalg.norm(d, axis=-1, keepdims=True)).astype(np.float32)
+    return x, d
+
+
+def _run(seed, bf16, unbounded=False, n=3000):
+    """Both fields on the same parameters (the table scaled to O(1), so the
+    features move the MLPs) and points: (rgb, density, geo feats) of each,
+    and the gradient of ``sum(rgb c0) + sum(density c1) + sum(geo c2)`` in
+    every parameter, as JAX-shaped numpy trees."""
+    jfield = JaxField(
+        aabb=AABB, unbounded=unbounded,
+        compute_dtype=jnp.bfloat16 if bf16 else jnp.float32, **SMALL,
+    )
+    jparams = jfield.init(jax.random.PRNGKey(seed))
+    jparams["encoder"] = jparams["encoder"] * 1e4
+    field = NGPRadianceField(
+        AABB, unbounded=unbounded,
+        compute_dtype=torch.bfloat16 if bf16 else torch.float32, **SMALL,
+    )
+    field.load_state_dict(
+        ngp_field_params_from_numpy(jax.tree.map(np.asarray, jparams), device="cpu")
+    )
+    x, d = _points(seed + 1, n, 6.0 if unbounded else 1.7)
+    rng = np.random.default_rng(seed + 2)
+    cots = [rng.standard_normal((n, c)).astype(np.float32) for c in (3, 1, 15)]
+
+    def jax_loss(p):
+        rgb, density = jfield(p, jnp.asarray(x), jnp.asarray(d))
+        _, geo = jfield.query_density(p, jnp.asarray(x), return_feat=True)
+        outs = (rgb, density, geo)
+        return sum(jnp.sum(o * c) for o, c in zip(outs, cots)), outs
+
+    (_, ref), jgrads = jax.value_and_grad(jax_loss, has_aux=True)(jparams)
+    xt, dt = torch.tensor(x), torch.tensor(d)
+    rgb, density = field(xt, dt)
+    _, geo = field.query_density(xt, return_feat=True)
+    outs = (rgb, density, geo)
+    sum((o * torch.tensor(c)).sum() for o, c in zip(outs, cots)).backward()
+    grads = ngp_field_params_to_numpy(
+        {k: p.grad for k, p in field.named_parameters()}
+    )
+    return (
+        [o.detach().numpy() for o in outs],
+        [np.asarray(o) for o in ref],
+        grads,
+        jax.tree.map(np.asarray, jgrads),
+        x,
+    )
+
+
+def _leaves(tree):
+    return dict(zip(("encoder", "mlp_base.0", "mlp_base.1", "mlp_head.0",
+                     "mlp_head.1", "mlp_head.2"), jax.tree.leaves(tree)))
+
+
+@pytest.mark.parametrize("unbounded", [False, True])
+def test_ngp_field_f32_matches_jax(unbounded):
+    """f32: rgb, density and geo features within 1e-5 (the CP field's
+    bound), every parameter gradient within 1e-5 of its largest entry.
+    Bounded: density zeroed outside the (cubified) AABB."""
+    outs, ref, grads, jgrads, x = _run(0, False, unbounded)
+    for name, o, r in zip(("rgb", "density", "geo"), outs, ref):
+        np.testing.assert_allclose(o, r, rtol=1e-5, atol=1e-5, err_msg=name)
+    got, want = _leaves(grads), _leaves(jgrads)
+    for name in want:
+        g, w = got[name], want[name]
+        assert g.shape == w.shape and np.abs(w).max() > 0, name
+        np.testing.assert_allclose(g, w, rtol=0, atol=1e-5 * np.abs(w).max(), err_msg=name)
+    outside = (np.abs(x) >= 1.5).any(-1)
+    assert outside.any()
+    assert (outs[1][outside] == 0).all() != unbounded
+
+
+def test_ngp_field_bf16_matches_jax():
+    """bf16 MLP operands with f32 results on both sides (the hash features
+    are f32 in both): rgb within 2e-2 and density within 5e-2 relative,
+    the CP field's bf16 bounds; each gradient leaf within 5e-3 relative
+    Frobenius (the bf16 train-step bound: the weight gradients pass through
+    a bf16 rounding, where a one-ulp flip moves an entry by 2^-8)."""
+    outs, ref, grads, jgrads, _ = _run(3, True)
+    np.testing.assert_allclose(outs[0], ref[0], atol=2e-2)
+    np.testing.assert_allclose(outs[1], ref[1], rtol=5e-2, atol=1e-6)
+    np.testing.assert_allclose(outs[2], ref[2], rtol=5e-2, atol=5e-2)
+    got, want = _leaves(grads), _leaves(jgrads)
+    for name in want:
+        rel = np.linalg.norm(got[name] - want[name]) / np.linalg.norm(want[name])
+        assert rel <= 5e-3, (name, rel)
+
+
+def test_cubified_aabb_matches_jax():
+    aabb = (-1.0, -0.5, 0.0, 2.0, 1.5, 1.0)
+    np.testing.assert_array_equal(
+        _cubify_aabb(aabb).numpy(), np.asarray(jax_cubify_aabb(jnp.asarray(aabb)))
+    )
+    field = NGPRadianceField(aabb, **SMALL)
+    np.testing.assert_array_equal(field.aabb.numpy(), [-1.0, -1.0, -1.0, 2.0, 2.0, 2.0])
+
+
+def test_init_distributions_and_bridge_round_trip():
+    field = NGPRadianceField(AABB, **SMALL).init(torch.Generator().manual_seed(0))
+    table = field.encoder.table.detach()
+    assert table.shape == (4, 4096, 2) and float(table.abs().max()) <= 1e-4
+    assert field.base_dims == [8, 64, 16] and field.head_dims == [31, 64, 64, 3]
+    for w in list(field.mlp_base) + list(field.mlp_head):
+        a = (6.0 / sum(w.shape)) ** 0.5
+        assert a * 0.9 < float(w.detach().abs().max()) <= a
+
+    jfield = JaxField(aabb=AABB, **SMALL)
+    tree = jax.tree.map(np.asarray, jfield.init(jax.random.PRNGKey(5)))
+    params = ngp_field_params_from_numpy(tree, device="cpu")
+    assert set(params) == set(field.state_dict())
+    back = ngp_field_params_to_numpy(params)
+    assert jax.tree.structure(back) == jax.tree.structure(tree)
+    for a, b in zip(jax.tree.leaves(back), jax.tree.leaves(tree)):
+        assert a.dtype == b.dtype
+        np.testing.assert_array_equal(a, b)
+
+
+def test_full_width_defaults_match_jax():
+    """The port's defaults are the JAX field's full width (built on the
+    meta device: the 2^19-row table is not allocated)."""
+    jfield = JaxField(aabb=AABB)
+    with torch.device("meta"):
+        field = NGPRadianceField(AABB)
+    enc = field.encoder
+    assert enc.table.shape == (16, 2**19, 2)
+    assert enc.resolutions == jfield.encoder.resolutions
+    assert field.base_dims == [32, 64, 16] and field.head_dims == [31, 64, 64, 3]
+    assert field.compute_dtype == torch.bfloat16

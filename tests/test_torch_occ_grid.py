@@ -29,7 +29,7 @@ def test_dense_update_matches_jax(levels):
     jparams = jfield.init(jax.random.PRNGKey(levels))
     field = CPRadianceField(AABB, compute_dtype=torch.float32, **SMALL)
     field.load_state_dict(
-        cp_field_params_from_numpy(jax.tree.map(np.asarray, jparams))
+        cp_field_params_from_numpy(jax.tree.map(np.asarray, jparams), device="cpu")
     )
 
     jstate = jax_init_occ_grid(jnp.asarray(AABB), 32, levels)
@@ -39,7 +39,7 @@ def test_dense_update_matches_jax(levels):
     occs[rng.uniform(size=occs.shape) < 0.1] = -1.0
     jstate = JaxOccGridState(jstate.aabbs, jnp.asarray(occs), jstate.binaries)
     state = occ_state_from_numpy(*(np.asarray(a) for a in (
-        jstate.aabbs, jstate.occs, jstate.binaries)))
+        jstate.aabbs, jstate.occs, jstate.binaries)), device="cpu")
 
     key = jax.random.PRNGKey(7)
     jitter = jax.random.uniform(
@@ -70,7 +70,7 @@ def test_dense_update_matches_jax(levels):
 
 def test_init_and_bridge_round_trip():
     jstate = jax_init_occ_grid(jnp.asarray(AABB), (8, 16, 32), 3)
-    state = init_occ_grid(AABB, (8, 16, 32), 3)
+    state = init_occ_grid(AABB, (8, 16, 32), 3, device="cpu")
     np.testing.assert_array_equal(state.aabbs.numpy(), np.asarray(jstate.aabbs))
     assert state.binaries.shape == jstate.binaries.shape
     assert state.binaries.dtype == torch.bool
@@ -80,6 +80,6 @@ def test_init_and_bridge_round_trip():
         rng.uniform(-1, 1, state.occs.shape).astype(np.float32),
         rng.uniform(size=state.binaries.shape) < 0.5,
     )
-    for a, b in zip(occ_state_to_numpy(occ_state_from_numpy(*arrays)), arrays):
+    for a, b in zip(occ_state_to_numpy(occ_state_from_numpy(*arrays, device="cpu")), arrays):
         assert a.dtype == b.dtype
         np.testing.assert_array_equal(a, b)

@@ -12,7 +12,7 @@ def test_train_batches_match_jax(color_bkgd_aug, monkeypatch):
     monkeypatch.setenv("NERFACC_TPU_GT_CACHE", "")  # render, do not cache on disk
     kw = dict(split="train", n_train=3, width=20, height=16, num_rays=64,
               color_bkgd_aug=color_bkgd_aug, seed=7)
-    jax_ds, ds = JaxLoader(**kw), ProceduralSceneLoader(**kw)
+    jax_ds, ds = JaxLoader(**kw), ProceduralSceneLoader(**kw, device="cpu")
     assert ds.training and len(ds) == len(jax_ds) == 3
     for _ in range(3):  # consecutive batches: the same rng call sequence
         ref, out = jax_ds[0], ds[0]
@@ -27,8 +27,12 @@ def test_train_batches_match_jax(color_bkgd_aug, monkeypatch):
 
 
 def test_update_num_rays_resizes_the_next_batch():
-    ds = ProceduralSceneLoader(split="train", n_train=2, width=16, height=16, num_rays=32)
+    ds = ProceduralSceneLoader(
+        split="train", n_train=2, width=16, height=16, num_rays=32, device="cpu"
+    )
     ds.update_num_rays(48)
     assert ds[0]["rays_o"].shape == (48, 3)
-    test = ProceduralSceneLoader(split="test", n_test=1, width=16, height=16, num_rays=32)
+    test = ProceduralSceneLoader(
+        split="test", n_test=1, width=16, height=16, num_rays=32, device="cpu"
+    )
     assert not test.training and test[0]["rgb"].shape == (256, 3)

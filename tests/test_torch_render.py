@@ -35,7 +35,7 @@ def loaders():
     with pytest.MonkeyPatch.context() as mp:
         mp.setenv("NERFACC_TPU_GT_CACHE", "")  # render, do not cache on disk
         jax_ds = JaxLoader(split="test", width=SIZE, height=SIZE)
-    return jax_ds, ProceduralSceneLoader(split="test", width=SIZE, height=SIZE)
+    return jax_ds, ProceduralSceneLoader(split="test", width=SIZE, height=SIZE, device="cpu")
 
 
 def test_loaders_give_equal_rays_and_ground_truth(loaders):
@@ -67,13 +67,14 @@ def test_render_image_matches_jax(loaders):
 
     trainer = NGPOccTrainer(
         field=CPRadianceField(AABB, compute_dtype=torch.float32, **SMALL),
-        aabb=AABB, grid_resolution=32, render_step_size=STEP,
+        aabb=AABB, grid_resolution=32, render_step_size=STEP, device="cpu",
     )
     state = TrainState(
-        params=cp_field_params_from_numpy(jax.tree.map(np.asarray, jparams)),
+        params=cp_field_params_from_numpy(jax.tree.map(np.asarray, jparams), device="cpu"),
         opt_state=None,
         occ_state=occ_state_from_numpy(
-            *(np.asarray(a) for a in (jstate.aabbs, jstate.occs, jstate.binaries))
+            *(np.asarray(a) for a in (jstate.aabbs, jstate.occs, jstate.binaries)),
+            device="cpu",
         ),
         step=0,
     )
@@ -107,9 +108,10 @@ def test_render_image_matches_jax(loaders):
 def test_trainer_eval_path_on_the_port_alone():
     """The slice's entry points end to end, port only: init, dense
     refreshes, then eval_metrics over the test views."""
-    ds = ProceduralSceneLoader(split="test", width=16, height=16, n_test=2)
+    ds = ProceduralSceneLoader(split="test", width=16, height=16, n_test=2, device="cpu")
     trainer = NGPOccTrainer(
-        field=CPRadianceField(AABB, **SMALL), aabb=AABB, grid_resolution=32
+        field=CPRadianceField(AABB, **SMALL), aabb=AABB, grid_resolution=32,
+        device="cpu",
     )
     state = trainer.init_state()
     assert not state.occ_state.binaries.any()

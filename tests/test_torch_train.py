@@ -1,6 +1,7 @@
 """Port vs JAX, the train slice: the learning-rate schedule, Adam against
 optax, one NGPOccTrainer.train_step against the JAX trainer's fused step from
-the same parameters, grid, batch and noise, and a convergence smoke."""
+the same parameters, grid, batch and noise (CP and hash-grid NGP fields), and
+convergence smokes."""
 import dataclasses
 
 import jax
@@ -13,20 +14,24 @@ import torch
 import nerfacc_tpu.ops.cp_level as jax_cp_level
 from nerfacc_tpu.data.procedural import ProceduralSceneLoader as JaxLoader
 from nerfacc_tpu.models.cp_field import CPRadianceField as JaxField
+from nerfacc_tpu.models.ngp import NGPRadianceField as JaxNGPField
 from nerfacc_tpu.trainers.ngp_occ import NGPOccTrainer as JaxTrainer
 from nerfacc_tpu.trainers.ngp_occ import make_lr_schedule as jax_lr_schedule
 from nerfacc_tpu_torch.data.procedural import ProceduralSceneLoader
 from nerfacc_tpu_torch.estimators.occ_grid import sampling
 from nerfacc_tpu_torch.models.cp_field import CPRadianceField
+from nerfacc_tpu_torch.models.ngp import NGPRadianceField
 from nerfacc_tpu_torch.trainers.ngp_occ import NGPOccTrainer, TrainState, make_lr_schedule
 from nerfacc_tpu_torch.utils.jax_bridge import (
     cp_field_params_from_numpy,
+    ngp_field_params_from_numpy,
     occ_state_from_numpy,
 )
 from nerfacc_tpu_torch.utils.rendering import compact_samples, render_rays_with_occgrid
 
 AABB = (-1.5, -1.5, -1.5, 1.5, 1.5, 1.5)
 SMALL = dict(resolutions=(16, 32, 64), ranks=(8, 8, 8))
+NGP_SMALL = dict(n_levels=4, log2_hashmap_size=12, max_resolution=64)
 GRID = 32
 N_RAYS = 128
 
@@ -51,7 +56,7 @@ def test_adam_matches_optax_chain():
     all far above the decay term, so no sign can flip.)"""
     trainer = NGPOccTrainer(
         field=CPRadianceField(AABB, **SMALL), aabb=AABB, max_steps=100,
-        grid_resolution=GRID,
+        grid_resolution=GRID, device="cpu",
     )
     jparams = JaxField(aabb=AABB, **SMALL).init(jax.random.PRNGKey(0))
     tx = optax.chain(
@@ -60,7 +65,7 @@ def test_adam_matches_optax_chain():
         optax.scale_by_learning_rate(jax_lr_schedule(100, 1e-2, 100)),
     )
     tx_state = tx.init(jparams)
-    params = cp_field_params_from_numpy(jax.tree.map(np.asarray, jparams))
+    params = cp_field_params_from_numpy(jax.tree.map(np.asarray, jparams), device="cpu")
     for p in params.values():
         p.requires_grad_(True)
     opt = trainer.init_optimizer(params)
@@ -72,10 +77,11 @@ def test_adam_matches_optax_chain():
         )
         updates, tx_state = tx.update(grads, tx_state, jparams)
         jparams = optax.apply_updates(jparams, updates)
-        for name, g in cp_field_params_from_numpy(jax.tree.map(np.asarray, grads)).items():
+        tgrads = cp_field_params_from_numpy(jax.tree.map(np.asarray, grads), device="cpu")
+        for name, g in tgrads.items():
             params[name].grad = g
         opt = trainer.apply_gradients(opt)
-        ref = cp_field_params_from_numpy(jax.tree.map(np.asarray, jparams))
+        ref = cp_field_params_from_numpy(jax.tree.map(np.asarray, jparams), device="cpu")
         for name, p in params.items():
             want = ref[name].numpy()
             np.testing.assert_allclose(
@@ -102,13 +108,31 @@ def _gradient_recorder():
     )
 
 
-def _jax_step(batch, stratified, budget, bf16):
+def _port_field(kind, dtype):
+    """The port's field of ``kind`` ("cp" or "ngp") at the small size."""
+    if kind == "cp":
+        return CPRadianceField(AABB, compute_dtype=dtype, **SMALL)
+    return NGPRadianceField(AABB, compute_dtype=dtype, **NGP_SMALL)
+
+
+# the bridge from JAX parameter trees to each port field's state dict
+FROM_NUMPY = {"cp": cp_field_params_from_numpy, "ngp": ngp_field_params_from_numpy}
+
+
+def _jax_step(batch, stratified, budget, bf16, kind):
     """The JAX trainer's padded-traversal step; returns its aux, gradients,
     refreshed grid, its initial state as numpy, and the step's noise."""
-    jfield = JaxField(
-        aabb=AABB, compute_dtype=jnp.bfloat16 if bf16 else jnp.float32, **SMALL
-    )
-    if bf16:  # the port follows the Pallas CP-level kernels (interpreted)
+    dtype = jnp.bfloat16 if bf16 else jnp.float32
+    if kind == "cp":
+        jfield = JaxField(aabb=AABB, compute_dtype=dtype, **SMALL)
+    else:
+        # XLA's scatter-add table gradient: the same values as the default
+        # sorted blocks (tests/test_torch_hash.py), whose buffers at this
+        # padded sample count exceed a CPU's memory
+        jfield = JaxNGPField(
+            aabb=AABB, compute_dtype=dtype, table_grad="scatter", **NGP_SMALL
+        )
+    if bf16 and kind == "cp":  # the port follows the Pallas CP-level kernels
         object.__setattr__(
             jfield, "encoder", dataclasses.replace(jfield.encoder, kernel="fused")
         )
@@ -119,6 +143,9 @@ def _jax_step(batch, stratified, budget, bf16):
     )
     trainer.optimizer = _gradient_recorder()
     state = trainer.init_state()
+    if kind == "ngp":  # an O(1) table, so the untrained densities differ
+        params = dict(state.params, encoder=state.params["encoder"] * 1e4)
+        state = state._replace(params=params)
     init = (
         jax.tree.map(np.asarray, state.params),
         tuple(np.asarray(a) for a in (state.occ_state.aabbs, state.occ_state.occs,
@@ -129,7 +156,7 @@ def _jax_step(batch, stratified, budget, bf16):
     near = np.asarray(jax.random.uniform(k_strat, (N_RAYS,)))
     cells = np.asarray(jax.random.uniform(jax.random.split(k_occ, 4)[3], (1, GRID**3, 3)))
     new, aux = trainer.train_step(state, batch)  # donates ``state``
-    grads = cp_field_params_from_numpy(jax.tree.map(np.asarray, new.opt_state))
+    grads = FROM_NUMPY[kind](jax.tree.map(np.asarray, new.opt_state), device="cpu")
     aux = {k: np.asarray(v) for k, v in aux.items()}
     occ = (np.asarray(new.occ_state.occs), np.asarray(new.occ_state.binaries))
     return aux, grads, occ, init, near, cells
@@ -169,12 +196,18 @@ def _f64_witness(trainer, params, occ_state, batch, near_jitter):
 
 
 @pytest.mark.parametrize(
-    "stratified,budget,bf16",
-    [(False, 2**18, False), (True, 2**18, False), (True, 12000, False),
-     (True, 2**18, True)],
-    ids=["f32", "f32-stratified", "f32-budget-cut", "bf16-stratified"],
+    "kind,stratified,budget,bf16",
+    [
+        pytest.param("cp", False, 2**18, False, id="f32"),
+        pytest.param("cp", True, 2**18, False, id="f32-stratified"),
+        pytest.param("cp", True, 12000, False, id="f32-budget-cut"),
+        pytest.param("cp", True, 2**18, True, id="bf16-stratified"),
+        pytest.param("ngp", True, 2**18, False, id="ngp-f32-stratified"),
+        pytest.param("ngp", True, 12000, False, id="ngp-f32-budget-cut"),
+        pytest.param("ngp", True, 2**18, True, id="ngp-bf16-stratified"),
+    ],
 )
-def test_train_step_matches_jax(batch, monkeypatch, stratified, budget, bf16):
+def test_train_step_matches_jax(batch, monkeypatch, kind, stratified, budget, bf16):
     """Tolerances.  Loss and mse: 1e-5 relative.  Counts: equal.  f32
     gradients: each leaf of the port within 1e-4 of its largest entry from
     the same step in float64 (:func:`_f64_witness`; the port reads 2.7e-6
@@ -186,26 +219,28 @@ def test_train_step_matches_jax(batch, monkeypatch, stratified, budget, bf16):
     their max from the float64 step).  bf16: relative Frobenius 5e-3 per
     leaf against JAX (tests/test_cp_level.py's bound for the same bf16
     cotangent rounding).  The refreshed grid: equal except where the two
-    occupancies straddle the threshold."""
-    if bf16:
+    occupancies straddle the threshold.  The hash-grid NGP field (4
+    levels, T = 2^12, resolutions 16..64; its table scaled to O(1)) is held
+    to the same bounds against JAX, and against the float64 step to 1e-4 or
+    JAX's own distance from it, whichever is larger (see below)."""
+    if bf16 and kind == "cp":
         interpreted = jax_cp_level.cp_level_encode
         monkeypatch.setattr(
             jax_cp_level, "cp_level_encode", lambda x, lines: interpreted(x, lines, True)
         )
     ref, ref_grads, (ref_occs, ref_bin), (jparams, jocc), near, cells = _jax_step(
-        batch, stratified, budget, bf16
+        batch, stratified, budget, bf16, kind
     )
     trainer = NGPOccTrainer(
-        field=CPRadianceField(
-            AABB, compute_dtype=torch.bfloat16 if bf16 else torch.float32, **SMALL
-        ),
+        field=_port_field(kind, torch.bfloat16 if bf16 else torch.float32),
         aabb=AABB, max_steps=100, grid_resolution=GRID, sample_budget=budget,
-        stratified=stratified,
+        stratified=stratified, device="cpu",
     )
-    params = cp_field_params_from_numpy(jparams)
+    params = FROM_NUMPY[kind](jparams, device="cpu")
     for p in params.values():
         p.requires_grad_(True)
-    state = TrainState(params, trainer.init_optimizer(params), occ_state_from_numpy(*jocc), 0)
+    occ_state = occ_state_from_numpy(*jocc, device="cpu")
+    state = TrainState(params, trainer.init_optimizer(params), occ_state, 0)
     tbatch = {k: torch.tensor(v) for k, v in batch.items()}
     new, aux = trainer.train_step(
         state, tbatch, near_jitter=torch.tensor(near), cell_jitter=torch.tensor(cells),
@@ -237,22 +272,29 @@ def test_train_step_matches_jax(batch, monkeypatch, stratified, budget, bf16):
         return
 
     loss64, grads64 = _f64_witness(
-        trainer, cp_field_params_from_numpy(jparams), new.occ_state, tbatch,
+        trainer, FROM_NUMPY[kind](jparams, device="cpu"), new.occ_state, tbatch,
         torch.tensor(near),
     )
     assert float(aux["loss"]) == pytest.approx(loss64, rel=1e-5)
     for name, p in params.items():
         g64 = grads64[name].numpy()
-        np.testing.assert_allclose(p.grad.numpy(), g64, rtol=0, atol=1e-4 * np.abs(g64).max())
+        atol = 1e-4 * np.abs(g64).max()
+        if kind == "ngp":
+            # the hash features move with the f32 rounding of x * res (up to
+            # 2^-18 of a cell at res 64), which the f64 step does not share:
+            # the table and first-layer gradients of both f32 steps lie
+            # ~2e-3 of their max from it, the port no farther than JAX
+            atol = max(atol, 1.1 * np.abs(ref_grads[name].numpy() - g64).max())
+        np.testing.assert_allclose(p.grad.numpy(), g64, rtol=0, atol=atol)
 
 
-def test_train_steps_converge_on_the_port_alone():
-    """30 steps of the port's trainer through its own entry points lower the
-    loss (the smoke test of tests/test_trainers.py:37)."""
-    ds = ProceduralSceneLoader("train", n_train=4, width=24, height=24, num_rays=128)
+def _converge(kind):
+    ds = ProceduralSceneLoader(
+        "train", n_train=4, width=24, height=24, num_rays=128, device="cpu"
+    )
     trainer = NGPOccTrainer(
-        field=CPRadianceField(AABB, **SMALL), aabb=AABB, max_steps=30,
-        grid_resolution=GRID, sample_budget=2**15, update_interval=8,
+        field=_port_field(kind, torch.bfloat16), aabb=AABB, max_steps=30,
+        grid_resolution=GRID, sample_budget=2**15, update_interval=8, device="cpu",
     )
     state = trainer.init_state()
     batches = [ds[0] for _ in range(30)]
@@ -266,3 +308,15 @@ def test_train_steps_converge_on_the_port_alone():
     assert (aux["n_rendering_samples"] <= 2**15).all()
     for p in state.params.values():
         assert torch.isfinite(p).all() and p.grad is not None
+
+
+def test_train_steps_converge_on_the_port_alone():
+    """30 steps of the port's trainer through its own entry points lower the
+    loss (the smoke test of tests/test_trainers.py:37)."""
+    _converge("cp")
+
+
+def test_ngp_train_steps_converge_on_the_port_alone():
+    """The same for the hash-grid NGP field from its own init (table
+    U(-1e-4, 1e-4))."""
+    _converge("ngp")
