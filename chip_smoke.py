@@ -34,14 +34,34 @@ It builds the CUDA kernels from ``nerfacc_tpu_torch/csrc`` and runs:
    2 features, 2^19 rows per level, resolutions 16..4096, bf16 MLPs);
 8. phase 4 with that field;
 9. phase 5 with that field;
-10. phase 6 with that field, against phase 7's PSNR.
+10. phase 6 with that field, against phase 7's PSNR;
+11. phase 2 with the full-width TiNeuVox dynamic field (CP lines 32/128/512
+    x ranks 16/16/32 through the hat kernels G8-G10, the deformation MLP,
+    bf16 MLPs) on the moving-blob scene, each test view at its own time, the
+    refresh drawing one training frame time per cell;
+12. phase 4 with that field, at the dynamic example's settings (24 views at
+    320x320, 1024 rays, a 2^16-sample budget, lr 1e-2, Adam eps 1e-15, no
+    weight decay, TV weight 1e-4); G8, G9 and G10 must launch;
+13. phase 5 with that field, the deformation leaves included;
+14. phase 6 with that field, against phase 11's PSNR.
+
+Phase 1d holds the hat kernels G8 (forward), G9 (table gradient) and G10
+(coordinate gradient) against their plain versions at N = 2^18 on each of
+TiNeuVox's levels (R = 32, 128, 512), with 1% of the coordinates outside
+[0, 1] and some on grid points, timed at R = 512, rank 32, with
+``F.embedding_bag`` and ``index_add_`` timed on the precomputed taps as the
+library's gather and scatter stages.  Phase 13 also runs the f32 TiNeuVox
+plain step against itself, and the kernel step with the composite (G3, G5)
+on its plain versions and PyTorch's scatter-adds in a fixed order, so that
+the hat kernels see the plain step's cotangents bit for bit.
 
 Every check raises on failure, so the exit code is nonzero and the result
 line is not printed.  The last line of standard output is a JSON object with
 ``"ok": true`` and the device; the line before it lists each kernel's launch
-count over the two training phases, error, times and bound.  Without a
+count over the three training phases, error, times and bound.  Without a
 CUDA device the script fails at once.
 """
+import contextlib
 import json
 import os
 import statistics
@@ -55,11 +75,15 @@ sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
 from nerfacc_tpu_torch import cuda  # noqa: E402
 from nerfacc_tpu_torch.cuda import _build  # noqa: E402
-from nerfacc_tpu_torch.data.procedural import ProceduralSceneLoader  # noqa: E402
+from nerfacc_tpu_torch.data.procedural import (  # noqa: E402
+    ProceduralDynamicSceneLoader,
+    ProceduralSceneLoader,
+)
 from nerfacc_tpu_torch.grid import march, march_plain  # noqa: E402
 from nerfacc_tpu_torch.models.cp_field import CPRadianceField  # noqa: E402
 from nerfacc_tpu_torch.models.encoders import HashGridEncoder  # noqa: E402
 from nerfacc_tpu_torch.models.ngp import NGPRadianceField  # noqa: E402
+from nerfacc_tpu_torch.models.tineuvox import TiNeuVoxRadianceField  # noqa: E402
 from nerfacc_tpu_torch.ops.cp_level import (  # noqa: E402
     cp_level_backward,
     cp_level_backward_plain,
@@ -73,6 +97,16 @@ from nerfacc_tpu_torch.ops.hash_encode import (  # noqa: E402
     hash_encode_forward,
     hash_encode_plain,
 )
+from nerfacc_tpu_torch.ops.hat_matmul import (  # noqa: E402
+    hat_bwd_line,
+    hat_bwd_line_plain,
+    hat_bwd_x,
+    hat_bwd_x_plain,
+    hat_fwd,
+    hat_interp_matmul_plain,
+    hat_taps,
+)
+from nerfacc_tpu_torch.ops import sorted_segments  # noqa: E402
 from nerfacc_tpu_torch.ops.sorted_segments import (  # noqa: E402
     composite_sorted,
     composite_sorted_backward,
@@ -88,11 +122,13 @@ N_REFRESH = 4
 G1_N = 2**18
 HASH_N = 2**18  # phase 1c: the train step's sample budget
 HASH_OUTSIDE = 0.01  # share of phase 1c's points outside [0, 1]^3
+HAT_N = 2**18  # phase 1d: the train step's sample budget at most
+HAT_LEVELS = ((32, 16), (128, 16), (512, 32))  # TiNeuVox's (R, rank); timed at the last
+HAT_OUTSIDE = 0.01  # share of phase 1d's coordinates outside [0, 1]
+HAT_ON_GRID = 4096  # phase 1d's coordinates on grid points
 G2_RAYS = 8192
 FLIP_ALLOWANCE = 1e-3  # share of rays whose sample count may differ
 TRAIN_STEPS = 1000  # not a multiple of the refresh interval: phase 5's step
-TRAIN_RAYS = 2048
-TRAIN_BUDGET = 2**18
 # Phase 5: each gradient leaf of a kernel step against the twin step, by
 # relative Frobenius norm, worst of STEP_REPEATS runs.  f32: only the order of
 # the atomic sums differs (readings up to 2.5e-5 on an H100, PERF.md §6).
@@ -103,8 +139,20 @@ TRAIN_BUDGET = 2**18
 # >= 2.2e-2 (the twins' f32 field against their bf16 field, printed), a
 # detached gradient ~1.  The kernels' own roundings are held elementwise in
 # phase 1b.
+# An f32 TiNeuVox field is not f32 throughout: its hat kernels round the
+# cotangent g to bf16 (the TPU kernels' contract), so last-bit differences
+# upstream (G3 and G5 against their plain versions, and index_add_'s atomic
+# order inside those) flip a few of those roundings and move the
+# deformation leaves, whose only signal is G10's: the plain step against
+# itself reads up to 3.8e-5, the kernel step up to 1.3e-4 on an H100
+# (PERF.md §6), hence F32_HAT_STEP_FRO.  With the composite on its plain
+# versions and fixed-order scatter-adds the hat kernels see the plain
+# step's cotangents bit for bit, and that step read 1.6e-7 (G9's atomic
+# order and G10's rank sums): HAT_ALONE_STEP_FRO.
 STEP_REPEATS = 8
 F32_STEP_FRO = 1e-4
+F32_HAT_STEP_FRO = 5e-4
+HAT_ALONE_STEP_FRO = 1e-5
 BF16_STEP_FRO = 5e-3
 
 
@@ -120,9 +168,23 @@ F32_FLOPS = 67e12
 FIELDS = {
     "cp": lambda dtype: CPRadianceField(AABB, compute_dtype=dtype),
     "ngp": lambda dtype: NGPRadianceField(AABB, compute_dtype=dtype),
+    "tineuvox": lambda dtype: TiNeuVoxRadianceField(AABB, compute_dtype=dtype),
 }
 # field kind -> its encoder's kernels, forward then backward
-ENCODER_KERNELS = {"cp": ("cp_level_fwd", "cp_level_bwd"), "ngp": ("hash_fwd", "hash_bwd")}
+ENCODER_KERNELS = {
+    "cp": ("cp_level_fwd", "cp_level_bwd"),
+    "ngp": ("hash_fwd", "hash_bwd"),
+    "tineuvox": ("hat_fwd", "hat_bwd_line", "hat_bwd_x"),
+}
+# field kind -> (trainer settings beside the defaults, rays per train step,
+# sample budget): the bench configuration, and for TiNeuVox the dynamic
+# example's (examples/train_mlp_tnerf.py --field tineuvox; its lr 1e-2,
+# Adam eps 1e-15 and warmup are the trainer's)
+TRAIN = {
+    "cp": ({}, 2048, 2**18),
+    "ngp": ({}, 2048, 2**18),
+    "tineuvox": (dict(weight_decay=0.0, field_reg_weight=1e-4), 1024, 2**16),
+}
 
 
 def require(ok, what):
@@ -162,8 +224,25 @@ def measured(err, ms, plain_ms, moved, ops, library_ms=None):
     }
 
 
-def make_trainer(dev, kind="cp"):
-    return NGPOccTrainer(field=FIELDS[kind](torch.bfloat16), aabb=AABB, device=dev)
+def make_trainer(dev, kind="cp", dtype=torch.bfloat16, timestamps=None, **kw):
+    """The field of ``kind`` in a trainer with its settings; a dynamic
+    field's refresh draws from the training frames' ``timestamps``."""
+    return NGPOccTrainer(
+        field=FIELDS[kind](dtype), aabb=AABB, device=dev, timestamps=timestamps,
+        **TRAIN[kind][0], **kw,
+    )
+
+
+def train_loader(dev, kind):
+    """The train split of ``kind``'s scene."""
+    if kind == "tineuvox":
+        return ProceduralDynamicSceneLoader(
+            split="train", num_rays=TRAIN[kind][1], device=dev
+        )
+    return ProceduralSceneLoader(
+        split="train", n_train=6, width=256, height=256, num_rays=TRAIN[kind][1],
+        device=dev,
+    )
 
 
 def refreshed_state(trainer):
@@ -404,11 +483,114 @@ def phase_hash_kernels(dev):
     return report
 
 
-def phase_slice(dev, ds, kind="cp"):
+def hat_inputs(g, R, rank):
+    """Phase 1d's inputs at one level: ``HAT_N`` coordinates uniform in
+    [0, 1], ``HAT_OUTSIDE`` of them pushed out by up to 1.5 cells,
+    ``HAT_ON_GRID`` on grid points (and the mask of those that are), a table
+    near 1 and a seeded cotangent."""
+    dev = g.device
+    x = torch.rand(HAT_N, generator=g, device=dev)
+    n_out = int(HAT_OUTSIDE * HAT_N)
+    below = torch.rand(n_out, generator=g, device=dev) < 0.5
+    push = 1.5 / (R - 1) * torch.rand(n_out, generator=g, device=dev)
+    x[:n_out] = torch.where(below, -push, 1.0 + push)
+    grid = torch.randint(0, R, (HAT_ON_GRID,), generator=g, device=dev) / (R - 1)
+    x[n_out : n_out + HAT_ON_GRID] = grid
+    on_grid = (x * (R - 1)) == torch.round(x * (R - 1))
+    line = 1.0 + 0.1 * torch.randn((R, rank), generator=g, device=dev)
+    cot = torch.randn((HAT_N, rank), generator=g, device=dev)
+    return x, on_grid, line, cot
+
+
+@torch.inference_mode()
+def phase_hat_kernels(dev):
+    """1d. G8, G9 and G10 against their plain versions on each of
+    TiNeuVox's levels (:func:`hat_inputs`), timed at the last.  G8 is
+    bitwise; G9 within 1e-6 of its largest entry (each block's f32 partial
+    sums run in atomic order; the blocks are added in f64); G10 within 1e-5
+    (the rank sums in another order) and exactly 0 on grid points."""
+    g = torch.Generator(device=dev).manual_seed(8)
+    worst = {"hat_fwd": 0.0, "hat_bwd_line": 0.0, "hat_bwd_x": 0.0}
+    for R, rank in HAT_LEVELS:
+        x, on_grid, line, cot = hat_inputs(g, R, rank)
+        out = hat_fwd(x, line)
+        unequal = int((out != hat_interp_matmul_plain(x, line)).sum())
+        require(unequal == 0, f"G8 R={R}: {unequal} entries differ from the plain version")
+        dline = hat_bwd_line(x, cot, R)
+        ref = hat_bwd_line_plain(x, cot, R)
+        err9, scale9 = float((dline - ref).abs().max()), float(ref.abs().max())
+        require(err9 <= 1e-6 * scale9, f"G9 R={R}: err {err9} scale {scale9}")
+        dx = hat_bwd_x(x, cot, line)
+        ref = hat_bwd_x_plain(x, cot, line)
+        err10, scale10 = float((dx - ref).abs().max()), float(ref.abs().max())
+        require(err10 <= 1e-5 * scale10, f"G10 R={R}: err {err10} scale {scale10}")
+        n_grid = int(on_grid.sum())
+        # k / (R - 1) times (R - 1) gives k back for about half of the k
+        require(n_grid >= HAT_ON_GRID // 4 and bool((dx[on_grid] == 0).all()),
+                f"G10 R={R}: a nonzero gradient on a grid point")
+        print(f"hat R={R} rank={rank} N={HAT_N}: G8 0 of {out.numel()} entries "
+              f"unequal; G9 max_abs_err={err9:.3g} = {err9 / scale9:.3g} of its "
+              f"largest entry; G10 max_abs_err={err10:.3g} = {err10 / scale10:.3g} "
+              f"of its largest entry, exactly 0 on all {n_grid} grid points")
+        worst["hat_bwd_line"] = max(worst["hat_bwd_line"], err9)
+        worst["hat_bwd_x"] = max(worst["hat_bwd_x"], err10)
+
+    # timed at the last level; the taps for the library calls: two rows and
+    # bf16 weights per point
+    i0, i1, w0, w1, _, _ = hat_taps(x, R)
+    taps = torch.stack([i0, i1], dim=1)
+    w = torch.stack([w0, w1], dim=1)
+    line_b = line.to(torch.bfloat16).to(torch.float32)
+    cot_b = cot.to(torch.bfloat16).to(torch.float32)
+    report = {}
+    bag = torch.nn.functional.embedding_bag(taps, line_b, mode="sum", per_sample_weights=w)
+    bag_err = float((bag - hat_interp_matmul_plain(x, line)).abs().max())
+    # per point its position, floor, two weights (~6); per point and rank
+    # two products and an addition
+    report["hat_fwd"] = measured(
+        worst["hat_fwd"],
+        cuda_ms(lambda: hat_fwd(x, line)),
+        cuda_ms(lambda: hat_interp_matmul_plain(x, line)),
+        nbytes(x, line, out), HAT_N * (6 + 3 * rank),
+        cuda_ms(lambda: torch.nn.functional.embedding_bag(
+            taps, line_b, mode="sum", per_sample_weights=w)),
+    )
+    upd = (w[:, :, None] * cot_b[:, None, :]).reshape(-1, rank)
+    acc = torch.zeros((R, rank), device=dev)
+    # per point the taps (~6); per point and rank two products and two sums
+    report["hat_bwd_line"] = measured(
+        worst["hat_bwd_line"],
+        cuda_ms(lambda: hat_bwd_line(x, cot, R)),
+        cuda_ms(lambda: hat_bwd_line_plain(x, cot, R)),
+        nbytes(x, cot, dline), HAT_N * (6 + 4 * rank),
+        cuda_ms(lambda: acc.index_add_(0, taps.reshape(-1), upd)),
+    )
+    # per point the taps and slopes (~8); per point and rank two fused
+    # multiply-adds; no library call computes it
+    report["hat_bwd_x"] = measured(
+        worst["hat_bwd_x"],
+        cuda_ms(lambda: hat_bwd_x(x, cot, line)),
+        cuda_ms(lambda: hat_bwd_x_plain(x, cot, line)),
+        nbytes(x, cot, line, dx), HAT_N * (8 + 4 * rank),
+    )
+    r8, r9, r10 = report["hat_fwd"], report["hat_bwd_line"], report["hat_bwd_x"]
+    print(f"G8 hat_fwd N={HAT_N} R={R} rank={rank}: kernel {r8['ms']:.4f} ms, plain "
+          f"{r8['plain_ms']:.4f} ms, bound {r8['bound_ms']:.4f} ms; embedding_bag on "
+          f"the precomputed taps (gather stage only) {r8['library_ms']:.4f} ms, "
+          f"max_abs_err {bag_err:.3g}")
+    print(f"G9 hat_bwd_line: kernel {r9['ms']:.4f} ms, plain {r9['plain_ms']:.4f} ms, "
+          f"bound {r9['bound_ms']:.4f} ms; index_add_ on the precomputed taps and "
+          f"updates (scatter stage only) {r9['library_ms']:.4f} ms")
+    print(f"G10 hat_bwd_x: kernel {r10['ms']:.4f} ms, plain {r10['plain_ms']:.4f} ms, "
+          f"bound {r10['bound_ms']:.4f} ms")
+    return report
+
+
+def phase_slice(dev, ds, kind="cp", timestamps=None):
     """The serving path through the user's entry points, launches counted."""
     cuda.reset_launches()
     t0 = time.perf_counter()
-    trainer = make_trainer(dev, kind)
+    trainer = make_trainer(dev, kind, timestamps=timestamps)
     state = refreshed_state(trainer)
     torch.cuda.synchronize()
     t_refresh = time.perf_counter() - t0
@@ -439,20 +621,31 @@ def phase_slice(dev, ds, kind="cp"):
 
 def plain_features(field):
     """The field's encoder through its plain twins, differentiable in its
-    tables: the CP levels on clamped points, or the hash encode."""
+    tables: the CP levels on clamped points, the hat route's per-axis
+    products (differentiable in the points too), or the hash encode."""
     enc = field.encoder
     if isinstance(enc, HashGridEncoder):
         return lambda u: PlainHash.apply(u, enc.table, enc.resolutions)
+    if enc.use_pallas:
+        def hat_levels(u):
+            u = u.clamp(0.0, 1.0)
+            return torch.cat(
+                [PlainHat.apply(u[:, 0], line[0]) * PlainHat.apply(u[:, 1], line[1])
+                 * PlainHat.apply(u[:, 2], line[2]) for line in enc.lines], dim=-1,
+            )
+        return hat_levels
     return lambda u: torch.cat(
         [PlainCPLevel.apply(u.clamp(0.0, 1.0), line, field.compute_dtype)
          for line in enc.lines], dim=-1,
     )
 
 
-def render_through_twins(trainer, o, d, occ, near, composite, budget=None):
+def render_through_twins(trainer, o, d, occ, near, composite, budget=None, times=None):
     """Rays rendered through the plain twins alone: march, the encoder
-    (:func:`plain_features`), composite (by ``composite``).  Returns colours
-    before the background blend, opacities and the packed samples."""
+    (:func:`plain_features`), composite (by ``composite``); a dynamic
+    field's samples at their rays' ``times`` (n_rays, 1), warped by its
+    deformation net.  Returns colours before the background blend,
+    opacities and the packed samples."""
     field = trainer.field
     n = o.shape[0]
     far = torch.full((n,), trainer.far_plane, device=o.device)
@@ -464,10 +657,15 @@ def render_through_twins(trainer, o, d, occ, near, composite, budget=None):
     ids = smp.ray_indices.long()
     t_mid = 0.5 * (smp.t_starts + smp.t_ends)
     dirs = d[ids]
-    u, selector = field.normalize(o[ids] + t_mid[:, None] * dirs)
-    density, embedding = field.density_from_features(
-        plain_features(field)(u), selector, True
-    )
+    positions = o[ids] + t_mid[:, None] * dirs
+    if times is None:
+        u, selector = field.normalize(positions)
+        feats = plain_features(field)(u)
+    else:
+        t = times[ids]
+        u, selector = field.normalize(positions + field.warp(positions, t))
+        feats = torch.cat([plain_features(field)(u), field.time_features(t)], dim=-1)
+    density, embedding = field.density_from_features(feats, selector, True)
     rgb = field.query_rgb(dirs, embedding)
     colors, opacities = composite(
         smp.t_starts, smp.t_ends, density[:, 0], rgb, smp.ray_indices, n,
@@ -505,6 +703,23 @@ class PlainCPLevel(torch.autograd.Function):
     def backward(ctx, g):
         u, lines = ctx.saved_tensors
         return None, cp_level_backward_plain(u, g.contiguous(), lines, ctx.compute_dtype), None
+
+
+class PlainHat(torch.autograd.Function):
+    """One axis of the hat route through its plain versions, forward and
+    both gradients."""
+
+    @staticmethod
+    def forward(ctx, x, line):
+        ctx.save_for_backward(x, line)
+        return hat_interp_matmul_plain(x, line)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, line = ctx.saved_tensors
+        g = g.contiguous()
+        dx = hat_bwd_x_plain(x, g, line) if ctx.needs_input_grad[0] else None
+        return dx, hat_bwd_line_plain(x, g, line.shape[0])
 
 
 class PlainHash(torch.autograd.Function):
@@ -554,34 +769,36 @@ def train_loss_plain(trainer, params, occ, batch, near_jitter):
     near = trainer.near_plane + near_jitter * trainer.render_step_size
     colors, opacities, smp = render_through_twins(
         trainer, o, d, occ, near, PlainComposite.apply, trainer.sample_budget,
+        batch["timestamps"] if trainer.timestamps is not None else None,
     )
     colors = colors + batch["color_bkgd"] * (1.0 - opacities)
     ray_ok = (torch.arange(n, device=o.device) < smp.first_incomplete_ray)[:, None]
     n_ok = ray_ok.sum().clamp_min(1)
     diff = (colors - batch["rgb"]).abs() * ray_ok
     loss = torch.where(diff < 1.0, 0.5 * diff**2, diff - 0.5).sum() / (n_ok * 3)
+    if trainer.field_reg_weight > 0:
+        loss = loss + trainer.field_reg_weight * field.param_regularizer()
     loss.backward()
     return float(loss.detach()), {k: p.grad for k, p in field.named_parameters()}
 
 
-def phase_train(dev, kind="cp"):
-    """The training path through the user's entry points, launches counted."""
+def phase_train(dev, kind="cp", ds=None):
+    """The training path through the user's entry points, launches counted
+    (on ``ds``, or a new train split of ``kind``'s scene)."""
     t0 = time.perf_counter()
-    ds = ProceduralSceneLoader(
-        split="train", n_train=6, width=256, height=256, num_rays=TRAIN_RAYS,
-        device=dev,
+    ds = train_loader(dev, kind) if ds is None else ds
+    _, rays, budget = TRAIN[kind]
+    trainer = make_trainer(
+        dev, kind, timestamps=getattr(ds, "timestamps", None), max_steps=TRAIN_STEPS,
+        sample_budget=budget,
     )
-    field = FIELDS[kind](torch.bfloat16)
-    trainer = NGPOccTrainer(
-        field=field, aabb=AABB, max_steps=TRAIN_STEPS, sample_budget=TRAIN_BUDGET,
-        device=dev,
-    )
+    field = trainer.field
     state = trainer.init_state()
     # batches drawn and staged on the card before the clock, as bench.py does
     batches = [ds[0] for _ in range(TRAIN_STEPS + 1)]
     torch.cuda.synchronize()
-    print(f"train {kind}: {len(ds)} views {ds.WIDTH}x{ds.HEIGHT}, {TRAIN_RAYS} rays, "
-          f"budget {TRAIN_BUDGET}, set-up {time.perf_counter() - t0:.2f} s")
+    print(f"train {kind}: {len(ds)} views {ds.WIDTH}x{ds.HEIGHT}, {rays} rays, "
+          f"budget {budget}, set-up {time.perf_counter() - t0:.2f} s")
 
     cuda.reset_launches()
     losses, n_samples, n_total, n_ok = [], 0, 0, []
@@ -603,7 +820,7 @@ def phase_train(dev, kind="cp"):
     losses = torch.stack(losses).cpu()
     require(bool(torch.isfinite(losses).all()), "train: non-finite loss")
     first, last = float(losses[:50].mean()), float(losses[-50:].mean())
-    masked = 1.0 - float(torch.stack(n_ok).sum()) / (TRAIN_RAYS * TRAIN_STEPS)
+    masked = 1.0 - float(torch.stack(n_ok).sum()) / (rays * TRAIN_STEPS)
     rate = ""
     if kind == "cp":  # utils/flops.py counts the CP field's matmuls
         refreshes = -(-TRAIN_STEPS // trainer.update_interval)
@@ -645,39 +862,84 @@ def relative_fro(grads, ref):
             for k, g in grads.items()}
 
 
+@contextlib.contextmanager
+def hat_kernels_alone():
+    """Inside: the differentiable composite runs its plain versions in place
+    of G3 and G5, and PyTorch's own scatter-adds (``index_add_``) run in a
+    fixed order, so that a kernel train step and the plain step hand the hat
+    kernels and their plain versions the same cotangents, bit for bit."""
+    saved = sorted_segments._composite_forward, sorted_segments.composite_sorted_backward
+    sorted_segments._composite_forward = sorted_segments.composite_sorted_plain
+    sorted_segments.composite_sorted_backward = sorted_segments.composite_sorted_backward_plain
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        yield
+    finally:
+        torch.use_deterministic_algorithms(False)
+        sorted_segments._composite_forward, sorted_segments.composite_sorted_backward = saved
+
+
+def step_readings(what, step, plain, limit=None):
+    """``STEP_REPEATS`` runs of ``step() -> (loss, grads)`` against the
+    ``plain`` step's: prints the worst relative Frobenius per leaf, the
+    range of each run's worst leaf and the worst relative loss difference;
+    returns the check (what, worst leaf, limit, loss difference)."""
+    loss_plain, grads_plain = plain
+    worst, per_run, loss_rel = {}, [], 0.0
+    for _ in range(STEP_REPEATS):
+        loss, grads = step()
+        loss_rel = max(loss_rel, abs(loss - loss_plain) / abs(loss_plain))
+        rel = relative_fro(grads, grads_plain)
+        per_run.append(max(rel.values()))
+        for k, v in rel.items():
+            worst[k] = max(worst.get(k, 0.0), v)
+    bound = f", limit {limit:g}" if limit is not None else ""
+    print(f"{what} over {STEP_REPEATS} runs: loss relative <= {loss_rel:.3g}; worst "
+          f"leaf per run {min(per_run):.3g} to {max(per_run):.3g}{bound}; worst "
+          f"relative Frobenius per leaf: "
+          + ", ".join(f"{k} {v:.3g}" for k, v in worst.items()))
+    return what, max(per_run), limit, loss_rel
+
+
 def phase_train_twins(trainer, state, batch, kind="cp"):
     """One train step through the kernels against the same step through the
     plain twins: the same state, batch and near-plane jitter, for the
     trained bf16 field and for the same parameters in an f32 field.  Each
     kernel step runs ``STEP_REPEATS`` times, since atomics reorder its sums
-    from run to run."""
+    from run to run.  For the hat route's f32 field also the plain step
+    against itself, and the kernel step under :func:`hat_kernels_alone`
+    against the plain step there (held to ``HAT_ALONE_STEP_FRO``)."""
     require(state.step % trainer.update_interval != 0, "phase 5 step refreshes")
     gen = torch.Generator(device=trainer.device).manual_seed(5)
-    near = torch.rand(TRAIN_RAYS, generator=gen, device=trainer.device)
-    f32 = NGPOccTrainer(
-        field=FIELDS[kind](torch.float32), aabb=AABB,
-        max_steps=TRAIN_STEPS, sample_budget=TRAIN_BUDGET, device=trainer.device,
+    near = torch.rand(batch["rays_o"].shape[0], generator=gen, device=trainer.device)
+    f32 = make_trainer(
+        trainer.device, kind, torch.float32, timestamps=trainer.timestamps,
+        max_steps=TRAIN_STEPS, sample_budget=trainer.sample_budget,
     )
-    plain = {}
-    for mode, tr, limit in (("f32", f32, F32_STEP_FRO), ("bf16", trainer, BF16_STEP_FRO)):
-        loss_plain, grads_plain = train_loss_plain(
-            tr, state.params, state.occ_state, batch, near
-        )
-        plain[mode] = grads_plain
-        worst, rels = {}, []
-        for _ in range(STEP_REPEATS):
-            loss, grads = kernel_step_grads(tr, state, batch, near)
-            rels.append(abs(loss - loss_plain) / abs(loss_plain))
-            for k, v in relative_fro(grads, grads_plain).items():
-                worst[k] = max(worst.get(k, 0.0), v)
-        readings = sorted(worst.values())
-        print(f"train step {kind} {mode}, kernels vs twins over {STEP_REPEATS} runs: "
-              f"loss {loss:.7g} vs {loss_plain:.7g} (relative <= {max(rels):.3g}); "
-              f"worst relative Frobenius per leaf (limit {limit:g}): "
-              + ", ".join(f"{k} {v:.3g}" for k, v in worst.items()))
-        require(readings[-1] <= limit, f"train step {mode}: a gradient leaf off by "
-                f"{readings[-1]} > {limit}")
-        require(max(rels) <= 1e-5, f"train step {mode}: losses differ by {max(rels)}")
+    hat = "hat_fwd" in ENCODER_KERNELS[kind]
+    plain, checks = {}, []
+    for mode, tr, limit in (("f32", f32, F32_HAT_STEP_FRO if hat else F32_STEP_FRO),
+                            ("bf16", trainer, BF16_STEP_FRO)):
+        def plain_step():
+            return train_loss_plain(tr, state.params, state.occ_state, batch, near)
+
+        def kernel_step():
+            return kernel_step_grads(tr, state, batch, near)
+
+        what = f"train step {kind} {mode}"
+        ref = plain_step()
+        plain[mode] = ref[1]
+        checks.append(step_readings(f"{what}, kernels vs twins", kernel_step, ref, limit))
+        if hat and mode == "f32":
+            step_readings(f"{what}, twins vs twins", plain_step, ref)
+            with hat_kernels_alone():
+                checks.append(step_readings(
+                    f"{what}, hat kernels vs twins (composite on its twins, "
+                    "fixed-order scatter-adds)", kernel_step, plain_step(), HAT_ALONE_STEP_FRO,
+                ))
+    for what, reading, limit, loss_rel in checks:
+        require(reading <= limit, f"{what}: a gradient leaf off by {reading} > {limit}")
+        require(loss_rel <= 1e-5, f"{what}: losses differ by {loss_rel}")
     contract = relative_fro(plain["f32"], plain["bf16"])
     print(f"train step {kind}, twins f32 field vs bf16 field (what lost bf16 "
           "roundings read): "
@@ -733,6 +995,7 @@ def main():
     report = phase_kernels(dev, trainer, refreshed_state(trainer), ds)
     del trainer
     report.update(phase_hash_kernels(dev))
+    report.update(phase_hat_kernels(dev))
     trainer, state, untrained_psnr = phase_slice(dev, ds)
 
     with torch.inference_mode():
@@ -752,8 +1015,25 @@ def main():
     trainer, state, batch, ngp_launches = phase_train(dev, "ngp")
     phase_train_twins(trainer, state, batch, "ngp")
     phase_serve_trained(trainer, state, ds, untrained_psnr, "ngp")
-    # each kernel's launches over the two training runs (phases 4 and 8)
-    launches = {k: v + ngp_launches[k] for k, v in launches.items()}
+    del trainer, state
+
+    # 11-14: the TiNeuVox dynamic field on the moving scene
+    t0 = time.perf_counter()
+    dyn_train = train_loader(dev, "tineuvox")
+    dyn_test = ProceduralDynamicSceneLoader(split="test", device=dev)
+    torch.cuda.synchronize()
+    print(f"dynamic scene: {len(dyn_train)} train and {len(dyn_test)} test views "
+          f"{dyn_test.WIDTH}x{dyn_test.HEIGHT}, test times "
+          f"{[round(float(t), 4) for t in dyn_test.view_times]}, ground truth "
+          f"rendered in {time.perf_counter() - t0:.2f} s")
+    _, _, untrained_psnr = phase_slice(
+        dev, dyn_test, "tineuvox", timestamps=dyn_train.timestamps
+    )
+    trainer, state, batch, tnv_launches = phase_train(dev, "tineuvox", dyn_train)
+    phase_train_twins(trainer, state, batch, "tineuvox")
+    phase_serve_trained(trainer, state, dyn_test, untrained_psnr, "tineuvox")
+    # each kernel's launches over the three training runs (phases 4, 8, 12)
+    launches = {k: v + ngp_launches[k] + tnv_launches[k] for k, v in launches.items()}
 
     sources = {
         "cp_level_fwd": ("nerfacc_tpu_torch/csrc/cp_level.cu",
@@ -769,6 +1049,12 @@ def main():
                      "nerfacc_tpu/ops/hash_vmem.py:133"),
         "hash_bwd": ("nerfacc_tpu_torch/csrc/hash_encode.cu",
                      "nerfacc_tpu/models/encoders.py:94"),
+        "hat_fwd": ("nerfacc_tpu_torch/csrc/hat_matmul.cu",
+                    "nerfacc_tpu/ops/hat_matmul.py:39"),
+        "hat_bwd_line": ("nerfacc_tpu_torch/csrc/hat_matmul.cu",
+                         "nerfacc_tpu/ops/hat_matmul.py:49"),
+        "hat_bwd_x": ("nerfacc_tpu_torch/csrc/hat_matmul.cu",
+                      "nerfacc_tpu/ops/hat_matmul.py:68"),
     }
     kernels = []
     for name, (src, replaces) in sources.items():

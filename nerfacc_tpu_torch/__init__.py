@@ -1,6 +1,7 @@
 """nerfacc_tpu_torch: the occupancy-grid render and train paths of
-nerfacc_tpu, with its CP and hash-grid (Instant-NGP) radiance fields, ported
-to PyTorch and hand-written CUDA kernels for NVIDIA Hopper.
+nerfacc_tpu, with its CP, hash-grid (Instant-NGP) and TiNeuVox (dynamic)
+radiance fields, ported to PyTorch and hand-written CUDA kernels for NVIDIA
+Hopper.
 
 Importing the package builds nothing and needs no GPU: the kernels compile
 at their first launch (see :mod:`nerfacc_tpu_torch.cuda`).  Every kernel
@@ -12,8 +13,9 @@ from . import cuda
 from .estimators.occ_grid import OccGridState, init_occ_grid, sampling, update_occ_grid
 from .grid import march, march_plain, ray_aabb_intersect, traverse_grids_padded
 from .models.cp_field import CPGridEncoder, CPRadianceField
-from .models.encoders import HashGridEncoder
+from .models.encoders import HashGridEncoder, SinusoidalEncoder
 from .models.ngp import NGPRadianceField
+from .models.tineuvox import TiNeuVoxRadianceField
 from .trainers.ngp_occ import NGPOccTrainer, TrainState
 from .utils.rendering import (
     CompactSamples,
@@ -24,8 +26,8 @@ from .utils.rendering import (
 
 __all__ = [
     "CPGridEncoder", "CPRadianceField", "CompactSamples", "HashGridEncoder",
-    "NGPOccTrainer", "NGPRadianceField",
-    "OccGridState", "TrainState", "compact_samples", "cuda", "init_occ_grid",
+    "NGPOccTrainer", "NGPRadianceField", "SinusoidalEncoder",
+    "TiNeuVoxRadianceField", "OccGridState", "TrainState", "compact_samples", "cuda", "init_occ_grid",
     "march", "march_plain", "ray_aabb_intersect", "render_image_with_occgrid",
     "render_rays_with_occgrid", "sampling", "traverse_grids_padded",
     "update_occ_grid",

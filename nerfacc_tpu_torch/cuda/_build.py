@@ -52,6 +52,12 @@ _SIGNATURES = {
     "hash_fwd": [_P] * 4 + [ctypes.c_int64, _I, _I, _P],
     # (x, cot, res, g_table, n, L, log2T, stream)
     "hash_bwd": [_P] * 4 + [ctypes.c_int64, _I, _I, _P],
+    # (x, line, out, n, R, rank, stream)
+    "hat_fwd": [_P] * 3 + [ctypes.c_int64, _I, _I, _P],
+    # (x, g, sums, dline, n, R, rank, stream)
+    "hat_bwd_line": [_P] * 4 + [ctypes.c_int64, _I, _I, _P],
+    # (x, g, line, dx, n, R, rank, stream)
+    "hat_bwd_x": [_P] * 4 + [ctypes.c_int64, _I, _I, _P],
 }
 
 _lib: Optional[ctypes.CDLL] = None

@@ -1,14 +1,16 @@
-"""Procedural benchmark scene: Gaussian density blobs rendered analytically
-to ground-truth images.
+"""Procedural benchmark scenes: Gaussian density blobs rendered analytically
+to ground-truth images, still or moving.
 
 PyTorch counterpart of nerfacc_tpu/data/procedural.py's
-``ProceduralSceneLoader``.  The scene constants come from the same
-``np.random.default_rng(1234)`` draws and the camera rays from the same
-numpy arithmetic, so both packages build the identical scene and rays; the
-ground truth is integrated in PyTorch on the loader's device (no disk
-cache).  Ported: the test split and the train split's random ray batches,
-whose pixels come from the same ``np.random.default_rng(seed)`` call
-sequence as the JAX loader's, so both loaders yield identical batches.
+``ProceduralSceneLoader`` and ``ProceduralDynamicSceneLoader``.  The scene
+constants come from the same ``np.random.default_rng(1234)`` draws (the
+motion from ``default_rng(4321)``) and the camera rays from the same numpy
+arithmetic, so both packages build the identical scene and rays; the ground
+truth is integrated in PyTorch on the loader's device (no disk cache).
+Ported: the test split and the train split's random ray batches, whose
+pixels come from the same ``np.random.default_rng(seed)`` call sequence as
+the JAX loader's, so both loaders yield identical batches.  Not ported: the
+other procedural scenes (the local-motion dynamic scene among them).
 """
 from __future__ import annotations
 
@@ -108,29 +110,33 @@ class ProceduralSceneLoader:
         self.images = self._render_gt_images()
 
     # -- analytic field -----------------------------------------------------
-    def query_density(self, x: torch.Tensor) -> torch.Tensor:
-        """sigma(x): sum of Gaussian blobs. (N, 3) -> (N, 1)."""
-        return self._blob_weights(x).sum(dim=-1, keepdim=True)
+    def _centers(self, view: int) -> torch.Tensor:
+        """Blob centres (B, 3) as view ``view`` sees them."""
+        return self.blob_centers
 
-    def query_rgb(self, x: torch.Tensor) -> torch.Tensor:
-        w = self._blob_weights(x)
+    def query_density(self, x: torch.Tensor, centers: torch.Tensor) -> torch.Tensor:
+        """sigma(x): sum of Gaussian blobs. (N, 3) -> (N, 1)."""
+        return self._blob_weights(x, centers).sum(dim=-1, keepdim=True)
+
+    def query_rgb(self, x: torch.Tensor, centers: torch.Tensor) -> torch.Tensor:
+        w = self._blob_weights(x, centers)
         w = w / w.sum(dim=-1, keepdim=True).clamp_min(1e-8)
         return w @ self.blob_colors
 
-    def _blob_weights(self, x: torch.Tensor) -> torch.Tensor:
-        d2 = ((x[:, None, :] - self.blob_centers[None]) ** 2).sum(dim=-1)  # (N, B)
+    def _blob_weights(self, x: torch.Tensor, centers: torch.Tensor) -> torch.Tensor:
+        d2 = ((x[:, None, :] - centers[None]) ** 2).sum(dim=-1)  # (N, B)
         return self.blob_density * torch.exp(-0.5 * d2 / self.blob_scales**2)
 
     # -- ground-truth rendering --------------------------------------------
-    def _render_rays_gt(self, rays_o: torch.Tensor, rays_d: torch.Tensor):
+    def _render_rays_gt(self, rays_o: torch.Tensor, rays_d: torch.Tensor, centers):
         n = self.GT_SAMPLES
         t = torch.linspace(self.NEAR, self.FAR, n + 1, device=self.device)
         t0, t1 = t[:-1], t[1:]
         tm = 0.5 * (t0 + t1)
         pos = rays_o[:, None, :] + tm[None, :, None] * rays_d[:, None, :]
         flat = pos.reshape(-1, 3)
-        sigma = self.query_density(flat).reshape(pos.shape[:2])
-        rgb = self.query_rgb(flat).reshape(pos.shape[:2] + (3,))
+        sigma = self.query_density(flat, centers).reshape(pos.shape[:2])
+        rgb = self.query_rgb(flat, centers).reshape(pos.shape[:2] + (3,))
         sdt = sigma * (t1 - t0)[None, :]
         alpha = 1.0 - torch.exp(-sdt)
         trans = torch.exp(-torch.cumsum(sdt, dim=-1) + sdt)
@@ -146,10 +152,11 @@ class ProceduralSceneLoader:
         imgs = []
         for i in range(len(self.camtoworlds)):
             o, d = self._rays_for_pixels(np.full_like(x, i), x, y)
+            centers = self._centers(i)
             rgba = []
             chunk = 4096
             for s in range(0, len(x), chunk):
-                c, a = self._render_rays_gt(o[s : s + chunk], d[s : s + chunk])
+                c, a = self._render_rays_gt(o[s : s + chunk], d[s : s + chunk], centers)
                 rgba.append(torch.cat([c, a], dim=-1))
             rgba = torch.cat(rgba).reshape(self.HEIGHT, self.WIDTH, 4)
             imgs.append((rgba * 255).clamp(0, 255).to(torch.uint8))
@@ -209,7 +216,9 @@ class ProceduralSceneLoader:
     def __getitem__(self, index: int):
         """A train ray batch or one full view: rays and the ground truth
         alpha-blended over the item's background."""
-        image_id, x, y, color_bkgd = self._select_pixels(index)
+        return self._item(*self._select_pixels(index))
+
+    def _item(self, image_id, x, y, color_bkgd):
         pick = tuple(torch.as_tensor(a, device=self.device) for a in (image_id, y, x))
         rgba = self.images[pick].to(torch.float32) / 255.0
         origins, viewdirs = self._rays_for_pixels(image_id, x, y)
@@ -221,3 +230,54 @@ class ProceduralSceneLoader:
             "rays_d": viewdirs,
             "color_bkgd": color_bkgd,
         }
+
+
+class ProceduralDynamicSceneLoader(ProceduralSceneLoader):
+    """The blob scene in motion (the D-NeRF role): each blob oscillates
+    along a fixed direction, ``c(t) = c + motion_amp sin(2 pi t + phase) dir``,
+    and view ``i`` is captured at ``view_times[i] = linspace(0, 1, n)[i]``
+    (one frame per time).  Every item carries the per-ray ``timestamps``
+    (n_rays, 1); ``timestamps`` (n_views, 1) holds all frame times, for the
+    trainer's occupancy refresh.  Takes the arguments of
+    :class:`ProceduralSceneLoader`, and ``motion_amp``.
+    """
+
+    def __init__(
+        self,
+        split: str = "train",
+        n_train: int = 24,
+        n_test: int = 4,
+        width: int = 320,
+        height: int = 320,
+        num_rays: Optional[int] = None,
+        color_bkgd_aug: str = "white",
+        seed: int = 42,
+        motion_amp: float = 0.25,
+        device: Union[str, torch.device] = "cuda",
+    ):
+        # the motion exists before the base constructor renders the ground
+        # truth; its draws are the JAX loader's, normals then uniforms
+        mrng = np.random.default_rng(4321)  # fixed across seeds, like the scene
+        dirs = mrng.normal(size=(self.NUM_BLOBS, 3))
+        dirs /= np.linalg.norm(dirs, axis=-1, keepdims=True)
+        phase = mrng.uniform(0.0, 2 * np.pi, (self.NUM_BLOBS,))
+        self.motion_dirs = torch.tensor(dirs, dtype=torch.float32, device=device)
+        self.motion_phase = torch.tensor(phase, dtype=torch.float32, device=device)
+        self.motion_amp = float(motion_amp)
+        n = n_train if split == "train" else n_test
+        self.view_times = np.linspace(0.0, 1.0, max(n, 2))[:n].astype(np.float32)
+        super().__init__(split, n_train, n_test, width, height, num_rays,
+                         color_bkgd_aug, seed, device)
+        self.timestamps = torch.tensor(self.view_times[:, None], device=self.device)
+
+    def _centers(self, view: int) -> torch.Tensor:
+        t = torch.tensor(self.view_times[view], device=self.device)
+        osc = torch.sin(2 * np.pi * t + self.motion_phase)[:, None]
+        return self.blob_centers + self.motion_amp * osc * self.motion_dirs
+
+    def _item(self, image_id, x, y, color_bkgd):
+        item = super()._item(image_id, x, y, color_bkgd)
+        item["timestamps"] = torch.tensor(
+            self.view_times[image_id][:, None], device=self.device
+        )
+        return item

@@ -85,14 +85,18 @@ def _eval_cells(
     jitter: torch.Tensor,
     occ_eval_fn: Callable,
     eval_chunk: int = 2**21,
+    cell_data: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """Occupancy at one jittered point inside each cell.
 
     Args:
         cell_ids: (levels, n) flat ids within a level.
         jitter: (levels, n, 3) uniform [0, 1) offsets inside the cells.
-        occ_eval_fn: (N, 3) world points -> (N,) or (N, 1) occupancy.
+        occ_eval_fn: (N, 3) world points -> (N,) or (N, 1) occupancy; given
+            ``cell_data``, it also takes those points' rows of it.
         eval_chunk: most points per ``occ_eval_fn`` call.
+        cell_data: (levels * n, ...) per-cell inputs of ``occ_eval_fn`` (a
+            time-dependent field's frame per cell), sliced beside the points.
 
     Returns:
         (levels, n) occupancy.
@@ -104,12 +108,12 @@ def _eval_cells(
     lo = state.aabbs[:, None, :3]
     hi = state.aabbs[:, None, 3:]
     x_world = (lo + x * (hi - lo)).reshape(-1, 3)
-    occ = torch.cat(
-        [
-            occ_eval_fn(x_world[s : s + eval_chunk]).reshape(-1)
-            for s in range(0, x_world.shape[0], eval_chunk)
-        ]
-    )
+    chunks = [slice(s, s + eval_chunk) for s in range(0, x_world.shape[0], eval_chunk)]
+    if cell_data is None:
+        occ = [occ_eval_fn(x_world[c]) for c in chunks]
+    else:
+        occ = [occ_eval_fn(x_world[c], cell_data[c]) for c in chunks]
+    occ = torch.cat([o.reshape(-1) for o in occ])
     return occ.reshape(levels, n)
 
 
@@ -120,6 +124,7 @@ def update_occ_grid(
     occ_thre: float = 1e-2,
     ema_decay: float = 0.95,
     eval_chunk: int = 2**21,
+    cell_data: Optional[torch.Tensor] = None,
 ) -> OccGridState:
     """One dense EMA occupancy update, then binarisation.
 
@@ -130,10 +135,12 @@ def update_occ_grid(
     Args:
         jitter: (levels, cells_per_lvl, 3) uniform offsets (the tests feed
             the JAX package's own draw).
+        cell_data: (levels * cells_per_lvl, ...) per-cell inputs handed to
+            ``occ_eval_fn`` beside the points (see :func:`_eval_cells`).
     """
     levels, cells = state.levels, state.cells_per_lvl
     all_ids = torch.arange(cells, device=state.occs.device).expand(levels, cells)
-    occ = _eval_cells(state, all_ids, jitter, occ_eval_fn, eval_chunk).reshape(-1)
+    occ = _eval_cells(state, all_ids, jitter, occ_eval_fn, eval_chunk, cell_data).reshape(-1)
     visible = state.occs >= 0.0
     occs = torch.where(
         visible, torch.maximum(state.occs * ema_decay, occ), state.occs

@@ -4,18 +4,22 @@ nerfacc_tpu/models/cp_field.py).
 Per resolution level, each axis has a line table (R, rank); a point's level
 feature is the elementwise product of the three axes' linearly interpolated
 rows, and the levels are concatenated.  Each level runs through
-:func:`~nerfacc_tpu_torch.ops.cp_level.cp_level_encode` (kernel G1 on the
-card).  Only the line levels are ported; tri-plane levels, tensor
-parallelism and the TPU layout options are not.
+:func:`~nerfacc_tpu_torch.ops.cp_level.cp_level_encode` (kernels G1/G4 on
+the card, no coordinate gradient), or with ``use_pallas=True`` through three
+per-axis :func:`~nerfacc_tpu_torch.ops.hat_matmul.hat_interp_matmul` calls
+(kernels G8-G10, with a coordinate gradient).  Only the line levels are
+ported; tri-plane levels, tensor parallelism and the TPU layout options are
+not.
 """
 from __future__ import annotations
 
-from typing import Sequence
+from typing import Optional, Sequence
 
 import torch
 from torch import nn
 
 from ..ops.cp_level import cp_level_encode
+from ..ops.hat_matmul import hat_interp_matmul
 from .ngp import MLPField
 
 
@@ -28,6 +32,11 @@ class CPGridEncoder(nn.Module):
         compute_dtype: ``torch.bfloat16`` rounds weights and table values to
             bf16 with f32 sums (the TPU kernel's contract); ``torch.float32``
             is exact f32.
+        use_pallas: the JAX encoder's name for its per-axis hat-matmul
+            route: each level is ``(a_x * a_y) * a_z`` with
+            ``a = hat_interp_matmul(u[:, axis], line[axis])``, always bf16
+            operands with f32 sums, differentiable in ``u`` too.  False (the
+            default) runs the fused CP level, which gives ``u`` no gradient.
     """
 
     def __init__(
@@ -35,11 +44,13 @@ class CPGridEncoder(nn.Module):
         resolutions: Sequence[int] = (32, 128, 512),
         ranks: Sequence[int] = (32, 32, 32),
         compute_dtype=torch.bfloat16,
+        use_pallas: bool = False,
     ):
         super().__init__()
         self.resolutions = tuple(int(r) for r in resolutions)
         self.ranks = tuple(int(r) for r in ranks)
         self.compute_dtype = compute_dtype
+        self.use_pallas = use_pallas
         self.lines = nn.ParameterList(
             [
                 nn.Parameter(torch.ones(3, R, rank))
@@ -64,10 +75,31 @@ class CPGridEncoder(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         """(N, 3) points in [0, 1]^3 (clamped) -> (N, sum(ranks)) features."""
         x = x.clamp(0.0, 1.0)
-        return torch.cat(
-            [cp_level_encode(x, line, self.compute_dtype) for line in self.lines],
-            dim=-1,
-        )
+        if not self.use_pallas:
+            return torch.cat(
+                [cp_level_encode(x, line, self.compute_dtype) for line in self.lines],
+                dim=-1,
+            )
+        feats = []
+        for line in self.lines:
+            # JAX's product order, so that autograd's cotangents g * other
+            # are the same f32 products before the kernels round them
+            prod = hat_interp_matmul(x[:, 0], line[0])
+            for axis in (1, 2):
+                prod = prod * hat_interp_matmul(x[:, axis], line[axis])
+            feats.append(prod)
+        return torch.cat(feats, dim=-1)
+
+    def param_regularizer(self, lines: Optional[Sequence[torch.Tensor]] = None):
+        """Total variation of the line tables: the mean squared difference of
+        adjacent rows, summed over levels (the JAX encoder's line terms).
+        ``lines`` replaces the module's own tables (the trainer passes its
+        parameter tensors)."""
+        terms = []
+        for line in self.lines if lines is None else lines:
+            d = line[:, 1:, :] - line[:, :-1, :]
+            terms.append((d * d).mean())
+        return sum(terms)
 
 
 class CPRadianceField(MLPField):

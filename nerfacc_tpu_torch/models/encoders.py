@@ -1,6 +1,7 @@
-"""Input encoders: the multiresolution hash grid and the view-direction
-encoding (PyTorch counterpart of nerfacc_tpu/models/encoders.py; the
-sinusoidal encoder is not ported yet)."""
+"""Input encoders: the multiresolution hash grid, the sinusoidal
+(positional) encoding and the view-direction encoding (PyTorch counterpart
+of nerfacc_tpu/models/encoders.py; the sinusoidal encoder without BARF's
+coarse-to-fine window)."""
 from __future__ import annotations
 
 import math
@@ -79,6 +80,46 @@ class HashGridEncoder(nn.Module):
         (..., L*F) features."""
         feats = hash_encode(x.reshape(-1, 3), self.table, self.resolutions)
         return feats.reshape(x.shape[:-1] + (self.output_dim,))
+
+
+class SinusoidalEncoder(nn.Module):
+    """Positional encoding ``[x, sin(2^k x), cos(2^k x)]`` for ``k`` in
+    ``[min_deg, max_deg)``, in the JAX package's layout: the scaled inputs
+    degree-major (``xb[..., k * x_dim + j] = 2^k x_j``), then
+    ``sin(cat([xb, xb + pi/2]))`` (the cosines as shifted sines), with the
+    identity first.
+
+    Args:
+        x_dim: input width.
+        min_deg / max_deg: the frequency range.
+        use_identity: put ``x`` itself first.
+    """
+
+    def __init__(self, x_dim: int, min_deg: int = 0, max_deg: int = 10,
+                 use_identity: bool = True):
+        super().__init__()
+        self.x_dim, self.min_deg, self.max_deg = x_dim, min_deg, max_deg
+        self.use_identity = use_identity
+        # a buffer, so that it moves with the module and no call copies it
+        # from the host
+        self.register_buffer(
+            "scales", torch.tensor([2.0**i for i in range(min_deg, max_deg)]),
+            persistent=False,
+        )
+
+    @property
+    def latent_dim(self) -> int:
+        return (int(self.use_identity) + (self.max_deg - self.min_deg) * 2) * self.x_dim
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        """(..., x_dim) -> (..., latent_dim)."""
+        if self.max_deg == self.min_deg:
+            return x
+        xb = (x[..., None, :] * self.scales[:, None]).reshape(x.shape[:-1] + (-1,))
+        latent = torch.sin(torch.cat([xb, xb + 0.5 * math.pi], dim=-1))
+        if self.use_identity:
+            latent = torch.cat([x, latent], dim=-1)
+        return latent
 
 
 def spherical_harmonics_16(d: torch.Tensor) -> torch.Tensor:

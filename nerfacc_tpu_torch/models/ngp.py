@@ -125,12 +125,15 @@ class MLPField(nn.Module):
         encoder: an ``nn.Module`` with ``output_dim``, ``init(generator)``
             and ``forward(u) -> (N, output_dim)``.
         compute_dtype: the MLPs' operand dtype (f32 results).
+        base_extra_dim: inputs of the base MLP after the encoder's features
+            (a time embedding).
     """
 
     HIDDEN_DIM = 64
     GEO_FEAT_DIM = 15
 
-    def __init__(self, aabb, unbounded: bool, encoder: nn.Module, compute_dtype):
+    def __init__(self, aabb, unbounded: bool, encoder: nn.Module, compute_dtype,
+                 base_extra_dim: int = 0):
         super().__init__()
         self.register_buffer(
             "aabb", torch.as_tensor(aabb, dtype=torch.float32), persistent=False
@@ -139,7 +142,7 @@ class MLPField(nn.Module):
         self.compute_dtype = compute_dtype
         self.encoder = encoder
         hidden, geo = self.HIDDEN_DIM, self.GEO_FEAT_DIM
-        self.base_dims = [encoder.output_dim, hidden, 1 + geo]
+        self.base_dims = [encoder.output_dim + base_extra_dim, hidden, 1 + geo]
         self.head_dims = [16 + geo, hidden, hidden, 3]
         self.mlp_base = _weights(self.base_dims)
         self.mlp_head = _weights(self.head_dims)

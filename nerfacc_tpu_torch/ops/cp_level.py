@@ -15,7 +15,8 @@ line tables' gradient
     dL_a = w_a^T @ (g * prod_{b != a} (w_b @ L_b))
 
 and none for ``u``: sample positions carry no gradient, the contract of the
-TPU kernel (nerfacc_tpu/ops/cp_level.py).
+TPU kernel (nerfacc_tpu/ops/cp_level.py).  A field whose coordinates need
+one encodes through :mod:`~nerfacc_tpu_torch.ops.hat_matmul` instead.
 
 ``compute_dtype=torch.bfloat16`` follows the TPU kernels (``_fwd_kernel``,
 ``_bwd_kernel``): weights and table values are rounded to bf16, and in the
@@ -172,7 +173,15 @@ def cp_level_encode(
     """One CP level, differentiable in ``lines``: kernels G1/G4 for CUDA
     tensors, the twins :func:`cp_level_encode_plain` /
     :func:`cp_level_backward_plain` for CPU tensors.  Same contract as the
-    twins; ``u`` gets no gradient.  Any other device, or a mix, raises."""
+    twins.  ``u`` gets no gradient, so a ``u`` that requires one raises
+    rather than training on a silent zero.  Any other device, or a mix,
+    raises."""
+    if u.requires_grad:
+        raise ValueError(
+            "cp_level_encode gives no position gradient; detach u, or encode "
+            "through CPGridEncoder(use_pallas=True), whose per-axis hat "
+            "interpolation (ops/hat_matmul.py) returns one"
+        )
     return _CPLevel.apply(u, lines, compute_dtype)
 
 

@@ -4,12 +4,15 @@ PyTorch counterpart of nerfacc_tpu/trainers/ngp_occ.py.  One train step runs
 ``_step_body``'s stages in order: a dense occupancy refresh every
 ``update_interval`` steps (with the parameters from before the update),
 stratified marching cut at the sample budget, the differentiable render, a
-smooth-L1 loss over the rays the budget left whole, backward, and Adam.
-Ported beside it: the learning-rate schedule, ``train_steps`` and the
-PSNR/SSIM evaluation.  Not ported (see ROADMAP.md): the dynamic budget
-buckets, update clipping, table learning-rate multipliers, the field and
-distortion regularisers, time-dependent fields, the pooled and windowed
-traversals and ``train_steps_sampled``.
+smooth-L1 loss over the rays the budget left whole (plus the field's
+regulariser when ``field_reg_weight`` is set), backward, and Adam.
+Time-dependent fields (given ``timestamps``) read each sample's ray time in
+training, one random frame time per cell in the refresh, and the view's time
+in evaluation.  Ported beside it: the learning-rate schedule,
+``train_steps`` and the PSNR/SSIM evaluation.  Not ported (see ROADMAP.md):
+the dynamic budget buckets, update clipping, table learning-rate
+multipliers, the distortion regulariser, the pooled and windowed traversals
+and ``train_steps_sampled``.
 """
 from __future__ import annotations
 
@@ -29,12 +32,11 @@ from ..utils.rendering import (
 )
 
 
-# The JAX trainer's optimizer defaults (Adam with coupled L2 decay, its
-# learning rate and warmup).
+# The JAX trainer's learning rate, warmup and Adam epsilon, which every
+# configuration of the port keeps; the weight decay is a field.
 LR = 1e-2
 WARMUP_STEPS = 100
 ADAM_EPS = 1e-15
-WEIGHT_DECAY = 1e-6
 
 
 def make_lr_schedule(max_steps: int) -> Callable[[int], float]:
@@ -77,15 +79,24 @@ class NGPOccTrainer:
     Args:
         field: an ``nn.Module`` with ``init(generator)``,
             ``forward(positions, dirs) -> (rgb, density)`` and
-            ``query_density(x)``; moved to ``device``.
+            ``query_density(x)``; moved to ``device``.  A time-dependent
+            field has ``forward(positions, t, dirs)``,
+            ``query_opacity(x, timestamps, step_size, frame_idx)`` and
+            ``param_regularizer(params)``.
         aabb: scene roi (6 floats).
         max_steps: length of the learning-rate schedule.
+        weight_decay: Adam's coupled L2 decay.
         grid_resolution / grid_nlvl: occupancy grid shape.
         render_step_size, near_plane, far_plane, cone_angle: marching.
         occ_thre / ema_decay / update_interval: occupancy refresh.
         sample_budget: samples rendered per train step at most; the rays the
             cut leaves incomplete are masked out of the loss.
         stratified: jitter each ray's near plane by up to one step.
+        timestamps: (n_frames, 1) frame times, the refresh's draw; given,
+            the field is time-dependent and every batch carries
+            ``timestamps`` (n_rays, 1).
+        field_reg_weight: weight of ``field.param_regularizer`` in the loss
+            (0: off).
         seed: seeds the parameters and every step's noise.
         device: where the state lives and everything runs: the card
             unless the caller asks for another (the tests pass "cpu").
@@ -105,6 +116,9 @@ class NGPOccTrainer:
     update_interval: int = 16
     sample_budget: int = 2**18
     stratified: bool = True
+    weight_decay: float = 1e-6
+    timestamps: Any = None
+    field_reg_weight: float = 0.0
     seed: int = 42
     device: Union[str, torch.device] = "cuda"
 
@@ -116,6 +130,11 @@ class NGPOccTrainer:
         torch.backends.cudnn.allow_tf32 = False
         self.field = self.field.to(self.device)
         self.schedule = make_lr_schedule(self.max_steps)
+        if self.timestamps is not None:
+            ts = self.timestamps
+            if not isinstance(ts, torch.Tensor):
+                ts = torch.tensor(np.asarray(ts, np.float32))
+            self.timestamps = ts.to(self.device, torch.float32).reshape(-1, 1)
 
     def init_state(self) -> TrainState:
         """Parameters drawn from ``torch.Generator().manual_seed(seed)`` (on
@@ -136,7 +155,7 @@ class NGPOccTrainer:
         ``scale_by_adam`` is torch's coupled L2 ``weight_decay``."""
         adam = torch.optim.Adam(
             list(params.values()), lr=self.schedule(0), betas=(0.9, 0.999),
-            eps=ADAM_EPS, weight_decay=WEIGHT_DECAY,
+            eps=ADAM_EPS, weight_decay=self.weight_decay,
         )
         return OptState(adam, 0)
 
@@ -151,9 +170,9 @@ class NGPOccTrainer:
 
     def _generator(self, step: int, stream: int) -> torch.Generator:
         """The noise of one step: stream 0 the refresh's cell jitter, 1 the
-        near-plane jitter."""
+        near-plane jitter, 2 the refresh's frame draw."""
         gen = torch.Generator(device=self.device)
-        gen.manual_seed((self.seed * 1_000_003 + int(step)) * 2 + stream)
+        gen.manual_seed((self.seed * 1_000_003 + int(step)) * 3 + stream)
         return gen
 
     def _bind(self, state: TrainState):
@@ -163,13 +182,18 @@ class NGPOccTrainer:
 
     @torch.no_grad()
     def refresh_occ_grid(
-        self, state: TrainState, step: int, jitter: Optional[torch.Tensor] = None
+        self,
+        state: TrainState,
+        step: int,
+        jitter: Optional[torch.Tensor] = None,
+        frame_idx: Optional[torch.Tensor] = None,
     ) -> TrainState:
         """One dense occupancy update with ``density * render_step_size``.
 
         ``jitter``: (levels, cells, 3) uniform offsets inside the cells;
-        None draws them from a generator seeded by (seed, step), so a
-        refresh at a given step is reproducible."""
+        ``frame_idx``: (levels * cells,) frame of each cell's time, for a
+        time-dependent field.  None draws them from generators seeded by
+        (seed, step), so a refresh at a given step is reproducible."""
         field = self._bind(state)
         occ = state.occ_state
         if jitter is None:
@@ -177,12 +201,24 @@ class NGPOccTrainer:
                 (occ.levels, occ.cells_per_lvl, 3),
                 generator=self._generator(step, 0), device=self.device,
             )
+        if self.timestamps is None:
+            def occ_eval_fn(x):
+                return field.query_density(x)[..., 0] * self.render_step_size
+        else:
+            if frame_idx is None:
+                frame_idx = torch.randint(
+                    0, self.timestamps.shape[0], (occ.levels * occ.cells_per_lvl,),
+                    generator=self._generator(step, 2), device=self.device,
+                )
+
+            def occ_eval_fn(x, frames):
+                return field.query_opacity(
+                    x, self.timestamps, self.render_step_size, frames
+                )[..., 0]
+
         occ = update_occ_grid(
-            occ,
-            lambda x: field.query_density(x)[..., 0] * self.render_step_size,
-            jitter,
-            occ_thre=self.occ_thre,
-            ema_decay=self.ema_decay,
+            occ, occ_eval_fn, jitter, occ_thre=self.occ_thre,
+            ema_decay=self.ema_decay, cell_data=frame_idx,
         )
         return state._replace(occ_state=occ)
 
@@ -193,15 +229,18 @@ class NGPOccTrainer:
         batch: Dict,
         near_jitter: Optional[torch.Tensor] = None,
         cell_jitter: Optional[torch.Tensor] = None,
+        frame_idx: Optional[torch.Tensor] = None,
     ):
         """One step; returns the new state and an aux dict.
 
         Args:
-            batch: ``{rays_o, rays_d, rgb, color_bkgd}`` on the device.
+            batch: ``{rays_o, rays_d, rgb, color_bkgd}`` on the device, and
+                ``timestamps`` (n_rays, 1) for a time-dependent field.
             near_jitter: (n_rays,) uniform [0, 1) near-plane jitter of a
                 stratified step (None: drawn from the step's generator).
-            cell_jitter: the refresh's cell offsets when this step refreshes
-                (None: drawn, see :meth:`refresh_occ_grid`).
+            cell_jitter / frame_idx: the refresh's cell offsets and frames
+                when this step refreshes (None: drawn, see
+                :meth:`refresh_occ_grid`).
 
         The parameters' ``.grad`` hold this step's gradients afterwards.
         Aux: ``loss``, ``mse``, ``n_rays_ok``, ``n_rays_truncated`` as
@@ -211,7 +250,7 @@ class NGPOccTrainer:
         step = int(state.step)
         params = state.params
         if step % self.update_interval == 0:
-            state = self.refresh_occ_grid(state, step, cell_jitter)
+            state = self.refresh_occ_grid(state, step, cell_jitter, frame_idx)
         rays_o, rays_d = batch["rays_o"], batch["rays_d"]
         pixels, render_bkgd = batch["rgb"], batch["color_bkgd"]
         n_rays = rays_o.shape[0]
@@ -239,9 +278,14 @@ class NGPOccTrainer:
             torch.arange(n_rays, device=rays_o.device) < samples.first_incomplete_ray
         )[:, None]
 
+        # each sample's ray time, in the packed samples' order
+        times = ()
+        if self.timestamps is not None:
+            times = (batch["timestamps"][samples.ray_indices.long()],)
+
         def rgb_sigma_fn(positions, dirs):
             rgb, density = torch.func.functional_call(
-                self.field, params, (positions, dirs)
+                self.field, params, (positions, *times, dirs)
             )
             return rgb, density[..., 0]
 
@@ -257,6 +301,8 @@ class NGPOccTrainer:
         diff = (colors - pixels).abs() * ray_ok
         loss = torch.where(diff < 1.0, 0.5 * diff**2, diff - 0.5).sum() / (n_ok * 3)
         mse = (diff.detach() ** 2).sum() / (n_ok * 3)
+        if self.field_reg_weight > 0:
+            loss = loss + self.field_reg_weight * self.field.param_regularizer(params)
         loss.backward()
         opt_state = self.apply_gradients(state.opt_state)
 
@@ -286,11 +332,17 @@ class NGPOccTrainer:
     # -- evaluation ----------------------------------------------------------
     @torch.inference_mode()
     def render_rays(self, state: TrainState, data: Dict, chunk: int = 8192):
-        """Render ``data``'s rays: (colors, opacities, depths, n_samples)."""
+        """Render ``data``'s rays: (colors, opacities, depths, n_samples).
+        A time-dependent field sees every sample at the view's time,
+        ``data["timestamps"]``'s first entry."""
         field = self._bind(state)
+        t = data["timestamps"].reshape(-1)[:1] if self.timestamps is not None else None
 
         def field_fn(positions, dirs):
-            rgb, density = field(positions, dirs)
+            if t is None:
+                rgb, density = field(positions, dirs)
+            else:
+                rgb, density = field(positions, t.expand(positions.shape[0], 1), dirs)
             return rgb, density[..., 0]
 
         return render_image_with_occgrid(

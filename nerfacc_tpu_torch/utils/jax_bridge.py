@@ -2,7 +2,8 @@
 
 The JAX package keeps parameters as a pytree of arrays; this package keeps
 them in a field's ``state_dict`` (:class:`~nerfacc_tpu_torch.models.cp_field.
-CPRadianceField`, :class:`~nerfacc_tpu_torch.models.ngp.NGPRadianceField`).
+CPRadianceField`, :class:`~nerfacc_tpu_torch.models.ngp.NGPRadianceField`,
+:class:`~nerfacc_tpu_torch.models.tineuvox.TiNeuVoxRadianceField`).
 The bridge speaks numpy on the JAX side, so it needs no JAX import: convert
 a JAX tree with ``jax.tree.map(np.asarray, params)`` first.  Tensors land on
 the card unless ``device`` says otherwise.
@@ -50,6 +51,21 @@ def ngp_field_params_to_numpy(params: Dict[str, torch.Tensor]) -> Dict:
     """The inverse of :func:`ngp_field_params_from_numpy`."""
     return {"encoder": params["encoder.table"].detach().cpu().numpy(),
             **_mlps_to_numpy(params)}
+
+
+def tineuvox_field_params_from_numpy(
+    tree: Dict, device: Union[str, torch.device] = "cuda"
+) -> Dict[str, torch.Tensor]:
+    """``{"deform": [W...], "encoder": {"lines": [(3, R, rank)...]},
+    "mlp_base": [W...], "mlp_head": [W...]}`` -> a TiNeuVoxRadianceField
+    state dict (f32 tensors)."""
+    deform = {f"deform.{i}": _tensor(w, device) for i, w in enumerate(tree["deform"])}
+    return {**deform, **cp_field_params_from_numpy(tree, device)}
+
+
+def tineuvox_field_params_to_numpy(params: Dict[str, torch.Tensor]) -> Dict:
+    """The inverse of :func:`tineuvox_field_params_from_numpy`."""
+    return {"deform": _listed(params, "deform."), **cp_field_params_to_numpy(params)}
 
 
 def occ_state_from_numpy(

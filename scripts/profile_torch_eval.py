@@ -7,27 +7,31 @@ Run from the root of a checkout:
     python3 scripts/profile_torch_eval.py [--view 0] [--out build/profile]
     python3 scripts/profile_torch_eval.py --train [--warmup 1000]
     python3 scripts/profile_torch_eval.py --field ngp [--train]
+    python3 scripts/profile_torch_eval.py --field tineuvox [--train]
 
 Serving (the default) sets up the slice as ``chip_smoke.py`` does
 (``--field cp``: the full-width ``CPRadianceField`` 32/128/512 x rank 32;
 ``--field ngp``: the full-width hash-grid ``NGPRadianceField``, 16 levels x
-2 features, 2^19 rows per level; both bf16, parameters from seed 42, four
-dense refreshes of the 128^3 grid), times a dense refresh
-and three renders of one test view on the host clock, then renders the view
-once more under ``torch.profiler``.  ``--train`` sets up the train slice of
-``chip_smoke.py``'s phase 4 (6 views at 256x256, 2048 rays, a 2^18-sample
-budget), runs ``--warmup`` steps so that the grid is no longer the untrained
-one, times three steps and profiles one more (none of them refreshes the
-grid; the refresh is timed on its own).  It prints:
+2 features, 2^19 rows per level; ``--field tineuvox``: the full-width
+``TiNeuVoxRadianceField`` on the moving-blob scene, each view at its own
+time; all bf16, parameters from seed 42, four dense refreshes of the 128^3
+grid), times a dense refresh and three renders of one test view on the host
+clock, then renders the view once more under ``torch.profiler``.
+``--train`` sets up the train slice of ``chip_smoke.py``'s phase 4 (6 views
+at 256x256, 2048 rays, a 2^18-sample budget; for TiNeuVox phase 12's: 24
+views at 320x320, 1024 rays, a 2^16-sample budget and the dynamic example's
+optimiser), runs ``--warmup`` steps so that the grid is no longer the
+untrained one, times three steps and profiles one more (none of them
+refreshes the grid; the refresh is timed on its own).  It prints:
 
 - the device busy share: the union of all kernel and memcpy intervals over
   the profiled frame's or step's wall time;
-- each kernel class's share of device time (the port's kernels G1-G7, the
+- each kernel class's share of device time (the port's kernels G1-G10, the
   MLP GEMMs, concatenation, Adam, other PyTorch kernels);
 - the PyTorch ops with the most self device time.
 
 The Chrome trace goes to ``<out>/profile_torch_<field>_{eval,train}_trace.json``.
-Imports torch and the port only.
+Imports torch, the port and chip_smoke.py's settings.
 """
 import argparse
 import os
@@ -41,18 +45,12 @@ from torch.profiler import ProfilerActivity, profile
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
+from chip_smoke import N_REFRESH, TRAIN, make_trainer, train_loader  # noqa: E402
 from nerfacc_tpu_torch import cuda  # noqa: E402
-from nerfacc_tpu_torch.data.procedural import ProceduralSceneLoader  # noqa: E402
-from nerfacc_tpu_torch.models.cp_field import CPRadianceField  # noqa: E402
-from nerfacc_tpu_torch.models.ngp import NGPRadianceField  # noqa: E402
-from nerfacc_tpu_torch.trainers.ngp_occ import NGPOccTrainer  # noqa: E402
-
-AABB = [-1.5, -1.5, -1.5, 1.5, 1.5, 1.5]
-N_REFRESH = 4
-
-TRAIN_RAYS = 2048
-TRAIN_BUDGET = 2**18
-FIELDS = {"cp": CPRadianceField, "ngp": NGPRadianceField}
+from nerfacc_tpu_torch.data.procedural import (  # noqa: E402
+    ProceduralDynamicSceneLoader,
+    ProceduralSceneLoader,
+)
 
 # kernel-name substring -> class, first match wins
 CLASSES = (
@@ -64,6 +62,10 @@ CLASSES = (
     ("composite_bwd_kernel", "G5 composite backward"),
     ("hash_fwd_kernel", "G6 hash encode"),
     ("hash_bwd_kernel", "G7 hash encode backward"),
+    ("hat_fwd_kernel", "G8 hat interp"),
+    ("hat_bwd_line_kernel", "G9 hat interp table gradient"),
+    ("round_to_f32_kernel", "G9 hat interp table gradient"),  # G9's second launch
+    ("hat_bwd_x_kernel", "G10 hat interp coordinate gradient"),
     ("gemm", "GEMM (MLPs)"),
     ("multi_tensor_apply", "Adam (foreach)"),
     ("CatArrayBatchedCopy", "cat"),
@@ -96,11 +98,12 @@ def self_device_us(evt):
 
 def eval_target(dev, field, view):
     """The serving slice; returns the profiled call and its label."""
-    ds = ProceduralSceneLoader(split="test", device=dev)
-    trainer = NGPOccTrainer(
-        field=FIELDS[field](AABB, compute_dtype=torch.bfloat16),
-        aabb=AABB, device=dev,
-    )
+    if field == "tineuvox":
+        ds = ProceduralDynamicSceneLoader(split="test", device=dev)
+        trainer = make_trainer(dev, field, timestamps=train_loader(dev, field).timestamps)
+    else:
+        ds = ProceduralSceneLoader(split="test", device=dev)
+        trainer = make_trainer(dev, field)
     state = trainer.init_state()
     for step in range(N_REFRESH):
         state = trainer.refresh_occ_grid(state, step)
@@ -116,13 +119,10 @@ def eval_target(dev, field, view):
 def train_target(dev, field, warmup):
     """The train slice after ``warmup`` steps; the profiled call is one
     train step that does not refresh the grid."""
-    ds = ProceduralSceneLoader(
-        split="train", n_train=6, width=256, height=256, num_rays=TRAIN_RAYS,
-        device=dev,
-    )
-    trainer = NGPOccTrainer(
-        field=FIELDS[field](AABB, compute_dtype=torch.bfloat16), aabb=AABB,
-        max_steps=warmup + 8, sample_budget=TRAIN_BUDGET, device=dev,
+    ds = train_loader(dev, field)
+    trainer = make_trainer(
+        dev, field, timestamps=getattr(ds, "timestamps", None), max_steps=warmup + 8,
+        sample_budget=TRAIN[field][2],
     )
     state = trainer.init_state()
     for _ in range(warmup):
@@ -157,8 +157,8 @@ def time_refresh(trainer, state, step):
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--view", type=int, default=0)
-    ap.add_argument("--field", choices=sorted(FIELDS), default="cp",
-                    help="the radiance field: CP lines or the hash grid")
+    ap.add_argument("--field", choices=sorted(TRAIN), default="cp",
+                    help="the radiance field: CP lines, the hash grid or TiNeuVox")
     ap.add_argument("--train", action="store_true",
                     help="profile a train step instead of a frame")
     ap.add_argument("--warmup", type=int, default=1000,

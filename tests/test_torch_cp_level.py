@@ -115,16 +115,36 @@ def test_closed_form_backward_matches_autograd_of_forward_twin():
 def test_wrapper_is_differentiable_in_lines_only(dtype):
     """The wrapper's output carries a grad_fn whenever the tables need one;
     its backward is the closed-form twin (kernel G4 on the card), and the
-    coordinates get no gradient."""
+    coordinates get no gradient: coordinates that require one raise."""
     u, lines = _inputs(9, 200, 16, 8)
-    uu = torch.tensor(u, requires_grad=True)
+    uu = torch.tensor(u)
     t = torch.tensor(lines, requires_grad=True)
     out = cp_level_encode(uu, t, dtype)
     assert out.grad_fn is not None
     g = torch.tensor(_cotangent(10, 200, 8))
     out.backward(g)
-    assert uu.grad is None
-    ref = cp_level_backward_plain(uu.detach(), g, t.detach(), dtype)
+    ref = cp_level_backward_plain(uu, g, t.detach(), dtype)
     torch.testing.assert_close(t.grad, ref, rtol=0, atol=0)
     with torch.no_grad():
         assert cp_level_encode(uu, t, dtype).grad_fn is None
+    with pytest.raises(ValueError, match="use_pallas=True"):
+        cp_level_encode(uu.requires_grad_(), t, dtype)
+
+
+def test_encoder_routes_differ_only_in_the_coordinate_gradient():
+    """CPGridEncoder's default route refuses coordinates that need a
+    gradient; use_pallas=True gives them one, with the same bf16 features
+    as the fused level (both round weights and tables to bf16, sum in
+    f32): equal up to the order of the three-axis product."""
+    from nerfacc_tpu_torch.models.cp_field import CPGridEncoder
+
+    enc = CPGridEncoder((16, 32), (8, 8)).init(torch.Generator().manual_seed(0))
+    hat = CPGridEncoder((16, 32), (8, 8), use_pallas=True)
+    hat.load_state_dict(enc.state_dict())
+    u = torch.tensor(_inputs(11, 300, 16, 8)[0], requires_grad=True)
+    with pytest.raises(ValueError, match="no position gradient"):
+        enc(u)
+    out = hat(u)
+    torch.testing.assert_close(out, enc(u.detach()), rtol=1e-6, atol=0)
+    out.sum().backward()
+    assert u.grad is not None and float(u.grad.abs().max()) > 0

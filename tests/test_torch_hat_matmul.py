@@ -1,0 +1,106 @@
+"""Port vs JAX: the hat-interpolation matmul (kernels G8-G10's plain
+versions against the Pallas kernels K3/K3b/K3c in interpret mode), and the
+autograd wrapper around them."""
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from nerfacc_tpu.ops.hat_matmul import hat_interp_matmul as jax_hat
+from nerfacc_tpu_torch.ops.hat_matmul import (
+    hat_bwd_line_plain,
+    hat_bwd_x_plain,
+    hat_interp_matmul,
+    hat_interp_matmul_plain,
+)
+
+
+def _inputs(R, rank, n, seed=0):
+    """Coordinates mostly in [0, 1], some past either end and some on grid
+    points (0, 1 and k/(R-1) among them), a table near 1, a cotangent."""
+    rng = np.random.default_rng(seed + R)
+    x = rng.uniform(0.0, 1.0, n).astype(np.float32)
+    k = n // 20  # 5% outside [0, 1], below and above, within 1.5 cells
+    push = rng.uniform(1e-3, 1.5, k) / (R - 1)
+    x[:k] = np.where(np.arange(k) % 2 == 0, -push, 1.0 + push)
+    x[-8:] = rng.integers(0, R, 8) / np.float32(R - 1)
+    x[-10:-8] = [0.0, 1.0]
+    line = (1.0 + 0.1 * rng.standard_normal((R, rank))).astype(np.float32)
+    g = rng.standard_normal((n, rank)).astype(np.float32)
+    return x, line, g
+
+
+def _jax_reference(x, line, g):
+    out, vjp = jax.vjp(
+        lambda a, b: jax_hat(a, b, True), jnp.asarray(x), jnp.asarray(line)
+    )
+    dx, dline = vjp(jnp.asarray(g))
+    return np.asarray(out), np.asarray(dx), np.asarray(dline)
+
+
+# n = 300 and 1100 are not multiples of the TPU kernel's 512-sample block
+@pytest.mark.parametrize("R,rank,n", [(16, 8, 300), (64, 16, 1100), (512, 32, 2048)])
+def test_plain_versions_match_pallas_kernels(R, rank, n):
+    """Forward bitwise (two exact bf16 products, one f32 addition); the
+    table gradient within 1e-6 of its largest entry and the coordinate
+    gradient within 1e-5 of its (f32 sums in another order)."""
+    x, line, g = _inputs(R, rank, n)
+    out, dx, dline = _jax_reference(x, line, g)
+    tx, tline, tg = map(torch.tensor, (x, line, g))
+    np.testing.assert_array_equal(hat_interp_matmul_plain(tx, tline).numpy(), out)
+    got = hat_bwd_line_plain(tx, tg, R).numpy()
+    np.testing.assert_allclose(got, dline, rtol=0, atol=1e-6 * np.abs(dline).max())
+    got = hat_bwd_x_plain(tx, tg, tline).numpy()
+    np.testing.assert_allclose(got, dx, rtol=0, atol=1e-5 * np.abs(dx).max())
+    # the outside points read the hat's value and slope at the clamped taps
+    outside = (x < 0) | (x > 1)
+    assert outside.any() and np.abs(dx[outside]).max() > 0
+
+
+@pytest.mark.parametrize("R", [16, 64, 512])
+def test_coordinate_gradient_is_zero_at_grid_points(R):
+    """K3c's rule: dW = -sign(pos - i) is 0 on a grid point and the columns
+    at distance exactly 1 are excluded, so dx is exactly 0 there, x = 0 and
+    x = 1 included, in JAX and in the port alike; away from grid points it
+    is not."""
+    rank = 8
+    x = np.array([0.0, 1.0, 1.0 / (R - 1), 3.0 / (R - 1), 0.37], np.float32)
+    _, line, g = _inputs(R, rank, 40, seed=1)
+    g = g[:5]
+    _, dx, _ = _jax_reference(x, line, g)
+    got = hat_bwd_x_plain(torch.tensor(x), torch.tensor(g), torch.tensor(line)).numpy()
+    assert (dx[:4] == 0).all() and (got[:4] == 0).all()
+    assert dx[4] != 0 and got[4] == pytest.approx(float(dx[4]), rel=1e-5)
+
+
+def test_wrapper_gradients_are_the_plain_backwards():
+    """On CPU tensors the autograd wrapper runs the plain versions: its
+    gradients equal them bit for bit, not autograd of the forward."""
+    x, line, g = _inputs(32, 8, 200, seed=2)
+    tx = torch.tensor(x, requires_grad=True)
+    tline = torch.tensor(line, requires_grad=True)
+    out = hat_interp_matmul(tx, tline)
+    assert out.grad_fn is not None
+    tg = torch.tensor(g)
+    out.backward(tg)
+    x0, l0 = tx.detach(), tline.detach()
+    torch.testing.assert_close(tx.grad, hat_bwd_x_plain(x0, tg, l0), rtol=0, atol=0)
+    torch.testing.assert_close(tline.grad, hat_bwd_line_plain(x0, tg, 32), rtol=0, atol=0)
+
+
+def test_wrapper_skips_the_gradients_nobody_asked_for():
+    """Coordinates without ``requires_grad`` get none (the coordinate
+    kernel does not run); the table alike."""
+    x, line, g = _inputs(32, 8, 64, seed=3)
+    tline = torch.tensor(line, requires_grad=True)
+    hat_interp_matmul(torch.tensor(x), tline).backward(torch.tensor(g))
+    assert tline.grad is not None
+    tx = torch.tensor(x, requires_grad=True)
+    hat_interp_matmul(tx, torch.tensor(line)).backward(torch.tensor(g))
+    assert tx.grad is not None and float(tx.grad.abs().max()) > 0
+
+
+def test_wrapper_refuses_devices_without_kernel_or_plain_version():
+    with pytest.raises(ValueError):
+        hat_interp_matmul(torch.zeros(4, device="meta"), torch.zeros(16, 8, device="meta"))

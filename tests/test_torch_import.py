@@ -52,9 +52,12 @@ def _default_device(fn):
     [
         "trainers.ngp_occ.NGPOccTrainer",
         "data.procedural.ProceduralSceneLoader",
+        "data.procedural.ProceduralDynamicSceneLoader",
         "estimators.occ_grid.init_occ_grid",
+        "models.tineuvox.TiNeuVoxRadianceField",
         "utils.jax_bridge.cp_field_params_from_numpy",
         "utils.jax_bridge.ngp_field_params_from_numpy",
+        "utils.jax_bridge.tineuvox_field_params_from_numpy",
         "utils.jax_bridge.occ_state_from_numpy",
     ],
 )

@@ -1,4 +1,4 @@
-"""Kernels G1-G7 against their PyTorch twins on the card, and the
+"""Kernels G1-G10 against their PyTorch twins on the card, and the
 gradients that reach the train step through them.
 
 These need an NVIDIA Hopper GPU and nvcc; elsewhere they skip.  Run them on
@@ -14,6 +14,8 @@ from nerfacc_tpu_torch.data.procedural import ProceduralSceneLoader
 from nerfacc_tpu_torch.models.cp_field import CPRadianceField
 from nerfacc_tpu_torch.models.encoders import HashGridEncoder
 from nerfacc_tpu_torch.models.ngp import NGPRadianceField
+from nerfacc_tpu_torch.models.tineuvox import TiNeuVoxRadianceField
+from nerfacc_tpu_torch.data.procedural import ProceduralDynamicSceneLoader
 from nerfacc_tpu_torch.ops.cp_level import (
     cp_level_backward,
     cp_level_backward_plain,
@@ -26,6 +28,15 @@ from nerfacc_tpu_torch.ops.hash_encode import (
     hash_encode_backward_plain,
     hash_encode_forward,
     hash_encode_plain,
+)
+from nerfacc_tpu_torch.ops.hat_matmul import (
+    hat_bwd_line,
+    hat_bwd_line_plain,
+    hat_bwd_x,
+    hat_bwd_x_plain,
+    hat_fwd,
+    hat_interp_matmul,
+    hat_interp_matmul_plain,
 )
 from nerfacc_tpu_torch.ops.sorted_segments import (
     composite_sorted,
@@ -257,6 +268,91 @@ def test_hash_encode_refuses_what_the_kernels_do_not_take(dev):
         with pytest.raises(ValueError, match="hash_encode"):
             hash_encode_forward(x, torch.zeros(shape, device=dev), (16, 32))
     assert cuda.LAUNCHES["hash_fwd"] == n0
+
+
+def _hat_inputs(dev, R, rank, n=2**16 + 3):
+    """Coordinates with 1% past either end of [0, 1] and some on grid points
+    (0 and 1 among them), a table near 1 and a cotangent."""
+    g = torch.Generator(device=dev).manual_seed(R + rank)
+    x = torch.rand(n, generator=g, device=dev)
+    k = n // 100
+    push = torch.rand(k, generator=g, device=dev) * 1.5 / (R - 1)
+    x[:k] = torch.where(torch.arange(k, device=dev) % 2 == 0, -push, 1.0 + push)
+    x[k : k + 64] = torch.randint(0, R, (64,), generator=g, device=dev) / (R - 1)
+    x[k : k + 2] = torch.tensor([0.0, 1.0], device=dev)
+    line = 1 + 0.1 * torch.randn((R, rank), generator=g, device=dev)
+    cot = torch.randn((n, rank), generator=g, device=dev)
+    return x, line, cot
+
+
+@pytest.mark.parametrize("R,rank", [(32, 16), (128, 16), (512, 32), (64, 24)])
+def test_hat_kernels_match_plain_versions(dev, R, rank):
+    """G8 bitwise; G9 within 1e-6 of its largest entry (each block's f32
+    partial sums in atomic order, the plain version's sum rounded once from
+    f64); G10 within 1e-5 (the rank sum in another order) and exactly 0 on
+    grid points."""
+    x, line, cot = _hat_inputs(dev, R, rank)
+    n0 = dict(cuda.LAUNCHES)
+    out = hat_fwd(x, line)
+    dline = hat_bwd_line(x, cot, R)
+    dx = hat_bwd_x(x, cot, line)
+    for name in ("hat_fwd", "hat_bwd_line", "hat_bwd_x"):
+        assert cuda.LAUNCHES[name] == n0[name] + 1, name
+    torch.testing.assert_close(out, hat_interp_matmul_plain(x, line), rtol=0, atol=0)
+    ref = hat_bwd_line_plain(x, cot, R)
+    torch.testing.assert_close(dline, ref, rtol=0, atol=1e-6 * float(ref.abs().max()))
+    ref = hat_bwd_x_plain(x, cot, line)
+    torch.testing.assert_close(dx, ref, rtol=0, atol=1e-5 * float(ref.abs().max()))
+    # k / (R - 1) times (R - 1) is k again for about half of the k
+    on_grid = (x * (R - 1)) == torch.round(x * (R - 1))
+    assert on_grid.sum() >= 16 and (dx[on_grid] == 0).all()
+
+
+def test_hat_wrapper_launches_the_coordinate_kernel_only_when_asked(dev):
+    x, line, cot = _hat_inputs(dev, 64, 16, n=4099)
+    line.requires_grad_()
+    n0 = dict(cuda.LAUNCHES)
+    hat_interp_matmul(x, line).backward(cot)
+    assert cuda.LAUNCHES["hat_bwd_line"] == n0["hat_bwd_line"] + 1
+    assert cuda.LAUNCHES["hat_bwd_x"] == n0["hat_bwd_x"]
+    xg = x.clone().requires_grad_()
+    hat_interp_matmul(xg, line.detach()).backward(cot)
+    assert cuda.LAUNCHES["hat_bwd_x"] == n0["hat_bwd_x"] + 1
+    assert cuda.LAUNCHES["hat_bwd_line"] == n0["hat_bwd_line"] + 1
+    ref = hat_bwd_x_plain(x, cot, line.detach())
+    torch.testing.assert_close(xg.grad, ref, rtol=0, atol=1e-5 * float(ref.abs().max()))
+
+
+def test_hat_line_gradient_refuses_a_table_past_shared_memory(dev):
+    x = torch.rand(1024, device=dev)
+    n0 = cuda.LAUNCHES["hat_bwd_line"]
+    with pytest.raises(RuntimeError, match="hat_bwd_line"):
+        hat_bwd_line(x, torch.ones((1024, 64), device=dev), 4096)
+    assert cuda.LAUNCHES["hat_bwd_line"] == n0
+
+
+def test_tineuvox_train_step_on_the_card_reaches_every_parameter(dev):
+    """A time-dependent train step through the kernels: G8-G10 launch and
+    every parameter, the deformation network's included, gets a finite,
+    nonzero gradient."""
+    aabb = (-1.5, -1.5, -1.5, 1.5, 1.5, 1.5)
+    ds = ProceduralDynamicSceneLoader("train", n_train=3, width=32, height=32,
+                                      num_rays=256, device=dev)
+    trainer = NGPOccTrainer(
+        field=TiNeuVoxRadianceField(aabb, device=dev), aabb=aabb, grid_resolution=32,
+        timestamps=ds.timestamps, field_reg_weight=1e-4, weight_decay=0.0, device=dev,
+    )
+    state = trainer.init_state()
+    cuda.reset_launches()
+    state, aux = trainer.train_step(state, ds[0])
+    for name in ("hat_fwd", "hat_bwd_line", "hat_bwd_x", "march", "composite_fwd",
+                 "composite_bwd"):
+        assert cuda.LAUNCHES[name] > 0, cuda.LAUNCHES
+    assert cuda.LAUNCHES["hat_bwd_x"] == cuda.LAUNCHES["hat_bwd_line"] == 9
+    assert torch.isfinite(aux["loss"]) and aux["n_rendering_samples"] > 0
+    for name, p in state.params.items():
+        assert p.grad is not None and torch.isfinite(p.grad).all(), name
+        assert float(p.grad.abs().max()) > 0, name
 
 
 @pytest.mark.parametrize("kind", ["cp", "ngp"])

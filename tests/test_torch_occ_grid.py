@@ -83,3 +83,30 @@ def test_init_and_bridge_round_trip():
     for a, b in zip(occ_state_to_numpy(occ_state_from_numpy(*arrays, device="cpu")), arrays):
         assert a.dtype == b.dtype
         np.testing.assert_array_equal(a, b)
+
+
+@pytest.mark.parametrize("levels", [1, 2])
+def test_per_cell_data_follows_its_cells_across_chunks(levels):
+    """``cell_data`` reaches ``occ_eval_fn`` beside its own cells' points in
+    every chunk, a ragged last one included: each cell's value comes back as
+    its occupancy, and the point handed with it lies inside that cell."""
+    state = init_occ_grid(AABB, 16, levels, device="cpu")
+    cells = state.cells_per_lvl
+    jitter = torch.rand((levels, cells, 3), generator=torch.Generator().manual_seed(3))
+    ids = torch.arange(levels * cells)
+    seen = []
+
+    def occ_eval_fn(x, data):
+        seen.append((x, data))
+        return data.to(torch.float32) / (levels * cells)
+
+    out = update_occ_grid(state, occ_eval_fn, jitter, eval_chunk=1000, cell_data=ids)
+    assert len(seen) == -(-levels * cells // 1000)
+    torch.testing.assert_close(out.occs, ids.to(torch.float32) / (levels * cells),
+                               rtol=0, atol=0)
+    x = torch.cat([s[0] for s in seen])
+    data = torch.cat([s[1] for s in seen])
+    lvl, cell = data // cells, data % cells
+    lo, hi = state.aabbs[lvl, :3], state.aabbs[lvl, 3:]
+    ijk = torch.floor((x - lo) / (hi - lo) * 16).long()
+    assert torch.equal(ijk[:, 0] * 256 + ijk[:, 1] * 16 + ijk[:, 2], cell)

@@ -36,3 +36,32 @@ def test_update_num_rays_resizes_the_next_batch():
         split="test", n_test=1, width=16, height=16, num_rays=32, device="cpu"
     )
     assert not test.training and test[0]["rgb"].shape == (256, 3)
+
+
+@pytest.mark.parametrize("split", ["train", "test"])
+def test_dynamic_scene_matches_jax(split, monkeypatch):
+    """The moving-blob scene: the same motion draws, frame times, rays and
+    per-ray timestamps as the JAX loader, and each view's ground truth
+    rendered at its own time within 1/255."""
+    from nerfacc_tpu.data.procedural import ProceduralDynamicSceneLoader as JaxDynamic
+    from nerfacc_tpu_torch.data.procedural import ProceduralDynamicSceneLoader
+
+    monkeypatch.setenv("NERFACC_TPU_GT_CACHE", "")  # render, do not cache on disk
+    kw = dict(split=split, n_train=3, n_test=2, width=20, height=16, seed=7)
+    if split == "train":
+        kw["num_rays"] = 64
+    jax_ds, ds = JaxDynamic(**kw), ProceduralDynamicSceneLoader(**kw, device="cpu")
+    np.testing.assert_array_equal(ds.view_times, jax_ds.view_times)
+    np.testing.assert_array_equal(ds.timestamps.numpy(), np.asarray(jax_ds.timestamps))
+    np.testing.assert_array_equal(ds.motion_dirs.numpy(), np.asarray(jax_ds.motion_dirs))
+    np.testing.assert_array_equal(ds.motion_phase.numpy(), np.asarray(jax_ds.motion_phase))
+    np.testing.assert_allclose(ds.images.numpy(), jax_ds.images, rtol=0, atol=1)
+    for i in range(2):
+        ref, out = jax_ds[i], ds[i]
+        for key in ("rays_o", "rays_d"):
+            np.testing.assert_allclose(out[key].numpy(), ref[key], rtol=0, atol=1e-6)
+        np.testing.assert_array_equal(out["timestamps"].numpy(), ref["timestamps"])
+        np.testing.assert_allclose(out["rgb"].numpy(), ref["rgb"], rtol=0, atol=1 / 255 + 1e-6)
+    # the blobs move: the first and last views' ground truths see different scenes
+    static = ProceduralSceneLoader(**kw, device="cpu")
+    assert not np.array_equal(ds.images[-1].numpy(), static.images[-1].numpy())

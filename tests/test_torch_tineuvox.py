@@ -1,0 +1,229 @@
+"""Port vs JAX: the TiNeuVox dynamic field (its sinusoidal encodings, the
+forward, the occupancy query, the TV regulariser and every gradient, the
+deformation network's included) against the JAX field on its hat-matmul
+route, ``CPGridEncoder(use_pallas=True)``, with the Pallas kernels K3/K3b/K3c
+in interpret mode."""
+import dataclasses
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+import nerfacc_tpu.ops
+from nerfacc_tpu.models.encoders import SinusoidalEncoder as JaxSinusoidal
+from nerfacc_tpu.models.tineuvox import TiNeuVoxRadianceField as JaxTiNeuVox
+from nerfacc_tpu.ops.hat_matmul import hat_interp_matmul as jax_hat
+from nerfacc_tpu_torch.models.encoders import SinusoidalEncoder
+from nerfacc_tpu_torch.models.tineuvox import TiNeuVoxRadianceField
+from nerfacc_tpu_torch.utils.jax_bridge import (
+    tineuvox_field_params_from_numpy,
+    tineuvox_field_params_to_numpy,
+)
+
+AABB = (-1.5, -1.5, -1.5, 1.5, 1.5, 1.5)
+SMALL = dict(resolutions=(16, 32, 64), ranks=(8, 8, 16))
+N = 1024
+
+
+@pytest.fixture
+def interpret_k3(monkeypatch):
+    """The JAX encoder's hat route reaches K3 through ``nerfacc_tpu.ops``,
+    which runs only interpreted on a CPU."""
+    monkeypatch.setattr(
+        nerfacc_tpu.ops, "hat_interp_matmul", lambda x, line: jax_hat(x, line, True)
+    )
+
+
+@pytest.mark.parametrize(
+    "x_dim,min_deg,max_deg,identity",
+    [(3, 0, 4, True), (1, 0, 4, True), (2, 1, 6, False), (3, 0, 0, True)],
+)
+def test_sinusoidal_encoder_matches_jax(x_dim, min_deg, max_deg, identity):
+    """JAX's layout (identity first, degree-major, the cosines as shifted
+    sines), within 1e-3 of JAX's values, which pins the layout (a misplaced
+    column reads O(1)) without holding JAX's CPU sine to its last bits; and
+    within 1e-6 of a float64 sine of the same f32 arguments."""
+    x = np.random.default_rng(x_dim).uniform(-1.5, 1.5, (300, x_dim)).astype(np.float32)
+    ref = np.asarray(JaxSinusoidal(x_dim, min_deg, max_deg, identity)(jnp.asarray(x)))
+    enc = SinusoidalEncoder(x_dim, min_deg, max_deg, identity)
+    out = enc(torch.tensor(x)).numpy()
+    assert out.shape == ref.shape == (300, enc.latent_dim)
+    np.testing.assert_allclose(out, ref, rtol=0, atol=1e-3)
+    if max_deg == min_deg:
+        np.testing.assert_array_equal(out, x)
+        return
+    scales = (2.0 ** np.arange(min_deg, max_deg)).astype(np.float32)
+    xb = (x[:, None, :] * scales[:, None]).reshape(300, -1)
+    args = np.concatenate([xb, xb + np.float32(0.5 * np.pi)], axis=-1)
+    want = np.sin(args.astype(np.float64))
+    if identity:
+        want = np.concatenate([x, want], axis=-1)
+    np.testing.assert_allclose(out, want, rtol=0, atol=1e-6)
+
+
+def _jax_field(dtype):
+    jfield = JaxTiNeuVox(aabb=AABB, compute_dtype=dtype, **SMALL)
+    object.__setattr__(
+        jfield, "encoder", dataclasses.replace(jfield.encoder, use_pallas=True)
+    )
+    return jfield
+
+
+def _params(jfield, warp=True):
+    """JAX parameters; ``warp`` scales the deformation's output layer up from
+    its rigid 1e-4 init, so the warp moves points by ~0.1."""
+    params = jfield.init(jax.random.PRNGKey(3))
+    if warp:
+        params["deform"][-1] = params["deform"][-1] * 3e3
+    return jax.tree.map(np.asarray, params)
+
+
+def _port_field(dtype, params):
+    field = TiNeuVoxRadianceField(AABB, compute_dtype=dtype, device="cpu", **SMALL)
+    field.load_state_dict(tineuvox_field_params_from_numpy(params, device="cpu"))
+    return field
+
+
+def _samples(seed=0):
+    rng = np.random.default_rng(seed)
+    x = rng.uniform(-1.6, 1.6, (N, 3)).astype(np.float32)
+    t = rng.uniform(0.0, 1.0, (N, 1)).astype(np.float32)
+    d = rng.standard_normal((N, 3))
+    d = (d / np.linalg.norm(d, axis=-1, keepdims=True)).astype(np.float32)
+    return x, t, d
+
+
+DTYPES = [
+    pytest.param(jnp.float32, torch.float32, id="f32"),
+    pytest.param(jnp.bfloat16, torch.bfloat16, id="bf16"),
+]
+
+
+@pytest.mark.parametrize("jdtype,dtype", DTYPES)
+def test_field_matches_jax(interpret_k3, jdtype, dtype):
+    """rgb and density on points inside and outside the box at random times.
+    The two libraries' matmul sums and tanh and sin differ in the last bit,
+    so the warped points do too, and a last-bit change of ``x (R-1)`` flips
+    the bf16 rounding of about 2^-24 R / 2^-9 of the hat weights (0.2% at
+    R = 64): 99% of the entries within 1e-5 of the largest output, and all
+    within 2e-3 of it (one flipped weight moves a feature by 2^-9)."""
+    jfield = _jax_field(jdtype)
+    params = _params(jfield)
+    x, t, d = _samples()
+    rgb_ref, density_ref = map(
+        np.asarray, jfield(params, jnp.asarray(x), jnp.asarray(t), jnp.asarray(d))
+    )
+    field = _port_field(dtype, params)
+    with torch.no_grad():
+        rgb, density = field(*map(torch.tensor, (x, t, d)))
+    for out, ref in ((rgb.numpy(), rgb_ref), (density.numpy(), density_ref)):
+        scale = np.abs(ref).max()
+        err = np.abs(out - ref)
+        assert err.max() <= 2e-3 * scale and (err > 1e-5 * scale).mean() <= 1e-2
+    # the warped points left the box where JAX's did
+    np.testing.assert_array_equal(density.numpy() == 0, density_ref == 0)
+    assert 0 < (density_ref == 0).mean() < 1
+
+
+def test_query_opacity_matches_jax_with_its_frames(interpret_k3):
+    """``query_opacity`` with JAX's frame draw injected."""
+    jfield = _jax_field(jnp.bfloat16)
+    params = _params(jfield)
+    x, _, _ = _samples(1)
+    timestamps = np.linspace(0.0, 1.0, 7, dtype=np.float32)[:, None]
+    key = jax.random.PRNGKey(5)
+    ref = np.asarray(
+        jfield.query_opacity(params, jnp.asarray(x), jnp.asarray(timestamps), 5e-3, key)
+    )
+    frames = np.asarray(jax.random.randint(key, (N,), 0, 7))
+    field = _port_field(torch.bfloat16, params)
+    with torch.no_grad():
+        out = field.query_opacity(
+            torch.tensor(x), torch.tensor(timestamps), 5e-3, torch.tensor(frames)
+        ).numpy()
+        drawn = field.query_opacity(
+            torch.tensor(x), torch.tensor(timestamps), 5e-3,
+            generator=torch.Generator().manual_seed(0),
+        )
+    np.testing.assert_allclose(out, ref, rtol=0, atol=1e-4 * np.abs(ref).max())
+    assert drawn.shape == (N, 1) and torch.isfinite(drawn).all()
+
+
+def test_param_regularizer_matches_jax():
+    jfield = _jax_field(jnp.bfloat16)
+    params = _params(jfield)
+    ref = float(jfield.param_regularizer(params))
+    field = _port_field(torch.bfloat16, params)
+    assert float(field.param_regularizer()) == pytest.approx(ref, rel=1e-6)
+    state = {k: v * 2 for k, v in field.state_dict().items()}
+    assert float(field.param_regularizer(state)) == pytest.approx(4 * ref, rel=1e-6)
+
+
+@pytest.mark.parametrize("jdtype,dtype", DTYPES)
+def test_gradients_match_jax(interpret_k3, jdtype, dtype):
+    """Every parameter's gradient of a weighted sum of rgb and density,
+    the deformation leaves included (their only path is the hat kernels'
+    coordinate gradient): nonzero, and in the f32 field within 1e-3 of each
+    leaf's largest entry from JAX's (readings up to 5.4e-4: the flipped
+    hat weights of ``test_field_matches_jax``).  In the bf16 field each
+    last-bit difference (warp, sines, the sigmoid's and tanh's derivatives)
+    can flip a bf16 rounding of an MLP operand or cotangent, which moves
+    others downstream: JAX's own gradients move by up to 2e-3 in relative
+    Frobenius norm when the points move by one ulp, and the port reads up to
+    7.8e-3 from them; so 2e-2 per leaf (in relative Frobenius norm), which
+    the f32 field's gradients, whose bf16 roundings are lost, exceed on the
+    encoder and deformation leaves (5e-2 to 1.1e-1)."""
+    jfield = _jax_field(jdtype)
+    params = _params(jfield)
+    x, t, d = _samples(2)
+    rng = np.random.default_rng(7)
+    c_rgb = rng.standard_normal((N, 3)).astype(np.float32)
+    c_den = rng.standard_normal((N, 1)).astype(np.float32)
+
+    def loss(p):
+        rgb, density = jfield(p, jnp.asarray(x), jnp.asarray(t), jnp.asarray(d))
+        return jnp.sum(rgb * c_rgb) + jnp.sum(density * c_den)
+
+    ref = tineuvox_field_params_from_numpy(
+        jax.tree.map(np.asarray, jax.grad(loss)(jax.tree.map(jnp.asarray, params))),
+        device="cpu",
+    )
+    field = _port_field(dtype, params)
+    rgb, density = field(*map(torch.tensor, (x, t, d)))
+    ((rgb * torch.tensor(c_rgb)).sum() + (density * torch.tensor(c_den)).sum()).backward()
+    for name, p in field.named_parameters():
+        got, want = p.grad.numpy(), ref[name].numpy()
+        assert np.abs(want).max() > 0 and np.abs(got).max() > 0, name
+        if dtype == torch.float32:
+            np.testing.assert_allclose(
+                got, want, rtol=0, atol=1e-3 * np.abs(want).max(), err_msg=name
+            )
+        else:
+            assert np.linalg.norm(got - want) <= 2e-2 * np.linalg.norm(want), name
+
+
+def test_bridge_round_trip():
+    params = _params(_jax_field(jnp.bfloat16), warp=False)
+    back = tineuvox_field_params_to_numpy(
+        tineuvox_field_params_from_numpy(params, device="cpu")
+    )
+    flat, tree = jax.tree.flatten(params)
+    flat_back, tree_back = jax.tree.flatten(back)
+    assert tree == tree_back
+    for a, b in zip(flat, flat_back):
+        np.testing.assert_array_equal(a, b)
+
+
+def test_field_starts_rigid():
+    """From its own init the warp is below 1e-3 of a cell, but the field
+    still reads time through the base MLP."""
+    field = TiNeuVoxRadianceField(AABB, device="cpu", **SMALL)
+    field.init(torch.Generator().manual_seed(0))
+    x, t, _ = map(torch.tensor, _samples(3))
+    with torch.no_grad():
+        assert float(field.warp(x, t).abs().max()) < 1e-3 * 3.0 / 64
+        d0 = field.query_density(x, torch.zeros_like(t))
+        d1 = field.query_density(x, torch.ones_like(t))
+    assert not torch.equal(d0, d1)

@@ -1,7 +1,7 @@
 """Port vs JAX, the train slice: the learning-rate schedule, Adam against
 optax, one NGPOccTrainer.train_step against the JAX trainer's fused step from
-the same parameters, grid, batch and noise (CP and hash-grid NGP fields), and
-convergence smokes."""
+the same parameters, grid, batch and noise (CP, hash-grid NGP and the
+time-dependent TiNeuVox fields), and convergence smokes."""
 import dataclasses
 
 import jax
@@ -11,21 +11,27 @@ import optax
 import pytest
 import torch
 
+import nerfacc_tpu.ops
 import nerfacc_tpu.ops.cp_level as jax_cp_level
+from nerfacc_tpu.data.procedural import ProceduralDynamicSceneLoader as JaxDynamicLoader
 from nerfacc_tpu.data.procedural import ProceduralSceneLoader as JaxLoader
 from nerfacc_tpu.models.cp_field import CPRadianceField as JaxField
 from nerfacc_tpu.models.ngp import NGPRadianceField as JaxNGPField
+from nerfacc_tpu.models.tineuvox import TiNeuVoxRadianceField as JaxTiNeuVox
+from nerfacc_tpu.ops.hat_matmul import hat_interp_matmul as jax_hat
 from nerfacc_tpu.trainers.ngp_occ import NGPOccTrainer as JaxTrainer
 from nerfacc_tpu.trainers.ngp_occ import make_lr_schedule as jax_lr_schedule
 from nerfacc_tpu_torch.data.procedural import ProceduralSceneLoader
 from nerfacc_tpu_torch.estimators.occ_grid import sampling
 from nerfacc_tpu_torch.models.cp_field import CPRadianceField
 from nerfacc_tpu_torch.models.ngp import NGPRadianceField
+from nerfacc_tpu_torch.models.tineuvox import TiNeuVoxRadianceField
 from nerfacc_tpu_torch.trainers.ngp_occ import NGPOccTrainer, TrainState, make_lr_schedule
 from nerfacc_tpu_torch.utils.jax_bridge import (
     cp_field_params_from_numpy,
     ngp_field_params_from_numpy,
     occ_state_from_numpy,
+    tineuvox_field_params_from_numpy,
 )
 from nerfacc_tpu_torch.utils.rendering import compact_samples, render_rays_with_occgrid
 
@@ -36,7 +42,7 @@ GRID = 32
 N_RAYS = 128
 
 
-@pytest.mark.parametrize("max_steps", [1000, 150])
+@pytest.mark.parametrize("max_steps", [1000, 150, 400])
 def test_lr_schedule_matches_optax(max_steps):
     """optax evaluates the warmup in f32 (1.7e-6 off at step 0), the port in
     f64: 1e-5 relative."""
@@ -288,6 +294,111 @@ def test_train_step_matches_jax(batch, monkeypatch, kind, stratified, budget, bf
         np.testing.assert_allclose(p.grad.numpy(), g64, rtol=0, atol=atol)
 
 
+TNV_SMALL = dict(resolutions=(16, 32, 64), ranks=(8, 8, 8))
+TNV_RAYS = 64
+# the example's TiNeuVox settings beside the trainer's defaults
+# (examples/train_mlp_tnerf.py:126-145: lr 1e-2, Adam eps 1e-15 and 100
+# warmup steps are the defaults of both trainers)
+TNV_TRAINER = dict(weight_decay=0.0, field_reg_weight=1e-4)
+
+
+@pytest.fixture(scope="module")
+def dynamic_batch():
+    """One train batch of the JAX dynamic scene (numpy) and its frame
+    times."""
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setenv("NERFACC_TPU_GT_CACHE", "")
+        ds = JaxDynamicLoader("train", n_train=5, width=24, height=24, num_rays=TNV_RAYS)
+    return {k: np.asarray(v) for k, v in ds[0].items()}, np.asarray(ds.timestamps)
+
+
+@pytest.mark.parametrize("bf16", [False, True], ids=["f32", "bf16"])
+def test_tineuvox_train_step_matches_jax(dynamic_batch, monkeypatch, bf16):
+    """A time-dependent step (per-ray times, one random frame per cell in the
+    refresh, the TV regulariser) against the JAX trainer's padded-traversal
+    step with the TiNeuVox field on its hat-matmul route, K3 interpreted,
+    from the same parameters (the warp scaled up from its rigid init) and
+    JAX's noise, the refresh's frame draw included.  Loss and mse 1e-5
+    relative, counts equal; gradients nonzero on every leaf, and in the f32
+    field within 1e-3 of each leaf's largest entry from JAX's; in the bf16
+    field 2e-2 in relative Frobenius norm, for the reason given in
+    tests/test_torch_tineuvox.py::test_gradients_match_jax.  The refreshed
+    occupancies within 1e-2 relative (the warp's last-bit differences flip
+    bf16 hat weights), the binaries equal where not within that of the
+    threshold."""
+    batch, timestamps = dynamic_batch
+    monkeypatch.setattr(
+        nerfacc_tpu.ops, "hat_interp_matmul", lambda x, line: jax_hat(x, line, True)
+    )
+    jdtype = jnp.bfloat16 if bf16 else jnp.float32
+    jfield = JaxTiNeuVox(aabb=AABB, compute_dtype=jdtype, **TNV_SMALL)
+    object.__setattr__(
+        jfield, "encoder", dataclasses.replace(jfield.encoder, use_pallas=True)
+    )
+    jtrainer = JaxTrainer(
+        field=jfield, aabb=AABB, max_steps=100, grid_resolution=GRID,
+        traversal="padded", windowed=False, max_samples_per_ray=1400,
+        dynamic_budget=False, sample_budget=2**16, timestamps=timestamps,
+        time_dependent=True, **TNV_TRAINER,
+    )
+    jtrainer.optimizer = _gradient_recorder()
+    jstate = jtrainer.init_state()
+    params = dict(jstate.params)
+    params["deform"] = params["deform"][:-1] + [params["deform"][-1] * 3e3]
+    jstate = jstate._replace(params=params)
+    jparams = jax.tree.map(np.asarray, jstate.params)
+    jocc = tuple(np.asarray(a) for a in (jstate.occ_state.aabbs, jstate.occ_state.occs,
+                                         jstate.occ_state.binaries))
+    _, k_occ, k_strat, k_time = jax.random.split(jstate.key, 4)
+    near = np.asarray(jax.random.uniform(k_strat, (TNV_RAYS,)))
+    cells = np.asarray(jax.random.uniform(jax.random.split(k_occ, 4)[3], (1, GRID**3, 3)))
+    frames = np.asarray(jax.random.randint(k_time, (GRID**3,), 0, timestamps.shape[0]))
+    new, ref = jtrainer.train_step(jstate, batch)  # donates ``jstate``
+    ref_grads = tineuvox_field_params_from_numpy(
+        jax.tree.map(np.asarray, new.opt_state), device="cpu"
+    )
+    ref_occs = np.asarray(new.occ_state.occs)
+
+    field = TiNeuVoxRadianceField(
+        AABB, compute_dtype=torch.bfloat16 if bf16 else torch.float32, device="cpu",
+        **TNV_SMALL,
+    )
+    trainer = NGPOccTrainer(
+        field=field, aabb=AABB, max_steps=100, grid_resolution=GRID,
+        sample_budget=2**16, timestamps=timestamps, device="cpu", **TNV_TRAINER,
+    )
+    tparams = tineuvox_field_params_from_numpy(jparams, device="cpu")
+    for p in tparams.values():
+        p.requires_grad_(True)
+    state = TrainState(
+        tparams, trainer.init_optimizer(tparams), occ_state_from_numpy(*jocc, device="cpu"), 0
+    )
+    out, aux = trainer.train_step(
+        state, {k: torch.tensor(v) for k, v in batch.items()},
+        near_jitter=torch.tensor(near), cell_jitter=torch.tensor(cells),
+        frame_idx=torch.tensor(frames),
+    )
+
+    occs = out.occ_state.occs.numpy()
+    np.testing.assert_allclose(occs, ref_occs, rtol=1e-2, atol=0)
+    thre = min(float(occs[occs >= 0].mean()), trainer.occ_thre)
+    differ = out.occ_state.binaries.numpy().reshape(-1) != np.asarray(new.occ_state.binaries).reshape(-1)
+    assert (~differ | (np.abs(ref_occs - thre) <= 1e-2 * thre)).all()
+    for key in ("loss", "mse"):
+        assert float(aux[key]) == pytest.approx(float(ref[key]), rel=1e-5), key
+    for key in ("n_rays_ok", "n_rendering_samples", "n_total_samples", "overflow"):
+        assert int(aux[key]) == int(ref[key]), key
+    for name, p in tparams.items():
+        got, want = p.grad.numpy(), ref_grads[name].numpy()
+        assert np.abs(got).max() > 0 and np.abs(want).max() > 0, name
+        if bf16:
+            assert np.linalg.norm(got - want) <= 2e-2 * np.linalg.norm(want), name
+        else:
+            np.testing.assert_allclose(
+                got, want, rtol=0, atol=1e-3 * np.abs(want).max(), err_msg=name
+            )
+
+
 def _converge(kind):
     ds = ProceduralSceneLoader(
         "train", n_train=4, width=24, height=24, num_rays=128, device="cpu"
@@ -320,3 +431,29 @@ def test_ngp_train_steps_converge_on_the_port_alone():
     """The same for the hash-grid NGP field from its own init (table
     U(-1e-4, 1e-4))."""
     _converge("ngp")
+
+
+def test_tineuvox_train_steps_converge_on_the_port_alone():
+    """30 time-dependent steps of the TiNeuVox field on the dynamic scene,
+    from its own rigid init, with the example's optimiser: the loss falls
+    and the deformation network moves."""
+    from nerfacc_tpu_torch.data.procedural import ProceduralDynamicSceneLoader
+
+    ds = ProceduralDynamicSceneLoader(
+        "train", n_train=4, width=24, height=24, num_rays=128, device="cpu"
+    )
+    trainer = NGPOccTrainer(
+        field=TiNeuVoxRadianceField(AABB, device="cpu", **TNV_SMALL), aabb=AABB,
+        max_steps=30, grid_resolution=GRID, sample_budget=2**15, update_interval=8,
+        timestamps=ds.timestamps, device="cpu", **TNV_TRAINER,
+    )
+    state = trainer.init_state()
+    deform0 = {k: v.detach().clone() for k, v in state.params.items() if k.startswith("deform")}
+    batches = [ds[0] for _ in range(30)]
+    state, aux = trainer.train_steps(
+        state, {k: torch.stack([b[k] for b in batches]) for k in batches[0]}
+    )
+    losses = aux["loss"].numpy()
+    assert np.isfinite(losses).all() and losses[-5:].mean() < losses[:5].mean(), losses
+    for k, v in deform0.items():
+        assert not torch.equal(state.params[k], v), k
