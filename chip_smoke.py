@@ -43,7 +43,21 @@ It builds the CUDA kernels from ``nerfacc_tpu_torch/csrc`` and runs:
     320x320, 1024 rays, a 2^16-sample budget, lr 1e-2, Adam eps 1e-15, no
     weight decay, TV weight 1e-4); G8, G9 and G10 must launch;
 13. phase 5 with that field, the deformation leaves included;
-14. phase 6 with that field, against phase 11's PSNR.
+14. phase 6 with that field, against phase 11's PSNR;
+15. the proposal-network path served: ``NGPPropTrainer.eval_metrics`` with
+    the full-width ``CPRadianceField`` and one ``CPDensityField`` (16/64 x
+    rank 16, hidden 64, bf16), parameters from seed 42, 128 proposal and 64
+    final samples per ray, on the four test views; G1, G3 and G14 must
+    launch;
+16. that path trained at ``bench.py``'s proposal configuration (4096 rays, 6
+    views at 256x256, batches drawn on the card by ``DeviceRaySampler``, the
+    proposal-gradient schedule, no weight decay) through
+    ``train_steps_sampled`` for ``TRAIN_STEPS`` steps; the reconstruction
+    loss must halve and G1, G3, G4, G5 and G14 must launch;
+17. one proposal train step with ``requires_grad`` through the kernels
+    against the same step through the plain versions (phase 5's bounds),
+    the proposal field's leaves included;
+18. phase 15 on phase 16's trained fields, against phase 15's PSNR.
 
 Phase 1d holds the hat kernels G8 (forward), G9 (table gradient) and G10
 (coordinate gradient) against their plain versions at N = 2^18 on each of
@@ -55,11 +69,23 @@ plain step against itself, and the kernel step with the composite (G3, G5)
 on its plain versions and PyTorch's scatter-adds in a fixed order, so that
 the hat kernels see the plain step's cotangents bit for bit.
 
+Phase 1e is the gather probe: G11 (the coarse-occupancy lookup, N = 2^18
+into a (256, 1024) summary), G13 (the row gather of
+scripts/pallas_gather_probe.py, 2^18 rows of a (2^14, 128) and a (2^14, 2)
+table) and G12 (the per-lane gather of scripts/pallas_gather_probe2.py, 64
+blocks of T rows at T = 512, 2^14 and 2^16, and its 16-level NGP-shaped
+lookup), each run once through its entry point with the launch counts
+zeroed before, then held bitwise against its plain version and timed beside
+the one PyTorch call that computes the same function.  Phase 1f holds G14
+(importance sampling) bitwise against its plain version at the proposal
+path's shapes.
+
 Every check raises on failure, so the exit code is nonzero and the result
 line is not printed.  The last line of standard output is a JSON object with
 ``"ok": true`` and the device; the line before it lists each kernel's launch
-count over the three training phases, error, times and bound.  Without a
-CUDA device the script fails at once.
+count (over the four training phases 4, 8, 12 and 16; for G11-G13, over the
+gather probe's run), error, times and bound.  Without a CUDA device the
+script fails at once.
 """
 import contextlib
 import json
@@ -70,6 +96,8 @@ import sys
 import time
 
 import torch
+from torch.autograd import DeviceType
+from torch.profiler import ProfilerActivity, profile
 
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
@@ -79,11 +107,21 @@ from nerfacc_tpu_torch.data.procedural import (  # noqa: E402
     ProceduralDynamicSceneLoader,
     ProceduralSceneLoader,
 )
+from nerfacc_tpu_torch import pdf  # noqa: E402
+from nerfacc_tpu_torch.data.device_sampler import DeviceRaySampler  # noqa: E402
+from nerfacc_tpu_torch.estimators.prop_net import (  # noqa: E402
+    get_proposal_requires_grad_fn,
+)
 from nerfacc_tpu_torch.grid import march, march_plain  # noqa: E402
-from nerfacc_tpu_torch.models.cp_field import CPRadianceField  # noqa: E402
+from nerfacc_tpu_torch.models.cp_field import CPDensityField, CPRadianceField  # noqa: E402
 from nerfacc_tpu_torch.models.encoders import HashGridEncoder  # noqa: E402
 from nerfacc_tpu_torch.models.ngp import NGPRadianceField  # noqa: E402
 from nerfacc_tpu_torch.models.tineuvox import TiNeuVoxRadianceField  # noqa: E402
+from nerfacc_tpu_torch.ops import cp_level as cp_level_ops  # noqa: E402
+from nerfacc_tpu_torch.ops.coarse_occ import (  # noqa: E402
+    coarse_occ_lookup,
+    coarse_occ_lookup_plain,
+)
 from nerfacc_tpu_torch.ops.cp_level import (  # noqa: E402
     cp_level_backward,
     cp_level_backward_plain,
@@ -107,6 +145,8 @@ from nerfacc_tpu_torch.ops.hat_matmul import (  # noqa: E402
     hat_taps,
 )
 from nerfacc_tpu_torch.ops import sorted_segments  # noqa: E402
+from nerfacc_tpu_torch.ops.lane_gather import lane_gather, lane_gather_plain  # noqa: E402
+from nerfacc_tpu_torch.ops.row_gather import row_gather, row_gather_plain  # noqa: E402
 from nerfacc_tpu_torch.ops.sorted_segments import (  # noqa: E402
     composite_sorted,
     composite_sorted_backward,
@@ -114,6 +154,7 @@ from nerfacc_tpu_torch.ops.sorted_segments import (  # noqa: E402
     composite_sorted_plain,
 )
 from nerfacc_tpu_torch.trainers.ngp_occ import NGPOccTrainer, TrainState  # noqa: E402
+from nerfacc_tpu_torch.trainers.ngp_prop import NGPPropTrainer, PropTrainState  # noqa: E402
 from nerfacc_tpu_torch.utils import flops  # noqa: E402
 from nerfacc_tpu_torch.utils.rendering import compact_samples  # noqa: E402
 
@@ -154,6 +195,21 @@ F32_STEP_FRO = 1e-4
 F32_HAT_STEP_FRO = 5e-4
 HAT_ALONE_STEP_FRO = 1e-5
 BF16_STEP_FRO = 5e-3
+# Phase 1e: the gather probe's shapes (scripts/pallas_gather_probe.py and
+# pallas_gather_probe2.py): K5's summary and lookups, P1's table and index
+# count, P2's table heights with 64 blocks of T rows each, and its NGP-shaped
+# lookup (16 levels of at most 2^16 rows packed into 128 lanes, 2^18 rows).
+COARSE_SUMMARY = (256, 1024)
+COARSE_N = 2**18
+ROW_TABLE, ROW_N = 2**14, 2**18
+LANE_HEIGHTS = (512, 2**14, 2**16)
+LANE_BLOCKS = 64
+NGP_T, NGP_N = 2**16, 2**18
+GATHER_OUTSIDE = 0.01  # share of the checked indices outside the table
+# Phases 15-18: the proposal path at bench.py's bench_prop configuration
+PROP_RAYS = 4096
+PROP_SAMPLES, PROP_FINAL = 128, 64
+PROP_EVAL_RAYS = 8192  # render_image's chunk
 
 
 # The least time the card could take for a kernel's work: the bytes the
@@ -207,6 +263,23 @@ def cuda_ms(fn, reps=10):
     return statistics.median(times)
 
 
+def device_ms(fn, reps=10):
+    """Mean device time of ``fn`` per call, in milliseconds: the kernels it
+    launches, summed from ``torch.profiler``'s records over ``reps`` calls.
+    Where a call's work takes microseconds, CUDA events around it measure
+    the host's launch path instead (the wrapper's checks, allocation and the
+    ctypes call, ~0.05 ms); this is the kernels' own share."""
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(e.time_range.end - e.time_range.start
+             for e in prof.events() if e.device_type == DeviceType.CUDA)
+    return us / reps / 1e3
+
+
 def nbytes(*args):
     """Bytes of the tensors among ``args``."""
     return sum(t.numel() * t.element_size() for t in args if isinstance(t, torch.Tensor))
@@ -230,6 +303,18 @@ def make_trainer(dev, kind="cp", dtype=torch.bfloat16, timestamps=None, **kw):
     return NGPOccTrainer(
         field=FIELDS[kind](dtype), aabb=AABB, device=dev, timestamps=timestamps,
         **TRAIN[kind][0], **kw,
+    )
+
+
+def make_prop_trainer(dev, dtype=torch.bfloat16, **kw):
+    """``bench.py``'s proposal configuration: the full-width CP radiance
+    field and one CPDensityField (16/64 x rank 16, hidden 64) in a compute
+    dtype, 128 proposal and 64 final samples, near 2, far 6, uniform."""
+    return NGPPropTrainer(
+        field=CPRadianceField(AABB, compute_dtype=dtype),
+        prop_fields=[CPDensityField(AABB, compute_dtype=dtype)],
+        prop_samples=[PROP_SAMPLES], num_samples=PROP_FINAL, near_plane=2.0,
+        far_plane=6.0, device=dev, **kw,
     )
 
 
@@ -584,6 +669,172 @@ def phase_hat_kernels(dev):
     print(f"G10 hat_bwd_x: kernel {r10['ms']:.4f} ms, plain {r10['plain_ms']:.4f} ms, "
           f"bound {r10['bound_ms']:.4f} ms")
     return report
+
+
+def same_bits(a, b):
+    """Bitwise equality, NaNs included."""
+    if a.shape != b.shape or a.dtype != b.dtype:
+        return False
+    view = torch.int16 if a.element_size() == 2 else torch.int32
+    return torch.equal(a.view(view), b.view(view))
+
+
+def with_outside(g, idx, low, high):
+    """``idx`` with ``GATHER_OUTSIDE`` of its entries redrawn from [low,
+    high), a range reaching past the table on both sides."""
+    out = idx.clone().reshape(-1)
+    k = int(GATHER_OUTSIDE * out.numel())
+    out[:k] = torch.randint(low, high, (k,), generator=g, device=idx.device,
+                            dtype=idx.dtype)
+    return out.reshape(idx.shape)
+
+
+@torch.inference_mode()
+def phase_gather_kernels(dev):
+    """1e. The gather probe.  Every case's inputs are made first; the
+    probe's run calls each entry point once per case with the launch counts
+    zeroed just before and read just after; then each output is held
+    bitwise against the plain version (and once more on indices with
+    ``GATHER_OUTSIDE`` of them out of range), and the kernel, the plain
+    version and the one PyTorch call that computes the same function are
+    timed.  Returns the report and the probe's launches."""
+    g = torch.Generator(device=dev).manual_seed(11)
+    i32 = dict(generator=g, device=dev, dtype=torch.int32)
+    rows, lanes = COARSE_SUMMARY
+    summary = torch.rand(COARSE_SUMMARY, generator=g, device=dev)
+    cases = [("K5 coarse_occ", coarse_occ_lookup, coarse_occ_lookup_plain,
+              (torch.randint(0, rows, (COARSE_N,), **i32),
+               torch.randint(0, lanes, (COARSE_N,), **i32), summary))]
+    for width in (128, 2):
+        tab = torch.randn((ROW_TABLE, width), generator=g, device=dev)
+        cases.append((f"P1 row_gather ({ROW_TABLE}, {width})", row_gather, row_gather_plain,
+                      (tab, torch.randint(0, ROW_TABLE, (ROW_N,), **i32))))
+    for T in LANE_HEIGHTS:
+        src = torch.randn((T, 128), generator=g, device=dev)
+        cases.append((f"P2 lane_gather T={T}", lane_gather, lane_gather_plain,
+                      (src, torch.randint(0, T, (LANE_BLOCKS * T, 128), **i32))))
+    # P2's NGP emulation: lane l reads level l % 16, of min(2^(10 + l % 16), T) rows
+    sizes = torch.clamp(2 ** (10 + torch.arange(128, device=dev) % 16), max=NGP_T)
+    idx = (torch.randint(0, 2**30, (NGP_N, 128), **i32) % sizes).to(torch.int32)
+    cases.append(("P2 NGP-shaped lane_gather", lane_gather, lane_gather_plain,
+                  (torch.randn((NGP_T, 128), generator=g, device=dev), idx)))
+    torch.cuda.synchronize()
+
+    cuda.reset_launches()
+    outs = [fn(*args) for _, fn, _, args in cases]
+    torch.cuda.synchronize()
+    probe_launches = {k: v for k, v in cuda.LAUNCHES.items() if v}
+    print(f"gather probe run: launches {probe_launches}")
+
+    report = {}
+    for (name, fn, plain, args), out in zip(cases, outs):
+        require(same_bits(out, plain(*args)), f"{name}: differs from its plain version")
+        if name.startswith("K5"):
+            row, lane, table = args
+            checked = (with_outside(g, row, -8, rows + 8), with_outside(g, lane, -8, lanes + 8), table)
+            lib_args = (table, row.long(), lane.long())
+            library = lambda t, r, c: t[r, c]  # noqa: E731
+            what, key = "summary[row, lane]", "coarse_occ"
+        elif name.startswith("P1"):
+            table, idx = args
+            T = table.shape[0]
+            checked = (table, with_outside(g, idx, -T - 8, T + 8))
+            lib_args = (table, idx)
+            library = lambda t, i: torch.index_select(t, 0, i)  # noqa: E731
+            what, key = "torch.index_select(tab, 0, idx)", "row_gather"
+        else:
+            src, idx = args
+            T = src.shape[0]
+            checked = (src, with_outside(g, idx, -T - 8, T + 8))
+            lib_args = (src, idx.long())
+            library = lambda t, i: torch.gather(t, 0, i)  # noqa: E731
+            what, key = "torch.gather(src, 0, idx)", "lane_gather"
+        require(same_bits(fn(*checked), plain(*checked)),
+                f"{name}: differs from its plain version on out-of-range indices")
+        lib_out = library(*lib_args)
+        lib_equal = torch.equal(lib_out, out) if key != "coarse_occ" else None
+        del checked, lib_out
+        # each output is one indexed load: ~2 integer operations per element
+        rec = measured(
+            0.0, cuda_ms(lambda: fn(*args)), cuda_ms(lambda: plain(*args)),
+            nbytes(*args, out), 2 * out.numel(), cuda_ms(lambda: library(*lib_args)),
+        )
+        kernel_dev, library_dev = device_ms(lambda: fn(*args)), device_ms(lambda: library(*lib_args))
+        print(f"{name}: {out.numel()} outputs, 0 unequal to the plain version "
+              f"(also with {100 * GATHER_OUTSIDE:g}% of the indices out of range); "
+              f"kernel {rec['ms']:.4f} ms ({1e6 * rec['ms'] / out.numel():.4f} ns per "
+              f"output), bound {rec['bound_ms']:.4f} ms ({rec['bound_by']}), "
+              f"{100 * rec['bound_ms'] / rec['ms']:.1f}% of it; plain {rec['plain_ms']:.4f} "
+              f"ms; {what} {rec['library_ms']:.4f} ms"
+              + ("" if lib_equal is None else f", equal to the kernel: {lib_equal}")
+              + f"; device time alone: kernel {kernel_dev:.4f} ms, {what} {library_dev:.4f} ms")
+        # the kernels line times K5, P1 at 128 lanes and P2 at T = 2^14
+        if name in ("K5 coarse_occ", f"P1 row_gather ({ROW_TABLE}, 128)",
+                    f"P2 lane_gather T={2**14}"):
+            report[key] = rec
+        del lib_args
+    del outs, cases
+    torch.cuda.empty_cache()
+    return report, probe_launches
+
+
+def prop_level_inputs(g, n_rays):
+    """Importance sampling's inputs at the proposal path's two levels: the
+    first level's ([0, 1] edges and CDF, E = 2) and the final resampling's
+    (the first level's 129 edges in s and a CDF from seeded densities, a
+    third of them zero, so the CDF has plateaus)."""
+    dev = g.device
+    unit = torch.tensor([[0.0, 1.0]], device=dev).expand(n_rays, 2).contiguous()
+    bias = torch.rand(n_rays, generator=g, device=dev)
+    _, edges = pdf._importance_sampling(unit, unit, bias, PROP_SAMPLES)
+    sigma = torch.rand((n_rays, PROP_SAMPLES), generator=g, device=dev) * 40.0
+    sigma = torch.where(torch.rand(sigma.shape, generator=g, device=dev) < 1 / 3, 0.0, sigma)
+    sdt = sigma * (edges[:, 1:] - edges[:, :-1])
+    trans = torch.exp(-torch.cumsum(sdt, dim=-1) + sdt)
+    cdfs = 1.0 - torch.cat([trans, torch.zeros_like(trans[:, :1])], dim=-1)
+    return (unit, unit, PROP_SAMPLES), (edges, cdfs, PROP_FINAL), bias
+
+
+@torch.inference_mode()
+def phase_pdf_kernel(dev):
+    """1f. G14 against its plain version, bitwise: at ``PROP_RAYS`` rays on
+    both levels (E = 2 -> 128 samples, then E = 129 -> 64), stratified, and
+    at the eval chunk's ``PROP_EVAL_RAYS`` rays (E = 129 -> 64, bias 0.5);
+    timed on the final level at ``PROP_RAYS`` (and, device time alone, on
+    the first).  No PyTorch call computes it
+    (``torch.searchsorted`` is the search alone)."""
+    g = torch.Generator(device=dev).manual_seed(14)
+    first, final, bias = prop_level_inputs(g, PROP_RAYS)
+    eval_final = prop_level_inputs(g, PROP_EVAL_RAYS)[1]
+    half = torch.full((PROP_EVAL_RAYS,), 0.5, device=dev)
+    for what, (vals, cdfs, n), b in (
+        (f"{PROP_RAYS} rays, E = 2 -> {PROP_SAMPLES}", first, bias),
+        (f"{PROP_RAYS} rays, E = {PROP_SAMPLES + 1} -> {PROP_FINAL}", final, bias),
+        (f"{PROP_EVAL_RAYS} rays, E = {PROP_SAMPLES + 1} -> {PROP_FINAL}, eval", eval_final, half),
+    ):
+        out = pdf._importance_sampling(vals, cdfs, b, n)
+        ref = pdf.importance_sampling_plain(vals, cdfs, b, n)
+        require(same_bits(out[0], ref[0]) and same_bits(out[1], ref[1]),
+                f"G14 {what}: differs from its plain version")
+        print(f"G14 importance_sampling {what}: samples and edges bitwise equal "
+              f"to the plain version")
+    vals, cdfs, n = final
+    out = pdf._importance_sampling(vals, cdfs, bias, n)
+    # per sample its position (3), the E - 1 compares with their selects
+    # (~3 each) and the lerp (~6); per edge ~3
+    ops = PROP_RAYS * (n * (3 * (vals.shape[1] - 1) + 9) + 3 * (n + 1))
+    rec = measured(
+        0.0, cuda_ms(lambda: pdf._importance_sampling(vals, cdfs, bias, n)),
+        cuda_ms(lambda: pdf.importance_sampling_plain(vals, cdfs, bias, n)),
+        nbytes(vals, cdfs, bias, *out), ops,
+    )
+    first_dev = device_ms(lambda: pdf._importance_sampling(*first[:2], bias, first[2]))
+    print(f"G14 importance_sampling {PROP_RAYS} rays, E = {vals.shape[1]} -> {n}: kernel "
+          f"{rec['ms']:.4f} ms, plain {rec['plain_ms']:.4f} ms, bound "
+          f"{rec['bound_ms']:.4f} ms ({rec['bound_by']}); device time alone: kernel "
+          f"{device_ms(lambda: pdf._importance_sampling(vals, cdfs, bias, n)):.4f} ms, and "
+          f"{first_dev:.4f} ms on the first level (E = 2 -> {first[2]})")
+    return {"importance_sampling": rec}
 
 
 def phase_slice(dev, ds, kind="cp", timestamps=None):
@@ -963,6 +1214,163 @@ def phase_serve_trained(trainer, state, ds, untrained_psnr, kind="cp"):
             f"trained {kind} psnr {metrics['psnr']} not 3 dB above {untrained_psnr}")
 
 
+def phase_prop_serve(dev, ds, trainer=None, state=None, untrained_psnr=None):
+    """15 (untrained, seed-42 weights) and 18 (``trainer`` and ``state``
+    from phase 16, against ``untrained_psnr``): ``NGPPropTrainer``'s
+    evaluation on the test views, launches counted."""
+    label = "prop" if untrained_psnr is None else "trained prop"
+    if trainer is None:
+        trainer = make_prop_trainer(dev)
+        state = trainer.init_state()
+    cuda.reset_launches()
+    metrics = trainer.eval_metrics(state, ds)
+    torch.cuda.synchronize()
+    launches = {k: v for k, v in cuda.LAUNCHES.items() if v}
+    for i, v in enumerate(metrics["views"]):
+        print(f"{label} view {i}: {v['seconds']:.4f} s, {v['n_samples'] / v['n_rays']:.0f} "
+              f"samples/ray, {v['n_samples'] / v['seconds']:.4g} rendered samples/s, psnr "
+              f"{v['psnr']:.3f}, ssim {v['ssim']:.4f}, opacity [{v['opacity_min']:.4g}, "
+              f"{v['opacity_max']:.6g}]")
+        require(v["finite"], f"{label} view {i}: non-finite output")
+        require(v["opacity_min"] >= 0.0 and v["opacity_max"] <= 1.0 + 1e-4,
+                f"{label} view {i}: opacity out of [0, 1]")
+    seconds = sum(v["seconds"] for v in metrics["views"]) / len(metrics["views"])
+    print(f"{label}: {seconds:.4f} s/frame, psnr {metrics['psnr']:.3f}, ssim "
+          f"{metrics['ssim']:.4f}; launches {launches}")
+    for name in ("cp_level_fwd", "composite_fwd", "importance_sampling"):
+        require(launches.get(name, 0) > 0, f"kernel {name} never launched in {label} serving")
+    if untrained_psnr is not None:
+        require(metrics["psnr"] >= untrained_psnr + 3.0,
+                f"trained prop psnr {metrics['psnr']} not 3 dB above {untrained_psnr}")
+    return metrics["psnr"]
+
+
+def phase_prop_train(dev):
+    """16. The proposal path trained at bench.py's configuration through
+    ``train_steps_sampled`` and the proposal-gradient schedule, launches
+    counted; batches drawn on the card from the step's generator."""
+    t0 = time.perf_counter()
+    ds = ProceduralSceneLoader(split="train", n_train=6, width=256, height=256,
+                               num_rays=PROP_RAYS, device=dev)
+    sampler = DeviceRaySampler.from_loader(ds)
+    trainer = make_prop_trainer(dev, max_steps=TRAIN_STEPS)
+    state = trainer.init_state()
+    rg_fn = get_proposal_requires_grad_fn()
+    rgs = [rg_fn(step) for step in range(TRAIN_STEPS)]
+    torch.cuda.synchronize()
+    print(f"train prop: {len(ds)} views {ds.WIDTH}x{ds.HEIGHT} staged on the card, "
+          f"{PROP_RAYS} rays, {PROP_SAMPLES} + {PROP_FINAL} samples per ray, "
+          f"{sum(rgs)} of {TRAIN_STEPS} steps train the proposal field, set-up "
+          f"{time.perf_counter() - t0:.2f} s")
+
+    cuda.reset_launches()
+    losses, prop_losses = [], []
+    t0 = time.perf_counter()
+    for start in range(0, TRAIN_STEPS, 100):
+        state, aux = trainer.train_steps_sampled(state, sampler, rgs[start : start + 100])
+        losses.append(aux["loss"])
+        prop_losses.append(aux["prop_loss"])
+        print(f"train prop step {start}: loss {float(aux['loss'][0]):.6f}, prop loss "
+              f"{float(aux['prop_loss'][0]):.6f}")
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = dict(cuda.LAUNCHES)
+
+    losses, prop_losses = torch.cat(losses).cpu(), torch.cat(prop_losses).cpu()
+    require(bool(torch.isfinite(losses).all()), "train prop: non-finite loss")
+    recon = losses - prop_losses
+    first, last = float(recon[:50].mean()), float(recon[-50:].mean())
+    n_rg = sum(rgs)
+    samples = TRAIN_STEPS * PROP_RAYS * (PROP_SAMPLES + PROP_FINAL)  # as bench.py counts
+    prop = trainer.prop_fields[0]
+    work = PROP_RAYS * (
+        TRAIN_STEPS * PROP_FINAL * flops.cp_field_flops_per_sample(trainer.field)
+        + PROP_SAMPLES * ((TRAIN_STEPS - n_rg) * flops.cp_density_flops_per_sample(prop)
+                          + n_rg * flops.cp_density_flops_per_sample(prop, backward=True)))
+    print(f"train prop: {TRAIN_STEPS} steps in {seconds:.3f} s, "
+          f"{1e3 * seconds / TRAIN_STEPS:.3f} ms/step, {samples / seconds:.6g} train "
+          f"samples/s (bench.py's count, {PROP_RAYS} x ({PROP_SAMPLES} + {PROP_FINAL}) per "
+          f"step), {work / seconds / 1e12:.4f} TFLOP/s = "
+          f"{100 * work / seconds / flops.H100_PEAK_BF16_FLOPS:.4f}% of 989 bf16 TFLOP/s")
+    print(f"train prop: mean reconstruction loss of the first 50 steps {first:.6f}, of the "
+          f"last 50 {last:.6f}; mean loss (with the interlevel loss) "
+          f"{float(losses[:50].mean()):.6f} -> {float(losses[-50:].mean()):.6f}; mean "
+          f"prop loss over its steps {float(prop_losses[:50][torch.tensor(rgs[:50])].mean()):.6f} "
+          f"-> {float(prop_losses[-200:][torch.tensor(rgs[-200:])].mean()):.6f} (first 50, "
+          f"last 200 steps); launches {launches}, per step "
+          + ", ".join(f"{k} {v / TRAIN_STEPS:.3f}" for k, v in launches.items() if v))
+    require(last < 0.5 * first, f"train prop: loss {first} -> {last} did not halve")
+    for name in ("cp_level_fwd", "cp_level_bwd", "composite_fwd", "composite_bwd",
+                 "importance_sampling"):
+        require(launches[name] > 0, f"kernel {name} never launched in prop training")
+    batch = sampler.sample(trainer._generator(TRAIN_STEPS, 2))
+    return trainer, state, batch, launches
+
+
+@contextlib.contextmanager
+def plain_kernels():
+    """Inside: every kernel of the proposal path runs its plain version (G1
+    and G4, G3 and G5, G14), through the same autograd Functions."""
+    saved = (cp_level_ops._encode_forward, cp_level_ops.cp_level_backward,
+             sorted_segments._composite_forward, sorted_segments.composite_sorted_backward,
+             pdf._importance_sampling)
+    cp_level_ops._encode_forward = cp_level_encode_plain
+    cp_level_ops.cp_level_backward = cp_level_backward_plain
+    sorted_segments._composite_forward = sorted_segments.composite_sorted_plain
+    sorted_segments.composite_sorted_backward = sorted_segments.composite_sorted_backward_plain
+    pdf._importance_sampling = pdf.importance_sampling_plain
+    try:
+        yield
+    finally:
+        (cp_level_ops._encode_forward, cp_level_ops.cp_level_backward,
+         sorted_segments._composite_forward, sorted_segments.composite_sorted_backward,
+         pdf._importance_sampling) = saved
+
+
+def prop_step_grads(trainer, state, batch, biases, plain=False):
+    """One ``train_step`` with ``requires_grad`` from a copy of ``state``,
+    through the kernels or (``plain``) their plain versions: its loss and
+    every leaf's gradient, each checked finite and nonzero."""
+    params = {
+        "field": {k: v.detach().clone().requires_grad_(True) for k, v in state.params["field"].items()},
+        "props": [{k: v.detach().clone().requires_grad_(True) for k, v in p.items()}
+                  for p in state.params["props"]],
+    }
+    st = PropTrainState(params, trainer.init_optimizer(params), state.step)
+    before = dict(cuda.LAUNCHES)
+    with plain_kernels() if plain else contextlib.nullcontext():
+        _, aux = trainer.train_step(st, batch, requires_grad=True, biases=biases)
+    if plain:
+        require(cuda.LAUNCHES == before, "the plain prop step launched a kernel")
+    grads = {f"field.{k}": v.grad for k, v in params["field"].items()}
+    for i, p in enumerate(params["props"]):
+        grads.update({f"props.{i}.{k}": v.grad for k, v in p.items()})
+    for name, g in grads.items():
+        require(torch.isfinite(g).all() and float(g.abs().max()) > 0,
+                f"prop train step: gradient of {name} is zero or not finite")
+    return float(aux["loss"]), grads
+
+
+def phase_prop_train_twins(trainer, state, batch):
+    """17. One proposal train step with ``requires_grad`` through the
+    kernels against the same step through the plain versions, from phase
+    16's state with the same batch and jitter, for the trained bf16 fields
+    and for the same parameters in f32 fields (phase 5's bounds)."""
+    gen = torch.Generator(device=trainer.device).manual_seed(17)
+    biases = [torch.rand(PROP_RAYS, generator=gen, device=trainer.device) for _ in range(2)]
+    f32 = make_prop_trainer(trainer.device, torch.float32, max_steps=TRAIN_STEPS)
+    checks = []
+    for mode, tr, limit in (("f32", f32, F32_STEP_FRO), ("bf16", trainer, BF16_STEP_FRO)):
+        ref = prop_step_grads(tr, state, batch, biases, plain=True)
+        checks.append(step_readings(
+            f"train step prop {mode}, kernels vs plain versions",
+            lambda: prop_step_grads(tr, state, batch, biases), ref, limit,
+        ))
+    for what, reading, limit, loss_rel in checks:
+        require(reading <= limit, f"{what}: a gradient leaf off by {reading} > {limit}")
+        require(loss_rel <= 1e-5, f"{what}: losses differ by {loss_rel}")
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is false")
@@ -996,6 +1404,9 @@ def main():
     del trainer
     report.update(phase_hash_kernels(dev))
     report.update(phase_hat_kernels(dev))
+    gather_report, probe_launches = phase_gather_kernels(dev)
+    report.update(gather_report)
+    report.update(phase_pdf_kernel(dev))
     trainer, state, untrained_psnr = phase_slice(dev, ds)
 
     with torch.inference_mode():
@@ -1032,8 +1443,18 @@ def main():
     trainer, state, batch, tnv_launches = phase_train(dev, "tineuvox", dyn_train)
     phase_train_twins(trainer, state, batch, "tineuvox")
     phase_serve_trained(trainer, state, dyn_test, untrained_psnr, "tineuvox")
-    # each kernel's launches over the three training runs (phases 4, 8, 12)
-    launches = {k: v + ngp_launches[k] + tnv_launches[k] for k, v in launches.items()}
+    del trainer, state
+
+    # 15-18: the proposal-network path
+    untrained_psnr = phase_prop_serve(dev, ds)
+    trainer, state, batch, prop_launches = phase_prop_train(dev)
+    phase_prop_train_twins(trainer, state, batch)
+    phase_prop_serve(dev, ds, trainer, state, untrained_psnr)
+    # each kernel's launches over the four training runs (phases 4, 8, 12,
+    # 16), and the gather kernels' over the gather probe's run
+    launches = {k: v + ngp_launches[k] + tnv_launches[k] + prop_launches[k]
+                for k, v in launches.items()}
+    launches.update(probe_launches)
 
     sources = {
         "cp_level_fwd": ("nerfacc_tpu_torch/csrc/cp_level.cu",
@@ -1055,10 +1476,18 @@ def main():
                          "nerfacc_tpu/ops/hat_matmul.py:49"),
         "hat_bwd_x": ("nerfacc_tpu_torch/csrc/hat_matmul.cu",
                       "nerfacc_tpu/ops/hat_matmul.py:68"),
+        "coarse_occ": ("nerfacc_tpu_torch/csrc/gather.cu",
+                       "nerfacc_tpu/ops/coarse_occ.py:27"),
+        "lane_gather": ("nerfacc_tpu_torch/csrc/gather.cu",
+                        "nerfacc_tpu/ops/lane_gather.py:35"),
+        "row_gather": ("nerfacc_tpu_torch/csrc/gather.cu",
+                       "scripts/pallas_gather_probe.py:84"),
+        "importance_sampling": ("nerfacc_tpu_torch/csrc/pdf.cu",
+                                "nerfacc_tpu/pdf.py:135"),
     }
     kernels = []
     for name, (src, replaces) in sources.items():
-        require(launches[name] > 0, f"kernel {name} never launched in training")
+        require(launches.get(name, 0) > 0, f"kernel {name} never launched on its path")
         kernels.append({
             "name": name, "route": "cuda", "source": src, "replaces": replaces,
             "launches": launches[name], **report[name],

@@ -32,6 +32,12 @@
 
 namespace {
 
+// min(sd, 40) as XLA's and PyTorch's minimum take it: a NaN stays NaN (an
+// infinite density on a zero-length sample), where fminf would return 40.
+__device__ __forceinline__ float cap_optical_depth(float sd) {
+  return sd > 40.0f ? 40.0f : sd;
+}
+
 __global__ void composite_fwd_kernel(
     const float* __restrict__ t_starts, const float* __restrict__ t_ends,
     const float* __restrict__ sigmas, const float* __restrict__ rgbs,
@@ -47,7 +53,7 @@ __global__ void composite_fwd_kernel(
   const int64_t end = seg_ends[r];
   for (int64_t i = seg_starts[r]; i <= end; ++i) {
     const float t0 = t_starts[i], t1 = t_ends[i];
-    const float sd = fminf(sigmas[i] * (t1 - t0), 40.0f);
+    const float sd = cap_optical_depth(sigmas[i] * (t1 - t0));
     const float alpha = 1.0f - expf(-sd);
     const float w = expf(-optical_depth) * prefix * alpha;
     optical_depth += sd;
@@ -107,7 +113,7 @@ __global__ void composite_bwd_kernel(
   float optical_depth = 0.0f;
   for (int64_t i = start; i <= end; ++i) {
     const float t0 = t_starts[i], t1 = t_ends[i];
-    const float sd = fminf(sigmas[i] * (t1 - t0), 40.0f);
+    const float sd = cap_optical_depth(sigmas[i] * (t1 - t0));
     const float alpha = 1.0f - expf(-sd);
     const float trans = expf(-optical_depth) * prefix;
     const float w = trans * alpha;

@@ -14,7 +14,8 @@ from ._build import check, load
 LAUNCHES = {
     "cp_level_fwd": 0, "cp_level_bwd": 0, "march": 0, "composite_fwd": 0,
     "composite_bwd": 0, "hash_fwd": 0, "hash_bwd": 0, "hat_fwd": 0,
-    "hat_bwd_line": 0, "hat_bwd_x": 0,
+    "hat_bwd_line": 0, "hat_bwd_x": 0, "coarse_occ": 0, "lane_gather": 0,
+    "row_gather": 0, "importance_sampling": 0,
 }
 
 

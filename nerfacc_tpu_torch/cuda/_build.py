@@ -58,6 +58,14 @@ _SIGNATURES = {
     "hat_bwd_line": [_P] * 4 + [ctypes.c_int64, _I, _I, _P],
     # (x, g, line, dx, n, R, rank, stream)
     "hat_bwd_x": [_P] * 4 + [ctypes.c_int64, _I, _I, _P],
+    # (row, lane, summary, out, n, rows, lanes, stream)
+    "coarse_occ_lookup": [_P] * 4 + [ctypes.c_int64, _I, _I, _P],
+    # (src, idx, out, n_rows, T, elem_bytes, stream)
+    "lane_gather": [_P] * 3 + [ctypes.c_int64, _I, _I, _P],
+    # (tab, idx, out, n, T, F, vec, stream)
+    "row_gather": [_P] * 3 + [ctypes.c_int64, _I, _I, _I, _P],
+    # (vals, cdfs, bias, samples, edges, n_rays, E, n, stream)
+    "importance_sampling": [_P] * 5 + [_I, _I, _I, _P],
 }
 
 _lib: Optional[ctypes.CDLL] = None

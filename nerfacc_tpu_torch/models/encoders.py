@@ -115,7 +115,9 @@ class SinusoidalEncoder(nn.Module):
         """(..., x_dim) -> (..., latent_dim)."""
         if self.max_deg == self.min_deg:
             return x
-        xb = (x[..., None, :] * self.scales[:, None]).reshape(x.shape[:-1] + (-1,))
+        # the width is spelled out: -1 is ambiguous for an empty batch
+        xb = (x[..., None, :] * self.scales[:, None]).reshape(
+            x.shape[:-1] + (self.scales.numel() * x.shape[-1],))
         latent = torch.sin(torch.cat([xb, xb + 0.5 * math.pi], dim=-1))
         if self.use_identity:
             latent = torch.cat([x, latent], dim=-1)

@@ -3,8 +3,9 @@ activations, contraction, MLPs and the field around an encoder.
 
 PyTorch counterpart of nerfacc_tpu/models/ngp.py.  Ported: ``trunc_exp``,
 ``contract_to_unisphere``, the bias-free MLPs, ``_cubify_aabb`` and
-``NGPRadianceField`` (view directions always on); ``NGPDensityField`` (the
-proposal path's field) is not ported yet.
+``NGPRadianceField`` (view directions always on); ``NGPDensityField`` (a
+proposal field) is not ported yet: the port's proposal path runs
+``CPDensityField``.
 """
 from __future__ import annotations
 
@@ -53,6 +54,20 @@ def contract_to_unisphere(x: torch.Tensor, aabb: torch.Tensor) -> torch.Tensor:
     contracted = (2 - 1 / safe_mag) * (x / safe_mag)
     x = torch.where(mask[..., None], contracted, x)
     return x / 4 + 0.5  # [-inf, inf] is at [0, 1]
+
+
+def normalize_points(
+    x: torch.Tensor, aabb: torch.Tensor, unbounded: bool
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """World points -> (encoder coordinates, selector): contracted into the
+    unit sphere with every point selected, or scaled to the AABB's [0, 1]^3
+    with the points strictly inside it selected."""
+    if unbounded:
+        u = contract_to_unisphere(x, aabb)
+        return u, torch.ones(x.shape[:-1], dtype=torch.bool, device=x.device)
+    lo, hi = aabb[:3], aabb[3:]
+    u = (x - lo) / (hi - lo)
+    return u, ((u > 0.0) & (u < 1.0)).all(dim=-1)
 
 
 def _mlp_init(generator: torch.Generator, dims: Sequence[int]) -> List[torch.Tensor]:
@@ -160,12 +175,7 @@ class MLPField(nn.Module):
 
     def normalize(self, x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
         """World points -> (encoder coordinates, inside-the-AABB selector)."""
-        if self.unbounded:
-            u = contract_to_unisphere(x, self.aabb)
-            return u, torch.ones(x.shape[:-1], dtype=torch.bool, device=x.device)
-        lo, hi = self.aabb[:3], self.aabb[3:]
-        u = (x - lo) / (hi - lo)
-        return u, ((u > 0.0) & (u < 1.0)).all(dim=-1)
+        return normalize_points(x, self.aabb, self.unbounded)
 
     def query_density(self, x: torch.Tensor, return_feat: bool = False):
         u, selector = self.normalize(x)

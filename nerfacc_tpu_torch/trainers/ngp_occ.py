@@ -39,6 +39,13 @@ WARMUP_STEPS = 100
 ADAM_EPS = 1e-15
 
 
+def disable_tf32() -> None:
+    """The fields' f32 matmuls carry the JAX package's bf16-operand,
+    f32-result contract; TF32 would round their operands further."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+
 def make_lr_schedule(max_steps: int) -> Callable[[int], float]:
     """The JAX package's schedule, as a function of the optimizer's update
     count: a linear warmup from 0.01x over ``WARMUP_STEPS`` updates, then
@@ -63,6 +70,28 @@ def make_lr_schedule(max_steps: int) -> Callable[[int], float]:
 class OptState(NamedTuple):
     optimizer: torch.optim.Adam  # holds the moments; updates params in place
     count: int  # updates applied so far (the schedule's argument)
+
+
+def make_adam(leaves, schedule: Callable[[int], float], weight_decay: float) -> OptState:
+    """Adam over the tensors ``leaves``: optax's ``add_decayed_weights``
+    before ``scale_by_adam`` is torch's coupled L2 ``weight_decay``."""
+    adam = torch.optim.Adam(
+        list(leaves), lr=schedule(0), betas=(0.9, 0.999), eps=ADAM_EPS,
+        weight_decay=weight_decay,
+    )
+    return OptState(adam, 0)
+
+
+def adam_update(opt_state: OptState, schedule: Callable[[int], float]) -> OptState:
+    """One Adam update from the leaves' ``.grad``, at the schedule's value
+    for the update count before the increment (as optax).  A leaf whose
+    ``.grad`` is None is skipped: its moments do not decay and its step
+    count does not advance."""
+    lr = schedule(opt_state.count)
+    for group in opt_state.optimizer.param_groups:
+        group["lr"] = lr
+    opt_state.optimizer.step()
+    return OptState(opt_state.optimizer, opt_state.count + 1)
 
 
 class TrainState(NamedTuple):
@@ -124,10 +153,7 @@ class NGPOccTrainer:
 
     def __post_init__(self):
         self.device = torch.device(self.device)
-        # The field's f32 matmuls carry the JAX package's bf16-operand,
-        # f32-result contract; TF32 would round their operands further.
-        torch.backends.cuda.matmul.allow_tf32 = False
-        torch.backends.cudnn.allow_tf32 = False
+        disable_tf32()
         self.field = self.field.to(self.device)
         self.schedule = make_lr_schedule(self.max_steps)
         if self.timestamps is not None:
@@ -151,22 +177,12 @@ class NGPOccTrainer:
         return TrainState(params, self.init_optimizer(params), occ_state, 0)
 
     def init_optimizer(self, params: Dict[str, torch.Tensor]) -> OptState:
-        """Adam over ``params``: optax's ``add_decayed_weights`` before
-        ``scale_by_adam`` is torch's coupled L2 ``weight_decay``."""
-        adam = torch.optim.Adam(
-            list(params.values()), lr=self.schedule(0), betas=(0.9, 0.999),
-            eps=ADAM_EPS, weight_decay=self.weight_decay,
-        )
-        return OptState(adam, 0)
+        """Adam over ``params`` (:func:`make_adam`)."""
+        return make_adam(params.values(), self.schedule, self.weight_decay)
 
     def apply_gradients(self, opt_state: OptState) -> OptState:
-        """One Adam update from the parameters' ``.grad``, at the schedule's
-        value for the update count before the increment (as optax)."""
-        lr = self.schedule(opt_state.count)
-        for group in opt_state.optimizer.param_groups:
-            group["lr"] = lr
-        opt_state.optimizer.step()
-        return OptState(opt_state.optimizer, opt_state.count + 1)
+        """One Adam update from the parameters' ``.grad`` (:func:`adam_update`)."""
+        return adam_update(opt_state, self.schedule)
 
     def _generator(self, step: int, stream: int) -> torch.Generator:
         """The noise of one step: stream 0 the refresh's cell jitter, 1 the

@@ -1,5 +1,5 @@
-"""Analytic matmul FLOP counts of the CP radiance field (PyTorch counterpart
-of nerfacc_tpu/utils/flops.py, line levels only).
+"""Analytic matmul FLOP counts of the CP radiance and density fields
+(PyTorch counterpart of nerfacc_tpu/utils/flops.py, line levels only).
 
 A deliberate lower bound of useful work: the dense matmul FLOPs of the
 encoder (counted as the JAX package's (1, R) @ (R, rank) hat dots, although
@@ -32,6 +32,13 @@ def cp_field_flops_per_sample(field) -> int:
         + _mlp_flops(field.head_dims)
     )
     return fwd * 3
+
+
+def cp_density_flops_per_sample(field, backward: bool = False) -> int:
+    """FLOPs/sample of a CPDensityField query (encoder and its one MLP), a
+    proposal level's evaluation, with its gradient pass when ``backward``."""
+    fwd = cp_encoder_flops_per_sample(field.encoder) + _mlp_flops(field.base_dims)
+    return fwd * (3 if backward else 1)
 
 
 def cp_density_query_flops_per_sample(field) -> int:

@@ -2,8 +2,10 @@
 
 The JAX package keeps parameters as a pytree of arrays; this package keeps
 them in a field's ``state_dict`` (:class:`~nerfacc_tpu_torch.models.cp_field.
-CPRadianceField`, :class:`~nerfacc_tpu_torch.models.ngp.NGPRadianceField`,
-:class:`~nerfacc_tpu_torch.models.tineuvox.TiNeuVoxRadianceField`).
+CPRadianceField`, :class:`~nerfacc_tpu_torch.models.cp_field.CPDensityField`,
+:class:`~nerfacc_tpu_torch.models.ngp.NGPRadianceField`,
+:class:`~nerfacc_tpu_torch.models.tineuvox.TiNeuVoxRadianceField`), and the
+proposal trainer keeps ``{"field": ..., "props": [...]}`` of them.
 The bridge speaks numpy on the JAX side, so it needs no JAX import: convert
 a JAX tree with ``jax.tree.map(np.asarray, params)`` first.  Tensors land on
 the card unless ``device`` says otherwise.
@@ -66,6 +68,45 @@ def tineuvox_field_params_from_numpy(
 def tineuvox_field_params_to_numpy(params: Dict[str, torch.Tensor]) -> Dict:
     """The inverse of :func:`tineuvox_field_params_from_numpy`."""
     return {"deform": _listed(params, "deform."), **cp_field_params_to_numpy(params)}
+
+
+def cp_density_field_params_from_numpy(
+    tree: Dict, device: Union[str, torch.device] = "cuda"
+) -> Dict[str, torch.Tensor]:
+    """``{"encoder": {"lines": [(3, R, rank)...]}, "mlp_base": [W...]}`` ->
+    a CPDensityField state dict (f32 tensors)."""
+    params = {
+        f"encoder.lines.{i}": _tensor(line, device)
+        for i, line in enumerate(tree["encoder"]["lines"])
+    }
+    return {**params, **{f"mlp_base.{i}": _tensor(w, device)
+                         for i, w in enumerate(tree["mlp_base"])}}
+
+
+def cp_density_field_params_to_numpy(params: Dict[str, torch.Tensor]) -> Dict:
+    """The inverse of :func:`cp_density_field_params_from_numpy`."""
+    return {"encoder": {"lines": _listed(params, "encoder.lines.")},
+            "mlp_base": _listed(params, "mlp_base.")}
+
+
+def prop_params_from_numpy(
+    tree: Dict, device: Union[str, torch.device] = "cuda"
+) -> Dict:
+    """The JAX proposal trainer's ``{"field": ..., "props": [...]}`` tree
+    (a CPRadianceField and CPDensityFields) -> the port's
+    ``PropTrainState.params``."""
+    return {
+        "field": cp_field_params_from_numpy(tree["field"], device),
+        "props": [cp_density_field_params_from_numpy(p, device) for p in tree["props"]],
+    }
+
+
+def prop_params_to_numpy(params: Dict) -> Dict:
+    """The inverse of :func:`prop_params_from_numpy`."""
+    return {
+        "field": cp_field_params_to_numpy(params["field"]),
+        "props": [cp_density_field_params_to_numpy(p) for p in params["props"]],
+    }
 
 
 def occ_state_from_numpy(

@@ -8,6 +8,7 @@ Run from the root of a checkout:
     python3 scripts/profile_torch_eval.py --train [--warmup 1000]
     python3 scripts/profile_torch_eval.py --field ngp [--train]
     python3 scripts/profile_torch_eval.py --field tineuvox [--train]
+    python3 scripts/profile_torch_eval.py --field prop [--train]
 
 Serving (the default) sets up the slice as ``chip_smoke.py`` does
 (``--field cp``: the full-width ``CPRadianceField`` 32/128/512 x rank 32;
@@ -15,18 +16,23 @@ Serving (the default) sets up the slice as ``chip_smoke.py`` does
 2 features, 2^19 rows per level; ``--field tineuvox``: the full-width
 ``TiNeuVoxRadianceField`` on the moving-blob scene, each view at its own
 time; all bf16, parameters from seed 42, four dense refreshes of the 128^3
+grid; ``--field prop``: the proposal-network path of phase 15, the CP field
+behind one ``CPDensityField``, 128 proposal and 64 final samples per ray, no
 grid), times a dense refresh and three renders of one test view on the host
 clock, then renders the view once more under ``torch.profiler``.
 ``--train`` sets up the train slice of ``chip_smoke.py``'s phase 4 (6 views
 at 256x256, 2048 rays, a 2^18-sample budget; for TiNeuVox phase 12's: 24
 views at 320x320, 1024 rays, a 2^16-sample budget and the dynamic example's
-optimiser), runs ``--warmup`` steps so that the grid is no longer the
-untrained one, times three steps and profiles one more (none of them
-refreshes the grid; the refresh is timed on its own).  It prints:
+optimiser; for ``prop`` phase 16's: 4096 rays drawn on the card by
+``DeviceRaySampler``, the proposal-gradient schedule), runs ``--warmup``
+steps so that the grid is no longer the untrained one, times three steps and
+profiles one more (none of them refreshes the grid; the refresh is timed on
+its own; the proposal path's timed and profiled steps all train the
+proposal field, its heavier kind of step).  It prints:
 
 - the device busy share: the union of all kernel and memcpy intervals over
   the profiled frame's or step's wall time;
-- each kernel class's share of device time (the port's kernels G1-G10, the
+- each kernel class's share of device time (the port's kernels G1-G14, the
   MLP GEMMs, concatenation, Adam, other PyTorch kernels);
 - the PyTorch ops with the most self device time.
 
@@ -45,8 +51,17 @@ from torch.profiler import ProfilerActivity, profile
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-from chip_smoke import N_REFRESH, TRAIN, make_trainer, train_loader  # noqa: E402
+from chip_smoke import (  # noqa: E402
+    N_REFRESH,
+    PROP_RAYS,
+    TRAIN,
+    make_prop_trainer,
+    make_trainer,
+    train_loader,
+)
 from nerfacc_tpu_torch import cuda  # noqa: E402
+from nerfacc_tpu_torch.data.device_sampler import DeviceRaySampler  # noqa: E402
+from nerfacc_tpu_torch.estimators.prop_net import get_proposal_requires_grad_fn  # noqa: E402
 from nerfacc_tpu_torch.data.procedural import (  # noqa: E402
     ProceduralDynamicSceneLoader,
     ProceduralSceneLoader,
@@ -66,6 +81,7 @@ CLASSES = (
     ("hat_bwd_line_kernel", "G9 hat interp table gradient"),
     ("round_to_f32_kernel", "G9 hat interp table gradient"),  # G9's second launch
     ("hat_bwd_x_kernel", "G10 hat interp coordinate gradient"),
+    ("importance_sampling_kernel", "G14 importance sampling"),
     ("gemm", "GEMM (MLPs)"),
     ("multi_tensor_apply", "Adam (foreach)"),
     ("CatArrayBatchedCopy", "cat"),
@@ -98,6 +114,16 @@ def self_device_us(evt):
 
 def eval_target(dev, field, view):
     """The serving slice; returns the profiled call and its label."""
+    if field == "prop":
+        trainer = make_prop_trainer(dev)
+        state = trainer.init_state()
+        data = ProceduralSceneLoader(split="test", device=dev)[view]
+
+        def run_prop():
+            trainer.render_rays(state, data)
+            return f"{trainer.prop_samples[0]} + {trainer.num_samples} samples per ray"
+
+        return run_prop, f"view {view}", "eval"
     if field == "tineuvox":
         ds = ProceduralDynamicSceneLoader(split="test", device=dev)
         trainer = make_trainer(dev, field, timestamps=train_loader(dev, field).timestamps)
@@ -116,9 +142,32 @@ def eval_target(dev, field, view):
     return run, f"view {view}", "eval"
 
 
+def prop_train_target(dev, warmup):
+    """Phase 16's proposal training after ``warmup`` steps on the
+    proposal-gradient schedule; the profiled call is one step that trains
+    the proposal field."""
+    ds = ProceduralSceneLoader(split="train", n_train=6, width=256, height=256,
+                               num_rays=PROP_RAYS, device=dev)
+    sampler = DeviceRaySampler.from_loader(ds)
+    trainer = make_prop_trainer(dev, max_steps=warmup + 8)
+    rg_fn = get_proposal_requires_grad_fn()
+    state, _ = trainer.train_steps_sampled(
+        trainer.init_state(), sampler, [rg_fn(s) for s in range(warmup)])
+    holder = {"state": state}
+
+    def run():
+        st, aux = trainer.train_steps_sampled(holder["state"], sampler, [True])
+        holder["state"] = st
+        return f"loss {float(aux['loss'][0]):.5f}, prop loss {float(aux['prop_loss'][0]):.5f}"
+
+    return run, "train step", "train"
+
+
 def train_target(dev, field, warmup):
     """The train slice after ``warmup`` steps; the profiled call is one
     train step that does not refresh the grid."""
+    if field == "prop":
+        return prop_train_target(dev, warmup)
     ds = train_loader(dev, field)
     trainer = make_trainer(
         dev, field, timestamps=getattr(ds, "timestamps", None), max_steps=warmup + 8,
@@ -157,8 +206,9 @@ def time_refresh(trainer, state, step):
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--view", type=int, default=0)
-    ap.add_argument("--field", choices=sorted(TRAIN), default="cp",
-                    help="the radiance field: CP lines, the hash grid or TiNeuVox")
+    ap.add_argument("--field", choices=sorted(TRAIN) + ["prop"], default="cp",
+                    help="the radiance field: CP lines, the hash grid or TiNeuVox "
+                         "behind the occupancy grid, or the proposal-network path")
     ap.add_argument("--train", action="store_true",
                     help="profile a train step instead of a frame")
     ap.add_argument("--warmup", type=int, default=1000,

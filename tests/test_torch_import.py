@@ -59,6 +59,11 @@ def _default_device(fn):
         "utils.jax_bridge.ngp_field_params_from_numpy",
         "utils.jax_bridge.tineuvox_field_params_from_numpy",
         "utils.jax_bridge.occ_state_from_numpy",
+        "utils.jax_bridge.cp_density_field_params_from_numpy",
+        "utils.jax_bridge.prop_params_from_numpy",
+        "trainers.ngp_prop.NGPPropTrainer",
+        "data.device_sampler.DeviceRaySampler",
+        "estimators.prop_net.propnet_sampling",
     ],
 )
 def test_entry_points_default_to_the_card(name):

@@ -1,5 +1,5 @@
-"""Kernels G1-G10 against their PyTorch twins on the card, and the
-gradients that reach the train step through them.
+"""Kernels G1-G14 against their PyTorch twins on the card, and the
+gradients that reach the train steps through them.
 
 These need an NVIDIA Hopper GPU and nvcc; elsewhere they skip.  Run them on
 the card with ``python -m pytest tests/test_torch_kernels.py -q``.
@@ -44,7 +44,15 @@ from nerfacc_tpu_torch.ops.sorted_segments import (
     composite_sorted_backward_plain,
     composite_sorted_plain,
 )
+from nerfacc_tpu_torch.ops.coarse_occ import coarse_occ_lookup, coarse_occ_lookup_plain
+from nerfacc_tpu_torch.ops.lane_gather import lane_gather, lane_gather_plain
+from nerfacc_tpu_torch.ops.row_gather import row_gather, row_gather_plain
+from nerfacc_tpu_torch.data.device_sampler import DeviceRaySampler
+from nerfacc_tpu_torch.data_specs import RayIntervals
+from nerfacc_tpu_torch.models.cp_field import CPDensityField
+from nerfacc_tpu_torch.pdf import importance_sampling, importance_sampling_plain
 from nerfacc_tpu_torch.trainers.ngp_occ import NGPOccTrainer
+from nerfacc_tpu_torch.trainers.ngp_prop import NGPPropTrainer
 from nerfacc_tpu_torch.utils.rendering import compact_samples
 
 pytestmark = pytest.mark.cuda
@@ -355,6 +363,27 @@ def test_tineuvox_train_step_on_the_card_reaches_every_parameter(dev):
         assert float(p.grad.abs().max()) > 0, name
 
 
+@pytest.mark.parametrize("kind", ["cp", "ngp", "tineuvox"])
+def test_view_that_meets_no_occupied_cell_renders_its_background(dev, kind):
+    """Through the kernels, rays that meet no occupied cell (the empty grid
+    of a fresh state) give every kernel and the field an empty batch."""
+    aabb = (-1.5, -1.5, -1.5, 1.5, 1.5, 1.5)
+    if kind == "tineuvox":
+        ds = ProceduralDynamicSceneLoader("test", n_test=1, width=32, height=32, device=dev)
+        field, timestamps = TiNeuVoxRadianceField(aabb, device=dev), ds.timestamps
+    else:
+        ds = ProceduralSceneLoader("test", n_test=1, width=32, height=32, device=dev)
+        field = CPRadianceField(aabb) if kind == "cp" else NGPRadianceField(aabb)
+        timestamps = None
+    trainer = NGPOccTrainer(field=field, aabb=aabb, grid_resolution=32,
+                            timestamps=timestamps, device=dev)
+    data = ds[0]
+    colors, opacities, _, n_samples = trainer.render_rays(trainer.init_state(), data)
+    torch.cuda.synchronize()
+    assert n_samples == 0 and (opacities == 0).all()
+    assert torch.equal(colors, data["color_bkgd"].expand(32 * 32, 3))
+
+
 @pytest.mark.parametrize("kind", ["cp", "ngp"])
 def test_train_step_on_the_card_reaches_every_parameter(dev, kind):
     """A train step through the kernels leaves a finite, nonzero gradient on
@@ -375,3 +404,90 @@ def test_train_step_on_the_card_reaches_every_parameter(dev, kind):
     for name, p in state.params.items():
         assert p.grad is not None and torch.isfinite(p.grad).all(), name
         assert float(p.grad.abs().max()) > 0, name
+
+
+def _same_bits(a, b):
+    """Bitwise equality, NaNs included."""
+    return a.shape == b.shape and a.dtype == b.dtype and torch.equal(
+        a.view(torch.int16 if a.element_size() == 2 else torch.int32),
+        b.view(torch.int16 if b.element_size() == 2 else torch.int32),
+    )
+
+
+def test_gather_kernels_match_plain_versions(dev):
+    """G11, G12 (f32 and bf16) and G13 (a float4, a float2 and a scalar row
+    width) bit for bit, out-of-range indices included; one launch each."""
+    g = torch.Generator(device=dev).manual_seed(11)
+    S = torch.rand((256, 1024), generator=g, device=dev)
+    row = torch.randint(-3, 259, (2**16 + 5,), generator=g, device=dev, dtype=torch.int32)
+    lane = torch.randint(-3, 1027, (2**16 + 5,), generator=g, device=dev, dtype=torch.int32)
+    n0 = dict(cuda.LAUNCHES)
+    assert _same_bits(coarse_occ_lookup(row, lane, S), coarse_occ_lookup_plain(row, lane, S))
+    assert cuda.LAUNCHES["coarse_occ"] == n0["coarse_occ"] + 1
+    for dtype in (torch.float32, torch.bfloat16):
+        src = torch.randn((512, 128), generator=g, device=dev).to(dtype)
+        idx = torch.randint(-600, 600, (2048, 128), generator=g, device=dev, dtype=torch.int32)
+        assert _same_bits(lane_gather(src, idx), lane_gather_plain(src, idx)), dtype
+    assert cuda.LAUNCHES["lane_gather"] == n0["lane_gather"] + 2
+    for F in (128, 2, 3):
+        tab = torch.randn((2**14, F), generator=g, device=dev)
+        idx = torch.randint(-2**14 - 5, 2**14 + 5, (2**18,), generator=g, device=dev,
+                            dtype=torch.int32)
+        assert _same_bits(row_gather(tab, idx), row_gather_plain(tab, idx)), F
+    assert cuda.LAUNCHES["row_gather"] == n0["row_gather"] + 3
+    with pytest.raises(ValueError, match="128 lanes"):
+        lane_gather(torch.zeros((64, 64), device=dev), torch.zeros((64, 64), dtype=torch.int32, device=dev))
+
+
+@pytest.mark.parametrize("E,n", [(2, 128), (129, 64), (17, 1), (300, 200)])
+def test_importance_sampling_kernel_matches_plain_version(dev, E, n):
+    """G14 bit for bit, stratified and not, on sorted rows with plateaus and
+    an all-zero CDF row."""
+    g = torch.Generator(device=dev).manual_seed(E)
+    vals = torch.sort(torch.rand((1000, E), generator=g, device=dev) * 4 + 2, dim=-1)[0]
+    cdfs = torch.sort(torch.rand((1000, E), generator=g, device=dev), dim=-1)[0]
+    cdfs[0] = 0.0
+    cdfs[1, E // 3 : 2 * E // 3] = float(cdfs[1, E // 3])
+    for bias in (torch.full((1000,), 0.5, device=dev), torch.rand(1000, generator=g, device=dev)):
+        n0 = cuda.LAUNCHES["importance_sampling"]
+        iv, s = importance_sampling(RayIntervals(vals), cdfs, n, True, bias=bias)
+        assert cuda.LAUNCHES["importance_sampling"] == n0 + 1
+        ref_s, ref_e = importance_sampling_plain(vals, cdfs, bias, n)
+        assert _same_bits(s.vals, ref_s) and _same_bits(iv.vals, ref_e)
+
+
+def test_composite_keeps_a_nan_optical_depth(dev):
+    """An infinite density on a zero-length sample (the opaque background on
+    a collapsed last interval) gives NaN, as in the plain version and the
+    JAX package; the cap at 40 does not turn it into an opaque sample."""
+    t0 = torch.tensor([2.0, 3.0, 3.5], device=dev)
+    t1 = torch.tensor([3.0, 3.5, 3.5], device=dev)
+    sig = torch.tensor([0.1, 0.2, float("inf")], device=dev)
+    rgb = torch.rand((3, 3), device=dev)
+    ids = torch.zeros(3, dtype=torch.int32, device=dev)
+    ss, se = (torch.tensor([v], dtype=torch.int32, device=dev) for v in (0, 2))
+    out = composite_sorted(t0, t1, sig, rgb, ids, 1, ss, se)
+    ref = composite_sorted_plain(t0, t1, sig, rgb, ids, 1, ss, se)
+    assert torch.isnan(out[1]).all() and torch.isnan(ref[1]).all()
+
+
+def test_prop_train_step_on_the_card_reaches_every_parameter(dev):
+    """A proposal train step with ``requires_grad`` through the kernels on a
+    device-sampled batch: G1, G3, G4, G5 and G14 launch, and every leaf of
+    both groups gets a finite, nonzero gradient."""
+    aabb = (-1.5, -1.5, -1.5, 1.5, 1.5, 1.5)
+    ds = ProceduralSceneLoader("train", n_train=2, width=32, height=32, num_rays=256, device=dev)
+    trainer = NGPPropTrainer(
+        field=CPRadianceField(aabb), prop_fields=[CPDensityField(aabb)], device=dev,
+    )
+    state = trainer.init_state()
+    cuda.reset_launches()
+    state, aux = trainer.train_steps_sampled(state, DeviceRaySampler.from_loader(ds), [True])
+    for name in ("cp_level_fwd", "cp_level_bwd", "composite_fwd", "composite_bwd",
+                 "importance_sampling"):
+        assert cuda.LAUNCHES[name] > 0, cuda.LAUNCHES
+    assert cuda.LAUNCHES["importance_sampling"] == 2
+    assert torch.isfinite(aux["loss"]).all() and float(aux["prop_loss"][0]) > 0
+    for p in trainer.leaves(state.params):
+        assert p.grad is not None and torch.isfinite(p.grad).all()
+        assert float(p.grad.abs().max()) > 0

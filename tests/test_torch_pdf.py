@@ -1,0 +1,179 @@
+"""Port vs JAX: the batched searchsorted and importance sampling (kernel
+G14's plain version), and the f32 fused multiply-add they rest on.
+
+JAX runs jitted, as inside the proposal trainer's step: XLA's CPU backend
+then contracts the CDF position ``u = u_floor + (sid + bias) * u_step`` into
+a fused multiply-add (eager JAX does not), and the port follows the jitted
+form.  Stratified jitter is JAX's own draw, handed to the port as ``bias``.
+"""
+import fractions
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from nerfacc_tpu.data_specs import RayIntervals as JaxIntervals
+from nerfacc_tpu.pdf import importance_sampling as jax_importance_sampling
+from nerfacc_tpu.pdf import searchsorted as jax_searchsorted
+from nerfacc_tpu_torch.data_specs import RayIntervals
+from nerfacc_tpu_torch.pdf import importance_sampling, importance_sampling_plain, searchsorted
+from nerfacc_tpu_torch.utils.fp import fma_f32
+
+
+def _round_f32(q: fractions.Fraction) -> np.float32:
+    """The f32 nearest to the rational ``q``, ties to even."""
+    c = np.float32(float(q))
+    best = None
+    for x in (np.nextafter(c, np.float32(-np.inf)), c, np.nextafter(c, np.float32(np.inf))):
+        d = abs(fractions.Fraction(float(x)) - q)
+        even = int(x.view(np.int32)) % 2 == 0
+        if best is None or d < best[0] or (d == best[0] and even):
+            best = (d, x)
+    return best[1]
+
+
+def test_fma_f32_rounds_once():
+    """Against exact rational arithmetic: random operands, and operands
+    built so that the f64 sum lands exactly halfway between two f32 values
+    while the exact sum does not (where rounding twice would go wrong)."""
+    rng = np.random.default_rng(0)
+    a = rng.standard_normal(4000).astype(np.float32)
+    b = rng.standard_normal(4000).astype(np.float32)
+    c = (rng.standard_normal(4000) * 10.0 ** rng.integers(-6, 6, 4000)).astype(np.float32)
+    # With c = 1 + 2^-23 and a * b = 2^-24 (1 - 2^-46), the exact sum lies
+    # 2^-70 below the midpoint 1 + 3 * 2^-24 of c and its even neighbour
+    # 1 + 2^-22; the f64 sum rounds onto the midpoint, and rounding that to
+    # f32 again would give the neighbour.  Then the same mirrored, and an
+    # exact tie (a * b = 2^-24), which goes to the even neighbour.
+    m = np.float32(1.0 + 2.0**-23)
+    tie_a = np.array([2.0**-12 * (1 + 2.0**-23), -(2.0**-12) * (1 + 2.0**-23), 2.0**-12], np.float32)
+    tie_b = np.array([2.0**-12 * (1 - 2.0**-23), 2.0**-12 * (1 - 2.0**-23), 2.0**-12], np.float32)
+    tie_c = np.array([m, -m, m], np.float32)
+    a, b, c = (np.concatenate([x, y]) for x, y in ((a, tie_a), (b, tie_b), (c, tie_c)))
+    got = fma_f32(*(torch.tensor(x) for x in (a, b, c))).numpy()
+    want = np.array([
+        _round_f32(fractions.Fraction(float(x)) * fractions.Fraction(float(y))
+                   + fractions.Fraction(float(z)))
+        for x, y, z in zip(a, b, c)
+    ])
+    np.testing.assert_array_equal(got.view(np.int32), want.view(np.int32))
+    assert got[-3] == m and got[-2] == -m  # not 1 + 2^-22 (rounded twice)
+    assert got[-1] == np.float32(1.0 + 2.0**-22)
+
+
+def _intervals(seed, n_rays, n_edges):
+    rng = np.random.default_rng(seed)
+    vals = np.sort(rng.uniform(size=(n_rays, n_edges)), -1).astype(np.float32)
+    cdfs = np.sort(rng.uniform(size=(n_rays, n_edges)), -1).astype(np.float32)
+    return vals, cdfs
+
+
+def _special_rows(n_edges):
+    """Rows where the rules bite: CDF plateaus (a stretch of zero density),
+    a CDF that is 0 throughout, one with its mass in the last bin, positions
+    exactly on CDF values (uniform steps with bias 0), repeated edges."""
+    rng = np.random.default_rng(7)
+    vals = np.sort(rng.uniform(2.0, 6.0, (6, n_edges)), -1).astype(np.float32)
+    vals[5, 3:6] = vals[5, 3]  # repeated edges
+    ramp = np.linspace(0.0, 1.0, n_edges, dtype=np.float32)
+    plateau = np.minimum(ramp * 3.0, 0.4).astype(np.float32)
+    plateau[n_edges // 2 :] = np.linspace(0.4, 1.0, n_edges - n_edges // 2)
+    cdfs = np.stack([
+        plateau,
+        np.zeros(n_edges, np.float32),
+        np.where(np.arange(n_edges) < n_edges - 1, 0.0, 1.0).astype(np.float32),
+        ramp,
+        np.where(np.arange(n_edges) < 2, 0.0, 0.6).astype(np.float32),
+        ramp,
+    ])
+    bias = np.array([0.5, 0.5, 0.25, 0.0, 0.0, 0.9], np.float32)
+    return vals, cdfs, bias
+
+
+def _jax_sampling(vals, cdfs, n, bias):
+    """JAX's jitted importance sampling, stratified with ``bias`` as its
+    draw: the key is replaced by a function returning ``bias``."""
+    stratified = bias is not None
+
+    def fn(v, c, b):
+        uniform = jax.random.uniform
+        jax.random.uniform = lambda key, shape, dtype=jnp.float32: b.reshape(shape).astype(dtype)
+        try:
+            iv, s = jax_importance_sampling(
+                JaxIntervals(vals=v), c, n, stratified,
+                key=jax.random.PRNGKey(0) if stratified else None,
+            )
+        finally:
+            jax.random.uniform = uniform
+        return iv.vals, s.vals
+
+    b = np.zeros(vals.shape[0], np.float32) if bias is None else bias
+    edges, samples = jax.jit(fn)(jnp.asarray(vals), jnp.asarray(cdfs), jnp.asarray(b))
+    return np.asarray(samples), np.asarray(edges)
+
+
+CASES = {
+    # tests/test_pdf.py: the docstring golden, the resampler comparison, the
+    # stratified case; then the first proposal level (E = 2) and n = 1
+    "golden": (np.array([[0.0, 1.0], [0.0, 2.0]], np.float32),
+               np.array([[0.0, 0.5], [0.0, 1.0]], np.float32), 2, None),
+    "resampler": (*_intervals(42, 5, 101), 100, None),
+    "stratified": (*_intervals(0, 8, 33), 16, np.random.default_rng(1).uniform(size=8).astype(np.float32)),
+    "first-level": (np.tile(np.array([[0.0, 1.0]], np.float32), (16, 1)),
+                    np.tile(np.array([[0.0, 1.0]], np.float32), (16, 1)), 32,
+                    np.random.default_rng(2).uniform(size=16).astype(np.float32)),
+    "one-sample": (*_intervals(3, 4, 9), 1, None),
+    "plateaus-zero-rows-ties": (*_special_rows(17)[:2], 16, _special_rows(17)[2]),
+}
+
+
+@pytest.mark.parametrize("case", list(CASES))
+def test_importance_sampling_matches_jax_bitwise(case):
+    """Samples and edges bit for bit against jitted JAX, stratified cases
+    with JAX's draws as ``bias``; the entry point and the plain version
+    agree on CPU tensors."""
+    vals, cdfs, n, bias = CASES[case]
+    want_s, want_e = _jax_sampling(vals, cdfs, n, bias)
+    tb = None if bias is None else torch.tensor(bias)
+    iv, s = importance_sampling(
+        RayIntervals(torch.tensor(vals)), torch.tensor(cdfs), n,
+        stratified=bias is not None, bias=tb,
+    )
+    np.testing.assert_array_equal(s.vals.numpy(), want_s)
+    np.testing.assert_array_equal(iv.vals.numpy(), want_e)
+    assert s.vals.shape == (vals.shape[0], n) and iv.vals.shape == (vals.shape[0], n + 1)
+    if case == "golden":
+        np.testing.assert_allclose(iv.vals.numpy(), [[0.0, 0.5, 1.0], [0.0, 1.0, 2.0]])
+        np.testing.assert_allclose(s.vals.numpy(), [[0.25, 0.75], [0.5, 1.5]])
+    if case == "plateaus-zero-rows-ties":
+        # the all-zero CDF puts every sample at the midpoint of its last bin
+        assert (s.vals[1] == 0.5 * (vals[1, -2] + vals[1, -1])).all()
+
+
+def test_importance_sampling_generator_and_contract():
+    """The stratified draw comes from the caller's generator (one per ray);
+    samples stay sorted and the edges within each row's span."""
+    vals, cdfs = _intervals(5, 32, 17)
+    g = torch.Generator().manual_seed(0)
+    iv, s = importance_sampling(RayIntervals(torch.tensor(vals)), torch.tensor(cdfs), 8, True, g)
+    bias = torch.rand(32, generator=torch.Generator().manual_seed(0))
+    ref_s, ref_e = importance_sampling_plain(torch.tensor(vals), torch.tensor(cdfs), bias, 8)
+    assert torch.equal(s.vals, ref_s) and torch.equal(iv.vals, ref_e)
+    assert (torch.diff(s.vals, dim=-1) >= 0).all()
+    assert (iv.vals[:, 0] >= torch.tensor(vals[:, 0])).all()
+    assert (iv.vals[:, -1] <= torch.tensor(vals[:, -1])).all()
+
+
+def test_searchsorted_matches_jax():
+    """tests/test_pdf.py's batched case: 10 rows, 101 sorted keys and
+    queries; both index arrays equal JAX's."""
+    rng = np.random.default_rng(42)
+    key = np.sort(rng.uniform(size=(10, 101)), -1).astype(np.float32)
+    query = np.sort(rng.uniform(size=(10, 101)), -1).astype(np.float32)
+    query[0, :5] = key[0, :5]  # queries exactly on keys
+    want = jax_searchsorted(JaxIntervals(vals=jnp.asarray(key)), JaxIntervals(vals=jnp.asarray(query)))
+    got = searchsorted(RayIntervals(torch.tensor(key)), RayIntervals(torch.tensor(query)))
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g.numpy(), np.asarray(w))

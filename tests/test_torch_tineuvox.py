@@ -227,3 +227,21 @@ def test_field_starts_rigid():
         d0 = field.query_density(x, torch.zeros_like(t))
         d1 = field.query_density(x, torch.ones_like(t))
     assert not torch.equal(d0, d1)
+
+
+def test_renders_a_view_that_meets_no_occupied_cell():
+    """Rays that meet no occupied cell give the field an empty batch (a
+    trained grid leaves whole 8192-ray chunks so): the view renders as its
+    background, with no sample.  The grid of a fresh state is empty."""
+    from nerfacc_tpu_torch.data.procedural import ProceduralDynamicSceneLoader
+    from nerfacc_tpu_torch.trainers.ngp_occ import NGPOccTrainer
+
+    ds = ProceduralDynamicSceneLoader(split="test", n_test=1, width=8, height=8, device="cpu")
+    trainer = NGPOccTrainer(
+        field=TiNeuVoxRadianceField(AABB, device="cpu", **SMALL), aabb=AABB,
+        timestamps=ds.timestamps, device="cpu",
+    )
+    data = ds[0]
+    colors, opacities, depths, n_samples = trainer.render_rays(trainer.init_state(), data)
+    assert n_samples == 0 and colors.shape == (64, 3)
+    assert (opacities == 0).all() and torch.equal(colors, data["color_bkgd"].expand(64, 3))
