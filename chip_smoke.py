@@ -9,7 +9,9 @@ Run from the root of a checkout, with no arguments:
 It builds the CUDA kernels from ``nerfacc_tpu_torch/csrc`` and runs:
 
 1. each forward kernel (G1 CP level, G2 march, G3 composite) against its
-   PyTorch twin on the card at the slice's shapes, timed with CUDA events;
+   PyTorch twin on the card at the slice's shapes, timed with CUDA events
+   (G2 also on a 2048-ray train batch at the trainer's near planes, and
+   alone by ``torch.profiler``);
    1b. the backward kernels (G4 CP level, G5 composite) likewise;
    1c. the hash-encode kernels (G6 forward, G7 table gradient) at the NGP
    field's full width (2^18 points, 16 levels, 2^19 rows per level), with
@@ -64,10 +66,12 @@ Phase 1d holds the hat kernels G8 (forward), G9 (table gradient) and G10
 TiNeuVox's levels (R = 32, 128, 512), with 1% of the coordinates outside
 [0, 1] and some on grid points, timed at R = 512, rank 32, with
 ``F.embedding_bag`` and ``index_add_`` timed on the precomputed taps as the
-library's gather and scatter stages.  Phase 13 also runs the f32 TiNeuVox
-plain step against itself, and the kernel step with the composite (G3, G5)
-on its plain versions and PyTorch's scatter-adds in a fixed order, so that
-the hat kernels see the plain step's cotangents bit for bit.
+library's gather and scatter stages; G9 must give the same bits in two calls
+and is also timed at each level at the TiNeuVox train step's 2^16 samples.
+Phase 13 also runs the f32 TiNeuVox plain step against itself, and the
+kernel step with the composite (G3, G5) on its plain versions and PyTorch's
+scatter-adds in a fixed order, so that the hat kernels see the plain step's
+cotangents bit for bit.
 
 Phase 1e is the gather probe: G11 (the coarse-occupancy lookup, N = 2^18
 into a (256, 1024) summary), G13 (the row gather of
@@ -168,7 +172,15 @@ HAT_LEVELS = ((32, 16), (128, 16), (512, 32))  # TiNeuVox's (R, rank); timed at 
 HAT_OUTSIDE = 0.01  # share of phase 1d's coordinates outside [0, 1]
 HAT_ON_GRID = 4096  # phase 1d's coordinates on grid points
 G2_RAYS = 8192
+G2_TRAIN_RAYS = 2048  # phase 1: a CP train batch, at the trainer's near planes
 FLIP_ALLOWANCE = 1e-3  # share of rays whose sample count may differ
+# Rays whose count differed from the twin under the earlier design of G2
+# (one thread per ray, walking from the near plane): 0 on both grids in every
+# earlier chip_smoke.py run and in scripts/time_march_hat.py on that tree
+# (PERF.md §6).  The warp-per-ray design evaluates the same rounded
+# operations per candidate, so it may differ on no more rays.
+PARENT_G2_RAYS_DIFFER = 0
+HAT_TRAIN_N = 2**16  # phase 1d: the TiNeuVox train step's sample budget
 TRAIN_STEPS = 1000  # not a multiple of the refresh interval: phase 5's step
 # Phase 5: each gradient leaf of a kernel step against the twin step, by
 # relative Frobenius norm, worst of STEP_REPEATS runs.  f32: only the order of
@@ -188,7 +200,7 @@ TRAIN_STEPS = 1000  # not a multiple of the refresh interval: phase 5's step
 # itself reads up to 3.8e-5, the kernel step up to 1.3e-4 on an H100
 # (PERF.md §6), hence F32_HAT_STEP_FRO.  With the composite on its plain
 # versions and fixed-order scatter-adds the hat kernels see the plain
-# step's cotangents bit for bit, and that step read 1.6e-7 (G9's atomic
+# step's cotangents bit for bit, and that step read 1.6e-7 (G9's summation
 # order and G10's rank sums): HAT_ALONE_STEP_FRO.
 STEP_REPEATS = 8
 F32_STEP_FRO = 1e-4
@@ -388,8 +400,12 @@ def phase_kernels(dev, trainer, state, ds):
         n_differ = int(differ.sum())
         print(f"G2 march, {name} grid ({float(binaries.float().mean()):.3f} "
               f"occupied): {out.ray_indices.shape[0]} samples over {G2_RAYS} "
-              f"rays, {n_differ} rays differ in count")
+              f"rays, {n_differ} rays differ in count (the parent design: "
+              f"{PARENT_G2_RAYS_DIFFER})")
         require(n_differ <= FLIP_ALLOWANCE * G2_RAYS, f"G2: {n_differ} rays differ")
+        require(n_differ <= PARENT_G2_RAYS_DIFFER,
+                f"G2: {n_differ} rays differ, the parent design "
+                f"{PARENT_G2_RAYS_DIFFER}")
         keep = ~differ[out.ray_indices.long()]
         keep_ref = ~differ[ref.ray_indices.long()]
         require(torch.equal(out.ray_indices[keep], ref.ray_indices[keep_ref]),
@@ -410,8 +426,31 @@ def phase_kernels(dev, trainer, state, ds):
         t_err, cuda_ms(lambda: march(*args)), cuda_ms(lambda: march_plain(*args)),
         nbytes(*args, *out), 15 * out.ray_indices.shape[0],
     )
-    print(f"G2 march: t max_abs_err={t_err:.3g}, kernel "
-          f"{report['march']['ms']:.4f} ms, twin {report['march']['plain_ms']:.4f} ms")
+    r = report["march"]
+    print(f"G2 march {G2_RAYS} rays (eval chunk, near 0): t max_abs_err={t_err:.3g}, "
+          f"kernel {r['ms']:.4f} ms, alone {device_ms(lambda: march(*args)):.4f} ms, "
+          f"bound {r['bound_ms']:.4f} ms, twin {r['plain_ms']:.4f} ms")
+    # a train batch of G2_TRAIN_RAYS rays at the trainer's stratified near
+    # planes (near plane + jitter * step), on the same grid
+    batch = train_loader(dev, "cp")[0]
+    jitter = torch.rand(G2_TRAIN_RAYS, generator=g, device=dev)
+    near_t = trainer.near_plane + jitter * trainer.render_step_size
+    targs = (batch["rays_o"][:G2_TRAIN_RAYS].contiguous(),
+             batch["rays_d"][:G2_TRAIN_RAYS].contiguous(), occ.binaries, occ.aabbs,
+             near_t, torch.full_like(near_t, trainer.far_plane), trainer.render_step_size)
+    tout, tref = march(*targs), march_plain(*targs)
+    n_differ = int((tout.counts != tref.counts).sum())
+    require(n_differ <= PARENT_G2_RAYS_DIFFER, f"G2 train batch: {n_differ} rays differ")
+    require(all(torch.equal(a, b) for a, b in zip(tout, tref)),
+            "G2 train batch: samples or termination planes differ from the twin")
+    train = measured(0.0, cuda_ms(lambda: march(*targs)),
+                     cuda_ms(lambda: march_plain(*targs)), nbytes(*targs, *tout),
+                     15 * tout.ray_indices.shape[0])
+    print(f"G2 march {G2_TRAIN_RAYS} rays (train batch, near {trainer.near_plane} + "
+          f"jitter * step): {tout.ray_indices.shape[0]} samples, {n_differ} rays differ "
+          f"in count (the parent design: {PARENT_G2_RAYS_DIFFER}), kernel "
+          f"{train['ms']:.4f} ms, alone {device_ms(lambda: march(*targs)):.4f} ms, bound "
+          f"{train['bound_ms']:.4f} ms, twin {train['plain_ms']:.4f} ms")
 
     # G3: on that buffer, seeded densities and colours
     s = compact_samples(out)
@@ -568,6 +607,32 @@ def phase_hash_kernels(dev):
     return report
 
 
+def hat_library_inputs(x, cot, R):
+    """``index_add_``'s inputs for G9's function: both taps' rows of each
+    point and the bf16 products of their weights with the cotangent."""
+    i0, i1, w0, w1, _, _ = hat_taps(x, R)
+    rows = torch.stack([i0, i1], dim=1).reshape(-1)
+    cot_b = cot.to(torch.bfloat16).to(torch.float32)
+    upd = (torch.stack([w0, w1], dim=1)[:, :, None] * cot_b[:, None, :])
+    return rows, upd.reshape(-1, cot.shape[1])
+
+
+def time_hat_line(x, cot, R):
+    """G9 at one of TiNeuVox's levels at the train step's shape: CUDA events
+    around one call, the kernels alone, the bound and index_add_."""
+    rows, upd = hat_library_inputs(x, cot, R)
+    acc = torch.zeros((R, cot.shape[1]), device=x.device)
+    r = measured(0.0, cuda_ms(lambda: hat_bwd_line(x, cot, R)), None,
+                 nbytes(x, cot, acc), x.shape[0] * (6 + 4 * cot.shape[1]),
+                 cuda_ms(lambda: acc.index_add_(0, rows, upd)))
+    alone = device_ms(lambda: hat_bwd_line(x, cot, R))
+    lib_alone = device_ms(lambda: acc.index_add_(0, rows, upd))
+    print(f"G9 hat_bwd_line N={x.shape[0]} R={R} rank={cot.shape[1]}: kernel "
+          f"{r['ms']:.4f} ms, alone {alone:.4f} ms ({100 * r['bound_ms'] / alone:.1f}% "
+          f"of the {r['bound_ms']:.4f} ms bound); index_add_ on the precomputed taps "
+          f"and updates {r['library_ms']:.4f} ms, alone {lib_alone:.4f} ms")
+
+
 def hat_inputs(g, R, rank):
     """Phase 1d's inputs at one level: ``HAT_N`` coordinates uniform in
     [0, 1], ``HAT_OUTSIDE`` of them pushed out by up to 1.5 cells,
@@ -591,9 +656,12 @@ def hat_inputs(g, R, rank):
 def phase_hat_kernels(dev):
     """1d. G8, G9 and G10 against their plain versions on each of
     TiNeuVox's levels (:func:`hat_inputs`), timed at the last.  G8 is
-    bitwise; G9 within 1e-6 of its largest entry (each block's f32 partial
-    sums run in atomic order; the blocks are added in f64); G10 within 1e-5
-    (the rank sums in another order) and exactly 0 on grid points."""
+    bitwise; G9 within 1e-6 of its largest entry (each block sums in int64
+    fixed point and rounds to f32; the blocks are added in f64 in block
+    order), and two calls give the same bits; G10 within 1e-5 (the
+    rank sums in another order) and exactly 0 on grid points.  G9 is also
+    timed at each level at the TiNeuVox train step's budget
+    ``HAT_TRAIN_N``, beside ``index_add_`` on the precomputed taps."""
     g = torch.Generator(device=dev).manual_seed(8)
     worst = {"hat_fwd": 0.0, "hat_bwd_line": 0.0, "hat_bwd_x": 0.0}
     for R, rank in HAT_LEVELS:
@@ -605,6 +673,8 @@ def phase_hat_kernels(dev):
         ref = hat_bwd_line_plain(x, cot, R)
         err9, scale9 = float((dline - ref).abs().max()), float(ref.abs().max())
         require(err9 <= 1e-6 * scale9, f"G9 R={R}: err {err9} scale {scale9}")
+        require(same_bits(dline, hat_bwd_line(x, cot, R)), f"G9 R={R}: two calls differ")
+        time_hat_line(x[:HAT_TRAIN_N], cot[:HAT_TRAIN_N], R)
         dx = hat_bwd_x(x, cot, line)
         ref = hat_bwd_x_plain(x, cot, line)
         err10, scale10 = float((dx - ref).abs().max()), float(ref.abs().max())
@@ -615,8 +685,9 @@ def phase_hat_kernels(dev):
                 f"G10 R={R}: a nonzero gradient on a grid point")
         print(f"hat R={R} rank={rank} N={HAT_N}: G8 0 of {out.numel()} entries "
               f"unequal; G9 max_abs_err={err9:.3g} = {err9 / scale9:.3g} of its "
-              f"largest entry; G10 max_abs_err={err10:.3g} = {err10 / scale10:.3g} "
-              f"of its largest entry, exactly 0 on all {n_grid} grid points")
+              f"largest entry, two calls bitwise equal; G10 max_abs_err={err10:.3g} = "
+              f"{err10 / scale10:.3g} of its largest entry, exactly 0 on all {n_grid} "
+              f"grid points")
         worst["hat_bwd_line"] = max(worst["hat_bwd_line"], err9)
         worst["hat_bwd_x"] = max(worst["hat_bwd_x"], err10)
 
@@ -626,7 +697,6 @@ def phase_hat_kernels(dev):
     taps = torch.stack([i0, i1], dim=1)
     w = torch.stack([w0, w1], dim=1)
     line_b = line.to(torch.bfloat16).to(torch.float32)
-    cot_b = cot.to(torch.bfloat16).to(torch.float32)
     report = {}
     bag = torch.nn.functional.embedding_bag(taps, line_b, mode="sum", per_sample_weights=w)
     bag_err = float((bag - hat_interp_matmul_plain(x, line)).abs().max())
@@ -640,7 +710,7 @@ def phase_hat_kernels(dev):
         cuda_ms(lambda: torch.nn.functional.embedding_bag(
             taps, line_b, mode="sum", per_sample_weights=w)),
     )
-    upd = (w[:, :, None] * cot_b[:, None, :]).reshape(-1, rank)
+    rows, upd = hat_library_inputs(x, cot, R)
     acc = torch.zeros((R, rank), device=dev)
     # per point the taps (~6); per point and rank two products and two sums
     report["hat_bwd_line"] = measured(
@@ -648,7 +718,7 @@ def phase_hat_kernels(dev):
         cuda_ms(lambda: hat_bwd_line(x, cot, R)),
         cuda_ms(lambda: hat_bwd_line_plain(x, cot, R)),
         nbytes(x, cot, dline), HAT_N * (6 + 4 * rank),
-        cuda_ms(lambda: acc.index_add_(0, taps.reshape(-1), upd)),
+        cuda_ms(lambda: acc.index_add_(0, rows, upd)),
     )
     # per point the taps and slopes (~8); per point and rank two fused
     # multiply-adds; no library call computes it
@@ -663,9 +733,11 @@ def phase_hat_kernels(dev):
           f"{r8['plain_ms']:.4f} ms, bound {r8['bound_ms']:.4f} ms; embedding_bag on "
           f"the precomputed taps (gather stage only) {r8['library_ms']:.4f} ms, "
           f"max_abs_err {bag_err:.3g}")
-    print(f"G9 hat_bwd_line: kernel {r9['ms']:.4f} ms, plain {r9['plain_ms']:.4f} ms, "
-          f"bound {r9['bound_ms']:.4f} ms; index_add_ on the precomputed taps and "
-          f"updates (scatter stage only) {r9['library_ms']:.4f} ms")
+    print(f"G9 hat_bwd_line: kernel {r9['ms']:.4f} ms, alone "
+          f"{device_ms(lambda: hat_bwd_line(x, cot, R)):.4f} ms, plain "
+          f"{r9['plain_ms']:.4f} ms, bound {r9['bound_ms']:.4f} ms; index_add_ on the "
+          f"precomputed taps and updates (scatter stage only) {r9['library_ms']:.4f} ms, "
+          f"alone {device_ms(lambda: acc.index_add_(0, rows, upd)):.4f} ms")
     print(f"G10 hat_bwd_x: kernel {r10['ms']:.4f} ms, plain {r10['plain_ms']:.4f} ms, "
           f"bound {r10['bound_ms']:.4f} ms")
     return report

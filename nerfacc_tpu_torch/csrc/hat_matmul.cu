@@ -20,17 +20,24 @@
 // products are exact in f32, and w0 L0 + w1 L1 is one rounded f32 addition,
 // the same value as the TPU's bf16-operand, f32-accumulate dot (its other
 // terms are exact zeros): bitwise equal to the PyTorch version.  G9: g is
-// rounded to bf16, each product w g is exact; each block sums its samples'
-// products in f32 (atomic order), the blocks' partial sums are added in f64
-// and the total rounded to f32 once, so the result lies within a few f32
-// roundings of the block partials from the exact sum, which the PyTorch
-// version rounds once.  G10: g and the table are rounded to bf16, S at each
-// tap is an f32
-// sum over the rank (in this kernel's order), then dx = (dW0 S0 + dW1 S1)
-// (R - 1).  dW is exactly 0 at a grid point (pos - i = 0, and the
-// neighbours at distance exactly 1 are excluded), so dx is 0 there, x = 0 and
-// x = 1 included: the TPU kernel's rule, not the one-sided slope that
-// autograd of the hat would give.
+// rounded to bf16, each product w g is exact in f32.  A block adds its
+// products in fixed point: each is scaled by a power of two chosen from the
+// largest |bf16(g)| the block has staged so far and rounded to an int64, the
+// unit about 2^-49 of that value at 2^18 samples (a bit coarser for each
+// doubling of a block's samples), so that the block's sums stay below 2^62.
+// Integer sums do not depend on their order.
+// The block's sums are rounded to f32 once, the blocks' partial sums are
+// added in f64 in block order and the total rounded to f32 once: within a
+// few f32 roundings of the block partials from the exact sum, which the
+// PyTorch version rounds once, and two calls give the same bits.  A product
+// that is +-inf or NaN is kept apart, as flags per entry, and the entry
+// comes out NaN, +inf or -inf as an f64 sum would.  G10: g
+// and the table are rounded to bf16, S at each tap is an f32 sum over the
+// rank (in this kernel's order), then dx = (dW0 S0 + dW1 S1) (R - 1).  dW is
+// exactly 0 at a grid point (pos - i = 0, and the neighbours at distance
+// exactly 1 are excluded), so dx is 0 there, x = 0 and x = 1 included: the
+// TPU kernel's rule, not the one-sided slope that autograd of the hat would
+// give.
 //
 // Bounds on this card: device-memory traffic.  G8 writes 4 rank bytes per
 // sample, G9 and G10 read as many; the (R, rank) table (64 KiB at R = 512,
@@ -38,13 +45,27 @@
 //
 // Designs.  G8: one thread per output element (n, r), as G1: at rank 32 a
 // warp is one sample, its row loads and its store are single 128-byte
-// transactions.  G9: the scatter of G4 (csrc/cp_level_bwd.cu): at R = 32,
-// 2^18 samples land on 32 rows, so each block adds a contiguous run of
-// samples into a private (R, rank) f32 table in dynamic shared memory and
-// flushes its nonzero entries once with f64 atomicAdd into a zeroed scratch
-// table, which a second launch rounds into the f32 output.  The f64 flush
-// keeps the order of the cross-block sums (a few hundred partials per
-// entry) out of the result.
+// transactions.  G9: a scatter of 2 N taps into R rows, which on the TPU is a
+// dense (R, BLK) x (BLK, rank) product per block of samples.  Here a
+// persistent grid of 1024-thread blocks (as many as the SMs hold with the
+// block's shared memory, at most one per tile) walks tiles of samples.  A
+// tile's cotangent rows are staged in shared memory, rounded to bf16, by
+// coalesced loads (lanes on consecutive rank columns, 8 floats per thread)
+// that are issued for the next tile before the current one is added, so the
+// loads overlap the adds; its taps are computed once per sample.  Each block
+// holds one (R, rank) int64 table in shared memory (128 KiB at R = 512, rank
+// 32).  A warp takes one sample at a time, two at rank 16: lanes are the
+// rank columns, so the staged row is read without bank conflicts, and each
+// lane adds its two products to its column with 64-bit shared-memory
+// atomics.  The fixed point (Numerics) is what makes these atomics
+// deterministic: with f32 atomics each block's sum would depend on the order
+// of its warps.  The block converts its table to f32 and writes it to a
+// scratch slab (no zeroing needed: each block writes all of it), and a
+// second launch adds the slabs per entry in f64, in block order (32 slices
+// per entry, then the slices in order), and rounds once.  No global atomics,
+// no zeroing launch.  The table takes 9 bytes an entry: up to about 21,000
+// entries (R * rank) fit the card's 227 KB beside a tile; a larger table is
+// refused.
 // G10: one thread per sample, the two rank-long dot products in registers
 // (any rank); the sample's g row is read once.
 #include <cuda_bf16.h>
@@ -102,36 +123,160 @@ __global__ void hat_fwd_kernel(const float* __restrict__ x,
   out[idx] = __fadd_rn(__fmul_rn(t.w0, l0), __fmul_rn(t.w1, l1));
 }
 
-__global__ void hat_bwd_line_kernel(const float* __restrict__ x,
-                                    const float* __restrict__ g,
-                                    double* __restrict__ sums, int64_t n,
-                                    int R, int rank, int64_t per_block) {
-  extern __shared__ float acc[];
-  const int table = R * rank;
-  for (int i = threadIdx.x; i < table; i += blockDim.x) acc[i] = 0.0f;
-  __syncthreads();
-  const int64_t s0 = blockIdx.x * per_block;
-  const int64_t s1 = min(n, s0 + per_block);
-  const int elems = (int)((s1 - s0) * rank);
-  for (int e = threadIdx.x; e < elems; e += blockDim.x) {
-    const int64_t s = s0 + e / rank;
-    const int r = e % rank;
-    const Taps t = taps(x[s], R);
-    const float gb = round_bf16(g[s * rank + r]);
-    if (t.w0 != 0.0f) atomicAdd(&acc[t.i0 * rank + r], __fmul_rn(t.w0, gb));
-    if (t.w1 != 0.0f) atomicAdd(&acc[t.i1 * rank + r], __fmul_rn(t.w1, gb));
+// G9's block: 32 warps; each thread stages kStage cotangent floats of a tile.
+constexpr int kLineThreads = 1024;
+constexpr int kStage = 8;
+constexpr int kMaxTile = kLineThreads;  // one coordinate per thread
+constexpr int kMaxLineRank = kStage * kLineThreads / 32;  // a tile holds 32 samples
+constexpr unsigned kFull = 0xffffffffu;
+
+// Loads tile t's cotangent floats and coordinates into registers.
+__device__ __forceinline__ void fetch_tile(const float* __restrict__ x,
+                                           const float* __restrict__ g,
+                                           int64_t n, int rank, int tile,
+                                           int64_t t, float (&staged)[kStage],
+                                           float& xs) {
+  const int64_t s0 = t * tile;
+  const int cnt = (int)min((int64_t)tile, n - s0);
+  const float* src = g + s0 * rank;
+  const int elems = cnt * rank;
+#pragma unroll
+  for (int k = 0; k < kStage; ++k) {
+    const int e = threadIdx.x + k * kLineThreads;
+    staged[k] = e < elems ? src[e] : 0.0f;
   }
-  __syncthreads();
-  for (int i = threadIdx.x; i < table; i += blockDim.x) {
-    const float v = acc[i];
-    if (v != 0.0f) atomicAdd(&sums[i], (double)v);
+  xs = (int)threadIdx.x < cnt ? x[s0 + threadIdx.x] : 0.0f;
+}
+
+// Adds the exact product p to table entry e: in fixed point (p * scale,
+// rounded to an int64), or, for +-inf and NaN, as a flag (1: +inf, 2: -inf,
+// 4: NaN; one byte per entry).
+__device__ __forceinline__ void add_product(long long* acc, unsigned* flags,
+                                            int e, float p, double scale) {
+  if (isfinite(p)) {
+    atomicAdd(reinterpret_cast<unsigned long long*>(acc + e),
+              (unsigned long long)__double2ll_rn((double)p * scale));
+  } else {
+    const unsigned bit = p != p ? 4u : (p > 0.0f ? 1u : 2u);
+    atomicOr(flags + e / 4, bit << (8 * (e % 4)));
   }
 }
 
-__global__ void round_to_f32_kernel(const double* __restrict__ in,
-                                    float* __restrict__ out, int n) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i < n) out[i] = (float)in[i];
+__global__ void __launch_bounds__(kLineThreads, 1)
+    hat_bwd_line_kernel(const float* __restrict__ x,
+                        const float* __restrict__ g,
+                        float* __restrict__ partials, int64_t n, int R,
+                        int rank, int tile, int cw) {
+  extern __shared__ __align__(8) unsigned char smem[];
+  const int table = R * rank;
+  long long* acc = reinterpret_cast<long long*>(smem);  // (R, rank) fixed point
+  unsigned* flags = reinterpret_cast<unsigned*>(acc + table);  // a byte each
+  float* gt = reinterpret_cast<float*>(flags + (table + 3) / 4);  // (tile, rank)
+  float* w0s = gt + tile * rank;  // (tile,) tap weights
+  float* w1s = w0s + tile;
+  int* i0s = reinterpret_cast<int*>(w1s + tile);  // (tile,) first tap rows
+  __shared__ int warp_exp[kLineThreads / 32];
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  for (int i = tid; i < table; i += kLineThreads) acc[i] = 0;
+  for (int i = tid; i < (table + 3) / 4; i += kLineThreads) flags[i] = 0u;
+
+  // a warp takes 32 / cw samples at a time, lane c of each the columns c,
+  // c + cw, ...
+  const int per_warp = 32 / cw, sub = lane / cw, c0 = lane % cw;
+  const int64_t n_tiles = (n + tile - 1) / tile;
+  // each entry takes at most one product per sample; 2^bits is at least
+  // twice this block's samples, so its sums stay below 2^(62 - 1)
+  const int64_t mine = (n_tiles - blockIdx.x + gridDim.x - 1) / gridDim.x;
+  const int bits = 65 - __clzll((unsigned long long)(mine * tile));
+  int exp_cur = -1;  // the scale's biased bf16 exponent; -1: none yet
+
+  float staged[kStage];
+  float xs;
+  int64_t t = blockIdx.x;
+  fetch_tile(x, g, n, rank, tile, t, staged, xs);
+  for (; t < n_tiles; t += gridDim.x) {
+    const int cnt = (int)min((int64_t)tile, n - t * tile);
+    __syncthreads();  // the previous tile's adds are done (and acc is zeroed)
+    int ex = 0;  // the largest finite biased exponent this thread stages
+#pragma unroll
+    for (int k = 0; k < kStage; ++k) {
+      const int e = tid + k * kLineThreads;
+      if (e < cnt * rank) {
+        const float v = round_bf16(staged[k]);
+        gt[e] = v;
+        const int be = (__float_as_int(v) >> 23) & 0xff;
+        if (be != 0xff) ex = max(ex, be);
+      }
+    }
+    ex = (int)__reduce_max_sync(kFull, (unsigned)ex);
+    if (lane == 0) warp_exp[warp] = ex;
+    if (tid < cnt) {
+      const Taps tp = taps(xs, R);
+      i0s[tid] = tp.i0;
+      w0s[tid] = tp.w0;
+      w1s[tid] = tp.w1;  // 0 where i0 + 1 is row R
+    }
+    __syncthreads();
+    int ex_tile = 0;
+    for (int w = 0; w < kLineThreads / 32; ++w) ex_tile = max(ex_tile, warp_exp[w]);
+    if (ex_tile > exp_cur) {  // the same in every thread
+      if (exp_cur >= 0) {  // a larger scale: shift the sums so far
+        const int sh = ex_tile - exp_cur;
+        for (int i = tid; i < table; i += kLineThreads)
+          acc[i] = sh < 63 ? acc[i] >> sh : (acc[i] < 0 ? -1 : 0);
+        __syncthreads();
+      }
+      exp_cur = ex_tile;
+    }
+    if (t + gridDim.x < n_tiles)
+      fetch_tile(x, g, n, rank, tile, t + gridDim.x, staged, xs);
+    // |bf16(g)| < 2^(exp_cur - 126), so each scaled product is below
+    // 2^(62 - bits)
+    const double scale = ldexp(1.0, 62 - bits - (exp_cur - 126));
+    for (int s = warp * per_warp + sub; s < cnt; s += 32 * per_warp) {
+      const int row = i0s[s];
+      const float w0 = w0s[s], w1 = w1s[s];
+      const float* gs = gt + s * rank;
+      for (int c = c0; c < rank; c += cw) {
+        const float gv = gs[c];
+        if (w0 != 0.0f) add_product(acc, flags, row * rank + c, __fmul_rn(w0, gv), scale);
+        if (w1 != 0.0f)
+          add_product(acc, flags, (row + 1) * rank + c, __fmul_rn(w1, gv), scale);
+      }
+    }
+  }
+  __syncthreads();
+  const double unit = ldexp(1.0, bits + (exp_cur - 126) - 62);
+  float* slab = partials + (int64_t)blockIdx.x * table;
+  for (int i = tid; i < table; i += kLineThreads) {
+    const unsigned f = (flags[i / 4] >> (8 * (i % 4))) & 0xffu;
+    float v = (float)((double)acc[i] * unit);
+    if (f != 0u)
+      v = (f & 4u) || (f & 3u) == 3u ? __int_as_float(0x7fc00000)
+                                     : ((f & 1u) ? INFINITY : -INFINITY);
+    slab[i] = v;
+  }
+}
+
+// dline[e] = f32(sum over blocks b, in order, of f64(partials[b, e])): each
+// block takes 32 entries; thread (e, y) sums the blocks y, y + 32, ..., then
+// thread (e, 0) sums the 32 slices in order.
+__global__ void hat_bwd_line_reduce_kernel(const float* __restrict__ partials,
+                                           float* __restrict__ dline,
+                                           int table, int blocks) {
+  __shared__ double slices[32][33];
+  const int e = blockIdx.x * 32 + threadIdx.x;
+  double sum = 0.0;
+  if (e < table)
+    for (int b = threadIdx.y; b < blocks; b += 32)
+      sum += (double)partials[(int64_t)b * table + e];
+  slices[threadIdx.y][threadIdx.x] = sum;
+  __syncthreads();
+  if (threadIdx.y == 0 && e < table) {
+    double total = 0.0;
+    for (int y = 0; y < 32; ++y) total += slices[y][threadIdx.x];
+    dline[e] = (float)total;
+  }
 }
 
 __global__ void hat_bwd_x_kernel(const float* __restrict__ x,
@@ -172,12 +317,15 @@ extern "C" int hat_fwd(const void* x, const void* line, void* out, int64_t n,
   return (int)cudaGetLastError();
 }
 
-// x (n,), g (n, rank) f32; sums (R, rank) f64 scratch, zeroed by the
-// caller; dline (R, rank) f32 receives the sums rounded.  A table past the
-// card's opt-in shared memory is refused with cudaErrorInvalidValue.
-extern "C" int hat_bwd_line(const void* x, const void* g, void* sums,
+// x (n,), g (n, rank) f32; partials: scratch of max_blocks (R, rank) f32
+// slabs, written before it is read; dline (R, rank) f32.  Two launches.  A
+// table that does not fit the card's opt-in shared memory beside a tile, or
+// a rank past kMaxLineRank, is refused with cudaErrorInvalidValue.
+extern "C" int hat_bwd_line(const void* x, const void* g, void* partials,
                             void* dline, int64_t n, int R, int rank,
-                            void* stream) {
+                            int max_blocks, void* stream) {
+  if (R < 1 || rank < 1 || rank > kMaxLineRank)
+    return (int)cudaErrorInvalidValue;
   int dev = 0, sms = 0, smem_optin = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err == cudaSuccess)
@@ -186,30 +334,40 @@ extern "C" int hat_bwd_line(const void* x, const void* g, void* sums,
     err = cudaDeviceGetAttribute(&smem_optin,
                                  cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
   if (err != cudaSuccess) return (int)err;
-  const size_t smem = (size_t)R * rank * sizeof(float);
+  // a tile: kStage floats of g per thread, a multiple of 32 samples; lanes
+  // per sample: rank rounded up to a power of two, at most 32
+  const int fit = (kStage * kLineThreads / rank) / 32 * 32;
+  const int tile = fit < kMaxTile ? fit : kMaxTile;
+  int cw = 1;
+  while (cw < rank && cw < 32) cw *= 2;
+  const int table = R * rank;
+  const size_t smem = (size_t)table * sizeof(long long) +
+                      ((size_t)table + 3) / 4 * sizeof(unsigned) +
+                      ((size_t)tile * rank + 3 * (size_t)tile) * sizeof(float);
   if (smem > (size_t)smem_optin) return (int)cudaErrorInvalidValue;
-  // about 4 R samples per block, at most 2 blocks per SM: a block's flush
-  // (R x rank atomics) stays small next to its 8 R x rank shared adds
-  int64_t blocks = (n + 4 * (int64_t)R - 1) / (4 * (int64_t)R);
-  blocks = blocks < 1 ? 1 : (blocks > 2 * sms ? 2 * sms : blocks);
-  const int64_t per_block = (n + blocks - 1) / blocks;
-  if (per_block * rank > INT32_MAX) return (int)cudaErrorInvalidValue;
   err = cudaFuncSetAttribute(hat_bwd_line_kernel,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              (int)smem);
   if (err != cudaSuccess) return (int)err;
+  int per_sm = 0;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &per_sm, hat_bwd_line_kernel, kLineThreads, smem);
+  if (err != cudaSuccess) return (int)err;
+  if (per_sm < 1) return (int)cudaErrorInvalidConfiguration;
+  const int64_t n_tiles = (n + tile - 1) / tile;
+  const int64_t resident = (int64_t)per_sm * sms;
+  const int blocks = (int)(n_tiles < resident ? n_tiles : resident);
+  if (blocks > max_blocks) return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
-  if (n > 0) {
-    hat_bwd_line_kernel<<<(unsigned)blocks, 256, smem, st>>>(
-        (const float*)x, (const float*)g, (double*)sums, n, R, rank,
-        per_block);
+  if (blocks > 0) {
+    hat_bwd_line_kernel<<<blocks, kLineThreads, smem, st>>>(
+        (const float*)x, (const float*)g, (float*)partials, n, R, rank, tile,
+        cw);
     err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
   }
-  const int table = R * rank;
-  if (table == 0) return (int)cudaSuccess;
-  round_to_f32_kernel<<<(table + 255) / 256, 256, 0, st>>>(
-      (const double*)sums, (float*)dline, table);
+  hat_bwd_line_reduce_kernel<<<(table + 31) / 32, dim3(32, 32), 0, st>>>(
+      (const float*)partials, (float*)dline, table, blocks);
   return (int)cudaGetLastError();
 }
 

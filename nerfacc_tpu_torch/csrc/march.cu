@@ -22,16 +22,35 @@
 //
 // Bound on this card: one random byte read of the binary grid per candidate
 // inside a segment (a 128^3 level is 2 MiB and stays in L2), plus the
-// sample writes (12 B each) of the fill pass.
+// sample writes (12 B each) of the fill pass.  What limits a walk is its
+// latency: each candidate costs a chain of rounded operations (three IEEE
+// divisions) and a dependent L2 read, and a train batch has few rays (2048,
+// or 1024 for TiNeuVox) against the card's 132 SMs.
 //
-// Design: one thread per ray, no shared memory; m <= 8 levels keeps the
-// event list (16 floats) in registers.  Float operations use the explicitly
-// rounded intrinsics, so the compiler contracts nothing on its own: the
-// arithmetic is the same sequence of rounded operations as the PyTorch twin
-// in nerfacc_tpu_torch/grid.py, and the sample sets agree exactly.  The one
-// fused multiply-add is the midpoint's position o + t * d, which XLA's CPU
-// backend also fuses in the JAX package (the twin evaluates it with an exact
-// f64 product).
+// Design: one warp per ray.  A candidate's arithmetic is a pure function of
+// its orbit index k (the closed form, the midpoint, o + mid * d, the voxel),
+// so the lanes evaluate candidates independently: lane j takes k0 + j,
+// k0 + j + 32, ..., four 32-candidate chunks per step of the walk, whose
+// voxel reads are all in flight together.  A ballot of "midpoint past the
+// farthest segment" gives the first stopping candidate (the termination
+// plane is its t, and the walk ends there); a ballot of the emitted
+// candidates gives the count (__popc) and, in the fill pass, each sample's
+// slot: the ray's offset + the samples before this chunk + the emitting
+// lanes below this one, so the samples stay in (ray, orbit) order.
+//
+// The walk starts at k_start, not at 0 (first_candidate below): the
+// candidates between the near plane and the first valid segment can emit
+// nothing, and at the trainer's near plane 0 they are about half of the
+// walk.  k_start comes from the closed form in the orbit's linear part only,
+// where the orbit is monotone, and is checked by evaluating candidate
+// k_start - 1, so the skip is exact.
+//
+// Float operations use the explicitly rounded intrinsics, so the compiler
+// contracts nothing on its own: every candidate is the same sequence of
+// rounded operations as the PyTorch twin in nerfacc_tpu_torch/grid.py, and
+// the sample sets agree exactly.  The one fused multiply-add is the
+// midpoint's position o + t * d, which XLA's CPU backend also fuses in the
+// JAX package (the twin evaluates it with an exact f64 product).
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
@@ -39,9 +58,13 @@
 namespace {
 
 constexpr int kMaxLevels = 8;
+constexpr int kMaxSegments = 2 * kMaxLevels - 1;
 // Guard against a runaway walk (a ray whose last segment ends absurdly far
 // out): no ray of a bounded scene comes near this many orbit steps.
 constexpr int kMaxSteps = 1 << 24;
+constexpr int kRaysPerBlock = 4;  // one warp each
+constexpr int kChunks = 4;        // 32-candidate chunks per step of a walk
+constexpr unsigned kFull = 0xffffffffu;
 
 struct Grid {
   const uint8_t* binaries;  // (m, rx, ry, rz)
@@ -53,6 +76,18 @@ struct Orbit {
   float step, cone, tau, base;  // tau = step / cone, base = 1 + cone
 };
 
+// One ray's setup, the same in every lane of its warp.
+struct Ray {
+  float o[3], d[3];
+  float near;
+  float n_lin, t_lin_end;  // the orbit is linear for k <= n_lin
+  int n_seg;
+  float seg_lo[kMaxSegments], seg_hi[kMaxSegments];
+  int seg_level[kMaxSegments];
+  bool seg_valid[kMaxSegments];
+  float lo_first, t_hi_last;  // over the valid segments
+};
+
 // NaN-propagating min / max, as jnp.minimum / jnp.maximum and the twin's
 // torch.minimum / torch.maximum (fminf / fmaxf would drop the NaN).
 __device__ __forceinline__ float nmin(float a, float b) {
@@ -62,41 +97,35 @@ __device__ __forceinline__ float nmax(float a, float b) {
   return (a != a || b != b) ? __int_as_float(0x7fc00000) : fmaxf(a, b);
 }
 
-// grid.py::_orbit_t for one orbit index.
-__device__ __forceinline__ float orbit_t(float near, float k, const Orbit& o) {
-  const float linear = __fadd_rn(near, __fmul_rn(k, o.step));
-  if (o.cone <= 0.0f) return linear;
-  const float n_lin =
-      fmaxf(ceilf(__fdiv_rn(__fsub_rn(o.tau, near), o.step)), 0.0f);
-  if (k <= n_lin) return linear;
-  const float t_lin_end = __fadd_rn(near, __fmul_rn(n_lin, o.step));
-  return __fmul_rn(t_lin_end, powf(o.base, fmaxf(__fsub_rn(k, n_lin), 0.0f)));
+// grid.py::_orbit_t for one orbit index, with the ray's n_lin and
+// t_lin_end computed once (by the same rounded operations).
+__device__ __forceinline__ float orbit_t(const Ray& r, float k,
+                                         const Orbit& o) {
+  const float linear = __fadd_rn(r.near, __fmul_rn(k, o.step));
+  if (k <= r.n_lin) return linear;
+  return __fmul_rn(r.t_lin_end,
+                   powf(o.base, fmaxf(__fsub_rn(k, r.n_lin), 0.0f)));
 }
 
-// Walks ray r.  With FILL, writes the samples from out_base on.  Returns the
-// ray's sample count and stores its termination plane in *term.
-template <bool FILL>
-__device__ int march_ray(int r, const float* __restrict__ rays_o,
-                         const float* __restrict__ rays_d,
-                         const float* __restrict__ near_planes,
-                         const float* __restrict__ far_planes,
-                         const uint8_t* __restrict__ rays_mask,
-                         const Grid& g, const Orbit& orb, float* term,
-                         int64_t out_base, int* __restrict__ ray_ids,
-                         float* __restrict__ t_starts,
-                         float* __restrict__ t_ends) {
-  const float near = near_planes[r];
-  const float far = far_planes[r];
-  *term = near;
-  if (rays_mask != nullptr && !rays_mask[r]) return 0;
-  float o[3], d[3], inv[3];
-  for (int a = 0; a < 3; ++a) {
-    o[a] = rays_o[3 * r + a];
-    d[a] = rays_d[3 * r + a];
-    inv[a] = __fdiv_rn(1.0f, d[a]);
-  }
+__device__ __forceinline__ float midpoint(float t0, float t1) {
+  return __fmul_rn(0.5f, __fadd_rn(t0, t1));
+}
 
-  // 1. slab test per level (grid.py::ray_aabb_intersect)
+// Slab test, event sort and segments of ray r (grid.py::ray_aabb_intersect
+// and _grid_segments).  Returns false if the ray has no valid segment.
+__device__ bool setup_ray(int r, const float* __restrict__ rays_o,
+                          const float* __restrict__ rays_d, float near,
+                          float far, const Grid& g, const Orbit& orb,
+                          Ray& ray) {
+  float inv[3];
+  for (int a = 0; a < 3; ++a) {
+    ray.o[a] = rays_o[3 * r + a];
+    ray.d[a] = rays_d[3 * r + a];
+    inv[a] = __fdiv_rn(1.0f, ray.d[a]);
+  }
+  ray.near = near;
+
+  // 1. slab test per level
   const int m = g.m;
   float ev_t[2 * kMaxLevels];
   int ev_i[2 * kMaxLevels];
@@ -104,9 +133,10 @@ __device__ int march_ray(int r, const float* __restrict__ rays_o,
   for (int l = 0; l < m; ++l) {
     float tmin = -INFINITY, tmax = INFINITY;
     for (int a = 0; a < 3; ++a) {
-      const float t1 = __fmul_rn(__fsub_rn(g.aabbs[6 * l + a], o[a]), inv[a]);
+      const float t1 =
+          __fmul_rn(__fsub_rn(g.aabbs[6 * l + a], ray.o[a]), inv[a]);
       const float t2 =
-          __fmul_rn(__fsub_rn(g.aabbs[6 * l + 3 + a], o[a]), inv[a]);
+          __fmul_rn(__fsub_rn(g.aabbs[6 * l + 3 + a], ray.o[a]), inv[a]);
       tmin = a == 0 ? nmin(t1, t2) : nmax(tmin, nmin(t1, t2));
       tmax = a == 0 ? nmax(t1, t2) : nmin(tmax, nmax(t1, t2));
     }
@@ -128,71 +158,153 @@ __device__ int march_ray(int r, const float* __restrict__ rays_o,
     ev_t[j] = t;
     ev_i[j] = id;
   }
-  // grid segments (grid.py::_grid_segments)
-  const int n_seg = 2 * m - 1;
-  float seg_lo[2 * kMaxLevels], seg_hi[2 * kMaxLevels];
-  int seg_level[2 * kMaxLevels];
-  bool seg_valid[2 * kMaxLevels];
-  float t_hi_last = -INFINITY;
+  // grid segments
+  ray.n_seg = 2 * m - 1;
+  ray.lo_first = INFINITY;
+  ray.t_hi_last = -INFINITY;
   bool any_seg = false;
-  for (int j = 0; j < n_seg; ++j) {
+  for (int j = 0; j < ray.n_seg; ++j) {
     const int lev_this = ev_i[j] % m, lev_next = ev_i[j + 1] % m;
     const bool ent_this = ev_i[j] < m, ent_next = ev_i[j + 1] < m;
     const bool hit_this = hit[lev_this], hit_next = hit[lev_next];
     bool valid = ent_this ? hit_this : (hit_this && !ent_next && hit_next);
-    seg_level[j] = ent_this ? lev_this : lev_next;
-    seg_lo[j] = fmaxf(ev_t[j], near);
-    seg_hi[j] = fminf(ev_t[j + 1], far);
-    valid = valid && (seg_lo[j] < seg_hi[j]);
-    seg_valid[j] = valid;
+    ray.seg_level[j] = ent_this ? lev_this : lev_next;
+    ray.seg_lo[j] = fmaxf(ev_t[j], near);
+    ray.seg_hi[j] = fminf(ev_t[j + 1], far);
+    valid = valid && (ray.seg_lo[j] < ray.seg_hi[j]);
+    ray.seg_valid[j] = valid;
     if (valid) {
       any_seg = true;
-      t_hi_last = fmaxf(t_hi_last, seg_hi[j]);
+      ray.lo_first = fminf(ray.lo_first, ray.seg_lo[j]);
+      ray.t_hi_last = fmaxf(ray.t_hi_last, ray.seg_hi[j]);
     }
   }
-  if (!any_seg) return 0;
+  if (orb.cone > 0.0f) {
+    ray.n_lin = fmaxf(
+        ceilf(__fdiv_rn(__fsub_rn(orb.tau, near), orb.step)), 0.0f);
+    ray.t_lin_end = __fadd_rn(near, __fmul_rn(ray.n_lin, orb.step));
+  } else {
+    ray.n_lin = INFINITY;
+    ray.t_lin_end = 0.0f;
+  }
+  return any_seg;
+}
 
-  // 3. the orbit, up to the first candidate whose midpoint clears the
-  // farthest segment
-  int count = 0;
-  int k = 0;
-  float t0 = orbit_t(near, 0.0f, orb);
-  for (; k < kMaxSteps; ++k) {
-    const float t1 = orbit_t(near, (float)(k + 1), orb);
-    const float mid = __fmul_rn(0.5f, __fadd_rn(t0, t1));
-    if (mid >= t_hi_last) break;
-    int level = -1;
-    for (int j = 0; j < n_seg; ++j) {
-      if (seg_valid[j] && mid >= seg_lo[j] && mid < seg_hi[j])
-        level = seg_level[j];
-    }
-    if (level >= 0) {
-      // occupancy of the midpoint (grid.py::_occupancy_lookup)
-      const int res[3] = {g.rx, g.ry, g.rz};
-      int idx[3];
-      for (int a = 0; a < 3; ++a) {
-        const float lo = g.aabbs[6 * level + a];
-        const float hi = g.aabbs[6 * level + 3 + a];
-        const float pos = __fmaf_rn(mid, d[a], o[a]);
-        const float u = __fdiv_rn(__fsub_rn(pos, lo), __fsub_rn(hi, lo));
-        const float f = floorf(__fmul_rn(u, (float)res[a]));
-        idx[a] = (int)fminf(fmaxf(f, 0.0f), (float)(res[a] - 1));
-      }
-      const int64_t flat =
-          (((int64_t)level * g.rx + idx[0]) * g.ry + idx[1]) * g.rz + idx[2];
-      if (g.binaries[flat]) {
-        if (FILL) {
-          ray_ids[out_base + count] = r;
-          t_starts[out_base + count] = t0;
-          t_ends[out_base + count] = t1;
-        }
-        ++count;
-      }
-    }
-    t0 = t1;
+// k_start: the walk's first candidate.  Where k + 1 <= n_lin (every k
+// without a cone), t_k = near + fl(k step) is nondecreasing in k, since
+// each rounded operation is monotone, and so is the midpoint of (t_k,
+// t_{k+1}).  So if candidate k_start - 1 has its midpoint below lo_first,
+// so has every earlier candidate: none lies in a valid segment (each starts
+// at lo_first or later) and none stops the walk (t_hi_last > lo_first).
+// The estimate from the closed form is capped at n_lin, checked by
+// evaluating candidate k_start - 1, and stepped back where the check fails,
+// so the skip is exact.  Where lo_first is within two steps of the near
+// plane, or NaN, the walk starts at 0.
+__device__ int first_candidate(const Ray& r, const Orbit& o) {
+  const float e = __fdiv_rn(__fsub_rn(r.lo_first, r.near), o.step);
+  if (!(e >= 2.0f)) return 0;
+  const float cap = fminf(r.n_lin, (float)kMaxSteps);
+  int k = (int)fminf(__fsub_rn(floorf(e), 1.0f), cap);
+  while (k > 0 &&
+         midpoint(orbit_t(r, (float)(k - 1), o), orbit_t(r, (float)k, o)) >=
+             r.lo_first)
+    --k;
+  return k;
+}
+
+// Flat voxel index of a midpoint inside a valid segment (its level's
+// occupancy cell, grid.py::_occupancy_lookup), or -1 outside every one.
+__device__ __forceinline__ int64_t voxel(const Ray& r, float mid,
+                                         const Grid& g) {
+  int level = -1;
+  for (int j = 0; j < r.n_seg; ++j) {
+    if (r.seg_valid[j] && mid >= r.seg_lo[j] && mid < r.seg_hi[j])
+      level = r.seg_level[j];
   }
-  *term = t0;  // orbit value of the first candidate past every segment
-  return count;
+  if (level < 0) return -1;
+  const int res[3] = {g.rx, g.ry, g.rz};
+  int idx[3];
+  for (int a = 0; a < 3; ++a) {
+    const float lo = g.aabbs[6 * level + a];
+    const float hi = g.aabbs[6 * level + 3 + a];
+    const float pos = __fmaf_rn(mid, r.d[a], r.o[a]);
+    const float u = __fdiv_rn(__fsub_rn(pos, lo), __fsub_rn(hi, lo));
+    const float f = floorf(__fmul_rn(u, (float)res[a]));
+    idx[a] = (int)fminf(fmaxf(f, 0.0f), (float)(res[a] - 1));
+  }
+  return (((int64_t)level * g.rx + idx[0]) * g.ry + idx[1]) * g.rz + idx[2];
+}
+
+// Marches ray r with the 32 lanes of a warp.  With FILL, writes the samples
+// from out_base on.  Returns the ray's sample count and stores its
+// termination plane in *term (the same in every lane).
+template <bool FILL>
+__device__ int march_ray(int r, int lane, const float* __restrict__ rays_o,
+                         const float* __restrict__ rays_d,
+                         const float* __restrict__ near_planes,
+                         const float* __restrict__ far_planes,
+                         const uint8_t* __restrict__ rays_mask,
+                         const Grid& g, const Orbit& orb, float* term,
+                         int64_t out_base, int* __restrict__ ray_ids,
+                         float* __restrict__ t_starts,
+                         float* __restrict__ t_ends) {
+  const float near = near_planes[r];
+  *term = near;
+  if (rays_mask != nullptr && !rays_mask[r]) return 0;
+  Ray ray;
+  if (!setup_ray(r, rays_o, rays_d, near, far_planes[r], g, orb, ray))
+    return 0;
+
+  const unsigned below = (1u << lane) - 1u;
+  int count = 0;
+  for (int k = first_candidate(ray, orb);; k += 32 * kChunks) {
+    float t0[kChunks], t1[kChunks], mid[kChunks];
+    unsigned stops[kChunks];
+#pragma unroll
+    for (int u = 0; u < kChunks; ++u) {
+      const int kk = k + 32 * u + lane;
+      t0[u] = orbit_t(ray, (float)kk, orb);
+      t1[u] = __shfl_down_sync(kFull, t0[u], 1);
+      if (lane == 31) t1[u] = orbit_t(ray, (float)(kk + 1), orb);
+      mid[u] = midpoint(t0[u], t1[u]);
+      // the first candidate whose midpoint clears the farthest segment
+      // ends the walk, as the kMaxSteps-th does
+      stops[u] = __ballot_sync(kFull, kk >= kMaxSteps || mid[u] >= ray.t_hi_last);
+    }
+    int stop_chunk = kChunks, stop_lane = 32;
+#pragma unroll
+    for (int u = kChunks - 1; u >= 0; --u) {
+      if (stops[u] != 0u) {
+        stop_chunk = u;
+        stop_lane = __ffs(stops[u]) - 1;
+      }
+    }
+    uint8_t occupied[kChunks];
+#pragma unroll
+    for (int u = 0; u < kChunks; ++u) {
+      const bool before = u < stop_chunk || (u == stop_chunk && lane < stop_lane);
+      const int64_t cell = before ? voxel(ray, mid[u], g) : -1;
+      occupied[u] = cell >= 0 ? __ldg(g.binaries + cell) : 0;
+    }
+    float t_stop = t0[0];
+#pragma unroll
+    for (int u = 0; u < kChunks; ++u) {
+      const unsigned emits = __ballot_sync(kFull, occupied[u] != 0);
+      if (FILL && occupied[u]) {
+        const int64_t at = out_base + count + __popc(emits & below);
+        ray_ids[at] = r;
+        t_starts[at] = t0[u];
+        t_ends[at] = t1[u];
+      }
+      count += __popc(emits);
+      if (u == stop_chunk) t_stop = t0[u];
+    }
+    if (stop_chunk < kChunks) {
+      // orbit value of the first candidate past every segment
+      *term = __shfl_sync(kFull, t_stop, stop_lane);
+      return count;
+    }
+  }
 }
 
 __global__ void march_count_kernel(const float* rays_o, const float* rays_d,
@@ -200,13 +312,17 @@ __global__ void march_count_kernel(const float* rays_o, const float* rays_d,
                                    const float* far_planes,
                                    const uint8_t* rays_mask, Grid g, Orbit orb,
                                    int n_rays, int* counts, float* term) {
-  const int r = blockIdx.x * blockDim.x + threadIdx.x;
-  if (r >= n_rays) return;
+  const int r = blockIdx.x * kRaysPerBlock + threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  if (r >= n_rays) return;  // the whole warp
   float t;
-  counts[r] = march_ray<false>(r, rays_o, rays_d, near_planes, far_planes,
-                               rays_mask, g, orb, &t, 0, nullptr, nullptr,
-                               nullptr);
-  term[r] = t;
+  const int c = march_ray<false>(r, lane, rays_o, rays_d, near_planes,
+                                 far_planes, rays_mask, g, orb, &t, 0,
+                                 nullptr, nullptr, nullptr);
+  if (lane == 0) {
+    counts[r] = c;
+    term[r] = t;
+  }
 }
 
 __global__ void march_fill_kernel(const float* rays_o, const float* rays_d,
@@ -216,11 +332,12 @@ __global__ void march_fill_kernel(const float* rays_o, const float* rays_d,
                                   int n_rays, const int64_t* offsets,
                                   int* ray_ids, float* t_starts,
                                   float* t_ends) {
-  const int r = blockIdx.x * blockDim.x + threadIdx.x;
-  if (r >= n_rays) return;
+  const int r = blockIdx.x * kRaysPerBlock + threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  if (r >= n_rays) return;  // the whole warp
   float t;
-  march_ray<true>(r, rays_o, rays_d, near_planes, far_planes, rays_mask, g,
-                  orb, &t, offsets[r], ray_ids, t_starts, t_ends);
+  march_ray<true>(r, lane, rays_o, rays_d, near_planes, far_planes, rays_mask,
+                  g, orb, &t, offsets[r], ray_ids, t_starts, t_ends);
 }
 
 }  // namespace
@@ -237,9 +354,8 @@ extern "C" int march_count(const void* rays_o, const void* rays_d,
   if (n_rays == 0) return (int)cudaSuccess;
   const Grid g{(const uint8_t*)binaries, (const float*)aabbs, m, rx, ry, rz};
   const Orbit orb{step, cone, tau, base};
-  const int threads = 128;
-  const int blocks = (n_rays + threads - 1) / threads;
-  march_count_kernel<<<blocks, threads, 0, (cudaStream_t)stream>>>(
+  const int blocks = (n_rays + kRaysPerBlock - 1) / kRaysPerBlock;
+  march_count_kernel<<<blocks, 32 * kRaysPerBlock, 0, (cudaStream_t)stream>>>(
       (const float*)rays_o, (const float*)rays_d, (const float*)near_planes,
       (const float*)far_planes, (const uint8_t*)rays_mask, g, orb, n_rays,
       (int*)counts, (float*)term);
@@ -258,9 +374,8 @@ extern "C" int march_fill(const void* rays_o, const void* rays_d,
   if (n_rays == 0) return (int)cudaSuccess;
   const Grid g{(const uint8_t*)binaries, (const float*)aabbs, m, rx, ry, rz};
   const Orbit orb{step, cone, tau, base};
-  const int threads = 128;
-  const int blocks = (n_rays + threads - 1) / threads;
-  march_fill_kernel<<<blocks, threads, 0, (cudaStream_t)stream>>>(
+  const int blocks = (n_rays + kRaysPerBlock - 1) / kRaysPerBlock;
+  march_fill_kernel<<<blocks, 32 * kRaysPerBlock, 0, (cudaStream_t)stream>>>(
       (const float*)rays_o, (const float*)rays_d, (const float*)near_planes,
       (const float*)far_planes, (const uint8_t*)rays_mask, g, orb, n_rays,
       (const int64_t*)offsets, (int*)ray_ids, (float*)t_starts,

@@ -10,7 +10,8 @@ and inside an occupied voxel of that segment's level.
 :func:`march` emits exactly those samples, packed in (ray, orbit) order with
 no budget: on the card through kernel G2 (count, scan, fill), on the CPU
 through :func:`march_plain`, which evaluates the padded candidate lattice of
-:func:`traverse_grids_padded` and packs its valid entries.
+:func:`traverse_grids_padded` and packs its valid entries.  G2 starts each
+ray's walk at :func:`march_start`'s candidate, past the orbit's empty prefix.
 """
 from __future__ import annotations
 
@@ -20,6 +21,9 @@ from typing import NamedTuple, Optional, Tuple
 import torch
 
 from . import cuda
+
+# G2's bound on a walk (csrc/march.cu kMaxSteps): orbit indices stay exact in f32
+_MAX_STEPS = 1 << 24
 
 
 def ray_aabb_intersect(
@@ -100,6 +104,15 @@ def _grid_segments(
     seg_lo = torch.maximum(t_sorted[:, :-1], near_planes[:, None])
     seg_hi = torch.minimum(t_sorted[:, 1:], far_planes[:, None])
     return seg_lo, seg_hi, seg_level, seg_valid & (seg_lo < seg_hi)
+
+
+def _segments(rays_o, rays_d, aabbs, near_planes, far_planes):
+    """The slab test, the stable event sort and :func:`_grid_segments`."""
+    t_mins, t_maxs, hits = ray_aabb_intersect(rays_o, rays_d, aabbs)
+    t_sorted, t_indices = torch.sort(
+        torch.cat([t_mins, t_maxs], dim=-1), dim=-1, stable=True
+    )
+    return _grid_segments(t_sorted, t_indices, hits, near_planes, far_planes)
 
 
 def _occupancy_lookup(
@@ -219,12 +232,8 @@ def traverse_grids_padded(
     if far_planes is None:
         far_planes = torch.full((n_rays,), math.inf, dtype=dtype, device=dev)
 
-    t_mins, t_maxs, hits = ray_aabb_intersect(rays_o, rays_d, aabbs)
-    t_sorted, t_indices = torch.sort(
-        torch.cat([t_mins, t_maxs], dim=-1), dim=-1, stable=True
-    )
-    seg_lo, seg_hi, seg_level, seg_valid = _grid_segments(
-        t_sorted, t_indices, hits, near_planes, far_planes
+    seg_lo, seg_hi, seg_level, seg_valid = _segments(
+        rays_o, rays_d, aabbs, near_planes, far_planes
     )
     n_candidates = _lattice_size(near_planes, seg_hi, seg_valid, step_size, cone_angle)
     k = torch.arange(n_candidates + 1, dtype=dtype, device=dev)[None, :]
@@ -263,6 +272,50 @@ def traverse_grids_padded(
         stopped = stopped & rays_mask
     termination_planes = torch.where(stopped, termination_planes, near_planes)
     return TraversalResult(t_edges[:, :-1], t_edges[:, 1:], valid, termination_planes)
+
+
+def march_start(
+    rays_o: torch.Tensor,
+    rays_d: torch.Tensor,
+    aabbs: torch.Tensor,
+    near_planes: torch.Tensor,
+    far_planes: torch.Tensor,
+    step_size: float,
+    cone_angle: float = 0.0,
+) -> torch.Tensor:
+    """Kernel G2's first candidate per ray (``csrc/march.cu::first_candidate``),
+    the same rounded operations written out once more: (n_rays,) int64.
+
+    Every candidate before it has its midpoint below ``lo_first``, the start
+    of the ray's first valid segment, so it lies in no valid segment and does
+    not end the walk.  In the orbit's linear part (``k + 1 <= n_lin``, or any
+    ``k`` without a cone) ``t_k = near + fl(k * step)`` is nondecreasing in
+    ``k`` and so is the midpoint, so checking candidate ``k - 1`` checks all
+    before it.  The estimate ``floor((lo_first - near) / step) - 1`` is capped
+    at ``n_lin``, checked by evaluating candidate ``k - 1``, and stepped back
+    while the check fails.  0 where ``lo_first`` is within two steps of the
+    near plane or NaN, and for rays with no valid segment (G2 does not walk
+    those).
+    """
+    seg_lo, _, _, seg_valid = _segments(rays_o, rays_d, aabbs, near_planes, far_planes)
+    lo_first = torch.where(seg_valid, seg_lo, math.inf).amin(dim=-1)
+    near = near_planes
+    e = (lo_first - near) / step_size
+    cap = torch.full_like(near, float(_MAX_STEPS))
+    if cone_angle > 0.0:
+        n_lin = torch.ceil((step_size / cone_angle - near) / step_size).clamp_min(0.0)
+        cap = torch.minimum(n_lin, cap)
+    walked = (e >= 2.0) & seg_valid.any(dim=-1)
+    k = torch.where(walked, torch.minimum(torch.floor(e) - 1.0, cap), 0.0).long()
+
+    def midpoint(kf):
+        return 0.5 * ((near + kf * step_size) + (near + (kf + 1.0) * step_size))
+
+    while True:
+        back = (k > 0) & (midpoint(k.to(near.dtype) - 1.0) >= lo_first)
+        if not bool(back.any()):
+            return k
+        k = k - back.long()
 
 
 def march_plain(

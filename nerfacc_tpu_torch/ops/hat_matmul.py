@@ -119,17 +119,23 @@ def hat_fwd(x: torch.Tensor, line: torch.Tensor) -> torch.Tensor:
 
 def hat_bwd_line(x: torch.Tensor, g: torch.Tensor, R: int) -> torch.Tensor:
     """The table gradient: kernel G9 for CUDA tensors, :func:`hat_bwd_line_plain`
-    for CPU tensors.  On the card each block's f32 partial sums run in no
-    fixed order (atomics); the blocks are added in f64."""
+    for CPU tensors.  On the card each block sums its samples in int64 fixed
+    point (in any order, with the same result), rounds the sums to f32, and
+    the blocks are added in f64 in block order: two calls on the same inputs
+    give the same bits."""
     if not cuda.on_card(x, g):
         return hat_bwd_line_plain(x, g, R)
     _check(x, (R, g.shape[1]), g)
     x, g = x.contiguous(), g.contiguous()
-    sums = torch.zeros((R, g.shape[1]), dtype=torch.float64, device=x.device)
-    dline = torch.empty((R, g.shape[1]), dtype=torch.float32, device=x.device)
+    rank = g.shape[1]
+    # one (R, rank) slab per block; a 1024-thread block is resident at most
+    # twice per SM
+    max_blocks = 2 * torch.cuda.get_device_properties(x.device).multi_processor_count
+    partials = torch.empty((max_blocks, R, rank), dtype=torch.float32, device=x.device)
+    dline = torch.empty((R, rank), dtype=torch.float32, device=x.device)
     err = cuda.load().hat_bwd_line(
-        cuda.ptr(x), cuda.ptr(g), cuda.ptr(sums), cuda.ptr(dline), x.shape[0], R,
-        g.shape[1], cuda.stream_ptr(x),
+        cuda.ptr(x), cuda.ptr(g), cuda.ptr(partials), cuda.ptr(dline), x.shape[0], R,
+        rank, max_blocks, cuda.stream_ptr(x),
     )
     cuda.check(err, "hat_bwd_line")
     cuda.LAUNCHES["hat_bwd_line"] += 1

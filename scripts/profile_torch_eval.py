@@ -79,7 +79,7 @@ CLASSES = (
     ("hash_bwd_kernel", "G7 hash encode backward"),
     ("hat_fwd_kernel", "G8 hat interp"),
     ("hat_bwd_line_kernel", "G9 hat interp table gradient"),
-    ("round_to_f32_kernel", "G9 hat interp table gradient"),  # G9's second launch
+    ("hat_bwd_line_reduce_kernel", "G9 hat interp table gradient"),  # its second launch
     ("hat_bwd_x_kernel", "G10 hat interp coordinate gradient"),
     ("importance_sampling_kernel", "G14 importance sampling"),
     ("gemm", "GEMM (MLPs)"),

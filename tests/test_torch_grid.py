@@ -123,3 +123,63 @@ def test_march_matches_padded_traversal_and_compaction(m, cone_angle, masked):
     )
     if mask is not None:
         assert (counts[~mask] == 0).all()
+
+
+@pytest.mark.parametrize(
+    "cone_angle,near_inside,masked",
+    [(0.0, False, False), (0.004, False, True), (0.0, True, True), (0.004, True, False)],
+)
+def test_march_start_skips_only_the_empty_prefix(cone_angle, near_inside, masked):
+    """Kernel G2's first candidate (``march_start``) against the padded
+    traversal of JAX and of the twin: on an all-occupied grid the emitted
+    candidates are exactly those with their midpoint in a valid segment, and
+    none lies before it; on a real grid it is at or before the first emitted
+    candidate.  Near 0 it skips the walk up to the box (to within two
+    candidates of the first one inside, without a cone); a near plane inside
+    the box starts at 0.  Some rays miss the box, some are masked."""
+    n_rays = 256
+    o, d = _rays(11, n_rays)
+    d[:16] = -d[:16]  # pointing away: these miss both boxes
+    binaries, aabbs = _grid(2, 2)
+    rng = np.random.default_rng(12)
+    # the level-1 box (+-3) starts at t ~ 1 from the radius-4 ring
+    near = (rng.uniform(0.5, 5.0, n_rays) if near_inside else np.zeros(n_rays)).astype(np.float32)
+    far = np.full(n_rays, 1e10, np.float32)
+    mask = rng.uniform(size=n_rays) < 0.8 if masked else None
+    k_start = tgrid.march_start(
+        *map(torch.tensor, (o, d, aabbs, near, far)), STEP, cone_angle
+    ).numpy()
+    max_samples = 2000 if cone_angle == 0.0 else 1000
+
+    def first_valid(valid):
+        valid = np.asarray(valid)
+        return np.where(valid.any(-1), valid.argmax(-1), valid.shape[1]), valid.any(-1)
+
+    full = np.ones_like(binaries)
+    for grid_ in (full, binaries):
+        res = jgrid.traverse_grids_padded(
+            *map(jnp.asarray, (o, d, grid_, aabbs, near, far)), step_size=STEP,
+            cone_angle=cone_angle, max_samples=max_samples,
+            rays_mask=None if mask is None else jnp.asarray(mask),
+        )
+        assert np.asarray(res.terminated).all()
+        first, have = first_valid(res.valid)
+        assert (k_start <= first).all()
+        twin = tgrid.traverse_grids_padded(
+            *map(torch.tensor, (o, d, grid_, aabbs, near, far)), step_size=STEP,
+            cone_angle=cone_angle, rays_mask=None if mask is None else torch.tensor(mask),
+        )
+        twin_first, twin_have = first_valid(twin.valid.numpy())
+        np.testing.assert_array_equal(twin_have, have)
+        assert (k_start <= twin_first).all()
+        if grid_ is full:
+            in_segment, with_segment = first, have
+    assert with_segment.sum() > n_rays // 2 and (~with_segment).any()
+    gap = in_segment[with_segment] - k_start[with_segment]
+    if near_inside:
+        assert (k_start[with_segment] == 0).any() and (k_start > 0).any()
+    else:
+        # some origins on the ring lie inside the level-1 box (k_start 0)
+        assert np.median(k_start[with_segment]) > 100
+    if cone_angle == 0.0:
+        assert (gap <= 2).mean() > 0.95

@@ -39,8 +39,12 @@ def _jax_reference(x, line, g):
     return np.asarray(out), np.asarray(dx), np.asarray(dline)
 
 
-# n = 300 and 1100 are not multiples of the TPU kernel's 512-sample block
-@pytest.mark.parametrize("R,rank,n", [(16, 8, 300), (64, 16, 1100), (512, 32, 2048)])
+# n = 300 and 1100 are not multiples of the TPU kernel's 512-sample block;
+# (32, 16), (128, 16) and (512, 32) are TiNeuVox's three levels
+@pytest.mark.parametrize(
+    "R,rank,n",
+    [(16, 8, 300), (64, 16, 1100), (512, 32, 2048), (32, 16, 1100), (128, 16, 2048)],
+)
 def test_plain_versions_match_pallas_kernels(R, rank, n):
     """Forward bitwise (two exact bf16 products, one f32 addition); the
     table gradient within 1e-6 of its largest entry and the coordinate

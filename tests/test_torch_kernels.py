@@ -4,6 +4,8 @@ gradients that reach the train steps through them.
 These need an NVIDIA Hopper GPU and nvcc; elsewhere they skip.  Run them on
 the card with ``python -m pytest tests/test_torch_kernels.py -q``.
 """
+import math
+
 import numpy as np
 import pytest
 import torch
@@ -96,6 +98,47 @@ def test_march_kernel_matches_twin(dev, m, cone_angle):
     mask = torch.tensor(rng.uniform(size=n) < 0.9, device=dev)
     args = (o, d, binaries, aabbs, None, None, 5e-3, cone_angle, mask)
     out, ref = march(*args), march_plain(*args)
+    for a, b in zip(out, ref):
+        torch.testing.assert_close(a, b, rtol=0, atol=0)
+
+
+def _march_case(dev, case):
+    """Rays, grid and planes of one edge case of the warp-per-ray march."""
+    rng = np.random.default_rng(len(case))
+    n = {"1 ray": 1, "31 rays": 31, "33 rays": 33}.get(case, 2048)
+    m = 8 if case == "m=8, cone" else 1
+    theta = rng.uniform(0, 2 * np.pi, n)
+    o = np.stack([4 * np.cos(theta), 4 * np.sin(theta), rng.uniform(-1, 1, n)], -1)
+    d = rng.uniform(-1.5, 1.5, (n, 3)) - o
+    d /= np.linalg.norm(d, axis=-1, keepdims=True)
+    if case == "missing rays":
+        d[::2] = -d[::2]  # pointing away from every box
+    near = np.zeros(n)
+    if case == "near inside":
+        near = rng.uniform(2.0, 6.0, n)  # the box spans t ~ 2.5 to 5.5
+    o, d, near = (torch.tensor(a, dtype=torch.float32, device=dev) for a in (o, d, near))
+    binaries = torch.tensor(rng.uniform(size=(m, 64, 64, 64)) < 0.3, device=dev)
+    aabbs = torch.tensor(
+        [[-1.5 * 2**i] * 3 + [1.5 * 2**i] * 3 for i in range(m)],
+        dtype=torch.float32, device=dev,
+    )
+    far = torch.full_like(near, 1e10)
+    cone = 0.004 if case == "m=8, cone" else 0.0
+    return (o, d, binaries, aabbs, near, far, 5e-3, cone, None)
+
+
+@pytest.mark.parametrize(
+    "case", ["1 ray", "31 rays", "33 rays", "missing rays", "near inside", "m=8, cone"]
+)
+def test_march_kernel_matches_twin_at_its_edges(dev, case):
+    """One warp per ray, at ray counts that leave a block partly empty, rays
+    that miss the box, near planes inside it (the walk starts at 0) and
+    eight levels under cone stepping: equal to the twin in every output."""
+    args = _march_case(dev, case)
+    n0 = cuda.LAUNCHES["march"]
+    out, ref = march(*args), march_plain(*args)
+    assert cuda.LAUNCHES["march"] == n0 + 1
+    assert int(out.counts.sum()) > 0 or case == "1 ray"
     for a, b in zip(out, ref):
         torch.testing.assert_close(a, b, rtol=0, atol=0)
 
@@ -295,8 +338,8 @@ def _hat_inputs(dev, R, rank, n=2**16 + 3):
 
 @pytest.mark.parametrize("R,rank", [(32, 16), (128, 16), (512, 32), (64, 24)])
 def test_hat_kernels_match_plain_versions(dev, R, rank):
-    """G8 bitwise; G9 within 1e-6 of its largest entry (each block's f32
-    partial sums in atomic order, the plain version's sum rounded once from
+    """G8 bitwise; G9 within 1e-6 of its largest entry (each block's sums in
+    fixed point rounded to f32, the plain version's sum rounded once from
     f64); G10 within 1e-5 (the rank sum in another order) and exactly 0 on
     grid points."""
     x, line, cot = _hat_inputs(dev, R, rank)
@@ -314,6 +357,41 @@ def test_hat_kernels_match_plain_versions(dev, R, rank):
     # k / (R - 1) times (R - 1) is k again for about half of the k
     on_grid = (x * (R - 1)) == torch.round(x * (R - 1))
     assert on_grid.sum() >= 16 and (dx[on_grid] == 0).all()
+
+
+@pytest.mark.parametrize("n", [1, 33, 2**16])
+@pytest.mark.parametrize("R,rank", [(32, 16), (128, 16), (512, 32)])
+def test_hat_line_gradient_is_deterministic(dev, R, rank, n):
+    """G9 at TiNeuVox's three levels: two calls give the same bits (each
+    block sums in fixed point, the blocks in block order), within 1e-6 of
+    the largest entry of the plain version's once-rounded f64 sum."""
+    g = torch.Generator(device=dev).manual_seed(R + n)
+    x = torch.rand(n, generator=g, device=dev) * 1.02 - 0.01
+    cot = torch.randn((n, rank), generator=g, device=dev)
+    first = hat_bwd_line(x, cot, R)
+    assert torch.equal(first.view(torch.int32), hat_bwd_line(x, cot, R).view(torch.int32))
+    ref = hat_bwd_line_plain(x, cot, R)
+    torch.testing.assert_close(first, ref, rtol=0, atol=1e-6 * float(ref.abs().max()))
+
+
+def test_hat_line_gradient_keeps_infinities_and_nans(dev):
+    """A +-inf or NaN product makes its entries what an f64 sum makes them
+    (NaN, +inf, -inf, and NaN where both infinities meet); the other
+    entries stay within 1e-6 of the plain version."""
+    R, rank, n = 32, 16, 4096
+    g = torch.Generator(device=dev).manual_seed(3)
+    x = torch.rand(n, generator=g, device=dev)
+    cot = torch.randn((n, rank), generator=g, device=dev)
+    x[:4] = torch.tensor([0.2, 0.2, 0.5, 0.8], device=dev)
+    # the last is finite in f32 and +inf in bf16
+    cot[0, 0], cot[1, 0], cot[2, 1], cot[3, 2] = math.inf, -math.inf, math.nan, 3.4e38
+    out, ref = hat_bwd_line(x, cot, R), hat_bwd_line_plain(x, cot, R)
+    special = ~torch.isfinite(ref)
+    assert special.sum() >= 6
+    assert torch.equal(out[special].isnan(), ref[special].isnan())
+    assert torch.equal(out[special & ~ref.isnan()], ref[special & ~ref.isnan()])
+    scale = float(ref[~special].abs().max())
+    torch.testing.assert_close(out[~special], ref[~special], rtol=0, atol=1e-6 * scale)
 
 
 def test_hat_wrapper_launches_the_coordinate_kernel_only_when_asked(dev):
