@@ -12,7 +12,10 @@ It builds the CUDA kernels from ``nerfacc_tpu_torch/csrc`` and runs:
    PyTorch twin on the card at the slice's shapes, timed with CUDA events
    (G2 also on a 2048-ray train batch at the trainer's near planes, and
    alone by ``torch.profiler``);
-   1b. the backward kernels (G4 CP level, G5 composite) likewise;
+   1b. the backward kernels (G4 CP level, G5 composite) likewise, and at
+   the train steps' shapes: G5 on the CP train buffer (that batch cut at the
+   2^18 budget), G4 on the proposal field's coordinates in ray order (4096
+   rays x 128 samples, (R, rank) = (16, 16), both compute dtypes);
    1c. the hash-encode kernels (G6 forward, G7 table gradient) at the NGP
    field's full width (2^18 points, 16 levels, 2^19 rows per level), with
    ``F.embedding_bag`` and ``index_add_`` timed on the precomputed corner
@@ -297,13 +300,18 @@ def nbytes(*args):
     return sum(t.numel() * t.element_size() for t in args if isinstance(t, torch.Tensor))
 
 
+def bound_ms(moved, ops):
+    """The least milliseconds for ``moved`` bytes and ``ops`` f32 operations."""
+    return 1e3 * max(moved / HBM_BYTES_PER_S, ops / F32_FLOPS)
+
+
 def measured(err, ms, plain_ms, moved, ops, library_ms=None):
     """One kernel's record: its error and times, and the bound of its work
     (``moved`` bytes, ``ops`` f32 operations)."""
     t_bytes, t_ops = moved / HBM_BYTES_PER_S, ops / F32_FLOPS
     return {
         "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-        "bound_ms": 1e3 * max(t_bytes, t_ops),
+        "bound_ms": bound_ms(moved, ops),
         "bound_by": "bytes" if t_bytes >= t_ops else "operations",
         "library_ms": library_ms,
     }
@@ -513,16 +521,68 @@ def phase_kernels(dev, trainer, state, ds):
         require(e <= 1e-5 * scale, f"G5 {name}: err {e} scale {scale}")
         err = max(err, e)
     # per sample the forward's ~12 operations again and ~8 for the two
-    # gradients from the suffix sums
+    # gradients from the suffix sums; the kernel reads no ray ids
     report["composite_bwd"] = measured(
         err,
         cuda_ms(lambda: composite_sorted_backward(*bargs)),
         cuda_ms(lambda: composite_sorted_backward_plain(*bargs)),
-        nbytes(*bargs, *out), 20 * n_s,
+        nbytes(*bargs, *out) - nbytes(s.ray_indices), 20 * n_s,
     )
     print(f"G5 composite_bwd: {n_s} samples, max_abs_err={err:.3g}, kernel "
-          f"{report['composite_bwd']['ms']:.4f} ms, twin "
+          f"{report['composite_bwd']['ms']:.4f} ms, bound "
+          f"{report['composite_bwd']['bound_ms']:.4f} ms, twin "
           f"{report['composite_bwd']['plain_ms']:.4f} ms")
+
+    # G5 on the CP train buffer: G2's train batch cut at the budget, the
+    # shape G5 runs at in phase 4 (ray lengths up to the whole box)
+    ts = compact_samples(tout, TRAIN["cp"][2])
+    n_t = ts.num_valid
+    bt_args = (ts.t_starts, ts.t_ends,
+             10.0 ** (torch.rand(n_t, generator=g, device=dev) * 4 - 1),
+             torch.rand((n_t, 3), generator=g, device=dev), ts.ray_indices,
+             G2_TRAIN_RAYS, ts.seg_starts, ts.seg_ends,
+             *[torch.randn((G2_TRAIN_RAYS, c), generator=g, device=dev) for c in (3, 1, 1)])
+    out = composite_sorted_backward(*bt_args)
+    ref = composite_sorted_backward_plain(*bt_args)
+    t_err = 0.0
+    for name, a, b in zip(("dsigma", "drgb"), out, ref):
+        e, scale = float((a - b).abs().max()), float(b.abs().max())
+        require(e <= 1e-5 * scale, f"G5 train buffer {name}: err {e} scale {scale}")
+        t_err = max(t_err, e / scale)
+    longest = int((ts.seg_ends - ts.seg_starts).max()) + 1
+    t_bound = bound_ms(nbytes(*bt_args, *out) - nbytes(ts.ray_indices), 20 * n_t)
+    print(f"G5 composite_bwd, CP train buffer ({G2_TRAIN_RAYS} rays, {n_t} samples, "
+          f"longest ray {longest}): {t_err:.3g} of the largest gradient, kernel "
+          f"{cuda_ms(lambda: composite_sorted_backward(*bt_args)):.4f} ms, alone "
+          f"{device_ms(lambda: composite_sorted_backward(*bt_args)):.4f} ms, bound "
+          f"{t_bound:.4f} ms")
+
+    # G4 on the proposal field's coordinates at its first level, (16, 16),
+    # N = 2^19: PROP_RAYS train rays x PROP_SAMPLES stratified samples over
+    # [2, 6], in ray order, clamped to the AABB as CPGridEncoder does, so
+    # long runs of samples share a row (many on the box's faces)
+    prays = ProceduralSceneLoader(split="train", n_train=6, width=256, height=256,
+                                  num_rays=PROP_RAYS, device=dev)[0]
+    t_prop = 2.0 + (torch.arange(PROP_SAMPLES, device=dev) + torch.rand(
+        (PROP_RAYS, PROP_SAMPLES), generator=g, device=dev)) * (4.0 / PROP_SAMPLES)
+    pts = prays["rays_o"][:, None] + t_prop[..., None] * prays["rays_d"][:, None]
+    lo, hi = torch.tensor(AABB[:3], device=dev), torch.tensor(AABB[3:], device=dev)
+    u_prop = ((pts.reshape(-1, 3) - lo) / (hi - lo)).clamp(0.0, 1.0).contiguous()
+    lines_prop = 1 + 0.1 * torch.randn((3, 16, 16), generator=g, device=dev)
+    cot_prop = torch.randn((u_prop.shape[0], 16), generator=g, device=dev)
+    for dtype in (torch.float32, torch.bfloat16):
+        out = cp_level_backward(u_prop, cot_prop, lines_prop, dtype)
+        ref = cp_level_backward_plain(u_prop, cot_prop, lines_prop, dtype)
+        err = float((out - ref).abs().max())
+        scale = float(ref.abs().max())
+        require(err <= 1e-4 * scale, f"G4 ray order (16, 16) {dtype}: err {err} scale {scale}")
+        print(f"G4 cp_level_bwd, proposal field's coordinates in ray order, N = "
+              f"{u_prop.shape[0]}, (R, rank) = (16, 16), {str(dtype)[6:]}: "
+              f"{err / scale:.3g} of the largest entry, kernel "
+              f"{cuda_ms(lambda: cp_level_backward(u_prop, cot_prop, lines_prop, dtype)):.4f}"
+              f" ms, alone "
+              f"{device_ms(lambda: cp_level_backward(u_prop, cot_prop, lines_prop, dtype)):.4f}"
+              f" ms")
     return report
 
 

@@ -84,18 +84,104 @@ __global__ void composite_fwd_kernel(
 //   dL/dsigma_i = delta_i * [sigma_i delta_i < 40]
 //                 * (T_i exp(-sd_i) v_i - sum_{j > i, same ray} w_j v_j)
 //
-// The suffix sum is accumulated along the ray, walking its segment from the
-// end: no difference of running totals is ever formed (the TPU path's
-// _excl_bwd differences a global cumsum and needs an exact spread to survive
-// the cancellation).  One thread per ray, two passes over its segment: the
-// first recomputes T and w exactly as G3 does, writes dL/drgb, the
-// first term T exp(-sd) v (into dsigmas) and w v (into scratch); the second
-// walks back, adding the suffix.  Slots outside every segment (fill, or past
-// a budget cut) are never touched: the caller zeroes the outputs.
+// Bound on this card: device memory, 24 B read and 16 B written per sample
+// (64 B with the first pass's reads counted once more for long rays).
 //
-// Bound on this card: device memory, as G3: 24 B read per sample in the
-// first pass, 16 B in the second, 24 B written.
-__global__ void composite_bwd_kernel(
+// Design: one warp per ray.  The warp walks its segment in chunks of 32
+// consecutive samples, lane l on sample 32 c + l, so each load of t_starts,
+// t_ends and sigmas is one 128-byte line and a chunk's colours 384
+// contiguous bytes.  Forward, chunk by chunk: each lane caps its optical
+// depth (cap_optical_depth: a NaN stays NaN), an inclusive warp scan
+// (__shfl_up_sync) shifted by one lane plus the carried total of the earlier
+// chunks gives its exclusive optical depth, hence T, w, v and dL/drgb
+// (stored coalesced through three shuffles).  Backward, last chunk first: a
+// reverse warp scan of w v (__shfl_down_sync) shifted by one lane plus the
+// carried sum of the later chunks gives sum_{j > i} w_j v_j.  Every sum runs
+// within one ray: no difference of running totals is formed (the TPU path's
+// _excl_bwd differences a global cumsum).  The optical depth is summed as a
+// tree within each chunk, so it rounds differently from G3's serial walk.
+// The first kBwdRegChunks chunks (256 samples) keep the first term
+// T exp(-sd) v, w v and delta in registers; later chunks of a longer ray
+// park the first two in d_sigmas and scratch (coalesced) and reread their
+// interval and density on the way back.  Slots outside every segment (fill,
+// or past a budget cut) are never touched: the caller zeroes the outputs.
+constexpr int kBwdWarps = 8;       // rays per block
+constexpr int kBwdRegChunks = 8;   // chunks of 32 samples kept in registers
+constexpr unsigned kFull = 0xffffffffu;
+
+// One lane's sample of a chunk in the forward recompute.
+struct BwdSample {
+  float first;  // T exp(-sd) v
+  float wv;     // w v
+  float delta;  // t_end - t_start
+  bool capped;  // !(sigma delta < 40): no density gradient
+};
+
+__device__ __forceinline__ BwdSample composite_bwd_forward_chunk(
+    const float* __restrict__ t_starts, const float* __restrict__ t_ends,
+    const float* __restrict__ sigmas, const float* __restrict__ rgbs,
+    int64_t base, int64_t end, int lane, float prefix, float gc0, float gc1,
+    float gc2, float go, float gd, float& carry, float* __restrict__ d_rgbs) {
+  const int64_t i = base + lane;
+  const bool valid = i <= end;
+  float t0 = 0.0f, t1 = 0.0f, sigma = 0.0f, r0 = 0.0f, r1 = 0.0f, r2 = 0.0f;
+  if (valid) {
+    t0 = t_starts[i];
+    t1 = t_ends[i];
+    sigma = sigmas[i];
+    r0 = rgbs[3 * i];
+    r1 = rgbs[3 * i + 1];
+    r2 = rgbs[3 * i + 2];
+  }
+  const float delta = t1 - t0;
+  const float sd = valid ? cap_optical_depth(sigma * delta) : 0.0f;
+  float incl = sd;
+#pragma unroll
+  for (int o = 1; o < 32; o <<= 1) {
+    const float y = __shfl_up_sync(kFull, incl, o);
+    if (lane >= o) incl += y;
+  }
+  const float before = __shfl_up_sync(kFull, incl, 1);
+  const float excl = lane == 0 ? carry : carry + before;
+  carry += __shfl_sync(kFull, incl, 31);
+  const float e = expf(-sd);
+  const float trans = expf(-excl) * prefix;
+  const float w = trans * (1.0f - e);
+  const float v = gc0 * r0 + gc1 * r1 + gc2 * r2 + go + gd * (0.5f * (t0 + t1));
+  // dL/drgb for the chunk's 96 contiguous words: word f of the chunk is
+  // component f % 3 of sample f / 3
+#pragma unroll
+  for (int j = 0; j < 3; ++j) {
+    const int f = lane + 32 * j;
+    const int s = f / 3, k = f - 3 * s;
+    const float ws = __shfl_sync(kFull, w, s);
+    if (base + s <= end) d_rgbs[3 * base + f] = ws * (k == 0 ? gc0 : k == 1 ? gc1 : gc2);
+  }
+  BwdSample out;
+  out.first = trans * e * v;
+  out.wv = valid ? w * v : 0.0f;
+  out.delta = delta;
+  out.capped = !(sigma * delta < 40.0f);
+  return out;
+}
+
+// The suffix sums of one chunk, last lane first; writes dL/dsigma.
+__device__ __forceinline__ void composite_bwd_reverse_chunk(
+    const BwdSample& smp, int64_t i, int64_t end, int lane, float& later,
+    float* __restrict__ d_sigmas) {
+  float incl = smp.wv;
+#pragma unroll
+  for (int o = 1; o < 32; o <<= 1) {
+    const float y = __shfl_down_sync(kFull, incl, o);
+    if (lane + o < 32) incl += y;
+  }
+  const float after = __shfl_down_sync(kFull, incl, 1);
+  const float suffix = lane == 31 ? later : later + after;
+  later += __shfl_sync(kFull, incl, 0);
+  if (i <= end) d_sigmas[i] = smp.capped ? 0.0f : smp.delta * (smp.first - suffix);
+}
+
+__global__ void __launch_bounds__(kBwdWarps * 32) composite_bwd_kernel(
     const float* __restrict__ t_starts, const float* __restrict__ t_ends,
     const float* __restrict__ sigmas, const float* __restrict__ rgbs,
     const int* __restrict__ seg_starts, const int* __restrict__ seg_ends,
@@ -103,35 +189,53 @@ __global__ void composite_bwd_kernel(
     const float* __restrict__ g_colors, const float* __restrict__ g_opacities,
     const float* __restrict__ g_depths, float* __restrict__ d_sigmas,
     float* __restrict__ d_rgbs, float* __restrict__ scratch) {
-  const int r = blockIdx.x * blockDim.x + threadIdx.x;
-  if (r >= n_rays) return;
+  const int r = blockIdx.x * kBwdWarps + threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  if (r >= n_rays) return;  // warp-uniform
   const float prefix = prefix_trans != nullptr ? prefix_trans[r] : 1.0f;
   const float gc0 = g_colors[3 * r], gc1 = g_colors[3 * r + 1],
               gc2 = g_colors[3 * r + 2];
   const float go = g_opacities[r], gd = g_depths[r];
   const int64_t start = seg_starts[r], end = seg_ends[r];
-  float optical_depth = 0.0f;
-  for (int64_t i = start; i <= end; ++i) {
-    const float t0 = t_starts[i], t1 = t_ends[i];
-    const float sd = cap_optical_depth(sigmas[i] * (t1 - t0));
-    const float alpha = 1.0f - expf(-sd);
-    const float trans = expf(-optical_depth) * prefix;
-    const float w = trans * alpha;
-    optical_depth += sd;
-    const float r0 = rgbs[3 * i], r1 = rgbs[3 * i + 1], r2 = rgbs[3 * i + 2];
-    const float v = gc0 * r0 + gc1 * r1 + gc2 * r2 + go + gd * (0.5f * (t0 + t1));
-    d_rgbs[3 * i] = w * gc0;
-    d_rgbs[3 * i + 1] = w * gc1;
-    d_rgbs[3 * i + 2] = w * gc2;
-    d_sigmas[i] = trans * expf(-sd) * v;
-    scratch[i] = w * v;
+  const int64_t chunks = end >= start ? (end - start) / 32 + 1 : 0;
+
+  BwdSample kept[kBwdRegChunks];
+  float carry = 0.0f;
+#pragma unroll
+  for (int c = 0; c < kBwdRegChunks; ++c) {
+    if (c < chunks)
+      kept[c] = composite_bwd_forward_chunk(
+          t_starts, t_ends, sigmas, rgbs, start + 32 * c, end, lane, prefix,
+          gc0, gc1, gc2, go, gd, carry, d_rgbs);
   }
-  float suffix = 0.0f;
-  for (int64_t i = end; i >= start; --i) {
-    const float delta = t_ends[i] - t_starts[i];
-    const bool capped = !(sigmas[i] * delta < 40.0f);
-    d_sigmas[i] = capped ? 0.0f : delta * (d_sigmas[i] - suffix);
-    suffix += scratch[i];
+  for (int64_t c = kBwdRegChunks; c < chunks; ++c) {
+    const int64_t i = start + 32 * c + lane;
+    const BwdSample smp = composite_bwd_forward_chunk(
+        t_starts, t_ends, sigmas, rgbs, start + 32 * c, end, lane, prefix, gc0,
+        gc1, gc2, go, gd, carry, d_rgbs);
+    if (i <= end) {
+      d_sigmas[i] = smp.first;
+      scratch[i] = smp.wv;
+    }
+  }
+
+  float later = 0.0f;
+  for (int64_t c = chunks - 1; c >= kBwdRegChunks; --c) {
+    const int64_t i = start + 32 * c + lane;
+    BwdSample smp = {0.0f, 0.0f, 0.0f, true};
+    if (i <= end) {
+      smp.first = d_sigmas[i];
+      smp.wv = scratch[i];
+      smp.delta = t_ends[i] - t_starts[i];
+      smp.capped = !(sigmas[i] * smp.delta < 40.0f);
+    }
+    composite_bwd_reverse_chunk(smp, i, end, lane, later, d_sigmas);
+  }
+#pragma unroll
+  for (int c = kBwdRegChunks - 1; c >= 0; --c) {
+    if (c < chunks)
+      composite_bwd_reverse_chunk(kept[c], start + 32 * c + lane, end, lane,
+                                  later, d_sigmas);
   }
 }
 
@@ -167,9 +271,8 @@ extern "C" int composite_bwd(const void* t_starts, const void* t_ends,
                              const void* g_depths, void* d_sigmas,
                              void* d_rgbs, void* scratch, void* stream) {
   if (n_rays == 0) return (int)cudaSuccess;
-  const int threads = 128;
-  const int blocks = (n_rays + threads - 1) / threads;
-  composite_bwd_kernel<<<blocks, threads, 0, (cudaStream_t)stream>>>(
+  const int blocks = (n_rays + kBwdWarps - 1) / kBwdWarps;
+  composite_bwd_kernel<<<blocks, kBwdWarps * 32, 0, (cudaStream_t)stream>>>(
       (const float*)t_starts, (const float*)t_ends, (const float*)sigmas,
       (const float*)rgbs, (const int*)seg_starts, (const int*)seg_ends,
       (const float*)prefix_trans, n_rays, (const float*)g_colors,

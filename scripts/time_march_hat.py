@@ -72,9 +72,9 @@ def device_ms(fn, reps=20):
     return us / reps / 1e3
 
 
-def march_rows(dev):
-    from nerfacc_tpu_torch.data.procedural import ProceduralSceneLoader
-    from nerfacc_tpu_torch.grid import march, march_plain
+def refreshed_cp_grid(dev):
+    """The full-width CP trainer's occupancy state after four dense
+    refreshes, and its render step."""
     from nerfacc_tpu_torch.models.cp_field import CPRadianceField
     from nerfacc_tpu_torch.trainers.ngp_occ import NGPOccTrainer
 
@@ -84,7 +84,14 @@ def march_rows(dev):
     state = trainer.init_state()
     for step in range(4):
         state = trainer.refresh_occ_grid(state, step)
-    occ, step = state.occ_state, trainer.render_step_size
+    return state.occ_state, trainer.render_step_size
+
+
+def march_rows(dev):
+    from nerfacc_tpu_torch.data.procedural import ProceduralSceneLoader
+    from nerfacc_tpu_torch.grid import march, march_plain
+
+    occ, step = refreshed_cp_grid(dev)
     g = torch.Generator(device=dev).manual_seed(0)
     cleared = occ.binaries & (torch.rand(occ.binaries.shape, generator=g, device=dev) < 0.5)
 
@@ -154,17 +161,20 @@ def hat_rows(dev):
     return rows
 
 
-def main():
-    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+def timing_main(name, doc, rows_of):
+    """Parse ``--root``/``--label``/``--out``, import the port from ``--root``,
+    print the card and each row of ``rows_of(dev)`` as one JSON line, and
+    append them all to ``<out>/<name>_<label>.json``."""
+    ap = argparse.ArgumentParser(description=doc.splitlines()[0])
     ap.add_argument("--root", default=os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
     ap.add_argument("--label", default="change")
-    ap.add_argument("--out", default="build/time_march_hat")
+    ap.add_argument("--out", default=f"build/{name}")
     args = ap.parse_args()
     sys.path.insert(0, os.path.abspath(args.root))
     import nerfacc_tpu_torch
 
     if not torch.cuda.is_available():
-        raise SystemExit("time_march_hat: torch.cuda.is_available() is false")
+        raise SystemExit(f"{name}: torch.cuda.is_available() is false")
     dev = torch.device("cuda", 0)
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -173,13 +183,14 @@ def main():
     head = {"label": args.label, "package": os.path.dirname(nerfacc_tpu_torch.__file__),
             "card": smi}
     print(json.dumps(head))
-    rows = march_rows(dev) + hat_rows(dev)
-    for row in rows:
-        print(json.dumps({"label": args.label, **row}))
+    rows = []
+    for row in rows_of(dev):
+        print(json.dumps({"label": args.label, **row}), flush=True)
+        rows.append(row)
     os.makedirs(args.out, exist_ok=True)
-    with open(os.path.join(args.out, f"time_march_hat_{args.label}.json"), "a") as f:
+    with open(os.path.join(args.out, f"{name}_{args.label}.json"), "a") as f:
         f.write(json.dumps({**head, "rows": rows}) + "\n")
 
 
 if __name__ == "__main__":
-    main()
+    timing_main("time_march_hat", __doc__, lambda dev: march_rows(dev) + hat_rows(dev))

@@ -148,3 +148,51 @@ def test_encoder_routes_differ_only_in_the_coordinate_gradient():
     torch.testing.assert_close(out, enc(u.detach()), rtol=1e-6, atol=0)
     out.sum().backward()
     assert u.grad is not None and float(u.grad.abs().max()) > 0
+
+
+def _ray_ordered(seed, layout, n_rays=12):
+    """Coordinates as a train step hands them to the encoder: samples in ray
+    order, each ray's points normalised to the AABB [-1.5, 1.5]^3 and
+    clamped to [0, 1].  ``proposal``: 128 uniform samples per ray between
+    near 2 and far 6 from cameras at radius 4 (many clamped onto the faces);
+    ``march``: samples 5e-3 apart inside the box, so consecutive samples share
+    rows."""
+    rng = np.random.default_rng(seed)
+    theta = rng.uniform(0, 2 * np.pi, n_rays)
+    o = np.stack([4 * np.cos(theta), 4 * np.sin(theta), rng.uniform(-1, 1, n_rays)], -1)
+    d = rng.uniform(-0.8, 0.8, (n_rays, 3)) - o
+    d /= np.linalg.norm(d, axis=-1, keepdims=True)
+    if layout == "proposal":
+        t = np.linspace(2.0, 6.0, 129)[:-1] + 2.0 / 128
+        pts = o[:, None] + t[None, :, None] * d[:, None]
+    else:
+        t = 2.6 + 5e-3 * np.arange(160)
+        pts = o[:, None] + t[None, :, None] * d[:, None]
+    u = np.clip((pts.reshape(-1, 3) + 1.5) / 3.0, 0.0, 1.0).astype(np.float32)
+    return u
+
+
+@pytest.mark.parametrize("R,rank,layout", [
+    (16, 16, "proposal"), (16, 16, "march"), (512, 8, "march"), (512, 8, "proposal"),
+])
+def test_cp_level_bf16_grads_on_ray_ordered_coordinates(R, rank, layout):
+    """The twin of kernel G4 against K2 interpreted on the coordinates of a
+    train step: runs of consecutive samples on one row (the case G4 merges
+    in registers), and rays clamped onto the box's faces, at the proposal
+    field's (16, 16) and a CP level's R = 512.  Both sides round the same
+    operands to bf16 and sum in f32, so only the order of the sums differs."""
+    u = _ray_ordered(R + rank, layout)
+    n = u.shape[0]
+    rows = np.floor(u * (R - 1))
+    assert (rows[1:] == rows[:-1]).mean() > 0.25  # per axis, runs on one row
+    _, lines = _inputs(R + 4, 3, R, rank)
+    g = _cotangent(R + 5, n, rank)
+    ref = np.asarray(
+        jax.grad(
+            lambda l: jnp.sum(jax_cp_level_encode(jnp.asarray(u), l, True) * g)
+        )(jnp.asarray(lines))
+    )
+    out = cp_level_backward_plain(
+        torch.tensor(u), torch.tensor(g), torch.tensor(lines), torch.bfloat16
+    ).numpy()
+    np.testing.assert_allclose(out, ref, rtol=0, atol=1e-4 * np.abs(ref).max())

@@ -209,14 +209,85 @@ def test_cp_level_backward_kernel_matches_twin(dev, R, dtype):
 
 
 def test_cp_level_backward_refuses_a_table_past_shared_memory(dev):
-    """G4 keeps one axis's (R, rank) f32 table in shared memory; a table
-    larger than the card's opt-in limit (256 KiB here) raises, uncounted."""
+    """G4 keeps the three axes' (R, rank) f32 tables in shared memory, or one
+    at a time where three do not fit; a single table larger than the card's
+    opt-in limit (256 KiB here) raises, uncounted."""
     u = torch.rand((1024, 3), device=dev)
     lines = torch.ones((3, 2048, 32), device=dev)
     n0 = cuda.LAUNCHES["cp_level_bwd"]
     with pytest.raises(RuntimeError, match="cp_level_bwd"):
         cp_level_backward(u, torch.ones((1024, 32), device=dev), lines, torch.float32)
     assert cuda.LAUNCHES["cp_level_bwd"] == n0
+
+
+def _ray_ordered_u(dev, n, layout, seed):
+    """Encoder coordinates in the ray order of a train step: rays from
+    cameras at radius 4 through the AABB [-1.5, 1.5]^3, points normalised and
+    clamped to [0, 1] (so some sit exactly at 0 and 1).  ``proposal``: 128
+    uniform samples per ray over [2, 6]; ``march``: samples 5e-3 apart."""
+    rng = np.random.default_rng(seed)
+    per_ray = 128 if layout == "proposal" else 400
+    n_rays = -(-n // per_ray)
+    theta = rng.uniform(0, 2 * np.pi, n_rays)
+    o = np.stack([4 * np.cos(theta), 4 * np.sin(theta), rng.uniform(-1, 1, n_rays)], -1)
+    d = rng.uniform(-0.8, 0.8, (n_rays, 3)) - o
+    d /= np.linalg.norm(d, axis=-1, keepdims=True)
+    if layout == "proposal":
+        t = np.linspace(2.0, 6.0, 129)[:-1] + 2.0 / 128
+    else:
+        t = 2.6 + 5e-3 * np.arange(per_ray)
+    pts = (o[:, None] + t[None, :, None] * d[:, None]).reshape(-1, 3)[:n]
+    u = np.clip((pts + 1.5) / 3.0, 0.0, 1.0).astype(np.float32)
+    return torch.tensor(u, device=dev)
+
+
+@pytest.mark.parametrize("R,rank,layout", [
+    (16, 16, "proposal"), (64, 16, "proposal"),
+    (32, 32, "march"), (128, 32, "march"), (512, 32, "march"),
+])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cp_level_backward_kernel_on_ray_ordered_coordinates(dev, R, rank, layout, dtype):
+    """G4 on a train step's coordinates: long runs of samples on one row
+    (merged in registers before the shared add), many exactly at u = 0 or
+    1; 1e-4 of the largest entry, as on uniform coordinates."""
+    u = _ray_ordered_u(dev, 2**16 + 5, layout, R + rank)
+    assert bool(((u == 0) | (u == 1)).any()) and bool(((u > 0) & (u < 1)).all(1).any())
+    g = torch.Generator(device=dev).manual_seed(R)
+    lines = 1 + 0.1 * torch.randn((3, R, rank), generator=g, device=dev)
+    cot = torch.randn((u.shape[0], rank), generator=g, device=dev)
+    n0 = cuda.LAUNCHES["cp_level_bwd"]
+    out = cp_level_backward(u, cot, lines, dtype)
+    assert cuda.LAUNCHES["cp_level_bwd"] == n0 + 1
+    ref = cp_level_backward_plain(u, cot, lines, dtype)
+    torch.testing.assert_close(out, ref, rtol=0, atol=1e-4 * float(ref.abs().max()))
+
+
+@pytest.mark.parametrize("rank", [6, 8, 24, 34, 48])
+def test_cp_level_backward_kernel_at_other_ranks(dev, rank):
+    """G4 at ranks other than the fields': 6 and 8 (four samples a warp at a
+    time, on 8 lanes each), 24 (one sample on 24 of 32 lanes), 34 and 48 (two
+    warps a run, the second on 2 or 16 of its lanes)."""
+    g = torch.Generator(device=dev).manual_seed(rank)
+    u = _ray_ordered_u(dev, 5003, "march", rank)
+    lines = 1 + 0.1 * torch.randn((3, 64, rank), generator=g, device=dev)
+    cot = torch.randn((u.shape[0], rank), generator=g, device=dev)
+    for dtype in (torch.float32, torch.bfloat16):
+        out = cp_level_backward(u, cot, lines, dtype)
+        ref = cp_level_backward_plain(u, cot, lines, dtype)
+        torch.testing.assert_close(out, ref, rtol=0, atol=1e-4 * float(ref.abs().max()))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cp_level_backward_kernel_takes_the_axes_in_turn(dev, dtype):
+    """At (R, rank) = (1024, 32) the three tables (384 KiB) exceed shared
+    memory but one (128 KiB) fits: G4 keeps one axis per block."""
+    g = torch.Generator(device=dev).manual_seed(7)
+    u = torch.rand((2**15 + 1, 3), generator=g, device=dev)
+    lines = 1 + 0.1 * torch.randn((3, 1024, 32), generator=g, device=dev)
+    cot = torch.randn((u.shape[0], 32), generator=g, device=dev)
+    out = cp_level_backward(u, cot, lines, dtype)
+    ref = cp_level_backward_plain(u, cot, lines, dtype)
+    torch.testing.assert_close(out, ref, rtol=0, atol=1e-4 * float(ref.abs().max()))
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -255,6 +326,71 @@ def test_composite_backward_kernel_matches_twin(dev):
     ref = composite_sorted_backward_plain(*args[:8], *cots, args[8])
     for a, b in zip(out, ref):
         torch.testing.assert_close(a, b, rtol=0, atol=1e-5 * float(b.abs().max()))
+
+
+def _g5_case(dev, case):
+    """A sorted buffer for one edge case of the warp-per-ray G5: the
+    arguments of composite_sorted_backward and the mask of slots inside a
+    segment."""
+    rng = np.random.default_rng(len(case))
+    if case == "proposal layout":  # 4096 rays x 64 samples, one row each
+        counts = np.full(4096, 64)
+    else:
+        counts = np.concatenate([[1, 31, 32, 33, 257, 1500, 0, 0, 2100],
+                                 rng.integers(0, 300, 200)])
+        counts[-200::13] = 0
+    n_rays = counts.shape[0]
+    n_fill = 77 if case == "fill and cut" else 0
+    ids = np.concatenate([np.repeat(np.arange(n_rays), counts), np.full(n_fill, n_rays)])
+    n = ids.shape[0]
+    t0 = np.zeros(n)
+    for r, c in enumerate(counts):  # each ray's intervals, 5e-3 apart
+        t0[ids == r] = 2.0 + 5e-3 * np.arange(c)
+    t1 = t0 + 5e-3
+    sigmas = 10.0 ** rng.uniform(-1, 3.5, n)
+    sigmas[ids == 5] = rng.uniform(0.0, 0.4, counts[5])  # a long translucent ray
+    if case == "past the cap":
+        sigmas[(ids == 4) | (ids == 9)] = 1e13  # whole rays past sigma*dt = 40
+        sigmas[::7] = 40.0 / 5e-3
+    ends = np.cumsum(counts)
+    ss, se = ends - counts, ends - 1
+    if case == "fill and cut":  # rays past the budget empty, one partial
+        budget = int(ends[8]) + 100
+        ss, se = np.minimum(ss, budget), np.minimum(ends, budget) - 1
+        ids = np.where(np.arange(n) < budget, ids, n_rays)
+    f32 = lambda a: torch.tensor(a, dtype=torch.float32, device=dev)
+    i32 = lambda a: torch.tensor(a, dtype=torch.int32, device=dev)
+    rgbs = f32(rng.uniform(0, 1, (n, 3)))
+    cots = [f32(rng.standard_normal((n_rays, c))) for c in (3, 1, 1)]
+    prefix = f32(rng.uniform(0.3, 1.0, n_rays)) if case == "prefix" else None
+    args = (f32(t0), f32(t1), f32(sigmas), rgbs, i32(ids), n_rays, i32(ss), i32(se),
+            *cots, prefix)
+    return args, torch.tensor(ids < n_rays, device=dev)
+
+
+@pytest.mark.parametrize("case", [
+    "lengths", "past the cap", "prefix", "fill and cut", "proposal layout",
+])
+def test_composite_backward_kernel_at_its_edges(dev, case):
+    """G5, one warp per ray: rays of 1, 31, 32, 33 and 257 samples (chunk
+    edges), 1500 and 2100 (past the 256 kept in registers), empty rays,
+    whole rays past the optical-depth cap, a prefix transmittance, fill slots
+    and a budget cut (both read exactly 0), and the proposal path's 64
+    samples per ray; 1e-5 of the largest gradient against the twin."""
+    args, inside = _g5_case(dev, case)
+    n0 = cuda.LAUNCHES["composite_bwd"]
+    out = composite_sorted_backward(*args)
+    assert cuda.LAUNCHES["composite_bwd"] == n0 + 1
+    ref = composite_sorted_backward_plain(*args)
+    for a, b in zip(out, ref):
+        assert bool(torch.isfinite(a).all())
+        torch.testing.assert_close(a, b, rtol=0, atol=1e-5 * float(b.abs().max()))
+        assert bool((a[~inside] == 0).all())
+    if case == "fill and cut":
+        assert int((~inside).sum()) > 77
+    if case == "past the cap":
+        capped = args[2] * (args[1] - args[0]) >= 40.0
+        assert bool((out[0][capped] == 0).all())
 
 
 def test_composite_output_carries_a_gradient_on_the_card(dev):

@@ -270,3 +270,174 @@ def test_reverse_exclusive_sum_is_segment_local():
     torch.testing.assert_close(
         out, torch.tensor([6.0, 4.0, 0.0, 0.25, 0.0, 0.0]), rtol=0, atol=0
     )
+
+
+def _scan32(x, reverse=False):
+    """A 32-lane Hillis-Steele inclusive scan in float32, as a warp runs it
+    with ``__shfl_up_sync`` (``__shfl_down_sync`` with ``reverse``): lane l
+    adds lane l - o (l + o) for o = 1, 2, 4, 8, 16."""
+    x = x.astype(np.float32)
+    for o in (1, 2, 4, 8, 16):
+        y = x.copy()
+        if reverse:
+            y[:-o] = x[:-o] + x[o:]
+        else:
+            y[o:] = x[o:] + x[:-o]
+        x = y
+    return x
+
+
+def _g5_chunked(t0, t1, sigmas, rgbs, ss, se, gc, go, gd, prefix):
+    """Kernel G5's arithmetic order in float32: per ray, chunks of 32 lanes;
+    forward, an inclusive scan of the capped optical depth shifted one lane
+    plus the carried total of the earlier chunks; backward, last chunk
+    first, a reverse scan of w v shifted one lane plus the carried sum of
+    the later chunks.  Returns (dsigmas, drgbs, trans); fill slots 0."""
+    f32 = np.float32
+    n = t0.shape[0]
+    d_s, d_r, trans_all = np.zeros(n, f32), np.zeros((n, 3), f32), np.zeros(n, f32)
+    lane = np.arange(32)
+    for r in range(ss.shape[0]):
+        start, end = int(ss[r]), int(se[r])
+        if end < start:
+            continue
+        p = f32(1.0) if prefix is None else f32(prefix[r])
+        chunks, carry, kept = (end - start) // 32 + 1, f32(0.0), []
+        for c in range(chunks):
+            i = start + 32 * c + lane
+            valid = i <= end
+            j = np.minimum(i, end)
+            delta = np.where(valid, t1[j] - t0[j], f32(0.0)).astype(f32)
+            sig = np.where(valid, sigmas[j], f32(0.0)).astype(f32)
+            sdt = (sig * delta).astype(f32)
+            sd = np.where(sdt > 40.0, f32(40.0), sdt).astype(f32)
+            incl = _scan32(sd)
+            excl = np.concatenate([[carry], carry + incl[:-1]]).astype(f32)
+            carry = f32(carry + incl[31])
+            e = np.exp(-sd).astype(f32)
+            trans = (np.exp(-excl).astype(f32) * p).astype(f32)
+            w = (trans * (f32(1.0) - e)).astype(f32)
+            t_mid = (f32(0.5) * (t0[j] + t1[j])).astype(f32)
+            v = (rgbs[j] @ gc[r]).astype(f32) + go[r, 0] + gd[r, 0] * t_mid
+            first = (trans * e * v).astype(f32)
+            wv = np.where(valid, w * v, f32(0.0)).astype(f32)
+            d_r[i[valid]] = w[valid, None] * gc[r]
+            trans_all[i[valid]] = trans[valid]
+            kept.append((i, valid, first, wv, delta, ~(sdt < 40.0)))
+        later = f32(0.0)
+        for i, valid, first, wv, delta, capped in reversed(kept):
+            incl = _scan32(wv, reverse=True)
+            suffix = np.concatenate([later + incl[1:], [later]]).astype(f32)
+            later = f32(later + incl[0])
+            ds = np.where(capped, f32(0.0), delta * (first - suffix)).astype(f32)
+            d_s[i[valid]] = ds[valid]
+    return d_s, d_r, trans_all
+
+
+def _chunk_buffer(case):
+    """Rays of 1, 31, 32, 33 and 4096 samples among empty rays, with fill
+    slots; ``hard`` puts samples at and past sigma*dt = 40 on every ray."""
+    rng = np.random.default_rng({"lengths": 21, "hard": 22}[case])
+    counts = np.array([1, 0, 31, 32, 0, 33, 4096, 5], np.int64)
+    n_rays, n_fill = counts.shape[0], 9
+    ids = np.concatenate(
+        [np.repeat(np.arange(n_rays), counts), np.full(n_fill, n_rays)]
+    ).astype(np.int32)
+    n = ids.shape[0]
+    dt = rng.uniform(4e-3, 6e-3, n).astype(np.float32)
+    t0 = np.zeros(n, np.float32)
+    for r in range(n_rays):
+        sel = ids == r
+        t0[sel] = 2.0 + np.cumsum(dt[sel]) - dt[sel]
+    t1 = (t0 + dt).astype(np.float32)
+    # the long ray stays translucent (optical depth ~ 6 over 4096 samples)
+    sigmas = np.where(ids == 6, rng.uniform(0.0, 0.6, n),
+                      10.0 ** rng.uniform(-1, 2.5, n)).astype(np.float32)
+    if case == "hard":
+        for r in range(n_rays):
+            idx = np.flatnonzero(ids == r)
+            if idx.size:
+                k = idx[idx.size // 2]  # mid-ray, and the last sample
+                sigmas[k] = np.float32(40.0) / (t1[k] - t0[k])  # at the cap
+                sigmas[idx[-1]] = 1e13  # past it
+    rgbs = rng.uniform(0, 1, (n, 3)).astype(np.float32)
+    ends = np.cumsum(counts)
+    return ids, t0, t1, sigmas, rgbs, (ends - counts).astype(np.int32), (ends - 1).astype(np.int32)
+
+
+# JAX's reference differences a block-decomposed cumsum, so past the cap
+# (1e13 densities) it is itself only within ~1e-3 (test_composite_matches_jax
+# above); the chunked order and the twin are held to 1e-5 against a float64
+# oracle there, and to JAX's 1e-3 against JAX.
+@pytest.mark.parametrize("case,with_prefix,jax_tol", [
+    ("lengths", False, 1e-5), ("lengths", True, 1e-5),
+    ("hard", False, 1e-3), ("hard", True, 1e-3),
+])
+def test_g5_chunked_scan_order_matches_jax(case, with_prefix, jax_tol):
+    """Kernel G5's warp-chunk scan order, emulated in float32, and the plain
+    twin against JAX's weights and gradients (render_weight_from_density,
+    the VJPs of exclusive_sum_sorted and segment_sum_sorted) and a float64
+    oracle, within 1e-5 of the largest gradient; T never exceeds the
+    prefix transmittance."""
+    ids, t0, t1, sigmas, rgbs, ss, se = _chunk_buffer(case)
+    n_rays = ss.shape[0]
+    valid = ids < n_rays
+    rng = np.random.default_rng(23)
+    gc = rng.standard_normal((n_rays, 3)).astype(np.float32)
+    go = rng.standard_normal((n_rays, 1)).astype(np.float32)
+    gd = rng.standard_normal((n_rays, 1)).astype(np.float32)
+    prefix = rng.uniform(0.2, 1.0, n_rays).astype(np.float32) if with_prefix else None
+    cot = jnp.asarray(np.concatenate([gc, go, gd], -1))
+    pt = None if prefix is None else jnp.asarray(prefix[np.minimum(ids, n_rays - 1)])
+
+    def sums(s, r):
+        w, _, _ = jax_weights(
+            jnp.asarray(t0), jnp.asarray(t1), s, ray_indices=jnp.asarray(ids),
+            n_rays=n_rays, masks=jnp.asarray(valid), prefix_trans=pt,
+            indices_sorted=True, seg_starts=jnp.asarray(ss), seg_ends=jnp.asarray(se),
+        )
+        t_mid = jnp.asarray(0.5 * (t0 + t1))
+        packed = jnp.concatenate([r, jnp.ones_like(t_mid[:, None]), t_mid[:, None]], -1)
+        return jax_segment_sum(
+            w[:, None] * packed, jnp.asarray(ids), n_rays, jnp.asarray(ss), jnp.asarray(se)
+        ), w
+
+    ref_s, ref_r = jax.grad(lambda s, r: jnp.sum(sums(s, r)[0] * cot), (0, 1))(
+        jnp.asarray(sigmas), jnp.asarray(rgbs)
+    )
+    ref_s, ref_r = np.asarray(ref_s), np.asarray(ref_r)
+
+    s64 = torch.tensor(sigmas, dtype=torch.float64, requires_grad=True)
+    r64 = torch.tensor(rgbs, dtype=torch.float64, requires_grad=True)
+    T = torch.tensor
+    out = composite_sorted_plain(
+        T(t0).double(), T(t1).double(), s64, r64, T(ids), n_rays, T(ss), T(se),
+        None if prefix is None else T(prefix).double(),
+    )
+    (torch.cat(out[:3], -1) * T(np.asarray(cot)).double()).sum().backward()
+    oracle = (s64.grad.numpy(), r64.grad.numpy())
+
+    emu_s, emu_r, emu_trans = _g5_chunked(t0, t1, sigmas, rgbs, ss, se, gc, go, gd, prefix)
+    twin_s, twin_r = composite_sorted_backward_plain(
+        T(t0), T(t1), T(sigmas), T(rgbs), T(ids), n_rays, T(ss), T(se), T(gc),
+        T(go), T(gd), None if prefix is None else T(prefix),
+    )
+    for got_s, got_r in ((emu_s, emu_r), (twin_s.numpy(), twin_r.numpy())):
+        for (want_s, want_r), tol in (((ref_s, ref_r), jax_tol), (oracle, 1e-5)):
+            np.testing.assert_allclose(
+                got_s[valid], want_s[valid], rtol=0, atol=tol * np.abs(want_s).max()
+            )
+            np.testing.assert_allclose(
+                got_r[valid], want_r[valid], rtol=0, atol=tol * np.abs(want_r).max()
+            )
+        assert (got_s[~valid] == 0).all() and (got_r[~valid] == 0).all()
+    # the chunked transmittance: within the prefix, and JAX's weights from it
+    bound = np.ones(n_rays, np.float32) if prefix is None else prefix
+    assert (emu_trans[valid] <= bound[ids[valid]]).all()
+    w_ref = np.asarray(sums(jnp.asarray(sigmas), jnp.asarray(rgbs))[1])
+    sd = np.minimum(sigmas * (t1 - t0), np.float32(40.0))
+    w_emu = emu_trans * (1.0 - np.exp(-sd))
+    np.testing.assert_allclose(w_emu[valid], w_ref[valid], rtol=1e-5, atol=jax_tol)
+    if case == "hard":
+        capped = valid & (sigmas * (t1 - t0) >= 40.0)
+        assert capped.sum() >= 10 and (emu_s[capped] == 0).all()
