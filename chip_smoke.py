@@ -10,8 +10,9 @@ It builds the CUDA kernels from ``nerfacc_tpu_torch/csrc`` and runs:
 
 1. each forward kernel (G1 CP level, G2 march, G3 composite) against its
    PyTorch twin on the card at the slice's shapes, timed with CUDA events
-   (G2 also on a 2048-ray train batch at the trainer's near planes, and
-   alone by ``torch.profiler``);
+   (G2 and G3 also on a 2048-ray train batch at the trainer's near planes,
+   G3 on that batch cut at the 2^18 budget, and alone by
+   ``torch.profiler``);
    1b. the backward kernels (G4 CP level, G5 composite) likewise, and at
    the train steps' shapes: G5 on the CP train buffer (that batch cut at the
    2^18 budget), G4 on the proposal field's coordinates in ray order (4096
@@ -69,8 +70,9 @@ Phase 1d holds the hat kernels G8 (forward), G9 (table gradient) and G10
 TiNeuVox's levels (R = 32, 128, 512), with 1% of the coordinates outside
 [0, 1] and some on grid points, timed at R = 512, rank 32, with
 ``F.embedding_bag`` and ``index_add_`` timed on the precomputed taps as the
-library's gather and scatter stages; G9 must give the same bits in two calls
-and is also timed at each level at the TiNeuVox train step's 2^16 samples.
+library's gather and scatter stages; G9 must give the same bits in two calls;
+G9 and G10 are also timed at each level at the TiNeuVox train step's 2^16
+samples.
 Phase 13 also runs the f32 TiNeuVox plain step against itself, and the
 kernel step with the composite (G3, G5) on its plain versions and PyTorch's
 scatter-adds in a fixed order, so that the hat kernels see the plain step's
@@ -467,23 +469,52 @@ def phase_kernels(dev, trainer, state, ds):
     rgbs = torch.rand((n_s, 3), generator=g, device=dev)
     cargs = (s.t_starts, s.t_ends, sigmas, rgbs, s.ray_indices, G2_RAYS,
              s.seg_starts, s.seg_ends)
-    c, a, dep, weights = composite_sorted(*cargs)
-    rc, ra, rdep, _ = composite_sorted_plain(*cargs)
-    err = max(float((c - rc).abs().max()), float((a - ra).abs().max()))
+    # with the weights, which the occupancy-grid path asks for on every call
+    fargs = cargs + (None, True)
+    c, a, dep, weights = composite_sorted(*fargs)
+    rc, ra, rdep, rweights = composite_sorted_plain(*fargs)
+    err = max(float((c - rc).abs().max()), float((a - ra).abs().max()),
+              float((weights - rweights).abs().max()))
     dep_err = float((dep - rdep).abs().max())
-    require(err <= 1e-5, f"G3: rgb/opacity differ by {err}")
+    require(err <= 1e-5, f"G3: rgb/opacity/weights differ by {err}")
     require(dep_err <= 1e-4, f"G3: depth differs by {dep_err}")
     # per sample its optical depth, alpha, transmittance, weight and four
-    # weighted sums (~12 operations, the exponential counted as one)
+    # weighted sums (~12 operations, the exponential counted as one); the
+    # kernel reads no ray ids
     report["composite_fwd"] = measured(
         err,
-        cuda_ms(lambda: composite_sorted(*cargs)),
-        cuda_ms(lambda: composite_sorted_plain(*cargs)),
-        nbytes(*cargs, c, a, dep, weights), 12 * n_s,
+        cuda_ms(lambda: composite_sorted(*fargs)),
+        cuda_ms(lambda: composite_sorted_plain(*fargs)),
+        nbytes(*cargs, c, a, dep, weights) - nbytes(s.ray_indices), 12 * n_s,
     )
-    print(f"G3 composite: {n_s} samples, rgb/opacity max_abs_err={err:.3g}, "
-          f"depth {dep_err:.3g}, kernel {report['composite_fwd']['ms']:.4f} ms, "
-          f"twin {report['composite_fwd']['plain_ms']:.4f} ms")
+    print(f"G3 composite: {n_s} samples, rgb/opacity/weights max_abs_err={err:.3g}, "
+          f"depth {dep_err:.3g}, kernel {report['composite_fwd']['ms']:.4f} ms, alone "
+          f"{device_ms(lambda: composite_sorted(*fargs)):.4f} ms, bound "
+          f"{report['composite_fwd']['bound_ms']:.4f} ms, twin "
+          f"{report['composite_fwd']['plain_ms']:.4f} ms")
+    # G3 on the CP train buffer: G2's train batch cut at the budget, with
+    # the weights the train path asks for (ray lengths up to the whole box)
+    ts = compact_samples(tout, TRAIN["cp"][2])
+    n_t = ts.num_valid
+    ct_args = (ts.t_starts, ts.t_ends,
+               10.0 ** (torch.rand(n_t, generator=g, device=dev) * 4 - 1),
+               torch.rand((n_t, 3), generator=g, device=dev), ts.ray_indices,
+               G2_TRAIN_RAYS, ts.seg_starts, ts.seg_ends, None, True)
+    out = composite_sorted(*ct_args)
+    ref = composite_sorted_plain(*ct_args)
+    t_err = max(float((out[0] - ref[0]).abs().max()), float((out[1] - ref[1]).abs().max()))
+    t_dep_err = float((out[2] - ref[2]).abs().max())
+    w_err = float((out[3] - ref[3]).abs().max())
+    require(t_err <= 1e-5, f"G3 train buffer: rgb/opacity differ by {t_err}")
+    require(t_dep_err <= 1e-4, f"G3 train buffer: depth differs by {t_dep_err}")
+    require(w_err <= 1e-5, f"G3 train buffer: weights differ by {w_err}")
+    longest = int((ts.seg_ends - ts.seg_starts).max()) + 1
+    t_bound = bound_ms(nbytes(*ct_args, *out) - nbytes(ts.ray_indices), 12 * n_t)
+    print(f"G3 composite, CP train buffer ({G2_TRAIN_RAYS} rays, {n_t} samples, "
+          f"longest ray {longest}): rgb/opacity max_abs_err={t_err:.3g}, depth "
+          f"{t_dep_err:.3g}, weights {w_err:.3g}, kernel "
+          f"{cuda_ms(lambda: composite_sorted(*ct_args)):.4f} ms, alone "
+          f"{device_ms(lambda: composite_sorted(*ct_args)):.4f} ms, bound {t_bound:.4f} ms")
 
     # 1b. G4: every level at N = 2^18, both compute dtypes, seeded cotangent;
     # its sums run in atomic order, hence 1e-4 of the largest entry
@@ -533,10 +564,7 @@ def phase_kernels(dev, trainer, state, ds):
           f"{report['composite_bwd']['bound_ms']:.4f} ms, twin "
           f"{report['composite_bwd']['plain_ms']:.4f} ms")
 
-    # G5 on the CP train buffer: G2's train batch cut at the budget, the
-    # shape G5 runs at in phase 4 (ray lengths up to the whole box)
-    ts = compact_samples(tout, TRAIN["cp"][2])
-    n_t = ts.num_valid
+    # G5 on the CP train buffer, the shape G5 runs at in phase 4
     bt_args = (ts.t_starts, ts.t_ends,
              10.0 ** (torch.rand(n_t, generator=g, device=dev) * 4 - 1),
              torch.rand((n_t, 3), generator=g, device=dev), ts.ray_indices,
@@ -549,7 +577,6 @@ def phase_kernels(dev, trainer, state, ds):
         e, scale = float((a - b).abs().max()), float(b.abs().max())
         require(e <= 1e-5 * scale, f"G5 train buffer {name}: err {e} scale {scale}")
         t_err = max(t_err, e / scale)
-    longest = int((ts.seg_ends - ts.seg_starts).max()) + 1
     t_bound = bound_ms(nbytes(*bt_args, *out) - nbytes(ts.ray_indices), 20 * n_t)
     print(f"G5 composite_bwd, CP train buffer ({G2_TRAIN_RAYS} rays, {n_t} samples, "
           f"longest ray {longest}): {t_err:.3g} of the largest gradient, kernel "
@@ -693,6 +720,18 @@ def time_hat_line(x, cot, R):
           f"and updates {r['library_ms']:.4f} ms, alone {lib_alone:.4f} ms")
 
 
+def time_hat_x(x, cot, line):
+    """G10 at one of TiNeuVox's levels at the train step's shape: CUDA events
+    around one call, the kernel alone and the bound."""
+    R, rank = line.shape
+    dx = hat_bwd_x(x, cot, line)
+    bound = bound_ms(nbytes(x, cot, line, dx), x.shape[0] * (8 + 4 * rank))
+    alone = device_ms(lambda: hat_bwd_x(x, cot, line))
+    print(f"G10 hat_bwd_x N={x.shape[0]} R={R} rank={rank}: kernel "
+          f"{cuda_ms(lambda: hat_bwd_x(x, cot, line)):.4f} ms, alone {alone:.4f} ms "
+          f"({100 * bound / alone:.1f}% of the {bound:.4f} ms bound)")
+
+
 def hat_inputs(g, R, rank):
     """Phase 1d's inputs at one level: ``HAT_N`` coordinates uniform in
     [0, 1], ``HAT_OUTSIDE`` of them pushed out by up to 1.5 cells,
@@ -719,9 +758,9 @@ def phase_hat_kernels(dev):
     bitwise; G9 within 1e-6 of its largest entry (each block sums in int64
     fixed point and rounds to f32; the blocks are added in f64 in block
     order), and two calls give the same bits; G10 within 1e-5 (the
-    rank sums in another order) and exactly 0 on grid points.  G9 is also
-    timed at each level at the TiNeuVox train step's budget
-    ``HAT_TRAIN_N``, beside ``index_add_`` on the precomputed taps."""
+    rank sums in another order) and exactly 0 on grid points.  G9 and G10
+    are also timed at each level at the TiNeuVox train step's budget
+    ``HAT_TRAIN_N``, G9 beside ``index_add_`` on the precomputed taps."""
     g = torch.Generator(device=dev).manual_seed(8)
     worst = {"hat_fwd": 0.0, "hat_bwd_line": 0.0, "hat_bwd_x": 0.0}
     for R, rank in HAT_LEVELS:
@@ -735,6 +774,7 @@ def phase_hat_kernels(dev):
         require(err9 <= 1e-6 * scale9, f"G9 R={R}: err {err9} scale {scale9}")
         require(same_bits(dline, hat_bwd_line(x, cot, R)), f"G9 R={R}: two calls differ")
         time_hat_line(x[:HAT_TRAIN_N], cot[:HAT_TRAIN_N], R)
+        time_hat_x(x[:HAT_TRAIN_N], cot[:HAT_TRAIN_N], line)
         dx = hat_bwd_x(x, cot, line)
         ref = hat_bwd_x_plain(x, cot, line)
         err10, scale10 = float((dx - ref).abs().max()), float(ref.abs().max())

@@ -7,30 +7,47 @@
 // ops/sorted_segments.py::segment_sum_sorted of [rgb, 1, t_mid] * w.  On the
 // TPU those are global prefix sums differenced at segment boundaries.
 //
-// Here each ray walks its own samples [seg_start, seg_end] of the sorted
-// flat buffer once, in order:
+// Here each ray's samples [seg_start, seg_end] of the sorted flat buffer are
+// composited in order:
 //
 //   sd    = min(sigma * (t_end - t_start), 40)     (the optical-depth cap)
 //   alpha = 1 - exp(-sd)
 //   T     = prefix_trans * exp(-sum of earlier sd of this ray)
 //   w     = T * alpha
 //
-// and accumulates w * rgb, w and w * t_mid.  The running sum is local to the
+// and w * rgb, w and w * t_mid are summed.  The running sum is local to the
 // ray, so its rounding error is relative to the ray's own optical depth; the
 // global-cumsum failure (transmittance above 1 on hard surfaces) cannot
-// occur.  Slots past the last segment (fill id n_rays) are never touched.
+// occur.  Slots outside every segment (fill id n_rays, or past a budget cut)
+// are never touched.
 //
 // Bound on this card: device-memory reads, 24 B per sample (sigma, rgb,
 // t_start, t_end), plus 4 B per sample when the weights are written.
 //
-// Design: one thread per ray, no shared memory.  Neighbouring threads walk
-// neighbouring segments, so the reads of a warp are nearly contiguous when
-// rays hold similar sample counts.
+// Design: one warp per ray, 8 rays per 256-thread block.  The warp walks its
+// segment in chunks of 32 consecutive samples, lane l on sample 32 c + l, so
+// each load of t_starts, t_ends and sigmas is one 128-byte line and a
+// chunk's colours are 384 contiguous bytes, loaded as three coalesced words
+// per lane.  Each chunk's loads are issued before the previous chunk's scan,
+// so they overlap it.  The chunk scan (chunk_weights, shared with G5) caps
+// each lane's optical depth, takes an inclusive warp scan shifted by one
+// lane plus the carried total of the earlier chunks, and gives T and w: the
+// optical depth is a tree sum within each chunk, and G3's weights are bit
+// for bit the ones G5 recomputes.  Word f of a chunk's colours is component
+// f % 3 of sample f / 3; since 32 = 2 (mod 3), the three words of lane l
+// hold one word of each component, so the lane fetches the weight of each
+// word's sample with one __shfl_sync and keeps fixed per-lane partials of
+// w r, w g, w b, w and w t_mid over the chunks; one butterfly
+// (__shfl_xor_sync) adds them at the end.  Nothing is kept per chunk, so any
+// ray length runs in registers.
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
 namespace {
+
+constexpr int kWarps = 8;  // rays per block, G3 and G5
+constexpr unsigned kFull = 0xffffffffu;
 
 // min(sd, 40) as XLA's and PyTorch's minimum take it: a NaN stays NaN (an
 // infinite density on a zero-length sample), where fminf would return 40.
@@ -38,37 +55,128 @@ __device__ __forceinline__ float cap_optical_depth(float sd) {
   return sd > 40.0f ? 40.0f : sd;
 }
 
-__global__ void composite_fwd_kernel(
+// One lane's sample of a chunk: exp(-sd), its transmittance and weight.
+struct ChunkWeights {
+  float e, trans, w;
+};
+
+// The chunk scan of G3 and G5: the capped optical depth sd of the lane's
+// sample (0 where it is past the segment), an inclusive warp scan
+// (__shfl_up_sync) shifted by one lane plus the carry of the earlier chunks
+// as the exclusive optical depth, and the carry moved past this chunk.  A
+// NaN depth reaches only the lanes above it and the later chunks.
+__device__ __forceinline__ ChunkWeights chunk_weights(float sigma, float delta,
+                                                      bool valid, int lane,
+                                                      float prefix,
+                                                      float& carry) {
+  const float sd = valid ? cap_optical_depth(sigma * delta) : 0.0f;
+  float incl = sd;
+#pragma unroll
+  for (int o = 1; o < 32; o <<= 1) {
+    const float y = __shfl_up_sync(kFull, incl, o);
+    if (lane >= o) incl += y;
+  }
+  const float before = __shfl_up_sync(kFull, incl, 1);
+  const float excl = lane == 0 ? carry : carry + before;
+  carry += __shfl_sync(kFull, incl, 31);
+  ChunkWeights out;
+  out.e = expf(-sd);
+  out.trans = expf(-excl) * prefix;
+  out.w = out.trans * (1.0f - out.e);
+  return out;
+}
+
+// One lane's loads of a chunk: its sample's interval and density (0 past
+// the segment) and its three colour words (word f = lane + 32 j of the
+// chunk's 96; 0 where f / 3 is past the segment).
+struct ChunkLoad {
+  float t0, t1, sigma, word[3];
+};
+
+__device__ __forceinline__ ChunkLoad load_chunk(
+    const float* __restrict__ t_starts, const float* __restrict__ t_ends,
+    const float* __restrict__ sigmas, const float* __restrict__ rgbs,
+    int64_t base, int64_t end, int lane) {
+  ChunkLoad ld = {0.0f, 0.0f, 0.0f, {0.0f, 0.0f, 0.0f}};
+  const int64_t i = base + lane;
+  if (i <= end) {
+    ld.t0 = t_starts[i];
+    ld.t1 = t_ends[i];
+    ld.sigma = sigmas[i];
+  }
+#pragma unroll
+  for (int j = 0; j < 3; ++j) {
+    const int f = lane + 32 * j;
+    if (base + f / 3 <= end) ld.word[j] = rgbs[3 * base + f];
+  }
+  return ld;
+}
+
+__global__ void __launch_bounds__(kWarps * 32) composite_fwd_kernel(
     const float* __restrict__ t_starts, const float* __restrict__ t_ends,
     const float* __restrict__ sigmas, const float* __restrict__ rgbs,
     const int* __restrict__ seg_starts, const int* __restrict__ seg_ends,
     const float* __restrict__ prefix_trans, int n_rays,
     float* __restrict__ colors, float* __restrict__ opacities,
     float* __restrict__ depths, float* __restrict__ weights) {
-  const int r = blockIdx.x * blockDim.x + threadIdx.x;
-  if (r >= n_rays) return;
+  const int r = blockIdx.x * kWarps + threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  if (r >= n_rays) return;  // warp-uniform
   const float prefix = prefix_trans != nullptr ? prefix_trans[r] : 1.0f;
-  float optical_depth = 0.0f;
-  float c0 = 0.0f, c1 = 0.0f, c2 = 0.0f, acc = 0.0f, dep = 0.0f;
-  const int64_t end = seg_ends[r];
-  for (int64_t i = seg_starts[r]; i <= end; ++i) {
-    const float t0 = t_starts[i], t1 = t_ends[i];
-    const float sd = cap_optical_depth(sigmas[i] * (t1 - t0));
-    const float alpha = 1.0f - expf(-sd);
-    const float w = expf(-optical_depth) * prefix * alpha;
-    optical_depth += sd;
-    c0 += w * rgbs[3 * i];
-    c1 += w * rgbs[3 * i + 1];
-    c2 += w * rgbs[3 * i + 2];
-    acc += w;
-    dep += w * (0.5f * (t0 + t1));
-    if (weights != nullptr) weights[i] = w;
+  const int64_t start = seg_starts[r], end = seg_ends[r];
+  const int64_t chunks = end >= start ? (end - start) / 32 + 1 : 0;
+  // the components of the lane's first two colour words, l and l + 2 (mod 3);
+  // the third's is the one left
+  const int k0 = lane % 3, k1 = (lane + 2) % 3;
+  float p0 = 0.0f, p1 = 0.0f, p2 = 0.0f, acc = 0.0f, dep = 0.0f;
+  float carry = 0.0f;
+  // each chunk's loads are issued before the previous chunk's scan
+  ChunkLoad next = load_chunk(t_starts, t_ends, sigmas, rgbs, start, end, lane);
+  for (int64_t c = 0; c < chunks; ++c) {
+    const int64_t base = start + 32 * c;
+    const ChunkLoad ld = next;
+    if (c + 1 < chunks)
+      next = load_chunk(t_starts, t_ends, sigmas, rgbs, base + 32, end, lane);
+    const bool valid = base + lane <= end;
+    const float w =
+        chunk_weights(ld.sigma, ld.t1 - ld.t0, valid, lane, prefix, carry).w;
+    if (valid) {
+      acc += w;
+      dep += w * (0.5f * (ld.t0 + ld.t1));
+      if (weights != nullptr) weights[base + lane] = w;
+    }
+    // each colour word times the weight of its sample, lane f / 3
+#pragma unroll
+    for (int j = 0; j < 3; ++j) {
+      const int s = (lane + 32 * j) / 3;
+      const float ws = __shfl_sync(kFull, w, s);
+      if (base + s <= end) {
+        const float p = ws * ld.word[j];
+        if (j == 0) p0 += p;
+        else if (j == 1) p1 += p;
+        else p2 += p;
+      }
+    }
   }
-  colors[3 * r] = c0;
-  colors[3 * r + 1] = c1;
-  colors[3 * r + 2] = c2;
-  opacities[r] = acc;
-  depths[r] = dep;
+  // the lane's partials by component, then one butterfly over the warp
+  float c0 = k0 == 0 ? p0 : (k1 == 0 ? p1 : p2);
+  float c1 = k0 == 1 ? p0 : (k1 == 1 ? p1 : p2);
+  float c2 = k0 == 2 ? p0 : (k1 == 2 ? p1 : p2);
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) {
+    c0 += __shfl_xor_sync(kFull, c0, o);
+    c1 += __shfl_xor_sync(kFull, c1, o);
+    c2 += __shfl_xor_sync(kFull, c2, o);
+    acc += __shfl_xor_sync(kFull, acc, o);
+    dep += __shfl_xor_sync(kFull, dep, o);
+  }
+  if (lane == 0) {
+    colors[3 * r] = c0;
+    colors[3 * r + 1] = c1;
+    colors[3 * r + 2] = c2;
+    opacities[r] = acc;
+    depths[r] = dep;
+  }
 }
 
 // G5: the backward of G3 for the sample densities and colours.
@@ -93,21 +201,19 @@ __global__ void composite_fwd_kernel(
 // contiguous bytes.  Forward, chunk by chunk: each lane caps its optical
 // depth (cap_optical_depth: a NaN stays NaN), an inclusive warp scan
 // (__shfl_up_sync) shifted by one lane plus the carried total of the earlier
-// chunks gives its exclusive optical depth, hence T, w, v and dL/drgb
-// (stored coalesced through three shuffles).  Backward, last chunk first: a
+// chunks gives its exclusive optical depth (chunk_weights, shared with G3,
+// so the two passes see the same T and w), hence v and dL/drgb (stored
+// coalesced through three shuffles).  Backward, last chunk first: a
 // reverse warp scan of w v (__shfl_down_sync) shifted by one lane plus the
 // carried sum of the later chunks gives sum_{j > i} w_j v_j.  Every sum runs
 // within one ray: no difference of running totals is formed (the TPU path's
-// _excl_bwd differences a global cumsum).  The optical depth is summed as a
-// tree within each chunk, so it rounds differently from G3's serial walk.
+// _excl_bwd differences a global cumsum).
 // The first kBwdRegChunks chunks (256 samples) keep the first term
 // T exp(-sd) v, w v and delta in registers; later chunks of a longer ray
 // park the first two in d_sigmas and scratch (coalesced) and reread their
 // interval and density on the way back.  Slots outside every segment (fill,
 // or past a budget cut) are never touched: the caller zeroes the outputs.
-constexpr int kBwdWarps = 8;       // rays per block
 constexpr int kBwdRegChunks = 8;   // chunks of 32 samples kept in registers
-constexpr unsigned kFull = 0xffffffffu;
 
 // One lane's sample of a chunk in the forward recompute.
 struct BwdSample {
@@ -134,19 +240,8 @@ __device__ __forceinline__ BwdSample composite_bwd_forward_chunk(
     r2 = rgbs[3 * i + 2];
   }
   const float delta = t1 - t0;
-  const float sd = valid ? cap_optical_depth(sigma * delta) : 0.0f;
-  float incl = sd;
-#pragma unroll
-  for (int o = 1; o < 32; o <<= 1) {
-    const float y = __shfl_up_sync(kFull, incl, o);
-    if (lane >= o) incl += y;
-  }
-  const float before = __shfl_up_sync(kFull, incl, 1);
-  const float excl = lane == 0 ? carry : carry + before;
-  carry += __shfl_sync(kFull, incl, 31);
-  const float e = expf(-sd);
-  const float trans = expf(-excl) * prefix;
-  const float w = trans * (1.0f - e);
+  const ChunkWeights cw = chunk_weights(sigma, delta, valid, lane, prefix, carry);
+  const float e = cw.e, trans = cw.trans, w = cw.w;
   const float v = gc0 * r0 + gc1 * r1 + gc2 * r2 + go + gd * (0.5f * (t0 + t1));
   // dL/drgb for the chunk's 96 contiguous words: word f of the chunk is
   // component f % 3 of sample f / 3
@@ -181,7 +276,7 @@ __device__ __forceinline__ void composite_bwd_reverse_chunk(
   if (i <= end) d_sigmas[i] = smp.capped ? 0.0f : smp.delta * (smp.first - suffix);
 }
 
-__global__ void __launch_bounds__(kBwdWarps * 32) composite_bwd_kernel(
+__global__ void __launch_bounds__(kWarps * 32) composite_bwd_kernel(
     const float* __restrict__ t_starts, const float* __restrict__ t_ends,
     const float* __restrict__ sigmas, const float* __restrict__ rgbs,
     const int* __restrict__ seg_starts, const int* __restrict__ seg_ends,
@@ -189,7 +284,7 @@ __global__ void __launch_bounds__(kBwdWarps * 32) composite_bwd_kernel(
     const float* __restrict__ g_colors, const float* __restrict__ g_opacities,
     const float* __restrict__ g_depths, float* __restrict__ d_sigmas,
     float* __restrict__ d_rgbs, float* __restrict__ scratch) {
-  const int r = blockIdx.x * kBwdWarps + threadIdx.x / 32;
+  const int r = blockIdx.x * kWarps + threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
   if (r >= n_rays) return;  // warp-uniform
   const float prefix = prefix_trans != nullptr ? prefix_trans[r] : 1.0f;
@@ -250,9 +345,8 @@ extern "C" int composite_fwd(const void* t_starts, const void* t_ends,
                              void* colors, void* opacities, void* depths,
                              void* weights, void* stream) {
   if (n_rays == 0) return (int)cudaSuccess;
-  const int threads = 128;
-  const int blocks = (n_rays + threads - 1) / threads;
-  composite_fwd_kernel<<<blocks, threads, 0, (cudaStream_t)stream>>>(
+  const int blocks = (n_rays + kWarps - 1) / kWarps;
+  composite_fwd_kernel<<<blocks, kWarps * 32, 0, (cudaStream_t)stream>>>(
       (const float*)t_starts, (const float*)t_ends, (const float*)sigmas,
       (const float*)rgbs, (const int*)seg_starts, (const int*)seg_ends,
       (const float*)prefix_trans, n_rays, (float*)colors, (float*)opacities,
@@ -271,8 +365,8 @@ extern "C" int composite_bwd(const void* t_starts, const void* t_ends,
                              const void* g_depths, void* d_sigmas,
                              void* d_rgbs, void* scratch, void* stream) {
   if (n_rays == 0) return (int)cudaSuccess;
-  const int blocks = (n_rays + kBwdWarps - 1) / kBwdWarps;
-  composite_bwd_kernel<<<blocks, kBwdWarps * 32, 0, (cudaStream_t)stream>>>(
+  const int blocks = (n_rays + kWarps - 1) / kWarps;
+  composite_bwd_kernel<<<blocks, kWarps * 32, 0, (cudaStream_t)stream>>>(
       (const float*)t_starts, (const float*)t_ends, (const float*)sigmas,
       (const float*)rgbs, (const int*)seg_starts, (const int*)seg_ends,
       (const float*)prefix_trans, n_rays, (const float*)g_colors,

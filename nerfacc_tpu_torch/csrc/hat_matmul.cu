@@ -33,7 +33,8 @@
 // that is +-inf or NaN is kept apart, as flags per entry, and the entry
 // comes out NaN, +inf or -inf as an f64 sum would.  G10: g
 // and the table are rounded to bf16, S at each tap is an f32 sum over the
-// rank (in this kernel's order), then dx = (dW0 S0 + dW1 S1) (R - 1).  dW is
+// rank (serial within each lane's columns, then a butterfly over the
+// lanes), then dx = (dW0 S0 + dW1 S1) (R - 1).  dW is
 // exactly 0 at a grid point (pos - i = 0, and the neighbours at distance
 // exactly 1 are excluded), so dx is 0 there, x = 0 and x = 1 included: the
 // TPU kernel's rule, not the one-sided slope that autograd of the hat would
@@ -66,8 +67,16 @@
 // no zeroing launch.  The table takes 9 bytes an entry: up to about 21,000
 // entries (R * rank) fit the card's 227 KB beside a tile; a larger table is
 // refused.
-// G10: one thread per sample, the two rank-long dot products in registers
-// (any rank); the sample's g row is read once.
+// G10: each sample takes a group of lanes, ceil(rank / 4) rounded up to a
+// power of two and at most 32 (8 at rank 32, so 4 samples a warp; 4 at rank
+// 16); lane c reads columns 4 c .. 4 c + 3 of the sample's g row and of its
+// two table rows, one 16-byte load each where the rank is a multiple of 4
+// and the rows are aligned (a warp's g loads are one contiguous 512 bytes),
+// and adds its four products to each tap's sum in order; a __shfl_xor_sync
+// butterfly within the group (3 steps at rank 32) adds the lanes' sums.  The
+// table stays in L1 and L2.  One column a lane (5 butterfly steps, a 4-byte
+// load per lane and row) was 2.4-3.4x slower alone on an H100 at every
+// TiNeuVox shape (PERF.md, the kernel table and the findings on G10).
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -279,29 +288,71 @@ __global__ void hat_bwd_line_reduce_kernel(const float* __restrict__ partials,
   }
 }
 
-__global__ void hat_bwd_x_kernel(const float* __restrict__ x,
-                                 const float* __restrict__ g,
-                                 const float* __restrict__ line,
-                                 float* __restrict__ dx, int64_t n, int R,
-                                 int rank) {
-  const int64_t s = blockIdx.x * (int64_t)blockDim.x + threadIdx.x;
-  if (s >= n) return;
-  const Taps t = taps(x[s], R);
-  if (t.dw0 == 0.0f && t.dw1 == 0.0f) {
-    dx[s] = 0.0f;
-    return;
+// G10's block: 8 warps; each lane takes four rank columns of a row.
+constexpr int kXThreads = 256;
+constexpr int kXCols = 4;
+
+// Columns col .. col + 3 of one row, bf16-rounded: one 16-byte load where
+// the rows are 16-byte aligned (kVec), else one load per column inside the
+// rank and 0 past it.
+template <bool kVec>
+__device__ __forceinline__ void load_cols(const float* __restrict__ row,
+                                          int col, int rank,
+                                          float (&out)[kXCols]) {
+  if constexpr (kVec) {
+    const float4 v = __ldg(reinterpret_cast<const float4*>(row + col));
+    out[0] = round_bf16(v.x);
+    out[1] = round_bf16(v.y);
+    out[2] = round_bf16(v.z);
+    out[3] = round_bf16(v.w);
+  } else {
+#pragma unroll
+    for (int k = 0; k < kXCols; ++k)
+      out[k] = col + k < rank ? round_bf16(__ldg(row + col + k)) : 0.0f;
   }
-  const float* gs = g + s * rank;
-  const float* l0 = line + (int64_t)t.i0 * rank;
-  const float* l1 = line + (int64_t)t.i1 * rank;
+}
+
+// Each sample takes a group of cw lanes (a power of two, at most 32); lane c
+// of the group takes columns 4 c .. 4 c + 3, then every 4 cw further.
+template <bool kVec>
+__global__ void __launch_bounds__(kXThreads) hat_bwd_x_kernel(
+    const float* __restrict__ x, const float* __restrict__ g,
+    const float* __restrict__ line, float* __restrict__ dx, int64_t n, int R,
+    int rank, int cw) {
+  const int lane = threadIdx.x & 31;
+  const int64_t first =
+      ((int64_t)blockIdx.x * (kXThreads / 32) + threadIdx.x / 32) * (32 / cw);
+  if (first >= n) return;  // warp-uniform
+  const int64_t s = first + lane / cw;
+  const int c = lane & (cw - 1);
+  // a group past n runs on zero slopes: every lane reaches the shuffles
+  Taps t = {0, 0, 0.0f, 0.0f, 0.0f, 0.0f};
+  if (s < n) t = taps(x[s], R);
   float s0 = 0.0f, s1 = 0.0f;
-  for (int r = 0; r < rank; ++r) {
-    const float gb = round_bf16(gs[r]);
-    s0 = __fmaf_rn(gb, round_bf16(__ldg(l0 + r)), s0);
-    s1 = __fmaf_rn(gb, round_bf16(__ldg(l1 + r)), s1);
+  if (t.dw0 != 0.0f || t.dw1 != 0.0f) {  // the same in every lane of a group
+    const float* gs = g + s * rank;
+    const float* l0 = line + (int64_t)t.i0 * rank;
+    const float* l1 = line + (int64_t)t.i1 * rank;
+    for (int col = kXCols * c; col < rank; col += kXCols * cw) {
+      float gv[kXCols], a[kXCols], b[kXCols];
+      load_cols<kVec>(gs, col, rank, gv);
+      load_cols<kVec>(l0, col, rank, a);
+      load_cols<kVec>(l1, col, rank, b);
+#pragma unroll
+      for (int k = 0; k < kXCols; ++k) {
+        s0 = __fmaf_rn(gv[k], a[k], s0);
+        s1 = __fmaf_rn(gv[k], b[k], s1);
+      }
+    }
   }
-  const float sum = __fadd_rn(__fmul_rn(t.dw0, s0), __fmul_rn(t.dw1, s1));
-  dx[s] = __fmul_rn(sum, (float)(R - 1));
+  for (int o = cw / 2; o > 0; o >>= 1) {
+    s0 = __fadd_rn(s0, __shfl_xor_sync(kFull, s0, o));
+    s1 = __fadd_rn(s1, __shfl_xor_sync(kFull, s1, o));
+  }
+  if (s < n && c == 0) {
+    const float sum = __fadd_rn(__fmul_rn(t.dw0, s0), __fmul_rn(t.dw1, s1));
+    dx[s] = __fmul_rn(sum, (float)(R - 1));
+  }
 }
 
 }  // namespace
@@ -375,10 +426,20 @@ extern "C" int hat_bwd_line(const void* x, const void* g, void* partials,
 extern "C" int hat_bwd_x(const void* x, const void* g, const void* line,
                          void* dx, int64_t n, int R, int rank, void* stream) {
   if (n == 0) return (int)cudaSuccess;
-  const int threads = 256;
-  const int64_t blocks = (n + threads - 1) / threads;
-  hat_bwd_x_kernel<<<(unsigned)blocks, threads, 0, (cudaStream_t)stream>>>(
-      (const float*)x, (const float*)g, (const float*)line, (float*)dx, n, R,
-      rank);
+  // lanes a sample: ceil(rank / 4) rounded up to a power of two, at most 32
+  int cw = 1;
+  while (kXCols * cw < rank && cw < 32) cw *= 2;
+  const int64_t per_block = (int64_t)(kXThreads / 32) * (32 / cw);
+  const unsigned blocks = (unsigned)((n + per_block - 1) / per_block);
+  const bool vec = rank % kXCols == 0 && ((uintptr_t)g | (uintptr_t)line) % 16 == 0;
+  cudaStream_t st = (cudaStream_t)stream;
+  if (vec)
+    hat_bwd_x_kernel<true><<<blocks, kXThreads, 0, st>>>(
+        (const float*)x, (const float*)g, (const float*)line, (float*)dx, n, R,
+        rank, cw);
+  else
+    hat_bwd_x_kernel<false><<<blocks, kXThreads, 0, st>>>(
+        (const float*)x, (const float*)g, (const float*)line, (float*)dx, n, R,
+        rank, cw);
   return (int)cudaGetLastError();
 }

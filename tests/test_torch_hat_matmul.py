@@ -8,11 +8,13 @@ import pytest
 import torch
 
 from nerfacc_tpu.ops.hat_matmul import hat_interp_matmul as jax_hat
+from nerfacc_tpu_torch.ops.cp_level import _round_bf16
 from nerfacc_tpu_torch.ops.hat_matmul import (
     hat_bwd_line_plain,
     hat_bwd_x_plain,
     hat_interp_matmul,
     hat_interp_matmul_plain,
+    hat_taps,
 )
 
 
@@ -60,6 +62,53 @@ def test_plain_versions_match_pallas_kernels(R, rank, n):
     # the outside points read the hat's value and slope at the clamped taps
     outside = (x < 0) | (x > 1)
     assert outside.any() and np.abs(dx[outside]).max() > 0
+
+
+def _g10_tree(x, line, g):
+    """Kernel G10's order in float32: each sample's group of cw lanes
+    (ceil(rank / 4) rounded up to a power of two, at most 32), lane c adding
+    its products in order over columns 4 c .. 4 c + 3, then every 4 cw
+    further (each bf16 x bf16 product is exact, so a fused multiply-add is
+    one f32 addition), then a butterfly within the group: lane l adds lane
+    l ^ o for o = cw / 2, ..., 1.  Returns dx (n,)."""
+    f32 = np.float32
+    R, rank = line.shape
+    cw = 1
+    while 4 * cw < rank and cw < 32:
+        cw *= 2
+    i0, i1, _, _, dw0, dw1 = (a.numpy() for a in hat_taps(torch.tensor(x), R))
+    gb = _round_bf16(torch.tensor(g)).numpy()
+    table = _round_bf16(torch.tensor(line)).numpy()
+    sums = np.zeros((2, x.shape[0], cw), f32)
+    for c in range(cw):
+        for col in range(4 * c, rank, 4 * cw):
+            for k in range(col, min(col + 4, rank)):
+                for tap, rows in enumerate((i0, i1)):
+                    sums[tap, :, c] += gb[:, k] * table[rows, k]
+    lane, o = np.arange(cw), cw // 2
+    while o:
+        sums = sums + sums[..., lane ^ o]
+        o //= 2
+    s0, s1 = sums[0, :, 0], sums[1, :, 0]
+    dx = ((dw0 * s0 + dw1 * s1) * f32(R - 1)).astype(f32)
+    return np.where((dw0 == 0) & (dw1 == 0), f32(0.0), dx)
+
+
+# (32, 16), (128, 16) and (512, 32) are TiNeuVox's levels; rank 24 runs six
+# lanes of eight, two of them idle
+@pytest.mark.parametrize("R,rank", [(32, 16), (128, 16), (512, 32), (64, 24)])
+def test_g10_tree_order_matches_pallas_kernel(R, rank):
+    """Kernel G10's sum order (four columns a lane, a butterfly over the
+    group), emulated in float32, against K3c in interpret mode: within 1e-5
+    of the largest entry, exactly 0 on grid points, as the plain version."""
+    x, line, g = _inputs(R, rank, 1100, seed=4)
+    _, dx, _ = _jax_reference(x, line, g)
+    got = _g10_tree(x, line, g)
+    np.testing.assert_allclose(got, dx, rtol=0, atol=1e-5 * np.abs(dx).max())
+    plain = hat_bwd_x_plain(torch.tensor(x), torch.tensor(g), torch.tensor(line)).numpy()
+    np.testing.assert_allclose(got, plain, rtol=0, atol=1e-5 * np.abs(plain).max())
+    on_grid = (x * np.float32(R - 1)) == np.round(x * np.float32(R - 1))
+    assert on_grid.sum() >= 2 and (got[on_grid] == 0).all() and (dx[on_grid] == 0).all()
 
 
 @pytest.mark.parametrize("R", [16, 64, 512])

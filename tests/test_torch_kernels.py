@@ -393,6 +393,36 @@ def test_composite_backward_kernel_at_its_edges(dev, case):
         assert bool((out[0][capped] == 0).all())
 
 
+@pytest.mark.parametrize("case", [
+    "lengths", "past the cap", "prefix", "fill and cut", "proposal layout", "no weights",
+])
+def test_composite_kernel_at_its_edges(dev, case):
+    """G3, one warp per ray, on G5's edge buffers: rays of 1, 31, 32, 33 and
+    257 samples (chunk edges), 1500 and 2100, empty rays, whole rays past
+    the optical-depth cap, a prefix transmittance, fill slots and a budget
+    cut (their weights stay exactly 0), the proposal path's 64 samples per
+    ray, no weights asked for, and 209 rays (a block partly empty).  Colour
+    and opacity within 1e-5, depth within 1e-4 of the twin (chip_smoke.py's
+    bounds), the weights within 1e-5."""
+    args, inside = _g5_case(dev, "lengths" if case == "no weights" else case)
+    fwd = args[:8] + (args[11], case != "no weights")
+    n0 = cuda.LAUNCHES["composite_fwd"]
+    out = composite_sorted(*fwd)
+    assert cuda.LAUNCHES["composite_fwd"] == n0 + 1
+    ref = composite_sorted_plain(*fwd)
+    for a, b, tol in zip(out[:3], ref[:3], (1e-5, 1e-5, 1e-4)):
+        assert bool(torch.isfinite(a).all())
+        torch.testing.assert_close(a, b, rtol=0, atol=tol)
+    if case == "no weights":
+        assert out[3] is None
+    else:
+        torch.testing.assert_close(out[3], ref[3], rtol=0, atol=1e-5)
+        assert bool((out[3][~inside] == 0).all())
+    empty = args[7] < args[6]
+    assert bool((out[1][empty] == 0).all())
+    assert int(empty.sum()) > 0 or case == "proposal layout"
+
+
 def test_composite_output_carries_a_gradient_on_the_card(dev):
     args = _composite_buffer(dev)
     sigmas = args[2].clone().requires_grad_()
@@ -493,6 +523,37 @@ def test_hat_kernels_match_plain_versions(dev, R, rank):
     # k / (R - 1) times (R - 1) is k again for about half of the k
     on_grid = (x * (R - 1)) == torch.round(x * (R - 1))
     assert on_grid.sum() >= 16 and (dx[on_grid] == 0).all()
+
+
+@pytest.mark.parametrize("n", [1, 33, 2**16 + 5])
+@pytest.mark.parametrize("rank", [1, 6, 24, 34, 48])
+def test_hat_coordinate_gradient_at_other_ranks(dev, rank, n):
+    """G10 at ranks that are not TiNeuVox's: 16-byte loads (24, 48) and
+    masked 4-byte loads (1, 6, 34, where idle lanes of a group add 0), n
+    that leaves the last warp partly empty; coordinates over [-0.1, 1.1],
+    some on grid points.  Within 1e-5 of the largest entry, exactly 0 on
+    grid points; the same with a cotangent that is not 16-byte aligned
+    (masked loads at every rank)."""
+    R = 64
+    g = torch.Generator(device=dev).manual_seed(rank * 7 + n)
+    x = torch.rand(n, generator=g, device=dev) * 1.2 - 0.1
+    if n > 1:
+        k = min(n - 1, 16)
+        x[1 : 1 + k] = torch.randint(0, R, (k,), generator=g, device=dev) / (R - 1)
+    line = 1 + 0.1 * torch.randn((R, rank), generator=g, device=dev)
+    cot = torch.randn((n, rank), generator=g, device=dev)
+    shifted = torch.empty(n * rank + 1, device=dev)[1:].view(n, rank)
+    shifted.copy_(cot)
+    on_grid = (x * (R - 1)) == torch.round(x * (R - 1))
+    ref = hat_bwd_x_plain(x, cot, line)
+    for c in (cot, shifted):
+        n0 = cuda.LAUNCHES["hat_bwd_x"]
+        dx = hat_bwd_x(x, c, line)
+        assert cuda.LAUNCHES["hat_bwd_x"] == n0 + 1
+        torch.testing.assert_close(dx, ref, rtol=0, atol=1e-5 * float(ref.abs().max()))
+        assert bool((dx[on_grid] == 0).all())
+    if n > 33:
+        assert int(on_grid.sum()) >= 4
 
 
 @pytest.mark.parametrize("n", [1, 33, 2**16])

@@ -9,6 +9,7 @@ import torch
 
 from nerfacc_tpu.ops.sorted_segments import segment_sum_sorted as jax_segment_sum
 from nerfacc_tpu.volrend import render_weight_from_density as jax_weights
+from nerfacc_tpu.volrend import rendering as jax_rendering
 from nerfacc_tpu_torch.ops.sorted_segments import (
     composite_sorted,
     composite_sorted_backward_plain,
@@ -441,3 +442,101 @@ def test_g5_chunked_scan_order_matches_jax(case, with_prefix, jax_tol):
     if case == "hard":
         capped = valid & (sigmas * (t1 - t0) >= 40.0)
         assert capped.sum() >= 10 and (emu_s[capped] == 0).all()
+
+
+def _butterfly(v):
+    """A ``__shfl_xor_sync`` butterfly over the last axis (a power of two
+    lanes) in float32: lane l adds lane l ^ o for o = width / 2, ..., 1;
+    returns lane 0's total."""
+    v = v.astype(np.float32)
+    lane = np.arange(v.shape[-1])
+    o = v.shape[-1] // 2
+    while o:
+        v = (v + v[..., lane ^ o]).astype(np.float32)
+        o //= 2
+    return v[..., 0]
+
+
+def _g3_chunked(t0, t1, sigmas, rgbs, ss, se, prefix):
+    """Kernel G3's arithmetic order in float32: G5's chunked transmittance
+    (the two kernels share the chunk scan); per lane, running partials over
+    the chunks of w, w t_mid and, for each of the lane's three colour words
+    (word f = lane + 32 j of the chunk's 96 is component f % 3 of sample
+    f / 3), w of its sample times the word; then one butterfly per sum.
+    Returns (colours (n_rays, 3), opacities, depths (n_rays,), weights);
+    fill slots get weight 0 (their transmittance is 0)."""
+    f32 = np.float32
+    n_rays = ss.shape[0]
+    zero = np.zeros((n_rays, 3), f32)
+    _, _, trans = _g5_chunked(t0, t1, sigmas, rgbs, ss, se, zero, zero[:, :1],
+                              zero[:, :1], prefix)
+    sdt = (sigmas * (t1 - t0)).astype(f32)
+    sd = np.where(sdt > 40.0, f32(40.0), sdt)
+    w = (trans * (f32(1.0) - np.exp(-sd).astype(f32))).astype(f32)
+    t_mid = (f32(0.5) * (t0 + t1)).astype(f32)
+    words = rgbs.reshape(-1)
+    lane = np.arange(32)
+    out = np.zeros((n_rays, 5), f32)  # r, g, b, opacity, depth
+    for r in range(n_rays):
+        start, end = int(ss[r]), int(se[r])
+        part = np.zeros((5, 32), f32)
+        for base in range(start, end + 1, 32):
+            i = base + lane
+            valid = i <= end
+            wl = np.where(valid, w[np.minimum(i, end)], f32(0.0))
+            part[3] += wl
+            part[4] += (wl * t_mid[np.minimum(i, end)]).astype(f32)
+            for j in range(3):
+                f = lane + 32 * j
+                live = base + f // 3 <= end
+                p = np.where(live, w[np.minimum(base + f // 3, end)]
+                             * words[np.minimum(3 * base + f, 3 * end + 2)], f32(0.0))
+                part[f % 3, lane] += p.astype(f32)
+        out[r] = _butterfly(part)
+    return out[:, :3], out[:, 3], out[:, 4], w
+
+
+# As for G5: past the cap JAX's reference is itself only within ~1e-3, so
+# the chunked order is held to 1e-5 against a float64 oracle there and to
+# JAX's 1e-3 against JAX.
+@pytest.mark.parametrize("case,with_prefix,jax_tol", [
+    ("lengths", False, 1e-5), ("lengths", True, 1e-5),
+    ("hard", False, 1e-3), ("hard", True, 1e-3),
+])
+def test_g3_chunked_scan_order_matches_jax(case, with_prefix, jax_tol):
+    """Kernel G3's order (G5's chunk scan, per-lane partials, one butterfly),
+    emulated in float32, against JAX's ``rendering`` (unnormalised depths)
+    and a float64 oracle: colours and opacities within the tolerance, depths
+    and weights within it times their largest entry."""
+    ids, t0, t1, sigmas, rgbs, ss, se = _chunk_buffer(case)
+    n_rays = ss.shape[0]
+    valid = ids < n_rays
+    prefix = None
+    if with_prefix:
+        prefix = np.random.default_rng(24).uniform(0.2, 1.0, n_rays).astype(np.float32)
+    colors, opac, depth, w = _g3_chunked(t0, t1, sigmas, rgbs, ss, se, prefix)
+
+    def field(*_):
+        return jnp.asarray(rgbs), jnp.asarray(sigmas)
+
+    ref_c, ref_o, ref_d, extras = jax_rendering(
+        jnp.asarray(t0), jnp.asarray(t1), ray_indices=jnp.asarray(ids), n_rays=n_rays,
+        rgb_sigma_fn=field, expected_depths=False, masks=jnp.asarray(valid),
+    )
+    ref_w = np.asarray(extras["weights"])
+    if prefix is not None:  # the prefix scales each ray's weights and sums
+        pt = prefix[np.minimum(ids, n_rays - 1)]
+        ref_c, ref_o, ref_d = (np.asarray(a) * prefix[:, None] for a in (ref_c, ref_o, ref_d))
+        ref_w = ref_w * pt
+    w64, acc64 = _oracle(ids, t0, t1, sigmas, rgbs, n_rays, prefix)
+    jax_ref = (np.asarray(ref_c), np.asarray(ref_o)[:, 0], np.asarray(ref_d)[:, 0], ref_w)
+    oracle = (acc64[:, :3], acc64[:, 3], acc64[:, 4], w64)
+    for want, tol in ((jax_ref, jax_tol), (oracle, 1e-5)):
+        np.testing.assert_allclose(colors, want[0], rtol=0, atol=tol)
+        np.testing.assert_allclose(opac, want[1], rtol=0, atol=tol)
+        np.testing.assert_allclose(depth, want[2], rtol=0, atol=tol * np.abs(want[2]).max())
+        np.testing.assert_allclose(w[valid], want[3][valid], rtol=0,
+                                   atol=tol * np.abs(want[3]).max())
+    assert (w[~valid] == 0).all()
+    bound = np.ones(n_rays, np.float32) if prefix is None else prefix
+    assert (opac <= bound + 1e-6).all()
