@@ -12,7 +12,9 @@ It builds the CUDA kernels from ``nerfacc_tpu_torch/csrc`` and runs:
    PyTorch twin on the card at the slice's shapes, timed with CUDA events
    (G2 and G3 also on a 2048-ray train batch at the trainer's near planes,
    G3 on that batch cut at the 2^18 budget, and alone by
-   ``torch.profiler``);
+   ``torch.profiler``); G1 bitwise, at every level of the CP field on
+   uniform coordinates and on that cut batch's sample midpoints, and at
+   every level of ``CPDensityField`` on the proposal field's points;
    1b. the backward kernels (G4 CP level, G5 composite) likewise, and at
    the train steps' shapes: G5 on the CP train buffer (that batch cut at the
    2^18 budget), G4 on the proposal field's coordinates in ray order (4096
@@ -20,7 +22,8 @@ It builds the CUDA kernels from ``nerfacc_tpu_torch/csrc`` and runs:
    1c. the hash-encode kernels (G6 forward, G7 table gradient) at the NGP
    field's full width (2^18 points, 16 levels, 2^19 rows per level), with
    ``F.embedding_bag`` and ``index_add_`` timed on the precomputed corner
-   rows as the library's gather and scatter stages;
+   rows as the library's gather and scatter stages, and G7 again on the NGP
+   train step's sample positions in ray order;
 2. the serving slice: ``NGPOccTrainer`` with the full-width
    ``CPRadianceField`` (resolutions 32/128/512, rank 32, bf16), parameters
    from seed 42, four dense refreshes of the 128^3 occupancy grid, then
@@ -124,7 +127,7 @@ from nerfacc_tpu_torch.estimators.prop_net import (  # noqa: E402
 from nerfacc_tpu_torch.grid import march, march_plain  # noqa: E402
 from nerfacc_tpu_torch.models.cp_field import CPDensityField, CPRadianceField  # noqa: E402
 from nerfacc_tpu_torch.models.encoders import HashGridEncoder  # noqa: E402
-from nerfacc_tpu_torch.models.ngp import NGPRadianceField  # noqa: E402
+from nerfacc_tpu_torch.models.ngp import NGPRadianceField, normalize_points  # noqa: E402
 from nerfacc_tpu_torch.models.tineuvox import TiNeuVoxRadianceField  # noqa: E402
 from nerfacc_tpu_torch.ops import cp_level as cp_level_ops  # noqa: E402
 from nerfacc_tpu_torch.ops.coarse_occ import (  # noqa: E402
@@ -181,8 +184,8 @@ G2_TRAIN_RAYS = 2048  # phase 1: a CP train batch, at the trainer's near planes
 FLIP_ALLOWANCE = 1e-3  # share of rays whose sample count may differ
 # Rays whose count differed from the twin under the earlier design of G2
 # (one thread per ray, walking from the near plane): 0 on both grids in every
-# earlier chip_smoke.py run and in scripts/time_march_hat.py on that tree
-# (PERF.md §6).  The warp-per-ray design evaluates the same rounded
+# earlier chip_smoke.py run and in scripts/time_kernels.py's G2 rows on that
+# tree (PERF.md §6).  The warp-per-ray design evaluates the same rounded
 # operations per candidate, so it may differ on no more rays.
 PARENT_G2_RAYS_DIFFER = 0
 HAT_TRAIN_N = 2**16  # phase 1d: the TiNeuVox train step's sample budget
@@ -365,7 +368,7 @@ def phase_kernels(dev, trainer, state, ds):
     report = {}
     g = torch.Generator(device=dev).manual_seed(0)
 
-    # G1: every level of the field, both compute dtypes
+    # G1: every level of the field, both compute dtypes, bitwise
     worst, g1_ms, g1_plain_ms = 0.0, None, None
     u = torch.rand((G1_N, 3), generator=g, device=dev)
     for line in trainer.field.encoder.lines:
@@ -375,11 +378,16 @@ def phase_kernels(dev, trainer, state, ds):
             ref = cp_level_encode_plain(u, line, dtype)
             err = float((out - ref).abs().max())
             scale = float(ref.abs().max())
+            n_unequal = int((out.view(torch.int32) != ref.view(torch.int32)).sum())
             require(err <= 1e-5 * scale, f"G1 R={R} {dtype}: err {err} scale {scale}")
+            require(n_unequal == 0, f"G1 R={R} {dtype}: {n_unequal} entries unequal")
             ms = cuda_ms(lambda: cp_level_encode(u, line, dtype))
             plain = cuda_ms(lambda: cp_level_encode_plain(u, line, dtype))
             print(f"G1 cp_level R={R} {str(dtype)[6:]}: max_abs_err={err:.3g} "
-                  f"(scale {scale:.3g}) kernel {ms:.4f} ms, twin {plain:.4f} ms")
+                  f"(scale {scale:.3g}, {n_unequal} of {out.numel()} entries unequal) "
+                  f"kernel {ms:.4f} ms, alone "
+                  f"{device_ms(lambda: cp_level_encode(u, line, dtype)):.4f} ms, twin "
+                  f"{plain:.4f} ms")
             worst = max(worst, err)
             if R == 512 and dtype == torch.bfloat16:
                 g1_ms, g1_plain_ms, g1_bytes = ms, plain, nbytes(u, line, out)
@@ -610,6 +618,34 @@ def phase_kernels(dev, trainer, state, ds):
               f" ms, alone "
               f"{device_ms(lambda: cp_level_backward(u_prop, cot_prop, lines_prop, dtype)):.4f}"
               f" ms")
+
+    # G1 on ray-ordered coordinates, bitwise: the CP train buffer's sample
+    # midpoints (normalised to the AABB and clamped, as CPGridEncoder does)
+    # at every level of the CP field, and the proposal field's points at
+    # every level of CPDensityField (seeded tables)
+    ids = ts.ray_indices.long()
+    o_t, d_t = targs[0], targs[1]
+    mids = o_t[ids] + (0.5 * (ts.t_starts + ts.t_ends))[:, None] * d_t[ids]
+    u_train = ((mids - lo) / (hi - lo)).clamp(0.0, 1.0).contiguous()
+    density = CPDensityField(AABB).encoder
+    levels = [("CP train buffer", u_train, line) for line in trainer.field.encoder.lines]
+    levels += [("proposal field", u_prop,
+                1 + 0.1 * torch.randn((3, R, rank), generator=g, device=dev))
+               for R, rank in zip(density.resolutions, density.ranks)]
+    for name, u_ray, line in levels:
+        _, R, rank = line.shape
+        for dtype in (torch.float32, torch.bfloat16):
+            out = cp_level_encode(u_ray, line, dtype)
+            ref = cp_level_encode_plain(u_ray, line, dtype)
+            n_unequal = int((out.view(torch.int32) != ref.view(torch.int32)).sum())
+            require(n_unequal == 0,
+                    f"G1 {name} ray order R={R} {dtype}: {n_unequal} entries unequal")
+            print(f"G1 cp_level, {name} in ray order, N = {u_ray.shape[0]}, (R, rank) = "
+                  f"({R}, {rank}), {str(dtype)[6:]}: {n_unequal} of {out.numel()} entries "
+                  f"unequal, kernel {cuda_ms(lambda: cp_level_encode(u_ray, line, dtype)):.4f}"
+                  f" ms, alone "
+                  f"{device_ms(lambda: cp_level_encode(u_ray, line, dtype)):.4f} ms, bound "
+                  f"{bound_ms(nbytes(u_ray, line, out), 0):.4f} ms")
     return report
 
 
@@ -688,9 +724,45 @@ def phase_hash_kernels(dev):
     )
     r = report["hash_bwd"]
     print(f"G7 hash_bwd N={HASH_N} L={L} T={T}: max_abs_err={err:.3g} (scale "
-          f"{scale:.3g}), kernel {r['ms']:.4f} ms, twin {r['plain_ms']:.4f} ms, "
-          f"bound {r['bound_ms']:.4f} ms; index_add_ on the precomputed rows "
-          f"and updates (scatter stage only) {r['library_ms']:.4f} ms")
+          f"{scale:.3g}), kernel {r['ms']:.4f} ms, alone "
+          f"{device_ms(lambda: hash_encode_backward(x, cot, (L, T, 2), res)):.4f} ms, "
+          f"twin {r['plain_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms; index_add_ on "
+          f"the precomputed rows and updates (scatter stage only) "
+          f"{r['library_ms']:.4f} ms, alone "
+          f"{device_ms(lambda: acc.index_add_(0, rows.reshape(-1), upd)):.4f} ms")
+
+    # G7 on the NGP train step's positions in ray order: a train batch of
+    # G2_TRAIN_RAYS rays at the trainer's near planes, marched on the
+    # full-width NGP trainer's grid after N_REFRESH dense refreshes and cut at
+    # the budget, the sample midpoints mapped to [0, 1]^3 as the field maps
+    # them (unclamped); neighbouring samples share corner rows
+    ngp = make_trainer(dev, "ngp")
+    occ = refreshed_state(ngp).occ_state
+    batch = train_loader(dev, "ngp")[0]
+    o = batch["rays_o"][:G2_TRAIN_RAYS].contiguous()
+    d = batch["rays_d"][:G2_TRAIN_RAYS].contiguous()
+    near = ngp.near_plane + torch.rand(G2_TRAIN_RAYS, generator=g, device=dev) * (
+        ngp.render_step_size)
+    s = compact_samples(march(o, d, occ.binaries, occ.aabbs, near,
+                              torch.full_like(near, ngp.far_plane), ngp.render_step_size),
+                        TRAIN["ngp"][2])
+    ids = s.ray_indices.long()
+    pts = o[ids] + (0.5 * (s.t_starts + s.t_ends))[:, None] * d[ids]
+    x_ray = normalize_points(pts, torch.tensor(AABB, device=dev), False)[0].contiguous()
+    cot_ray = torch.randn((x_ray.shape[0], 2 * L), generator=g, device=dev)
+    out = hash_encode_backward(x_ray, cot_ray, (L, T, 2), res)
+    ref = hash_encode_backward_plain(x_ray, cot_ray, (L, T, 2), res)
+    err, scale = float((out - ref).abs().max()), float(ref.abs().max())
+    require(err <= 1e-5 * scale, f"G7 ray order: err {err} scale {scale}")
+    level0 = hash_corners_plain(x_ray, res[:1], T)[0][:, 0, 0]
+    same = float((level0[1:] == level0[:-1]).float().mean())
+    print(f"G7 hash_bwd, NGP train step's positions in ray order, N={x_ray.shape[0]} "
+          f"({same:.3f} of samples on the previous sample's level-0 row): "
+          f"{err / scale:.3g} of the largest entry, kernel "
+          f"{cuda_ms(lambda: hash_encode_backward(x_ray, cot_ray, (L, T, 2), res)):.4f} ms, "
+          f"alone "
+          f"{device_ms(lambda: hash_encode_backward(x_ray, cot_ray, (L, T, 2), res)):.4f} ms, "
+          f"bound {bound_ms(nbytes(x_ray, cot_ray, out), 0):.4f} ms")
     return report
 
 

@@ -25,6 +25,7 @@ from nerfacc_tpu_torch.ops.cp_level import (
     cp_level_encode_plain,
 )
 from nerfacc_tpu_torch.ops.hash_encode import (
+    hash_corners_plain,
     hash_encode,
     hash_encode_backward,
     hash_encode_backward_plain,
@@ -78,6 +79,41 @@ def test_cp_level_kernel_matches_twin(dev, R, dtype):
     out = cp_level_encode(u, lines, dtype)
     assert cuda.LAUNCHES["cp_level_fwd"] == n0 + 1
     torch.testing.assert_close(out, cp_level_encode_plain(u, lines, dtype), rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("rank,n", [(16, 5003), (32, 5003), (32, 2**16), (6, 4099),
+                                    (34, 129), (1, 33), (200, 65)])
+@pytest.mark.parametrize("layout", ["march", "proposal"])
+def test_cp_level_kernel_at_other_ranks_on_ray_ordered_coordinates(dev, rank, n, layout):
+    """G1 bitwise against the plain version where a sample's group of lanes
+    takes four columns a lane by 16-byte loads (ranks 16 and 32) or by masked
+    4-byte loads (6, 34, 1, 200; 200 loops over column chunks), at sample
+    counts that leave a group or a warp partly empty, on ray-ordered
+    coordinates with long runs of samples on one row and some at 0 and 1."""
+    u = _ray_ordered_u(dev, n, layout, rank + n)
+    g = torch.Generator(device=dev).manual_seed(rank)
+    for R in (16, 64, 512):
+        lines = 1 + 0.1 * torch.randn((3, R, rank), generator=g, device=dev)
+        for dtype in (torch.float32, torch.bfloat16):
+            n0 = cuda.LAUNCHES["cp_level_fwd"]
+            out = cp_level_encode(u, lines, dtype)
+            assert cuda.LAUNCHES["cp_level_fwd"] == n0 + 1
+            ref = cp_level_encode_plain(u, lines, dtype)
+            assert torch.equal(out.view(torch.int32), ref.view(torch.int32))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cp_level_kernel_on_a_misaligned_table(dev, dtype):
+    """A table 4 bytes off a 16-byte boundary takes the masked 4-byte loads:
+    still bitwise equal to the plain version."""
+    g = torch.Generator(device=dev).manual_seed(11)
+    u = _ray_ordered_u(dev, 3001, "march", 11)
+    flat = 1 + 0.1 * torch.randn(3 * 128 * 32 + 1, generator=g, device=dev)
+    lines = flat[1:].view(3, 128, 32)
+    assert lines.is_contiguous() and lines.data_ptr() % 16 != 0
+    out = cp_level_encode(u, lines, dtype)
+    ref = cp_level_encode_plain(u, lines, dtype)
+    assert torch.equal(out.view(torch.int32), ref.view(torch.int32))
 
 
 @pytest.mark.parametrize("m,cone_angle", [(1, 0.0), (2, 0.0), (2, 0.004)])
@@ -220,11 +256,13 @@ def test_cp_level_backward_refuses_a_table_past_shared_memory(dev):
     assert cuda.LAUNCHES["cp_level_bwd"] == n0
 
 
-def _ray_ordered_u(dev, n, layout, seed):
+def _ray_ordered_u(dev, n, layout, seed, clamp=True):
     """Encoder coordinates in the ray order of a train step: rays from
     cameras at radius 4 through the AABB [-1.5, 1.5]^3, points normalised and
-    clamped to [0, 1] (so some sit exactly at 0 and 1).  ``proposal``: 128
-    uniform samples per ray over [2, 6]; ``march``: samples 5e-3 apart."""
+    clamped to [0, 1] (so some sit exactly at 0 and 1; ``clamp=False``
+    leaves the points before and past the box outside [0, 1]).
+    ``proposal``: 128 uniform samples per ray over [2, 6]; ``march``:
+    samples 5e-3 apart."""
     rng = np.random.default_rng(seed)
     per_ray = 128 if layout == "proposal" else 400
     n_rays = -(-n // per_ray)
@@ -237,8 +275,10 @@ def _ray_ordered_u(dev, n, layout, seed):
     else:
         t = 2.6 + 5e-3 * np.arange(per_ray)
     pts = (o[:, None] + t[None, :, None] * d[:, None]).reshape(-1, 3)[:n]
-    u = np.clip((pts + 1.5) / 3.0, 0.0, 1.0).astype(np.float32)
-    return torch.tensor(u, device=dev)
+    u = (pts + 1.5) / 3.0
+    if clamp:
+        u = np.clip(u, 0.0, 1.0)
+    return torch.tensor(u.astype(np.float32), device=dev)
 
 
 @pytest.mark.parametrize("R,rank,layout", [
@@ -463,6 +503,61 @@ def test_hash_encode_kernels_match_twins(dev, levels, log2_t):
     torch.testing.assert_close(out, ref, rtol=0, atol=1e-6 * float(ref.abs().max()))
     ref = hash_encode_backward_plain(x, cot, table.shape, res)
     torch.testing.assert_close(g_table, ref, rtol=0, atol=1e-5 * float(ref.abs().max()))
+
+
+@pytest.mark.parametrize("levels,log2_t", [(16, 19), (16, 8), (3, 12)])
+@pytest.mark.parametrize("n", [2**15 + 7, 4099])
+def test_hash_table_gradient_on_ray_ordered_positions(dev, levels, log2_t, n):
+    """G7 on a train step's positions in ray order (runs of neighbouring
+    samples on one corner row, merged in the warp before the atomic), the
+    points before and past the box outside [0, 1]^3, at the NGP width (16
+    levels: res 16, whose cube of corner cells a block stages in shared
+    memory, and res 23 onwards, which go to global atomics), with a table of
+    2^8 rows (corners of many cells collide after the mask) and one of 3
+    levels; G6 beside it within its 1e-6.  G7 within 1e-5 (atomic order)."""
+    # the cloud widened about its centre, so that the rays' ends leave the box
+    x = (_ray_ordered_u(dev, n, "march", levels + n, clamp=False) - 0.5) * 1.2 + 0.5
+    assert bool(((x < 0) | (x > 1)).any()) and bool(((x > 0) & (x < 1)).all(1).any())
+    g = torch.Generator(device=dev).manual_seed(log2_t)
+    res = HashGridEncoder(n_levels=levels, log2_hashmap_size=log2_t).resolutions
+    assert res[0] == 16
+    table = torch.rand((levels, 1 << log2_t, 2), generator=g, device=dev) * 2 - 1
+    cot = torch.randn((n, 2 * levels), generator=g, device=dev)
+    n0 = dict(cuda.LAUNCHES)
+    out = hash_encode_forward(x, table, res)
+    g_table = hash_encode_backward(x, cot, table.shape, res)
+    assert cuda.LAUNCHES["hash_fwd"] == n0["hash_fwd"] + 1
+    assert cuda.LAUNCHES["hash_bwd"] == n0["hash_bwd"] + 1
+    ref = hash_encode_plain(x, table, res)
+    torch.testing.assert_close(out, ref, rtol=0, atol=1e-6 * float(ref.abs().max()))
+    ref = hash_encode_backward_plain(x, cot, table.shape, res)
+    torch.testing.assert_close(g_table, ref, rtol=0, atol=1e-5 * float(ref.abs().max()))
+
+
+def test_hash_table_gradient_keeps_nan_and_sums_a_cell_of_many(dev):
+    """Every sample in one cell of level 0 (one run across every warp, and one
+    staged cell a block, over four blocks): the sums within 1e-5 of the
+    largest entry of an f64 sum of the same f32 products (the plain
+    version's own f32 sum of 12,293 terms a row strays ~1e-5 of it, so it is
+    no reference here); a NaN in the cotangent reaches its rows as in the
+    plain version."""
+    n = 3 * 4096 + 5
+    res = HashGridEncoder(n_levels=2, log2_hashmap_size=10).resolutions
+    g = torch.Generator(device=dev).manual_seed(5)
+    x = 0.5 + 0.01 * torch.rand((n, 3), generator=g, device=dev)
+    cot = torch.randn((n, 4), generator=g, device=dev)
+    g_table = hash_encode_backward(x, cot, (2, 1024, 2), res)
+    idx, w = hash_corners_plain(x, res, 1024)
+    rows = (idx + 1024 * torch.arange(2, device=dev)[None, :, None]).reshape(-1)
+    upd = (w[..., None] * cot.reshape(n, 2, 1, 2)).reshape(-1, 2)
+    ref = torch.zeros((2048, 2), dtype=torch.float64, device=dev).index_add_(
+        0, rows, upd.double()).reshape(2, 1024, 2)
+    torch.testing.assert_close(g_table.double(), ref, rtol=0,
+                               atol=1e-5 * float(ref.abs().max()))
+    cot[n // 2, 0] = float("nan")
+    g_table = hash_encode_backward(x, cot, (2, 1024, 2), res)
+    ref = hash_encode_backward_plain(x, cot, (2, 1024, 2), res)
+    assert torch.equal(g_table.isnan(), ref.isnan())
 
 
 def test_hash_encode_carries_the_table_gradient_on_the_card(dev):
