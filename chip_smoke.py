@@ -22,8 +22,9 @@ It builds the CUDA kernels from ``nerfacc_tpu_torch/csrc`` and runs:
    1c. the hash-encode kernels (G6 forward, G7 table gradient) at the NGP
    field's full width (2^18 points, 16 levels, 2^19 rows per level), with
    ``F.embedding_bag`` and ``index_add_`` timed on the precomputed corner
-   rows as the library's gather and scatter stages, and G7 again on the NGP
-   train step's sample positions in ray order;
+   rows as the library's gather and scatter stages, and both again on the
+   NGP train step's sample positions in ray order, G6 also on the dense
+   refresh's 2^21 points in cell order (G6 bitwise at each);
 2. the serving slice: ``NGPOccTrainer`` with the full-width
    ``CPRadianceField`` (resolutions 32/128/512, rank 32, bf16), parameters
    from seed 42, four dense refreshes of the 128^3 occupancy grid, then
@@ -71,7 +72,10 @@ It builds the CUDA kernels from ``nerfacc_tpu_torch/csrc`` and runs:
 Phase 1d holds the hat kernels G8 (forward), G9 (table gradient) and G10
 (coordinate gradient) against their plain versions at N = 2^18 on each of
 TiNeuVox's levels (R = 32, 128, 512), with 1% of the coordinates outside
-[0, 1] and some on grid points, timed at R = 512, rank 32, with
+[0, 1] and some on grid points, and G8's launch for one whole CP level
+(three axes and their product, as ``CPGridEncoder(use_pallas=True)`` runs
+it) bitwise beside its one-axis launches, timed against the per-axis
+sequence it replaced; all timed at R = 512, rank 32, with
 ``F.embedding_bag`` and ``index_add_`` timed on the precomputed taps as the
 library's gather and scatter stages; G9 must give the same bits in two calls;
 G9 and G10 are also timed at each level at the TiNeuVox train step's 2^16
@@ -154,6 +158,8 @@ from nerfacc_tpu_torch.ops.hat_matmul import (  # noqa: E402
     hat_bwd_x_plain,
     hat_fwd,
     hat_interp_matmul_plain,
+    hat_level_fwd,
+    hat_level_plain,
     hat_taps,
 )
 from nerfacc_tpu_torch.ops import sorted_segments  # noqa: E402
@@ -291,12 +297,17 @@ def device_ms(fn, reps=10):
     ctypes call, ~0.05 ms); this is the kernels' own share."""
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    us = sum(e.time_range.end - e.time_range.start
-             for e in prof.events() if e.device_type == DeviceType.CUDA)
+    # a profile that recorded fewer device events than calls lost some of
+    # them (seen on the card): take it again
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+        if len(kernels) >= reps:
+            break
+    us = sum(e.time_range.end - e.time_range.start for e in kernels)
     return us / reps / 1e3
 
 
@@ -673,15 +684,13 @@ def phase_hash_kernels(dev):
     w = w.reshape(-1, 8).contiguous()
     touched = int(torch.unique(rows).numel())
 
-    # G6: the twin emulates each fused multiply-add in f64 and rounds once
-    # to f32, which can differ from the kernel's single rounding in the last
-    # bit where the f64 sum lands on an f32 tie (double rounding): hence
-    # 1e-6 of the largest entry, with the count of unequal entries printed
+    # G6: the plain version rounds each fused multiply-add once, as the
+    # kernel does, so the two are bitwise equal
     out = hash_encode_forward(x, table, res)
     ref = hash_encode_plain(x, table, res)
     err, scale = float((out - ref).abs().max()), float(ref.abs().max())
     unequal = int((out != ref).sum())
-    require(err <= 1e-6 * scale, f"G6: err {err} scale {scale}")
+    require(unequal == 0, f"G6: {unequal} entries unequal, err {err} scale {scale}")
     flat = table.reshape(-1, 2)
     bag = torch.nn.functional.embedding_bag(
         rows, flat, mode="sum", per_sample_weights=w
@@ -701,7 +710,9 @@ def phase_hash_kernels(dev):
     r = report["hash_fwd"]
     print(f"G6 hash_fwd N={HASH_N} L={L} T={T}: max_abs_err={err:.3g} (scale "
           f"{scale:.3g}, {unequal} of {out.numel()} entries unequal), kernel "
-          f"{r['ms']:.4f} ms, twin {r['plain_ms']:.4f} ms; {touched} table rows "
+          f"{r['ms']:.4f} ms, alone "
+          f"{device_ms(lambda: hash_encode_forward(x, table, res)):.4f} ms, "
+          f"twin {r['plain_ms']:.4f} ms; {touched} table rows "
           f"touched, bound {r['bound_ms']:.4f} ms; embedding_bag on the "
           f"precomputed rows (gather stage only) {r['library_ms']:.4f} ms, "
           f"max_abs_err {bag_err:.3g}")
@@ -750,6 +761,21 @@ def phase_hash_kernels(dev):
     pts = o[ids] + (0.5 * (s.t_starts + s.t_ends))[:, None] * d[ids]
     x_ray = normalize_points(pts, torch.tensor(AABB, device=dev), False)[0].contiguous()
     cot_ray = torch.randn((x_ray.shape[0], 2 * L), generator=g, device=dev)
+    # G6 on those positions and on the dense refresh's points, one jittered
+    # point per cell of the 128^3 grid in the refresh's cell order
+    ids = torch.arange(128**3, device=dev)
+    cells = torch.stack([ids // 128**2, (ids // 128) % 128, ids % 128], -1).float()
+    x_refresh = (cells + torch.rand((128**3, 3), generator=g, device=dev)) / 128
+    for what, xs in (("NGP train step's positions in ray order", x_ray),
+                     ("dense refresh's points in cell order", x_refresh)):
+        out = hash_encode_forward(xs, table, res)
+        unequal = int((out != hash_encode_plain(xs, table, res)).sum())
+        require(unequal == 0, f"G6 on the {what}: {unequal} entries unequal")
+        print(f"G6 hash_fwd, {what}, N={xs.shape[0]}: {unequal} of {out.numel()} entries "
+              f"unequal, kernel {cuda_ms(lambda: hash_encode_forward(xs, table, res)):.4f} "
+              f"ms, alone {device_ms(lambda: hash_encode_forward(xs, table, res)):.4f} ms, "
+              f"bound {bound_ms(nbytes(xs, out), 0):.4f} ms (x and the output alone)")
+    del x_refresh, out
     out = hash_encode_backward(x_ray, cot_ray, (L, T, 2), res)
     ref = hash_encode_backward_plain(x_ray, cot_ray, (L, T, 2), res)
     err, scale = float((out - ref).abs().max()), float(ref.abs().max())
@@ -862,6 +888,37 @@ def phase_hat_kernels(dev):
               f"grid points")
         worst["hat_bwd_line"] = max(worst["hat_bwd_line"], err9)
         worst["hat_bwd_x"] = max(worst["hat_bwd_x"], err10)
+
+    # G8's launch for one CP level, at each level: three axes' coordinates
+    # drawn as above, the product bitwise against the per-axis plain
+    # composition, the axes it keeps for the backward bitwise against the
+    # one-axis launches, timed against the per-axis sequence the encoder ran
+    # before (three column copies, three one-axis launches, two products)
+    for R, rank in HAT_LEVELS:
+        x3 = torch.stack([hat_inputs(g, R, rank)[0] for _ in range(3)], dim=1)
+        lines3 = 1.0 + 0.1 * torch.randn((3, R, rank), generator=g, device=dev)
+        ref, ref_axes = hat_level_plain(x3, lines3)
+        prod, axes = hat_level_fwd(x3, lines3, True)
+        unequal = int((prod != ref).sum()) + int((axes != ref_axes).sum())
+        unequal += int((hat_level_fwd(x3, lines3, False)[0] != ref).sum())
+        for i in range(3):
+            unequal += int((hat_fwd(x3[:, i], lines3[i]) != axes[i]).sum())
+        require(unequal == 0, f"G8 level R={R}: {unequal} entries differ")
+
+        def per_axis():
+            prod = hat_fwd(x3[:, 0], lines3[0])
+            for i in (1, 2):
+                prod = prod * hat_fwd(x3[:, i], lines3[i])
+            return prod
+
+        level_ms = device_ms(lambda: hat_level_fwd(x3, lines3, False))
+        print(f"G8 one CP level R={R} rank={rank} N={HAT_N}: 0 of {4 * prod.numel()} "
+              f"entries unequal (product and axes; the one-axis launches agree); one "
+              f"launch alone {level_ms:.4f} ms, with the axes kept "
+              f"{device_ms(lambda: hat_level_fwd(x3, lines3, True)):.4f} ms; the per-axis "
+              f"sequence alone {device_ms(per_axis):.4f} ms; by events "
+              f"{cuda_ms(lambda: hat_level_fwd(x3, lines3, False)):.4f} ms against "
+              f"{cuda_ms(per_axis):.4f} ms; bound {bound_ms(nbytes(x3, lines3, prod), 0):.4f} ms")
 
     # timed at the last level; the taps for the library calls: two rows and
     # bf16 weights per point

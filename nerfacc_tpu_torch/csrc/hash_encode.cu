@@ -30,13 +30,26 @@
 // bytes the function itself must move (x, the output or cotangent, the table
 // rows it touches) are ~100 MiB, ~30 us at 3.35 TB/s.
 //
-// G6: one thread per (sample, level), the level fastest, so a warp covers two
-// samples x 16 levels: the x loads are broadcasts and the float2 stores of a
-// warp are one contiguous 256-byte run.  The eight hashes and weights stay in
-// registers; each corner's F = 2 row is one float2 load.  It sums the corners
-// in the order c = 0..7 with explicitly rounded intrinsics, so it is bitwise
-// equal to the PyTorch twin (nerfacc_tpu_torch/ops/hash_encode.py).
-//
+// G6: level groups.  Its parent design (one thread per (sample, level), the
+// level fastest, a warp on two samples x 16 levels) kept all sixteen 4 MiB
+// level slices live at once, more than L2 holds, so most corner loads were
+// 32-byte sector misses for 8 useful bytes.  Here:
+// - a block takes kPass = 64 consecutive samples at a group of kGroup = 4
+//   consecutive levels, kGroup lanes a sample (the level fastest), and the
+//   blocks are numbered group-major, so the blocks resident at once read one
+//   or two groups' slices (16-32 MiB), which stay in L2; a sample's four
+//   float2 outputs are bytes 32 g .. 32 g + 31 of its output row, one whole
+//   sector, written by one warp;
+// - the x prime is 1, so a cell with even x index has its dx = 0 and dx = 1
+//   corners on one row pair (2 m, 2 m + 1): one 16-byte load for both.
+// The eight hashes and weights stay in registers (56 a thread, no spills).
+// It sums the corners in the order c = 0..7 with explicitly rounded
+// intrinsics, so it is bitwise equal to the PyTorch twin
+// (nerfacc_tpu_torch/ops/hash_encode.py), which rounds each fused
+// multiply-add once.  Measured on an H100 (PERF.md, the findings on G6):
+// groups of two and of one levels were slower (more passes over x, sectors
+// written in pieces), as were one thread a sample looping over its group's
+// levels, level 0 gathered into shared memory, and loads that skip L1.
 // G7: level-major, with merged updates.  Its parent design (one thread per
 // (sample, level), the level fastest, eight float2 atomics each) kept all
 // sixteen 4 MiB level slices of the gradient live at once, more than L2
@@ -107,24 +120,64 @@ __device__ __forceinline__ Corners corners(const float* __restrict__ x,
   return c;
 }
 
-__global__ void hash_fwd_kernel(const float* __restrict__ x,
-                                const float2* __restrict__ table,
-                                const float* __restrict__ res,
-                                float2* __restrict__ out, int64_t n, int L,
-                                int log2T) {
-  const int64_t idx = blockIdx.x * (int64_t)blockDim.x + threadIdx.x;
-  if (idx >= n * L) return;
-  const int64_t s = idx / L;
-  const int l = (int)(idx - s * L);
+constexpr int kThreads = 256;  // G6
+constexpr int kGroup = 4;      // G6: levels a block takes
+constexpr int kPass = kThreads / kGroup;  // G6: samples a block takes
+
+// The eight corner rows of one (sample, level), corners dx-major.  With
+// `pairs`, corners k and k + 4 of a cell with even x index lie on one row
+// pair (2 m, 2 m + 1) (the x prime is 1), so the pair of corner k is one
+// 16-byte load that holds corner k + 4 too; a cell with odd x index loads
+// corner k + 4 on its own.  Every load is issued before any result is used
+// (the odd cells' loads are predicated, not behind a branch).
+__device__ __forceinline__ void corner_rows(const float2* __restrict__ table,
+                                            const Corners& c, bool pairs,
+                                            float2 (&v)[8]) {
+  if (!pairs) {
+#pragma unroll
+    for (int k = 0; k < 8; ++k) v[k] = __ldg(table + c.row[k]);
+    return;
+  }
+  const float4* t4 = reinterpret_cast<const float4*>(table);
+  const bool odd = c.i0[0] & 1;
+  float4 p[4];
+  float2 o[4];
+#pragma unroll
+  for (int k = 0; k < 4; ++k) p[k] = __ldg(t4 + (c.row[k] >> 1));
+#pragma unroll
+  for (int k = 0; k < 4; ++k) o[k] = odd ? __ldg(table + c.row[k + 4]) : make_float2(0.0f, 0.0f);
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    const bool hi = c.row[k] & 1u;
+    v[k] = hi ? make_float2(p[k].z, p[k].w) : make_float2(p[k].x, p[k].y);
+    v[k + 4] = odd ? o[k] : (hi ? make_float2(p[k].x, p[k].y) : make_float2(p[k].z, p[k].w));
+  }
+}
+
+// Block b takes levels kGroup g .. kGroup g + kGroup - 1, g = b / per_group,
+// of kPass consecutive samples, kGroup lanes a sample (the level fastest):
+// the blocks are numbered group-major, so the blocks resident at once read
+// one or two groups' table slices, and a sample's kGroup float2 outputs are
+// one 32-byte sector written by one warp.
+__global__ void __launch_bounds__(kThreads) hash_fwd_kernel(
+    const float* __restrict__ x, const float2* __restrict__ table,
+    const float* __restrict__ res, float2* __restrict__ out, int64_t n, int L,
+    int log2T, int per_group, bool pairs) {
+  const int grp = blockIdx.x / per_group;
+  const int64_t s = (int64_t)(blockIdx.x - grp * per_group) * kPass + threadIdx.x / kGroup;
+  const int l = grp * kGroup + (int)(threadIdx.x % kGroup);
+  if (s >= n || l >= L) return;
   const Corners c = corners(x, res, s, l, log2T);
+  float2 v[8];
+  corner_rows(table, c, pairs, v);
+  // one chain of fused multiply-adds per feature, corners in order
   float a0 = 0.0f, a1 = 0.0f;
 #pragma unroll
   for (int k = 0; k < 8; ++k) {
-    const float2 v = table[c.row[k]];
-    a0 = __fmaf_rn(c.w[k], v.x, a0);
-    a1 = __fmaf_rn(c.w[k], v.y, a1);
+    a0 = __fmaf_rn(c.w[k], v[k].x, a0);
+    a1 = __fmaf_rn(c.w[k], v[k].y, a1);
   }
-  out[idx] = make_float2(a0, a1);
+  out[s * L + l] = make_float2(a0, a1);
 }
 
 // Adds lane + d's v into this lane's where `take`.
@@ -182,7 +235,6 @@ __device__ __forceinline__ void add_half(float4& a, uint32_t row, float2 v) {
   }
 }
 
-constexpr int kThreads = 256;       // G6
 constexpr int kBwdThreads = 512;    // G7
 constexpr int kBwdSamples = 4096;   // consecutive samples a G7 block takes
 // Shared memory a G7 block may stage a level's cube of corner cells in: res
@@ -281,10 +333,14 @@ extern "C" int hash_fwd(const void* x, const void* table, const void* res,
                         void* out, int64_t n, int L, int log2T, void* stream) {
   if (n == 0) return (int)cudaSuccess;
   if (!shape_ok(L, log2T)) return (int)cudaErrorInvalidValue;
-  const int64_t blocks = (n * L + kThreads - 1) / kThreads;
+  const int64_t per_group = (n + kPass - 1) / kPass;
+  const int64_t blocks = per_group * ((L + kGroup - 1) / kGroup);
+  if (blocks > 0x7fffffff) return (int)cudaErrorInvalidValue;
+  // 16-byte row pairs need an even row count (T > 1) and an aligned table
+  const bool pairs = log2T > 0 && (uintptr_t)table % 16 == 0;
   hash_fwd_kernel<<<(unsigned)blocks, kThreads, 0, (cudaStream_t)stream>>>(
       (const float*)x, (const float2*)table, (const float*)res, (float2*)out, n,
-      L, log2T);
+      L, log2T, (int)per_group, pairs);
   return (int)cudaGetLastError();
 }
 

@@ -41,12 +41,26 @@
 // give.
 //
 // Bounds on this card: device-memory traffic.  G8 writes 4 rank bytes per
-// sample, G9 and G10 read as many; the (R, rank) table (64 KiB at R = 512,
-// rank 32) stays in L2 and L1.
+// sample and axis (and a level's product), G9 and G10 read as many; the
+// (R, rank) table (64 KiB at R = 512, rank 32) stays in L2 and L1.
 //
-// Designs.  G8: one thread per output element (n, r), as G1: at rank 32 a
-// warp is one sample, its row loads and its store are single 128-byte
-// transactions.  G9: a scatter of 2 N taps into R rows, which on the TPU is a
+// Designs.  G8: one kernel, instantiated for one table (kAxes = 1, the
+// counterpart of the TPU kernel) and for one CP level (kAxes = 3: x (N, 3)
+// read in place, the three axes' interpolants and their product
+// (a_0 a_1) a_2 in one launch, the axes written only where a backward needs
+// them).  Each sample takes a group of lanes, ceil(rank / 4) rounded up to a
+// power of two (4 at rank 16, 8 at rank 32); lane c reads columns 4 c ..
+// 4 c + 3 of the two tap rows by one 16-byte load each and writes one
+// 16-byte store (masked 4-byte paths at other ranks or alignments); the taps
+// are computed once per sample and the sample index is a block and lane
+// split, with no division.  The tables stay in L1 and L2: staging them in
+// shared memory as bf16 by a persistent grid made the level launch slower
+// on an H100 at every TiNeuVox shape timed but one tie (PERF.md, the
+// findings on G8).  Its parent design, one thread per output element, paid
+// a 64-bit division, the taps again for each rank column and 4-byte loads
+// and stores, and the encoder around it a column copy and a launch per axis
+// and two product launches per level.
+// G9: a scatter of 2 N taps into R rows, which on the TPU is a
 // dense (R, BLK) x (BLK, rank) product per block of samples.  Here a
 // persistent grid of 1024-thread blocks (as many as the SMs hold with the
 // block's shared memory, at most one per tile) walks tiles of samples.  A
@@ -116,20 +130,6 @@ __device__ __forceinline__ Taps taps(float x, int R) {
   t.dw0 = slope(d0);
   t.dw1 = i1 < R ? slope(d1) : 0.0f;
   return t;
-}
-
-__global__ void hat_fwd_kernel(const float* __restrict__ x,
-                               const float* __restrict__ line,
-                               float* __restrict__ out, int64_t n, int R,
-                               int rank) {
-  const int64_t idx = blockIdx.x * (int64_t)blockDim.x + threadIdx.x;
-  if (idx >= n * rank) return;
-  const int64_t s = idx / rank;
-  const int r = (int)(idx - s * rank);
-  const Taps t = taps(x[s], R);
-  const float l0 = round_bf16(line[(int64_t)t.i0 * rank + r]);
-  const float l1 = round_bf16(line[(int64_t)t.i1 * rank + r]);
-  out[idx] = __fadd_rn(__fmul_rn(t.w0, l0), __fmul_rn(t.w1, l1));
 }
 
 // G9's block: 32 warps; each thread stages kStage cotangent floats of a tile.
@@ -312,6 +312,120 @@ __device__ __forceinline__ void load_cols(const float* __restrict__ row,
   }
 }
 
+// Columns col .. col + 3 of one output row: one 16-byte store (kVec), else
+// one store per column inside the rank.
+template <bool kVec>
+__device__ __forceinline__ void store_cols(float* __restrict__ row, int col,
+                                           int rank, const float (&v)[kXCols]) {
+  if constexpr (kVec) {
+    *reinterpret_cast<float4*>(row + col) = make_float4(v[0], v[1], v[2], v[3]);
+  } else {
+#pragma unroll
+    for (int k = 0; k < kXCols; ++k)
+      if (col + k < rank) row[col + k] = v[k];
+  }
+}
+
+// G8.  kAxes = 1: one table, x (n,), out = a_0.  kAxes = 3: one CP level,
+// x (n, 3), lines (3, R, rank), out = (a_0 a_1) a_2, and with kKeep also
+// a_0, a_1, a_2 into axes (3, n, rank).  A warp takes 32 / kCw samples,
+// one to each group of kCw lanes; lane c of a group takes columns 4 c ..
+// 4 c + 3, then every 4 kCw further.  Each lane computes its sample's taps
+// once.
+template <int kAxes, int kCw, bool kVec, bool kKeep>
+__global__ void __launch_bounds__(kXThreads) hat_fwd_kernel(
+    const float* __restrict__ x, const float* __restrict__ lines,
+    float* __restrict__ out, float* __restrict__ axes, int64_t n, int R,
+    int rank) {
+  const int lane = threadIdx.x & 31;
+  const int c = lane & (kCw - 1);
+  const int64_t s =
+      ((int64_t)blockIdx.x * (kXThreads / 32) + threadIdx.x / 32) * (32 / kCw) +
+      lane / kCw;
+  if (s >= n) return;
+  const int64_t table = (int64_t)R * rank;
+  Taps t[kAxes];
+#pragma unroll
+  for (int a = 0; a < kAxes; ++a) t[a] = taps(x[s * kAxes + a], R);
+  for (int col = kXCols * c; col < rank; col += kXCols * kCw) {
+    float f[kAxes][kXCols];
+#pragma unroll
+    for (int a = 0; a < kAxes; ++a) {
+      const float* line = lines + a * table;
+      float l0[kXCols], l1[kXCols];
+      load_cols<kVec>(line + (int64_t)t[a].i0 * rank, col, rank, l0);
+      load_cols<kVec>(line + (int64_t)t[a].i1 * rank, col, rank, l1);
+#pragma unroll
+      for (int k = 0; k < kXCols; ++k)
+        f[a][k] = __fadd_rn(__fmul_rn(t[a].w0, l0[k]), __fmul_rn(t[a].w1, l1[k]));
+    }
+    if constexpr (kAxes == 1) {
+      store_cols<kVec>(out + s * rank, col, rank, f[0]);
+    } else {
+      float prod[kXCols];
+#pragma unroll
+      for (int k = 0; k < kXCols; ++k)
+        prod[k] = __fmul_rn(__fmul_rn(f[0][k], f[1][k]), f[2][k]);
+      store_cols<kVec>(out + s * rank, col, rank, prod);
+      if constexpr (kKeep) {
+#pragma unroll
+        for (int a = 0; a < kAxes; ++a)
+          store_cols<kVec>(axes + (a * n + s) * rank, col, rank, f[a]);
+      }
+    }
+  }
+}
+
+template <int kAxes, int kCw>
+cudaError_t launch_fwd(const float* x, const float* lines, float* out,
+                       float* axes, int64_t n, int R, int rank, bool vec,
+                       cudaStream_t st) {
+  constexpr int64_t per_block = (int64_t)(kXThreads / 32) * (32 / kCw);
+  const int64_t blocks = (n + per_block - 1) / per_block;
+  if (blocks > 0x7fffffff) return cudaErrorInvalidValue;
+  const unsigned grid = (unsigned)blocks;
+  const bool keep = kAxes == 3 && axes != nullptr;
+  if (keep && vec)
+    hat_fwd_kernel<kAxes, kCw, true, kAxes == 3><<<grid, kXThreads, 0, st>>>(
+        x, lines, out, axes, n, R, rank);
+  else if (keep)
+    hat_fwd_kernel<kAxes, kCw, false, kAxes == 3><<<grid, kXThreads, 0, st>>>(
+        x, lines, out, axes, n, R, rank);
+  else if (vec)
+    hat_fwd_kernel<kAxes, kCw, true, false><<<grid, kXThreads, 0, st>>>(
+        x, lines, out, axes, n, R, rank);
+  else
+    hat_fwd_kernel<kAxes, kCw, false, false><<<grid, kXThreads, 0, st>>>(
+        x, lines, out, axes, n, R, rank);
+  return cudaGetLastError();
+}
+
+template <int kAxes>
+cudaError_t hat_fwd_axes(const void* x, const void* lines, void* out,
+                         void* axes, int64_t n, int R, int rank, void* stream) {
+  if (n == 0) return cudaSuccess;
+  // row offsets are 32-bit within a table
+  if (R < 1 || rank < 1 || (int64_t)R * rank > 0x7fffffff) return cudaErrorInvalidValue;
+  // lanes a sample: ceil(rank / 4) rounded up to a power of two, at most 32
+  int cw = 1;
+  while (kXCols * cw < rank && cw < 32) cw *= 2;
+  const bool vec = rank % kXCols == 0 &&
+                   ((uintptr_t)lines | (uintptr_t)out | (uintptr_t)axes) % 16 == 0;
+  const float* px = (const float*)x;
+  const float* pl = (const float*)lines;
+  float* po = (float*)out;
+  float* pa = (float*)axes;
+  cudaStream_t st = (cudaStream_t)stream;
+  switch (cw) {
+    case 1: return launch_fwd<kAxes, 1>(px, pl, po, pa, n, R, rank, vec, st);
+    case 2: return launch_fwd<kAxes, 2>(px, pl, po, pa, n, R, rank, vec, st);
+    case 4: return launch_fwd<kAxes, 4>(px, pl, po, pa, n, R, rank, vec, st);
+    case 8: return launch_fwd<kAxes, 8>(px, pl, po, pa, n, R, rank, vec, st);
+    case 16: return launch_fwd<kAxes, 16>(px, pl, po, pa, n, R, rank, vec, st);
+    default: return launch_fwd<kAxes, 32>(px, pl, po, pa, n, R, rank, vec, st);
+  }
+}
+
 // Each sample takes a group of cw lanes (a power of two, at most 32); lane c
 // of the group takes columns 4 c .. 4 c + 3, then every 4 cw further.
 template <bool kVec>
@@ -360,12 +474,16 @@ __global__ void __launch_bounds__(kXThreads) hat_bwd_x_kernel(
 // x (n,), line (R, rank) f32; out (n, rank) f32.
 extern "C" int hat_fwd(const void* x, const void* line, void* out, int64_t n,
                        int R, int rank, void* stream) {
-  if (n == 0) return (int)cudaSuccess;
-  const int threads = 256;
-  const int64_t blocks = (n * rank + threads - 1) / threads;
-  hat_fwd_kernel<<<(unsigned)blocks, threads, 0, (cudaStream_t)stream>>>(
-      (const float*)x, (const float*)line, (float*)out, n, R, rank);
-  return (int)cudaGetLastError();
+  return (int)hat_fwd_axes<1>(x, line, out, nullptr, n, R, rank, stream);
+}
+
+// One CP level: x (n, 3), lines (3, R, rank) f32; prod (n, rank) f32, the
+// product (a_0 a_1) a_2 of the three axes' interpolants; axes (3, n, rank)
+// f32 receives a_0, a_1 and a_2, or is null.
+extern "C" int hat_level_fwd(const void* x, const void* lines, void* prod,
+                             void* axes, int64_t n, int R, int rank,
+                             void* stream) {
+  return (int)hat_fwd_axes<3>(x, lines, prod, axes, n, R, rank, stream);
 }
 
 // x (n,), g (n, rank) f32; partials: scratch of max_blocks (R, rank) f32

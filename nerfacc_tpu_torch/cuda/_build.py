@@ -54,6 +54,8 @@ _SIGNATURES = {
     "hash_bwd": [_P] * 4 + [ctypes.c_int64, _I, _I, _P],
     # (x, line, out, n, R, rank, stream)
     "hat_fwd": [_P] * 3 + [ctypes.c_int64, _I, _I, _P],
+    # (x, lines, prod, axes, n, R, rank, stream)
+    "hat_level_fwd": [_P] * 4 + [ctypes.c_int64, _I, _I, _P],
     # (x, g, partials, dline, n, R, rank, max_blocks, stream)
     "hat_bwd_line": [_P] * 4 + [ctypes.c_int64, _I, _I, _I, _P],
     # (x, g, line, dx, n, R, rank, stream)

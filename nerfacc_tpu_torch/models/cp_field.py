@@ -5,11 +5,11 @@ Per resolution level, each axis has a line table (R, rank); a point's level
 feature is the elementwise product of the three axes' linearly interpolated
 rows, and the levels are concatenated.  Each level runs through
 :func:`~nerfacc_tpu_torch.ops.cp_level.cp_level_encode` (kernels G1/G4 on
-the card, no coordinate gradient), or with ``use_pallas=True`` through three
-per-axis :func:`~nerfacc_tpu_torch.ops.hat_matmul.hat_interp_matmul` calls
-(kernels G8-G10, with a coordinate gradient).  Only the line levels are
-ported; tri-plane levels, tensor parallelism and the TPU layout options are
-not.  :class:`CPDensityField` is the proposal path's density-only field.
+the card, no coordinate gradient), or with ``use_pallas=True`` through
+:func:`~nerfacc_tpu_torch.ops.hat_matmul.hat_cp_level` (the hat route: one
+launch of kernel G8 a level, G9 and G10 per axis, with a coordinate
+gradient).  Only the line levels are ported; tri-plane levels, tensor
+parallelism and the TPU layout options are not.  :class:`CPDensityField` is the proposal path's density-only field.
 """
 from __future__ import annotations
 
@@ -19,7 +19,7 @@ import torch
 from torch import nn
 
 from ..ops.cp_level import cp_level_encode
-from ..ops.hat_matmul import hat_interp_matmul
+from ..ops.hat_matmul import hat_cp_level
 from .ngp import MLPField, _mlp_apply, _mlp_init, _weights, normalize_points, trunc_exp
 
 
@@ -34,8 +34,9 @@ class CPGridEncoder(nn.Module):
             is exact f32.
         use_pallas: the JAX encoder's name for its per-axis hat-matmul
             route: each level is ``(a_x * a_y) * a_z`` with
-            ``a = hat_interp_matmul(u[:, axis], line[axis])``, always bf16
-            operands with f32 sums, differentiable in ``u`` too.  False (the
+            ``a = hat_interp_matmul(u[:, axis], line[axis])``, taken in one
+            launch (:func:`~nerfacc_tpu_torch.ops.hat_matmul.hat_cp_level`),
+            always bf16 operands with f32 sums, differentiable in ``u`` too.  False (the
             default) runs the fused CP level, which gives ``u`` no gradient.
     """
 
@@ -80,15 +81,8 @@ class CPGridEncoder(nn.Module):
                 [cp_level_encode(x, line, self.compute_dtype) for line in self.lines],
                 dim=-1,
             )
-        feats = []
-        for line in self.lines:
-            # JAX's product order, so that autograd's cotangents g * other
-            # are the same f32 products before the kernels round them
-            prod = hat_interp_matmul(x[:, 0], line[0])
-            for axis in (1, 2):
-                prod = prod * hat_interp_matmul(x[:, axis], line[axis])
-            feats.append(prod)
-        return torch.cat(feats, dim=-1)
+        # one launch a level, (a_x * a_y) * a_z in JAX's order
+        return torch.cat([hat_cp_level(x, line) for line in self.lines], dim=-1)
 
     def param_regularizer(self, lines: Optional[Sequence[torch.Tensor]] = None):
         """Total variation of the line tables: the mean squared difference of

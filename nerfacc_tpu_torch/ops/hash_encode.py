@@ -41,6 +41,7 @@ from typing import Dict, Sequence, Tuple
 import torch
 
 from .. import cuda
+from ..utils.fp import fma_f32
 
 # tcnn's spatial hash primes (public constants)
 PRIMES = (1, 2654435761, 805459861)
@@ -102,20 +103,18 @@ def hash_encode_plain(
         resolutions: per-level resolutions (length L).
 
     Returns:
-        (N, L*F) features, corners summed by fused multiply-adds in the
-        order c = 0..7.
+        (N, L*F) features in the table's dtype, corners summed in the order
+        c = 0..7, in f32 by fused multiply-adds each rounded once
+        (:func:`fma_f32`).
     """
     L, T, F = table.shape
     idx, w = hash_corners_plain(x, resolutions, T)
     rows = table.reshape(L * T, F)[_flat_rows(idx, T)]  # (N, L, 8, F)
     acc = torch.zeros((x.shape[0], L, F), dtype=table.dtype, device=x.device)
-    # acc = fma(w_c, row_c, acc): the f32 product is exact in f64, so one
-    # rounding of the f64 sum to f32 is the fused multiply-add
-    wide = torch.float64
+    f32 = table.dtype == torch.float32
     for c in range(8):
-        acc = (
-            w[:, :, c, None].to(wide) * rows[:, :, c, :].to(wide) + acc.to(wide)
-        ).to(table.dtype)
+        w_c, row_c = w[:, :, c, None], rows[:, :, c, :]
+        acc = fma_f32(w_c, row_c, acc) if f32 else w_c * row_c + acc
     return acc.reshape(x.shape[0], L * F)
 
 

@@ -21,6 +21,12 @@ has two nonzeros, so every version here reads two table rows per sample.
 
 This is the one op of the port whose coordinates receive a gradient: the
 TiNeuVox field's deformation network learns only through ``dx``.
+
+:func:`hat_cp_level` takes one CP level of such a field at once: for points
+``x`` (N, 3) and tables ``lines`` (3, R, rank) it gives
+``(a_0 * a_1) * a_2`` with ``a_i = hat_interp_matmul(x[:, i], lines[i])``,
+the JAX encoder's order, from one launch of G8 (the kernel's three-axis
+instance), and its gradients through G9 and G10 per axis.
 """
 from __future__ import annotations
 
@@ -60,6 +66,24 @@ def hat_interp_matmul_plain(x: torch.Tensor, line: torch.Tensor) -> torch.Tensor
     i0, i1, w0, w1, _, _ = hat_taps(x, line.shape[0])
     table = _round_bf16(line)
     return w0[:, None] * table[i0] + w1[:, None] * table[i1]
+
+
+def hat_level_plain(x: torch.Tensor, lines: torch.Tensor, keep_axes: bool = True):
+    """PyTorch version of G8's three-axis instance, on any device: the
+    per-axis :func:`hat_interp_matmul_plain` composed in JAX's order.
+
+    Args:
+        x: (N, 3) f32 coordinates.
+        lines: (3, R, rank) f32 tables of one CP level.
+        keep_axes: also return the three axes' interpolants.
+
+    Returns:
+        ``prod`` (N, rank) ``(a_0 * a_1) * a_2``, and ``axes`` (3, N, rank)
+        holding a_0, a_1 and a_2, or None where ``keep_axes`` is False.
+    """
+    a = [hat_interp_matmul_plain(x[:, i], lines[i]) for i in range(3)]
+    prod = (a[0] * a[1]) * a[2]
+    return prod, torch.stack(a) if keep_axes else None
 
 
 def hat_bwd_line_plain(x: torch.Tensor, g: torch.Tensor, R: int) -> torch.Tensor:
@@ -115,6 +139,32 @@ def hat_fwd(x: torch.Tensor, line: torch.Tensor) -> torch.Tensor:
     cuda.check(err, "hat_fwd")
     cuda.LAUNCHES["hat_fwd"] += 1
     return out
+
+
+def hat_level_fwd(x: torch.Tensor, lines: torch.Tensor, keep_axes: bool):
+    """One CP level in one launch of kernel G8 for CUDA tensors,
+    :func:`hat_level_plain` for CPU tensors; same contract, bitwise equal.
+    Without ``keep_axes`` the kernel writes the product alone."""
+    if not cuda.on_card(x, lines):
+        return hat_level_plain(x, lines, keep_axes)
+    if x.dtype != torch.float32 or lines.dtype != torch.float32:
+        raise TypeError("hat_matmul: x and lines must be f32")
+    if x.ndim != 2 or x.shape[1] != 3 or lines.ndim != 3 or lines.shape[0] != 3:
+        raise ValueError(
+            f"hat_matmul: x {tuple(x.shape)}, lines {tuple(lines.shape)}: "
+            "want (N, 3) and (3, R, rank)"
+        )
+    x, lines = x.contiguous(), lines.contiguous()
+    n, (_, R, rank) = x.shape[0], lines.shape
+    prod = torch.empty((n, rank), dtype=torch.float32, device=x.device)
+    axes = torch.empty((3, n, rank), dtype=torch.float32, device=x.device) if keep_axes else None
+    err = cuda.load().hat_level_fwd(
+        cuda.ptr(x), cuda.ptr(lines), cuda.ptr(prod), cuda.ptr(axes), n, R, rank,
+        cuda.stream_ptr(x),
+    )
+    cuda.check(err, "hat_level_fwd")
+    cuda.LAUNCHES["hat_fwd"] += 1
+    return prod, axes
 
 
 def hat_bwd_line(x: torch.Tensor, g: torch.Tensor, R: int) -> torch.Tensor:
@@ -183,3 +233,41 @@ def hat_interp_matmul(x: torch.Tensor, line: torch.Tensor) -> torch.Tensor:
     tensors; the plain versions on CPU tensors.  Any other device, or a
     mix, raises."""
     return _HatInterp.apply(x, line)
+
+
+class _HatLevel(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, lines):
+        prod, axes = hat_level_fwd(x, lines, keep_axes=True)
+        ctx.save_for_backward(x, lines, axes)
+        return prod
+
+    @staticmethod
+    def backward(ctx, g):
+        x, lines, (a0, a1, a2) = ctx.saved_tensors
+        # the cotangents autograd of (a0 * a1) * a2 forms
+        g01 = g * a2
+        cots = (g01 * a1, g01 * a0, g * (a0 * a1))
+        want_x, want_lines = ctx.needs_input_grad[:2]
+        dx = dlines = None
+        if want_x:
+            dx = torch.stack(
+                [hat_bwd_x(x[:, i], cots[i], lines[i]) for i in range(3)], dim=1
+            )
+        if want_lines:
+            R = lines.shape[1]
+            dlines = torch.stack([hat_bwd_line(x[:, i], cots[i], R) for i in range(3)])
+        return dx, dlines
+
+
+def hat_cp_level(x: torch.Tensor, lines: torch.Tensor) -> torch.Tensor:
+    """One CP level of the hat route, ``(N, 3) points x (3, R, rank) lines ->
+    (N, rank)`` ``(a_0 * a_1) * a_2``: one launch of kernel G8 on CUDA
+    tensors, differentiable in both (G9 per axis for the tables, G10 per
+    axis for the points, each only where asked for), with the same bits as
+    the per-axis :func:`hat_interp_matmul` composition.  Where no gradient
+    is wanted (grad mode off, or neither input requires one) the kernel
+    writes the product alone and nothing is saved."""
+    if torch.is_grad_enabled() and (x.requires_grad or lines.requires_grad):
+        return _HatLevel.apply(x, lines)
+    return hat_level_fwd(x, lines, keep_axes=False)[0]

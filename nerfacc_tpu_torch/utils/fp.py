@@ -13,8 +13,28 @@ import math
 import torch
 
 
+class _Fma(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, a, b, c):
+        ctx.save_for_backward(a, b)
+        ctx.shapes = a.shape, b.shape, c.shape
+        return _fma_f32(a, b, c)
+
+    @staticmethod
+    def backward(ctx, g):
+        a, b = ctx.saved_tensors
+        sa, sb, sc = ctx.shapes
+        need = ctx.needs_input_grad
+        return (
+            (g * b).sum_to_size(sa) if need[0] else None,
+            (g * a).sum_to_size(sb) if need[1] else None,
+            g.sum_to_size(sc) if need[2] else None,
+        )
+
+
 def fma_f32(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
-    """``a * b + c`` for f32 tensors (broadcast), rounded once to f32.
+    """``a * b + c`` for f32 tensors (broadcast), rounded once to f32, with
+    the gradients of ``a * b + c`` where autograd asks for them.
 
     The product of two f32 values is exact in f64, and TwoSum gives the f64
     sum ``s`` and its exact error ``e``.  Rounding ``s`` to f32 is then the
@@ -22,6 +42,12 @@ def fma_f32(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
     between two f32 values and ``e`` is not 0: the sign of ``e`` breaks that
     tie.
     """
+    if torch.is_grad_enabled() and (a.requires_grad or b.requires_grad or c.requires_grad):
+        return _Fma.apply(a, b, c)
+    return _fma_f32(a, b, c)
+
+
+def _fma_f32(a, b, c):
     a, b, c = torch.broadcast_tensors(a, b, c)
     p = a.double() * b.double()
     cd = c.double()

@@ -4,7 +4,7 @@ paths give them.
 
 Run from the root of a checkout:
 
-    python3 scripts/time_kernels.py [G1 G2 G3 G4 G5 G7 G9 G10] [--root DIR] [--label NAME] [--out build/time_kernels]
+    python3 scripts/time_kernels.py [G1 G2 G3 G4 G5 G6 G7 G8 G9 G10] [--root DIR] [--label NAME] [--out build/time_kernels]
 
 The positional arguments pick the kernels (all of these by default).
 ``--root`` names the tree whose ``nerfacc_tpu_torch`` is imported and built
@@ -12,10 +12,10 @@ The positional arguments pick the kernels (all of these by default).
 one call, in turns, e.g. with an older commit unpacked by ``git archive``
 into a git-ignored directory:
 
-    python3 scripts/time_kernels.py G1 G7 --root build/parent --label parent
-    python3 scripts/time_kernels.py G1 G7 --label change
-    python3 scripts/time_kernels.py G1 G7 --label change
-    python3 scripts/time_kernels.py G1 G7 --root build/parent --label parent
+    python3 scripts/time_kernels.py G6 G8 --root build/parent --label parent
+    python3 scripts/time_kernels.py G6 G8 --label change
+    python3 scripts/time_kernels.py G6 G8 --label change
+    python3 scripts/time_kernels.py G6 G8 --root build/parent --label parent
 
 The shapes:
 
@@ -46,6 +46,28 @@ The shapes:
   AABB and clamped, as ``CPGridEncoder`` does) at (32, 32), (128, 32),
   (512, 32); the proposal field's points (4096 train rays x 128 stratified
   samples over [2, 6], N = 2^19) at (16, 16) and (64, 16).
+- G6 (hash encode forward) at the NGP field's width (16 levels, T = 2^19),
+  a seeded table in [-1, 1]: N = 2^18 uniform in [0, 1]^3 with 1% of the
+  points pushed up to 0.1 outside (``chip_smoke.py``'s phase 1c); the NGP
+  train step's positions in ray order (as G7's below); the dense refresh's
+  2^21 points, one jittered point per cell of the 128^3 grid in the
+  refresh's cell order (as G1's); the NGP eval chunk: the middle 8192 rays
+  of test view 0 marched with near plane 0 on the full-width NGP trainer's
+  grid after four dense refreshes, every sample kept, the sample midpoints
+  mapped to [0, 1]^3 over the AABB (unclamped).  Error: the count of
+  entries unequal to the plain version; beside it ``embedding_bag`` on the
+  precomputed corner rows and weights (the gather stage alone) and the
+  bound over x, the output and the table rows the call touches.
+- G8 (hat forward): the one-axis kernel at N = 2^18, (R, rank) = (512, 32),
+  and at TiNeuVox's levels (32, 16), (128, 16), (512, 32) at N = 2^16 (the
+  train step's budget) and 2^21 (the refresh, about an eval chunk), uniform
+  coordinates, beside ``embedding_bag`` on the precomputed taps (the gather
+  stage alone); and one CP level of ``CPGridEncoder(use_pallas=True)`` at
+  those levels and sizes, with grad off and on (points and tables requiring
+  one; forward alone, and forward and backward): ``hat_cp_level`` where the
+  tree has it, else the per-axis sequence its encoder ran (column copies,
+  three one-axis launches, two products).  Error: entries unequal to the
+  per-axis plain composition.
 - G7 (hash table gradient) at the NGP field's width (16 levels, T = 2^19):
   N = 2^18 uniform in [0, 1]^3 with 1% of the points pushed up to 0.1
   outside (``chip_smoke.py``'s phase 1c); and the NGP train step's
@@ -83,6 +105,8 @@ AABB = [-1.5, -1.5, -1.5, 1.5, 1.5, 1.5]
 HBM_BYTES_PER_S = 3.35e12
 HAT_LEVELS = ((32, 16), (128, 16), (512, 32))
 HAT_X_SHAPES = ((2**18, 512, 32), (2**16, 32, 16), (2**16, 128, 16), (2**16, 512, 32))
+G8_SIZES = (2**16, 2**21)  # the TiNeuVox train step's budget; the refresh
+G8_AXIS_N = 2**18  # PERF.md's earlier G8 row
 
 
 def cuda_ms(fn, reps=20):
@@ -104,12 +128,17 @@ def device_ms(fn, reps=20):
     """Mean device time of the kernels of one call, from torch.profiler."""
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    us = sum(e.time_range.end - e.time_range.start
-             for e in prof.events() if e.device_type == DeviceType.CUDA)
+    # a profile that recorded fewer device events than calls lost some of
+    # them (seen on the card): take it again
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+        if len(kernels) >= reps:
+            break
+    us = sum(e.time_range.end - e.time_range.start for e in kernels)
     return us / reps / 1e3
 
 
@@ -168,9 +197,56 @@ def train_midpoints(dev, kind, g):
     s = compact_samples(march(o, d, occ.binaries, occ.aabbs, near, far, step), 2**18)
     ids = s.ray_indices.long()
     mids = o[ids] + (0.5 * (s.t_starts + s.t_ends))[:, None] * d[ids]
-    lo = torch.tensor(AABB[:3], device=dev)
-    hi = torch.tensor(AABB[3:], device=dev)
-    return ((mids - lo) / (hi - lo)).contiguous(), (occ, step, o, d, near, far, s, train)
+    return to_unit(mids), (occ, step, o, d, near, far, s, train)
+
+
+def to_unit(pts):
+    """World points mapped to [0, 1]^3 over the AABB (unclamped)."""
+    lo = torch.tensor(AABB[:3], device=pts.device)
+    hi = torch.tensor(AABB[3:], device=pts.device)
+    return ((pts - lo) / (hi - lo)).contiguous()
+
+
+def refresh_points(dev, g):
+    """The dense refresh's points: one jittered point per cell of the 128^3
+    grid, cells in the refresh's row-major order."""
+    ids = torch.arange(128**3, device=dev)
+    coords = torch.stack([ids // 128**2, (ids // 128) % 128, ids % 128], -1).float()
+    return ((coords + torch.rand((128**3, 3), generator=g, device=dev)) / 128).contiguous()
+
+
+def eval_chunk_points(dev, kind):
+    """The sample midpoints of the middle 8192 rays of test view 0, marched
+    with near plane 0 on the ``kind`` trainer's refreshed grid, every sample
+    kept, mapped to [0, 1]^3 (unclamped)."""
+    from nerfacc_tpu_torch.data.procedural import ProceduralSceneLoader
+    from nerfacc_tpu_torch.grid import march
+    from nerfacc_tpu_torch.utils.rendering import compact_samples
+
+    occ, step = refreshed_grid(dev, kind)
+    test = ProceduralSceneLoader(split="test", device=dev)[0]
+    n = test["rays_o"].shape[0]
+    mid = slice(n // 2 - 4096, n // 2 + 4096)
+    o, d = test["rays_o"][mid].contiguous(), test["rays_d"][mid].contiguous()
+    s = compact_samples(march(o, d, occ.binaries, occ.aabbs, torch.zeros(8192, device=dev),
+                              torch.full((8192,), 1e10, device=dev), step))
+    ids = s.ray_indices.long()
+    return to_unit(o[ids] + (0.5 * (s.t_starts + s.t_ends))[:, None] * d[ids])
+
+
+def g6_points(dev, g):
+    """G6's four point sets: name -> (N, 3) points."""
+    x = torch.rand((2**18, 3), generator=g, device=dev)
+    n_out = 2**18 // 100
+    below = torch.rand(n_out, generator=g, device=dev) < 0.5
+    push = 0.1 * torch.rand(n_out, generator=g, device=dev)
+    x[:n_out, 0] = torch.where(below, -push, 1.0 + push)
+    return {
+        "uniform, 1% outside": x,
+        "NGP train step, ray order": train_midpoints(dev, "ngp", g)[0],
+        "dense refresh, 128^3 cells": refresh_points(dev, g),
+        "NGP eval chunk, 8192 rays": eval_chunk_points(dev, "ngp"),
+    }
 
 
 def proposal_points(dev, train, g):
@@ -244,11 +320,7 @@ def g1_rows(inp):
 
     dev, c = inp.dev, inp.cp()
     g = torch.Generator(device=dev).manual_seed(1)
-    # the dense refresh: one jittered point per cell of the 128^3 grid, cells
-    # in the refresh's row-major order
-    ids = torch.arange(128**3, device=dev)
-    coords = torch.stack([ids // 128**2, (ids // 128) % 128, ids % 128], -1).float()
-    u_refresh = ((coords + torch.rand((128**3, 3), generator=g, device=dev)) / 128).contiguous()
+    u_refresh = refresh_points(dev, g)
     shapes = [("uniform", torch.rand((2**18, 3), generator=g, device=dev), 512, 32)]
     shapes += [("CP train buffer, ray order", c["u_train"], R, 32) for R in (32, 128, 512)]
     shapes += [("proposal field, ray order", c["u_prop"], R, 16) for R in (16, 64)]
@@ -396,6 +468,137 @@ def g5_rows(inp):
         }
 
 
+def g6_rows(inp):
+    import torch.nn.functional as F
+
+    from nerfacc_tpu_torch.models.encoders import HashGridEncoder
+    from nerfacc_tpu_torch.ops.hash_encode import (
+        hash_corners_plain,
+        hash_encode_forward,
+        hash_encode_plain,
+    )
+
+    dev = inp.dev
+    g = torch.Generator(device=dev).manual_seed(6)
+    enc = HashGridEncoder()
+    L, T, res = enc.n_levels, enc.table_size, enc.resolutions
+    table = torch.rand((L, T, 2), generator=g, device=dev) * 2.0 - 1.0
+    flat = table.reshape(-1, 2)
+    for name, x in g6_points(dev, g).items():
+        n = x.shape[0]
+        out = hash_encode_forward(x, table, res)
+        ref = hash_encode_plain(x, table, res)
+        idx, w = hash_corners_plain(x, res, T)
+        rows = (idx + T * torch.arange(L, device=dev)[None, :, None]).reshape(-1, 8)
+        w = w.reshape(-1, 8).contiguous()
+        del idx
+        touched = int(torch.unique(rows).numel())
+        row = {
+            "kernel": "G6 hash_fwd", "case": name, "N": n, "L": L, "T": T,
+            "outside_unit_cube": int(((x < 0) | (x > 1)).any(1).sum()),
+            "unequal_to_plain": unequal(out, ref), "entries": out.numel(),
+            "rows_touched": touched,
+            "ms": cuda_ms(lambda: hash_encode_forward(x, table, res)),
+            "device_ms": device_ms(lambda: hash_encode_forward(x, table, res)),
+            "plain_ms": cuda_ms(lambda: hash_encode_plain(x, table, res), reps=3),
+            "embedding_bag_ms": cuda_ms(lambda: F.embedding_bag(
+                rows, flat, mode="sum", per_sample_weights=w)),
+            "embedding_bag_device_ms": device_ms(lambda: F.embedding_bag(
+                rows, flat, mode="sum", per_sample_weights=w)),
+            # x read, the output written, each touched table row read once
+            "bound_ms": 1e3 * (nbytes(x, out) + touched * 8) / HBM_BYTES_PER_S,
+        }
+        del ref, rows, w
+        yield row
+
+
+def g8_axis_rows(g):
+    import torch.nn.functional as F
+
+    from nerfacc_tpu_torch.ops.hat_matmul import hat_fwd, hat_interp_matmul_plain, hat_taps
+
+    dev = g.device
+    shapes = [(G8_AXIS_N, 512, 32)] + [(n, R, rank) for n in G8_SIZES for R, rank in HAT_LEVELS]
+    for n, R, rank in shapes:
+        x = torch.rand(n, generator=g, device=dev)
+        line = 1 + 0.1 * torch.randn((R, rank), generator=g, device=dev)
+        out = hat_fwd(x, line)
+        ref = hat_interp_matmul_plain(x, line)
+        i0, i1, w0, w1, _, _ = hat_taps(x, R)
+        taps = torch.stack([i0, i1], dim=1)
+        w = torch.stack([w0, w1], dim=1)
+        line_b = line.to(torch.bfloat16).to(torch.float32)
+        yield {
+            "kernel": "G8 hat_fwd, one axis", "N": n, "R": R, "rank": rank,
+            "unequal_to_plain": unequal(out, ref), "entries": out.numel(),
+            "ms": cuda_ms(lambda: hat_fwd(x, line)),
+            "device_ms": device_ms(lambda: hat_fwd(x, line)),
+            "plain_ms": cuda_ms(lambda: hat_interp_matmul_plain(x, line), reps=5),
+            "embedding_bag_ms": cuda_ms(lambda: F.embedding_bag(
+                taps, line_b, mode="sum", per_sample_weights=w)),
+            "embedding_bag_device_ms": device_ms(lambda: F.embedding_bag(
+                taps, line_b, mode="sum", per_sample_weights=w)),
+            "bound_ms": bytes_bound_ms(x, line, out),
+        }
+
+
+def g8_level_rows(g):
+    from nerfacc_tpu_torch.ops import hat_matmul
+
+    dev = g.device
+    fused = getattr(hat_matmul, "hat_cp_level", None)
+
+    def level(x, lines):
+        if fused is not None:
+            return fused(x, lines)
+        # the parent's CPGridEncoder(use_pallas=True) level
+        prod = hat_matmul.hat_interp_matmul(x[:, 0], lines[0])
+        for axis in (1, 2):
+            prod = prod * hat_matmul.hat_interp_matmul(x[:, axis], lines[axis])
+        return prod
+
+    for n in G8_SIZES:
+        for R, rank in HAT_LEVELS:
+            x0 = torch.rand((n, 3), generator=g, device=dev)
+            lines0 = 1 + 0.1 * torch.randn((3, R, rank), generator=g, device=dev)
+            cot = torch.randn((n, rank), generator=g, device=dev)
+            a = [hat_matmul.hat_interp_matmul_plain(x0[:, i], lines0[i]) for i in range(3)]
+            ref = (a[0] * a[1]) * a[2]
+            for grad in (False, True):
+                x = x0.clone().requires_grad_(grad)
+                lines = lines0.clone().requires_grad_(grad)
+
+                def fwd():
+                    with torch.set_grad_enabled(grad):
+                        return level(x, lines)
+
+                def fwd_bwd():
+                    level(x, lines).backward(cot)
+
+                out = fwd()
+                row = {
+                    "kernel": "G8 hat_fwd, one CP level",
+                    "route": "hat_cp_level" if fused is not None else "per-axis",
+                    "N": n, "R": R, "rank": rank, "grad": grad,
+                    "unequal_to_plain": unequal(out.detach(), ref), "entries": out.numel(),
+                    "ms": cuda_ms(fwd), "device_ms": device_ms(fwd),
+                    # x and the tables read, the product (and with grad the
+                    # three axes' interpolants) written
+                    "bound_ms": 1e3 * (nbytes(x0, lines0) + (4 if grad else 1) * nbytes(ref))
+                    / HBM_BYTES_PER_S,
+                }
+                if grad:
+                    row["fwd_bwd_ms"] = cuda_ms(fwd_bwd)
+                    row["fwd_bwd_device_ms"] = device_ms(fwd_bwd)
+                yield row
+
+
+def g8_rows(inp):
+    g = torch.Generator(device=inp.dev).manual_seed(8)
+    yield from g8_axis_rows(g)
+    yield from g8_level_rows(g)
+
+
 def g7_rows(inp):
     from nerfacc_tpu_torch.models.encoders import HashGridEncoder
     from nerfacc_tpu_torch.ops.hash_encode import (
@@ -490,7 +693,7 @@ def g10_rows(inp):
 
 
 ROWS = {"G1": g1_rows, "G2": g2_rows, "G3": g3_rows, "G4": g4_rows, "G5": g5_rows,
-        "G7": g7_rows, "G9": g9_rows, "G10": g10_rows}
+        "G6": g6_rows, "G7": g7_rows, "G8": g8_rows, "G9": g9_rows, "G10": g10_rows}
 
 
 def main():

@@ -1,6 +1,8 @@
 """Port vs JAX: the hat-interpolation matmul (kernels G8-G10's plain
-versions against the Pallas kernels K3/K3b/K3c in interpret mode), and the
-autograd wrapper around them."""
+versions against the Pallas kernels K3/K3b/K3c in interpret mode), the
+autograd wrapper around them, and one CP level of the hat route
+(``hat_cp_level``, G8's three-axis instance) against the per-axis
+composition."""
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -8,12 +10,16 @@ import pytest
 import torch
 
 from nerfacc_tpu.ops.hat_matmul import hat_interp_matmul as jax_hat
+from nerfacc_tpu_torch.ops import hat_matmul
 from nerfacc_tpu_torch.ops.cp_level import _round_bf16
 from nerfacc_tpu_torch.ops.hat_matmul import (
     hat_bwd_line_plain,
     hat_bwd_x_plain,
+    hat_cp_level,
     hat_interp_matmul,
     hat_interp_matmul_plain,
+    hat_level_fwd,
+    hat_level_plain,
     hat_taps,
 )
 
@@ -157,3 +163,105 @@ def test_wrapper_skips_the_gradients_nobody_asked_for():
 def test_wrapper_refuses_devices_without_kernel_or_plain_version():
     with pytest.raises(ValueError):
         hat_interp_matmul(torch.zeros(4, device="meta"), torch.zeros(16, 8, device="meta"))
+
+
+def _level_inputs(R, rank, n, seed=0):
+    """One CP level's points (n, 3), each axis drawn as :func:`_inputs`
+    draws coordinates (some past either end, some on grid points), its
+    three tables (3, R, rank) near 1 and a cotangent (n, rank)."""
+    axes = [_inputs(R, rank, n, seed + 10 * a) for a in range(3)]
+    x = np.stack([a[0] for a in axes], axis=1)
+    x = x[np.random.default_rng(seed).permutation(n)]  # mix the special rows
+    lines = np.stack([a[1] for a in axes])
+    return x, lines, axes[0][2]
+
+
+def _per_axis_level(x, lines):
+    """The level as the per-axis route composes it: (a_0 * a_1) * a_2."""
+    prod = hat_interp_matmul(x[:, 0], lines[0])
+    for axis in (1, 2):
+        prod = prod * hat_interp_matmul(x[:, axis], lines[axis])
+    return prod
+
+
+# TiNeuVox's three levels, at n that are not multiples of K3's 512 block
+@pytest.mark.parametrize("R,rank,n", [(32, 16, 300), (128, 16, 1100), (512, 32, 600)])
+def test_level_plain_version_matches_jax_per_axis_composition(R, rank, n):
+    """The level's plain version against JAX's hat route: K3 (interpreted)
+    per axis, ``prod = a; prod = prod * a`` in axis order, as
+    ``CPGridEncoder(use_pallas=True)._level_encode`` composes it.  The
+    product and each axis bitwise."""
+    x, lines, _ = _level_inputs(R, rank, n)
+    jx, jl = jnp.asarray(x), jnp.asarray(lines)
+    a = [jax_hat(jx[:, i], jl[i], True) for i in range(3)]
+    prod = a[0]
+    for i in (1, 2):
+        prod = prod * a[i]
+    got, axes = hat_level_plain(torch.tensor(x), torch.tensor(lines))
+    np.testing.assert_array_equal(got.numpy(), np.asarray(prod))
+    for i in range(3):
+        np.testing.assert_array_equal(axes[i].numpy(), np.asarray(a[i]))
+
+
+@pytest.mark.parametrize("R,rank,n", [(32, 16, 300), (128, 16, 1100), (512, 32, 600)])
+def test_level_gradients_match_per_axis_autograd(R, rank, n):
+    """``hat_cp_level``'s forward and both gradients bitwise equal to
+    autograd of the per-axis ``hat_interp_matmul`` composition: its backward
+    forms the cotangents autograd of ``(a_0 * a_1) * a_2`` forms and hands
+    them to the same per-axis backward passes."""
+    x, lines, g = _level_inputs(R, rank, n, seed=1)
+    results = []
+    for level in (_per_axis_level, hat_cp_level):
+        tx = torch.tensor(x, requires_grad=True)
+        tl = torch.tensor(lines, requires_grad=True)
+        out = level(tx, tl)
+        out.backward(torch.tensor(g))
+        results.append((out.detach(), tx.grad, tl.grad))
+    for a, b in zip(*results):
+        torch.testing.assert_close(a, b, rtol=0, atol=0)
+    assert float(results[1][1].abs().max()) > 0
+
+
+def test_level_without_a_gradient_keeps_only_the_product(monkeypatch):
+    """Under ``torch.no_grad``, or with no input requiring a gradient, the
+    level asks for the product alone and saves nothing; with a gradient it
+    keeps the three axes for the backward."""
+    calls = []
+    real = hat_matmul.hat_level_fwd
+
+    def spy(x, lines, keep_axes):
+        calls.append(keep_axes)
+        return real(x, lines, keep_axes)
+
+    monkeypatch.setattr(hat_matmul, "hat_level_fwd", spy)
+    x, lines, _ = _level_inputs(32, 16, 200, seed=2)
+    tx = torch.tensor(x, requires_grad=True)
+    tl = torch.tensor(lines, requires_grad=True)
+    with torch.no_grad():
+        out = hat_cp_level(tx, tl)
+    assert out.grad_fn is None and calls == [False]
+    out = hat_cp_level(tx.detach(), tl.detach())
+    assert out.grad_fn is None and calls == [False, False]
+    out = hat_cp_level(tx, tl)
+    assert out.grad_fn is not None and calls == [False, False, True]
+    prod, axes = hat_level_fwd(tx.detach(), tl.detach(), keep_axes=False)
+    assert axes is None and torch.equal(prod, out.detach())
+
+
+def test_level_skips_the_gradients_nobody_asked_for(monkeypatch):
+    """Points without ``requires_grad`` get no gradient and the coordinate
+    kernel does not run; tables likewise."""
+    ran = []
+    for name in ("hat_bwd_x", "hat_bwd_line"):
+        real = getattr(hat_matmul, name)
+        monkeypatch.setattr(
+            hat_matmul, name, lambda *a, _r=real, _n=name: ran.append(_n) or _r(*a)
+        )
+    x, lines, g = _level_inputs(32, 16, 200, seed=3)
+    tl = torch.tensor(lines, requires_grad=True)
+    hat_cp_level(torch.tensor(x), tl).backward(torch.tensor(g))
+    assert ran == ["hat_bwd_line"] * 3 and tl.grad is not None
+    ran.clear()
+    tx = torch.tensor(x, requires_grad=True)
+    hat_cp_level(tx, torch.tensor(lines)).backward(torch.tensor(g))
+    assert ran == ["hat_bwd_x"] * 3 and float(tx.grad.abs().max()) > 0

@@ -32,14 +32,18 @@ from nerfacc_tpu_torch.ops.hash_encode import (
     hash_encode_forward,
     hash_encode_plain,
 )
+from nerfacc_tpu_torch.ops import hat_matmul
 from nerfacc_tpu_torch.ops.hat_matmul import (
     hat_bwd_line,
     hat_bwd_line_plain,
     hat_bwd_x,
     hat_bwd_x_plain,
+    hat_cp_level,
     hat_fwd,
     hat_interp_matmul,
     hat_interp_matmul_plain,
+    hat_level_fwd,
+    hat_level_plain,
 )
 from nerfacc_tpu_torch.ops.sorted_segments import (
     composite_sorted,
@@ -490,9 +494,8 @@ def _hash_inputs(dev, n=2**15, levels=16, log2_t=14):
 
 @pytest.mark.parametrize("levels,log2_t", [(16, 14), (5, 19)])
 def test_hash_encode_kernels_match_twins(dev, levels, log2_t):
-    """G6 within 1e-6 of the largest entry: the twin emulates each fused
-    multiply-add by one f64 sum rounded to f32, which double-rounds where
-    that sum lands on an f32 tie.  G7 within 1e-5 (atomic order)."""
+    """G6 bitwise: the twin rounds each fused multiply-add once, as the
+    kernel does.  G7 within 1e-5 (atomic order)."""
     x, table, cot, res = _hash_inputs(dev, levels=levels, log2_t=log2_t)
     n0 = dict(cuda.LAUNCHES)
     out = hash_encode_forward(x, table, res)
@@ -500,7 +503,7 @@ def test_hash_encode_kernels_match_twins(dev, levels, log2_t):
     assert cuda.LAUNCHES["hash_fwd"] == n0["hash_fwd"] + 1
     assert cuda.LAUNCHES["hash_bwd"] == n0["hash_bwd"] + 1
     ref = hash_encode_plain(x, table, res)
-    torch.testing.assert_close(out, ref, rtol=0, atol=1e-6 * float(ref.abs().max()))
+    assert torch.equal(out.view(torch.int32), ref.view(torch.int32))
     ref = hash_encode_backward_plain(x, cot, table.shape, res)
     torch.testing.assert_close(g_table, ref, rtol=0, atol=1e-5 * float(ref.abs().max()))
 
@@ -514,7 +517,7 @@ def test_hash_table_gradient_on_ray_ordered_positions(dev, levels, log2_t, n):
     levels: res 16, whose cube of corner cells a block stages in shared
     memory, and res 23 onwards, which go to global atomics), with a table of
     2^8 rows (corners of many cells collide after the mask) and one of 3
-    levels; G6 beside it within its 1e-6.  G7 within 1e-5 (atomic order)."""
+    levels; G6 beside it, bitwise.  G7 within 1e-5 (atomic order)."""
     # the cloud widened about its centre, so that the rays' ends leave the box
     x = (_ray_ordered_u(dev, n, "march", levels + n, clamp=False) - 0.5) * 1.2 + 0.5
     assert bool(((x < 0) | (x > 1)).any()) and bool(((x > 0) & (x < 1)).all(1).any())
@@ -529,9 +532,61 @@ def test_hash_table_gradient_on_ray_ordered_positions(dev, levels, log2_t, n):
     assert cuda.LAUNCHES["hash_fwd"] == n0["hash_fwd"] + 1
     assert cuda.LAUNCHES["hash_bwd"] == n0["hash_bwd"] + 1
     ref = hash_encode_plain(x, table, res)
-    torch.testing.assert_close(out, ref, rtol=0, atol=1e-6 * float(ref.abs().max()))
+    assert torch.equal(out.view(torch.int32), ref.view(torch.int32))
     ref = hash_encode_backward_plain(x, cot, table.shape, res)
     torch.testing.assert_close(g_table, ref, rtol=0, atol=1e-5 * float(ref.abs().max()))
+
+
+def _refresh_order_x(dev, cells, seed):
+    """One jittered point per cell of a cells^3 grid, in the dense refresh's
+    row-major cell order, 1% of them pushed up to 0.1 outside [0, 1]^3."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    ids = torch.arange(cells**3, device=dev)
+    coords = torch.stack([ids // cells**2, (ids // cells) % cells, ids % cells], -1).float()
+    x = (coords + torch.rand((cells**3, 3), generator=g, device=dev)) / cells
+    k = cells**3 // 100
+    pick = torch.randperm(cells**3, generator=g, device=dev)[:k]
+    push = 0.1 * torch.rand(k, generator=g, device=dev)
+    x[pick, 1] = torch.where(pick % 2 == 0, -push, 1.0 + push)
+    return x
+
+
+@pytest.mark.parametrize("order", ["ray", "refresh"])
+@pytest.mark.parametrize("levels,log2_t", [(16, 19), (16, 12), (5, 12), (3, 8)])
+def test_hash_encode_forward_is_bitwise_on_the_paths_orders(dev, order, levels, log2_t):
+    """G6 (level groups, row-pair loads) bitwise equal to the plain version,
+    whose corner sums are fused multiply-adds rounded once: on a train step's
+    positions in ray order and on the refresh's points in cell order, with
+    points outside [0, 1]^3 among them; at the NGP width, with a table small
+    enough that corners collide, and at level counts that leave the last
+    group part empty; n leaves the last block part empty."""
+    if order == "ray":
+        x = (_ray_ordered_u(dev, 2**15 + 7, "march", levels, clamp=False) - 0.5) * 1.2 + 0.5
+    else:
+        x = _refresh_order_x(dev, 33, levels)
+    assert bool(((x < 0) | (x > 1)).any())
+    g = torch.Generator(device=dev).manual_seed(log2_t)
+    res = HashGridEncoder(n_levels=levels, log2_hashmap_size=log2_t).resolutions
+    table = torch.rand((levels, 1 << log2_t, 2), generator=g, device=dev) * 2 - 1
+    n0 = cuda.LAUNCHES["hash_fwd"]
+    out = hash_encode_forward(x, table, res)
+    assert cuda.LAUNCHES["hash_fwd"] == n0 + 1
+    ref = hash_encode_plain(x, table, res)
+    assert torch.equal(out.view(torch.int32), ref.view(torch.int32))
+
+
+def test_hash_encode_forward_on_a_misaligned_table(dev):
+    """A table 8 bytes off a 16-byte boundary takes one 8-byte load per
+    corner in place of the row pairs: still bitwise equal."""
+    x = _refresh_order_x(dev, 24, 3)
+    res = HashGridEncoder(n_levels=16, log2_hashmap_size=12).resolutions
+    g = torch.Generator(device=dev).manual_seed(9)
+    flat = torch.rand(16 * 4096 * 2 + 2, generator=g, device=dev) * 2 - 1
+    table = flat[2:].view(16, 4096, 2)
+    assert table.is_contiguous() and table.data_ptr() % 16 != 0
+    out = hash_encode_forward(x, table, res)
+    ref = hash_encode_plain(x, table, res)
+    assert torch.equal(out.view(torch.int32), ref.view(torch.int32))
 
 
 def test_hash_table_gradient_keeps_nan_and_sums_a_cell_of_many(dev):
@@ -618,6 +673,133 @@ def test_hat_kernels_match_plain_versions(dev, R, rank):
     # k / (R - 1) times (R - 1) is k again for about half of the k
     on_grid = (x * (R - 1)) == torch.round(x * (R - 1))
     assert on_grid.sum() >= 16 and (dx[on_grid] == 0).all()
+
+
+def _level_inputs(dev, R, rank, n=2**15 + 3):
+    """Points (n, 3) over [-0.02, 1.02]^3 with some axes on grid points (0
+    and 1 among them), the level's three tables near 1 and a cotangent."""
+    g = torch.Generator(device=dev).manual_seed(R * rank + n)
+    x = torch.rand((n, 3), generator=g, device=dev) * 1.04 - 0.02
+    x[:64] = torch.randint(0, R, (64, 3), generator=g, device=dev) / (R - 1)
+    x[64:66] = torch.tensor([[0.0, 1.0, 0.5], [1.0, 0.0, 1.0]], device=dev)
+    lines = 1 + 0.1 * torch.randn((3, R, rank), generator=g, device=dev)
+    cot = torch.randn((n, rank), generator=g, device=dev)
+    return x, lines, cot
+
+
+def _per_axis_level(x, lines):
+    """The level as ``CPGridEncoder(use_pallas=True)`` composed it per axis
+    (three one-axis launches of G8), JAX's order."""
+    prod = hat_interp_matmul(x[:, 0], lines[0])
+    for axis in (1, 2):
+        prod = prod * hat_interp_matmul(x[:, axis], lines[axis])
+    return prod
+
+
+# TiNeuVox's levels; rank 24 and 6 leave lanes of a group idle, and 6 takes
+# the masked 4-byte loads and stores
+@pytest.mark.parametrize("R,rank", [(32, 16), (128, 16), (512, 32), (64, 24), (16, 6)])
+def test_hat_level_kernel_matches_plain_version(dev, R, rank):
+    """G8's three-axis instance: one launch, the product (a_0 a_1) a_2 and,
+    when kept, the three axes' interpolants, all bitwise equal to the
+    per-axis plain composition; the one-axis instance at the same shape."""
+    x, lines, _ = _level_inputs(dev, R, rank)
+    ref, ref_axes = hat_level_plain(x, lines)
+    for keep in (False, True):
+        n0 = cuda.LAUNCHES["hat_fwd"]
+        prod, axes = hat_level_fwd(x, lines, keep)
+        assert cuda.LAUNCHES["hat_fwd"] == n0 + 1
+        assert torch.equal(prod.view(torch.int32), ref.view(torch.int32))
+        if keep:
+            assert torch.equal(axes.view(torch.int32), ref_axes.view(torch.int32))
+        else:
+            assert axes is None
+    for i in range(3):
+        out = hat_fwd(x[:, i], lines[i])
+        assert torch.equal(out.view(torch.int32), ref_axes[i].view(torch.int32))
+
+
+def test_hat_level_kernel_on_a_misaligned_table(dev):
+    """Tables 4 bytes off a 16-byte boundary take the 4-byte paths."""
+    x, lines, _ = _level_inputs(dev, 128, 16, n=4099)
+    flat = torch.empty(lines.numel() + 1, device=dev)
+    shifted = flat[1:].view(lines.shape)
+    shifted.copy_(lines)
+    assert shifted.data_ptr() % 16 != 0
+    for keep in (False, True):
+        prod, _ = hat_level_fwd(x, shifted, keep)
+        assert torch.equal(prod, hat_level_plain(x, lines)[0])
+
+
+@pytest.mark.parametrize("R,rank", [(32, 16), (128, 16), (512, 32)])
+def test_hat_level_gradients_match_the_per_axis_route(dev, R, rank):
+    """Forward and both gradients of ``hat_cp_level`` bitwise equal to those
+    of the per-axis route: the same cotangents reach G9 (deterministic) and
+    G10 on the same coordinates.  One G8 launch in place of three."""
+    x0, lines0, cot = _level_inputs(dev, R, rank)
+    grads = []
+    for level, launches in ((_per_axis_level, 3), (hat_cp_level, 1)):
+        x = x0.clone().requires_grad_()
+        lines = lines0.clone().requires_grad_()
+        n0 = dict(cuda.LAUNCHES)
+        out = level(x, lines)
+        assert cuda.LAUNCHES["hat_fwd"] == n0["hat_fwd"] + launches
+        out.backward(cot)
+        assert cuda.LAUNCHES["hat_bwd_line"] == n0["hat_bwd_line"] + 3
+        assert cuda.LAUNCHES["hat_bwd_x"] == n0["hat_bwd_x"] + 3
+        grads.append((out.detach(), x.grad, lines.grad))
+    for a, b in zip(*grads):
+        assert torch.equal(a, b)
+
+
+def test_hat_level_writes_only_the_product_without_a_gradient(dev, monkeypatch):
+    """Under ``torch.no_grad``, or when neither input requires a gradient,
+    the level asks the kernel for the product alone and saves nothing."""
+    calls = []
+    real = hat_matmul.hat_level_fwd
+
+    def spy(x, lines, keep_axes):
+        calls.append(keep_axes)
+        return real(x, lines, keep_axes)
+
+    monkeypatch.setattr(hat_matmul, "hat_level_fwd", spy)
+    x, lines, _ = _level_inputs(dev, 32, 16, n=1000)
+    with torch.no_grad():
+        out = hat_cp_level(x.requires_grad_(), lines.requires_grad_())
+    assert out.grad_fn is None and calls == [False]
+    out = hat_cp_level(x.detach(), lines.detach())
+    assert out.grad_fn is None and calls == [False, False]
+    assert torch.equal(out, hat_level_plain(x.detach(), lines.detach())[0])
+
+
+def test_cp_grid_encoder_hat_route_matches_the_per_axis_route(dev):
+    """``CPGridEncoder(use_pallas=True)`` at TiNeuVox's levels: three G8
+    launches a forward, output, table gradients and the points' total
+    gradient bitwise equal to the per-axis route (autograd adds the three
+    levels' point gradients in the same order as before)."""
+    from nerfacc_tpu_torch.models.cp_field import CPGridEncoder
+
+    enc = CPGridEncoder((32, 128, 512), (16, 16, 32), use_pallas=True).to(dev)
+    enc.init(torch.Generator(device=dev).manual_seed(4))
+    g = torch.Generator(device=dev).manual_seed(5)
+    x0 = torch.rand((2**14 + 9, 3), generator=g, device=dev) * 1.1 - 0.05
+    cot = torch.randn((x0.shape[0], enc.output_dim), generator=g, device=dev)
+
+    def per_axis(x):
+        x = x.clamp(0.0, 1.0)
+        return torch.cat([_per_axis_level(x, line) for line in enc.lines], dim=-1)
+
+    results = []
+    for route, launches in ((per_axis, 9), (enc, 3)):
+        enc.zero_grad()
+        x = x0.clone().requires_grad_()
+        n0 = cuda.LAUNCHES["hat_fwd"]
+        out = route(x)
+        assert cuda.LAUNCHES["hat_fwd"] == n0 + launches
+        out.backward(cot)
+        results.append([out.detach(), x.grad] + [line.grad.clone() for line in enc.lines])
+    for a, b in zip(*results):
+        assert torch.equal(a, b)
 
 
 @pytest.mark.parametrize("n", [1, 33, 2**16 + 5])

@@ -245,3 +245,47 @@ def test_renders_a_view_that_meets_no_occupied_cell():
     colors, opacities, depths, n_samples = trainer.render_rays(trainer.init_state(), data)
     assert n_samples == 0 and colors.shape == (64, 3)
     assert (opacities == 0).all() and torch.equal(colors, data["color_bkgd"].expand(64, 3))
+
+
+@pytest.mark.parametrize(
+    "resolutions,ranks", [((32, 128, 512), (16, 16, 32)), (SMALL["resolutions"], SMALL["ranks"])],
+    ids=["tineuvox", "small"],
+)
+def test_hat_encoder_matches_the_per_axis_route(resolutions, ranks):
+    """``CPGridEncoder(use_pallas=True)`` at seeded tables, one
+    ``hat_cp_level`` a level, against the route it replaced, written out
+    here: per axis ``hat_interp_matmul(x[:, axis], line[axis])`` on the
+    clamped points, ``(a_0 * a_1) * a_2``, the levels concatenated.  Output,
+    table gradients and the points' total gradient bitwise (autograd adds
+    the levels' point gradients in the same order on both routes)."""
+    from nerfacc_tpu_torch.models.cp_field import CPGridEncoder
+    from nerfacc_tpu_torch.ops.hat_matmul import hat_interp_matmul
+
+    rng = np.random.default_rng(11)
+    enc = CPGridEncoder(resolutions, ranks, use_pallas=True)
+    with torch.no_grad():
+        for line in enc.lines:
+            line.copy_(torch.tensor(1.0 + 0.1 * rng.standard_normal(line.shape), dtype=torch.float32))
+    x0 = rng.uniform(-0.05, 1.05, (N, 3)).astype(np.float32)
+    cot = torch.tensor(rng.standard_normal((N, enc.output_dim)).astype(np.float32))
+
+    def per_axis(x):
+        x = x.clamp(0.0, 1.0)
+        feats = []
+        for line in enc.lines:
+            prod = hat_interp_matmul(x[:, 0], line[0])
+            for axis in (1, 2):
+                prod = prod * hat_interp_matmul(x[:, axis], line[axis])
+            feats.append(prod)
+        return torch.cat(feats, dim=-1)
+
+    results = []
+    for route in (per_axis, enc):
+        enc.zero_grad()
+        x = torch.tensor(x0, requires_grad=True)
+        out = route(x)
+        out.backward(cot)
+        results.append([out.detach(), x.grad] + [line.grad.clone() for line in enc.lines])
+    for a, b in zip(*results):
+        torch.testing.assert_close(a, b, rtol=0, atol=0)
+    assert float(results[1][1].abs().max()) > 0
