@@ -54,6 +54,10 @@ It builds the CUDA kernels from ``nerfacc_tpu_torch/csrc`` and runs:
     weight decay, TV weight 1e-4); G8, G9 and G10 must launch;
 13. phase 5 with that field, the deformation leaves included;
 14. phase 6 with that field, against phase 11's PSNR;
+    14b. phases 12 and 14 again from two more seeds, and from all three
+    with every kernel of the path (G2, G3, G5, G8-G10) on its plain version
+    in training and serving: the mean trained PSNR through the kernels must
+    be at most ``PSNR_MARGIN`` below the mean through the plain versions;
 15. the proposal-network path served: ``NGPPropTrainer.eval_metrics`` with
     the full-width ``CPRadianceField`` and one ``CPDensityField`` (16/64 x
     rank 16, hidden 64, bf16), parameters from seed 42, 128 proposal and 64
@@ -67,7 +71,9 @@ It builds the CUDA kernels from ``nerfacc_tpu_torch/csrc`` and runs:
 17. one proposal train step with ``requires_grad`` through the kernels
     against the same step through the plain versions (phase 5's bounds),
     the proposal field's leaves included;
-18. phase 15 on phase 16's trained fields, against phase 15's PSNR.
+18. phase 15 on phase 16's trained fields, against phase 15's PSNR;
+    18b. 14b for phases 16 and 18, G1, G3, G4, G5 and G14 on their plain
+    versions.
 
 Phase 1d holds the hat kernels G8 (forward), G9 (table gradient) and G10
 (coordinate gradient) against their plain versions at N = 2^18 on each of
@@ -96,6 +102,14 @@ the one PyTorch call that computes the same function.  Phase 1f holds G14
 (importance sampling) bitwise against its plain version at the proposal
 path's shapes.
 
+With ``--quality tineuvox prop [--seeds ...] [--routes kernels plain
+plain:<kernel>,...] [--root DIR] [--label NAME] [--out DIR]`` the script
+only trains and serves those paths as phases 12-14 and 16-18 do, from each
+seed, through each route (the kernels; every kernel of the path on its
+plain version; the named kernels alone on theirs), on this checkout or on
+the tree ``--root`` names (an older commit unpacked by ``git archive`` into
+a git-ignored directory), and prints one JSON line a run.
+
 Every check raises on failure, so the exit code is nonzero and the result
 line is not printed.  The last line of standard output is a JSON object with
 ``"ok": true`` and the device; the line before it lists each kernel's launch
@@ -103,7 +117,9 @@ count (over the four training phases 4, 8, 12 and 16; for G11-G13, over the
 gather probe's run), error, times and bound.  Without a CUDA device the
 script fails at once.
 """
+import argparse
 import contextlib
+import importlib
 import json
 import os
 import statistics
@@ -129,11 +145,9 @@ from nerfacc_tpu_torch.estimators.prop_net import (  # noqa: E402
     get_proposal_requires_grad_fn,
 )
 from nerfacc_tpu_torch.grid import march, march_plain  # noqa: E402
-from nerfacc_tpu_torch.models.cp_field import CPDensityField, CPRadianceField  # noqa: E402
+from nerfacc_tpu_torch.models.cp_field import CPDensityField  # noqa: E402
 from nerfacc_tpu_torch.models.encoders import HashGridEncoder  # noqa: E402
-from nerfacc_tpu_torch.models.ngp import NGPRadianceField, normalize_points  # noqa: E402
-from nerfacc_tpu_torch.models.tineuvox import TiNeuVoxRadianceField  # noqa: E402
-from nerfacc_tpu_torch.ops import cp_level as cp_level_ops  # noqa: E402
+from nerfacc_tpu_torch.models.ngp import normalize_points  # noqa: E402
 from nerfacc_tpu_torch.ops.coarse_occ import (  # noqa: E402
     coarse_occ_lookup,
     coarse_occ_lookup_plain,
@@ -171,10 +185,11 @@ from nerfacc_tpu_torch.ops.sorted_segments import (  # noqa: E402
     composite_sorted_backward_plain,
     composite_sorted_plain,
 )
-from nerfacc_tpu_torch.trainers.ngp_occ import NGPOccTrainer, TrainState  # noqa: E402
-from nerfacc_tpu_torch.trainers.ngp_prop import NGPPropTrainer, PropTrainState  # noqa: E402
+from nerfacc_tpu_torch.trainers.ngp_occ import TrainState  # noqa: E402
+from nerfacc_tpu_torch.trainers.ngp_prop import PropTrainState  # noqa: E402
 from nerfacc_tpu_torch.utils import flops  # noqa: E402
 from nerfacc_tpu_torch.utils.rendering import compact_samples  # noqa: E402
+from nerfacc_tpu_torch.volrend import render_transmittance_from_density  # noqa: E402
 
 AABB = [-1.5, -1.5, -1.5, 1.5, 1.5, 1.5]
 N_REFRESH = 4
@@ -217,6 +232,21 @@ TRAIN_STEPS = 1000  # not a multiple of the refresh interval: phase 5's step
 # step's cotangents bit for bit, and that step read 1.6e-7 (G9's summation
 # order and G10's rank sums): HAT_ALONE_STEP_FRO.
 STEP_REPEATS = 8
+# Phases 14b and 18b: the TiNeuVox and proposal paths trained from each of
+# QUALITY_SEEDS through their kernels (phases 12 and 16 are the first seed's
+# run) and through the plain versions of their kernels; the kernel route's
+# mean trained PSNR may fall at most PSNR_MARGIN below the plain route's.
+# One run is no measure: by seed and by last-bit differences the TiNeuVox
+# run ends anywhere in 17.7-21.9 dB (most near 18.3 or 21.3), and the
+# proposal path's atomic sums (G4) move one seed's PSNR by ~1.4 dB from
+# call to call.  On the TiNeuVox path the plain route runs PyTorch's
+# scatter-adds in a fixed order (:func:`quality_run`), so that both routes
+# repeat from call to call there.  Across three seeds each route's PSNR spread
+# over 0.8-1.9 dB on an H100 (PERF.md §6); 1.5 dB between the means of
+# three is ~2 standard errors of their difference, and a kernel that cost
+# every seed ~3 dB would fail it.
+QUALITY_SEEDS = (42, 7, 1234)  # the first is the trainers' default
+PSNR_MARGIN = 1.5
 F32_STEP_FRO = 1e-4
 F32_HAT_STEP_FRO = 5e-4
 HAT_ALONE_STEP_FRO = 1e-5
@@ -246,11 +276,11 @@ PROP_EVAL_RAYS = 8192  # render_image's chunk
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS = 67e12
 
-# field kind -> full-width field in a compute dtype
+# field kind -> the module and class of its full-width field
 FIELDS = {
-    "cp": lambda dtype: CPRadianceField(AABB, compute_dtype=dtype),
-    "ngp": lambda dtype: NGPRadianceField(AABB, compute_dtype=dtype),
-    "tineuvox": lambda dtype: TiNeuVoxRadianceField(AABB, compute_dtype=dtype),
+    "cp": ("models.cp_field", "CPRadianceField"),
+    "ngp": ("models.ngp", "NGPRadianceField"),
+    "tineuvox": ("models.tineuvox", "TiNeuVoxRadianceField"),
 }
 # field kind -> its encoder's kernels, forward then backward
 ENCODER_KERNELS = {
@@ -333,12 +363,20 @@ def measured(err, ms, plain_ms, moved, ops, library_ms=None):
     }
 
 
+def port_module(name):
+    """``nerfacc_tpu_torch.<name>`` of the tree imported now: this
+    checkout's, or the one ``--quality --root`` names.  The trainers, fields
+    and loaders are looked up through it at call time."""
+    return importlib.import_module(f"nerfacc_tpu_torch.{name}")
+
+
 def make_trainer(dev, kind="cp", dtype=torch.bfloat16, timestamps=None, **kw):
     """The field of ``kind`` in a trainer with its settings; a dynamic
     field's refresh draws from the training frames' ``timestamps``."""
-    return NGPOccTrainer(
-        field=FIELDS[kind](dtype), aabb=AABB, device=dev, timestamps=timestamps,
-        **TRAIN[kind][0], **kw,
+    module, name = FIELDS[kind]
+    return port_module("trainers.ngp_occ").NGPOccTrainer(
+        field=getattr(port_module(module), name)(AABB, compute_dtype=dtype), aabb=AABB,
+        device=dev, timestamps=timestamps, **TRAIN[kind][0], **kw,
     )
 
 
@@ -346,22 +384,26 @@ def make_prop_trainer(dev, dtype=torch.bfloat16, **kw):
     """``bench.py``'s proposal configuration: the full-width CP radiance
     field and one CPDensityField (16/64 x rank 16, hidden 64) in a compute
     dtype, 128 proposal and 64 final samples, near 2, far 6, uniform."""
-    return NGPPropTrainer(
-        field=CPRadianceField(AABB, compute_dtype=dtype),
-        prop_fields=[CPDensityField(AABB, compute_dtype=dtype)],
+    fields = port_module("models.cp_field")
+    return port_module("trainers.ngp_prop").NGPPropTrainer(
+        field=fields.CPRadianceField(AABB, compute_dtype=dtype),
+        prop_fields=[fields.CPDensityField(AABB, compute_dtype=dtype)],
         prop_samples=[PROP_SAMPLES], num_samples=PROP_FINAL, near_plane=2.0,
         far_plane=6.0, device=dev, **kw,
     )
 
 
-def train_loader(dev, kind):
-    """The train split of ``kind``'s scene."""
+def train_loader(dev, kind, seed=QUALITY_SEEDS[0]):
+    """The train split of ``kind`` ("prop": the proposal path's) scene, its
+    batches drawn from ``seed``."""
+    procedural = port_module("data.procedural")
     if kind == "tineuvox":
-        return ProceduralDynamicSceneLoader(
-            split="train", num_rays=TRAIN[kind][1], device=dev
+        return procedural.ProceduralDynamicSceneLoader(
+            split="train", num_rays=TRAIN[kind][1], seed=seed, device=dev
         )
-    return ProceduralSceneLoader(
-        split="train", n_train=6, width=256, height=256, num_rays=TRAIN[kind][1],
+    rays = PROP_RAYS if kind == "prop" else TRAIN[kind][1]
+    return procedural.ProceduralSceneLoader(
+        split="train", n_train=6, width=256, height=256, num_rays=rays, seed=seed,
         device=dev,
     )
 
@@ -1082,25 +1124,59 @@ def phase_gather_kernels(dev):
 def prop_level_inputs(g, n_rays):
     """Importance sampling's inputs at the proposal path's two levels: the
     first level's ([0, 1] edges and CDF, E = 2) and the final resampling's
-    (the first level's 129 edges in s and a CDF from seeded densities, a
-    third of them zero, so the CDF has plateaus)."""
+    (the first level's 129 edges in s and the CDF ``propnet_sampling``
+    forms from seeded densities, a third of them zero, so the CDF has
+    plateaus)."""
     dev = g.device
     unit = torch.tensor([[0.0, 1.0]], device=dev).expand(n_rays, 2).contiguous()
     bias = torch.rand(n_rays, generator=g, device=dev)
     _, edges = pdf._importance_sampling(unit, unit, bias, PROP_SAMPLES)
     sigma = torch.rand((n_rays, PROP_SAMPLES), generator=g, device=dev) * 40.0
     sigma = torch.where(torch.rand(sigma.shape, generator=g, device=dev) < 1 / 3, 0.0, sigma)
-    sdt = sigma * (edges[:, 1:] - edges[:, :-1])
-    trans = torch.exp(-torch.cumsum(sdt, dim=-1) + sdt)
+    trans, _ = render_transmittance_from_density(edges[:, :-1], edges[:, 1:], sigma)
     cdfs = 1.0 - torch.cat([trans, torch.zeros_like(trans[:, :1])], dim=-1)
     return (unit, unit, PROP_SAMPLES), (edges, cdfs, PROP_FINAL), bias
+
+
+def vote_share(vals, cdfs):
+    """The share of rows that pass G14's vote (nondecreasing edges and CDF,
+    so no NaN, and no -0.0), which take its search; the others its walk."""
+    rows = torch.cat([vals, cdfs], dim=1)
+    ok = ((vals.diff(dim=1) >= 0).all(1) & (cdfs.diff(dim=1) >= 0).all(1)
+          & ~(rows.view(torch.int32) == -2**31).any(1))
+    return float(ok.float().mean())
+
+
+def mixed_rows(vals, cdfs):
+    """A copy of the rows in which each eighth row from the third on fails
+    G14's vote: its edges or CDF out of order, a NaN in either, or a -0.0
+    in either (the CDF's beside a +0.0), in turn."""
+    vals, cdfs = vals.clone(), cdfs.clone()
+    j = vals.shape[1] // 2
+    for k, r in enumerate(range(2, vals.shape[0], 8)):
+        case = k % 6
+        if case == 0:
+            vals[r, [0, j]] = vals[r, [j, 0]]
+        elif case == 1:
+            cdfs[r] = cdfs[r].flip(0)
+        elif case == 2:
+            cdfs[r, j] = float("nan")
+        elif case == 3:
+            vals[r, j] = float("nan")
+        elif case == 4:
+            cdfs[r, :2] = torch.tensor([-0.0, 0.0])
+        else:
+            vals[r, 0] = -0.0
+    return vals, cdfs
 
 
 @torch.inference_mode()
 def phase_pdf_kernel(dev):
     """1f. G14 against its plain version, bitwise: at ``PROP_RAYS`` rays on
-    both levels (E = 2 -> 128 samples, then E = 129 -> 64), stratified, and
-    at the eval chunk's ``PROP_EVAL_RAYS`` rays (E = 129 -> 64, bias 0.5);
+    both levels (E = 2 -> 128 samples, then E = 129 -> 64), stratified, at
+    the eval chunk's ``PROP_EVAL_RAYS`` rays (E = 129 -> 64, bias 0.5), and
+    on the final level's rows with some that fail its monotone-row vote
+    (:func:`mixed_rows`), in one launch;
     timed on the final level at ``PROP_RAYS`` (and, device time alone, on
     the first).  No PyTorch call computes it
     (``torch.searchsorted`` is the search alone)."""
@@ -1108,17 +1184,20 @@ def phase_pdf_kernel(dev):
     first, final, bias = prop_level_inputs(g, PROP_RAYS)
     eval_final = prop_level_inputs(g, PROP_EVAL_RAYS)[1]
     half = torch.full((PROP_EVAL_RAYS,), 0.5, device=dev)
+    mixed = (*mixed_rows(*final[:2]), final[2])
     for what, (vals, cdfs, n), b in (
         (f"{PROP_RAYS} rays, E = 2 -> {PROP_SAMPLES}", first, bias),
         (f"{PROP_RAYS} rays, E = {PROP_SAMPLES + 1} -> {PROP_FINAL}", final, bias),
         (f"{PROP_EVAL_RAYS} rays, E = {PROP_SAMPLES + 1} -> {PROP_FINAL}, eval", eval_final, half),
+        (f"{PROP_RAYS} rays, E = {PROP_SAMPLES + 1} -> {PROP_FINAL}, mixed", mixed, bias),
     ):
         out = pdf._importance_sampling(vals, cdfs, b, n)
         ref = pdf.importance_sampling_plain(vals, cdfs, b, n)
         require(same_bits(out[0], ref[0]) and same_bits(out[1], ref[1]),
                 f"G14 {what}: differs from its plain version")
         print(f"G14 importance_sampling {what}: samples and edges bitwise equal "
-              f"to the plain version")
+              f"to the plain version; {vote_share(vals, cdfs):.4f} of the rows take the "
+              f"search")
     vals, cdfs, n = final
     out = pdf._importance_sampling(vals, cdfs, bias, n)
     # per sample its position (3), the E - 1 compares with their selects
@@ -1420,15 +1499,12 @@ def hat_kernels_alone():
     of G3 and G5, and PyTorch's own scatter-adds (``index_add_``) run in a
     fixed order, so that a kernel train step and the plain step hand the hat
     kernels and their plain versions the same cotangents, bit for bit."""
-    saved = sorted_segments._composite_forward, sorted_segments.composite_sorted_backward
-    sorted_segments._composite_forward = sorted_segments.composite_sorted_plain
-    sorted_segments.composite_sorted_backward = sorted_segments.composite_sorted_backward_plain
     torch.use_deterministic_algorithms(True, warn_only=True)
     try:
-        yield
+        with plain_kernels(("composite_fwd", "composite_bwd")):
+            yield
     finally:
         torch.use_deterministic_algorithms(False)
-        sorted_segments._composite_forward, sorted_segments.composite_sorted_backward = saved
 
 
 def step_readings(what, step, plain, limit=None):
@@ -1513,6 +1589,7 @@ def phase_serve_trained(trainer, state, ds, untrained_psnr, kind="cp"):
           f"{metrics['ssim']:.4f}")
     require(metrics["psnr"] >= untrained_psnr + 3.0,
             f"trained {kind} psnr {metrics['psnr']} not 3 dB above {untrained_psnr}")
+    return metrics["psnr"]
 
 
 def phase_prop_serve(dev, ds, trainer=None, state=None, untrained_psnr=None):
@@ -1551,8 +1628,7 @@ def phase_prop_train(dev):
     ``train_steps_sampled`` and the proposal-gradient schedule, launches
     counted; batches drawn on the card from the step's generator."""
     t0 = time.perf_counter()
-    ds = ProceduralSceneLoader(split="train", n_train=6, width=256, height=256,
-                               num_rays=PROP_RAYS, device=dev)
+    ds = train_loader(dev, "prop")
     sampler = DeviceRaySampler.from_loader(ds)
     trainer = make_prop_trainer(dev, max_steps=TRAIN_STEPS)
     state = trainer.init_state()
@@ -1608,24 +1684,156 @@ def phase_prop_train(dev):
     return trainer, state, batch, launches
 
 
+# kernel -> the entry points its plain version takes the place of: (module,
+# attribute, module of the plain version, its attribute), modules under
+# nerfacc_tpu_torch.  The callers look each attribute up at call time (the
+# autograd Functions, the samplers), so a swap reaches every path.  Older
+# trees have no hat_level_fwd; each kernel must swap at least one.
+PLAIN_SWAPS = {
+    "cp_level_fwd": [("ops.cp_level", "_encode_forward", "ops.cp_level", "cp_level_encode_plain")],
+    "cp_level_bwd": [("ops.cp_level", "cp_level_backward", "ops.cp_level",
+                      "cp_level_backward_plain")],
+    "march": [("estimators.occ_grid", "march", "grid", "march_plain"),
+              ("utils.rendering", "march", "grid", "march_plain")],
+    "composite_fwd": [("ops.sorted_segments", "_composite_forward", "ops.sorted_segments",
+                       "composite_sorted_plain")],
+    "composite_bwd": [("ops.sorted_segments", "composite_sorted_backward",
+                       "ops.sorted_segments", "composite_sorted_backward_plain")],
+    "hat_fwd": [("ops.hat_matmul", "hat_fwd", "ops.hat_matmul", "hat_interp_matmul_plain"),
+                ("ops.hat_matmul", "hat_level_fwd", "ops.hat_matmul", "hat_level_plain")],
+    "hat_bwd_line": [("ops.hat_matmul", "hat_bwd_line", "ops.hat_matmul", "hat_bwd_line_plain")],
+    "hat_bwd_x": [("ops.hat_matmul", "hat_bwd_x", "ops.hat_matmul", "hat_bwd_x_plain")],
+    "importance_sampling": [("pdf", "_importance_sampling", "pdf", "importance_sampling_plain")],
+}
+# path -> the kernels its training and serving launch
+PATH_KERNELS = {
+    "tineuvox": ("march", "composite_fwd", "composite_bwd", "hat_fwd", "hat_bwd_line",
+                 "hat_bwd_x"),
+    "prop": ("cp_level_fwd", "cp_level_bwd", "composite_fwd", "composite_bwd",
+             "importance_sampling"),
+}
+
+
 @contextlib.contextmanager
-def plain_kernels():
-    """Inside: every kernel of the proposal path runs its plain version (G1
-    and G4, G3 and G5, G14), through the same autograd Functions."""
-    saved = (cp_level_ops._encode_forward, cp_level_ops.cp_level_backward,
-             sorted_segments._composite_forward, sorted_segments.composite_sorted_backward,
-             pdf._importance_sampling)
-    cp_level_ops._encode_forward = cp_level_encode_plain
-    cp_level_ops.cp_level_backward = cp_level_backward_plain
-    sorted_segments._composite_forward = sorted_segments.composite_sorted_plain
-    sorted_segments.composite_sorted_backward = sorted_segments.composite_sorted_backward_plain
-    pdf._importance_sampling = pdf.importance_sampling_plain
+def plain_kernels(names=tuple(PLAIN_SWAPS)):
+    """Inside: each kernel of ``names`` (by default every kernel of the
+    TiNeuVox and proposal paths: G1-G5, G8-G10 and G14) runs its plain
+    version, through the same wrappers' callers and autograd Functions."""
+    saved = []
     try:
+        for name in names:
+            swapped = 0
+            for mod, attr, plain_mod, plain_attr in PLAIN_SWAPS[name]:
+                module = port_module(mod)
+                if hasattr(module, attr):
+                    saved.append((module, attr, getattr(module, attr)))
+                    setattr(module, attr, getattr(port_module(plain_mod), plain_attr))
+                    swapped += 1
+            require(swapped > 0, f"no entry point of {name} to swap for its plain version")
         yield
     finally:
-        (cp_level_ops._encode_forward, cp_level_ops.cp_level_backward,
-         sorted_segments._composite_forward, sorted_segments.composite_sorted_backward,
-         pdf._importance_sampling) = saved
+        for module, attr, fn in reversed(saved):
+            setattr(module, attr, fn)
+
+
+def train_path(dev, path, seed):
+    """:func:`quality_run`'s training: the trainer, its state after
+    ``TRAIN_STEPS`` steps, the test views and the (reconstruction) losses."""
+    procedural = port_module("data.procedural")
+    ds = train_loader(dev, path, seed)
+    if path == "tineuvox":
+        test = procedural.ProceduralDynamicSceneLoader(split="test", device=dev)
+        trainer = make_trainer(dev, path, timestamps=ds.timestamps, max_steps=TRAIN_STEPS,
+                               sample_budget=TRAIN[path][2], seed=seed)
+        state = trainer.init_state()
+        batches = [ds[0] for _ in range(TRAIN_STEPS)]
+        losses = []
+        for batch in batches:
+            state, aux = trainer.train_step(state, batch)
+            losses.append(aux["loss"])
+        return trainer, state, test, torch.stack(losses)
+    test = procedural.ProceduralSceneLoader(split="test", device=dev)
+    sampler = port_module("data.device_sampler").DeviceRaySampler.from_loader(ds)
+    trainer = make_prop_trainer(dev, max_steps=TRAIN_STEPS, seed=seed)
+    state = trainer.init_state()
+    rg_fn = port_module("estimators.prop_net").get_proposal_requires_grad_fn()
+    rgs = [rg_fn(step) for step in range(TRAIN_STEPS)]
+    losses = []
+    for start in range(0, TRAIN_STEPS, 100):
+        state, aux = trainer.train_steps_sampled(state, sampler, rgs[start : start + 100])
+        losses.append(aux["loss"] - aux["prop_loss"])
+    return trainer, state, test, torch.cat(losses)
+
+
+def quality_run(dev, path, seed, plain=()):
+    """``path`` trained from ``seed`` for ``TRAIN_STEPS`` steps and served on
+    its test views, with the kernels of ``plain`` on their plain versions in
+    both (:func:`plain_kernels`): "tineuvox" at phase 12's configuration
+    (``train_step`` on one batch of the train loader a step), "prop" at
+    phase 16's (``train_steps_sampled`` in calls of 100 steps).  With seed 42
+    the run is phase 12's or 16's.  It reaches the port only through entry
+    points that every tree of the port with that path has, looked up at
+    call time, so it also runs on an older tree (``--quality --root``).
+    Returns the trained PSNR and SSIM, the (reconstruction) loss's mean
+    over the first and last 50 steps, the seconds, and the launches of the
+    path's kernels."""
+    cuda_mod = port_module("cuda")
+    t0 = time.perf_counter()
+    cuda_mod.reset_launches()
+    # on the TiNeuVox path, whose kernels sum in a fixed order, the plain
+    # versions' scatter-adds run in a fixed order too, so that both routes
+    # repeat from call to call (the proposal path's G4 sums by atomics, and
+    # its plain version's fixed-order scatter-adds take ~10x as long)
+    torch.use_deterministic_algorithms(bool(plain) and path == "tineuvox", warn_only=True)
+    try:
+        with plain_kernels(plain):
+            trainer, state, test, losses = train_path(dev, path, seed)
+            metrics = trainer.eval_metrics(state, test)
+    finally:
+        torch.use_deterministic_algorithms(False)
+    torch.cuda.synchronize()
+    launches = {k: cuda_mod.LAUNCHES[k] for k in PATH_KERNELS[path]}
+    for name, n in launches.items():
+        if name in plain:
+            require(n == 0, f"{path}: {name} launched on its plain route")
+        else:
+            require(n > 0, f"{path}: kernel {name} never launched")
+    losses = losses.cpu()
+    require(bool(torch.isfinite(losses).all()), f"{path}: non-finite loss")
+    require(all(v["finite"] for v in metrics["views"]), f"{path}: non-finite view")
+    return {
+        "path": path, "seed": seed, "psnr": metrics["psnr"], "ssim": metrics["ssim"],
+        "loss_first50": float(losses[:50].mean()), "loss_last50": float(losses[-50:].mean()),
+        "seconds": time.perf_counter() - t0, "launches": launches,
+    }
+
+
+def phase_plain_quality(dev, path, kernel_psnr):
+    """14b / 18b. ``path`` trained from the other ``QUALITY_SEEDS`` through
+    its kernels (``kernel_psnr``: phase 14's / 18's, from the first) and
+    from all of them through the plain versions of its kernels
+    (:func:`quality_run`), each served as it was trained: the kernel
+    route's mean trained PSNR must be no more than ``PSNR_MARGIN`` below the
+    plain route's."""
+    psnr = {"kernels": [kernel_psnr], "plain": []}
+    for seed in QUALITY_SEEDS:
+        for route, plain in (("kernels", ()), ("plain", PATH_KERNELS[path])):
+            if route == "kernels" and seed == QUALITY_SEEDS[0]:
+                continue
+            run = quality_run(dev, path, seed, plain)
+            psnr[route].append(run["psnr"])
+            print(f"trained {path}, seed {seed}, through the {route}: psnr {run['psnr']:.3f}, "
+                  f"ssim {run['ssim']:.4f}, mean loss {run['loss_first50']:.6f} -> "
+                  f"{run['loss_last50']:.6f} (first and last 50 steps), {TRAIN_STEPS} steps "
+                  f"and the test views in {run['seconds']:.1f} s")
+    mean = {k: statistics.mean(v) for k, v in psnr.items()}
+    print(f"trained {path} psnr over seeds {QUALITY_SEEDS}: through the kernels "
+          f"{[round(v, 3) for v in psnr['kernels']]}, mean {mean['kernels']:.3f}; through "
+          f"the plain versions {[round(v, 3) for v in psnr['plain']]}, mean "
+          f"{mean['plain']:.3f}; margin {PSNR_MARGIN} dB")
+    require(mean["kernels"] >= mean["plain"] - PSNR_MARGIN,
+            f"trained {path}: mean psnr {mean['kernels']} through the kernels is more than "
+            f"{PSNR_MARGIN} dB below {mean['plain']} through the plain versions")
 
 
 def prop_step_grads(trainer, state, batch, biases, plain=False):
@@ -1672,17 +1880,69 @@ def phase_prop_train_twins(trainer, state, batch):
         require(loss_rel <= 1e-5, f"{what}: losses differ by {loss_rel}")
 
 
-def main():
-    if not torch.cuda.is_available():
-        raise SystemExit("chip_smoke: torch.cuda.is_available() is false")
-    dev = torch.device("cuda", 0)
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    smi = subprocess.run(
+def card():
+    """The card's name and power limit, from ``nvidia-smi``."""
+    return subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60, check=True,
     ).stdout.strip()
-    print(f"card: {smi}")
+
+
+def quality_study(args):
+    """``--quality``: :func:`quality_run` for each path, seed and route, on
+    this checkout or on the tree ``--root`` names (an older commit unpacked
+    by ``git archive`` into a git-ignored directory); one JSON line a run,
+    printed and appended to ``<out>/quality_<label>.jsonl``.  A route is
+    "kernels", "plain" (every kernel of the path on its plain version) or
+    "plain:<kernel>,<kernel>" (those kernels alone, by their launch-count
+    names)."""
+    if args.root:
+        for name in [m for m in sys.modules if m.split(".")[0] == "nerfacc_tpu_torch"]:
+            del sys.modules[name]
+        sys.path.insert(0, os.path.abspath(args.root))
+    package = os.path.dirname(port_module("cuda").__file__)
+    dev = torch.device("cuda", 0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    head = {"label": args.label, "package": os.path.dirname(package), "card": card(),
+            "torch": torch.__version__, "cuda": torch.version.cuda}
+    print(json.dumps(head), flush=True)
+    os.makedirs(args.out, exist_ok=True)
+    for path in args.quality:
+        for route in args.routes:
+            if route == "kernels":
+                plain = ()
+            elif route == "plain":
+                plain = PATH_KERNELS[path]
+            else:
+                plain = tuple(route.removeprefix("plain:").split(","))
+            for seed in args.seeds:
+                run = {"label": args.label, "route": route,
+                       **quality_run(dev, path, seed, plain)}
+                print(json.dumps(run), flush=True)
+                with open(os.path.join(args.out, f"quality_{args.label}.jsonl"), "a") as f:
+                    f.write(json.dumps({**head, **run}) + "\n")
+
+
+def main():
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--quality", nargs="+", choices=list(PATH_KERNELS),
+                    help="train and serve these paths alone (quality_study)")
+    ap.add_argument("--seeds", nargs="+", type=int, default=list(QUALITY_SEEDS))
+    ap.add_argument("--routes", nargs="+", default=["kernels", "plain"])
+    ap.add_argument("--root", help="the tree whose nerfacc_tpu_torch --quality imports")
+    ap.add_argument("--label", default="change")
+    ap.add_argument("--out", default="build/quality")
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        raise SystemExit("chip_smoke: torch.cuda.is_available() is false")
+    if args.quality:
+        quality_study(args)
+        return
+    dev = torch.device("cuda", 0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    print(f"card: {card()}")
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"{torch.cuda.get_device_name(0)}")
 
@@ -1743,14 +2003,17 @@ def main():
     )
     trainer, state, batch, tnv_launches = phase_train(dev, "tineuvox", dyn_train)
     phase_train_twins(trainer, state, batch, "tineuvox")
-    phase_serve_trained(trainer, state, dyn_test, untrained_psnr, "tineuvox")
+    psnr = phase_serve_trained(trainer, state, dyn_test, untrained_psnr, "tineuvox")
     del trainer, state
+    phase_plain_quality(dev, "tineuvox", psnr)
 
     # 15-18: the proposal-network path
     untrained_psnr = phase_prop_serve(dev, ds)
     trainer, state, batch, prop_launches = phase_prop_train(dev)
     phase_prop_train_twins(trainer, state, batch)
-    phase_prop_serve(dev, ds, trainer, state, untrained_psnr)
+    psnr = phase_prop_serve(dev, ds, trainer, state, untrained_psnr)
+    del trainer, state
+    phase_plain_quality(dev, "prop", psnr)
     # each kernel's launches over the four training runs (phases 4, 8, 12,
     # 16), and the gather kernels' over the gather probe's run
     launches = {k: v + ngp_launches[k] + tnv_launches[k] + prop_launches[k]

@@ -118,7 +118,12 @@ class SinusoidalEncoder(nn.Module):
         # the width is spelled out: -1 is ambiguous for an empty batch
         xb = (x[..., None, :] * self.scales[:, None]).reshape(
             x.shape[:-1] + (self.scales.numel() * x.shape[-1],))
-        latent = torch.sin(torch.cat([xb, xb + 0.5 * math.pi], dim=-1))
+        args = torch.cat([xb, xb + 0.5 * math.pi], dim=-1)
+        # the sine of the f32 arguments in f64, rounded once: the correctly
+        # rounded f32 sine, whatever accuracy the library's f32 vector sine
+        # runs at (on the CPU PyTorch takes it from MKL's vector math, which
+        # has computed a chunk of it at ~11 correct bits in a test process)
+        latent = torch.sin(args.double()).to(args.dtype)
         if self.use_identity:
             latent = torch.cat([x, latent], dim=-1)
         return latent

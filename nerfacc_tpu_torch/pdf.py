@@ -53,12 +53,7 @@ def importance_sampling_plain(
         samples (n_rays, n) and edges (n_rays, n + 1).
     """
     E = vals.shape[-1]
-    u_floor = cdfs[:, :1]
-    # XLA divides by the constant n as a product with its f32 reciprocal
-    u_step = (cdfs[:, -1:] - u_floor) * (torch.ones((), dtype=cdfs.dtype) / n)
-    sid = torch.arange(n, dtype=cdfs.dtype, device=cdfs.device)[None, :]
-    u = fma_f32(sid + bias[:, None], u_step, u_floor)  # (n_rays, n)
-
+    u = cdf_positions(cdfs, bias, n)
     cdfs_e, vals_e = cdfs[:, None, :-1], vals[:, None, :-1]
     le = cdfs_e <= u[:, :, None]
     cnt = le.sum(-1)
@@ -70,7 +65,23 @@ def importance_sampling_plain(
     t_upper = torch.where(le, math.inf, vals_e).amin(-1)
     u_upper = torch.where(cnt >= E - 1, cdfs[:, -1:], u_upper)
     t_upper = torch.where(cnt >= E - 1, vals[:, -1:], t_upper)
+    return samples_and_edges(vals, u, u_lower, t_lower, u_upper, t_upper)
 
+
+def cdf_positions(cdfs: torch.Tensor, bias: torch.Tensor, n: int) -> torch.Tensor:
+    """Each ray's ``n`` CDF positions ``u`` (n_rays, n) in XLA's forms: the
+    step a product with 1/n, the position a fused multiply-add."""
+    u_floor = cdfs[:, :1]
+    # XLA divides by the constant n as a product with its f32 reciprocal
+    u_step = (cdfs[:, -1:] - u_floor) * (torch.ones((), dtype=cdfs.dtype) / n)
+    sid = torch.arange(n, dtype=cdfs.dtype, device=cdfs.device)[None, :]
+    return fma_f32(sid + bias[:, None], u_step, u_floor)
+
+
+def samples_and_edges(vals, u, u_lower, t_lower, u_upper, t_upper):
+    """The samples (n_rays, n) lerped at positions ``u`` between the chosen
+    CDF and edge bounds, and their edges (n_rays, n + 1)."""
+    n = u.shape[1]
     denom = u_upper - u_lower
     flat = denom < torch.tensor(1e-10, dtype=torch.float32)
     mid = 0.5 * (t_lower + t_upper)
@@ -86,9 +97,9 @@ def importance_sampling_plain(
     return samples, torch.cat([first, inner, last], dim=-1)
 
 
-# The kernel stages a row's edges, CDF values and samples in static shared
-# memory: (2 E + n) floats within 48 KB.
-_SHARED_FLOATS = 48 * 1024 // 4
+# The kernel stages each of a block's rows (edges and CDF values, 2 E
+# floats) in shared memory, one row a block at the most: E within 48 KB.
+_MAX_EDGES = 48 * 1024 // 8
 
 
 def _importance_sampling(vals, cdfs, bias, n):
@@ -104,8 +115,8 @@ def _importance_sampling(vals, cdfs, bias, n):
             f"importance_sampling: vals {tuple(vals.shape)}, cdfs {tuple(cdfs.shape)}, "
             f"bias {tuple(bias.shape)}, n {n}: want (n_rays, E >= 2) twice, (n_rays,), n >= 1"
         )
-    if 2 * E + n > _SHARED_FLOATS:
-        raise ValueError(f"importance_sampling: {E} edges and {n} samples exceed shared memory")
+    if E > _MAX_EDGES:
+        raise ValueError(f"importance_sampling: {E} edges exceed the kernel's {_MAX_EDGES}")
     vals, cdfs, bias = vals.contiguous(), cdfs.contiguous(), bias.contiguous()
     samples = torch.empty((n_rays, n), dtype=torch.float32, device=vals.device)
     edges = torch.empty((n_rays, n + 1), dtype=torch.float32, device=vals.device)

@@ -4,7 +4,7 @@ paths give them.
 
 Run from the root of a checkout:
 
-    python3 scripts/time_kernels.py [G1 G2 G3 G4 G5 G6 G7 G8 G9 G10] [--root DIR] [--label NAME] [--out build/time_kernels]
+    python3 scripts/time_kernels.py [G1 G2 G3 G4 G5 G6 G7 G8 G9 G10 G14] [--root DIR] [--label NAME] [--out build/time_kernels]
 
 The positional arguments pick the kernels (all of these by default).
 ``--root`` names the tree whose ``nerfacc_tpu_torch`` is imported and built
@@ -83,6 +83,13 @@ The shapes:
   the precomputed taps and updates.
 - G10 (hat coordinate gradient): N = 2^18 at (512, 32) and N = 2^16 at
   TiNeuVox's three levels, uniform coordinates.
+- G14 (importance sampling) at ``chip_smoke.py``'s phase 1f shapes: 4096
+  rays, E = 2 -> 128 (the first proposal level, stratified); 4096 rays, E =
+  129 -> 64 (the final resampling, a CDF with plateaus, stratified); 8192
+  rays, E = 129 -> 64 with bias 0.5 (the eval chunk); and the 4096-ray
+  rows with the CDF phase 1f formed before, a third of its rows out of
+  order by rounding, so that they take the kernel's walk.  Error: the entries
+  of samples and edges unequal to the plain version.
 
 Each row holds the error against the plain version, the CUDA-event time of
 one call (host path included), the device time of its kernels alone from
@@ -692,8 +699,62 @@ def g10_rows(inp):
         }
 
 
+def g14_inputs(dev, g, n_rays):
+    """``chip_smoke.py``'s phase 1f inputs: the first level's unit rows (E =
+    2) with a stratified bias, and the final resampling's rows (E = 129):
+    the first level's 129 edges and the CDF ``propnet_sampling`` forms from
+    seeded densities, a third of them zero, so the CDF has plateaus; and
+    that CDF as phase 1f formed it before (the exclusive sum as the
+    inclusive one less the sample's own term, which rounds a third of the
+    rows out of order)."""
+    from nerfacc_tpu_torch.pdf import importance_sampling_plain
+    from nerfacc_tpu_torch.volrend import render_transmittance_from_density
+
+    unit = torch.tensor([[0.0, 1.0]], device=dev).expand(n_rays, 2).contiguous()
+    bias = torch.rand(n_rays, generator=g, device=dev)
+    _, edges = importance_sampling_plain(unit, unit, bias, 128)
+    sigma = torch.rand((n_rays, 128), generator=g, device=dev) * 40.0
+    sigma = torch.where(torch.rand(sigma.shape, generator=g, device=dev) < 1 / 3, 0.0, sigma)
+    trans, _ = render_transmittance_from_density(edges[:, :-1], edges[:, 1:], sigma)
+    sdt = sigma * (edges[:, 1:] - edges[:, :-1])
+    former = torch.exp(-torch.cumsum(sdt, dim=-1) + sdt)
+    cdfs, former = (1.0 - torch.cat([t, torch.zeros_like(t[:, :1])], dim=-1)
+                    for t in (trans, former))
+    return unit, bias, edges.contiguous(), cdfs.contiguous(), former.contiguous()
+
+
+def g14_rows(inp):
+    from nerfacc_tpu_torch import pdf
+
+    dev = inp.dev
+    g = torch.Generator(device=dev).manual_seed(14)
+    unit, bias, edges, cdfs, former = g14_inputs(dev, g, 4096)
+    _, _, eval_edges, eval_cdfs, _ = g14_inputs(dev, g, 8192)
+    half = torch.full((8192,), 0.5, device=dev)
+    for what, vals, c, b, n in (
+        ("4096 rays, E = 2 -> 128, stratified", unit, unit, bias, 128),
+        ("4096 rays, E = 129 -> 64, plateaued CDF, stratified", edges, cdfs, bias, 64),
+        ("8192 rays, E = 129 -> 64, plateaued CDF, bias 0.5", eval_edges, eval_cdfs, half, 64),
+        ("4096 rays, E = 129 -> 64, the former phase 1f CDF, stratified", edges, former, bias,
+         64),
+    ):
+        out = pdf._importance_sampling(vals, c, b, n)
+        ref = pdf.importance_sampling_plain(vals, c, b, n)
+        yield {
+            "kernel": "G14 importance_sampling", "shape": what,
+            "unequal": unequal(out[0], ref[0]) + unequal(out[1], ref[1]),
+            "rows_out_of_order": int((~(c.diff(dim=1) >= 0).all(1)).sum()),
+            "ms": cuda_ms(lambda: pdf._importance_sampling(vals, c, b, n)),
+            "device_ms": device_ms(lambda: pdf._importance_sampling(vals, c, b, n)),
+            "plain_ms": cuda_ms(lambda: pdf.importance_sampling_plain(vals, c, b, n), reps=5),
+            # each input read once, each output written once
+            "bound_ms": bytes_bound_ms(vals, c, b, *out),
+        }
+
+
 ROWS = {"G1": g1_rows, "G2": g2_rows, "G3": g3_rows, "G4": g4_rows, "G5": g5_rows,
-        "G6": g6_rows, "G7": g7_rows, "G8": g8_rows, "G9": g9_rows, "G10": g10_rows}
+        "G6": g6_rows, "G7": g7_rows, "G8": g8_rows, "G9": g9_rows, "G10": g10_rows,
+        "G14": g14_rows}
 
 
 def main():

@@ -991,21 +991,67 @@ def test_gather_kernels_match_plain_versions(dev):
         lane_gather(torch.zeros((64, 64), device=dev), torch.zeros((64, 64), dtype=torch.int32, device=dev))
 
 
-@pytest.mark.parametrize("E,n", [(2, 128), (129, 64), (17, 1), (300, 200)])
-def test_importance_sampling_kernel_matches_plain_version(dev, E, n):
-    """G14 bit for bit, stratified and not, on sorted rows with plateaus and
-    an all-zero CDF row."""
-    g = torch.Generator(device=dev).manual_seed(E)
-    vals = torch.sort(torch.rand((1000, E), generator=g, device=dev) * 4 + 2, dim=-1)[0]
-    cdfs = torch.sort(torch.rand((1000, E), generator=g, device=dev), dim=-1)[0]
+def _pdf_rows(g, n_rays, E):
+    """Sorted rows, and among them rows that fail G14's monotone-row vote:
+    each eighth row from the third on has its vals out of order, its CDF
+    out of order, a NaN in its CDF or vals, or a -0.0 in its CDF (beside a
+    +0.0) or vals, in turn.  Row 0 has an all-zero CDF, row 1 a plateau."""
+    dev = g.device
+    vals = torch.sort(torch.rand((n_rays, E), generator=g, device=dev) * 4 + 2, dim=-1)[0]
+    cdfs = torch.sort(torch.rand((n_rays, E), generator=g, device=dev), dim=-1)[0]
     cdfs[0] = 0.0
     cdfs[1, E // 3 : 2 * E // 3] = float(cdfs[1, E // 3])
-    for bias in (torch.full((1000,), 0.5, device=dev), torch.rand(1000, generator=g, device=dev)):
+    j = E // 2
+    for k, r in enumerate(range(2, n_rays, 8)):
+        case = k % 6
+        if case == 0:
+            vals[r, [0, j]] = vals[r, [j, 0]]
+        elif case == 1:
+            cdfs[r] = cdfs[r].flip(0)
+        elif case == 2:
+            cdfs[r, j] = float("nan")
+        elif case == 3:
+            vals[r, j] = float("nan")
+        elif case == 4:
+            cdfs[r, :2] = torch.tensor([-0.0, 0.0])
+        else:
+            vals[r, 0] = -0.0
+    return vals, cdfs
+
+
+@pytest.mark.parametrize(
+    "E,n", [(2, 128), (129, 64), (17, 1), (300, 200), (2, 1), (129, 33), (6144, 64)])
+def test_importance_sampling_kernel_matches_plain_version(dev, E, n):
+    """G14 bit for bit, stratified and not, in one launch on sorted rows
+    (with plateaus and an all-zero CDF row, which take its search) mixed
+    with rows that fail its monotone-row vote (which take its walk), and
+    with biases that put samples below the first edge (cnt = 0) and past
+    the last (cnt = E - 1); at E = 2, n = 1, n not a multiple of 32, more
+    samples than a chunk and the largest E the wrapper takes."""
+    n_rays = 64 if E > 1000 else 1000
+    g = torch.Generator(device=dev).manual_seed(E + n)
+    vals, cdfs = _pdf_rows(g, n_rays, E)
+    outside = torch.rand(n_rays, generator=g, device=dev) * (n + 4) - 2
+    for bias in (torch.full((n_rays,), 0.5, device=dev),
+                 torch.rand(n_rays, generator=g, device=dev), outside):
         n0 = cuda.LAUNCHES["importance_sampling"]
         iv, s = importance_sampling(RayIntervals(vals), cdfs, n, True, bias=bias)
         assert cuda.LAUNCHES["importance_sampling"] == n0 + 1
         ref_s, ref_e = importance_sampling_plain(vals, cdfs, bias, n)
         assert _same_bits(s.vals, ref_s) and _same_bits(iv.vals, ref_e)
+
+
+def test_importance_sampling_refuses_a_row_past_the_kernel(dev):
+    """The wrapper raises on a row longer than G14 stages, and takes the
+    longest it does."""
+    bias = torch.full((2,), 0.5, device=dev)
+    for E, ok in ((6144, True), (6145, False)):
+        vals = torch.linspace(2.0, 6.0, E, device=dev).expand(2, E).contiguous()
+        if ok:
+            importance_sampling(RayIntervals(vals), vals - 2.0, 8, True, bias=bias)
+        else:
+            with pytest.raises(ValueError, match="edges"):
+                importance_sampling(RayIntervals(vals), vals - 2.0, 8, True, bias=bias)
 
 
 def test_composite_keeps_a_nan_optical_depth(dev):

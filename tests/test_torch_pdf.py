@@ -18,7 +18,13 @@ from nerfacc_tpu.data_specs import RayIntervals as JaxIntervals
 from nerfacc_tpu.pdf import importance_sampling as jax_importance_sampling
 from nerfacc_tpu.pdf import searchsorted as jax_searchsorted
 from nerfacc_tpu_torch.data_specs import RayIntervals
-from nerfacc_tpu_torch.pdf import importance_sampling, importance_sampling_plain, searchsorted
+from nerfacc_tpu_torch.pdf import (
+    cdf_positions,
+    importance_sampling,
+    importance_sampling_plain,
+    samples_and_edges,
+    searchsorted,
+)
 from nerfacc_tpu_torch.utils.fp import fma_f32
 
 
@@ -150,6 +156,56 @@ def test_importance_sampling_matches_jax_bitwise(case):
     if case == "plateaus-zero-rows-ties":
         # the all-zero CDF puts every sample at the midpoint of its last bin
         assert (s.vals[1] == 0.5 * (vals[1, -2] + vals[1, -1])).all()
+
+
+def _search_rule(vals, cdfs, bias, n):
+    """Kernel G14's rule on a row that passes its vote, in torch: ``cnt``,
+    the count of the first E - 1 CDF values <= u, by a search, then the
+    entries at the ends of that prefix (cnt - 1, or 0 where cnt = 0, and
+    cnt, E - 1 included) in place of the masked max and min."""
+    u = cdf_positions(cdfs, bias, n)
+    cnt = torch.searchsorted(cdfs[:, :-1].contiguous(), u.contiguous(), right=True)
+    lo = (cnt - 1).clamp(min=0)
+    return samples_and_edges(vals, u, cdfs.gather(1, lo), vals.gather(1, lo),
+                             cdfs.gather(1, cnt), vals.gather(1, cnt))
+
+
+def _passes_the_vote(vals, cdfs):
+    """G14's vote: nondecreasing edges and CDF (so no NaN) and no -0.0."""
+    rows = np.concatenate([vals, cdfs])
+    return bool((np.diff(rows, axis=-1) >= 0).all()
+                and not (rows.view(np.uint32) == 0x80000000).any())
+
+
+SEARCH_CASES = {
+    **CASES,
+    # biases that put samples below the first CDF value (cnt = 0) and past
+    # the last (cnt = E - 1), and positions on CDF values
+    "outside-the-row": (*_intervals(11, 6, 9), 8,
+                        np.array([-3.0, -0.5, 8.5, 12.0, 0.5, -1.0], np.float32)),
+}
+
+
+@pytest.mark.parametrize("case", list(SEARCH_CASES))
+def test_search_rule_matches_the_reductions_bitwise(case):
+    """On rows that pass G14's vote (plateaus, an all-zero CDF, positions on
+    CDF values, repeated edges, cnt = 0 and cnt = E - 1), the kernel's
+    search rule gives the jitted JAX function's and the plain version's
+    samples and edges bit for bit."""
+    vals, cdfs, n, bias = SEARCH_CASES[case]
+    assert _passes_the_vote(vals, cdfs)
+    b = np.full(vals.shape[0], 0.5, np.float32) if bias is None else bias
+    tv, tc, tb = (torch.tensor(x) for x in (vals, cdfs, b))
+    got_s, got_e = _search_rule(tv, tc, tb, n)
+    ref_s, ref_e = importance_sampling_plain(tv, tc, tb, n)
+    want_s, want_e = _jax_sampling(vals, cdfs, n, bias)
+    for got, ref, want in ((got_s, ref_s, want_s), (got_e, ref_e, want_e)):
+        np.testing.assert_array_equal(got.numpy().view(np.int32), ref.numpy().view(np.int32))
+        np.testing.assert_array_equal(got.numpy().view(np.int32), want.view(np.int32))
+    if case == "outside-the-row":
+        u = cdf_positions(tc, tb, n)
+        cnt = (tc[:, None, :-1] <= u[:, :, None]).sum(-1)
+        assert (cnt == 0).any() and (cnt == vals.shape[1] - 1).any()
 
 
 def test_importance_sampling_generator_and_contract():

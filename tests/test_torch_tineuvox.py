@@ -63,6 +63,22 @@ def test_sinusoidal_encoder_matches_jax(x_dim, min_deg, max_deg, identity):
     np.testing.assert_allclose(out, want, rtol=0, atol=1e-6)
 
 
+@pytest.mark.parametrize("x_dim,min_deg,max_deg", [(3, 0, 4), (1, 0, 4), (2, 1, 6), (3, 0, 10)])
+def test_sinusoidal_encoder_rounds_the_sine_once(x_dim, min_deg, max_deg):
+    """Each sine is the f32 nearest to the sine of its f32 argument, bit for
+    bit: the encoder takes it in f64 and rounds once, so no accuracy mode of
+    the library's f32 vector sine (which once computed a chunk of it ~1.5e-4
+    off, in one process after tests/test_torch_hat_matmul.py) reaches it."""
+    x = np.random.default_rng(x_dim + 7).uniform(-1.5, 1.5, (4096, x_dim)).astype(np.float32)
+    enc = SinusoidalEncoder(x_dim, min_deg, max_deg, True)
+    out = enc(torch.tensor(x)).numpy()
+    scales = (2.0 ** np.arange(min_deg, max_deg)).astype(np.float32)
+    xb = (x[:, None, :] * scales[:, None]).reshape(4096, -1)
+    args = np.concatenate([xb, xb + np.float32(0.5 * np.pi)], axis=-1)
+    want = np.sin(args.astype(np.float64)).astype(np.float32)
+    np.testing.assert_array_equal(out[:, x_dim:].view(np.int32), want.view(np.int32))
+
+
 def _jax_field(dtype):
     jfield = JaxTiNeuVox(aabb=AABB, compute_dtype=dtype, **SMALL)
     object.__setattr__(
