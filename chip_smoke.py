@@ -10,7 +10,9 @@ It builds the CUDA kernels from ``nerfacc_tpu_torch/csrc`` and runs:
 
 1. each forward kernel (G1 CP level, G2 march, G3 composite) against its
    PyTorch twin on the card at the slice's shapes, timed with CUDA events
-   (G2 and G3 also on a 2048-ray train batch at the trainer's near planes,
+   (G2 also with a window, round by round as the eval renderer runs it,
+   bitwise, and G3 on its busiest round behind the earlier rounds' opacity,
+   ``prefix_trans = 1 - opacity``; G2 and G3 also on a 2048-ray train batch at the trainer's near planes,
    G3 on that batch cut at the 2^18 budget, and alone by
    ``torch.profiler``); G1 bitwise, at every level of the CP field on
    uniform coordinates and on that cut batch's sample midpoints, and at
@@ -30,7 +32,10 @@ It builds the CUDA kernels from ``nerfacc_tpu_torch/csrc`` and runs:
    from seed 42, four dense refreshes of the 128^3 occupancy grid, then
    ``eval_metrics`` over the procedural scene's four 320x320 test views; the
    kernels' launch counts over this phase must all be positive;
-3. view 0 rendered again through the twins alone, against phase 2's image;
+3. view 0 rendered again through the twins alone, against phase 2's image
+   through the exact renderer, and through the eval renderer
+   (``render_view``) on the plain versions of its kernels, against the same
+   through the kernels;
 4. the training slice: ``train_step`` on the train split (6 views at
    256x256, 2048 rays, a 2^18-sample budget, stratified, a dense refresh
    every 16 steps) for ``TRAIN_STEPS`` steps; the loss must halve and all
@@ -40,6 +45,18 @@ It builds the CUDA kernels from ``nerfacc_tpu_torch/csrc`` and runs:
    the bf16 field and for an f32 field on the same parameters;
 6. ``eval_metrics`` on phase 4's trained field, which must beat phase 2's
    untrained PSNR by 3 dB;
+   6b. its test views through the early-stopping eval renderer and the exact
+   renderer: samples a ray and seconds a frame of both, the early stop's
+   own colour change within 2e-3, as is every ray whose resumed rounds emit
+   its whole orbit's samples; the other rays at most 1e-3 of all, and every
+   ray within 1e-2;
+   6c. the same on the hard-surface scene served through its own analytic
+   density, on a grid refreshed from it;
+   6d. the occupancy example (``nerfacc_tpu_torch.examples.train_ngp_nerf_occ
+   --field cp --device_sampler 1``) for 3200 steps, 8 a call, stopped after
+   its checkpoint at 1600 (loaded back bitwise) and resumed from it: the
+   controller must grow the batch past 1024 rays, the loss halve and the
+   PSNR end 3 dB above phase 2's;
 7. phase 2 with the full-width hash-grid ``NGPRadianceField`` (16 levels x
    2 features, 2^19 rows per level, resolutions 16..4096, bf16 MLPs);
 8. phase 4 with that field;
@@ -108,12 +125,15 @@ only trains and serves those paths as phases 12-14 and 16-18 do, from each
 seed, through each route (the kernels; every kernel of the path on its
 plain version; the named kernels alone on theirs), on this checkout or on
 the tree ``--root`` names (an older commit unpacked by ``git archive`` into
-a git-ignored directory), and prints one JSON line a run.
+a git-ignored directory), and prints one JSON line a run.  With ``--example cp|ngp [--steps N] [--seeds
+...]`` it runs the occupancy example alone from each seed (``--max_steps N``,
+its defaults otherwise) and prints one JSON line a run: PSNR, SSIM, steps,
+training seconds, ray counts, samples a step, and both renderers' frames.
 
 Every check raises on failure, so the exit code is nonzero and the result
 line is not printed.  The last line of standard output is a JSON object with
 ``"ok": true`` and the device; the line before it lists each kernel's launch
-count (over the four training phases 4, 8, 12 and 16; for G11-G13, over the
+count (over the training phases 4, 6d, 8, 12 and 16; for G11-G13, over the
 gather probe's run), error, times and bound.  Without a CUDA device the
 script fails at once.
 """
@@ -121,6 +141,7 @@ import argparse
 import contextlib
 import importlib
 import json
+import math
 import os
 import statistics
 import subprocess
@@ -137,10 +158,15 @@ from nerfacc_tpu_torch import cuda  # noqa: E402
 from nerfacc_tpu_torch.cuda import _build  # noqa: E402
 from nerfacc_tpu_torch.data.procedural import (  # noqa: E402
     ProceduralDynamicSceneLoader,
+    ProceduralOpaqueSceneLoader,
     ProceduralSceneLoader,
 )
 from nerfacc_tpu_torch import pdf  # noqa: E402
 from nerfacc_tpu_torch.data.device_sampler import DeviceRaySampler  # noqa: E402
+from nerfacc_tpu_torch.estimators.occ_grid import (  # noqa: E402
+    init_occ_grid,
+    update_occ_grid,
+)
 from nerfacc_tpu_torch.estimators.prop_net import (  # noqa: E402
     get_proposal_requires_grad_fn,
 )
@@ -185,10 +211,20 @@ from nerfacc_tpu_torch.ops.sorted_segments import (  # noqa: E402
     composite_sorted_backward_plain,
     composite_sorted_plain,
 )
-from nerfacc_tpu_torch.trainers.ngp_occ import TrainState  # noqa: E402
+from nerfacc_tpu_torch.trainers.ngp_occ import (  # noqa: E402
+    EVAL_EARLY_STOP_EPS,
+    EVAL_MAX_ROUNDS,
+    EVAL_WINDOW,
+    TrainState,
+)
 from nerfacc_tpu_torch.trainers.ngp_prop import PropTrainState  # noqa: E402
 from nerfacc_tpu_torch.utils import flops  # noqa: E402
-from nerfacc_tpu_torch.utils.rendering import compact_samples  # noqa: E402
+from nerfacc_tpu_torch.utils.checkpoint import load_checkpoint  # noqa: E402
+from nerfacc_tpu_torch.utils.rendering import (  # noqa: E402
+    compact_samples,
+    render_image_with_occgrid,
+    render_rays_occgrid_test,
+)
 from nerfacc_tpu_torch.volrend import render_transmittance_from_density  # noqa: E402
 
 AABB = [-1.5, -1.5, -1.5, 1.5, 1.5, 1.5]
@@ -210,6 +246,27 @@ FLIP_ALLOWANCE = 1e-3  # share of rays whose sample count may differ
 # operations per candidate, so it may differ on no more rays.
 PARENT_G2_RAYS_DIFFER = 0
 HAT_TRAIN_N = 2**16  # phase 1d: the TiNeuVox train step's sample budget
+# Phases 6b and 6c: the early-stop renderer's colours against the exact
+# renderer's.  A ray retired at opacity 1 - eps misses at most eps of its
+# colour, and the background it then blends in differs by at most 1.  A
+# round resumes its orbit from the last round's termination plane, which
+# moves the candidates by rounding: one that crosses a voxel face adds or
+# drops a sample of alpha up to the occupancy threshold (~1e-2), as in the
+# JAX renderer.  Such rays are counted against FLIP_ALLOWANCE, and their
+# colours held to RENDERER_FLIP_COLOUR_ERR: the candidate that moves lies in a
+# cell at the grid's edge, whose refreshed density x step is near the
+# occupancy threshold 1e-2, so it adds or drops a sample of alpha ~1e-2 (the
+# worst ray read 8.27e-3 over six runs of 6b and 6c on an H100, PERF.md §6).
+RENDERER_COLOUR_ERR = 2e-3
+RENDERER_FLIP_COLOUR_ERR = 1e-2
+# Phase 6d: the occupancy example (nerfacc_tpu_torch.examples.train_ngp_nerf_occ)
+# run as a user runs it, stopped after its checkpoint at EXAMPLE_CKPT and
+# resumed from it: EXAMPLE_STEPS steps in all, 8 a call.  The untrained
+# field occupies every cell, and the refresh's EMA (x0.95 every 16 steps)
+# takes tens of refreshes to clear one: over 320 steps the demand stayed
+# above the budget and the controller at 1024 rays on an H100 (PERF.md
+# §6), so the run is long enough for the grid to clear and the batch to grow.
+EXAMPLE_STEPS, EXAMPLE_CKPT, EXAMPLE_CALL = 3200, 1600, 8  # multiples of a call
 TRAIN_STEPS = 1000  # not a multiple of the refresh interval: phase 5's step
 # Phase 5: each gradient leaf of a kernel step against the twin step, by
 # relative Frobenius norm, worst of STEP_REPEATS runs.  f32: only the order of
@@ -522,6 +579,61 @@ def phase_kernels(dev, trainer, state, ds):
           f"in count (the parent design: {PARENT_G2_RAYS_DIFFER}), kernel "
           f"{train['ms']:.4f} ms, alone {device_ms(lambda: march(*targs)):.4f} ms, bound "
           f"{train['bound_ms']:.4f} ms, twin {train['plain_ms']:.4f} ms")
+
+    # G2 with a window, as the eval renderer runs it: rounds of EVAL_WINDOW
+    # candidates over the eval chunk from near 0, each round from the last
+    # one's termination planes with the rays not yet terminated, each
+    # bitwise against march_plain; timed on the round with the most samples.
+    # Each round's samples are composited by G3 behind the opacity of the
+    # rounds before (prefix_trans = 1 - opacity), with seeded densities and
+    # colours, as the eval renderer composites them
+    alive = torch.ones(G2_RAYS, dtype=torch.bool, device=dev)
+    opacity = torch.zeros(G2_RAYS, device=dev)
+    near_w, rounds = near, []
+    while len(rounds) < EVAL_MAX_ROUNDS and bool(alive.any()):
+        wargs = (o, d, occ.binaries, occ.aabbs, near_w, far, trainer.render_step_size,
+                 0.0, alive)
+        wout = march(*wargs, max_samples=EVAL_WINDOW)
+        wref = march_plain(*wargs, max_samples=EVAL_WINDOW)
+        require(all(torch.equal(a, b) for a, b in zip(wout, wref)),
+                f"G2 windowed, round {len(rounds)}: differs from march_plain")
+        ws = compact_samples(wout)
+        pargs = (ws.t_starts, ws.t_ends,
+                 10.0 ** (torch.rand(ws.num_valid, generator=g, device=dev) * 4 - 1),
+                 torch.rand((ws.num_valid, 3), generator=g, device=dev), ws.ray_indices,
+                 G2_RAYS, ws.seg_starts, ws.seg_ends, (1.0 - opacity).contiguous())
+        rounds.append((wout.ray_indices.shape[0], wargs, wout, pargs))
+        if ws.num_valid:
+            opacity = opacity + composite_sorted(*pargs)[1][:, 0]
+        alive = alive & ~wout.terminated
+        near_w = wout.termination_planes
+    n_w, wargs, wout, pargs = max(rounds, key=lambda r: r[0])
+    window = measured(
+        0.0, cuda_ms(lambda: march(*wargs, max_samples=EVAL_WINDOW)),
+        cuda_ms(lambda: march_plain(*wargs, max_samples=EVAL_WINDOW)),
+        nbytes(*wargs, *wout), 15 * n_w,
+    )
+    print(f"G2 march windowed: {len(rounds)} rounds of {EVAL_WINDOW} candidates over the "
+          f"{G2_RAYS}-ray eval chunk (near 0), samples per round "
+          f"{[r[0] for r in rounds]}, every round bitwise equal to march_plain; the "
+          f"busiest round: kernel {window['ms']:.4f} ms, alone "
+          f"{device_ms(lambda: march(*wargs, max_samples=EVAL_WINDOW)):.4f} ms, bound "
+          f"{window['bound_ms']:.4f} ms ({window['bound_by']}), plain "
+          f"{window['plain_ms']:.4f} ms")
+    # G3 on the busiest round's samples, behind the earlier rounds' opacity
+    pc, pa, pdep, _ = composite_sorted(*pargs)
+    rc, ra, rdep, _ = composite_sorted_plain(*pargs)
+    p_err = max(float((pc - rc).abs().max()), float((pa - ra).abs().max()))
+    p_dep_err = float((pdep - rdep).abs().max())
+    prefix = pargs[-1]
+    print(f"G3 composite, the busiest windowed round ({n_w} samples) behind the earlier "
+          f"rounds' opacity (prefix_trans in [{float(prefix.min()):.4g}, "
+          f"{float(prefix.max()):.4g}], {int((prefix < 1).sum())} of {G2_RAYS} rays below "
+          f"1): rgb/opacity max_abs_err={p_err:.3g}, depth {p_dep_err:.3g}, kernel "
+          f"{cuda_ms(lambda: composite_sorted(*pargs)):.4f} ms, plain "
+          f"{cuda_ms(lambda: composite_sorted_plain(*pargs)):.4f} ms")
+    require(p_err <= 1e-5, f"G3 with prefix_trans: rgb/opacity differ by {p_err}")
+    require(p_dep_err <= 1e-4, f"G3 with prefix_trans: depth differs by {p_dep_err}")
 
     # G3: on that buffer, seeded densities and colours
     s = compact_samples(out)
@@ -1244,7 +1356,8 @@ def phase_slice(dev, ds, kind="cp", timestamps=None):
                 f"view {i}: opacity out of [0, 1]")
         require(v["n_rays"] == ds.WIDTH * ds.HEIGHT, f"view {i}: ray count")
     print(f"slice {kind}: psnr vs GT {metrics['psnr']:.3f} (random field), ssim "
-          f"{metrics['ssim']:.4f}, launches {launches}")
+          f"{metrics['ssim']:.4f}, launches {launches}; G2 launches per frame "
+          f"{launches['march'] / len(metrics['views']):.2f}")
     for name in (ENCODER_KERNELS[kind][0], "march", "composite_fwd"):
         require(launches[name] > 0, f"kernel {name} never launched on the slice")
     return trainer, state, metrics["psnr"]
@@ -1592,6 +1705,237 @@ def phase_serve_trained(trainer, state, ds, untrained_psnr, kind="cp"):
     return metrics["psnr"]
 
 
+def timed(fn):
+    """``fn()`` and its wall seconds, ended by a device sync."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def rounds_render(field_fn, occ, data, step, eps):
+    """``data``'s rays through :func:`render_rays_occgrid_test` at the
+    trainer's window and round cap, 8192-ray chunks: colours and each ray's
+    sample count."""
+    parts = [render_rays_occgrid_test(
+        field_fn, occ, data["rays_o"][i : i + 8192], data["rays_d"][i : i + 8192],
+        render_bkgd=data["color_bkgd"], render_step_size=step, early_stop_eps=eps,
+        window=EVAL_WINDOW, max_iters=EVAL_MAX_ROUNDS,
+    ) for i in range(0, data["rays_o"].shape[0], 8192)]
+    return torch.cat([p[0] for p in parts]), torch.cat([p[3]["counts"] for p in parts])
+
+
+def orbit_counts(occ, data, step):
+    """Each ray's samples on its whole orbit from near 0 (the exact
+    renderer's march)."""
+    o, d = data["rays_o"], data["rays_d"]
+    near = torch.zeros(o.shape[0], device=o.device)
+    return march(o, d, occ.binaries, occ.aabbs, near, torch.full_like(near, 1e10), step).counts
+
+
+def compare_renderers(label, views, field_fn, occ, step, early, exact):
+    """6b / 6c: each view through the early-stop renderer (``early(data)
+    -> (colors, n_samples)``) and the exact one (``exact``, likewise), timed
+    after one warm-up view: samples a ray and seconds a frame of both.
+    Checked against the same rounds without the early stop
+    (:func:`rounds_render` at eps -inf, with ``field_fn(data)``'s field on
+    ``occ``): the early stop alone moves a colour by at most
+    ``RENDERER_COLOUR_ERR``; so does the early-stop renderer against the
+    exact one on every ray whose rounds emit as many samples as its whole
+    orbit; the rays where a resumed orbit emits another candidate than the
+    whole orbit (one that moved across a voxel face by rounding) are
+    counted, held to ``FLIP_ALLOWANCE`` of the rays, and every ray's colour
+    to ``RENDERER_FLIP_COLOUR_ERR``; and the early stop renders fewer
+    samples."""
+    early(views[0])
+    exact(views[0])
+    totals = {"early stop": [0, 0.0], "exact": [0, 0.0]}
+    worst = {"early stop alone": 0.0, "same samples": 0.0, "all rays": 0.0}
+    flipped = 0
+    for i, data in enumerate(views):
+        n_rays = data["rays_o"].shape[0]
+        (c_early, n_early), s_early = timed(lambda: early(data))
+        (c_exact, n_exact), s_exact = timed(lambda: exact(data))
+        with torch.no_grad():  # no ray retires for its opacity, even past 1 by rounding
+            c_rounds, counts = rounds_render(field_fn(data), occ, data, step, -math.inf)
+        same = counts == orbit_counts(occ, data, step)
+        err = (c_early - c_exact).abs().amax(dim=-1)
+        readings = {
+            "early stop alone": float((c_early - c_rounds).abs().max()),
+            "same samples": float(err[same].max()) if bool(same.any()) else 0.0,
+            "all rays": float(err.max()),
+        }
+        for k, v in readings.items():
+            worst[k] = max(worst[k], v)
+        flipped += int((~same).sum())
+        for name, n, sec in (("early stop", n_early, s_early), ("exact", n_exact, s_exact)):
+            totals[name][0] += n
+            totals[name][1] += sec
+        print(f"{label} view {i}: early stop {n_early / n_rays:.2f} samples/ray, "
+              f"{s_early:.4f} s; exact {n_exact / n_rays:.2f} samples/ray, {s_exact:.4f} s; "
+              f"max colour difference {readings['all rays']:.3g} ({int((~same).sum())} "
+              f"rays with another sample set), early stop alone "
+              f"{readings['early stop alone']:.3g}")
+    n_rays = sum(v["rays_o"].shape[0] for v in views)
+    print(f"{label}: " + "; ".join(
+        f"{name} {n / n_rays:.2f} samples/ray, {sec / len(views):.4f} s/frame"
+        for name, (n, sec) in totals.items()
+    ) + "; max colour difference " + ", ".join(f"{k} {v:.3g}" for k, v in worst.items())
+      + f" (limits {RENDERER_COLOUR_ERR}, all rays {RENDERER_FLIP_COLOUR_ERR}); "
+        f"{flipped} of {n_rays} rays with another sample set (limit "
+        f"{FLIP_ALLOWANCE} of the rays)")
+    for what in ("early stop alone", "same samples"):
+        require(worst[what] <= RENDERER_COLOUR_ERR,
+                f"{label}: early-stop colours differ by {worst[what]} ({what})")
+    require(worst["all rays"] <= RENDERER_FLIP_COLOUR_ERR,
+            f"{label}: early-stop colours differ by {worst['all rays']} (all rays)")
+    require(flipped <= FLIP_ALLOWANCE * n_rays, f"{label}: {flipped} rays flipped")
+    require(totals["early stop"][0] < totals["exact"][0],
+            f"{label}: the early stop rendered no fewer samples")
+
+
+def phase_trained_frames(trainer, state, ds):
+    """6b: the trained CP field's test views through the trainer's eval
+    renderer (``render_view``) and its exact renderer (``render_rays``)."""
+    compare_renderers(
+        "trained cp frames", [ds[i] for i in range(len(ds))],
+        lambda data: trainer._field_fn(state, data), state.occ_state,
+        trainer.render_step_size,
+        lambda data: trainer.render_view(state, data)[::3],
+        lambda data: trainer.render_rays(state, data)[::3],
+    )
+
+
+@torch.no_grad()
+def phase_opaque_frames(dev):
+    """6c: the hard-surface scene served through its own analytic density
+    and colour, on a 128^3 grid refreshed N_REFRESH times from that density
+    as the trainer refreshes (density x step, EMA 0.95, threshold 0.01):
+    the early-stop renderer at the trainer's settings against the exact
+    one, 8192-ray chunks."""
+    ds, seconds = timed(lambda: ProceduralOpaqueSceneLoader(split="test", device=dev))
+    step = 5e-3
+    centers = ds.blob_centers
+
+    def field_fn(x, dirs):
+        return ds.query_rgb(x, centers), ds.query_density(x, centers)[:, 0]
+
+    occ = init_occ_grid(AABB, 128, 1, device=dev)
+    g = torch.Generator(device=dev).manual_seed(0)
+    for _ in range(N_REFRESH):
+        jitter = torch.rand((occ.levels, occ.cells_per_lvl, 3), generator=g, device=dev)
+        occ = update_occ_grid(
+            occ, lambda x: ds.query_density(x, centers)[:, 0] * step, jitter,
+            occ_thre=1e-2, ema_decay=0.95,
+        )
+    print(f"opaque scene: {len(ds)} test views {ds.WIDTH}x{ds.HEIGHT}, ground truth "
+          f"rendered in {seconds:.2f} s; occupied share "
+          f"{float(occ.binaries.float().mean()):.4f}")
+
+    def early(data):
+        colors, counts = rounds_render(field_fn, occ, data, step, EVAL_EARLY_STOP_EPS)
+        return colors, int(counts.sum())
+
+    def exact(data):
+        colors, _, _, n = render_image_with_occgrid(
+            field_fn, occ, data["rays_o"], data["rays_d"], data["color_bkgd"],
+            render_step_size=step,
+        )
+        return colors, n
+
+    compare_renderers("opaque frames", [ds[i] for i in range(len(ds))],
+                      lambda data: field_fn, occ, step, early, exact)
+
+
+class _Stop(Exception):
+    """Ends the example's first run right after its checkpoint."""
+
+
+def phase_example(dev, untrained_psnr):
+    """6d: ``python -m nerfacc_tpu_torch.examples.train_ngp_nerf_occ --field
+    cp --device_sampler 1`` for EXAMPLE_STEPS steps, EXAMPLE_CALL a call,
+    through its ``build`` and ``train_loop``: stopped right after its
+    checkpoint at EXAMPLE_CKPT (which must load back bitwise), then run again
+    with the same arguments, which resumes from it.  The controller must
+    grow the batch past its initial 1024 rays, the loss halve, the resumed
+    run end finite and 3 dB above the untrained PSNR; launches counted over
+    both runs.  Returns the launches."""
+    ex = port_module("examples.train_ngp_nerf_occ")
+    ckpt = os.path.join("build", "chip_smoke", "example.ckpt")
+    if os.path.exists(ckpt):
+        os.remove(ckpt)
+    args = ex.parser().parse_args([
+        "--field", "cp", "--device_sampler", "1", "--steps_per_call", str(EXAMPLE_CALL),
+        "--max_steps", str(EXAMPLE_STEPS - EXAMPLE_CALL), "--ckpt_every",
+        str(EXAMPLE_CKPT), "--model_path", ckpt, "--log_every", "500",
+    ])
+    save = ex.save_checkpoint
+    stopped = []
+
+    def save_then_stop(path, state):
+        save(path, state)
+        loaded = load_checkpoint(path, like=state, device=dev)
+        same = all(torch.equal(loaded.params[k], v) for k, v in state.params.items())
+        adam, adam_loaded = state.opt_state.optimizer, loaded.opt_state.optimizer
+        for k, p in state.params.items():
+            mine, theirs = adam.state[p], adam_loaded.state[loaded.params[k]]
+            same &= all(torch.equal(mine[m], theirs[m]) for m in mine)
+        for k in ("occs", "binaries", "aabbs"):
+            same &= torch.equal(getattr(loaded.occ_state, k), getattr(state.occ_state, k))
+        same &= (loaded.step, loaded.opt_state.count) == (state.step, state.opt_state.count)
+        stopped.append((state.step, same))
+        if state.step == EXAMPLE_CKPT:
+            raise _Stop
+
+    cuda.reset_launches()
+    t0 = time.perf_counter()
+    ex.save_checkpoint = save_then_stop
+    log = []  # the first run's records, then the resumed run's
+    try:
+        trainer, train_ds, test_ds = ex.build(args)
+        try:
+            ex.train_loop(trainer, train_ds, test_ds, args, log)
+        except _Stop:
+            pass
+        first_seconds = time.perf_counter() - t0
+        trainer, train_ds, test_ds = ex.build(args)
+        run = ex.train_loop(trainer, train_ds, test_ds, args, log)
+    finally:
+        ex.save_checkpoint = save
+    torch.cuda.synchronize()
+    launches = dict(cuda.LAUNCHES)
+    print(f"example: first run stopped after its checkpoint at step {stopped[0][0]} "
+          f"({first_seconds:.1f} s, set-up included), checkpoint loaded back bitwise: "
+          f"{stopped[0][1]}; resumed run to step {run.state.step} in "
+          f"{run.train_seconds:.1f} s")
+    rays = [r["num_rays"] for r in log]
+    losses = [r["loss"] for r in log]
+    grown = [r["step"] for r in log if r["num_rays"] > 1024]
+    print(f"example: ray counts {sorted(set(rays))}, first above 1024 in the call "
+          f"ending at step {grown[0] if grown else None}, the last call's "
+          f"{rays[-1]}; demand of the first and last calls "
+          f"{log[0]['n_total_samples'] / log[0]['num_rays']:.1f} and "
+          f"{log[-1]['n_total_samples'] / log[-1]['num_rays']:.1f} samples/ray; mean "
+          f"loss of the first and last five calls "
+          f"{statistics.mean(losses[:5]):.6f} -> {statistics.mean(losses[-5:]):.6f}; "
+          f"eval psnr {run.metrics['psnr']:.3f}, ssim {run.metrics['ssim']:.4f} "
+          f"(untrained {untrained_psnr:.3f}); launches {launches}")
+    require(len(stopped) >= 2 and all(same for _, same in stopped),
+            f"example: a checkpoint did not load back bitwise: {stopped}")
+    require(stopped[0][0] == EXAMPLE_CKPT, f"example: first checkpoint at {stopped[0][0]}")
+    require(run.state.step == EXAMPLE_STEPS, f"example: ended at step {run.state.step}")
+    require(max(rays) > 1024, f"example: the controller kept {sorted(set(rays))} rays")
+    require(all(math.isfinite(v) for v in losses), "example: non-finite loss")
+    require(statistics.mean(losses[-5:]) < 0.5 * statistics.mean(losses[:5]),
+            "example: the loss did not halve")
+    require(run.metrics["psnr"] >= untrained_psnr + 3.0,
+            f"example: psnr {run.metrics['psnr']} not 3 dB above {untrained_psnr}")
+    for name in ("cp_level_fwd", "cp_level_bwd", "march", "composite_fwd", "composite_bwd"):
+        require(launches[name] > 0, f"example: kernel {name} never launched")
+    return launches
+
+
 def phase_prop_serve(dev, ds, trainer=None, state=None, untrained_psnr=None):
     """15 (untrained, seed-42 weights) and 18 (``trainer`` and ``state``
     from phase 16, against ``untrained_psnr``): ``NGPPropTrainer``'s
@@ -1924,10 +2268,67 @@ def quality_study(args):
                     f.write(json.dumps({**head, **run}) + "\n")
 
 
+def example_study(args):
+    """``--example cp|ngp``: the occupancy example as a user runs it
+    (``python -m nerfacc_tpu_torch.examples.train_ngp_nerf_occ --field
+    <field> --max_steps <steps> --seed <seed>``, its defaults otherwise)
+    from each seed, then its test views through the exact renderer too; one
+    JSON line a run, printed and appended to ``<out>/example_<label>.jsonl``:
+    eval PSNR and SSIM, the steps trained and their wall seconds (the final
+    evaluation excluded), the last call's ray count, mean rendered samples a
+    step, and seconds a frame and samples a ray of both renderers."""
+    ex = port_module("examples.train_ngp_nerf_occ")
+    head = {"label": args.label, "card": card(), "torch": torch.__version__,
+            "cuda": torch.version.cuda}
+    print(json.dumps(head), flush=True)
+    os.makedirs(args.out, exist_ok=True)
+    for seed in args.seeds:
+        eargs = ex.parser().parse_args([
+            "--field", args.example, "--max_steps", str(args.steps), "--seed", str(seed),
+            "--log_every", str(max(args.steps // 10, 8)),
+        ])
+        (trainer, train_ds, test_ds), setup = timed(lambda: ex.build(eargs))
+        cuda.reset_launches()
+        run = ex.train_loop(trainer, train_ds, test_ds, eargs)
+        launches = {k: v for k, v in cuda.LAUNCHES.items() if v}
+        views = run.metrics["views"]
+        n_rays = sum(v["n_rays"] for v in views)
+        exact_seconds, exact_samples, exact_psnr = 0.0, 0, []
+        for i in range(len(test_ds)):
+            data = test_ds[i]
+            (colors, _, _, n), seconds = timed(lambda: trainer.render_rays(run.state, data))
+            exact_seconds += seconds
+            exact_samples += n
+            exact_psnr.append(float(-10.0 * torch.log10(((colors - data["rgb"]) ** 2).mean())))
+        rec = {
+            "label": args.label, "field": args.example, "seed": seed,
+            "steps": run.state.step, "psnr": run.metrics["psnr"],
+            "ssim": run.metrics["ssim"], "view_psnr": [v["psnr"] for v in views],
+            "train_seconds": run.train_seconds, "setup_seconds": setup,
+            "final_num_rays": run.log[-1]["num_rays"],
+            "max_num_rays": max(r["num_rays"] for r in run.log),
+            "mean_samples_per_step": sum(r["samples"] for r in run.log) / run.state.step,
+            "loss_first5": statistics.mean(r["loss"] for r in run.log[:5]),
+            "loss_last5": statistics.mean(r["loss"] for r in run.log[-5:]),
+            "eval_s_per_frame": sum(v["seconds"] for v in views) / len(views),
+            "eval_samples_per_ray": sum(v["n_samples"] for v in views) / n_rays,
+            "exact_s_per_frame": exact_seconds / len(views),
+            "exact_samples_per_ray": exact_samples / n_rays,
+            "exact_psnr": statistics.mean(exact_psnr),
+            "launches": launches,
+        }
+        print(json.dumps(rec), flush=True)
+        with open(os.path.join(args.out, f"example_{args.label}.jsonl"), "a") as f:
+            f.write(json.dumps({**head, **rec}) + "\n")
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--quality", nargs="+", choices=list(PATH_KERNELS),
                     help="train and serve these paths alone (quality_study)")
+    ap.add_argument("--example", choices=["cp", "ngp"],
+                    help="run the occupancy example alone (example_study)")
+    ap.add_argument("--steps", type=int, default=10000, help="--example's --max_steps")
     ap.add_argument("--seeds", nargs="+", type=int, default=list(QUALITY_SEEDS))
     ap.add_argument("--routes", nargs="+", default=["kernels", "plain"])
     ap.add_argument("--root", help="the tree whose nerfacc_tpu_torch --quality imports")
@@ -1938,6 +2339,9 @@ def main():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is false")
     if args.quality:
         quality_study(args)
+        return
+    if args.example:
+        example_study(args)
         return
     dev = torch.device("cuda", 0)
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -1970,17 +2374,31 @@ def main():
     report.update(phase_pdf_kernel(dev))
     trainer, state, untrained_psnr = phase_slice(dev, ds)
 
-    with torch.inference_mode():
-        main_colors = trainer.render_image(state, ds[0])
+    main_colors = trainer.render_rays(state, ds[0])[0]
     plain_colors = render_view_plain(trainer, state, ds[0])
     diff = float((main_colors - plain_colors).abs().max())
-    print(f"view 0, kernels vs twins: max colour difference {diff:.3g}")
+    print(f"view 0 through the exact renderer, kernels vs twins: max colour difference "
+          f"{diff:.3g}")
     require(diff <= 2e-3, f"view 0: kernel and twin paths differ by {diff}")
+    # and through the eval renderer (render_view: windowed G2, G3 behind
+    # prefix_trans), its kernels against their plain versions
+    eval_colors = trainer.render_view(state, ds[0])[0]
+    before = dict(cuda.LAUNCHES)
+    with plain_kernels(("cp_level_fwd", "march", "composite_fwd")):
+        eval_plain = trainer.render_view(state, ds[0])[0]
+    require(cuda.LAUNCHES == before, "the plain eval renderer launched a kernel")
+    diff = float((eval_colors - eval_plain).abs().max())
+    print(f"view 0 through the eval renderer, kernels vs plain versions: max colour "
+          f"difference {diff:.3g}")
+    require(diff <= 2e-3, f"view 0: eval renderer's kernel and plain routes differ by {diff}")
 
     trainer, state, batch, launches = phase_train(dev)
     phase_train_twins(trainer, state, batch)
     phase_serve_trained(trainer, state, ds, untrained_psnr)
+    phase_trained_frames(trainer, state, ds)
     del trainer, state
+    phase_opaque_frames(dev)
+    example_launches = phase_example(dev, untrained_psnr)
 
     # 7-10: the hash-grid NGP field through the same entry points
     _, _, untrained_psnr = phase_slice(dev, ds, "ngp")
@@ -2015,9 +2433,10 @@ def main():
     del trainer, state
     phase_plain_quality(dev, "prop", psnr)
     # each kernel's launches over the four training runs (phases 4, 8, 12,
-    # 16), and the gather kernels' over the gather probe's run
+    # 16) and the occupancy example's (6d), and the gather kernels' over the
+    # gather probe's run
     launches = {k: v + ngp_launches[k] + tnv_launches[k] + prop_launches[k]
-                for k, v in launches.items()}
+                + example_launches[k] for k, v in launches.items()}
     launches.update(probe_launches)
 
     sources = {

@@ -26,10 +26,12 @@ from .models.tineuvox import TiNeuVoxRadianceField
 from .pdf import importance_sampling, searchsorted
 from .trainers.ngp_occ import NGPOccTrainer, TrainState
 from .trainers.ngp_prop import NGPPropTrainer, PropTrainState
+from .utils.checkpoint import load_checkpoint, save_checkpoint
 from .utils.rendering import (
     CompactSamples,
     compact_samples,
     render_image_with_occgrid,
+    render_rays_occgrid_test,
     render_rays_with_occgrid,
 )
 
@@ -39,8 +41,9 @@ __all__ = [
     "NGPRadianceField", "OccGridState", "PropTrainState", "RayIntervals",
     "RaySamples", "SinusoidalEncoder", "TiNeuVoxRadianceField", "TrainState",
     "compact_samples", "cuda", "get_proposal_requires_grad_fn",
-    "importance_sampling", "init_occ_grid", "march", "march_plain",
-    "propnet_loss", "propnet_sampling", "ray_aabb_intersect",
-    "render_image_with_occgrid", "render_rays_with_occgrid", "sampling",
-    "searchsorted", "traverse_grids_padded", "update_occ_grid",
+    "importance_sampling", "init_occ_grid", "load_checkpoint", "march",
+    "march_plain", "propnet_loss", "propnet_sampling", "ray_aabb_intersect",
+    "render_image_with_occgrid", "render_rays_occgrid_test",
+    "render_rays_with_occgrid", "sampling", "save_checkpoint", "searchsorted",
+    "traverse_grids_padded", "update_occ_grid",
 ]

@@ -14,11 +14,23 @@
 //      iff its midpoint lies in a valid segment and in an occupied voxel of
 //      that segment's level.
 //
-// march_count runs the walk and writes each ray's sample count and its
-// termination plane; the caller takes an exclusive scan of the counts;
-// march_fill runs the identical walk again and writes ray id, t_start and
-// t_end into the exact-size buffer at the ray's offset.  Both passes call
-// the same __device__ routine, so they cannot disagree on a sample.
+// march_count runs the walk and writes each ray's sample count, its
+// termination plane and whether it terminated; the caller takes an
+// exclusive scan of the counts; march_fill runs the identical walk again and
+// writes ray id, t_start and t_end into the exact-size buffer at the ray's
+// offset.  Both passes call the same __device__ routine, so they cannot
+// disagree on a sample.
+//
+// The candidate window (max_samples >= 0, the eval renderer's rounds): only
+// candidates k < max_samples, counted from the near plane, may emit; the
+// walk halts at the first candidate that is past the farthest segment or at
+// k = max_samples, whichever comes first, and the ray has terminated iff it
+// halted before the window's end (nerfacc_tpu/grid.py:1415-1445).  The
+// termination plane is the orbit value of the halting candidate (plane_t
+// below), so a ray cut by the window resumes from t_{max_samples}.  A masked ray emits
+// nothing and keeps its near plane, but its flag is still the geometric
+// one, as in the JAX padded traversal.  max_samples < 0 walks the whole
+// orbit, and every ray terminates.
 //
 // Bound on this card: one random byte read of the binary grid per candidate
 // inside a segment (a 128^3 level is 2 MiB and stays in L2), plus the
@@ -105,6 +117,15 @@ __device__ __forceinline__ float orbit_t(const Ray& r, float k,
   if (k <= r.n_lin) return linear;
   return __fmul_rn(r.t_lin_end,
                    powf(o.base, fmaxf(__fsub_rn(k, r.n_lin), 0.0f)));
+}
+
+// A windowed walk's termination plane: the orbit value of candidate k with
+// the linear part's near + k * step as one fused multiply-add, the form in
+// which XLA computes the plane in the JAX package's windowed traversal.
+__device__ __forceinline__ float plane_t(const Ray& r, float k,
+                                        const Orbit& o) {
+  if (k <= r.n_lin) return __fmaf_rn(k, o.step, r.near);
+  return orbit_t(r, k, o);
 }
 
 __device__ __forceinline__ float midpoint(float t0, float t1) {
@@ -235,31 +256,45 @@ __device__ __forceinline__ int64_t voxel(const Ray& r, float mid,
   return (((int64_t)level * g.rx + idx[0]) * g.ry + idx[1]) * g.rz + idx[2];
 }
 
-// Marches ray r with the 32 lanes of a warp.  With FILL, writes the samples
-// from out_base on.  Returns the ray's sample count and stores its
-// termination plane in *term (the same in every lane).
+// Marches ray r with the 32 lanes of a warp, over candidates k < k_end
+// (max_samples, or no end when it is negative).  With FILL, writes the
+// samples from out_base on.  Returns the ray's sample count and stores its
+// termination plane in *term and its flag in *stopped (the same in every
+// lane).
 template <bool FILL>
 __device__ int march_ray(int r, int lane, const float* __restrict__ rays_o,
                          const float* __restrict__ rays_d,
                          const float* __restrict__ near_planes,
                          const float* __restrict__ far_planes,
                          const uint8_t* __restrict__ rays_mask,
-                         const Grid& g, const Orbit& orb, float* term,
-                         int64_t out_base, int* __restrict__ ray_ids,
+                         const Grid& g, const Orbit& orb, int max_samples,
+                         float* term, bool* stopped, int64_t out_base,
+                         int* __restrict__ ray_ids,
                          float* __restrict__ t_starts,
                          float* __restrict__ t_ends) {
   const float near = near_planes[r];
   *term = near;
-  if (rays_mask != nullptr && !rays_mask[r]) return 0;
+  *stopped = true;
+  const bool masked = rays_mask != nullptr && !rays_mask[r];
+  // a masked ray's flag matters only in a window, and the fill pass writes
+  // no flag
+  if (masked && (FILL || max_samples < 0)) return 0;
   Ray ray;
   if (!setup_ray(r, rays_o, rays_d, near, far_planes[r], g, orb, ray))
     return 0;
 
+  const int k_end = max_samples < 0 ? kMaxSteps : max_samples;
   const unsigned below = (1u << lane) - 1u;
   int count = 0;
-  for (int k = first_candidate(ray, orb);; k += 32 * kChunks) {
+  const int k_start = first_candidate(ray, orb);
+  if (k_start >= k_end) {  // the window ends before the first segment
+    if (!masked) *term = plane_t(ray, (float)k_end, orb);
+    *stopped = max_samples < 0;
+    return 0;
+  }
+  for (int k = k_start;; k += 32 * kChunks) {
     float t0[kChunks], t1[kChunks], mid[kChunks];
-    unsigned stops[kChunks];
+    unsigned halts[kChunks];
 #pragma unroll
     for (int u = 0; u < kChunks; ++u) {
       const int kk = k + 32 * u + lane;
@@ -268,22 +303,22 @@ __device__ int march_ray(int r, int lane, const float* __restrict__ rays_o,
       if (lane == 31) t1[u] = orbit_t(ray, (float)(kk + 1), orb);
       mid[u] = midpoint(t0[u], t1[u]);
       // the first candidate whose midpoint clears the farthest segment
-      // ends the walk, as the kMaxSteps-th does
-      stops[u] = __ballot_sync(kFull, kk >= kMaxSteps || mid[u] >= ray.t_hi_last);
+      // ends the walk, as the window's end (or the kMaxSteps-th) does
+      halts[u] = __ballot_sync(kFull, kk >= k_end || mid[u] >= ray.t_hi_last);
     }
     int stop_chunk = kChunks, stop_lane = 32;
 #pragma unroll
     for (int u = kChunks - 1; u >= 0; --u) {
-      if (stops[u] != 0u) {
+      if (halts[u] != 0u) {
         stop_chunk = u;
-        stop_lane = __ffs(stops[u]) - 1;
+        stop_lane = __ffs(halts[u]) - 1;
       }
     }
     uint8_t occupied[kChunks];
 #pragma unroll
     for (int u = 0; u < kChunks; ++u) {
       const bool before = u < stop_chunk || (u == stop_chunk && lane < stop_lane);
-      const int64_t cell = before ? voxel(ray, mid[u], g) : -1;
+      const int64_t cell = before && !masked ? voxel(ray, mid[u], g) : -1;
       occupied[u] = cell >= 0 ? __ldg(g.binaries + cell) : 0;
     }
     float t_stop = t0[0];
@@ -300,8 +335,13 @@ __device__ int march_ray(int r, int lane, const float* __restrict__ rays_o,
       if (u == stop_chunk) t_stop = t0[u];
     }
     if (stop_chunk < kChunks) {
-      // orbit value of the first candidate past every segment
-      *term = __shfl_sync(kFull, t_stop, stop_lane);
+      // orbit value of the halting candidate: the first one past every
+      // segment, or the window's end
+      const int k_halt = k + 32 * stop_chunk + stop_lane;
+      t_stop = __shfl_sync(kFull, t_stop, stop_lane);
+      if (!masked)
+        *term = max_samples < 0 ? t_stop : plane_t(ray, (float)k_halt, orb);
+      *stopped = max_samples < 0 || k_halt < k_end;
       return count;
     }
   }
@@ -311,17 +351,20 @@ __global__ void march_count_kernel(const float* rays_o, const float* rays_d,
                                    const float* near_planes,
                                    const float* far_planes,
                                    const uint8_t* rays_mask, Grid g, Orbit orb,
-                                   int n_rays, int* counts, float* term) {
+                                   int n_rays, int max_samples, int* counts,
+                                   float* term, uint8_t* terminated) {
   const int r = blockIdx.x * kRaysPerBlock + threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
   if (r >= n_rays) return;  // the whole warp
   float t;
+  bool stopped;
   const int c = march_ray<false>(r, lane, rays_o, rays_d, near_planes,
-                                 far_planes, rays_mask, g, orb, &t, 0,
-                                 nullptr, nullptr, nullptr);
+                                 far_planes, rays_mask, g, orb, max_samples,
+                                 &t, &stopped, 0, nullptr, nullptr, nullptr);
   if (lane == 0) {
     counts[r] = c;
     term[r] = t;
+    terminated[r] = stopped;
   }
 }
 
@@ -329,28 +372,32 @@ __global__ void march_fill_kernel(const float* rays_o, const float* rays_d,
                                   const float* near_planes,
                                   const float* far_planes,
                                   const uint8_t* rays_mask, Grid g, Orbit orb,
-                                  int n_rays, const int64_t* offsets,
-                                  int* ray_ids, float* t_starts,
-                                  float* t_ends) {
+                                  int n_rays, int max_samples,
+                                  const int64_t* offsets, int* ray_ids,
+                                  float* t_starts, float* t_ends) {
   const int r = blockIdx.x * kRaysPerBlock + threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
   if (r >= n_rays) return;  // the whole warp
   float t;
+  bool stopped;
   march_ray<true>(r, lane, rays_o, rays_d, near_planes, far_planes, rays_mask,
-                  g, orb, &t, offsets[r], ray_ids, t_starts, t_ends);
+                  g, orb, max_samples, &t, &stopped, offsets[r], ray_ids,
+                  t_starts, t_ends);
 }
 
 }  // namespace
 
-// Pass 1: per-ray sample counts (int32) and termination planes (f32).
+// Pass 1: per-ray sample counts (int32), termination planes (f32) and
+// terminated flags (bool bytes); max_samples < 0 walks the whole orbit.
 extern "C" int march_count(const void* rays_o, const void* rays_d,
                            const void* near_planes, const void* far_planes,
                            const void* rays_mask, const void* binaries,
                            const void* aabbs, int n_rays, int m, int rx,
                            int ry, int rz, float step, float cone, float tau,
-                           float base, void* counts, void* term,
-                           void* stream) {
+                           float base, int max_samples, void* counts,
+                           void* term, void* terminated, void* stream) {
   if (m < 1 || m > kMaxLevels) return (int)cudaErrorInvalidValue;
+  if (max_samples > kMaxSteps) return (int)cudaErrorInvalidValue;
   if (n_rays == 0) return (int)cudaSuccess;
   const Grid g{(const uint8_t*)binaries, (const float*)aabbs, m, rx, ry, rz};
   const Orbit orb{step, cone, tau, base};
@@ -358,19 +405,22 @@ extern "C" int march_count(const void* rays_o, const void* rays_d,
   march_count_kernel<<<blocks, 32 * kRaysPerBlock, 0, (cudaStream_t)stream>>>(
       (const float*)rays_o, (const float*)rays_d, (const float*)near_planes,
       (const float*)far_planes, (const uint8_t*)rays_mask, g, orb, n_rays,
-      (int*)counts, (float*)term);
+      max_samples, (int*)counts, (float*)term, (uint8_t*)terminated);
   return (int)cudaGetLastError();
 }
 
-// Pass 2: samples written at the exclusive-scan offsets (int64) of pass 1.
+// Pass 2: samples written at the exclusive-scan offsets (int64) of pass 1,
+// with pass 1's max_samples.
 extern "C" int march_fill(const void* rays_o, const void* rays_d,
                           const void* near_planes, const void* far_planes,
                           const void* rays_mask, const void* binaries,
                           const void* aabbs, int n_rays, int m, int rx, int ry,
                           int rz, float step, float cone, float tau,
-                          float base, const void* offsets, void* ray_ids,
-                          void* t_starts, void* t_ends, void* stream) {
+                          float base, int max_samples, const void* offsets,
+                          void* ray_ids, void* t_starts, void* t_ends,
+                          void* stream) {
   if (m < 1 || m > kMaxLevels) return (int)cudaErrorInvalidValue;
+  if (max_samples > kMaxSteps) return (int)cudaErrorInvalidValue;
   if (n_rays == 0) return (int)cudaSuccess;
   const Grid g{(const uint8_t*)binaries, (const float*)aabbs, m, rx, ry, rz};
   const Orbit orb{step, cone, tau, base};
@@ -378,7 +428,7 @@ extern "C" int march_fill(const void* rays_o, const void* rays_d,
   march_fill_kernel<<<blocks, 32 * kRaysPerBlock, 0, (cudaStream_t)stream>>>(
       (const float*)rays_o, (const float*)rays_d, (const float*)near_planes,
       (const float*)far_planes, (const uint8_t*)rays_mask, g, orb, n_rays,
-      (const int64_t*)offsets, (int*)ray_ids, (float*)t_starts,
+      max_samples, (const int64_t*)offsets, (int*)ray_ids, (float*)t_starts,
       (float*)t_ends);
   return (int)cudaGetLastError();
 }

@@ -37,10 +37,12 @@ _SIGNATURES = {
     # (u, g, lines, dlines, n, R, rank, bf16, stream)
     "cp_level_bwd": [_P] * 4 + [ctypes.c_int64, _I, _I, _I, _P],
     # (rays_o, rays_d, near, far, mask, binaries, aabbs, n_rays, m, rx, ry,
-    #  rz, step, cone, tau, base, counts, term, stream)
-    "march_count": [_P] * 7 + [_I] * 5 + [_F] * 4 + [_P, _P, _P],
-    # (... as march_count ..., offsets, ray_ids, t_starts, t_ends, stream)
-    "march_fill": [_P] * 7 + [_I] * 5 + [_F] * 4 + [_P] * 5,
+    #  rz, step, cone, tau, base, max_samples, counts, term, terminated,
+    #  stream)
+    "march_count": [_P] * 7 + [_I] * 5 + [_F] * 4 + [_I] + [_P] * 4,
+    # (... as march_count up to max_samples ..., offsets, ray_ids, t_starts,
+    #  t_ends, stream)
+    "march_fill": [_P] * 7 + [_I] * 5 + [_F] * 4 + [_I] + [_P] * 5,
     # (t_starts, t_ends, sigmas, rgbs, seg_starts, seg_ends, prefix_trans,
     #  n_rays, colors, opacities, depths, weights, stream)
     "composite_fwd": [_P] * 7 + [_I] + [_P] * 5,

@@ -60,6 +60,28 @@ class DeviceRaySampler:
         self.c2w = c2w[:, :3, :4].to(self.device)
         self.K = torch.as_tensor(np.asarray(K, np.float32)).to(self.device)
 
+    def with_num_rays(self, num_rays: int) -> "DeviceRaySampler":
+        """A sampler of ``num_rays``-ray batches over the same staged tables
+        (no copy), for a training loop that resizes its batch.  Clones are
+        cached per ray count in one dict that the base sampler and every
+        clone share, so resizing a clone of a clone returns the object that
+        resizing the base does: one sampler per bucket, as in the JAX
+        package, where the sampler keys the jit cache."""
+        num_rays = int(num_rays)
+        if num_rays == self.num_rays:
+            return self
+        cache = self.__dict__.setdefault("_clones", {})
+        cache.setdefault(self.num_rays, self)
+        if num_rays not in cache:
+            clone = object.__new__(DeviceRaySampler)
+            clone.__dict__.update(
+                {k: v for k, v in self.__dict__.items() if k != "_clones"}
+            )
+            clone.num_rays = num_rays
+            clone._clones = cache
+            cache[num_rays] = clone
+        return cache[num_rays]
+
     @classmethod
     def from_loader(cls, loader, num_rays: Optional[int] = None) -> "DeviceRaySampler":
         """From a loader with ``images``, ``camtoworlds`` and ``K`` (the

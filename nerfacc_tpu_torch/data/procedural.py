@@ -2,7 +2,9 @@
 to ground-truth images, still or moving.
 
 PyTorch counterpart of nerfacc_tpu/data/procedural.py's
-``ProceduralSceneLoader`` and ``ProceduralDynamicSceneLoader``.  The scene
+``ProceduralSceneLoader``, ``ProceduralOpaqueSceneLoader``,
+``ProceduralDynamicSceneLoader`` and the ``PROCEDURAL_SCENES`` names of the
+first two.  The scene
 constants come from the same ``np.random.default_rng(1234)`` draws (the
 motion from ``default_rng(4321)``) and the camera rays from the same numpy
 arithmetic, so both packages build the identical scene and rays; the ground
@@ -83,8 +85,7 @@ class ProceduralSceneLoader:
         f32 = lambda a: torch.tensor(a, dtype=torch.float32, device=self.device)
         self.blob_centers = f32(rng.uniform(-0.8 * half, 0.8 * half, (n_blobs, 3)))
         self.blob_scales = f32(rng.uniform(0.05, 0.22, (n_blobs,)))
-        # dense blobs: rays saturate within a few samples of the surface
-        self.blob_density = f32(rng.uniform(80.0, 300.0, (n_blobs,)))
+        self.blob_density = f32(self._blob_density(rng))
         self.blob_colors = f32(rng.uniform(0.1, 1.0, (n_blobs, 3)))
 
         n_views = n_train if split == "train" else n_test
@@ -110,6 +111,11 @@ class ProceduralSceneLoader:
         self.images = self._render_gt_images()
 
     # -- analytic field -----------------------------------------------------
+    def _blob_density(self, rng: np.random.Generator) -> np.ndarray:
+        """The blobs' peak densities, drawn from the scene's ``rng``: dense
+        blobs, so that rays saturate within a few samples of the surface."""
+        return rng.uniform(80.0, 300.0, (self.NUM_BLOBS,))
+
     def _centers(self, view: int) -> torch.Tensor:
         """Blob centres (B, 3) as view ``view`` sees them."""
         return self.blob_centers
@@ -281,3 +287,49 @@ class ProceduralDynamicSceneLoader(ProceduralSceneLoader):
             self.view_times[image_id][:, None], device=self.device
         )
         return item
+
+
+class ProceduralOpaqueSceneLoader(ProceduralSceneLoader):
+    """The hard-surface variant of the blob scene: solid balls of density
+    ``D * sigmoid((R_i - r) / edge_width)`` in place of Gaussians, ``D``
+    drawn from ``default_rng(4321)`` in [400, 800] and ``R_i`` the blob
+    scales.  Inside a ball a 5e-3 step has alpha ~0.9, so rays saturate
+    within a few samples of a surface: the regime where the eval renderer's
+    early stopping pays (the translucent scene leaves ~180 samples a ray).
+    Takes the arguments of :class:`ProceduralSceneLoader`, and
+    ``edge_width``.
+    """
+
+    def __init__(
+        self,
+        split: str = "train",
+        n_train: int = 24,
+        n_test: int = 4,
+        width: int = 320,
+        height: int = 320,
+        num_rays: Optional[int] = None,
+        color_bkgd_aug: str = "white",
+        seed: int = 42,
+        edge_width: float = 0.01,
+        device: Union[str, torch.device] = "cuda",
+    ):
+        self.edge_width = float(np.float32(edge_width))
+        super().__init__(split, n_train, n_test, width, height, num_rays,
+                         color_bkgd_aug, seed, device)
+
+    def _blob_density(self, rng: np.random.Generator) -> np.ndarray:
+        super()._blob_density(rng)  # the scene's later draws stay the same
+        return np.random.default_rng(4321).uniform(400.0, 800.0, (self.NUM_BLOBS,))
+
+    def _blob_weights(self, x: torch.Tensor, centers: torch.Tensor) -> torch.Tensor:
+        r = ((x[:, None, :] - centers[None]) ** 2).sum(dim=-1).sqrt()  # (N, B)
+        return self.blob_density * torch.sigmoid(
+            (self.blob_scales[None] - r) / self.edge_width
+        )
+
+
+#: the scenes by the names the training scripts take
+PROCEDURAL_SCENES = {
+    "procedural": ProceduralSceneLoader,
+    "proceduralopaque": ProceduralOpaqueSceneLoader,
+}

@@ -12,6 +12,9 @@ no budget: on the card through kernel G2 (count, scan, fill), on the CPU
 through :func:`march_plain`, which evaluates the padded candidate lattice of
 :func:`traverse_grids_padded` and packs its valid entries.  G2 starts each
 ray's walk at :func:`march_start`'s candidate, past the orbit's empty prefix.
+With ``max_samples`` only the first ``max_samples`` orbit candidates from
+each ray's near plane may emit: one round of the eval renderer, which
+resumes the rays that did not terminate from their termination planes.
 """
 from __future__ import annotations
 
@@ -21,6 +24,7 @@ from typing import NamedTuple, Optional, Tuple
 import torch
 
 from . import cuda
+from .utils.fp import fma_f32
 
 # G2's bound on a walk (csrc/march.cu kMaxSteps): orbit indices stay exact in f32
 _MAX_STEPS = 1 << 24
@@ -58,18 +62,29 @@ def _enlarge_aabb(aabb: torch.Tensor, factor: float) -> torch.Tensor:
 
 
 def _orbit_t(
-    near_planes: torch.Tensor, k: torch.Tensor, step_size: float, cone_angle: float
+    near_planes: torch.Tensor,
+    k: torch.Tensor,
+    step_size: float,
+    cone_angle: float,
+    fused: bool = False,
 ) -> torch.Tensor:
     """Closed form of the marching orbit: linear steps of ``step_size`` while
     ``t < step_size / cone_angle``, geometric growth by ``1 + cone_angle``
-    after.  Returns ``t_k`` for (n_rays,) near planes and (1, K) indices."""
+    after.  Returns ``t_k`` for (n_rays,) near planes and (1, K) or (n_rays,
+    1) indices.  ``fused``: the linear part as one fused multiply-add, the
+    form in which XLA computes the windowed traversal's termination plane
+    (it fuses the gather of one orbit value into its closed form)."""
     near = near_planes[:, None]
     k = k.to(near.dtype)
-    linear = near + k * step_size
+    step = torch.tensor(step_size, dtype=near.dtype, device=near.device)
+    linear = fma_f32(k, step, near) if fused else near + k * step_size
     if cone_angle <= 0.0:
         return linear
     tau = step_size / cone_angle
-    n_lin = torch.ceil((tau - near) / step_size).clamp_min(0.0)
+    # a tensor divisor: with a Python number PyTorch's CUDA division
+    # multiplies by its f32 reciprocal, which can round n_lin to another
+    # integer than the true quotient of kernel G2 and of JAX does
+    n_lin = torch.ceil((tau - near) / step).clamp_min(0.0)
     t_lin_end = near + n_lin * step_size
     geom = t_lin_end * torch.pow(1.0 + cone_angle, (k - n_lin).clamp_min(0.0))
     return torch.where(k <= n_lin, linear, geom)
@@ -144,15 +159,19 @@ class TraversalResult(NamedTuple):
     Attributes:
         t_starts / t_ends: (n_rays, K) candidate interval bounds.
         valid: (n_rays, K) bool; candidate ``k`` is a sample.
-        termination_planes: (n_rays,) orbit value of the first candidate
-            past every segment (the resume point of iterative rendering);
-            the near plane for rays with no segment.
+        termination_planes: (n_rays,) ``t_edges[k_stop]``, ``k_stop`` the
+            first candidate whose midpoint clears the farthest segment, or
+            ``K`` when none does (the resume point of iterative rendering);
+            the near plane for masked rays and rays with no segment.
+        terminated: (n_rays,) bool, ``k_stop < K``; True for a ray with no
+            segment.
     """
 
     t_starts: torch.Tensor
     t_ends: torch.Tensor
     valid: torch.Tensor
     termination_planes: torch.Tensor
+    terminated: torch.Tensor
 
 
 class MarchResult(NamedTuple):
@@ -163,6 +182,8 @@ class MarchResult(NamedTuple):
         t_starts / t_ends: (n_samples,) f32 sample bounds.
         counts: (n_rays,) int32 samples per ray.
         termination_planes: (n_rays,) f32, as in :class:`TraversalResult`.
+        terminated: (n_rays,) bool, as in :class:`TraversalResult` (all
+            True for a march over the whole orbit).
     """
 
     ray_indices: torch.Tensor
@@ -170,6 +191,7 @@ class MarchResult(NamedTuple):
     t_ends: torch.Tensor
     counts: torch.Tensor
     termination_planes: torch.Tensor
+    terminated: torch.Tensor
 
 
 def _lattice_size(
@@ -207,12 +229,14 @@ def traverse_grids_padded(
     step_size: float = 1e-3,
     cone_angle: float = 0.0,
     rays_mask: Optional[torch.Tensor] = None,
+    max_samples: Optional[int] = None,
 ) -> TraversalResult:
     """Evaluate every orbit candidate of every ray at once (padded layout).
 
-    Same semantics as nerfacc_tpu's ``traverse_grids_padded`` with a
-    lattice long enough to cover every ray's orbit up to its farthest
-    segment, so no ray is cut.
+    Same semantics as nerfacc_tpu's ``traverse_grids_padded``: with
+    ``max_samples`` its lattice of that many candidates, else one long
+    enough to cover every ray's orbit up to its farthest segment, so no ray
+    is cut.
 
     Args:
         rays_o, rays_d: (n_rays, 3).
@@ -222,9 +246,12 @@ def traverse_grids_padded(
         step_size: marching step (> 0).
         cone_angle: step growth; 0 is uniform stepping.
         rays_mask: optional (n_rays,) bool; rays where False emit nothing.
+        max_samples: candidates per ray (>= 1), or None for the whole orbit.
     """
     if step_size <= 0.0:
         raise ValueError("step_size must be > 0")
+    if max_samples is not None and max_samples < 1:
+        raise ValueError(f"max_samples must be >= 1, got {max_samples}")
     n_rays = rays_o.shape[0]
     dev, dtype = rays_o.device, rays_o.dtype
     if near_planes is None:
@@ -235,7 +262,10 @@ def traverse_grids_padded(
     seg_lo, seg_hi, seg_level, seg_valid = _segments(
         rays_o, rays_d, aabbs, near_planes, far_planes
     )
-    n_candidates = _lattice_size(near_planes, seg_hi, seg_valid, step_size, cone_angle)
+    n_candidates = (
+        _lattice_size(near_planes, seg_hi, seg_valid, step_size, cone_angle)
+        if max_samples is None else int(max_samples)
+    )
     k = torch.arange(n_candidates + 1, dtype=dtype, device=dev)[None, :]
     t_edges = _orbit_t(near_planes, k, step_size, cone_angle)
     t_mids = 0.5 * (t_edges[:, :-1] + t_edges[:, 1:])  # (n, K)
@@ -263,15 +293,27 @@ def traverse_grids_padded(
         valid = valid & rays_mask[:, None]
 
     # termination plane: the first orbit edge whose midpoint clears the
-    # farthest valid segment (the lattice reaches past it for every ray)
+    # farthest valid segment, or the lattice's end (the whole-orbit lattice
+    # reaches past it for every ray)
     t_hi_last = torch.where(seg_valid, seg_hi, -math.inf).amax(dim=-1)
-    k_stop = (t_mids >= t_hi_last[:, None]).to(torch.uint8).argmax(dim=-1)
-    termination_planes = torch.take_along_dim(t_edges, k_stop[:, None], dim=-1)[:, 0]
-    stopped = seg_valid.any(dim=-1)
-    if rays_mask is not None:
-        stopped = stopped & rays_mask
+    beyond = t_mids >= t_hi_last[:, None]
+    k_stop = torch.where(
+        beyond.any(dim=-1), beyond.to(torch.uint8).argmax(dim=-1), n_candidates
+    )
+    terminated = k_stop < n_candidates
+    if max_samples is None:
+        termination_planes = torch.take_along_dim(t_edges, k_stop[:, None], dim=-1)[:, 0]
+    else:
+        termination_planes = _orbit_t(
+            near_planes, k_stop[:, None], step_size, cone_angle, fused=True
+        )[:, 0]
+    has_segment = seg_valid.any(dim=-1)
+    terminated = terminated | ~has_segment
+    stopped = has_segment if rays_mask is None else has_segment & rays_mask
     termination_planes = torch.where(stopped, termination_planes, near_planes)
-    return TraversalResult(t_edges[:, :-1], t_edges[:, 1:], valid, termination_planes)
+    return TraversalResult(
+        t_edges[:, :-1], t_edges[:, 1:], valid, termination_planes, terminated
+    )
 
 
 def march_start(
@@ -328,18 +370,21 @@ def march_plain(
     step_size: float = 1e-3,
     cone_angle: float = 0.0,
     rays_mask: Optional[torch.Tensor] = None,
+    max_samples: Optional[int] = None,
 ) -> MarchResult:
-    """PyTorch twin of kernel G2, on any device: the full-orbit padded
-    traversal, packed in (ray, orbit) order."""
+    """PyTorch twin of kernel G2, on any device: the padded traversal (of
+    the whole orbit, or of ``max_samples`` candidates), packed in (ray,
+    orbit) order."""
     res = traverse_grids_padded(
         rays_o, rays_d, binaries, aabbs, near_planes, far_planes,
         step_size=step_size, cone_angle=cone_angle, rays_mask=rays_mask,
+        max_samples=max_samples,
     )
     counts = res.valid.sum(dim=1, dtype=torch.int32)
     ray, k = res.valid.nonzero(as_tuple=True)  # row-major: (ray, orbit) order
     return MarchResult(
         ray.to(torch.int32), res.t_starts[ray, k], res.t_ends[ray, k], counts,
-        res.termination_planes,
+        res.termination_planes, res.terminated,
     )
 
 
@@ -353,6 +398,7 @@ def march(
     step_size: float = 1e-3,
     cone_angle: float = 0.0,
     rays_mask: Optional[torch.Tensor] = None,
+    max_samples: Optional[int] = None,
 ) -> MarchResult:
     """Occupancy-grid march with exact packing: kernel G2 on the card, the
     twin :func:`march_plain` on the CPU.  Arguments as for
@@ -369,10 +415,12 @@ def march(
     if not cuda.on_card(*tensors):
         return march_plain(
             rays_o, rays_d, binaries, aabbs, near_planes, far_planes,
-            step_size, cone_angle, rays_mask,
+            step_size, cone_angle, rays_mask, max_samples,
         )
     if step_size <= 0.0:
         raise ValueError("step_size must be > 0")
+    if max_samples is not None and not 1 <= max_samples <= _MAX_STEPS:
+        raise ValueError(f"max_samples must be in [1, 2^24], got {max_samples}")
     for name, t in (("rays_o", rays_o), ("rays_d", rays_d), ("aabbs", aabbs),
                     ("near_planes", near_planes), ("far_planes", far_planes)):
         if t.dtype != torch.float32:
@@ -395,14 +443,17 @@ def march(
     common = (
         cuda.ptr(rays_o), cuda.ptr(rays_d), cuda.ptr(near_planes),
         cuda.ptr(far_planes), cuda.ptr(mask), cuda.ptr(grid), cuda.ptr(aabbs),
-        n_rays, m, rx, ry, rz, *orbit,
+        n_rays, m, rx, ry, rz, *orbit, -1 if max_samples is None else int(max_samples),
     )
     lib = cuda.load()
     stream = cuda.stream_ptr(rays_o)
     counts = torch.empty(n_rays, dtype=torch.int32, device=dev)
     term = torch.empty(n_rays, dtype=torch.float32, device=dev)
+    terminated = torch.empty(n_rays, dtype=torch.bool, device=dev)
     cuda.check(
-        lib.march_count(*common, cuda.ptr(counts), cuda.ptr(term), stream),
+        lib.march_count(
+            *common, cuda.ptr(counts), cuda.ptr(term), cuda.ptr(terminated), stream
+        ),
         "march_count",
     )
     ends = torch.cumsum(counts, 0, dtype=torch.int64)
@@ -419,4 +470,4 @@ def march(
         "march_fill",
     )
     cuda.LAUNCHES["march"] += 1
-    return MarchResult(ray_ids, t_starts, t_ends, counts, term)
+    return MarchResult(ray_ids, t_starts, t_ends, counts, term, terminated)

@@ -9,10 +9,11 @@ regulariser when ``field_reg_weight`` is set), backward, and Adam.
 Time-dependent fields (given ``timestamps``) read each sample's ray time in
 training, one random frame time per cell in the refresh, and the view's time
 in evaluation.  Ported beside it: the learning-rate schedule,
-``train_steps`` and the PSNR/SSIM evaluation.  Not ported (see ROADMAP.md):
-the dynamic budget buckets, update clipping, table learning-rate
-multipliers, the distortion regulariser, the pooled and windowed traversals
-and ``train_steps_sampled``.
+``train_steps``, ``train_steps_sampled`` (batches drawn on the device) and
+the evaluation (PSNR/SSIM through the early-stopping eval renderer).  Not
+ported (see ROADMAP.md): the dynamic budget buckets, update clipping, table
+learning-rate multipliers, the distortion regulariser, ``alpha_thre`` and
+the pooled and windowed traversals.
 """
 from __future__ import annotations
 
@@ -28,6 +29,7 @@ from ..utils.metrics import psnr, ssim
 from ..utils.rendering import (
     compact_samples,
     render_image_with_occgrid,
+    render_rays_occgrid_test,
     render_rays_with_occgrid,
 )
 
@@ -37,6 +39,12 @@ from ..utils.rendering import (
 LR = 1e-2
 WARMUP_STEPS = 100
 ADAM_EPS = 1e-15
+# The eval renderer's settings, the JAX trainer's defaults: rounds of 128
+# orbit candidates, at most max_samples_per_ray (1024) // 32 of them, a ray
+# retired once its opacity passes 1 - 1e-4.
+EVAL_WINDOW = 128
+EVAL_MAX_ROUNDS = 1024 // 32
+EVAL_EARLY_STOP_EPS = 1e-4
 
 
 def disable_tf32() -> None:
@@ -186,9 +194,12 @@ class NGPOccTrainer:
 
     def _generator(self, step: int, stream: int) -> torch.Generator:
         """The noise of one step: stream 0 the refresh's cell jitter, 1 the
-        near-plane jitter, 2 the refresh's frame draw."""
+        near-plane jitter, 2 the refresh's frame draw, 3 the batch of
+        :meth:`train_steps_sampled`, seeded 2^40 above the other three (a
+        fourth stream at ``* 3 + 3`` would reuse the next step's stream 0)."""
+        key = self.seed * 1_000_003 + int(step)
         gen = torch.Generator(device=self.device)
-        gen.manual_seed((self.seed * 1_000_003 + int(step)) * 3 + stream)
+        gen.manual_seed(key * 3 + stream if stream < 3 else (1 << 40) + key)
         return gen
 
     def _bind(self, state: TrainState):
@@ -340,17 +351,37 @@ class NGPOccTrainer:
         for i in range(batches["rgb"].shape[0]):
             state, aux = self.train_step(state, {k: v[i] for k, v in batches.items()})
             auxs.append(aux)
-        return state, {
+        return state, self._stack(auxs)
+
+    def train_steps_sampled(self, state: TrainState, sampler, n_steps: int):
+        """``n_steps`` steps, each on a batch that ``sampler`` (a
+        :class:`~nerfacc_tpu_torch.data.device_sampler.DeviceRaySampler`)
+        draws on the device from the step's own generator (stream 3), so a
+        run resumed at a step draws the batches the whole run drew.  The
+        aux values come back stacked, as from :meth:`train_steps`."""
+        if self.timestamps is not None:
+            raise ValueError(
+                "train_steps_sampled draws no ray times: use train_steps for a "
+                "time-dependent field"
+            )
+        auxs = []
+        for _ in range(int(n_steps)):
+            batch = sampler.sample(self._generator(state.step, 3))
+            state, aux = self.train_step(state, batch)
+            auxs.append(aux)
+        return state, self._stack(auxs)
+
+    def _stack(self, auxs):
+        return {
             k: torch.stack([torch.as_tensor(a[k], device=self.device) for a in auxs])
             for k in auxs[0]
         }
 
     # -- evaluation ----------------------------------------------------------
-    @torch.inference_mode()
-    def render_rays(self, state: TrainState, data: Dict, chunk: int = 8192):
-        """Render ``data``'s rays: (colors, opacities, depths, n_samples).
-        A time-dependent field sees every sample at the view's time,
-        ``data["timestamps"]``'s first entry."""
+    def _field_fn(self, state: TrainState, data: Dict):
+        """The field with ``state``'s parameters as ``(positions, dirs) ->
+        (rgb, sigma)``; a time-dependent field sees every sample at the
+        view's time, ``data["timestamps"]``'s first entry."""
         field = self._bind(state)
         t = data["timestamps"].reshape(-1)[:1] if self.timestamps is not None else None
 
@@ -361,8 +392,14 @@ class NGPOccTrainer:
                 rgb, density = field(positions, t.expand(positions.shape[0], 1), dirs)
             return rgb, density[..., 0]
 
+        return field_fn
+
+    @torch.inference_mode()
+    def render_rays(self, state: TrainState, data: Dict, chunk: int = 8192):
+        """Render ``data``'s rays with every occupied sample (the exact
+        renderer): (colors, opacities, depths, n_samples)."""
         return render_image_with_occgrid(
-            field_fn,
+            self._field_fn(state, data),
             state.occ_state,
             data["rays_o"].reshape(-1, 3),
             data["rays_d"].reshape(-1, 3),
@@ -374,14 +411,43 @@ class NGPOccTrainer:
             chunk=chunk,
         )
 
+    @torch.inference_mode()
+    def render_view(self, state: TrainState, data: Dict, chunk: int = 8192):
+        """Render ``data``'s rays through the eval renderer,
+        :func:`render_rays_occgrid_test` with windows of ``EVAL_WINDOW``
+        candidates, at most ``EVAL_MAX_ROUNDS`` rounds per chunk of rays, and
+        early stopping at ``1 - EVAL_EARLY_STOP_EPS``: (colors, opacities,
+        depths, n_samples over the rounds).  The JAX trainer's three eval
+        renderers ("cursor", "pooled" and "") render this image: its cursor
+        and pooled renderers are TPU reorganisations of it (one coarse pass
+        per chunk, a pooled window list), not other images."""
+        field_fn = self._field_fn(state, data)
+        rays_o = data["rays_o"].reshape(-1, 3)
+        rays_d = data["rays_d"].reshape(-1, 3)
+        outs, n_samples = [], 0
+        for s in range(0, rays_o.shape[0], chunk):
+            *out, stats = render_rays_occgrid_test(
+                field_fn, state.occ_state, rays_o[s : s + chunk], rays_d[s : s + chunk],
+                render_bkgd=data["color_bkgd"], near_plane=self.near_plane,
+                far_plane=self.far_plane, render_step_size=self.render_step_size,
+                cone_angle=self.cone_angle,
+                early_stop_eps=EVAL_EARLY_STOP_EPS, window=EVAL_WINDOW,
+                max_iters=EVAL_MAX_ROUNDS,
+            )
+            outs.append(out)
+            n_samples += stats["n_samples"]
+        colors, opacities, depths = (torch.cat(parts) for parts in zip(*outs))
+        return colors, opacities, depths, n_samples
+
     def render_image(self, state: TrainState, data: Dict, chunk: int = 8192):
-        """(n_pixels, 3) colours of one view."""
-        return self.render_rays(state, data, chunk)[0]
+        """(n_pixels, 3) colours of one view, through :meth:`render_view`."""
+        return self.render_view(state, data, chunk)[0]
 
     def eval_metrics(self, state: TrainState, dataset, max_images: Optional[int] = None) -> Dict:
-        """Mean PSNR and SSIM over the test views, with a per-view record:
-        psnr, ssim, wall seconds (render and PSNR, which ends in a device
-        sync), samples rendered, rays, opacity range and whether every
+        """Mean PSNR and SSIM over the test views, rendered by
+        :meth:`render_view`, with a per-view record: psnr, ssim, wall
+        seconds (render and PSNR, which ends in a device sync), samples
+        rendered over the rounds, rays, opacity range and whether every
         output was finite."""
         n = len(dataset) if max_images is None else min(len(dataset), max_images)
         h, w = dataset.HEIGHT, dataset.WIDTH
@@ -389,7 +455,7 @@ class NGPOccTrainer:
         for i in range(n):
             data = dataset[i]
             t0 = time.perf_counter()
-            colors, opacities, depths, n_samples = self.render_rays(state, data)
+            colors, opacities, depths, n_samples = self.render_view(state, data)
             p = psnr(colors, data["rgb"])
             seconds = time.perf_counter() - t0
             views.append(
@@ -413,3 +479,7 @@ class NGPOccTrainer:
             "ssim": float(np.mean([v["ssim"] for v in views])),
             "views": views,
         }
+
+    def eval_psnr(self, state: TrainState, dataset, max_images: Optional[int] = None) -> float:
+        """Mean PSNR over the test views (:meth:`eval_metrics`)."""
+        return self.eval_metrics(state, dataset, max_images)["psnr"]

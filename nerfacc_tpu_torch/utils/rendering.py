@@ -6,6 +6,8 @@ march (kernel G2) counts, scans and fills an exact-size buffer, which
 :func:`compact_samples` cuts at an optional budget with the JAX package's
 truncation contract.  Per chunk of rays the flow is: march, pack, field,
 composite (kernel G3, differentiable through kernel G5), background blend.
+The eval renderer :func:`render_rays_occgrid_test` marches a window of orbit
+candidates a round and stops each ray once its opacity saturates.
 """
 from __future__ import annotations
 
@@ -154,3 +156,87 @@ def render_image_with_occgrid(
         )
     colors, opacities, depths = (torch.cat(parts) for parts in zip(*outs))
     return colors, opacities, depths, n_samples
+
+
+def render_rays_occgrid_test(
+    field_fn: Callable,
+    occ_state,
+    rays_o: torch.Tensor,
+    rays_d: torch.Tensor,
+    render_bkgd: Optional[torch.Tensor] = None,
+    near_plane: float = 0.0,
+    far_plane: float = 1e10,
+    render_step_size: float = 5e-3,
+    cone_angle: float = 0.0,
+    early_stop_eps: float = 1e-4,
+    window: int = 64,
+    max_iters: int = 64,
+    expected_depths: bool = True,
+):
+    """Alive-ray inference renderer: each round marches the alive rays'
+    next ``window`` orbit candidates, composites them behind the opacity the
+    earlier rounds gathered, and retires the rays that terminated or whose
+    opacity passed ``1 - early_stop_eps``; the survivors resume from their
+    termination planes.
+
+    The JAX package's ``render_rays_occgrid_test``, round for round: the
+    march (kernel G2) with ``max_samples=window`` and ``rays_mask=alive``
+    from the previous round's termination planes, the field on the round's
+    packed samples, and kernel G3 with ``prefix_trans = 1 - opacity``.  It
+    stops after ``max_iters`` rounds or when no ray is alive.  The host
+    waits once a round, on the march's sample count: a round that emits a
+    sample had a live ray, so only a round that emits none reads whether any
+    ray is alive, and a round that finds none is not counted.
+
+    Args:
+        field_fn: ``(positions, dirs) -> (rgbs (N, 3), sigmas (N,))``.
+        occ_state: an :class:`~nerfacc_tpu_torch.estimators.occ_grid.OccGridState`.
+        rays_o / rays_d: (n_rays, 3).
+        render_bkgd: optional (3,) background, blended in by 1 - opacity.
+
+    Returns:
+        colors (n_rays, 3), opacities (n_rays, 1), depths (n_rays, 1), and
+        ``{"n_samples": samples rendered over the rounds, "n_rounds":
+        rounds run, "counts": (n_rays,) int32 samples of each ray}``.
+    """
+    n_rays = rays_o.shape[0]
+    like = dict(dtype=rays_o.dtype, device=rays_o.device)
+    near = torch.full((n_rays,), near_plane, **like)
+    far = torch.full((n_rays,), far_plane, **like)
+    alive = torch.ones(n_rays, dtype=torch.bool, device=rays_o.device)
+    color = torch.zeros((n_rays, 3), **like)
+    opacity = torch.zeros((n_rays, 1), **like)
+    depth = torch.zeros((n_rays, 1), **like)
+    counts = torch.zeros(n_rays, dtype=torch.int32, device=rays_o.device)
+    n_samples = n_rounds = 0
+    while n_rounds < max_iters:
+        res = march(
+            rays_o, rays_d, occ_state.binaries, occ_state.aabbs,
+            near_planes=near, far_planes=far, step_size=render_step_size,
+            cone_angle=cone_angle, rays_mask=alive, max_samples=window,
+        )
+        samples = compact_samples(res)
+        if not samples.num_valid and not bool(alive.any()):
+            break
+        if samples.num_valid:
+            ids = samples.ray_indices.long()
+            t_mid = 0.5 * (samples.t_starts + samples.t_ends)
+            d = rays_d[ids]
+            rgbs, sigmas = field_fn(rays_o[ids] + t_mid[:, None] * d, d)
+            c, o, dep, _ = composite_sorted(
+                samples.t_starts, samples.t_ends, sigmas, rgbs,
+                samples.ray_indices, n_rays, samples.seg_starts, samples.seg_ends,
+                prefix_trans=(1.0 - opacity[:, 0]).contiguous(),
+            )
+            color, opacity, depth = color + c, opacity + o, depth + dep
+        alive = alive & ~res.terminated & (opacity[:, 0] <= 1.0 - early_stop_eps)
+        near = res.termination_planes
+        counts += res.counts
+        n_samples += samples.num_valid
+        n_rounds += 1
+    if expected_depths:
+        depth = depth / opacity.clamp_min(torch.finfo(depth.dtype).eps)
+    if render_bkgd is not None:
+        color = color + render_bkgd * (1.0 - opacity)
+    stats = {"n_samples": n_samples, "n_rounds": n_rounds, "counts": counts}
+    return color, opacity, depth, stats

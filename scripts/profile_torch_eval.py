@@ -9,6 +9,7 @@ Run from the root of a checkout:
     python3 scripts/profile_torch_eval.py --field ngp [--train]
     python3 scripts/profile_torch_eval.py --field tineuvox [--train]
     python3 scripts/profile_torch_eval.py --field prop [--train]
+    python3 scripts/profile_torch_eval.py --renderer eval [--field ngp]
 
 Serving (the default) sets up the slice as ``chip_smoke.py`` does
 (``--field cp``: the full-width ``CPRadianceField`` 32/128/512 x rank 32;
@@ -19,7 +20,10 @@ time; all bf16, parameters from seed 42, four dense refreshes of the 128^3
 grid; ``--field prop``: the proposal-network path of phase 15, the CP field
 behind one ``CPDensityField``, 128 proposal and 64 final samples per ray, no
 grid), times a dense refresh and three renders of one test view on the host
-clock, then renders the view once more under ``torch.profiler``.
+clock, then renders the view once more under ``torch.profiler``.  An
+occupancy-grid field renders through the exact renderer (``render_rays``,
+``--renderer exact``, the default) or the early-stopping eval renderer
+(``render_view``, ``--renderer eval``).
 ``--train`` sets up the train slice of ``chip_smoke.py``'s phase 4 (6 views
 at 256x256, 2048 rays, a 2^18-sample budget; for TiNeuVox phase 12's: 24
 views at 320x320, 1024 rays, a 2^16-sample budget and the dynamic example's
@@ -34,9 +38,11 @@ proposal field, its heavier kind of step).  It prints:
   the profiled frame's or step's wall time;
 - each kernel class's share of device time (the port's kernels G1-G14, the
   MLP GEMMs, concatenation, Adam, other PyTorch kernels);
-- the PyTorch ops with the most self device time.
+- the PyTorch ops with the most self device time;
+- the host syncs: calls of ``aten::_local_scalar_dense``, each a read of a
+  device value on the host.
 
-The Chrome trace goes to ``<out>/profile_torch_<field>_{eval,train}_trace.json``.
+The Chrome trace goes to ``<out>/profile_torch_<field>_{eval,eval_early_stop,train}_trace.json``.
 Imports torch, the port and chip_smoke.py's settings.
 """
 import argparse
@@ -112,7 +118,7 @@ def self_device_us(evt):
     return value if value is not None else evt.self_cuda_time_total
 
 
-def eval_target(dev, field, view):
+def eval_target(dev, field, view, renderer="exact"):
     """The serving slice; returns the profiled call and its label."""
     if field == "prop":
         trainer = make_prop_trainer(dev)
@@ -136,10 +142,12 @@ def eval_target(dev, field, view):
     time_refresh(trainer, state, N_REFRESH)
     data = ds[view]
 
-    def run():
-        return f"{trainer.render_rays(state, data)[3]} samples"
+    render = trainer.render_view if renderer == "eval" else trainer.render_rays
 
-    return run, f"view {view}", "eval"
+    def run():
+        return f"{render(state, data)[3]} samples"
+
+    return run, f"view {view} ({renderer} renderer)", "eval"
 
 
 def prop_train_target(dev, warmup):
@@ -213,6 +221,8 @@ def main():
                     help="profile a train step instead of a frame")
     ap.add_argument("--warmup", type=int, default=1000,
                     help="train steps before the profiled one (--train)")
+    ap.add_argument("--renderer", choices=["exact", "eval"], default="exact",
+                    help="an occupancy-grid field's renderer: render_rays or render_view")
     ap.add_argument("--out", default="build/profile")
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -228,7 +238,7 @@ def main():
     if args.train:
         run, label, kind = train_target(dev, args.field, args.warmup)
     else:
-        run, label, kind = eval_target(dev, args.field, args.view)
+        run, label, kind = eval_target(dev, args.field, args.view, args.renderer)
     print(f"field: {args.field}")
     for _ in range(3):
         t0 = time.perf_counter()
@@ -271,7 +281,12 @@ def main():
         print(f"  {100 * us / total:5.1f}%  {us / 1e3:8.3f} ms  "
               f"{e.count:5d} calls  {e.key}")
 
+    syncs = sum(e.count for e in prof.key_averages() if e.key == "aten::_local_scalar_dense")
+    print(f"host syncs (aten::_local_scalar_dense calls): {syncs}")
+
     os.makedirs(args.out, exist_ok=True)
+    if kind == "eval" and args.renderer == "eval":
+        kind = "eval_early_stop"
     path = os.path.join(args.out, f"profile_torch_{args.field}_{kind}_trace.json")
     prof.export_chrome_trace(path)
     print(f"trace: {path}")

@@ -31,7 +31,11 @@ The shapes:
   8192 rays of test view 0 with near plane 0, and a 2048-ray train batch (6
   views at 256x256) at the trainer's near planes ``0 + jitter * step``;
   the sample count, the rays whose count differs from the plain version
-  (on that grid and on it with half its cells cleared).
+  (on that grid and on it with half its cells cleared); and, in a tree
+  whose march takes ``max_samples``, the eval renderer's rounds over that
+  8192-ray chunk (windows of 128 candidates from near 0, each round from
+  the last one's termination planes with the rays not yet terminated),
+  timed on the round with the most samples, every round checked bitwise.
 - G3 and G5 (composite forward and backward), on sample buffers marched
   on that grid, with seeded densities 10^U(-1, 3), colours and cotangents:
   the eval chunk (its 8192 rays, every sample kept); the CP train buffer
@@ -98,6 +102,7 @@ input read once, each output written once, at 3.35 TB/s).  Each result is
 one JSON line; all go to ``<out>/time_kernels_<label>.json``.
 """
 import argparse
+import inspect
 import json
 import os
 import statistics
@@ -388,6 +393,28 @@ def g2_rows(inp):
             "ms": cuda_ms(lambda: march(*args)),
             "device_ms": device_ms(lambda: march(*args)),
         }
+    if "max_samples" not in inspect.signature(march).parameters:
+        return
+    o, d, near = cases["8192-ray eval chunk, near 0"]
+    far = torch.full_like(near, 1e10)
+    alive = torch.ones_like(near, dtype=torch.bool)
+    rounds, same = [], True
+    while len(rounds) < 1024 // 32 and bool(alive.any()):
+        args = (o, d, occ.binaries, occ.aabbs, near, far, step, 0.0, alive)
+        out = march(*args, max_samples=128)
+        same &= all(torch.equal(a, b) for a, b in zip(out, march_plain(*args, max_samples=128)))
+        rounds.append((out.ray_indices.shape[0], args, out))
+        alive = alive & ~out.terminated
+        near = out.termination_planes
+    samples, args, out = max(rounds, key=lambda r: r[0])
+    yield {
+        "kernel": "G2 march", "case": "8192-ray eval chunk, busiest round of 128 candidates",
+        "rays": o.shape[0], "rounds": len(rounds), "samples": samples,
+        "samples_per_round": [r[0] for r in rounds], "bitwise_equal_to_plain": same,
+        "ms": cuda_ms(lambda: march(*args, max_samples=128)),
+        "device_ms": device_ms(lambda: march(*args, max_samples=128)),
+        "bytes_bound_ms": bytes_bound_ms(*args, *out),
+    }
 
 
 def g3_rows(inp):

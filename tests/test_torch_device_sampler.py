@@ -85,3 +85,20 @@ def test_contract_checks():
     big = torch.zeros((1, 1, 1, 4), dtype=torch.uint8).expand(2**16, 2**8, 2**7, 4)
     with pytest.raises(AssertionError, match="int32"):
         DeviceRaySampler(big, np.tile(np.eye(4, dtype=np.float32), (2**16, 1, 1)), np.eye(3), 8, device="cpu")
+
+
+def test_with_num_rays_shares_the_tables_and_one_clone_per_count():
+    """Resized samplers read the base sampler's staged tables (no copy), and
+    one dict of clones is shared by the base and every clone: a clone of a
+    clone is the object the base gives for that count."""
+    base = DeviceRaySampler.from_loader(_loader())
+    a = base.with_num_rays(96)
+    b = a.with_num_rays(128)
+    assert b is base.with_num_rays(128) and a is b.with_num_rays(96)
+    assert a.with_num_rays(64) is base and base.with_num_rays(64) is base
+    assert (a.num_rays, b.num_rays, base.num_rays) == (96, 128, 64)
+    for s in (a, b):
+        for name in ("pixels", "c2w", "K"):
+            assert getattr(s, name).data_ptr() == getattr(base, name).data_ptr()
+    batch = b.sample(torch.Generator().manual_seed(0))
+    assert batch["rays_o"].shape == (128, 3) and batch["rgb"].shape == (128, 3)

@@ -1,0 +1,157 @@
+"""The port's occupancy example (``nerfacc_tpu_torch.examples.train_ngp_nerf_occ``)
+at a tiny size on the CPU: its ray-batch controller against the JAX script's,
+and a run interrupted by a checkpoint against the same run uninterrupted."""
+import importlib.util
+import pathlib
+
+import numpy as np
+import pytest
+import torch
+
+from nerfacc_tpu_torch.examples import train_ngp_nerf_occ as ex
+from nerfacc_tpu_torch.utils.checkpoint import load_checkpoint, save_checkpoint
+
+ROOT = pathlib.Path(__file__).resolve().parent.parent
+JAX_SCRIPT = ROOT / "examples" / "train_ngp_nerf_occ.py"
+SCENE = dict(n_train=3, n_test=1, width=16, height=16)
+FIELD = dict(resolutions=(8, 16), ranks=(4, 4), compute_dtype=torch.float32)
+
+
+def _jax_script():
+    """examples/train_ngp_nerf_occ.py as a module (it imports JAX only in
+    its main) and its source."""
+    spec = importlib.util.spec_from_file_location("jax_train_ngp_nerf_occ", JAX_SCRIPT)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module, JAX_SCRIPT.read_text()
+
+
+def _run(tmp_path, argv, model_path=None):
+    args = ex.parser().parse_args(
+        ["--device", "cpu", "--steps_per_call", "8", "--ckpt_every", "8",
+         "--target_sample_batch_size", "4096", "--init_batch_size", "64",
+         "--log_every", "1000", *argv]
+        + (["--model_path", str(model_path)] if model_path else [])
+    )
+    trainer, train_ds, test_ds = ex.build(
+        args, scene_kwargs=SCENE, field_kwargs=FIELD,
+        trainer_kwargs=dict(grid_resolution=16),
+    )
+    return trainer, ex.train_loop(trainer, train_ds, test_ds, args)
+
+
+def _assert_states_equal(a, b):
+    assert a.step == b.step and a.opt_state.count == b.opt_state.count
+    assert list(a.params) == list(b.params)
+    adam_a, adam_b = a.opt_state.optimizer, b.opt_state.optimizer
+    for name in a.params:
+        pa, pb = a.params[name], b.params[name]
+        assert torch.equal(pa, pb), name
+        sa, sb = adam_a.state[pa], adam_b.state[pb]
+        assert set(sa) == set(sb) == {"step", "exp_avg", "exp_avg_sq"}
+        for key in sa:
+            assert torch.equal(sa[key], sb[key]), (name, key)
+    for key in ("aabbs", "occs", "binaries"):
+        assert torch.equal(getattr(a.occ_state, key), getattr(b.occ_state, key)), key
+
+
+def test_buckets_and_controller_match_the_jax_script():
+    """``round_to_bucket``, the bucket list and the controller's update
+    (scale by budget / demand, grow at most 2x, round down) against the JAX
+    script's function and arithmetic, over a sweep of demands."""
+    jax_script, src = _jax_script()
+    assert "{1024 * 2**i for i in range(8)}" in src and "{1536 * 2**i for i in range(7)}" in src
+    buckets = sorted({1024 * 2**i for i in range(8)} | {1536 * 2**i for i in range(7)})
+    assert ex.BUCKETS == buckets and buckets[0] == 1024 and buckets[-1] == 131072
+    # the script's update, line for line
+    assert "num_rays * (args.target_sample_batch_size / float(n_total))" in src
+    assert "want = min(want, num_rays * 2)" in src
+    budget = 1 << 18
+    for n in list(range(0, 140000, 97)) + [10**6, 10**7]:
+        assert ex.round_to_bucket(n, buckets) == jax_script.round_to_bucket(n, buckets)
+    for num_rays in buckets:
+        for n_total in np.unique(np.geomspace(1, 5e7, 400).astype(int)):
+            want = int(num_rays * (budget / float(n_total)))
+            want = min(want, num_rays * 2)
+            assert ex.next_num_rays(num_rays, int(n_total), budget) == (
+                jax_script.round_to_bucket(want, buckets)
+            )
+
+
+class _Interrupted(Exception):
+    pass
+
+
+def test_interrupted_run_resumes_bitwise(tmp_path, monkeypatch):
+    """A 16-step run stopped right after its checkpoint at step 8, then run
+    again with the same arguments, which resumes from it: bitwise the 16
+    uninterrupted steps in the parameters, Adam's moments and counts, the
+    occupancy grid and the step (the batches are drawn on the device from
+    generators keyed by the step).  The checkpoint loads back bitwise."""
+    ckpt = tmp_path / "ckpt.pt"
+    saved = []
+
+    def save_then_stop(path, state):
+        save_checkpoint(path, state)
+        saved.append(state)
+        raise _Interrupted
+
+    with monkeypatch.context() as m:
+        m.setattr(ex, "save_checkpoint", save_then_stop)
+        with pytest.raises(_Interrupted):
+            _run(tmp_path, ["--max_steps", "8"], ckpt)
+    assert saved[0].step == 8
+    _assert_states_equal(
+        load_checkpoint(str(ckpt), like=saved[0], device="cpu"), saved[0]
+    )
+    _, resumed = _run(tmp_path, ["--max_steps", "8"], ckpt)
+    _, whole = _run(tmp_path, ["--max_steps", "8"])
+    assert whole.state.step == resumed.state.step == 16
+    _assert_states_equal(resumed.state, whole.state)
+    assert resumed.metrics["psnr"] == whole.metrics["psnr"]
+
+
+def test_checkpoint_refuses_another_state(tmp_path):
+    trainer, run = _run(tmp_path, ["--max_steps", "0"])
+    path = tmp_path / "ckpt.pt"
+    save_checkpoint(str(path), run.state)
+    args = ex.parser().parse_args(["--device", "cpu"])
+    other, _, _ = ex.build(
+        args, scene_kwargs=SCENE, field_kwargs=dict(FIELD, ranks=(4, 8)),
+        trainer_kwargs=dict(grid_resolution=16),
+    )
+    with pytest.raises(ValueError, match="the state's"):
+        load_checkpoint(str(path), like=other.init_state(), device="cpu")
+
+
+def test_controller_grows_the_batch_on_the_host_path(tmp_path):
+    """The host loader's batches (``--device_sampler 0``) on the opaque
+    scene: the controller moves the ray count to a bucket, every call is
+    recorded, and the loop ends past ``--max_steps`` as the JAX loop does."""
+    trainer, run = _run(
+        tmp_path, ["--max_steps", "32", "--device_sampler", "0", "--scene",
+                   "proceduralopaque", "--target_sample_batch_size", "1048576"],
+    )
+    assert run.state.step == 40
+    assert [r["step"] for r in run.log] == list(range(8, 41, 8))
+    rays = [r["num_rays"] for r in run.log]
+    assert rays[:3] == [64, 64, 64] and rays[3] in ex.BUCKETS
+    assert all(np.isfinite(r["loss"]) and r["samples"] > 0 for r in run.log)
+    assert np.isfinite(run.metrics["psnr"]) and run.metrics["views"][0]["finite"]
+
+
+def test_sampled_steps_refuse_a_time_dependent_field():
+    args = ex.parser().parse_args(["--device", "cpu"])
+    trainer, train_ds, _ = ex.build(
+        args, scene_kwargs=SCENE, field_kwargs=FIELD,
+        trainer_kwargs=dict(grid_resolution=16, timestamps=[[0.0], [1.0]]),
+    )
+    sampler = ex.DeviceRaySampler.from_loader(train_ds)
+    with pytest.raises(ValueError, match="time-dependent"):
+        trainer.train_steps_sampled(trainer.init_state(), sampler, 1)
+
+
+def test_entry_point_defaults_to_the_card():
+    args = ex.parser().parse_args([])
+    assert args.device == "cuda" and args.field == "cp" and args.device_sampler == 1
+    assert args.target_sample_batch_size == 1 << 18 and args.init_batch_size == 1024

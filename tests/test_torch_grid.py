@@ -183,3 +183,90 @@ def test_march_start_skips_only_the_empty_prefix(cone_angle, near_inside, masked
         assert np.median(k_start[with_segment]) > 100
     if cone_angle == 0.0:
         assert (gap <= 2).mean() > 0.95
+
+
+@pytest.mark.parametrize(
+    "cone_angle,window,bitwise_t",
+    [(0.0, 128, True), (0.0, 64, True), (0.004, 64, True), (0.004, 128, False)],
+)
+def test_windowed_march_matches_jax_round_by_round(cone_angle, window, bitwise_t):
+    """``max_samples``: the plain march over one window of orbit candidates
+    against JAX's ``traverse_grids_padded(max_samples=K)``, round after round
+    from the previous round's termination planes, with a ray mask, as the
+    eval renderer resumes its rays.  Candidates, valid flags, termination
+    planes and ``terminated`` bitwise, every round: the first rounds emit
+    nothing on most rays (the window counts from the near plane, and the
+    first segment lies past it), rays pointing away have no segment.
+
+    Under cone stepping the orbit's geometric part is ``t * pow(1 +
+    cone, j)``, whose f32 ``pow`` XLA and PyTorch's CPU kernels round
+    differently for some ``j`` (for 1.004 first at j = 78;
+    ``test_orbit_matches_jax`` holds the orbit to 1e-6 for that reason).  A
+    window of 64 restarts every round's orbit below that exponent, so it is
+    held bitwise; a window of 128 reaches past it, and its bounds are held
+    to 1e-6 while every flag stays bitwise."""
+    n_rays = 256
+    o, d = _rays(3, n_rays)
+    d[:8] = -d[:8]  # pointing away: no segment
+    binaries, aabbs = _grid(2, 1)  # the +-1.5 box: t ~ 2.5 to 5.5 from the ring
+    mask = np.random.default_rng(5).uniform(size=n_rays) < 0.8
+    near = np.zeros(n_rays, np.float32)
+    far = np.full(n_rays, 1e10, np.float32)
+    silent_rounds = emitted = 0
+    for _ in range(1400 // window):
+        args = (o, d, binaries, aabbs, near, far)
+        ref = jgrid.traverse_grids_padded(
+            *map(jnp.asarray, args), step_size=STEP, cone_angle=cone_angle,
+            max_samples=window, rays_mask=jnp.asarray(mask),
+        )
+        out = tgrid.march_plain(
+            *map(torch.tensor, args), step_size=STEP, cone_angle=cone_angle,
+            rays_mask=torch.tensor(mask), max_samples=window,
+        )
+        valid = np.asarray(ref.valid)
+        ray, k = np.nonzero(valid)
+        np.testing.assert_array_equal(out.counts.numpy(), valid.sum(-1))
+        np.testing.assert_array_equal(out.ray_indices.numpy(), ray)
+        np.testing.assert_array_equal(out.terminated.numpy(), np.asarray(ref.terminated))
+        for got, want in (
+            (out.t_starts, np.asarray(ref.t_starts)[ray, k]),
+            (out.t_ends, np.asarray(ref.t_ends)[ray, k]),
+            (out.termination_planes, np.asarray(ref.termination_planes)),
+        ):
+            if bitwise_t:
+                np.testing.assert_array_equal(got.numpy(), want)
+            else:
+                np.testing.assert_allclose(got.numpy(), want, rtol=1e-6, atol=0)
+        # masked rays emit nothing and keep their near planes
+        assert (out.counts.numpy()[~mask] == 0).all()
+        np.testing.assert_array_equal(out.termination_planes.numpy()[~mask], near[~mask])
+        emitted += len(ray)
+        silent_rounds += emitted == 0
+        near = np.asarray(ref.termination_planes)
+    terminated = np.asarray(ref.terminated)
+    assert terminated[:8].all()  # no segment
+    assert silent_rounds >= 2 and emitted > 1000
+    # every ray the mask kept has left the box; the masked ones kept their
+    # near planes, and those with a segment have not terminated
+    assert terminated[mask].all() and not terminated[~mask].all()
+
+
+def test_windowed_march_past_the_first_segment_emits_nothing():
+    """A ray whose first segment begins past the window emits nothing, has
+    not terminated, and resumes from ``t_edges[K]``; without a window the
+    same rays terminate and keep the whole-orbit contract."""
+    o, d = _rays(4, 64)
+    binaries, aabbs = _grid(1, 1)  # the +-1.5 box: t ~ 2.5 on the ring
+    near = np.zeros(64, np.float32)
+    far = np.full(64, 1e10, np.float32)
+    args = [torch.tensor(a) for a in (o, d, binaries, aabbs, near, far)]
+    out = tgrid.march_plain(*args, step_size=STEP, max_samples=100)
+    have = tgrid.traverse_grids_padded(*args, step_size=STEP).valid.any(-1)
+    assert have.sum() > 32
+    assert (out.counts == 0).all() and not out.terminated[have].any()
+    np.testing.assert_array_equal(
+        out.termination_planes[have].numpy(),
+        tgrid._orbit_t(args[4], torch.tensor([[100.0]]), STEP, 0.0)[have, 0].numpy(),
+    )
+    full = tgrid.march_plain(*args, step_size=STEP)
+    assert full.terminated.all() and int(full.counts.sum()) > 0

@@ -53,6 +53,8 @@ def _default_device(fn):
         "trainers.ngp_occ.NGPOccTrainer",
         "data.procedural.ProceduralSceneLoader",
         "data.procedural.ProceduralDynamicSceneLoader",
+        "data.procedural.ProceduralOpaqueSceneLoader",
+        "utils.checkpoint.load_checkpoint",
         "estimators.occ_grid.init_occ_grid",
         "models.tineuvox.TiNeuVoxRadianceField",
         "utils.jax_bridge.cp_field_params_from_numpy",

@@ -183,6 +183,55 @@ def test_march_kernel_matches_twin_at_its_edges(dev, case):
         torch.testing.assert_close(a, b, rtol=0, atol=0)
 
 
+@pytest.mark.parametrize(
+    "case,window",
+    [("eval chunk", 128), ("eval chunk", 100), ("near inside", 64), ("m=8, cone", 128),
+     ("missing rays", 128), ("33 rays", 32)],
+)
+def test_windowed_march_kernel_matches_plain_round_by_round(dev, case, window):
+    """G2 with ``max_samples`` against ``march_plain``, round after round as
+    the eval renderer runs it (each round from the last one's termination
+    planes, its alive mask dropping the rays that terminated and a few at
+    random): counts, samples, planes and flags bitwise in every round."""
+    if case == "eval chunk":
+        o, d, binaries, aabbs, near, far, step, cone, _ = _march_case(dev, "8192 rays")
+        o, d = o.repeat(4, 1), d.repeat(4, 1)
+        near, far = near.repeat(4), far.repeat(4)
+    else:
+        o, d, binaries, aabbs, near, far, step, cone, _ = _march_case(dev, case)
+    g = torch.Generator(device=dev).manual_seed(len(case) + window)
+    alive = torch.ones(o.shape[0], dtype=torch.bool, device=dev)
+    emitted = 0
+    for _ in range(2 + 4000 // window):
+        args = (o, d, binaries, aabbs, near, far, step, cone, alive)
+        out = march(*args, max_samples=window)
+        ref = march_plain(*args, max_samples=window)
+        for a, b in zip(out, ref):
+            torch.testing.assert_close(a, b, rtol=0, atol=0)
+        emitted += out.ray_indices.shape[0]
+        drop = torch.rand(o.shape[0], generator=g, device=dev) < 0.05
+        alive = alive & ~out.terminated & ~drop
+        near = out.termination_planes
+        if not bool(alive.any()):
+            break
+    assert emitted > 0 or case == "missing rays"
+    assert not bool(alive.any())
+
+
+def test_eval_renderer_on_the_card_renders_an_empty_grid_as_background(dev):
+    """The early-stopping renderer through G2 and G3 on a fresh state's
+    empty grid: no sample, every ray retired in its first round, the
+    background colour."""
+    aabb = (-1.5, -1.5, -1.5, 1.5, 1.5, 1.5)
+    ds = ProceduralSceneLoader("test", n_test=1, width=32, height=32, device=dev)
+    trainer = NGPOccTrainer(field=CPRadianceField(aabb), aabb=aabb, grid_resolution=32,
+                            device=dev)
+    data = ds[0]
+    colors, opacities, _, n_samples = trainer.render_view(trainer.init_state(), data)
+    assert n_samples == 0 and (opacities == 0).all()
+    assert torch.equal(colors, data["color_bkgd"].expand(32 * 32, 3))
+
+
 def _composite_buffer(dev):
     rng = np.random.default_rng(0)
     n_rays = 4096

@@ -14,11 +14,18 @@ from nerfacc_tpu.estimators.occ_grid import update_occ_grid as jax_update_occ_gr
 from nerfacc_tpu.models.cp_field import CPRadianceField as JaxField
 from nerfacc_tpu.utils.rendering import compact_samples as jax_compact_samples
 from nerfacc_tpu.utils.rendering import render_image_with_occgrid
+from nerfacc_tpu.utils.rendering import render_rays_occgrid_test as jax_render_rays_occgrid_test
 from nerfacc_tpu_torch.grid import MarchResult
 from nerfacc_tpu_torch.data.procedural import ProceduralSceneLoader
 from nerfacc_tpu_torch.models.cp_field import CPRadianceField
 from nerfacc_tpu_torch.trainers.ngp_occ import NGPOccTrainer, TrainState
-from nerfacc_tpu_torch.utils.rendering import compact_samples
+from nerfacc_tpu_torch.utils.rendering import (
+    compact_samples,
+    render_rays_occgrid_test,
+)
+from nerfacc_tpu_torch.utils.rendering import (
+    render_image_with_occgrid as render_image_with_occgrid_port,
+)
 from nerfacc_tpu_torch.utils.jax_bridge import (
     cp_field_params_from_numpy,
     occ_state_from_numpy,
@@ -28,6 +35,7 @@ AABB = (-1.5, -1.5, -1.5, 1.5, 1.5, 1.5)
 SMALL = dict(resolutions=(16, 32, 64), ranks=(8, 8, 8))
 STEP = 5e-3
 SIZE = 24
+DENSE = 50.0  # the early-stop test's density scale: most blob rays saturate
 
 
 @pytest.fixture(scope="module")
@@ -51,8 +59,10 @@ def test_loaders_give_equal_rays_and_ground_truth(loaders):
         assert float(out["rgb"].std()) > 0.05  # the blobs are in view
 
 
-def test_render_image_matches_jax(loaders):
-    jax_ds, ds = loaders
+@pytest.fixture(scope="module")
+def carried_field():
+    """A small f32 CP field initialised in JAX and a grid refreshed there,
+    and the port's trainer and state carrying both across."""
     jfield = JaxField(aabb=AABB, compute_dtype=jnp.float32, **SMALL)
     jparams = jfield.init(jax.random.PRNGKey(3))
     jstate = jax_update_occ_grid(
@@ -83,6 +93,16 @@ def test_render_image_matches_jax(loaders):
         rgb, density = jfield(jparams, p, d)
         return rgb, density[..., 0]
 
+    return field_fn, jstate, trainer, state
+
+
+def test_render_image_matches_jax(loaders, carried_field):
+    """The exact renderer (``render_rays``) against JAX's full-lattice
+    render at 1e-4; ``render_image``, the eval renderer's image, bitwise
+    equal to :func:`render_rays_occgrid_test` at the trainer's settings and
+    within 2e-4 of the exact renderer (it stops rays at 1 - 1e-4 opacity)."""
+    jax_ds, ds = loaders
+    field_fn, jstate, trainer, state = carried_field
     for i in (0, 2):
         ref_data, data = jax_ds[i], ds[i]
         colors, opacities, depths, n_samples = trainer.render_rays(state, data)
@@ -98,11 +118,68 @@ def test_render_image_matches_jax(loaders):
         )
         assert n_samples < 2**18 and n_samples > 10 * SIZE * SIZE
         np.testing.assert_allclose(colors.numpy(), ref, atol=1e-4, rtol=0)
-        np.testing.assert_array_equal(
-            trainer.render_image(state, data).numpy(), colors.numpy()
-        )
+        image = trainer.render_image(state, data)
+        with torch.no_grad():
+            early = render_rays_occgrid_test(
+                trainer._field_fn(state, data), state.occ_state, data["rays_o"],
+                data["rays_d"], render_bkgd=data["color_bkgd"],
+                render_step_size=STEP, early_stop_eps=1e-4, window=128,
+                max_iters=1024 // 32,
+            )[0]
+        np.testing.assert_array_equal(image.numpy(), early.numpy())
+        np.testing.assert_allclose(image.numpy(), colors.numpy(), atol=2e-4, rtol=0)
         assert ((opacities >= 0) & (opacities <= 1 + 1e-4)).all()
         assert torch.isfinite(depths).all()
+
+
+@pytest.mark.parametrize("view,window", [(0, 128), (1, 64)])
+def test_early_stop_renderer_matches_jax(loaders, carried_field, view, window):
+    """``render_rays_occgrid_test`` against JAX's on the carried field and
+    grid: colours, opacities and depths within 1e-5, and the same number
+    of rounds (JAX's loop with that many rounds is its whole result, with
+    one fewer it is not).  Both fields' densities are scaled by ``DENSE``,
+    so that rays saturate and stop early, and the renderer renders fewer
+    samples than the exact one."""
+    jax_ds, ds = loaders
+    jax_fn, jstate, trainer, state = carried_field
+    ref_data, data = jax_ds[view], ds[view]
+    port_fn = trainer._field_fn(state, data)
+
+    def dense(fn):
+        def field_fn(p, d):
+            rgb, sigma = fn(p, d)
+            return rgb, sigma * DENSE
+        return field_fn
+
+    kw = dict(render_step_size=STEP, early_stop_eps=1e-4, window=window)
+    with torch.no_grad():
+        colors, opacities, depths, stats = render_rays_occgrid_test(
+            dense(port_fn), state.occ_state, data["rays_o"],
+            data["rays_d"], render_bkgd=data["color_bkgd"], max_iters=64, **kw,
+        )
+
+    def jax_render(max_iters):
+        return [np.asarray(a) for a in jax_render_rays_occgrid_test(
+            dense(jax_fn), jstate, jnp.asarray(ref_data["rays_o"]),
+            jnp.asarray(ref_data["rays_d"]), jnp.asarray(ref_data["color_bkgd"]),
+            max_iters=max_iters, **kw,
+        )]
+
+    ref = jax_render(64)
+    for got, want in zip((colors, opacities, depths), ref):
+        np.testing.assert_allclose(got.numpy(), want, atol=1e-5, rtol=0)
+    assert int(stats["counts"].sum()) == stats["n_samples"]
+    rounds = stats["n_rounds"]
+    assert 2 < rounds < 64
+    for got, want in zip(jax_render(rounds), ref):
+        np.testing.assert_array_equal(got, want)
+    assert any(not np.array_equal(a, b) for a, b in zip(jax_render(rounds - 1), ref))
+    exact = render_image_with_occgrid_port(
+        dense(port_fn), state.occ_state, data["rays_o"], data["rays_d"],
+        data["color_bkgd"], render_step_size=STEP,
+    )
+    assert (opacities > 1 - 1e-4).float().mean() > 0.1
+    assert stats["n_samples"] < exact[3]
 
 
 def test_trainer_eval_path_on_the_port_alone():
@@ -159,6 +236,7 @@ def test_budgeted_compaction_matches_jax(budget_share):
         torch.tensor(np.asarray(res.t_ends)[ray, k]),
         torch.tensor(valid.sum(-1), dtype=torch.int32),
         torch.tensor(np.asarray(res.termination_planes)),
+        torch.tensor(np.asarray(res.terminated)),
     )
     out = compact_samples(samples, budget)
     ref = jax_compact_samples(res, budget)
