@@ -90,7 +90,24 @@ It builds the CUDA kernels from ``nerfacc_tpu_torch/csrc`` and runs:
     the proposal field's leaves included;
 18. phase 15 on phase 16's trained fields, against phase 15's PSNR;
     18b. 14b for phases 16 and 18, G1, G3, G4, G5 and G14 on their plain
-    versions.
+    versions;
+19. the library API as the README's quick start uses it, in a user's own
+    loop: the full-width bf16 CP field from seed 42 behind an
+    ``OccGridEstimator`` (128^3 over +-1.5), ``QS_STEPS`` steps on phase 4's
+    train split of ``update_every_n_steps`` (the sampled update from step
+    ``QS_WARMUP``), ``sampling`` with a density callback and stratified
+    near planes, ``rendering`` on the flattened samples, smooth L1 plus
+    ``distortion`` at ``QS_DISTORTION``, and ``torch.optim.Adam``; the loss
+    must fall below ``QS_LOSS_RATIO`` of its start and G1-G5 must launch;
+    one step through the kernels against their plain versions (phase 5's
+    bounds); view 0 through ``sampling`` + ``rendering`` against
+    ``trainer.render_rays`` within 2e-3; the flat-layout scans timed
+    beside G5; a loop step timed against ``NGPOccTrainer.train_step`` and a
+    frame against ``render_rays``;
+    19b. the proposal leg: ``PropNetEstimator`` with its own Adam over
+    ``bench_prop``'s proposal field, ``QS_PROP_STEPS`` steps; the proposal
+    loss must fall, G14, G3 and G5 must launch, and one step must stay
+    within phase 17's bounds of its plain versions.
 
 Phase 1d holds the hat kernels G8 (forward), G9 (table gradient) and G10
 (coordinate gradient) against their plain versions at N = 2^18 on each of
@@ -133,8 +150,8 @@ training seconds, ray counts, samples a step, and both renderers' frames.
 Every check raises on failure, so the exit code is nonzero and the result
 line is not printed.  The last line of standard output is a JSON object with
 ``"ok": true`` and the device; the line before it lists each kernel's launch
-count (over the training phases 4, 6d, 8, 12 and 16; for G11-G13, over the
-gather probe's run), error, times and bound.  Without a CUDA device the
+count (over the training phases 4, 6d, 8, 12, 16 and 19; for G11-G13, over
+the gather probe's run), error, times and bound.  Without a CUDA device the
 script fails at once.
 """
 import argparse
@@ -149,11 +166,13 @@ import sys
 import time
 
 import torch
+import torch.nn.functional as F
 from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
 
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
+import nerfacc_tpu_torch  # noqa: E402
 from nerfacc_tpu_torch import cuda  # noqa: E402
 from nerfacc_tpu_torch.cuda import _build  # noqa: E402
 from nerfacc_tpu_torch.data.procedural import (  # noqa: E402
@@ -1721,7 +1740,7 @@ def rounds_render(field_fn, occ, data, step, eps):
     parts = [render_rays_occgrid_test(
         field_fn, occ, data["rays_o"][i : i + 8192], data["rays_d"][i : i + 8192],
         render_bkgd=data["color_bkgd"], render_step_size=step, early_stop_eps=eps,
-        window=EVAL_WINDOW, max_iters=EVAL_MAX_ROUNDS,
+        window=EVAL_WINDOW, max_iters=EVAL_MAX_ROUNDS, return_stats=True,
     ) for i in range(0, data["rays_o"].shape[0], 8192)]
     return torch.cat([p[0] for p in parts]), torch.cat([p[3]["counts"] for p in parts])
 
@@ -2224,6 +2243,341 @@ def phase_prop_train_twins(trainer, state, batch):
         require(loss_rel <= 1e-5, f"{what}: losses differ by {loss_rel}")
 
 
+# Phase 19: the library API's quick start on the card, a user's own loop.
+QS_STEPS, QS_WARMUP, QS_RES, QS_STEP = 200, 64, 128, 5e-3
+QS_DISTORTION = 1e-3
+# the loop's mean loss over its last 20 steps must be below this share of
+# its first 20's (PERF.md §6 holds the prediction this bound comes from)
+QS_LOSS_RATIO = 0.5
+QS_TIMED_STEPS = 20  # steps of the loop and of train_step timed side by side
+QS_VIEW_MAX_SAMPLES = 2048  # view 0's orbits hold ~1040 candidates, over 1024
+QS_KERNELS = ("cp_level_fwd", "cp_level_bwd", "march", "composite_fwd", "composite_bwd")
+QS_PROP_STEPS = 50
+QS_PROP_KERNELS = ("cp_level_fwd", "cp_level_bwd", "composite_fwd", "composite_bwd",
+                   "importance_sampling")
+
+
+def qs_loss(field, estimator, batch, near_jitter=None):
+    """The quick start's sampling and rendering on ``batch`` and the loop's
+    loss: smooth L1 plus ``QS_DISTORTION`` x the mean distortion.  Returns
+    the loss and the number of samples."""
+    rays_o, rays_d = batch["rays_o"], batch["rays_d"]
+    n_rays = rays_o.shape[0]
+
+    def sigma_fn(t0, t1, rid):
+        return field.query_density(rays_o[rid] + (0.5 * (t0 + t1))[:, None] * rays_d[rid])[..., 0]
+
+    ray_indices, t_starts, t_ends = estimator.sampling(
+        rays_o, rays_d, sigma_fn=sigma_fn, render_step_size=QS_STEP, stratified=True,
+        near_jitter=near_jitter)
+
+    def rgb_sigma_fn(t0, t1, rid):
+        d = rays_d[rid]
+        rgb, density = field(rays_o[rid] + (0.5 * (t0 + t1))[:, None] * d, d)
+        return rgb, density[..., 0]
+
+    colors, _, _, extras = nerfacc_tpu_torch.rendering(
+        t_starts, t_ends, ray_indices, n_rays=n_rays, rgb_sigma_fn=rgb_sigma_fn,
+        render_bkgd=batch["color_bkgd"])
+    dist = nerfacc_tpu_torch.distortion(extras["weights"], t_starts, t_ends, ray_indices, n_rays)
+    loss = F.smooth_l1_loss(colors, batch["rgb"]) + QS_DISTORTION * dist.mean()
+    return loss, ray_indices.shape[0]
+
+
+def qs_step_grads(field, estimator, batch, near, plain=False, kernels=QS_KERNELS):
+    """One loop step's loss and gradients (no grid update, no Adam) through
+    the kernels or (``plain``) their plain versions, each gradient checked
+    finite and nonzero."""
+    field.zero_grad(set_to_none=True)
+    before = dict(cuda.LAUNCHES)
+    with plain_kernels(kernels) if plain else contextlib.nullcontext():
+        loss, _ = qs_loss(field, estimator, batch, near)
+        loss.backward()
+    if plain:
+        require(cuda.LAUNCHES == before, "the plain quick-start step launched a kernel")
+    grads = {k: p.grad.clone() for k, p in field.named_parameters()}
+    for name, g in grads.items():
+        require(torch.isfinite(g).all() and float(g.abs().max()) > 0,
+                f"quick start: gradient of {name} is zero or not finite")
+    return float(loss.detach()), grads
+
+
+def qs_frame(field, estimator, data, chunk=8192):
+    """A view through the quick start's calls, 8192 rays a call, every
+    occupied candidate kept (no visibility filter): the colours."""
+    rays_o, rays_d = data["rays_o"].reshape(-1, 3), data["rays_d"].reshape(-1, 3)
+    colors = []
+    for s in range(0, rays_o.shape[0], chunk):
+        o, d = rays_o[s : s + chunk], rays_d[s : s + chunk]
+        ray_indices, t_starts, t_ends = estimator.sampling(
+            o, d, render_step_size=QS_STEP, early_stop_eps=0.0, alpha_thre=0.0)
+
+        def rgb_sigma_fn(t0, t1, rid, o=o, d=d):
+            rgb, density = field(o[rid] + (0.5 * (t0 + t1))[:, None] * d[rid], d[rid])
+            return rgb, density[..., 0]
+
+        colors.append(nerfacc_tpu_torch.rendering(
+            t_starts, t_ends, ray_indices, n_rays=o.shape[0], rgb_sigma_fn=rgb_sigma_fn,
+            render_bkgd=data["color_bkgd"])[0])
+    return torch.cat(colors)
+
+
+@torch.no_grad()
+def qs_frame_timed(field, estimator, data):
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    colors = qs_frame(field, estimator, data)
+    torch.cuda.synchronize()
+    return colors, time.perf_counter() - t0
+
+
+@torch.no_grad()
+def qs_scan_times(field, estimator, batch, near):
+    """The quick start's flat-layout scans, PyTorch ops on one step's sample
+    buffer (the visibility's and the extras' transmittance, the distortion's
+    two exclusive sums), against G5, whose warps scan the same segments, on
+    the same buffer: CUDA events around a call and device time alone."""
+    rays_o, rays_d = batch["rays_o"], batch["rays_d"]
+    n_rays = rays_o.shape[0]
+    ray_indices, t0, t1 = estimator.sampling(rays_o, rays_d, render_step_size=QS_STEP,
+                                             stratified=True, near_jitter=near)
+    rid = ray_indices
+    rgbs, density = field(rays_o[rid] + (0.5 * (t0 + t1))[:, None] * rays_d[rid], rays_d[rid])
+    sigmas = density[..., 0].float().contiguous()
+    rgbs = rgbs.float().contiguous()
+    counts = torch.bincount(rid, minlength=n_rays)
+    ends = torch.cumsum(counts, 0)
+    ss, se = (ends - counts).to(torch.int32), (ends - 1).to(torch.int32)
+    g = torch.Generator(device=rid.device).manual_seed(23)
+    cot = [torch.rand((n_rays, c), generator=g, device=rid.device) for c in (3, 1, 1)]
+    weights = nerfacc_tpu_torch.render_weight_from_density(
+        t0, t1, sigmas, ray_indices=rid, n_rays=n_rays)[0]
+    calls = {
+        "transmittance (exclusive_sum, indices)": lambda: nerfacc_tpu_torch.render_transmittance_from_density(
+            t0, t1, sigmas, ray_indices=rid, n_rays=n_rays),
+        "distortion's two exclusive sums": lambda: (
+            nerfacc_tpu_torch.exclusive_sum(weights, indices=rid),
+            nerfacc_tpu_torch.exclusive_sum(weights * t0, indices=rid)),
+        "G5 composite_bwd": lambda: composite_sorted_backward(
+            t0, t1, sigmas, rgbs, rid.to(torch.int32), n_rays, ss, se, *cot),
+    }
+    for what, fn in calls.items():
+        print(f"quick start scans: {what} on {rid.shape[0]} samples of {n_rays} rays: "
+              f"{cuda_ms(fn):.4f} ms by events, {device_ms(fn):.4f} ms device alone "
+              f"({card()})")
+
+
+def phase_quickstart(dev, ds):
+    """19. The README's quick start as a user writes it against the port:
+    ``OccGridEstimator`` (128^3 over +-1.5), ``sampling`` with a density
+    callback, ``rendering``, a smooth-L1 loss plus ``distortion``, and
+    ``torch.optim.Adam``, on the full-width bf16 CP field from seed 42, for
+    ``QS_STEPS`` steps on phase 4's train split; launches counted.  Then one
+    step through the kernels against their plain versions (phase 5's
+    bounds), view 0 against ``trainer.render_rays`` on the same field and
+    grid, and the timings."""
+    print(f"quick start: {card()}")
+    train = train_loader(dev, "cp")
+    batches = [train[0] for _ in range(QS_STEPS + 1)]
+    field = port_module("models.cp_field").CPRadianceField(AABB).to(dev)
+    field.init(torch.Generator().manual_seed(QUALITY_SEEDS[0]))
+    estimator = nerfacc_tpu_torch.OccGridEstimator(roi_aabb=AABB, resolution=QS_RES,
+                                                   device=dev)
+    optimizer = torch.optim.Adam(field.parameters(), lr=1e-2, eps=1e-15)
+
+    def occ_eval_fn(x):
+        return field.query_density(x)[..., 0] * QS_STEP
+
+    torch.cuda.synchronize()
+    cuda.reset_launches()
+    losses, samples, step_s = [], [], []
+    for step in range(QS_STEPS):
+        t0 = time.perf_counter()
+        estimator.update_every_n_steps(step, occ_eval_fn, warmup_steps=QS_WARMUP)
+        loss, n = qs_loss(field, estimator, batches[step])
+        optimizer.zero_grad()
+        loss.backward()
+        optimizer.step()
+        losses.append(loss.detach())
+        samples.append(n)
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t0)
+        if step % 50 == 0 or step == QS_STEPS - 1:
+            print(f"quick start step {step}: loss {float(loss.detach()):.6f}, {n} samples, "
+                  f"occupied share {float(estimator.binaries.float().mean()):.4f}")
+    launches = dict(cuda.LAUNCHES)
+    losses = torch.stack(losses).cpu()
+    require(bool(torch.isfinite(losses).all()), "quick start: non-finite loss")
+    first, last = float(losses[:20].mean()), float(losses[-20:].mean())
+    print(f"quick start: {QS_STEPS} steps in {sum(step_s):.3f} s, mean loss of the first "
+          f"20 steps {first:.6f}, of the last 20 {last:.6f} (ratio {last / first:.4f}, "
+          f"limit {QS_LOSS_RATIO}); {statistics.mean(samples):.1f} samples a step; "
+          f"launches {launches}, per step "
+          + ", ".join(f"{k} {v / QS_STEPS:.3f}" for k, v in launches.items() if v))
+    require(last < QS_LOSS_RATIO * first,
+            f"quick start: loss {first} -> {last} not below {QS_LOSS_RATIO}x")
+    for name in ("march", "composite_fwd", "composite_bwd", "cp_level_fwd", "cp_level_bwd"):
+        require(launches[name] > 0, f"kernel {name} never launched in the quick start")
+
+    # one step through the kernels against their plain versions, the bf16
+    # field and the same parameters in an f32 field
+    batch = batches[QS_STEPS]
+    near = torch.rand(batch["rays_o"].shape[0], device=dev,
+                      generator=torch.Generator(device=dev).manual_seed(19))
+    f32 = port_module("models.cp_field").CPRadianceField(AABB, compute_dtype=torch.float32)
+    f32 = f32.to(dev)
+    f32.load_state_dict(field.state_dict())
+    checks = []
+    for mode, fld, limit in (("f32", f32, F32_STEP_FRO), ("bf16", field, BF16_STEP_FRO)):
+        ref = qs_step_grads(fld, estimator, batch, near, plain=True)
+        checks.append(step_readings(
+            f"quick start step {mode}, kernels vs plain versions",
+            lambda fld=fld: qs_step_grads(fld, estimator, batch, near), ref, limit))
+    for what, reading, limit, loss_rel in checks:
+        require(reading <= limit, f"{what}: a gradient leaf off by {reading} > {limit}")
+        require(loss_rel <= 1e-5, f"{what}: losses differ by {loss_rel}")
+
+    # view 0 through the quick start against the trainer's exact renderer
+    trainer = make_trainer(dev)
+    state = TrainState({k: v.detach() for k, v in field.state_dict().items()}, None,
+                       estimator.state, 0)
+    estimator.max_samples = QS_VIEW_MAX_SAMPLES
+    data = ds[0]
+    colors, qs_seconds = qs_frame_timed(field, estimator, data)
+    qs_frames = [qs_frame_timed(field, estimator, data)[1] for _ in range(2)]
+    torch.cuda.synchronize()
+    exact, exact_seconds = [], []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        exact = trainer.render_rays(state, data)[0]
+        torch.cuda.synchronize()
+        exact_seconds.append(time.perf_counter() - t0)
+    estimator.max_samples = 1024
+    diff = float((colors - exact).abs().max())
+    print(f"quick start view 0: sampling + rendering vs trainer.render_rays, max colour "
+          f"difference {diff:.3g} (limit 2e-3); {min([qs_seconds] + qs_frames):.4f} s/frame "
+          f"against {min(exact_seconds):.4f} s/frame for render_rays ({card()})")
+    require(diff <= 2e-3, f"quick start view 0: differs from render_rays by {diff}")
+
+    # the flat-layout scans in PyTorch ops at the loop's shapes, beside G5
+    qs_scan_times(field, estimator, batches[QS_STEPS], near)
+
+    # a step of the loop against NGPOccTrainer.train_step, same field and rays
+    loop_ms = 1e3 * statistics.median(step_s[-QS_TIMED_STEPS:])
+    tstate = TrainState(
+        {k: v.detach().clone().requires_grad_(True) for k, v in field.state_dict().items()},
+        None, estimator.state, 1)
+    tstate = tstate._replace(opt_state=trainer.init_optimizer(tstate.params))
+    trainer_s = []
+    for i in range(QS_TIMED_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        tstate, _ = trainer.train_step(tstate, batches[i])
+        torch.cuda.synchronize()
+        trainer_s.append(time.perf_counter() - t0)
+    print(f"quick start: a loop step {loop_ms:.3f} ms (median of its last "
+          f"{QS_TIMED_STEPS}) against {1e3 * statistics.median(trainer_s):.3f} ms for "
+          f"NGPOccTrainer.train_step on the same field and rays (median of "
+          f"{QS_TIMED_STEPS}, its budget {trainer.sample_budget}) ({card()})")
+    return launches
+
+
+def phase_quickstart_prop(dev):
+    """19b. The proposal leg: ``PropNetEstimator`` with one CPDensityField
+    (16/64 x rank 16) and its own Adam, the full-width CP radiance field,
+    ``rendering`` on the batched rows, ``PROP_RAYS`` rays and 128 + 64
+    samples, for ``QS_PROP_STEPS`` steps; launches counted.  The proposal
+    loss must fall, and one step through the kernels must stay within phase
+    17's bounds of the same step on their plain versions."""
+    fields = port_module("models.cp_field")
+    gen = torch.Generator().manual_seed(QUALITY_SEEDS[0])
+    field = fields.CPRadianceField(AABB).to(dev)
+    field.init(gen)
+    prop = fields.CPDensityField(AABB).to(dev)
+    prop.init(gen)
+    estimator = nerfacc_tpu_torch.PropNetEstimator(
+        torch.optim.Adam(prop.parameters(), lr=1e-2, eps=1e-15))
+    optimizer = torch.optim.Adam(field.parameters(), lr=1e-2, eps=1e-15)
+    sampler = DeviceRaySampler.from_loader(train_loader(dev, "prop"))
+    rg_fn = get_proposal_requires_grad_fn()
+    g = torch.Generator(device=dev).manual_seed(191)
+
+    def leg_loss(batch, rg, biases=None, generator=None):
+        o, d = batch["rays_o"], batch["rays_d"]
+
+        def prop_sigma_fn(t0, t1):
+            pos = o[:, None] + (0.5 * (t0 + t1))[..., None] * d[:, None]
+            return prop(pos.reshape(-1, 3)).reshape(t0.shape)
+
+        t_starts, t_ends = estimator.sampling(
+            [prop_sigma_fn], [PROP_SAMPLES], PROP_FINAL, o.shape[0], 2.0, 6.0, "uniform",
+            stratified=True, requires_grad=rg, generator=generator, biases=biases, device=dev)
+
+        def rgb_sigma_fn(t0, t1, _):
+            pos = o[:, None] + (0.5 * (t0 + t1))[..., None] * d[:, None]
+            rgb, density = field(pos.reshape(-1, 3), d[:, None].expand_as(pos).reshape(-1, 3))
+            return rgb.reshape(t0.shape + (3,)), density.reshape(t0.shape)
+
+        colors, _, _, extras = nerfacc_tpu_torch.rendering(
+            t_starts, t_ends, rgb_sigma_fn=rgb_sigma_fn, render_bkgd=batch["color_bkgd"])
+        return F.smooth_l1_loss(colors, batch["rgb"]), extras["trans"]
+
+    torch.cuda.synchronize()
+    cuda.reset_launches()
+    losses, prop_losses = [], []
+    t0 = time.perf_counter()
+    for step in range(QS_PROP_STEPS):
+        rg = rg_fn(step)
+        loss, trans = leg_loss(sampler.sample(g), rg, generator=g)
+        optimizer.zero_grad()
+        loss.backward()
+        optimizer.step()
+        prop_losses.append(estimator.update_every_n_steps(trans, rg, loss_scaler=1024.0))
+        losses.append(loss.detach())
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = dict(cuda.LAUNCHES)
+    losses = torch.stack(losses).cpu()
+    rg_losses = [v for v in prop_losses if v]
+    first, last = statistics.mean(rg_losses[:10]), statistics.mean(rg_losses[-10:])
+    print(f"quick start prop: {QS_PROP_STEPS} steps in {seconds:.3f} s "
+          f"({1e3 * seconds / QS_PROP_STEPS:.3f} ms/step, {card()}), loss "
+          f"{float(losses[:10].mean()):.6f} -> {float(losses[-10:].mean()):.6f}, proposal "
+          f"loss {first:.6f} -> {last:.6f} over {len(rg_losses)} proposal steps; "
+          f"launches {launches}")
+    require(bool(torch.isfinite(losses).all()), "quick start prop: non-finite loss")
+    require(last < first, f"quick start prop: proposal loss {first} -> {last} did not fall")
+    for name in ("importance_sampling", "composite_fwd", "composite_bwd"):
+        require(launches[name] > 0, f"kernel {name} never launched in the proposal leg")
+
+    batch = sampler.sample(g)
+    biases = [torch.rand(PROP_RAYS, generator=g, device=dev) for _ in range(2)]
+
+    def step(plain=False):
+        for p in (*field.parameters(), *prop.parameters()):
+            p.grad = None
+        before = dict(cuda.LAUNCHES)
+        with plain_kernels(QS_PROP_KERNELS) if plain else contextlib.nullcontext():
+            loss, trans = leg_loss(batch, True, biases=biases)
+            loss = loss + estimator.compute_loss(trans, 1024.0)
+            loss.backward()
+        if plain:
+            require(cuda.LAUNCHES == before, "the plain proposal leg launched a kernel")
+        grads = {f"field.{k}": p.grad.clone() for k, p in field.named_parameters()}
+        grads.update({f"prop.{k}": p.grad.clone() for k, p in prop.named_parameters()})
+        for name, gr in grads.items():
+            require(torch.isfinite(gr).all() and float(gr.abs().max()) > 0,
+                    f"quick start prop: gradient of {name} is zero or not finite")
+        return float(loss.detach()), grads
+
+    what, reading, limit, loss_rel = step_readings(
+        "quick start prop step bf16, kernels vs plain versions", step, step(plain=True),
+        BF16_STEP_FRO)
+    require(reading <= limit, f"{what}: a gradient leaf off by {reading} > {limit}")
+    require(loss_rel <= 1e-5, f"{what}: losses differ by {loss_rel}")
+    return launches
+
+
 def card():
     """The card's name and power limit, from ``nvidia-smi``."""
     return subprocess.run(
@@ -2432,11 +2786,16 @@ def main():
     psnr = phase_prop_serve(dev, ds, trainer, state, untrained_psnr)
     del trainer, state
     phase_plain_quality(dev, "prop", psnr)
+
+    # 19: the library API's quick start, and its proposal leg
+    qs_launches = phase_quickstart(dev, ds)
+    qs_prop_launches = phase_quickstart_prop(dev)
     # each kernel's launches over the four training runs (phases 4, 8, 12,
-    # 16) and the occupancy example's (6d), and the gather kernels' over the
-    # gather probe's run
+    # 16), the occupancy example's (6d) and the quick start's loops (19),
+    # and the gather kernels' over the gather probe's run
     launches = {k: v + ngp_launches[k] + tnv_launches[k] + prop_launches[k]
-                + example_launches[k] for k, v in launches.items()}
+                + example_launches[k] + qs_launches[k] + qs_prop_launches[k]
+                for k, v in launches.items()}
     launches.update(probe_launches)
 
     sources = {

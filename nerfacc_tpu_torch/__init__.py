@@ -1,29 +1,43 @@
-"""nerfacc_tpu_torch: the occupancy-grid and proposal-network render and
-train paths of nerfacc_tpu, with its CP, hash-grid (Instant-NGP) and
-TiNeuVox (dynamic) radiance fields and the CP proposal field, ported to
-PyTorch and hand-written CUDA kernels for NVIDIA Hopper.
+"""nerfacc_tpu_torch: nerfacc_tpu's library API (estimators, scans,
+volume rendering, losses), its occupancy-grid and proposal-network render and
+train paths, and its CP, hash-grid (Instant-NGP) and TiNeuVox (dynamic)
+radiance fields with the CP proposal field, ported to PyTorch and
+hand-written CUDA kernels for NVIDIA Hopper.
 
-Importing the package builds nothing and needs no GPU: the kernels compile
-at their first launch (see :mod:`nerfacc_tpu_torch.cuda`).  Every kernel
-wrapper runs its kernel for CUDA tensors and its plain PyTorch twin for CPU
-tensors.  Entry points put their state on the card unless given
+The functional ops take the JAX package's three layouts: batched rows, and
+flattened buffers with ``packed_info`` or ``ray_indices`` (sorted or in
+runs).  Importing the package builds nothing and needs no GPU: the kernels
+compile at their first launch (see :mod:`nerfacc_tpu_torch.cuda`).  Every
+kernel wrapper runs its kernel for CUDA tensors and its plain PyTorch twin
+for CPU tensors.  Entry points put their state on the card unless given
 ``device="cpu"``.
 """
 from . import cuda
 from .data.device_sampler import DeviceRaySampler
 from .data_specs import RayIntervals, RaySamples
-from .estimators.occ_grid import OccGridState, init_occ_grid, sampling, update_occ_grid
+from .estimators.base import AbstractEstimator
+from .estimators.occ_grid import (
+    OccGridEstimator,
+    OccGridState,
+    init_occ_grid,
+    sampling,
+    update_occ_grid,
+)
 from .estimators.prop_net import (
+    PropNetEstimator,
     get_proposal_requires_grad_fn,
     propnet_loss,
     propnet_sampling,
 )
 from .grid import march, march_plain, ray_aabb_intersect, traverse_grids_padded
+from .losses import distortion
 from .models.cp_field import CPDensityField, CPGridEncoder, CPRadianceField
 from .models.encoders import HashGridEncoder, SinusoidalEncoder
 from .models.ngp import NGPRadianceField
 from .models.tineuvox import TiNeuVoxRadianceField
+from .pack import pack_info
 from .pdf import importance_sampling, searchsorted
+from .scan import exclusive_prod, exclusive_sum, inclusive_prod, inclusive_sum
 from .trainers.ngp_occ import NGPOccTrainer, TrainState
 from .trainers.ngp_prop import NGPPropTrainer, PropTrainState
 from .utils.checkpoint import load_checkpoint, save_checkpoint
@@ -34,16 +48,35 @@ from .utils.rendering import (
     render_rays_occgrid_test,
     render_rays_with_occgrid,
 )
+from .volrend import (
+    accumulate_along_rays,
+    accumulate_along_rays_,
+    render_transmittance_from_alpha,
+    render_transmittance_from_density,
+    render_visibility_from_alpha,
+    render_visibility_from_density,
+    render_weight_from_alpha,
+    render_weight_from_density,
+    rendering,
+)
+
+__version__ = "0.1.0"
 
 __all__ = [
-    "CPDensityField", "CPGridEncoder", "CPRadianceField", "CompactSamples",
-    "DeviceRaySampler", "HashGridEncoder", "NGPOccTrainer", "NGPPropTrainer",
-    "NGPRadianceField", "OccGridState", "PropTrainState", "RayIntervals",
-    "RaySamples", "SinusoidalEncoder", "TiNeuVoxRadianceField", "TrainState",
-    "compact_samples", "cuda", "get_proposal_requires_grad_fn",
-    "importance_sampling", "init_occ_grid", "load_checkpoint", "march",
-    "march_plain", "propnet_loss", "propnet_sampling", "ray_aabb_intersect",
-    "render_image_with_occgrid", "render_rays_occgrid_test",
-    "render_rays_with_occgrid", "sampling", "save_checkpoint", "searchsorted",
-    "traverse_grids_padded", "update_occ_grid",
+    "AbstractEstimator", "CPDensityField", "CPGridEncoder", "CPRadianceField",
+    "CompactSamples", "DeviceRaySampler", "HashGridEncoder", "NGPOccTrainer",
+    "NGPPropTrainer", "NGPRadianceField", "OccGridEstimator", "OccGridState",
+    "PropNetEstimator", "PropTrainState", "RayIntervals", "RaySamples",
+    "SinusoidalEncoder", "TiNeuVoxRadianceField", "TrainState", "__version__",
+    "accumulate_along_rays", "accumulate_along_rays_", "compact_samples", "cuda",
+    "distortion", "exclusive_prod", "exclusive_sum", "get_proposal_requires_grad_fn",
+    "importance_sampling", "inclusive_prod", "inclusive_sum", "init_occ_grid",
+    "load_checkpoint", "march", "march_plain", "pack_info", "propnet_loss",
+    "propnet_sampling", "ray_aabb_intersect", "render_image_with_occgrid",
+    "render_rays_occgrid_test", "render_rays_with_occgrid",
+    "render_transmittance_from_alpha", "render_transmittance_from_density",
+    "render_visibility_from_alpha", "render_visibility_from_density",
+    "render_weight_from_alpha", "render_weight_from_density", "rendering",
+    "sampling", "save_checkpoint", "searchsorted", "traverse_grids_padded",
+    "update_occ_grid",
 ]

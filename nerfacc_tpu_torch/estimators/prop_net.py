@@ -1,13 +1,16 @@
 """Proposal-network transmittance estimator (Mip-NeRF 360 style), batched
 layout.
 
-PyTorch counterpart of the functional core of
-nerfacc_tpu/estimators/prop_net.py: :func:`propnet_sampling` returns the
-final sample bounds and the proposal cache, :func:`propnet_loss` reads the
-cache, and :func:`get_proposal_requires_grad_fn` is the schedule of proposal
-gradient steps.  Each level resamples through kernel G14
-(:func:`~nerfacc_tpu_torch.pdf.importance_sampling`).  The stateful
-``PropNetEstimator`` wrapper (and ``estimators/base.py``) is not ported yet.
+PyTorch counterpart of nerfacc_tpu/estimators/prop_net.py:
+:func:`propnet_sampling` returns the final sample bounds and the proposal
+cache, :func:`propnet_loss` reads the cache, and
+:func:`get_proposal_requires_grad_fn` is the schedule of proposal gradient
+steps.  Each level resamples through kernel G14
+(:func:`~nerfacc_tpu_torch.pdf.importance_sampling`).
+:class:`PropNetEstimator` is the reference's stateful PyTorch form
+(``PropNetEstimator(optimizer, scheduler)``): where the JAX package re-traces
+the proposal fields from their parameters to differentiate, the estimator
+keeps autograd's tape in its cache.
 """
 from __future__ import annotations
 
@@ -19,6 +22,7 @@ from ..data_specs import RayIntervals
 from ..pdf import importance_sampling, searchsorted
 from ..utils.fp import fma_f32
 from ..volrend import render_transmittance_from_density
+from .base import AbstractEstimator
 
 
 def _transform_stot(
@@ -157,3 +161,89 @@ def get_proposal_requires_grad_fn(
         return requires_grad
 
     return proposal_requires_grad_fn
+
+
+class PropNetEstimator(AbstractEstimator):
+    """Proposal-network estimator, the reference's stateful API.
+
+    Args:
+        optimizer: a ``torch.optim.Optimizer`` over the proposal fields'
+            parameters, stepped by :meth:`update_every_n_steps`.
+        scheduler: an optional learning-rate scheduler stepped beside it.
+    """
+
+    def __init__(self, optimizer=None, scheduler=None) -> None:
+        super().__init__()
+        self.optimizer = optimizer
+        self.scheduler = scheduler
+        self.prop_cache: List = []
+
+    def sampling(
+        self,
+        prop_sigma_fns: Sequence[Callable],
+        prop_samples: Sequence[int],
+        num_samples: int,
+        n_rays: int,
+        near_plane: float,
+        far_plane: float,
+        sampling_type: str = "lindisp",
+        stratified: bool = False,
+        requires_grad: bool = False,
+        generator: Optional[torch.Generator] = None,
+        biases: Optional[Sequence[torch.Tensor]] = None,
+        device: Union[str, torch.device] = "cuda",
+    ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Sample through the proposal levels (:func:`propnet_sampling`);
+        with ``requires_grad`` the proposal CDFs, on autograd's tape, are
+        cached for :meth:`compute_loss`.  ``generator`` / ``biases`` give
+        the stratified jitter; the samples live on ``device`` (the card
+        unless asked otherwise).
+
+        Returns:
+            t_starts, t_ends: (n_rays, num_samples), no gradient.
+        """
+        t_starts, t_ends, cache = propnet_sampling(
+            prop_sigma_fns, prop_samples, num_samples, n_rays, near_plane, far_plane,
+            sampling_type, stratified, requires_grad, generator, biases, device,
+        )
+        if requires_grad:
+            self.prop_cache = cache
+        return t_starts, t_ends
+
+    def compute_loss(self, trans: torch.Tensor, loss_scaler: float = 1.0) -> torch.Tensor:
+        """The interlevel loss of the cached proposal CDFs against the final
+        samples' transmittance ``trans`` (n_rays, num_samples), which is
+        detached; empties the cache."""
+        if len(self.prop_cache) == 0:
+            return torch.zeros((), device=trans.device)
+        with torch.enable_grad():
+            loss = propnet_loss(self.prop_cache, trans, loss_scaler)
+        self.prop_cache = []
+        return loss
+
+    def update_every_n_steps(
+        self, trans: torch.Tensor, requires_grad: bool = False, loss_scaler: float = 1.0
+    ) -> float:
+        """With ``requires_grad``: the cached interlevel loss, one backward
+        and one step of the optimizer (a parameter the loss does not reach
+        gets a zero gradient, so Adam moves it by its momentum, as optax
+        does), and the loss as a float.  Without: 0.0.  The scheduler steps
+        either way."""
+        loss = 0.0
+        if requires_grad:
+            if not self.prop_cache:
+                raise RuntimeError("no proposal cache: call sampling(requires_grad=True)")
+            if self.optimizer is None:
+                raise RuntimeError("PropNetEstimator has no optimizer")
+            loss_t = self.compute_loss(trans, loss_scaler)
+            self.optimizer.zero_grad()
+            loss_t.backward()
+            for group in self.optimizer.param_groups:
+                for p in group["params"]:
+                    if p.grad is None:
+                        p.grad = torch.zeros_like(p)
+            self.optimizer.step()
+            loss = float(loss_t.detach())
+        if self.scheduler is not None:
+            self.scheduler.step()
+        return loss

@@ -95,8 +95,9 @@ def composite_sorted_plain(
     if prefix_trans is not None:
         pt = prefix_trans[ray_indices.clamp(max=n_rays - 1).long()]
     weights, _, _ = render_weight_from_density(
-        t_starts, t_ends, sigmas, ray_indices, n_rays, seg_starts, seg_ends,
-        prefix_trans=pt, masks=valid,
+        t_starts, t_ends, sigmas, ray_indices=ray_indices, n_rays=n_rays,
+        prefix_trans=pt, masks=valid, indices_sorted=True, seg_starts=seg_starts,
+        seg_ends=seg_ends,
     )
     t_mid = 0.5 * (t_starts + t_ends)
     packed = torch.cat([rgbs, torch.ones_like(t_mid[:, None]), t_mid[:, None]], -1)
@@ -237,11 +238,16 @@ def composite_sorted_backward(
     d_sigmas = torch.zeros(n, **like)
     d_rgbs = torch.zeros((n, 3), **like)
     scratch = torch.empty(n, **like)
+    # contiguous copies held in names until the launch: a copy made inside
+    # the call's arguments is freed once its pointer is taken, and the next
+    # copy may reuse its memory before the kernel reads it
+    sigmas, rgbs = sigmas.contiguous(), rgbs.contiguous()
+    g_colors, g_opacities, g_depths = (
+        g.contiguous() for g in (g_colors, g_opacities, g_depths))
     err = cuda.load().composite_bwd(
-        cuda.ptr(t_starts), cuda.ptr(t_ends), cuda.ptr(sigmas.contiguous()),
-        cuda.ptr(rgbs.contiguous()), cuda.ptr(seg_starts), cuda.ptr(seg_ends),
-        cuda.ptr(prefix_trans), n_rays, cuda.ptr(g_colors.contiguous()),
-        cuda.ptr(g_opacities.contiguous()), cuda.ptr(g_depths.contiguous()),
+        cuda.ptr(t_starts), cuda.ptr(t_ends), cuda.ptr(sigmas), cuda.ptr(rgbs),
+        cuda.ptr(seg_starts), cuda.ptr(seg_ends), cuda.ptr(prefix_trans), n_rays,
+        cuda.ptr(g_colors), cuda.ptr(g_opacities), cuda.ptr(g_depths),
         cuda.ptr(d_sigmas), cuda.ptr(d_rgbs), cuda.ptr(scratch),
         cuda.stream_ptr(t_starts),
     )

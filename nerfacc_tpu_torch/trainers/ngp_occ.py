@@ -10,21 +10,23 @@ Time-dependent fields (given ``timestamps``) read each sample's ray time in
 training, one random frame time per cell in the refresh, and the view's time
 in evaluation.  Ported beside it: the learning-rate schedule,
 ``train_steps``, ``train_steps_sampled`` (batches drawn on the device) and
-the evaluation (PSNR/SSIM through the early-stopping eval renderer).  Not
-ported (see ROADMAP.md): the dynamic budget buckets, update clipping, table
-learning-rate multipliers, the distortion regulariser, ``alpha_thre`` and
-the pooled and windowed traversals.
+the evaluation (PSNR/SSIM through the early-stopping eval renderer), the
+distortion regulariser, the update clip and the table learning-rate
+multiplier (:class:`ChainAdam`).  Not ported (see ROADMAP.md): the dynamic
+budget buckets, ``alpha_thre`` and the pooled and windowed traversals.
 """
 from __future__ import annotations
 
 import dataclasses
 import time
+import warnings
 from typing import Any, Callable, Dict, NamedTuple, Optional, Union
 
 import numpy as np
 import torch
 
 from ..estimators.occ_grid import OccGridState, init_occ_grid, sampling, update_occ_grid
+from ..losses import distortion
 from ..utils.metrics import psnr, ssim
 from ..utils.rendering import (
     compact_samples,
@@ -32,6 +34,7 @@ from ..utils.rendering import (
     render_rays_occgrid_test,
     render_rays_with_occgrid,
 )
+from ..volrend import render_weight_from_density
 
 
 # The JAX trainer's learning rate, warmup and Adam epsilon, which every
@@ -54,37 +57,102 @@ def disable_tf32() -> None:
     torch.backends.cudnn.allow_tf32 = False
 
 
-def make_lr_schedule(max_steps: int) -> Callable[[int], float]:
+def make_lr_schedule(max_steps: int, base_lr: float = LR) -> Callable[[int], float]:
     """The JAX package's schedule, as a function of the optimizer's update
-    count: a linear warmup from 0.01x over ``WARMUP_STEPS`` updates, then
-    0.33x at 1/2, 3/4 and 9/10 of ``max_steps`` (optax's
+    count: a linear warmup from 0.01x ``base_lr`` over ``WARMUP_STEPS``
+    updates, then 0.33x at 1/2, 3/4 and 9/10 of ``max_steps`` (optax's
     ``join_schedules``; coinciding boundaries collapse as there)."""
     boundaries = list(
         {max_steps // 2: 0.33, max_steps * 3 // 4: 0.33, max_steps * 9 // 10: 0.33}
     )
-    init = LR * 0.01
+    init = base_lr * 0.01
 
     def schedule(count: int) -> float:
         frac = 1.0 - min(max(count, 0), WARMUP_STEPS) / WARMUP_STEPS
-        lr = (init - LR) * frac + LR
+        lr = (init - base_lr) * frac + base_lr
         for i, boundary in enumerate(boundaries):
             if count >= boundary:
-                lr = LR * 0.33 ** (i + 1)
+                lr = base_lr * 0.33 ** (i + 1)
         return lr
 
     return schedule
 
 
 class OptState(NamedTuple):
-    optimizer: torch.optim.Adam  # holds the moments; updates params in place
+    optimizer: torch.optim.Optimizer  # holds the moments; updates params in place
     count: int  # updates applied so far (the schedule's argument)
 
 
-def make_adam(leaves, schedule: Callable[[int], float], weight_decay: float) -> OptState:
-    """Adam over the tensors ``leaves``: optax's ``add_decayed_weights``
-    before ``scale_by_adam`` is torch's coupled L2 ``weight_decay``."""
+class ChainAdam(torch.optim.Optimizer):
+    """optax's chain ``add_decayed_weights(weight_decay)``,
+    ``scale_by_adam``, ``clip_by_global_norm(max_norm)`` (0: off), a
+    ``scale`` of the updates of the leaves ``scaled`` marks, then the
+    learning rate, in that order, over one group of leaves.
+
+    ``torch.optim.Adam`` cannot express the clip: it clips the global norm
+    of Adam's *update*, whose step does not depend on the gradient's scale,
+    so a clip of the raw gradients would do nothing.  The moments are kept
+    under ``torch.optim.Adam``'s names (``step``, ``exp_avg``,
+    ``exp_avg_sq``); a leaf whose ``.grad`` is None is skipped, as there.
+    """
+
+    def __init__(self, params, lr=1e-2, betas=(0.9, 0.999), eps=ADAM_EPS,
+                 weight_decay=0.0, max_norm=0.0, scale=1.0, scaled=()):
+        params = list(params)
+        scaled = tuple(bool(s) for s in scaled) or (False,) * len(params)
+        if len(scaled) != len(params):
+            raise ValueError("one entry of scaled per leaf")
+        super().__init__(params, dict(lr=lr, betas=betas, eps=eps,
+                                      weight_decay=weight_decay, max_norm=max_norm,
+                                      scale=scale, scaled=scaled))
+
+    @torch.no_grad()
+    def step(self, closure=None):
+        group = self.param_groups[0]
+        (b1, b2), eps, wd = group["betas"], group["eps"], group["weight_decay"]
+        updates = []
+        for p in group["params"]:
+            if p.grad is None:
+                updates.append(None)
+                continue
+            g = p.grad + wd * p if wd else p.grad
+            st = self.state[p]
+            if not st:
+                st.update(step=torch.zeros(()), exp_avg=torch.zeros_like(p),
+                          exp_avg_sq=torch.zeros_like(p))
+            st["step"] += 1
+            t = float(st["step"])
+            st["exp_avg"].mul_(b1).add_(g, alpha=1 - b1)
+            st["exp_avg_sq"].mul_(b2).addcmul_(g, g, value=1 - b2)
+            m_hat = st["exp_avg"] / (1 - b1**t)
+            v_hat = st["exp_avg_sq"] / (1 - b2**t)
+            updates.append(m_hat / (v_hat.sqrt() + eps))
+        live = [u for u in updates if u is not None]
+        if group["max_norm"] > 0 and live:
+            norm = torch.stack([u.square().sum() for u in live]).sum().sqrt()
+            clip = norm >= group["max_norm"]
+            updates = [None if u is None else torch.where(clip, u / norm * group["max_norm"], u)
+                       for u in updates]
+        for p, u, scaled in zip(group["params"], updates, group["scaled"]):
+            if u is not None:
+                p.add_(u * group["scale"] if scaled else u, alpha=-group["lr"])
+
+
+def make_adam(leaves, schedule: Callable[[int], float], weight_decay: float,
+              grad_clip: float = 0.0, table_lr_mult: float = 1.0, tables=()) -> OptState:
+    """Adam over the tensors ``leaves``.  Without ``grad_clip`` and
+    ``table_lr_mult``, ``torch.optim.Adam``: optax's
+    ``add_decayed_weights`` before ``scale_by_adam`` is its coupled L2
+    ``weight_decay``.  With either, :class:`ChainAdam`, which clips the
+    update's global norm at ``grad_clip`` and scales the update of the
+    leaves that ``tables`` marks (one bool a leaf) by ``table_lr_mult``."""
+    leaves = list(leaves)
+    if grad_clip > 0 or table_lr_mult != 1.0:
+        opt = ChainAdam(leaves, lr=schedule(0), weight_decay=weight_decay,
+                        max_norm=grad_clip, scale=table_lr_mult, scaled=tables)
+        return OptState(opt, 0)
     adam = torch.optim.Adam(
-        list(leaves), lr=schedule(0), betas=(0.9, 0.999), eps=ADAM_EPS,
+        leaves, lr=schedule(0), betas=(0.9, 0.999), eps=ADAM_EPS,
         weight_decay=weight_decay,
     )
     return OptState(adam, 0)
@@ -134,6 +202,13 @@ class NGPOccTrainer:
             ``timestamps`` (n_rays, 1).
         field_reg_weight: weight of ``field.param_regularizer`` in the loss
             (0: off).
+        distortion_loss_weight: weight of the Mip-NeRF 360 distortion
+            loss (:func:`~nerfacc_tpu_torch.losses.distortion`) over the
+            rays in the loss (0: off).
+        grad_clip: clip the global norm of Adam's update at this (0: off);
+            see :class:`ChainAdam`.
+        table_lr_mult: scale of the grid tables' updates (the parameters
+            under ``encoder.``), after the clip (1: off).
         seed: seeds the parameters and every step's noise.
         device: where the state lives and everything runs: the card
             unless the caller asks for another (the tests pass "cpu").
@@ -156,6 +231,9 @@ class NGPOccTrainer:
     weight_decay: float = 1e-6
     timestamps: Any = None
     field_reg_weight: float = 0.0
+    distortion_loss_weight: float = 0.0
+    grad_clip: float = 0.0
+    table_lr_mult: float = 1.0
     seed: int = 42
     device: Union[str, torch.device] = "cuda"
 
@@ -179,14 +257,24 @@ class NGPOccTrainer:
             k: v.detach().clone().requires_grad_(True)
             for k, v in self.field.state_dict().items()
         }
+        if self.table_lr_mult != 1.0 and not any(k.startswith("encoder.") for k in params):
+            warnings.warn(
+                f"table_lr_mult={self.table_lr_mult} has no effect: the field's "
+                f"parameters have no 'encoder.' entries (keys: {sorted(params)})",
+                stacklevel=2,
+            )
         occ_state = init_occ_grid(
             self.aabb, self.grid_resolution, self.grid_nlvl, device=self.device
         )
         return TrainState(params, self.init_optimizer(params), occ_state, 0)
 
     def init_optimizer(self, params: Dict[str, torch.Tensor]) -> OptState:
-        """Adam over ``params`` (:func:`make_adam`)."""
-        return make_adam(params.values(), self.schedule, self.weight_decay)
+        """Adam over ``params`` (:func:`make_adam`), with the trainer's update
+        clip and table scale."""
+        return make_adam(
+            params.values(), self.schedule, self.weight_decay, self.grad_clip,
+            self.table_lr_mult, [k.startswith("encoder.") for k in params],
+        )
 
     def apply_gradients(self, opt_state: OptState) -> OptState:
         """One Adam update from the parameters' ``.grad`` (:func:`adam_update`)."""
@@ -245,7 +333,7 @@ class NGPOccTrainer:
 
         occ = update_occ_grid(
             occ, occ_eval_fn, jitter, occ_thre=self.occ_thre,
-            ema_decay=self.ema_decay, cell_data=frame_idx,
+            ema_decay=self.ema_decay, cell_data=frame_idx, dense=True,
         )
         return state._replace(occ_state=occ)
 
@@ -305,12 +393,9 @@ class NGPOccTrainer:
             torch.arange(n_rays, device=rays_o.device) < samples.first_incomplete_ray
         )[:, None]
 
-        # each sample's ray time, in the packed samples' order
-        times = ()
-        if self.timestamps is not None:
-            times = (batch["timestamps"][samples.ray_indices.long()],)
-
-        def rgb_sigma_fn(positions, dirs):
+        def rgb_sigma_fn(positions, dirs, ray_indices):
+            # a time-dependent field reads each sample's ray time
+            times = () if self.timestamps is None else (batch["timestamps"][ray_indices.long()],)
             rgb, density = torch.func.functional_call(
                 self.field, params, (positions, *times, dirs)
             )
@@ -328,6 +413,16 @@ class NGPOccTrainer:
         diff = (colors - pixels).abs() * ray_ok
         loss = torch.where(diff < 1.0, 0.5 * diff**2, diff - 0.5).sum() / (n_ok * 3)
         mse = (diff.detach() ** 2).sum() / (n_ok * 3)
+        if self.distortion_loss_weight > 0:
+            # differentiable weights (G3's carry no gradient)
+            weights, _, _ = render_weight_from_density(
+                samples.t_starts, samples.t_ends, extras["sigmas"],
+                ray_indices=samples.ray_indices, n_rays=n_rays, indices_sorted=True,
+                seg_starts=samples.seg_starts, seg_ends=samples.seg_ends,
+            )
+            dist = distortion(weights, samples.t_starts, samples.t_ends,
+                              samples.ray_indices, n_rays)
+            loss = loss + self.distortion_loss_weight * (dist * ray_ok).sum() / n_ok
         if self.field_reg_weight > 0:
             loss = loss + self.field_reg_weight * self.field.param_regularizer(params)
         loss.backward()
@@ -432,7 +527,7 @@ class NGPOccTrainer:
                 far_plane=self.far_plane, render_step_size=self.render_step_size,
                 cone_angle=self.cone_angle,
                 early_stop_eps=EVAL_EARLY_STOP_EPS, window=EVAL_WINDOW,
-                max_iters=EVAL_MAX_ROUNDS,
+                max_iters=EVAL_MAX_ROUNDS, return_stats=True,
             )
             outs.append(out)
             n_samples += stats["n_samples"]

@@ -27,12 +27,6 @@ from ..utils.metrics import psnr, ssim
 from ..volrend import rendering
 from .ngp_occ import OptState, adam_update, disable_tf32, make_adam, make_lr_schedule
 
-# The JAX trainer's defaults, which every configuration keeps: the scale of
-# the interlevel loss and Adam's coupled L2 decay (none on this path).
-PROP_LOSS_SCALER = 1024.0
-WEIGHT_DECAY = 0.0
-
-
 class PropTrainState(NamedTuple):
     params: Dict[str, Any]  # {"field": state dict, "props": [state dict, ...]}
     opt_state: Optional[OptState]
@@ -52,9 +46,13 @@ class NGPPropTrainer:
         num_samples: final samples per ray.
         sampling_type: "uniform" (bounded scenes) or "lindisp".
         opaque_bkgd: make each ray's last sample opaque (infinite density).
+        prop_loss_scaler: scale of the interlevel loss.
         max_steps: length of the learning-rate schedule.
-        seed: seeds the parameters and every step's noise (each resampling
-            in training is jittered, never in evaluation).
+        lr: the schedule's base learning rate.
+        weight_decay: Adam's coupled L2 decay.
+        seed: seeds the parameters and every step's noise.
+        stratified: jitter each resampling in training (never in
+            evaluation).
         device: where the state lives and everything runs: the card unless
             the caller asks for another (the tests pass "cpu").
     """
@@ -67,8 +65,12 @@ class NGPPropTrainer:
     far_plane: float = 6.0
     sampling_type: str = "uniform"
     opaque_bkgd: bool = False
+    prop_loss_scaler: float = 1024.0
     max_steps: int = 20000
+    lr: float = 1e-2
+    weight_decay: float = 0.0
     seed: int = 42
+    stratified: bool = True
     device: Union[str, torch.device] = "cuda"
 
     def __post_init__(self):
@@ -78,7 +80,7 @@ class NGPPropTrainer:
         disable_tf32()
         self.field = self.field.to(self.device)
         self.prop_fields = [p.to(self.device) for p in self.prop_fields]
-        self.schedule = make_lr_schedule(self.max_steps)
+        self.schedule = make_lr_schedule(self.max_steps, self.lr)
 
     def init_state(self) -> PropTrainState:
         """Parameters drawn in order (field, then each proposal field) from
@@ -108,7 +110,7 @@ class NGPPropTrainer:
     def init_optimizer(self, params: Dict) -> OptState:
         """One Adam over both groups, as the JAX trainer's single optax
         chain over ``{"field", "props"}``."""
-        return make_adam(self.leaves(params), self.schedule, WEIGHT_DECAY)
+        return make_adam(self.leaves(params), self.schedule, self.weight_decay)
 
     def _generator(self, step: int, stream: int) -> torch.Generator:
         """The noise of one step: stream 1 the resamplings' jitter, 2 the
@@ -143,7 +145,7 @@ class NGPPropTrainer:
             generator, biases, self.device,
         )
 
-        def rgb_sigma_fn(t0, t1):
+        def rgb_sigma_fn(t0, t1, _ray_indices):
             pos = positions(t0, t1)
             dirs = rays_d[:, None, :].expand(pos.shape)
             rgb, density = torch.func.functional_call(
@@ -157,7 +159,7 @@ class NGPPropTrainer:
             return rgb.reshape(t0.shape + (3,)), sigmas
 
         colors, opacities, depths, extras = rendering(
-            t_starts, t_ends, rgb_sigma_fn, render_bkgd
+            t_starts, t_ends, rgb_sigma_fn=rgb_sigma_fn, render_bkgd=render_bkgd
         )
         return colors, opacities, depths, extras, cache
 
@@ -189,16 +191,16 @@ class NGPPropTrainer:
         leaves = self.leaves(params)
         for p in leaves:
             p.grad = None
-        gen = self._generator(step, 1) if biases is None else None
+        gen = self._generator(step, 1) if biases is None and self.stratified else None
         colors, _, _, extras, cache = self._sample_and_render(
             params, batch["rays_o"], batch["rays_d"], batch["color_bkgd"],
-            requires_grad, True, gen, biases,
+            requires_grad, self.stratified, gen, biases,
         )
         pixels = batch["rgb"]
         loss = F.smooth_l1_loss(colors, pixels)
         mse = ((colors.detach() - pixels) ** 2).mean()
         if requires_grad:
-            p_loss = propnet_loss(cache, extras["trans"], PROP_LOSS_SCALER)
+            p_loss = propnet_loss(cache, extras["trans"], self.prop_loss_scaler)
         else:
             p_loss = torch.zeros((), device=self.device)
         loss = loss + p_loss
@@ -289,3 +291,7 @@ class NGPPropTrainer:
             "ssim": float(np.mean([v["ssim"] for v in views])),
             "views": views,
         }
+
+    def eval_psnr(self, state: PropTrainState, dataset, max_images: Optional[int] = None) -> float:
+        """Mean PSNR over the test views (:meth:`eval_metrics`)."""
+        return self.eval_metrics(state, dataset, max_images)["psnr"]

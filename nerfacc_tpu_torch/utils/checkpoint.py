@@ -74,7 +74,7 @@ def load_checkpoint(
             )
     new = {k: flat[f"params/{k}"].clone().requires_grad_(True) for k in params}
     like_adam = like.opt_state.optimizer
-    adam = torch.optim.Adam(list(new.values()), **like_adam.defaults)
+    adam = type(like_adam)(list(new.values()), **like_adam.defaults)
     for name, p in new.items():
         saved = {m: flat.get(f"adam/{name}/{m}") for m in _MOMENTS}
         if all(v is None for v in saved.values()):

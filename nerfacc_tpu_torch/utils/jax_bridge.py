@@ -5,7 +5,9 @@ them in a field's ``state_dict`` (:class:`~nerfacc_tpu_torch.models.cp_field.
 CPRadianceField`, :class:`~nerfacc_tpu_torch.models.cp_field.CPDensityField`,
 :class:`~nerfacc_tpu_torch.models.ngp.NGPRadianceField`,
 :class:`~nerfacc_tpu_torch.models.tineuvox.TiNeuVoxRadianceField`), and the
-proposal trainer keeps ``{"field": ..., "props": [...]}`` of them.
+proposal trainer keeps ``{"field": ..., "props": [...]}`` of them.  An
+:class:`~nerfacc_tpu_torch.estimators.occ_grid.OccGridEstimator` keeps the
+JAX estimator's ``state_dict()`` keys as buffers.
 The bridge speaks numpy on the JAX side, so it needs no JAX import: convert
 a JAX tree with ``jax.tree.map(np.asarray, params)`` first.  Tensors land on
 the card unless ``device`` says otherwise.
@@ -17,7 +19,7 @@ from typing import Dict, Union
 import numpy as np
 import torch
 
-from ..estimators.occ_grid import OccGridState
+from ..estimators.occ_grid import OccGridEstimator, OccGridState
 
 _MLPS = ("mlp_base", "mlp_head")
 
@@ -128,6 +130,35 @@ def occ_state_to_numpy(state: OccGridState):
     return tuple(
         t.detach().cpu().numpy() for t in (state.aabbs, state.occs, state.binaries)
     )
+
+
+def occ_grid_estimator_from_numpy(estimator: OccGridEstimator, state_dict: Dict) -> None:
+    """Load the JAX ``OccGridEstimator.state_dict()`` (``aabbs``, ``occs``,
+    ``binaries`` as numpy) into ``estimator``'s buffers, on their device."""
+    dev = estimator.occs.device
+    estimator.load_state_dict({
+        "aabbs": _tensor(state_dict["aabbs"], dev),
+        "occs": _tensor(state_dict["occs"], dev),
+        "binaries": torch.tensor(np.asarray(state_dict["binaries"], bool), device=dev),
+    })
+
+
+def occ_grid_estimator_to_numpy(estimator: OccGridEstimator) -> Dict[str, np.ndarray]:
+    """The inverse of :func:`occ_grid_estimator_from_numpy`."""
+    return {k: v.detach().cpu().numpy() for k, v in estimator.state_dict().items()}
+
+
+def prop_fields_from_numpy(prop_fields, trees) -> None:
+    """Load the JAX proposal fields' parameter trees (numpy, one a field, as
+    in the JAX trainer's ``params["props"]``) into the port's
+    ``CPDensityField`` modules, in place: the modules whose parameters a
+    :class:`~nerfacc_tpu_torch.estimators.prop_net.PropNetEstimator`'s
+    optimizer steps."""
+    for field, tree in zip(prop_fields, trees, strict=True):
+        dev = next(field.parameters()).device
+        with torch.no_grad():
+            for name, value in cp_density_field_params_from_numpy(tree, dev).items():
+                field.get_parameter(name).copy_(value)
 
 
 def _mlps_from_numpy(tree: Dict, device) -> Dict[str, torch.Tensor]:

@@ -86,15 +86,18 @@ def render_rays_with_occgrid(
     ``rgb_sigma_fn`` computes from its parameters.
 
     Args:
-        rgb_sigma_fn: ``(positions (N, 3), dirs (N, 3)) ->
-            (rgbs (N, 3), sigmas (N,))``, evaluated on the packed samples.
+        rgb_sigma_fn: ``(positions (N, 3), dirs (N, 3), ray_indices (N,))
+            -> (rgbs (N, 3), sigmas (N,))``, evaluated on the packed samples
+            (``ray_indices``, int64, lets a time- or appearance-conditioned
+            field look up per-ray inputs).
         rays_o / rays_d: (n_rays, 3).
         render_bkgd: (3,) background colour, blended in by 1 - opacity.
 
     Returns:
         colors (n_rays, 3), opacities (n_rays, 1), depths (n_rays, 1)
         (expected depth: the weighted mean of sample midpoints), and extras
-        ``{"weights": (n,) per-sample weights (no gradient),
+        ``{"weights": (n,) per-sample weights (no gradient; the JAX
+        package's carry one), "sigmas", "rgbs": the field's outputs,
         "n_rendering_samples": int}``.
     """
     n_rays = rays_o.shape[0]
@@ -102,13 +105,14 @@ def render_rays_with_occgrid(
     t_mid = 0.5 * (samples.t_starts + samples.t_ends)
     d = rays_d[ids]
     positions = rays_o[ids] + t_mid[:, None] * d
-    rgbs, sigmas = rgb_sigma_fn(positions, d)
+    rgbs, sigmas = rgb_sigma_fn(positions, d, ids)
     colors, opacities, depths, weights = composite_sorted(
         samples.t_starts, samples.t_ends, sigmas, rgbs, samples.ray_indices,
         n_rays, samples.seg_starts, samples.seg_ends, return_weights=True,
     )
     depths = depths / opacities.clamp_min(torch.finfo(colors.dtype).eps)
-    extras = {"weights": weights, "n_rendering_samples": samples.num_valid}
+    extras = {"weights": weights, "sigmas": sigmas, "rgbs": rgbs,
+              "n_rendering_samples": samples.num_valid}
     return colors + render_bkgd * (1.0 - opacities), opacities, depths, extras
 
 
@@ -152,7 +156,9 @@ def render_image_with_occgrid(
         )
         n_samples += samples.num_valid
         outs.append(
-            render_rays_with_occgrid(field_fn, o, d, samples, render_bkgd)[:3]
+            render_rays_with_occgrid(
+                lambda p, dirs, _ids: field_fn(p, dirs), o, d, samples, render_bkgd
+            )[:3]
         )
     colors, opacities, depths = (torch.cat(parts) for parts in zip(*outs))
     return colors, opacities, depths, n_samples
@@ -172,6 +178,7 @@ def render_rays_occgrid_test(
     window: int = 64,
     max_iters: int = 64,
     expected_depths: bool = True,
+    return_stats: bool = False,
 ):
     """Alive-ray inference renderer: each round marches the alive rays'
     next ``window`` orbit candidates, composites them behind the opacity the
@@ -195,9 +202,10 @@ def render_rays_occgrid_test(
         render_bkgd: optional (3,) background, blended in by 1 - opacity.
 
     Returns:
-        colors (n_rays, 3), opacities (n_rays, 1), depths (n_rays, 1), and
-        ``{"n_samples": samples rendered over the rounds, "n_rounds":
-        rounds run, "counts": (n_rays,) int32 samples of each ray}``.
+        colors (n_rays, 3), opacities (n_rays, 1), depths (n_rays, 1), as
+        the JAX package's; with ``return_stats`` also ``{"n_samples":
+        samples rendered over the rounds, "n_rounds": rounds run, "counts":
+        (n_rays,) int32 samples of each ray}``.
     """
     n_rays = rays_o.shape[0]
     like = dict(dtype=rays_o.dtype, device=rays_o.device)
@@ -238,5 +246,7 @@ def render_rays_occgrid_test(
         depth = depth / opacity.clamp_min(torch.finfo(depth.dtype).eps)
     if render_bkgd is not None:
         color = color + render_bkgd * (1.0 - opacity)
+    if not return_stats:
+        return color, opacity, depth
     stats = {"n_samples": n_samples, "n_rounds": n_rounds, "counts": counts}
     return color, opacity, depth, stats

@@ -66,11 +66,15 @@ def _default_device(fn):
         "trainers.ngp_prop.NGPPropTrainer",
         "data.device_sampler.DeviceRaySampler",
         "estimators.prop_net.propnet_sampling",
+        "estimators.occ_grid.OccGridEstimator",
+        "estimators.prop_net.PropNetEstimator.sampling",
     ],
 )
 def test_entry_points_default_to_the_card(name):
     """Read from the signature or the dataclass field: nothing is built on
     a card here, and nothing falls back to the CPU."""
-    module, attr = name.rsplit(".", 1)
-    fn = getattr(importlib.import_module(f"nerfacc_tpu_torch.{module}"), attr)
+    package, module, *attrs = name.split(".")
+    fn = importlib.import_module(f"nerfacc_tpu_torch.{package}.{module}")
+    for attr in attrs:
+        fn = getattr(fn, attr)
     assert _default_device(fn) == "cuda"

@@ -421,6 +421,28 @@ def test_composite_backward_kernel_matches_twin(dev):
         torch.testing.assert_close(a, b, rtol=0, atol=1e-5 * float(b.abs().max()))
 
 
+def test_composite_backward_reads_non_contiguous_inputs(dev):
+    """G5 given column slices of one (n_rays, 5) cotangent (as autograd
+    hands them through a ``torch.cat`` of the sums) and a strided density:
+    the same gradients as from contiguous copies.  The wrapper once made
+    its contiguous copies inside the call's arguments, where each was freed
+    as soon as its pointer was taken and the next copy could take its
+    memory before the kernel read it."""
+    args = _composite_buffer(dev)
+    n_rays = args[5]
+    g = torch.Generator(device=dev).manual_seed(9)
+    cat = torch.randn((n_rays, 5), generator=g, device=dev)
+    strided = torch.stack([args[2], args[2]], -1)[:, 0]
+    assert not strided.is_contiguous() and not cat[:, :3].is_contiguous()
+    out = composite_sorted_backward(*args[:2], strided, *args[3:8], cat[:, :3],
+                                    cat[:, 3:4], cat[:, 4:5], args[8])
+    ref = composite_sorted_backward(*args[:8], cat[:, :3].contiguous(),
+                                    cat[:, 3:4].contiguous(), cat[:, 4:5].contiguous(),
+                                    args[8])
+    for a, b in zip(out, ref):
+        torch.testing.assert_close(a, b, rtol=0, atol=0)
+
+
 def _g5_case(dev, case):
     """A sorted buffer for one edge case of the warp-per-ray G5: the
     arguments of composite_sorted_backward and the mask of slots inside a
@@ -1138,3 +1160,46 @@ def test_prop_train_step_on_the_card_reaches_every_parameter(dev):
     for p in trainer.leaves(state.params):
         assert p.grad is not None and torch.isfinite(p.grad).all()
         assert float(p.grad.abs().max()) > 0
+
+
+def test_library_api_runs_its_kernels(dev):
+    """The quick start's calls on the card: ``OccGridEstimator.sampling``
+    marches through G2, ``rendering``'s flat route composites through G3
+    and G5 (runs of equal ids out of order included), and both equal the
+    same calls on CPU tensors (the plain versions): the samples bit for
+    bit, colours within 1e-5 and gradients within 1e-5 of their largest
+    entry."""
+    import nerfacc_tpu_torch
+
+    results = {}
+    for where in ("cpu", dev):
+        est = nerfacc_tpu_torch.OccGridEstimator([-1.0] * 3 + [1.0] * 3, 32, device=where)
+        gen = torch.Generator().manual_seed(3)
+        centers = (torch.stack(torch.meshgrid(*[torch.arange(32)] * 3, indexing="ij"), -1)
+                   + 0.5) / 16 - 1.0
+        est.binaries = (centers.norm(dim=-1) < 0.7)[None].to(where)
+        rng = np.random.default_rng(2)
+        o = torch.tensor(rng.uniform(-2, 2, (256, 3)), dtype=torch.float32)
+        d = torch.nn.functional.normalize(-o + torch.tensor(rng.normal(0, 0.2, (256, 3)),
+                                                            dtype=torch.float32), dim=-1)
+        o, d = o.to(where), d.to(where)
+        before = dict(cuda.LAUNCHES)
+        rid, t0, t1 = est.sampling(o, d, render_step_size=1e-2)
+        perm = torch.arange(rid.shape[0], device=rid.device).flip(0)  # runs out of order
+        rid, t0, t1 = rid[perm], t0[perm], t1[perm]
+        sig = torch.linspace(0.1, 30.0, rid.shape[0], device=rid.device).requires_grad_(True)
+        rgb = torch.rand((rid.shape[0], 3), generator=gen).to(rid.device).requires_grad_(True)
+        out = nerfacc_tpu_torch.rendering(t0, t1, rid, n_rays=256,
+                                          rgb_sigma_fn=lambda *_: (rgb, sig))
+        (out[0].sum() + out[1].sum() + out[2].sum()).backward()
+        if where == dev:
+            for name in ("march", "composite_fwd", "composite_bwd"):
+                assert cuda.LAUNCHES[name] > before[name], name
+        results[str(where)] = [x.detach().cpu() for x in (rid, t0, t1, *out[:3], sig.grad,
+                                                            rgb.grad)]
+    cpu, card = results["cpu"], results[str(dev)]
+    for a, b in zip(cpu[:3], card[:3]):
+        torch.testing.assert_close(a, b, rtol=0, atol=0)
+    assert cpu[0].shape[0] > 1000
+    for a, b in zip(cpu[3:], card[3:]):
+        torch.testing.assert_close(b, a, rtol=0, atol=1e-5 * float(a.abs().max()))

@@ -3,6 +3,8 @@ loss, CPDensityField, propnet_sampling, the batched rendering, the
 proposal-gradient schedule, and NGPPropTrainer's train step (one step that
 trains the proposal field, then one that does not) from the same
 parameters, batch and jitter; a convergence smoke of the port alone."""
+import dataclasses
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -176,8 +178,8 @@ def test_batched_rendering_matches_jax():
     want_grads = jax.grad(lambda s, c: jnp.sum(jnp.sin(jrender(s, c)[0])), argnums=(0, 1))(
         jnp.asarray(sig), jnp.asarray(rgb))
     ts, tc = torch.tensor(sig, requires_grad=True), torch.tensor(rgb, requires_grad=True)
-    got = rendering(torch.tensor(t[:, :-1]), torch.tensor(t[:, 1:]), lambda *_: (tc, ts),
-                    torch.tensor(bkgd))
+    got = rendering(torch.tensor(t[:, :-1]), torch.tensor(t[:, 1:]),
+                    rgb_sigma_fn=lambda *_: (tc, ts), render_bkgd=torch.tensor(bkgd))
     torch.sin(got[0]).sum().backward()
     for g, w in zip(got[:3] + (got[3]["trans"],), want):
         np.testing.assert_allclose(g.detach().numpy(), np.asarray(w), rtol=1e-5, atol=1e-5)
@@ -204,10 +206,13 @@ TRAINER = dict(prop_samples=[16], num_samples=8, near_plane=2.0, far_plane=6.0, 
 
 
 @pytest.mark.parametrize(
-    "sampling_type,opaque_bkgd", [("uniform", False), ("lindisp", True)],
-    ids=["uniform", "lindisp-opaque"],
+    "sampling_type,opaque_bkgd,fields",
+    [("uniform", False, {}), ("lindisp", True, {}),
+     ("uniform", False, dict(lr=5e-3, prop_loss_scaler=256.0, weight_decay=1e-4)),
+     ("uniform", False, dict(stratified=False))],
+    ids=["uniform", "lindisp-opaque", "lr-scaler-decay", "unstratified"],
 )
-def test_prop_train_steps_match_jax(batch, sampling_type, opaque_bkgd):
+def test_prop_train_steps_match_jax(batch, sampling_type, opaque_bkgd, fields):
     """Two steps from the same parameters, batch and JAX's stratified draws:
     one with ``requires_grad`` (the interlevel loss trains the proposal
     field), then one without (the proposal field's gradients are zero, its
@@ -218,16 +223,19 @@ def test_prop_train_steps_match_jax(batch, sampling_type, opaque_bkgd):
     Adam moves an entry by about lr * sign(gradient) (lr 1e-4 at step 0), so
     a leaf that took the wrong step, or none, would miss by ~1e-4; the two
     packages' gradients agree to ~1e-6 of their scale (compositing sums in
-    another order), which moves the updates far less."""
+    another order), which moves the updates far less.  The trainer fields
+    the port took from JAX (``lr``, ``prop_loss_scaler``, ``weight_decay``,
+    ``stratified``) are set alike on both."""
     jtrainer = JaxPropTrainer(
         field=JaxField(aabb=AABB, compute_dtype=jnp.float32, **FIELD),
         prop_fields=[JaxDensityField(aabb=AABB, compute_dtype=jnp.float32, **PROP)],
-        sampling_type=sampling_type, opaque_bkgd=opaque_bkgd, **TRAINER,
+        sampling_type=sampling_type, opaque_bkgd=opaque_bkgd, **TRAINER, **fields,
     )
     trainer = NGPPropTrainer(
         field=CPRadianceField(AABB, compute_dtype=torch.float32, **FIELD),
         prop_fields=[CPDensityField(AABB, compute_dtype=torch.float32, **PROP)],
         sampling_type=sampling_type, opaque_bkgd=opaque_bkgd, device="cpu", **TRAINER,
+        **fields,
     )
     jstate = jtrainer.init_state()
     params = prop_params_from_numpy(jax.tree.map(np.asarray, jstate.params), device="cpu")
@@ -239,7 +247,7 @@ def test_prop_train_steps_match_jax(batch, sampling_type, opaque_bkgd):
         # the step's draws, as _train_step_impl and propnet_sampling split them
         k_strat = jax.random.split(jstate.key)[1]
         biases = [torch.tensor(np.asarray(jax.random.uniform(k, (N_RAYS, 1)))).reshape(-1)
-                  for k in jax.random.split(k_strat, 2)]
+                  for k in jax.random.split(k_strat, 2)] if trainer.stratified else None
         jstate, ref = jtrainer.train_step(jstate, batch, requires_grad=rg)  # donates
         state, aux = trainer.train_step(state, tbatch, requires_grad=rg, biases=biases)
         for key in ("loss", "mse", "prop_loss"):
@@ -255,6 +263,16 @@ def test_prop_train_steps_match_jax(batch, sampling_type, opaque_bkgd):
                     err_msg=f"rg={rg} {group}.{name}",
                 )
     assert state.step == 2 and state.opt_state.count == 2
+
+
+def test_prop_trainer_fields_match_jax_defaults():
+    """The trainer fields that were module constants: JAX's names and
+    defaults, and ``eval_psnr`` beside ``eval_metrics``."""
+    jax_defaults = {f.name: f.default for f in dataclasses.fields(JaxPropTrainer)}
+    port_defaults = {f.name: f.default for f in dataclasses.fields(NGPPropTrainer)}
+    for name in ("stratified", "lr", "prop_loss_scaler", "weight_decay"):
+        assert port_defaults[name] == jax_defaults[name], name
+    assert callable(NGPPropTrainer.eval_psnr) and callable(JaxPropTrainer.eval_psnr)
 
 
 def test_prop_trainer_converges_on_the_port_alone():

@@ -155,7 +155,8 @@ def test_early_stop_renderer_matches_jax(loaders, carried_field, view, window):
     with torch.no_grad():
         colors, opacities, depths, stats = render_rays_occgrid_test(
             dense(port_fn), state.occ_state, data["rays_o"],
-            data["rays_d"], render_bkgd=data["color_bkgd"], max_iters=64, **kw,
+            data["rays_d"], render_bkgd=data["color_bkgd"], max_iters=64,
+            return_stats=True, **kw,
         )
 
     def jax_render(max_iters):
@@ -252,3 +253,53 @@ def test_budgeted_compaction_matches_jax(budget_share):
     np.testing.assert_array_equal(out.seg_starts.numpy(), np.asarray(ref.seg_starts))
     np.testing.assert_array_equal(out.seg_ends.numpy(), np.asarray(ref.seg_ends))
     assert (np.asarray(ref.ray_indices)[keep:] == n_rays).all()  # JAX's fill
+
+
+def test_renderers_take_jax_signatures(loaders, carried_field):
+    """The two settled divergences of ``utils/rendering.py``, each called as
+    the JAX package calls it: ``render_rays_with_occgrid``'s callback takes
+    ``(positions, dirs, ray_indices)``, the ids those of the samples' rays,
+    and its colours equal JAX's on the same packed samples (within 1e-5);
+    ``render_rays_occgrid_test`` returns JAX's three values (their stats
+    only with ``return_stats``)."""
+    from nerfacc_tpu.utils.rendering import CompactSamples as JaxCompactSamples
+    from nerfacc_tpu.utils.rendering import render_rays_with_occgrid as jax_render_rays
+    from nerfacc_tpu_torch.grid import march
+    from nerfacc_tpu_torch.utils.rendering import render_rays_with_occgrid
+
+    jax_fn, jstate, trainer, state = carried_field
+    jax_ds, ds = loaders
+    data = ds[0]
+    o, d = data["rays_o"][:200], data["rays_d"][:200]
+    samples = compact_samples(march(o, d, state.occ_state.binaries, state.occ_state.aabbs,
+                                    step_size=STEP))
+    port_fn = trainer._field_fn(state, data)
+    seen = []
+
+    def rgb_sigma_fn(positions, dirs, ray_indices):
+        seen.append(ray_indices)
+        return port_fn(positions, dirs)
+
+    colors = render_rays_with_occgrid(rgb_sigma_fn, o, d, samples, data["color_bkgd"])[0]
+    torch.testing.assert_close(seen[0], samples.ray_indices.long(), rtol=0, atol=0)
+    n = samples.ray_indices.shape[0]
+    jsamples = JaxCompactSamples(
+        jnp.asarray(samples.ray_indices.numpy()), jnp.asarray(samples.t_starts.numpy()),
+        jnp.asarray(samples.t_ends.numpy()), jnp.ones((n,), bool), n, 0, 200,
+        jnp.asarray(samples.seg_starts.numpy()), jnp.asarray(samples.seg_ends.numpy()),
+        None, None, None)
+    want = jax_render_rays(lambda p, dd, rid: jax_fn(p, dd), jnp.asarray(o.numpy()),
+                           jnp.asarray(d.numpy()), jsamples,
+                           render_bkgd=jnp.asarray(data["color_bkgd"].numpy()))[0]
+    np.testing.assert_allclose(colors.detach().numpy(), np.asarray(want), atol=1e-5, rtol=0)
+
+    kw = dict(render_step_size=STEP, window=64, max_iters=4)
+    with torch.no_grad():
+        out = render_rays_occgrid_test(port_fn, state.occ_state, o, d, **kw)
+        stats = render_rays_occgrid_test(port_fn, state.occ_state, o, d, return_stats=True,
+                                         **kw)[3]
+    ref = jax_render_rays_occgrid_test(jax_fn, jstate, jnp.asarray(o.numpy()),
+                                       jnp.asarray(d.numpy()), **kw)
+    assert len(out) == len(ref) == 3 and stats["n_rounds"] == 4
+    for got, w in zip(out, ref):
+        np.testing.assert_allclose(got.numpy(), np.asarray(w), atol=1e-5, rtol=0)

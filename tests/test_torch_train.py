@@ -186,7 +186,7 @@ def _f64_witness(trainer, params, occ_state, batch, near_jitter):
     )
     p64 = {k: v.detach().double().requires_grad_(True) for k, v in params.items()}
 
-    def rgb_sigma_fn(positions, dirs):
+    def rgb_sigma_fn(positions, dirs, _ray_indices):
         rgb, density = torch.func.functional_call(trainer.field, p64, (positions, dirs))
         return rgb, density[..., 0]
 
@@ -457,3 +457,137 @@ def test_tineuvox_train_steps_converge_on_the_port_alone():
     assert np.isfinite(losses).all() and losses[-5:].mean() < losses[:5].mean(), losses
     for k, v in deform0.items():
         assert not torch.equal(state.params[k], v), k
+
+
+@pytest.mark.parametrize("options", [
+    dict(grad_clip=1.0), dict(table_lr_mult=3.0), dict(distortion_loss_weight=1e-2),
+    dict(grad_clip=1.0, table_lr_mult=3.0, distortion_loss_weight=1e-2),
+], ids=["clip", "table-mult", "distortion", "all"])
+def test_train_options_match_jax(batch, options):
+    """``grad_clip`` (the global norm of Adam's update, clipped before the
+    learning rate), ``table_lr_mult`` (the ``encoder`` tables' update scaled
+    after the clip) and ``distortion_loss_weight``: one port step against the
+    JAX trainer's padded-traversal step with its real optax chain, from the
+    same parameters with JAX's noise.  The loss within 1e-5 relative; each
+    leaf's update within 1e-3 of JAX's in relative Frobenius norm (Adam's
+    first update is about the sign of each gradient entry, so a near-zero
+    entry whose sign differs by rounding moves by up to twice the step).
+    The clip at 1.0 binds: Adam's first update has a global norm of about
+    sqrt(entries).  The chain's order is held exactly in
+    :func:`test_chain_adam_matches_optax_chain`."""
+    jtrainer = JaxTrainer(
+        field=JaxField(aabb=AABB, compute_dtype=jnp.float32, **SMALL), aabb=AABB,
+        max_steps=100, grid_resolution=GRID, traversal="padded", windowed=False,
+        max_samples_per_ray=1400, dynamic_budget=False, sample_budget=2**18, **options,
+    )
+    jstate = jtrainer.init_state()
+    jparams = jax.tree.map(np.asarray, jstate.params)
+    jocc = tuple(np.asarray(a) for a in (jstate.occ_state.aabbs, jstate.occ_state.occs,
+                                         jstate.occ_state.binaries))
+    _, k_occ, k_strat, _ = jax.random.split(jstate.key, 4)
+    near = np.asarray(jax.random.uniform(k_strat, (N_RAYS,)))
+    cells = np.asarray(jax.random.uniform(jax.random.split(k_occ, 4)[3], (1, GRID**3, 3)))
+    new, ref = jtrainer.train_step(jstate, batch)  # donates ``jstate``
+    want = cp_field_params_from_numpy(jax.tree.map(np.asarray, new.params), device="cpu")
+
+    trainer = NGPOccTrainer(
+        field=CPRadianceField(AABB, compute_dtype=torch.float32, **SMALL), aabb=AABB,
+        max_steps=100, grid_resolution=GRID, device="cpu", **options,
+    )
+    start = cp_field_params_from_numpy(jparams, device="cpu")
+    params = {k: v.clone().requires_grad_(True) for k, v in start.items()}
+    state = TrainState(params, trainer.init_optimizer(params),
+                       occ_state_from_numpy(*jocc, device="cpu"), 0)
+    _, aux = trainer.train_step(
+        state, {k: torch.tensor(v) for k, v in batch.items()},
+        near_jitter=torch.tensor(near), cell_jitter=torch.tensor(cells),
+    )
+    assert float(aux["loss"]) == pytest.approx(float(ref["loss"]), rel=1e-5)
+    for name, p in params.items():
+        got = (p.detach() - start[name]).numpy()
+        ref_up = (want[name] - start[name]).numpy()
+        assert np.linalg.norm(got - ref_up) <= 1e-3 * np.linalg.norm(ref_up), name
+
+
+@pytest.mark.parametrize("clip", [0.0, 0.5, 1e3], ids=["no-clip", "binds", "loose"])
+def test_chain_adam_matches_optax_chain(clip):
+    """:class:`ChainAdam` against optax's chain in the JAX trainer's order
+    (weight decay, ``scale_by_adam``, ``clip_by_global_norm``, the masked
+    table scale, the learning rate) over three updates of random gradients:
+    each update within 3e-5 of its largest entry (optax forms Adam's bias
+    correction ``1 - 0.999^t`` in f32, ~1e-5 of relative noise on an
+    update; read 1.02e-5).  The leaves start at 0, so that a parameter's
+    change is its update to within an ulp of the parameter; where the clip
+    binds, the updates' global norm before the table scale is lr x clip."""
+    from nerfacc_tpu_torch.trainers.ngp_occ import ChainAdam
+
+    rng = np.random.default_rng(0)
+    shapes = {"encoder": (3, 8, 4), "mlp": (16, 5)}
+    tx = optax.chain(
+        optax.add_decayed_weights(1e-3),
+        optax.scale_by_adam(b1=0.9, b2=0.999, eps=1e-15),
+        *([optax.clip_by_global_norm(clip)] if clip else []),
+        optax.masked(optax.scale(3.0), {"encoder": True, "mlp": False}),
+        optax.scale_by_learning_rate(1e-2),
+    )
+    jp = {k: jnp.zeros(s) for k, s in shapes.items()}
+    st = tx.init(jp)
+    leaves = {k: torch.zeros(s, requires_grad=True) for k, s in shapes.items()}
+    opt = ChainAdam(leaves.values(), lr=1e-2, weight_decay=1e-3, max_norm=clip, scale=3.0,
+                    scaled=[True, False])
+    for _ in range(3):
+        grads = {k: rng.normal(size=s).astype(np.float32) for k, s in shapes.items()}
+        before = {k: v.detach().clone() for k, v in leaves.items()}
+        up, st = tx.update({k: jnp.asarray(g) for k, g in grads.items()}, st, jp)
+        jp = optax.apply_updates(jp, up)
+        for k, v in leaves.items():
+            v.grad = torch.tensor(grads[k])
+        opt.step()
+        norm2 = 0.0
+        for k, v in leaves.items():
+            got = (v.detach() - before[k]).numpy()
+            want = np.asarray(up[k])
+            np.testing.assert_allclose(got, want, rtol=0, atol=3e-5 * np.abs(want).max())
+            norm2 += float(((got / (3.0 if k == "encoder" else 1.0)) ** 2).sum())
+        if clip == 0.5:
+            assert np.sqrt(norm2) == pytest.approx(1e-2 * clip, rel=1e-5)
+
+
+def test_table_lr_mult_warns_without_tables():
+    """As the JAX trainer: a table multiplier on a field with no
+    ``encoder`` entries warns that it does nothing."""
+    class NoTables(CPRadianceField):
+        def state_dict(self, *a, **k):
+            return {f"w.{k}": v for k, v in super().state_dict(*a, **k).items()}
+
+    trainer = NGPOccTrainer(field=NoTables(AABB, **SMALL), aabb=AABB, grid_resolution=GRID,
+                            table_lr_mult=2.0, device="cpu")
+    with pytest.warns(UserWarning, match="table_lr_mult"):
+        trainer.init_state()
+
+
+def test_checkpoint_resumes_the_update_clip(batch, tmp_path):
+    """A state trained with ``grad_clip`` and ``table_lr_mult`` comes back
+    from a checkpoint with its own optimizer (a :class:`ChainAdam` with
+    the same settings and moments), so the next step is bit for bit the
+    step of the state that was never saved."""
+    from nerfacc_tpu_torch.trainers.ngp_occ import ChainAdam
+    from nerfacc_tpu_torch.utils.checkpoint import load_checkpoint, save_checkpoint
+
+    trainer = NGPOccTrainer(
+        field=CPRadianceField(AABB, compute_dtype=torch.float32, **SMALL), aabb=AABB,
+        max_steps=100, grid_resolution=GRID, grad_clip=1.0, table_lr_mult=3.0,
+        device="cpu",
+    )
+    tbatch = {k: torch.tensor(v) for k, v in batch.items()}
+    near = torch.rand(N_RAYS, generator=torch.Generator().manual_seed(0))
+    state, _ = trainer.train_step(trainer.init_state(), tbatch, near_jitter=near)
+    path = tmp_path / "ckpt.pt"
+    save_checkpoint(str(path), state)
+    resumed = load_checkpoint(str(path), like=trainer.init_state(), device="cpu")
+    opt = resumed.opt_state.optimizer
+    assert isinstance(opt, ChainAdam)
+    assert opt.defaults == state.opt_state.optimizer.defaults
+    outs = [trainer.train_step(s, tbatch, near_jitter=near)[0] for s in (state, resumed)]
+    for name in outs[0].params:
+        torch.testing.assert_close(outs[1].params[name], outs[0].params[name], rtol=0, atol=0)

@@ -540,3 +540,230 @@ def test_g3_chunked_scan_order_matches_jax(case, with_prefix, jax_tol):
     assert (w[~valid] == 0).all()
     bound = np.ones(n_rays, np.float32) if prefix is None else prefix
     assert (opac <= bound + 1e-6).all()
+
+
+# -- the rest of volrend.py on its three layouts -----------------------------
+
+from nerfacc_tpu import volrend as jax_volrend  # noqa: E402
+from nerfacc_tpu_torch import volrend  # noqa: E402
+
+VR_RAYS = 6
+
+
+def _layout(name, seed):
+    """Bounds, densities, alphas and colours with the layout's index
+    arguments (numpy), and the ray id of every sample: batched rows; a
+    ``packed_info`` buffer with empty rays; an ``indices`` buffer whose runs
+    are out of order (ray 1's samples in two runs)."""
+    rng = np.random.default_rng(seed)
+    if name == "batched":
+        shape, kw, rid = (VR_RAYS, 9), {}, np.repeat(np.arange(VR_RAYS), 9)
+    elif name == "packed_info":
+        counts = np.array([4, 0, 7, 3, 0, 9], np.int32)
+        packed = np.stack([np.cumsum(counts) - counts, counts], -1).astype(np.int32)
+        rid = np.repeat(np.arange(VR_RAYS), counts)
+        shape, kw = (int(counts.sum()),), {"packed_info": packed, "n_rays": VR_RAYS}
+    else:
+        rid = np.array([3, 3, 1, 1, 1, 0, 0, 5, 5, 5, 5, 1, 1, 4], np.int32)
+        shape, kw = rid.shape, {"ray_indices": rid, "n_rays": VR_RAYS}
+    dt = rng.uniform(0.05, 0.3, shape).astype(np.float32)
+    t1 = (1.0 + np.cumsum(dt.reshape(-1))).reshape(shape).astype(np.float32)
+    t0 = (t1 - dt).astype(np.float32)
+    sigmas = (10.0 ** rng.uniform(-1.5, 1.2, shape)).astype(np.float32)
+    alphas = rng.uniform(0.0, 0.7, shape).astype(np.float32)
+    rgbs = rng.uniform(0, 1, shape + (3,)).astype(np.float32)
+    masks = rng.uniform(size=shape) > 0.2
+    return t0, t1, sigmas, alphas, rgbs, masks, kw, rid
+
+
+def _kw(kw, lib):
+    conv = jnp.asarray if lib == "jax" else torch.tensor
+    return {k: (v if isinstance(v, int) else conv(v)) for k, v in kw.items()}
+
+
+VR_CASES = {
+    # function -> (its array arguments from the layout, extra keywords)
+    "render_transmittance_from_alpha": (("alphas",), {}),
+    "render_weight_from_alpha": (("alphas",), {}),
+    "render_transmittance_from_density": (("t0", "t1", "sigmas"), {}),
+    "render_weight_from_density": (("t0", "t1", "sigmas"), {}),
+    "render_visibility_from_alpha": (("alphas",), dict(early_stop_eps=0.2, alpha_thre=0.1)),
+    "render_visibility_from_density": (
+        ("t0", "t1", "sigmas"), dict(early_stop_eps=0.2, alpha_thre=0.1)),
+}
+
+
+@pytest.mark.parametrize("layout", ["batched", "packed_info", "indices"])
+@pytest.mark.parametrize("masked", [False, True], ids=["", "masks-prefix"])
+@pytest.mark.parametrize("fn", sorted(VR_CASES))
+def test_volrend_function_matches_jax(fn, masked, layout):
+    """Every output within 1e-6 (1e-6 relative), visibility equal; with
+    ``masks`` and a per-sample ``prefix_trans``.  The gradient of a random
+    weighting of the differentiable outputs within 1e-5 of its largest
+    entry."""
+    t0, t1, sigmas, alphas, _, masks, kw, _ = _layout(layout, 7)
+    arrays = dict(t0=t0, t1=t1, sigmas=sigmas, alphas=alphas)
+    names, extra = VR_CASES[fn]
+    if masked:
+        prefix = np.random.default_rng(8).uniform(0.3, 1.0, t0.shape).astype(np.float32)
+        extra = dict(extra, masks=masks, prefix_trans=prefix)
+    args = [arrays[n] for n in names]
+
+    def jax_call(*xs):
+        out = getattr(jax_volrend, fn)(*xs, **_kw(kw, "jax"), **_kw(extra, "jax"))
+        return out if isinstance(out, tuple) else (out,)
+
+    want = jax_call(*(jnp.asarray(a) for a in args))
+    targs = [torch.tensor(a, requires_grad=not fn.startswith("render_visibility"))
+             for a in args]
+    got = getattr(volrend, fn)(*targs, **_kw(kw, "torch"), **_kw(extra, "torch"))
+    got = got if isinstance(got, tuple) else (got,)
+    assert len(got) == len(want)
+    for g, w in zip(got, want):
+        if g.dtype == torch.bool:
+            np.testing.assert_array_equal(g.numpy(), np.asarray(w))
+        else:
+            np.testing.assert_allclose(g.detach().numpy(), np.asarray(w), rtol=1e-6, atol=1e-6)
+    if fn.startswith("render_visibility"):
+        return
+    ws = [np.random.default_rng(9 + i).normal(size=np.asarray(w).shape).astype(np.float32)
+          for i, w in enumerate(want)]
+    want_grads = jax.grad(
+        lambda *xs: sum(jnp.sum(o * jnp.asarray(w)) for o, w in zip(jax_call(*xs), ws)),
+        argnums=tuple(range(len(args))),
+    )(*(jnp.asarray(a) for a in args))
+    sum((o * torch.tensor(w)).sum() for o, w in zip(got, ws)).backward()
+    for t, w in zip(targs, want_grads):
+        w = np.asarray(w)
+        np.testing.assert_allclose(t.grad.numpy(), w, rtol=0, atol=1e-5 * np.abs(w).max())
+
+
+@pytest.mark.parametrize("layout", ["batched", "indices"])
+@pytest.mark.parametrize("with_values", [False, True])
+def test_accumulate_along_rays_matches_jax(layout, with_values):
+    """Sums within 1e-6, gradients within 1e-6; the in-place form adds into
+    its buffer and returns it; a fill id ``n_rays`` is dropped."""
+    _, _, _, alphas, rgbs, masks, kw, _ = _layout(layout, 11)
+    ids = kw.get("ray_indices")
+    if ids is not None:
+        ids = ids.copy()
+        ids[-1] = VR_RAYS  # fill
+    n = None if ids is None else VR_RAYS
+    vals = rgbs if with_values else None
+    want = jax_volrend.accumulate_along_rays(
+        jnp.asarray(alphas), None if vals is None else jnp.asarray(vals),
+        None if ids is None else jnp.asarray(ids), n, masks=jnp.asarray(masks))
+    w = torch.tensor(alphas, requires_grad=True)
+    got = volrend.accumulate_along_rays(
+        w, None if vals is None else torch.tensor(vals),
+        None if ids is None else torch.tensor(ids), n, masks=torch.tensor(masks))
+    np.testing.assert_allclose(got.detach().numpy(), np.asarray(want), rtol=1e-6, atol=1e-6)
+    got.sum().backward()
+    want_g = jax.grad(lambda a: jnp.sum(jax_volrend.accumulate_along_rays(
+        a, None if vals is None else jnp.asarray(vals),
+        None if ids is None else jnp.asarray(ids), n, masks=jnp.asarray(masks))))(
+        jnp.asarray(alphas))
+    np.testing.assert_allclose(w.grad.numpy(), np.asarray(want_g), rtol=1e-6, atol=1e-6)
+    if ids is not None:
+        outputs = torch.ones((VR_RAYS, 3 if with_values else 1))
+        back = volrend.accumulate_along_rays_(
+            torch.tensor(alphas), None if vals is None else torch.tensor(vals),
+            torch.tensor(ids), outputs)
+        assert back is outputs
+        want_ = jax_volrend.accumulate_along_rays_(
+            jnp.asarray(alphas), None if vals is None else jnp.asarray(vals),
+            jnp.asarray(ids), jnp.ones(outputs.shape))
+        np.testing.assert_allclose(outputs.numpy(), np.asarray(want_), rtol=1e-6, atol=1e-6)
+
+
+@pytest.mark.parametrize("layout", ["batched", "sorted", "indices"])
+@pytest.mark.parametrize("route", ["sigma", "alpha"])
+@pytest.mark.parametrize("opts", ["plain", "masks-bkgd-sums"])
+def test_rendering_matches_jax(layout, route, opts):
+    """JAX's signature on both: colours, opacities, depths and every extra
+    within 1e-5 (1e-5 relative), on the batched rows, a sorted flat buffer
+    and a flat buffer whose runs are out of order; with ``masks``,
+    ``render_bkgd`` and ``expected_depths=False``.  The gradients, through a
+    loss on the colours, opacities, depths and ``extras["weights"]``, for
+    the field's outputs within 1e-5 of their largest entry."""
+    t0, t1, sigmas, alphas, rgbs, masks, kw, rid = _layout(
+        "packed_info" if layout == "sorted" else layout, 13)
+    ids = None if layout == "batched" else rid.astype(np.int32)
+    n = None if ids is None else VR_RAYS
+    field_out = sigmas if route == "sigma" else alphas
+    opt = {}
+    if opts != "plain":
+        opt = dict(masks=masks, render_bkgd=np.array([0.2, 0.5, 1.0], np.float32),
+                   expected_depths=False)
+    rng = np.random.default_rng(14)
+    wc, wo, wd = (rng.normal(size=s).astype(np.float32)
+                  for s in ((VR_RAYS, 3), (VR_RAYS, 1), (VR_RAYS, 1)))
+    ww = rng.normal(size=t0.shape).astype(np.float32)
+    key = "rgb_sigma_fn" if route == "sigma" else "rgb_alpha_fn"
+
+    def jax_render(c, s):
+        def fn(a, b, r):
+            assert (r is None) == (ids is None)
+            return c, s
+        out = jax_volrend.rendering(
+            jnp.asarray(t0), jnp.asarray(t1), None if ids is None else jnp.asarray(ids), n,
+            **{key: fn}, **_kw({k: v for k, v in opt.items() if k != "expected_depths"},
+                               "jax"),
+            expected_depths=opt.get("expected_depths", True))
+        return out
+
+    def loss(out, lib):
+        conv = jnp.asarray if lib == "jax" else torch.tensor
+        c, o, d, ex = out
+        return ((c * conv(wc)).sum() + (o * conv(wo)).sum() + (d * conv(wd)).sum()
+                + (ex["weights"] * conv(ww)).sum())
+
+    want = jax_render(jnp.asarray(rgbs), jnp.asarray(field_out))
+    want_g = jax.grad(lambda c, s: loss(jax_render(c, s), "jax"), argnums=(0, 1))(
+        jnp.asarray(rgbs), jnp.asarray(field_out))
+    tc, ts = torch.tensor(rgbs, requires_grad=True), torch.tensor(field_out, requires_grad=True)
+
+    def fn(a, b, r):
+        assert (r is None) == (ids is None)
+        return tc, ts
+
+    got = volrend.rendering(
+        torch.tensor(t0), torch.tensor(t1), None if ids is None else torch.tensor(ids), n,
+        **{key: fn}, **_kw({k: v for k, v in opt.items() if k != "expected_depths"}, "torch"),
+        expected_depths=opt.get("expected_depths", True))
+    for g, w in zip(got[:3], want[:3]):
+        np.testing.assert_allclose(g.detach().numpy(), np.asarray(w), rtol=1e-5, atol=1e-5)
+    assert set(got[3]) == set(want[3])
+    for k in want[3]:
+        np.testing.assert_allclose(got[3][k].detach().numpy(), np.asarray(want[3][k]),
+                                   rtol=1e-5, atol=1e-5, err_msg=k)
+    loss(got, "torch").backward()
+    for g, w in zip((tc.grad, ts.grad), want_g):
+        w = np.asarray(w)
+        np.testing.assert_allclose(g.numpy(), w, rtol=0, atol=1e-5 * np.abs(w).max())
+
+
+def test_rendering_takes_jax_keywords_and_rejects_no_callback():
+    """The JAX call, keyword for keyword, runs on the port; neither callback
+    is an error in both."""
+    t = torch.linspace(0, 1, 9)
+    ids = torch.tensor([0, 0, 0, 1, 1, 1, 1, 2])
+    out = volrend.rendering(
+        t_starts=t[:-1], t_ends=t[1:], ray_indices=ids, n_rays=3,
+        rgb_sigma_fn=lambda t0, t1, r: (torch.ones(8, 3), torch.ones(8)),
+        rgb_alpha_fn=None, render_bkgd=None, expected_depths=True, masks=None)
+    assert out[0].shape == (3, 3) and set(out[3]) == {"weights", "alphas", "trans",
+                                                      "sigmas", "rgbs"}
+    with pytest.raises(ValueError):
+        volrend.rendering(t[:-1], t[1:], ids, 3)
+    with pytest.raises(ValueError):
+        jax_volrend.rendering(jnp.asarray(t[:-1].numpy()), jnp.asarray(t[1:].numpy()))
+    # no samples at all (every ray missed the grid): the background, and a
+    # gradient path to the callback's outputs
+    sig, rgb = torch.zeros(0, requires_grad=True), torch.zeros((0, 3), requires_grad=True)
+    empty = torch.zeros(0)
+    out = volrend.rendering(empty, empty, torch.zeros(0, dtype=torch.long), 3,
+                            rgb_sigma_fn=lambda *_: (rgb, sig), render_bkgd=torch.ones(3))
+    torch.testing.assert_close(out[0], torch.ones(3, 3))
+    out[0].sum().backward()
+    assert sig.grad.shape == (0,) and rgb.grad.shape == (0, 3)
