@@ -129,10 +129,12 @@ Phase 1e is the gather probe: G11 (the coarse-occupancy lookup, N = 2^18
 into a (256, 1024) summary), G13 (the row gather of
 scripts/pallas_gather_probe.py, 2^18 rows of a (2^14, 128) and a (2^14, 2)
 table) and G12 (the per-lane gather of scripts/pallas_gather_probe2.py, 64
-blocks of T rows at T = 512, 2^14 and 2^16, and its 16-level NGP-shaped
-lookup), each run once through its entry point with the launch counts
-zeroed before, then held bitwise against its plain version and timed beside
-the one PyTorch call that computes the same function.  Phase 1f holds G14
+blocks of T rows at T = 512, 2^14 and 2^16, f32 and bf16, and its 16-level
+NGP-shaped lookup), each run once through its entry point with the launch
+counts zeroed before, then held bitwise against its plain version and timed
+beside the one PyTorch call that computes the same function (CUDA events,
+device time alone, and host microseconds per call); each G12 line names the
+route its table took.  Phase 1f holds G14
 (importance sampling) bitwise against its plain version at the proposal
 path's shapes.
 
@@ -222,7 +224,11 @@ from nerfacc_tpu_torch.ops.hat_matmul import (  # noqa: E402
     hat_taps,
 )
 from nerfacc_tpu_torch.ops import sorted_segments  # noqa: E402
-from nerfacc_tpu_torch.ops.lane_gather import lane_gather, lane_gather_plain  # noqa: E402
+from nerfacc_tpu_torch.ops.lane_gather import (  # noqa: E402
+    lane_gather,
+    lane_gather_plain,
+    lane_gather_route,
+)
 from nerfacc_tpu_torch.ops.row_gather import row_gather, row_gather_plain  # noqa: E402
 from nerfacc_tpu_torch.ops.sorted_segments import (  # noqa: E402
     composite_sorted,
@@ -415,6 +421,19 @@ def device_ms(fn, reps=10):
             break
     us = sum(e.time_range.end - e.time_range.start for e in kernels)
     return us / reps / 1e3
+
+
+def host_us(fn, reps=20):
+    """Host microseconds per call of ``fn``: its launch path, timed by
+    ``time.perf_counter`` over ``reps`` calls with no sync among them."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    seconds = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return 1e6 * seconds / reps
 
 
 def nbytes(*args):
@@ -1185,8 +1204,10 @@ def phase_gather_kernels(dev):
                       (tab, torch.randint(0, ROW_TABLE, (ROW_N,), **i32))))
     for T in LANE_HEIGHTS:
         src = torch.randn((T, 128), generator=g, device=dev)
-        cases.append((f"P2 lane_gather T={T}", lane_gather, lane_gather_plain,
-                      (src, torch.randint(0, T, (LANE_BLOCKS * T, 128), **i32))))
+        idx = torch.randint(0, T, (LANE_BLOCKS * T, 128), **i32)
+        cases.append((f"P2 lane_gather T={T}", lane_gather, lane_gather_plain, (src, idx)))
+        cases.append((f"P2 lane_gather T={T} bf16", lane_gather, lane_gather_plain,
+                      (src.to(torch.bfloat16), idx)))
     # P2's NGP emulation: lane l reads level l % 16, of min(2^(10 + l % 16), T) rows
     sizes = torch.clamp(2 ** (10 + torch.arange(128, device=dev) % 16), max=NGP_T)
     idx = (torch.randint(0, 2**30, (NGP_N, 128), **i32) % sizes).to(torch.int32)
@@ -1225,6 +1246,11 @@ def phase_gather_kernels(dev):
             what, key = "torch.gather(src, 0, idx)", "lane_gather"
         require(same_bits(fn(*checked), plain(*checked)),
                 f"{name}: differs from its plain version on out-of-range indices")
+        route = ""
+        if key == "lane_gather":
+            b = lane_gather_route(T, src.dtype)
+            route = (f"route: {b}-byte table rows in shared memory; " if b
+                     else "route: one thread an element, table through L2; ")
         lib_out = library(*lib_args)
         lib_equal = torch.equal(lib_out, out) if key != "coarse_occ" else None
         del checked, lib_out
@@ -1234,14 +1260,16 @@ def phase_gather_kernels(dev):
             nbytes(*args, out), 2 * out.numel(), cuda_ms(lambda: library(*lib_args)),
         )
         kernel_dev, library_dev = device_ms(lambda: fn(*args)), device_ms(lambda: library(*lib_args))
-        print(f"{name}: {out.numel()} outputs, 0 unequal to the plain version "
+        kernel_host, library_host = host_us(lambda: fn(*args)), host_us(lambda: library(*lib_args))
+        print(f"{name}: {route}{out.numel()} outputs, 0 unequal to the plain version "
               f"(also with {100 * GATHER_OUTSIDE:g}% of the indices out of range); "
               f"kernel {rec['ms']:.4f} ms ({1e6 * rec['ms'] / out.numel():.4f} ns per "
               f"output), bound {rec['bound_ms']:.4f} ms ({rec['bound_by']}), "
               f"{100 * rec['bound_ms'] / rec['ms']:.1f}% of it; plain {rec['plain_ms']:.4f} "
               f"ms; {what} {rec['library_ms']:.4f} ms"
               + ("" if lib_equal is None else f", equal to the kernel: {lib_equal}")
-              + f"; device time alone: kernel {kernel_dev:.4f} ms, {what} {library_dev:.4f} ms")
+              + f"; device time alone: kernel {kernel_dev:.4f} ms, {what} {library_dev:.4f} ms"
+              + f"; host per call: wrapper {kernel_host:.2f} us, {what} {library_host:.2f} us")
         # the kernels line times K5, P1 at 128 lanes and P2 at T = 2^14
         if name in ("K5 coarse_occ", f"P1 row_gather ({ROW_TABLE}, 128)",
                     f"P2 lane_gather T={2**14}"):

@@ -64,8 +64,8 @@ _SIGNATURES = {
     "hat_bwd_x": [_P] * 4 + [ctypes.c_int64, _I, _I, _P],
     # (row, lane, summary, out, n, rows, lanes, stream)
     "coarse_occ_lookup": [_P] * 4 + [ctypes.c_int64, _I, _I, _P],
-    # (src, idx, out, n_rows, T, elem_bytes, stream)
-    "lane_gather": [_P] * 3 + [ctypes.c_int64, _I, _I, _P],
+    # (src, idx, out, n_rows, T, elem_bytes, route, table_bytes, stream)
+    "lane_gather": [_P] * 3 + [ctypes.c_int64, _I, _I, _I, _I, _P],
     # (tab, idx, out, n, T, F, vec, stream)
     "row_gather": [_P] * 3 + [ctypes.c_int64, _I, _I, _I, _P],
     # (vals, cdfs, bias, samples, edges, n_rays, E, n, stream)

@@ -47,11 +47,12 @@ def coarse_occ_lookup(
         raise TypeError("coarse_occ_lookup: row and lane must be int32 (N,) alike")
     if summary.dtype != torch.float32 or summary.ndim != 2 or row.ndim != 1:
         raise ValueError("coarse_occ_lookup: want (N,) indices and an f32 (rows, lanes) table")
+    # the copies stay named until the launch; any alignment is taken
     row, lane, summary = row.contiguous(), lane.contiguous(), summary.contiguous()
-    out = torch.empty(row.shape, dtype=torch.float32, device=row.device)
+    out = torch.empty_like(row, dtype=torch.float32)
     err = cuda.load().coarse_occ_lookup(
-        cuda.ptr(row), cuda.ptr(lane), cuda.ptr(summary), cuda.ptr(out),
-        row.shape[0], summary.shape[0], summary.shape[1], cuda.stream_ptr(row),
+        row.data_ptr(), lane.data_ptr(), summary.data_ptr(), out.data_ptr(),
+        out.shape[0], *summary.shape, cuda.stream_ptr(row),
     )
     cuda.check(err, "coarse_occ_lookup")
     cuda.LAUNCHES["coarse_occ"] += 1

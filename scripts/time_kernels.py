@@ -4,7 +4,7 @@ paths give them.
 
 Run from the root of a checkout:
 
-    python3 scripts/time_kernels.py [G1 G2 G3 G4 G5 G6 G7 G8 G9 G10 G14] [--root DIR] [--label NAME] [--out build/time_kernels]
+    python3 scripts/time_kernels.py [G1 G2 G3 G4 G5 G6 G7 G8 G9 G10 G11 G12 G14] [--root DIR] [--label NAME] [--out build/time_kernels]
 
 The positional arguments pick the kernels (all of these by default).
 ``--root`` names the tree whose ``nerfacc_tpu_torch`` is imported and built
@@ -87,6 +87,26 @@ The shapes:
   the precomputed taps and updates.
 - G10 (hat coordinate gradient): N = 2^18 at (512, 32) and N = 2^16 at
   TiNeuVox's three levels, uniform coordinates.
+- G11 (coarse-occupancy lookup) at ``chip_smoke.py``'s phase 1e shape: N =
+  2^18 uniform lookups into a (256, 1024) f32 summary; beside it
+  ``summary[row, lane]`` on int64 indices.  Error: entries unequal to the
+  plain version on those lookups with 1% of the rows and 1% of the lanes
+  redrawn from [-8, rows + 8) and [-8, lanes + 8).
+- G12 (per-lane gather) at phase 1e's shapes: 64 blocks of T rows at T =
+  512, 2^14 and 2^16, f32 and bf16, and the NGP-shaped lookup (f32, T =
+  2^16, 2^18 rows, lane l in [0, min(2^(10 + l % 16), T))); in a tree with
+  routes also about the route boundaries (T = 8192, 9557, 14336, 28672) and
+  with every route of the kernel timed alone on the checked indices; the
+  tree takes (the bytes of each table row a block keeps in shared memory, 0
+  for one thread an element, "parent" in a tree without routes); beside it
+  ``torch.gather``
+  on int64 indices.  Error: entries unequal to the plain version with 1% of
+  the indices redrawn from [-T - 8, T + 8).
+  Both also give the wrapper's host microseconds per call
+  (``time.perf_counter`` over 200 calls, no sync inside) and the PyTorch
+  call's; G11 also each piece of its wrapper's (the shared helpers
+  ``cuda.on_card``, ``cuda.stream_ptr``, ``cuda.ptr``, the output's
+  allocation, the ctypes launch).
 - G14 (importance sampling) at ``chip_smoke.py``'s phase 1f shapes: 4096
   rays, E = 2 -> 128 (the first proposal level, stratified); 4096 rays, E =
   129 -> 64 (the final resampling, a CDF with plateaus, stratified); 8192
@@ -108,6 +128,7 @@ import os
 import statistics
 import subprocess
 import sys
+import time
 
 import torch
 from torch.autograd import DeviceType
@@ -154,6 +175,20 @@ def device_ms(fn, reps=20):
     return us / reps / 1e3
 
 
+def host_us(fn, reps=200):
+    """Host microseconds per call of ``fn``: the launch path, with no sync
+    inside the timed calls."""
+    for _ in range(10):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    seconds = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return 1e6 * seconds / reps
+
+
 def nbytes(*tensors):
     return sum(t.numel() * t.element_size() for t in tensors if isinstance(t, torch.Tensor))
 
@@ -168,6 +203,20 @@ def err_of_max(out, ref):
 
 def unequal(a, b):
     return int((a.view(torch.int32) != b.view(torch.int32)).sum())
+
+
+def unequal_words(a, b):
+    """Entries of ``a`` and ``b`` whose bits differ, 2- or 4-byte words."""
+    view = torch.int16 if a.element_size() == 2 else torch.int32
+    return int((a.view(view) != b.view(view)).sum())
+
+
+def with_outside(g, idx, low, high, share=0.01):
+    """``idx`` with ``share`` of its entries redrawn from [low, high)."""
+    out = idx.clone().reshape(-1)
+    k = int(share * out.numel())
+    out[:k] = torch.randint(low, high, (k,), generator=g, device=idx.device, dtype=idx.dtype)
+    return out.reshape(idx.shape)
 
 
 def refreshed_grid(dev, kind="cp"):
@@ -779,9 +828,122 @@ def g14_rows(inp):
         }
 
 
+def host_pieces_us(row, lane, S):
+    """Host microseconds a call of each piece of G11's wrapper (the shared
+    helpers of ``nerfacc_tpu_torch.cuda`` among them) and of the ctypes call
+    that launches the kernel."""
+    from nerfacc_tpu_torch import cuda
+
+    out = torch.empty_like(row, dtype=torch.float32)
+    lib, stream = cuda.load(), cuda.stream_ptr(row)
+    launch = lib.coarse_occ_lookup
+    return {
+        "cuda.on_card": host_us(lambda: cuda.on_card(row, lane, S)),
+        "cuda.stream_ptr": host_us(lambda: cuda.stream_ptr(row)),
+        "cuda.ptr x4": host_us(lambda: [cuda.ptr(t) for t in (row, lane, S, out)]),
+        "torch.empty_like": host_us(lambda: torch.empty_like(row, dtype=torch.float32)),
+        "contiguous x3": host_us(lambda: (row.contiguous(), lane.contiguous(), S.contiguous())),
+        "ctypes launch": host_us(lambda: launch(row.data_ptr(), lane.data_ptr(), S.data_ptr(),
+                                                out.data_ptr(), row.shape[0], *S.shape, stream)),
+    }
+
+
+def g11_rows(inp):
+    from nerfacc_tpu_torch.ops.coarse_occ import coarse_occ_lookup, coarse_occ_lookup_plain
+
+    dev = inp.dev
+    g = torch.Generator(device=dev).manual_seed(11)
+    rows, lanes, n = 256, 1024, 2**18
+    S = torch.rand((rows, lanes), generator=g, device=dev)
+    row = torch.randint(0, rows, (n,), generator=g, device=dev, dtype=torch.int32)
+    lane = torch.randint(0, lanes, (n,), generator=g, device=dev, dtype=torch.int32)
+    row_o, lane_o = with_outside(g, row, -8, rows + 8), with_outside(g, lane, -8, lanes + 8)
+    out = coarse_occ_lookup(row, lane, S)
+    r64, l64 = row.long(), lane.long()
+    yield {
+        "kernel": "G11 coarse_occ_lookup", "N": n, "summary": [rows, lanes],
+        "unequal_to_plain": unequal(coarse_occ_lookup(row_o, lane_o, S),
+                                    coarse_occ_lookup_plain(row_o, lane_o, S)),
+        "ms": cuda_ms(lambda: coarse_occ_lookup(row, lane, S)),
+        "device_ms": device_ms(lambda: coarse_occ_lookup(row, lane, S)),
+        "host_us": host_us(lambda: coarse_occ_lookup(row, lane, S)),
+        "plain_ms": cuda_ms(lambda: coarse_occ_lookup_plain(row, lane, S), reps=5),
+        "library_ms": cuda_ms(lambda: S[r64, l64]),
+        "library_device_ms": device_ms(lambda: S[r64, l64]),
+        "library_host_us": host_us(lambda: S[r64, l64]),
+        "host_pieces_us": host_pieces_us(row, lane, S),
+        "bound_ms": bytes_bound_ms(row, lane, S, out),
+    }
+
+
+def g12_route_ms(src, idx, routes):
+    """Device time alone of each of the tree's G12 routes on these inputs
+    (the route argument of its C entry point), and whether each equals the
+    plain version bit for bit."""
+    from nerfacc_tpu_torch import cuda
+    from nerfacc_tpu_torch.ops import lane_gather as lg
+
+    lib, T = cuda.load(), src.shape[0]
+    out = torch.empty(idx.shape, dtype=src.dtype, device=src.device)
+    ref = lg.lane_gather_plain(src, idx)
+    times = {}
+    for route in routes:
+        def call(route=route):
+            cuda.check(lib.lane_gather(src.data_ptr(), idx.data_ptr(), out.data_ptr(),
+                                       idx.shape[0], T, src.element_size(), route,
+                                       lg.SHARED_TABLE_BYTES, cuda.stream_ptr(src)),
+                       "lane_gather")
+        call()
+        times[str(route)] = {"device_ms": device_ms(call, reps=5),
+                             "unequal_to_plain": unequal_words(out, ref)}
+    return times
+
+
+def g12_rows(inp):
+    from nerfacc_tpu_torch.ops import lane_gather as lg
+
+    dev = inp.dev
+    g = torch.Generator(device=dev).manual_seed(12)
+    route_of = getattr(lg, "lane_gather_route", None)
+    # phase 1e's tables, then (trees with routes) the route boundaries
+    heights = [512, 2**14, 2**16] + ([8192, 9557, 14336, 28672] if route_of else [])
+    cases = [(f"T={T}", T, dt, None) for T in heights for dt in (torch.float32, torch.bfloat16)]
+    sizes = torch.clamp(2 ** (10 + torch.arange(128, device=dev) % 16), max=2**16)
+    cases.append(("NGP-shaped", 2**16, torch.float32, sizes))
+    for name, T, dt, sizes in cases:
+        src = torch.randn((T, 128), generator=g, device=dev).to(dt)
+        if sizes is None:
+            idx = torch.randint(0, T, (64 * T, 128), generator=g, device=dev, dtype=torch.int32)
+        else:
+            idx = (torch.randint(0, 2**30, (2**18, 128), generator=g, device=dev,
+                                 dtype=torch.int32) % sizes).to(torch.int32)
+        checked = with_outside(g, idx, -T - 8, T + 8)
+        bad = unequal_words(lg.lane_gather(src, checked), lg.lane_gather_plain(src, checked))
+        routes = {}
+        if route_of:  # every route the kernel has for this dtype
+            routes = g12_route_ms(src, checked, (0, 32, 16) if dt == torch.bfloat16 else (0, 32))
+        del checked
+        out = lg.lane_gather(src, idx)
+        i64 = idx.long()
+        yield {
+            "kernel": "G12 lane_gather", "case": name, "T": T, "rows": idx.shape[0],
+            "dtype": str(dt)[6:], "route": route_of(T, dt) if route_of else "parent",
+            "unequal_to_plain": bad, "routes": routes,
+            "ms": cuda_ms(lambda: lg.lane_gather(src, idx)),
+            "device_ms": device_ms(lambda: lg.lane_gather(src, idx)),
+            "host_us": host_us(lambda: lg.lane_gather(src, idx), reps=20),
+            "plain_ms": cuda_ms(lambda: lg.lane_gather_plain(src, idx), reps=3),
+            "library_ms": cuda_ms(lambda: torch.gather(src, 0, i64), reps=5),
+            "library_device_ms": device_ms(lambda: torch.gather(src, 0, i64), reps=5),
+            "bound_ms": bytes_bound_ms(src, idx, out),
+        }
+        del src, idx, out, i64
+        torch.cuda.empty_cache()
+
+
 ROWS = {"G1": g1_rows, "G2": g2_rows, "G3": g3_rows, "G4": g4_rows, "G5": g5_rows,
         "G6": g6_rows, "G7": g7_rows, "G8": g8_rows, "G9": g9_rows, "G10": g10_rows,
-        "G14": g14_rows}
+        "G11": g11_rows, "G12": g12_rows, "G14": g14_rows}
 
 
 def main():

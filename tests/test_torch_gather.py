@@ -11,7 +11,7 @@ import torch
 from nerfacc_tpu.ops.coarse_occ import coarse_occ_lookup as jax_coarse_occ_lookup
 from nerfacc_tpu.ops.lane_gather import lane_gather as jax_lane_gather
 from nerfacc_tpu_torch.ops.coarse_occ import coarse_occ_lookup
-from nerfacc_tpu_torch.ops.lane_gather import lane_gather
+from nerfacc_tpu_torch.ops.lane_gather import lane_gather, lane_gather_plain, lane_gather_route
 from nerfacc_tpu_torch.ops.row_gather import row_gather
 
 
@@ -88,3 +88,79 @@ def test_row_gather_matches_numpy_and_jnp_take(F):
     want = jax.jit(lambda t, i: jnp.take(t, i, axis=0))(jnp.asarray(tab), jnp.asarray(idx))
     np.testing.assert_array_equal(_bits(got.numpy()), _bits(want))
     assert torch.isnan(got[2:5]).all()
+
+
+def test_coarse_occ_lookup_rounds_bf16_ties_to_even():
+    """A summary of bf16 ties (f32 values halfway between two bf16 numbers,
+    both parities of the last bf16 bit), against K5 interpreted: bit for
+    bit.  This pins round-to-nearest-even in the plain version, which the
+    card holds G11 to; truncation or rounding half away from zero would
+    differ on half of the entries."""
+    rng = np.random.default_rng(5)
+    rows, lanes = 32, 128
+    high = rng.integers(0x3F00, 0x4100, (rows, lanes), dtype=np.uint32)  # ~[0.5, 8)
+    high[:, ::2] |= 1  # odd last bf16 bit: the tie rounds up
+    high[:, 1::2] &= ~np.uint32(1)  # even: the tie rounds down
+    S = ((high << 16) | 0x8000).view(np.float32)
+    row = np.repeat(np.arange(rows, dtype=np.int32), lanes)
+    lane = np.tile(np.arange(lanes, dtype=np.int32), rows)
+    want = jax_coarse_occ_lookup(jnp.asarray(row), jnp.asarray(lane), jnp.asarray(S), interpret=True)
+    got = coarse_occ_lookup(torch.tensor(row), torch.tensor(lane), torch.tensor(S))
+    np.testing.assert_array_equal(_bits(got.numpy()), _bits(want))
+    up = (high + 1) << 16  # an odd last bit rounds up, to the even neighbour
+    np.testing.assert_array_equal(_bits(got.numpy()).reshape(rows, lanes)[:, ::2],
+                                  up[:, ::2].view(np.int32))
+    np.testing.assert_array_equal(_bits(got.numpy()).reshape(rows, lanes)[:, 1::2],
+                                  (high[:, 1::2] << 16).view(np.int32))
+
+
+F32, BF16 = torch.float32, torch.bfloat16
+
+
+@pytest.mark.parametrize("T, dtype, route", [
+    # chip_smoke.py phase 1e's tables: T = 512, 2^14, and 2^16 (also the
+    # NGP-shaped lookup's)
+    (512, F32, 32), (512, BF16, 32), (2**14, F32, 0), (2**14, BF16, 16),
+    (2**16, F32, 0), (2**16, BF16, 0),
+    # each side of each boundary: a block keeps 224 KB of table rows, 7168
+    # rows of 32 bytes or 14336 of 16; 32-byte rows hold while half the rows
+    # fit (f32) or three quarters (bf16), 16-byte rows while half fit
+    (7168, F32, 32), (7169, F32, 32), (14336, F32, 32), (14337, F32, 0),
+    (7169, BF16, 32), (9557, BF16, 32), (9558, BF16, 16), (14336, BF16, 16),
+    (14337, BF16, 16), (28672, BF16, 16), (28673, BF16, 0),
+], ids=lambda v: str(v).replace("torch.", ""))
+def test_lane_gather_route_is_a_function_of_the_table(T, dtype, route):
+    """G12's route from (T, dtype) alone: the bytes of each table row a
+    block keeps in shared memory, or 0 past the shared-memory route."""
+    assert lane_gather_route(T, dtype) == route
+
+
+@pytest.mark.parametrize("T, dtype, route", [
+    (3584, F32, 32), (3585, F32, 0), (2389, BF16, 32), (2390, BF16, 16), (7168, BF16, 16),
+    (7169, BF16, 0),
+], ids=lambda v: str(v).replace("torch.", ""))
+def test_lane_gather_route_follows_the_table_budget(monkeypatch, T, dtype, route):
+    """The route boundaries move with SHARED_TABLE_BYTES, the one budget the
+    wrapper also passes to the kernel: at a quarter of it, a quarter of the
+    heights."""
+    import nerfacc_tpu_torch.ops.lane_gather as lane_gather_mod
+
+    monkeypatch.setattr(lane_gather_mod, "SHARED_TABLE_BYTES", lane_gather_mod.SHARED_TABLE_BYTES // 4)
+    assert lane_gather_mod.lane_gather_route(T, dtype) == route
+
+
+@pytest.mark.parametrize("dtype", [jnp.float32, jnp.bfloat16], ids=["f32", "bf16"])
+def test_lane_gather_at_the_largest_shared_memory_table(dtype):
+    """K6 interpreted on the largest table of G12's shared-memory route
+    (T = 14336 f32, 28672 bf16, one block of T rows) against the plain
+    version, indices in [-T - 8, T + 8): bit for bit."""
+    tdtype = torch.bfloat16 if dtype == jnp.bfloat16 else torch.float32
+    T = 28672 if dtype == jnp.bfloat16 else 14336
+    assert lane_gather_route(T, tdtype) > 0 and lane_gather_route(T + 1, tdtype) == 0
+    rng = np.random.default_rng(T)
+    src = rng.standard_normal((T, 128)).astype(np.float32)
+    idx = rng.integers(-T - 8, T + 8, (T, 128)).astype(np.int32)
+    want = jax_lane_gather(jnp.asarray(src, dtype), jnp.asarray(idx), interpret=True)
+    got = lane_gather_plain(torch.tensor(src).to(tdtype), torch.tensor(idx))
+    np.testing.assert_array_equal(_bits(got.float().numpy()), _bits(np.asarray(want)))
+    assert torch.isnan(got.float()).any() and not torch.isnan(got.float()).all()

@@ -52,6 +52,7 @@ from nerfacc_tpu_torch.ops.sorted_segments import (
     composite_sorted_plain,
 )
 from nerfacc_tpu_torch.ops.coarse_occ import coarse_occ_lookup, coarse_occ_lookup_plain
+from nerfacc_tpu_torch.ops import lane_gather as lane_gather_mod
 from nerfacc_tpu_torch.ops.lane_gather import lane_gather, lane_gather_plain
 from nerfacc_tpu_torch.ops.row_gather import row_gather, row_gather_plain
 from nerfacc_tpu_torch.data.device_sampler import DeviceRaySampler
@@ -1060,6 +1061,88 @@ def test_gather_kernels_match_plain_versions(dev):
     assert cuda.LAUNCHES["row_gather"] == n0["row_gather"] + 3
     with pytest.raises(ValueError, match="128 lanes"):
         lane_gather(torch.zeros((64, 64), device=dev), torch.zeros((64, 64), dtype=torch.int32, device=dev))
+
+
+@pytest.mark.parametrize("dtype, T, route", [
+    # all rows in shared memory; then the largest table of each route (some
+    # rows through L2), each also a few rows less (an odd height: 3 T rows,
+    # no multiple of a block's pieces); and the first past it
+    (torch.float32, 512, 32), (torch.float32, 7165, 32), (torch.float32, 14336, 32),
+    (torch.float32, 14333, 32), (torch.float32, 14337, 0), (torch.float32, 14339, 0),
+    (torch.bfloat16, 512, 32), (torch.bfloat16, 7165, 32), (torch.bfloat16, 9557, 32),
+    (torch.bfloat16, 9554, 32), (torch.bfloat16, 9558, 16), (torch.bfloat16, 14336, 16),
+    (torch.bfloat16, 28672, 16), (torch.bfloat16, 28669, 16), (torch.bfloat16, 28673, 0),
+], ids=lambda v: str(v).replace("torch.", ""))
+def test_lane_gather_routes_match_plain_version(dev, dtype, T, route):
+    """Each G12 route, bit for bit, with indices in [-T - 8, T + 8); one
+    launch a call."""
+    assert lane_gather_mod.lane_gather_route(T, dtype) == route
+    g = torch.Generator(device=dev).manual_seed(T)
+    src = torch.randn((T, 128), generator=g, device=dev).to(dtype)
+    idx = torch.randint(-T - 8, T + 8, (3 * T, 128), generator=g, device=dev,
+                        dtype=torch.int32)
+    n0 = cuda.LAUNCHES["lane_gather"]
+    assert _same_bits(lane_gather(src, idx), lane_gather_plain(src, idx))
+    assert cuda.LAUNCHES["lane_gather"] == n0 + 1
+
+
+@pytest.mark.parametrize("T", [300, 2**13, 2**14], ids=["resident", "half-resident", "route0"])
+def test_lane_gather_reads_non_contiguous_and_misaligned_inputs(dev, T):
+    """Column-strided src and idx, and idx 4 bytes past a 16-byte boundary
+    (the shared-memory route reads it 16 bytes at a time), at 7 blocks of T
+    rows: bitwise equal to the plain version."""
+    g = torch.Generator(device=dev).manual_seed(T)
+    src = torch.randn((T, 256), generator=g, device=dev)[:, ::2]
+    wide = torch.randint(-T, T, (7 * T, 256), generator=g, device=dev, dtype=torch.int32)
+    idx = wide[:, 64:192]
+    assert not src.is_contiguous() and not idx.is_contiguous()
+    assert _same_bits(lane_gather(src, idx), lane_gather_plain(src, idx))
+    flat = torch.randint(-T, T, (7 * T * 128 + 1,), generator=g, device=dev, dtype=torch.int32)
+    shifted = flat[1:].view(7 * T, 128)
+    assert shifted.data_ptr() % 16 == 4
+    assert _same_bits(lane_gather(src, shifted), lane_gather_plain(src, shifted))
+
+
+def test_lane_gather_refuses_a_route_it_does_not_have(dev, monkeypatch):
+    """A route the kernel does not have (16-byte rows of an f32 table, whose
+    4 columns would read half sectors) is refused and raises, uncounted; it
+    does not give way to another route."""
+    monkeypatch.setattr(lane_gather_mod, "lane_gather_route", lambda T, dtype: 16)
+    src = torch.zeros((2**14, 128), device=dev)
+    idx = torch.zeros((2**14, 128), dtype=torch.int32, device=dev)
+    n0 = cuda.LAUNCHES["lane_gather"]
+    with pytest.raises(RuntimeError, match="lane_gather"):
+        lane_gather(src, idx)
+    assert cuda.LAUNCHES["lane_gather"] == n0
+
+
+@pytest.mark.parametrize("dtype, T, route", [(torch.float32, 1024, 32), (torch.bfloat16, 2048, 16)],
+                         ids=["f32", "bf16"])
+def test_lane_gather_keeps_the_rows_the_wrapper_budgets(dev, monkeypatch, dtype, T, route):
+    """The shared-memory route sizes its table from the wrapper's
+    SHARED_TABLE_BYTES: at a 16 KB budget half the rows are kept and half go
+    through L2, and the result is bitwise the plain version's."""
+    monkeypatch.setattr(lane_gather_mod, "SHARED_TABLE_BYTES", 16 * 1024)
+    assert lane_gather_mod.lane_gather_route(T, dtype) == route
+    g = torch.Generator(device=dev).manual_seed(T)
+    src = torch.randn((T, 128), generator=g, device=dev).to(dtype)
+    idx = torch.randint(-T - 8, T + 8, (5 * T, 128), generator=g, device=dev, dtype=torch.int32)
+    assert _same_bits(lane_gather(src, idx), lane_gather_plain(src, idx))
+
+
+@pytest.mark.parametrize("n", [1, 3, 5, 4099, 2**18 + 3])
+def test_coarse_occ_lookup_takes_any_count_and_alignment(dev, n):
+    """G11 at counts that are no multiple of a block's threads (nor of 4),
+    on aligned tensors and on views 4 bytes past a 16-byte boundary, with
+    lookups outside the table: bitwise equal to the plain version."""
+    g = torch.Generator(device=dev).manual_seed(n)
+    S = torch.rand((256, 1024), generator=g, device=dev)
+    row = torch.randint(-3, 259, (n + 1,), generator=g, device=dev, dtype=torch.int32)
+    lane = torch.randint(-3, 1027, (n + 1,), generator=g, device=dev, dtype=torch.int32)
+    for r, l in ((row[:n], lane[:n]), (row[1:], lane[1:])):
+        n0 = cuda.LAUNCHES["coarse_occ"]
+        assert _same_bits(coarse_occ_lookup(r, l, S), coarse_occ_lookup_plain(r, l, S))
+        assert cuda.LAUNCHES["coarse_occ"] == n0 + 1
 
 
 def _pdf_rows(g, n_rays, E):
