@@ -107,7 +107,20 @@ It builds the CUDA kernels from ``nerfacc_tpu_torch/csrc`` and runs:
     19b. the proposal leg: ``PropNetEstimator`` with its own Adam over
     ``bench_prop``'s proposal field, ``QS_PROP_STEPS`` steps; the proposal
     loss must fall, G14, G3 and G5 must launch, and one step must stay
-    within phase 17's bounds of its plain versions.
+    within phase 17's bounds of its plain versions;
+20. the proposal example's hash-grid path, built by its own ``build``
+    (``train_ngp_nerf_prop --field ngp``: the full-width ``NGPRadianceField``
+    behind one ``NGPDensityField``, 5 levels x 2^17 rows, [128] -> 64
+    samples, 24 views at 320x320, 4096 rays): served untrained, trained
+    ``TRAIN_STEPS`` steps through ``train_steps_sampled`` (the
+    reconstruction loss must fall; G6, G7, G3, G5 and G14 must launch), one
+    step through the kernels against the plain versions (phase 17's
+    bounds), served trained 3 dB above untrained;
+21. phase 20 for the 360 cascade (``--scene procedural360 --field cp``: the
+    CP field behind two ``CPDensityField``s over the box +-1 contracted,
+    [256, 96] -> 48 samples uniform in disparity, the opaque last sample,
+    the unbounded scene's near 0.05 and far 20, six test views); G1, G4,
+    G3, G5 and G14 must launch.
 
 Phase 1d holds the hat kernels G8 (forward), G9 (table gradient) and G10
 (coordinate gradient) against their plain versions at N = 2^18 on each of
@@ -136,7 +149,11 @@ beside the one PyTorch call that computes the same function (CUDA events,
 device time alone, and host microseconds per call); each G12 line names the
 route its table took.  Phase 1f holds G14
 (importance sampling) bitwise against its plain version at the proposal
-path's shapes.
+path's shapes and the 360 cascade's three (E = 2 -> 256, 257 -> 96,
+97 -> 48); phase 1c also G6 (bitwise) and G7 at ``NGPDensityField``'s
+shape (5 levels, T = 2^17) on both proposal paths' first-level points, G7
+and its plain version each within the error bound of f32 summation of the
+exact sum, and phase 1 G1 at the 360 cascade's first level (N = 2^20).
 
 With ``--quality tineuvox prop [--seeds ...] [--routes kernels plain
 plain:<kernel>,...] [--root DIR] [--label NAME] [--out DIR]`` the script
@@ -148,16 +165,22 @@ a git-ignored directory), and prints one JSON line a run.  With ``--example cp|n
 ...]`` it runs the occupancy example alone from each seed (``--max_steps N``,
 its defaults otherwise) and prints one JSON line a run: PSNR, SSIM, steps,
 training seconds, ray counts, samples a step, and both renderers' frames.
+With ``--example prop-cp|prop-ngp|prop360 [--steps N] [--seeds ...]
+[--routes kernels plain ...]`` it runs the proposal example alone
+(``--field cp``, ``--field ngp``, ``--scene procedural360``) from each seed
+through each route, one JSON line a run: PSNR, SSIM, training seconds,
+train samples/s, the losses and seconds a frame.
 
 Every check raises on failure, so the exit code is nonzero and the result
 line is not printed.  The last line of standard output is a JSON object with
 ``"ok": true`` and the device; the line before it lists each kernel's launch
-count (over the training phases 4, 6d, 8, 12, 16 and 19; for G11-G13, over
+count (over the training phases 4, 6d, 8, 12, 16, 19, 20 and 21; for G11-G13, over
 the gather probe's run), error, times and bound.  Without a CUDA device the
 script fails at once.
 """
 import argparse
 import contextlib
+import dataclasses
 import importlib
 import json
 import math
@@ -194,7 +217,7 @@ from nerfacc_tpu_torch.estimators.prop_net import (  # noqa: E402
 from nerfacc_tpu_torch.grid import march, march_plain  # noqa: E402
 from nerfacc_tpu_torch.models.cp_field import CPDensityField  # noqa: E402
 from nerfacc_tpu_torch.models.encoders import HashGridEncoder  # noqa: E402
-from nerfacc_tpu_torch.models.ngp import normalize_points  # noqa: E402
+from nerfacc_tpu_torch.models.ngp import NGPDensityField, normalize_points  # noqa: E402
 from nerfacc_tpu_torch.ops.coarse_occ import (  # noqa: E402
     coarse_occ_lookup,
     coarse_occ_lookup_plain,
@@ -348,6 +371,8 @@ GATHER_OUTSIDE = 0.01  # share of the checked indices outside the table
 PROP_RAYS = 4096
 PROP_SAMPLES, PROP_FINAL = 128, 64
 PROP_EVAL_RAYS = 8192  # render_image's chunk
+# Phase 21: the proposal example's 360 cascade, [256, 96] -> 48 samples
+PROP360_COUNTS = (256, 96, 48)
 
 
 # The least time the card could take for a kernel's work: the bytes the
@@ -835,6 +860,12 @@ def phase_kernels(dev, trainer, state, ds):
     levels += [("proposal field", u_prop,
                 1 + 0.1 * torch.randn((3, R, rank), generator=g, device=dev))
                for R, rank in zip(density.resolutions, density.ranks)]
+    # and the 360 cascade's first proposal level (phase 21): PROP_RAYS rays
+    # x 256 samples, contracted and clamped as CPDensityField maps them
+    u_360 = proposal_points(dev, g, "360").clamp(0.0, 1.0).contiguous()
+    levels += [("360 cascade's first proposal level", u_360,
+                1 + 0.1 * torch.randn((3, R, rank), generator=g, device=dev))
+               for R, rank in zip(density.resolutions, density.ranks)]
     for name, u_ray, line in levels:
         _, R, rank = line.shape
         for dtype in (torch.float32, torch.bfloat16):
@@ -850,6 +881,51 @@ def phase_kernels(dev, trainer, state, ds):
                   f"{device_ms(lambda: cp_level_encode(u_ray, line, dtype)):.4f} ms, bound "
                   f"{bound_ms(nbytes(u_ray, line, out), 0):.4f} ms")
     return report
+
+
+def g7_order_bound(x, cot, table_shape, resolutions):
+    """G7's function summed exactly (f64) from the f32 products ``w_c * cot``
+    it adds, and the error bound of f32 summation of each entry in any
+    order: (terms - 1) x 2^-24 x the sum of the terms' magnitudes."""
+    L, T, F = table_shape
+    idx, w = hash_corners_plain(x, resolutions, T)
+    rows = (idx + T * torch.arange(L, device=x.device)[None, :, None]).reshape(-1)
+    upd = (w[..., None] * cot.reshape(-1, L, 1, F)).reshape(-1, F)
+    exact = torch.zeros((L * T, F), dtype=torch.float64, device=x.device)
+    magnitude = torch.zeros_like(exact)
+    exact.index_add_(0, rows, upd.double())
+    magnitude.index_add_(0, rows, upd.abs().double())
+    terms = torch.zeros(L * T, dtype=torch.float64, device=x.device)
+    terms.index_add_(0, rows, torch.ones_like(rows, dtype=torch.float64))
+    allowed = (terms - 1).clamp(min=0)[:, None] * 2.0**-24 * magnitude
+    return exact.reshape(L, T, F), allowed.reshape(L, T, F)
+
+
+def proposal_points(dev, g, config):
+    """The encoder coordinates (unclamped) of a proposal path's first-level
+    points, in ray order, as its density field maps them:
+    "bounded", ``PROP_RAYS`` train rays of the bounded scene x
+    ``PROP_SAMPLES`` stratified samples uniform over [2, 6], scaled to the
+    box +-1.5 (N = 2^19); "360", ``PROP_RAYS`` rays of the unbounded scene
+    x ``PROP360_COUNTS[0]`` stratified samples uniform in disparity over its
+    near and far planes, contracted over the box +-1 (N = 2^20)."""
+    procedural = port_module("data.procedural")
+    if config == "bounded":
+        ds = procedural.ProceduralSceneLoader(split="train", n_train=6, width=256, height=256,
+                                              num_rays=PROP_RAYS, device=dev)
+        n, aabb, unbounded = PROP_SAMPLES, AABB, False
+    else:
+        ds = procedural.ProceduralUnboundedSceneLoader(split="train", n_train=2, width=64,
+                                                       height=64, num_rays=PROP_RAYS, device=dev)
+        n, aabb, unbounded = PROP360_COUNTS[0], [-1.0, -1.0, -1.0, 1.0, 1.0, 1.0], True
+    rays = ds[0]
+    s = (torch.arange(n, device=dev) + torch.rand((PROP_RAYS, n), generator=g, device=dev)) / n
+    if unbounded:
+        t = 1.0 / (s / ds.FAR + (1.0 - s) / ds.NEAR)
+    else:
+        t = ds.NEAR + s * (ds.FAR - ds.NEAR)
+    pts = (rays["rays_o"][:, None] + t[..., None] * rays["rays_d"][:, None]).reshape(-1, 3)
+    return normalize_points(pts, torch.tensor(aabb, device=dev), unbounded)[0].contiguous()
 
 
 @torch.inference_mode()
@@ -981,6 +1057,52 @@ def phase_hash_kernels(dev):
           f"alone "
           f"{device_ms(lambda: hash_encode_backward(x_ray, cot_ray, (L, T, 2), res)):.4f} ms, "
           f"bound {bound_ms(nbytes(x_ray, cot_ray, out), 0):.4f} ms")
+
+    # G6 and G7 at the proposal field's shape (NGPDensityField: 5 levels,
+    # one more than a multiple of G6's group of 4, T = 2^17; phase 20) on
+    # the bounded path's first proposal level (N = 2^19) and the 360
+    # cascade's (N = 2^20) in ray order, an O(1) table: G6 bitwise; G7 and
+    # its plain version (both atomic sums on the card) each within the
+    # error bound of f32 summation in any order of the exact sum
+    # (g7_order_bound): the contracted far samples pile thousands of terms
+    # onto a row, where two orders part by more than 1e-5 of the largest
+    # entry (2.3e-5 read on an H100, PERF.md §6)
+    enc = NGPDensityField(AABB).encoder
+    L, T, res = enc.n_levels, enc.table_size, enc.resolutions
+    table = torch.rand((L, T, 2), generator=g, device=dev) * 2.0 - 1.0
+    for config in ("bounded", "360"):
+        xs = proposal_points(dev, g, config)
+        cot = torch.randn((xs.shape[0], 2 * L), generator=g, device=dev)
+        out = hash_encode_forward(xs, table, res)
+        unequal = int((out.view(torch.int32) != hash_encode_plain(xs, table, res).view(
+            torch.int32)).sum())
+        require(unequal == 0, f"G6 proposal field {config}: {unequal} entries unequal")
+        grad = hash_encode_backward(xs, cot, (L, T, 2), res)
+        ref = hash_encode_backward_plain(xs, cot, (L, T, 2), res)
+        err, scale = float((grad - ref).abs().max()), float(ref.abs().max())
+        exact, allowed = g7_order_bound(xs, cot, (L, T, 2), res)
+        for what, g7 in (("G7", grad), ("its plain version", ref)):
+            over = int(((g7.double() - exact).abs() > allowed).sum())
+            require(over == 0, f"{what}, proposal field {config}: {over} entries past the "
+                               f"f32 summation bound of the exact sum")
+        idx = hash_corners_plain(xs, res, T)[0]
+        touched = int(torch.unique(idx + T * torch.arange(L, device=dev)[None, :, None]).numel())
+        fwd = measured(0.0, cuda_ms(lambda: hash_encode_forward(xs, table, res)),
+                       cuda_ms(lambda: hash_encode_plain(xs, table, res)),
+                       nbytes(xs, out) + touched * 2 * 4, xs.shape[0] * L * (9 + 19 + 32))
+        bwd = measured(err, cuda_ms(lambda: hash_encode_backward(xs, cot, (L, T, 2), res)),
+                       cuda_ms(lambda: hash_encode_backward_plain(xs, cot, (L, T, 2), res)),
+                       nbytes(xs, cot, grad), xs.shape[0] * L * (9 + 19 + 16))
+        print(f"G6 hash_fwd, proposal field ({config} path's first level in ray order), "
+              f"N={xs.shape[0]} L={L} T={T}: {unequal} of {out.numel()} entries unequal, "
+              f"kernel {fwd['ms']:.4f} ms, alone "
+              f"{device_ms(lambda: hash_encode_forward(xs, table, res)):.4f} ms, plain "
+              f"{fwd['plain_ms']:.4f} ms, bound {fwd['bound_ms']:.4f} ms ({touched} rows "
+              f"touched); G7 hash_bwd {err / scale:.3g} of the largest entry from the plain "
+              f"version, both within the f32 summation bound of the exact sum, kernel "
+              f"{bwd['ms']:.4f} ms, alone "
+              f"{device_ms(lambda: hash_encode_backward(xs, cot, (L, T, 2), res)):.4f} ms, "
+              f"plain {bwd['plain_ms']:.4f} ms, bound {bwd['bound_ms']:.4f} ms")
     return report
 
 
@@ -1280,21 +1402,32 @@ def phase_gather_kernels(dev):
     return report, probe_launches
 
 
-def prop_level_inputs(g, n_rays):
-    """Importance sampling's inputs at the proposal path's two levels: the
-    first level's ([0, 1] edges and CDF, E = 2) and the final resampling's
-    (the first level's 129 edges in s and the CDF ``propnet_sampling``
-    forms from seeded densities, a third of them zero, so the CDF has
-    plateaus)."""
+def prop_level_inputs(g, n_rays, counts=(PROP_SAMPLES, PROP_FINAL)):
+    """Importance sampling's inputs at each resampling of a proposal cascade
+    that draws ``counts`` samples in turn: the first's ([0, 1] edges and
+    CDF, E = 2), then each later one's (the previous resampling's edges in s
+    and the CDF ``propnet_sampling`` forms from seeded densities, a third of
+    them zero, so the CDF has plateaus).  Returns ``[(vals, cdfs, n), ...]``
+    and the stratified bias."""
     dev = g.device
     unit = torch.tensor([[0.0, 1.0]], device=dev).expand(n_rays, 2).contiguous()
     bias = torch.rand(n_rays, generator=g, device=dev)
-    _, edges = pdf._importance_sampling(unit, unit, bias, PROP_SAMPLES)
-    sigma = torch.rand((n_rays, PROP_SAMPLES), generator=g, device=dev) * 40.0
-    sigma = torch.where(torch.rand(sigma.shape, generator=g, device=dev) < 1 / 3, 0.0, sigma)
-    trans, _ = render_transmittance_from_density(edges[:, :-1], edges[:, 1:], sigma)
-    cdfs = 1.0 - torch.cat([trans, torch.zeros_like(trans[:, :1])], dim=-1)
-    return (unit, unit, PROP_SAMPLES), (edges, cdfs, PROP_FINAL), bias
+    levels = [(unit, unit, counts[0])]
+    for n in counts[1:]:
+        vals, cdfs, m = levels[-1]
+        _, edges = pdf._importance_sampling(vals, cdfs, bias, m)
+        sigma = torch.rand((n_rays, m), generator=g, device=dev) * 40.0
+        sigma = torch.where(torch.rand(sigma.shape, generator=g, device=dev) < 1 / 3, 0.0, sigma)
+        trans, _ = render_transmittance_from_density(edges[:, :-1], edges[:, 1:], sigma)
+        levels.append((edges, 1.0 - torch.cat([trans, torch.zeros_like(trans[:, :1])], dim=-1), n))
+    return levels, bias
+
+
+def g14_ops(vals, n):
+    """G14's operations on ``vals``' rows: per sample its position (3), the
+    E - 1 compares with their selects (~3 each) and the lerp (~6); per
+    edge ~3."""
+    return vals.shape[0] * (n * (3 * (vals.shape[1] - 1) + 9) + 3 * (n + 1))
 
 
 def vote_share(vals, cdfs):
@@ -1340,8 +1473,8 @@ def phase_pdf_kernel(dev):
     the first).  No PyTorch call computes it
     (``torch.searchsorted`` is the search alone)."""
     g = torch.Generator(device=dev).manual_seed(14)
-    first, final, bias = prop_level_inputs(g, PROP_RAYS)
-    eval_final = prop_level_inputs(g, PROP_EVAL_RAYS)[1]
+    (first, final), bias = prop_level_inputs(g, PROP_RAYS)
+    eval_final = prop_level_inputs(g, PROP_EVAL_RAYS)[0][1]
     half = torch.full((PROP_EVAL_RAYS,), 0.5, device=dev)
     mixed = (*mixed_rows(*final[:2]), final[2])
     for what, (vals, cdfs, n), b in (
@@ -1359,13 +1492,10 @@ def phase_pdf_kernel(dev):
               f"search")
     vals, cdfs, n = final
     out = pdf._importance_sampling(vals, cdfs, bias, n)
-    # per sample its position (3), the E - 1 compares with their selects
-    # (~3 each) and the lerp (~6); per edge ~3
-    ops = PROP_RAYS * (n * (3 * (vals.shape[1] - 1) + 9) + 3 * (n + 1))
     rec = measured(
         0.0, cuda_ms(lambda: pdf._importance_sampling(vals, cdfs, bias, n)),
         cuda_ms(lambda: pdf.importance_sampling_plain(vals, cdfs, bias, n)),
-        nbytes(vals, cdfs, bias, *out), ops,
+        nbytes(vals, cdfs, bias, *out), g14_ops(vals, n),
     )
     first_dev = device_ms(lambda: pdf._importance_sampling(*first[:2], bias, first[2]))
     print(f"G14 importance_sampling {PROP_RAYS} rays, E = {vals.shape[1]} -> {n}: kernel "
@@ -1373,6 +1503,25 @@ def phase_pdf_kernel(dev):
           f"{rec['bound_ms']:.4f} ms ({rec['bound_by']}); device time alone: kernel "
           f"{device_ms(lambda: pdf._importance_sampling(vals, cdfs, bias, n)):.4f} ms, and "
           f"{first_dev:.4f} ms on the first level (E = 2 -> {first[2]})")
+    # the 360 cascade's three resamplings (phase 21), stratified, each
+    # bitwise and timed; n = 256 takes several of the kernel's chunks
+    levels, bias = prop_level_inputs(g, PROP_RAYS, PROP360_COUNTS)
+    for vals, cdfs, n in levels:
+        out = pdf._importance_sampling(vals, cdfs, bias, n)
+        ref = pdf.importance_sampling_plain(vals, cdfs, bias, n)
+        what = f"{PROP_RAYS} rays, E = {vals.shape[1]} -> {n}, 360 cascade"
+        require(same_bits(out[0], ref[0]) and same_bits(out[1], ref[1]),
+                f"G14 {what}: differs from its plain version")
+        r = measured(
+            0.0, cuda_ms(lambda: pdf._importance_sampling(vals, cdfs, bias, n)),
+            cuda_ms(lambda: pdf.importance_sampling_plain(vals, cdfs, bias, n)),
+            nbytes(vals, cdfs, bias, *out), g14_ops(vals, n),
+        )
+        print(f"G14 importance_sampling {what}: samples and edges bitwise equal to the "
+              f"plain version; {vote_share(vals, cdfs):.4f} of the rows take the search; "
+              f"kernel {r['ms']:.4f} ms, alone "
+              f"{device_ms(lambda: pdf._importance_sampling(vals, cdfs, bias, n)):.4f} ms, "
+              f"plain {r['plain_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms ({r['bound_by']})")
     return {"importance_sampling": rec}
 
 
@@ -1983,11 +2132,13 @@ def phase_example(dev, untrained_psnr):
     return launches
 
 
-def phase_prop_serve(dev, ds, trainer=None, state=None, untrained_psnr=None):
+def phase_prop_serve(dev, ds, trainer=None, state=None, untrained_psnr=None, name="prop",
+                     kernels=("cp_level_fwd", "composite_fwd", "importance_sampling")):
     """15 (untrained, seed-42 weights) and 18 (``trainer`` and ``state``
     from phase 16, against ``untrained_psnr``): ``NGPPropTrainer``'s
-    evaluation on the test views, launches counted."""
-    label = "prop" if untrained_psnr is None else "trained prop"
+    evaluation on the test views, launches counted; phases 20 and 21 the
+    same for the path ``name``, whose serving launches ``kernels``."""
+    label = name if untrained_psnr is None else f"trained {name}"
     if trainer is None:
         trainer = make_prop_trainer(dev)
         state = trainer.init_state()
@@ -2006,11 +2157,11 @@ def phase_prop_serve(dev, ds, trainer=None, state=None, untrained_psnr=None):
     seconds = sum(v["seconds"] for v in metrics["views"]) / len(metrics["views"])
     print(f"{label}: {seconds:.4f} s/frame, psnr {metrics['psnr']:.3f}, ssim "
           f"{metrics['ssim']:.4f}; launches {launches}")
-    for name in ("cp_level_fwd", "composite_fwd", "importance_sampling"):
-        require(launches.get(name, 0) > 0, f"kernel {name} never launched in {label} serving")
+    for kernel in kernels:
+        require(launches.get(kernel, 0) > 0, f"kernel {kernel} never launched in {label} serving")
     if untrained_psnr is not None:
         require(metrics["psnr"] >= untrained_psnr + 3.0,
-                f"trained prop psnr {metrics['psnr']} not 3 dB above {untrained_psnr}")
+                f"{label} psnr {metrics['psnr']} not 3 dB above {untrained_psnr}")
     return metrics["psnr"]
 
 
@@ -2095,6 +2246,10 @@ PLAIN_SWAPS = {
     "hat_bwd_line": [("ops.hat_matmul", "hat_bwd_line", "ops.hat_matmul", "hat_bwd_line_plain")],
     "hat_bwd_x": [("ops.hat_matmul", "hat_bwd_x", "ops.hat_matmul", "hat_bwd_x_plain")],
     "importance_sampling": [("pdf", "_importance_sampling", "pdf", "importance_sampling_plain")],
+    "hash_fwd": [("ops.hash_encode", "hash_encode_forward", "ops.hash_encode",
+                  "hash_encode_plain")],
+    "hash_bwd": [("ops.hash_encode", "hash_encode_backward", "ops.hash_encode",
+                  "hash_encode_backward_plain")],
 }
 # path -> the kernels its training and serving launch
 PATH_KERNELS = {
@@ -2108,8 +2263,8 @@ PATH_KERNELS = {
 @contextlib.contextmanager
 def plain_kernels(names=tuple(PLAIN_SWAPS)):
     """Inside: each kernel of ``names`` (by default every kernel of the
-    TiNeuVox and proposal paths: G1-G5, G8-G10 and G14) runs its plain
-    version, through the same wrappers' callers and autograd Functions."""
+    TiNeuVox and proposal paths: G1-G10 and G14) runs its plain version,
+    through the same wrappers' callers and autograd Functions."""
     saved = []
     try:
         for name in names:
@@ -2251,19 +2406,35 @@ def prop_step_grads(trainer, state, batch, biases, plain=False):
     return float(aux["loss"]), grads
 
 
-def phase_prop_train_twins(trainer, state, batch):
+def f32_twin(trainer):
+    """``trainer`` with its fields rebuilt in f32 (the same classes, box and
+    contraction, their default widths)."""
+    def f32(field):
+        return type(field)(field.aabb.tolist(), unbounded=field.unbounded,
+                           compute_dtype=torch.float32)
+
+    return dataclasses.replace(trainer, field=f32(trainer.field),
+                               prop_fields=[f32(p) for p in trainer.prop_fields])
+
+
+def phase_prop_train_twins(trainer, state, batch, f32=None, name="prop"):
     """17. One proposal train step with ``requires_grad`` through the
     kernels against the same step through the plain versions, from phase
     16's state with the same batch and jitter, for the trained bf16 fields
-    and for the same parameters in f32 fields (phase 5's bounds)."""
+    and for the same parameters in f32 fields (``f32``, by default phase
+    16's configuration; phase 5's bounds).  Phases 20 and 21 the same for
+    the path ``name``."""
     gen = torch.Generator(device=trainer.device).manual_seed(17)
-    biases = [torch.rand(PROP_RAYS, generator=gen, device=trainer.device) for _ in range(2)]
-    f32 = make_prop_trainer(trainer.device, torch.float32, max_steps=TRAIN_STEPS)
+    n_rays = batch["rays_o"].shape[0]
+    biases = [torch.rand(n_rays, generator=gen, device=trainer.device)
+              for _ in range(len(trainer.prop_samples) + 1)]
+    if f32 is None:
+        f32 = make_prop_trainer(trainer.device, torch.float32, max_steps=TRAIN_STEPS)
     checks = []
     for mode, tr, limit in (("f32", f32, F32_STEP_FRO), ("bf16", trainer, BF16_STEP_FRO)):
         ref = prop_step_grads(tr, state, batch, biases, plain=True)
         checks.append(step_readings(
-            f"train step prop {mode}, kernels vs plain versions",
+            f"train step {name} {mode}, kernels vs plain versions",
             lambda: prop_step_grads(tr, state, batch, biases), ref, limit,
         ))
     for what, reading, limit, loss_rel in checks:
@@ -2606,6 +2777,87 @@ def phase_quickstart_prop(dev):
     return launches
 
 
+# Phases 20 and 21, and --example prop-*: the proposal example's paths,
+# each built by the example's own build() from the flags a user passes (its
+# defaults otherwise): path -> (flags, the kernels its training launches)
+PROP_PATHS = {
+    "prop-cp": (["--field", "cp"], PATH_KERNELS["prop"]),
+    "prop-ngp": (["--field", "ngp"],
+                 ("hash_fwd", "hash_bwd", "composite_fwd", "composite_bwd",
+                  "importance_sampling")),
+    "prop360": (["--scene", "procedural360", "--field", "cp"], PATH_KERNELS["prop"]),
+}
+
+
+def prop_example(path, steps, seed=QUALITY_SEEDS[0], extra=()):
+    """The proposal example's module and its arguments for ``path``."""
+    ex = port_module("examples.train_ngp_nerf_prop")
+    args = ex.parser().parse_args([*PROP_PATHS[path][0], "--max_steps", str(steps),
+                                   "--seed", str(seed), *extra])
+    return ex, args
+
+
+def phase_prop_path(dev, path):
+    """20 (``prop-ngp``) and 21 (``prop360``): the proposal example's
+    trainer and loaders from its ``build`` (full width, 24 train views at
+    320x320, ``--batch_size`` 4096), served untrained, trained for
+    ``TRAIN_STEPS`` steps through ``train_steps_sampled`` and the
+    proposal-gradient schedule (calls of 100 steps), one ``requires_grad``
+    step through the kernels against the plain versions (phase 17), and
+    served trained, 3 dB above untrained.  The reconstruction loss must
+    fall and the path's kernels launch over the training.  Returns the
+    training's launches."""
+    ex, args = prop_example(path, TRAIN_STEPS)
+    (trainer, train_ds, test_ds), setup = timed(lambda: ex.build(args))
+    kernels = PROP_PATHS[path][1]
+    prop = trainer.prop_fields[0]
+    per_ray = trainer.num_samples + sum(trainer.prop_samples)
+    print(f"{path}: {type(trainer.field).__name__} behind {len(trainer.prop_fields)} x "
+          f"{type(prop).__name__} (unbounded {prop.unbounded}), {list(trainer.prop_samples)} "
+          f"-> {trainer.num_samples} samples, {trainer.sampling_type}, opaque last sample "
+          f"{trainer.opaque_bkgd}, near {trainer.near_plane} far {trainer.far_plane}; "
+          f"{len(train_ds)} train and {len(test_ds)} test views {test_ds.WIDTH}x"
+          f"{test_ds.HEIGHT} ({type(train_ds).__name__}), built in {setup:.2f} s")
+    serving = tuple(k for k in kernels if not k.endswith("bwd"))
+    untrained = phase_prop_serve(dev, test_ds, trainer, trainer.init_state(), name=path,
+                                 kernels=serving)
+
+    state = trainer.init_state()
+    sampler = DeviceRaySampler.from_loader(train_ds, num_rays=args.batch_size)
+    rg_fn = get_proposal_requires_grad_fn()
+    rgs = [rg_fn(step) for step in range(TRAIN_STEPS)]
+    cuda.reset_launches()
+    losses, prop_losses = [], []
+    t0 = time.perf_counter()
+    for start in range(0, TRAIN_STEPS, 100):
+        state, aux = trainer.train_steps_sampled(state, sampler, rgs[start : start + 100])
+        losses.append(aux["loss"])
+        prop_losses.append(aux["prop_loss"])
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = dict(cuda.LAUNCHES)
+    losses, prop_losses = torch.cat(losses).cpu(), torch.cat(prop_losses).cpu()
+    require(bool(torch.isfinite(losses).all()), f"train {path}: non-finite loss")
+    recon = losses - prop_losses
+    first, last = float(recon[:50].mean()), float(recon[-50:].mean())
+    samples = TRAIN_STEPS * args.batch_size * per_ray
+    print(f"train {path}: {TRAIN_STEPS} steps in {seconds:.3f} s, "
+          f"{1e3 * seconds / TRAIN_STEPS:.3f} ms/step, {samples / seconds:.6g} train samples/s "
+          f"({args.batch_size} x ({' + '.join(str(n) for n in trainer.prop_samples)} + "
+          f"{trainer.num_samples}) per step), {sum(rgs)} steps train the proposal fields; "
+          f"mean reconstruction loss {first:.6f} -> {last:.6f} (first and last 50 steps), "
+          f"prop loss {float(prop_losses[:50][torch.tensor(rgs[:50])].mean()):.6f} -> "
+          f"{float(prop_losses[-200:][torch.tensor(rgs[-200:])].mean()):.6f}; per step "
+          + ", ".join(f"{k} {v / TRAIN_STEPS:.3f}" for k, v in launches.items() if v))
+    require(last < first, f"train {path}: reconstruction loss {first} -> {last} did not fall")
+    for kernel in kernels:
+        require(launches[kernel] > 0, f"kernel {kernel} never launched in {path} training")
+    batch = sampler.sample(trainer._generator(TRAIN_STEPS, 2))
+    phase_prop_train_twins(trainer, state, batch, f32_twin(trainer), path)
+    phase_prop_serve(dev, test_ds, trainer, state, untrained, name=path, kernels=serving)
+    return launches
+
+
 def card():
     """The card's name and power limit, from ``nvidia-smi``."""
     return subprocess.run(
@@ -2648,6 +2900,65 @@ def quality_study(args):
                 print(json.dumps(run), flush=True)
                 with open(os.path.join(args.out, f"quality_{args.label}.jsonl"), "a") as f:
                     f.write(json.dumps({**head, **run}) + "\n")
+
+
+def prop_example_study(args):
+    """``--example prop-cp|prop-ngp|prop360``: the proposal example as a
+    user runs it (``python -m nerfacc_tpu_torch.examples.train_ngp_nerf_prop
+    <the path's flags> --max_steps <steps> --seed <seed>``, its defaults
+    otherwise) from each seed, through each route of ``--routes``
+    ("kernels"; "plain", every kernel of the path on its plain version;
+    "plain:<kernel>,..."); one JSON line a run, printed and appended to
+    ``<out>/example_<label>.jsonl``: eval PSNR and SSIM (all test views),
+    steps, wall seconds of the loop and train samples/s by the script's
+    count, the reconstruction and proposal losses, seconds a frame, and
+    the launches."""
+    head = {"label": args.label, "card": card(), "torch": torch.__version__,
+            "cuda": torch.version.cuda}
+    print(json.dumps(head), flush=True)
+    os.makedirs(args.out, exist_ok=True)
+    cuda_mod = port_module("cuda")
+    for route in args.routes:
+        if route == "kernels":
+            plain = ()
+        elif route == "plain":
+            plain = PROP_PATHS[args.example][1]
+        else:
+            plain = tuple(route.removeprefix("plain:").split(","))
+        for seed in args.seeds:
+            ex, eargs = prop_example(args.example, args.steps, seed,
+                                     ["--log_every", str(max(args.steps // 10, 32))])
+            with plain_kernels(plain):
+                (trainer, train_ds, test_ds), setup = timed(lambda: ex.build(eargs))
+                cuda_mod.reset_launches()
+                run = ex.train_loop(trainer, train_ds, test_ds, eargs)
+            launches = {k: v for k, v in cuda_mod.LAUNCHES.items() if v}
+            for kernel in PROP_PATHS[args.example][1]:
+                n = launches.get(kernel, 0)
+                require((n > 0) != (kernel in plain),
+                        f"{args.example} {route}: kernel {kernel} launched {n} times")
+            log, views = run.log, run.metrics["views"]
+            recon = log["loss"] - log["prop_loss"]
+            rg = log["requires_grad"]
+            per_ray = trainer.num_samples + sum(trainer.prop_samples)
+            steps = int(run.state.step)
+            rec = {
+                "label": args.label, "example": args.example, "route": route, "seed": seed,
+                "steps": steps, "psnr": run.metrics["psnr"], "ssim": run.metrics["ssim"],
+                "view_psnr": [v["psnr"] for v in views], "n_views": len(views),
+                "all_finite": all(v["finite"] for v in views),
+                "train_seconds": run.train_seconds, "setup_seconds": setup,
+                "samples_per_s": steps * eargs.batch_size * per_ray / run.train_seconds,
+                "ms_per_step": 1e3 * run.train_seconds / steps,
+                "recon_loss_first100": float(recon[:100].mean()),
+                "recon_loss_last100": float(recon[-100:].mean()),
+                "prop_loss_last": float(log["prop_loss"][rg][-50:].mean()),
+                "eval_s_per_frame": sum(v["seconds"] for v in views) / len(views),
+                "launches": launches,
+            }
+            print(json.dumps(rec), flush=True)
+            with open(os.path.join(args.out, f"example_{args.label}.jsonl"), "a") as f:
+                f.write(json.dumps({**head, **rec}) + "\n")
 
 
 def example_study(args):
@@ -2708,11 +3019,14 @@ def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--quality", nargs="+", choices=list(PATH_KERNELS),
                     help="train and serve these paths alone (quality_study)")
-    ap.add_argument("--example", choices=["cp", "ngp"],
-                    help="run the occupancy example alone (example_study)")
+    ap.add_argument("--example", choices=["cp", "ngp", *PROP_PATHS],
+                    help="run the occupancy example (cp, ngp: example_study) or the "
+                         "proposal example (prop-*: prop_example_study) alone")
     ap.add_argument("--steps", type=int, default=10000, help="--example's --max_steps")
     ap.add_argument("--seeds", nargs="+", type=int, default=list(QUALITY_SEEDS))
-    ap.add_argument("--routes", nargs="+", default=["kernels", "plain"])
+    ap.add_argument("--routes", nargs="+", default=None,
+                    help="--quality's (default: kernels plain) and --example prop-*'s "
+                         "(default: kernels)")
     ap.add_argument("--root", help="the tree whose nerfacc_tpu_torch --quality imports")
     ap.add_argument("--label", default="change")
     ap.add_argument("--out", default="build/quality")
@@ -2720,7 +3034,12 @@ def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is false")
     if args.quality:
+        args.routes = args.routes or ["kernels", "plain"]
         quality_study(args)
+        return
+    if args.example in PROP_PATHS:
+        args.routes = args.routes or ["kernels"]
+        prop_example_study(args)
         return
     if args.example:
         example_study(args)
@@ -2818,11 +3137,15 @@ def main():
     # 19: the library API's quick start, and its proposal leg
     qs_launches = phase_quickstart(dev, ds)
     qs_prop_launches = phase_quickstart_prop(dev)
-    # each kernel's launches over the four training runs (phases 4, 8, 12,
-    # 16), the occupancy example's (6d) and the quick start's loops (19),
-    # and the gather kernels' over the gather probe's run
+    # 20-21: the proposal example's hash-grid path and its 360 cascade
+    prop_ngp_launches = phase_prop_path(dev, "prop-ngp")
+    prop360_launches = phase_prop_path(dev, "prop360")
+    # each kernel's launches over the six training runs (phases 4, 8, 12,
+    # 16, 20, 21), the occupancy example's (6d) and the quick start's loops
+    # (19), and the gather kernels' over the gather probe's run
     launches = {k: v + ngp_launches[k] + tnv_launches[k] + prop_launches[k]
                 + example_launches[k] + qs_launches[k] + qs_prop_launches[k]
+                + prop_ngp_launches[k] + prop360_launches[k]
                 for k, v in launches.items()}
     launches.update(probe_launches)
 

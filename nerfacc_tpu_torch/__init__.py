@@ -1,7 +1,7 @@
 """nerfacc_tpu_torch: nerfacc_tpu's library API (estimators, scans,
 volume rendering, losses), its occupancy-grid and proposal-network render and
 train paths, and its CP, hash-grid (Instant-NGP) and TiNeuVox (dynamic)
-radiance fields with the CP proposal field, ported to PyTorch and
+radiance fields with the CP and hash-grid proposal fields, ported to PyTorch and
 hand-written CUDA kernels for NVIDIA Hopper.
 
 The functional ops take the JAX package's three layouts: batched rows, and
@@ -33,7 +33,7 @@ from .grid import march, march_plain, ray_aabb_intersect, traverse_grids_padded
 from .losses import distortion
 from .models.cp_field import CPDensityField, CPGridEncoder, CPRadianceField
 from .models.encoders import HashGridEncoder, SinusoidalEncoder
-from .models.ngp import NGPRadianceField
+from .models.ngp import NGPDensityField, NGPRadianceField
 from .models.tineuvox import TiNeuVoxRadianceField
 from .pack import pack_info
 from .pdf import importance_sampling, searchsorted
@@ -65,7 +65,7 @@ __version__ = "0.1.0"
 __all__ = [
     "AbstractEstimator", "CPDensityField", "CPGridEncoder", "CPRadianceField",
     "CompactSamples", "DeviceRaySampler", "HashGridEncoder", "NGPOccTrainer",
-    "NGPPropTrainer", "NGPRadianceField", "OccGridEstimator", "OccGridState",
+    "NGPDensityField", "NGPPropTrainer", "NGPRadianceField", "OccGridEstimator", "OccGridState",
     "PropNetEstimator", "PropTrainState", "RayIntervals", "RaySamples",
     "SinusoidalEncoder", "TiNeuVoxRadianceField", "TrainState", "__version__",
     "accumulate_along_rays", "accumulate_along_rays_", "compact_samples", "cuda",

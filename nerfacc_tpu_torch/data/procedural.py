@@ -3,16 +3,19 @@ to ground-truth images, still or moving.
 
 PyTorch counterpart of nerfacc_tpu/data/procedural.py's
 ``ProceduralSceneLoader``, ``ProceduralOpaqueSceneLoader``,
-``ProceduralDynamicSceneLoader`` and the ``PROCEDURAL_SCENES`` names of the
-first two.  The scene
+``ProceduralDynamicSceneLoader``, ``ProceduralUnboundedSceneLoader``, the
+``PROCEDURAL_SCENES`` names of the first two and ``UNBOUNDED_SCENES``'s of
+the last.  The scene
 constants come from the same ``np.random.default_rng(1234)`` draws (the
-motion from ``default_rng(4321)``) and the camera rays from the same numpy
+motion from ``default_rng(4321)``, the unbounded scene's far blobs from
+``default_rng(777)``) and the camera rays from the same numpy
 arithmetic, so both packages build the identical scene and rays; the ground
 truth is integrated in PyTorch on the loader's device (no disk cache).
 Ported: the test split and the train split's random ray batches, whose
 pixels come from the same ``np.random.default_rng(seed)`` call sequence as
 the JAX loader's, so both loaders yield identical batches.  Not ported: the
-other procedural scenes (the local-motion dynamic scene among them).
+other procedural scenes (textured, thin, mixed and the local-motion
+dynamic scene).
 """
 from __future__ import annotations
 
@@ -90,18 +93,7 @@ class ProceduralSceneLoader:
 
         n_views = n_train if split == "train" else n_test
         phase = 0.0 if split == "train" else 0.5 / max(n_test, 1)
-        radius = 4.0
-        poses = []
-        for i in range(n_views):
-            theta = 2 * np.pi * (i / n_views + phase)
-            phi = np.deg2rad(-30.0 + 20.0 * np.sin(3 * theta))
-            eye = radius * np.array(
-                [np.cos(theta) * np.cos(phi), np.sin(theta) * np.cos(phi), np.sin(phi)]
-            )
-            poses.append(
-                _look_at(eye.astype(np.float32), np.zeros(3), np.array([0, 0, 1.0]))
-            )
-        self.camtoworlds = np.stack(poses).astype(np.float32)
+        self.camtoworlds = self._poses(n_views, phase)
 
         self.focal = 0.5 * width / np.tan(0.5 * np.deg2rad(50.0))
         self.K = np.array(
@@ -109,6 +101,21 @@ class ProceduralSceneLoader:
             dtype=np.float32,
         )
         self.images = self._render_gt_images()
+
+    def _poses(self, n_views: int, phase: float) -> np.ndarray:
+        """(n_views, 4, 4) cameras on a sphere of radius 4, at elevations
+        between -50 and -10 degrees, looking at the origin."""
+        poses = []
+        for i in range(n_views):
+            theta = 2 * np.pi * (i / n_views + phase)
+            phi = np.deg2rad(-30.0 + 20.0 * np.sin(3 * theta))
+            eye = 4.0 * np.array(
+                [np.cos(theta) * np.cos(phi), np.sin(theta) * np.cos(phi), np.sin(phi)]
+            )
+            poses.append(
+                _look_at(eye.astype(np.float32), np.zeros(3), np.array([0, 0, 1.0]))
+            )
+        return np.stack(poses).astype(np.float32)
 
     # -- analytic field -----------------------------------------------------
     def _blob_density(self, rng: np.random.Generator) -> np.ndarray:
@@ -134,9 +141,12 @@ class ProceduralSceneLoader:
         return self.blob_density * torch.exp(-0.5 * d2 / self.blob_scales**2)
 
     # -- ground-truth rendering --------------------------------------------
+    def _gt_edges(self) -> torch.Tensor:
+        """The analytic render's sample edges along every ray."""
+        return torch.linspace(self.NEAR, self.FAR, self.GT_SAMPLES + 1, device=self.device)
+
     def _render_rays_gt(self, rays_o: torch.Tensor, rays_d: torch.Tensor, centers):
-        n = self.GT_SAMPLES
-        t = torch.linspace(self.NEAR, self.FAR, n + 1, device=self.device)
+        t = self._gt_edges()
         t0, t1 = t[:-1], t[1:]
         tm = 0.5 * (t0 + t1)
         pos = rays_o[:, None, :] + tm[None, :, None] * rays_d[:, None, :]
@@ -328,8 +338,122 @@ class ProceduralOpaqueSceneLoader(ProceduralSceneLoader):
         )
 
 
+class ProceduralUnboundedSceneLoader(ProceduralSceneLoader):
+    """The unbounded (Mip-NeRF 360 role) scene: ``NUM_BLOBS`` object blobs
+    within ``0.8 * AABB_HALF`` of the origin, a ground slab at
+    ``GROUND_Z0`` fading out towards ``CONTENT_RADIUS``, and
+    ``NUM_FAR_BLOBS`` large blobs resting on it in a ring 4 to
+    ``CONTENT_RADIUS - 0.5`` from the axis, far outside the unit region.
+    The cameras sit on a ring of radius 1.8, 0.6 + 0.15 sin(2 theta) above
+    the ground plane's origin, looking at the origin, so the object fills
+    the centre of every view and the ground and far blobs its background.
+
+    The far blobs come from ``np.random.default_rng(777)`` in the JAX
+    loader's order of draws (angle, radius, scale, height factor, density,
+    colour); the object blobs from the base class's ``default_rng(1234)``.
+    The ground truth integrates ``GT_SAMPLES`` uniform samples from NEAR to
+    ``T_SPLIT`` and ``GT_FAR_SAMPLES`` uniform in disparity from there to
+    FAR.  Takes the arguments of :class:`ProceduralSceneLoader`.
+    """
+
+    NEAR, FAR = 0.05, 20.0
+    NUM_BLOBS = 16
+    AABB_HALF = 0.7  # the object's blobs stay within the unit region
+    NUM_FAR_BLOBS = 12
+    CONTENT_RADIUS = 6.5  # everything the ground truth sees lies within it
+    GROUND_Z0, GROUND_H, GROUND_DENSITY = -0.55, 0.12, 150.0
+    T_SPLIT = 3.0  # where the ground truth's samples turn uniform in disparity
+    GT_FAR_SAMPLES = 256
+
+    def __init__(
+        self,
+        split: str = "train",
+        n_train: int = 24,
+        n_test: int = 4,
+        width: int = 320,
+        height: int = 320,
+        num_rays: Optional[int] = None,
+        color_bkgd_aug: str = "white",
+        seed: int = 42,
+        device: Union[str, torch.device] = "cuda",
+    ):
+        # the far content exists before the base constructor renders the
+        # ground truth.  Centres 4 or more from the axis with scales of at
+        # most 0.45 leave the camera ring (radius 1.8) in free space.
+        rng = np.random.default_rng(777)  # fixed across seeds, like the scene
+        n = self.NUM_FAR_BLOBS
+        theta = rng.uniform(0.0, 2 * np.pi, n)
+        radius = rng.uniform(4.0, self.CONTENT_RADIUS - 0.5, n)
+        scale = rng.uniform(0.25, 0.45, n)
+        centers = np.stack(
+            [radius * np.cos(theta), radius * np.sin(theta),
+             self.GROUND_Z0 + scale * rng.uniform(0.8, 1.6, n)],
+            axis=-1,
+        )
+        f32 = lambda a: torch.tensor(a, dtype=torch.float32, device=device)
+        self.far_centers = f32(centers)
+        self.far_scales = f32(scale)
+        self.far_density = f32(rng.uniform(100.0, 250.0, n))
+        self.far_colors = f32(rng.uniform(0.1, 1.0, (n, 3)))
+        super().__init__(split, n_train, n_test, width, height, num_rays,
+                         color_bkgd_aug, seed, device)
+
+    def _poses(self, n_views: int, phase: float) -> np.ndarray:
+        poses = []
+        for i in range(n_views):
+            th = 2 * np.pi * (i / n_views + phase)
+            eye = np.array([1.8 * np.cos(th), 1.8 * np.sin(th), 0.6 + 0.15 * np.sin(2 * th)])
+            poses.append(
+                _look_at(eye.astype(np.float32), np.zeros(3), np.array([0, 0, 1.0]))
+            )
+        return np.stack(poses).astype(np.float32)
+
+    # -- analytic field (object blobs + ground + far blobs) ------------------
+    def _ground_sigma(self, x: torch.Tensor) -> torch.Tensor:
+        r = torch.linalg.norm(x[:, :2], dim=-1)
+        fade = torch.sigmoid((self.CONTENT_RADIUS - 0.5 - r) / 0.4)
+        slab = torch.exp(-0.5 * ((x[:, 2] - self.GROUND_Z0) / self.GROUND_H) ** 2)
+        return self.GROUND_DENSITY * slab * fade
+
+    def _ground_rgb(self, x: torch.Tensor) -> torch.Tensor:
+        """A smooth, low-frequency albedo, which a field can fit."""
+        u = 0.5 + 0.25 * torch.sin(1.3 * x[:, 0]) * torch.cos(0.9 * x[:, 1])
+        v = 0.45 + 0.2 * torch.sin(0.6 * (x[:, 0] + x[:, 1]))
+        return torch.stack([0.35 + 0.3 * u, 0.3 + 0.35 * v, 0.25 + 0.2 * u * v], -1)
+
+    def _far_weights(self, x: torch.Tensor) -> torch.Tensor:
+        d2 = ((x[:, None, :] - self.far_centers[None]) ** 2).sum(dim=-1)
+        return self.far_density * torch.exp(-0.5 * d2 / self.far_scales**2)
+
+    def query_density(self, x: torch.Tensor, centers: torch.Tensor) -> torch.Tensor:
+        inner = self._blob_weights(x, centers).sum(dim=-1)
+        far = self._far_weights(x).sum(dim=-1)
+        return (inner + far + self._ground_sigma(x))[:, None]
+
+    def query_rgb(self, x: torch.Tensor, centers: torch.Tensor) -> torch.Tensor:
+        w_in = self._blob_weights(x, centers)
+        w_far = self._far_weights(x)
+        w_g = self._ground_sigma(x)[:, None]
+        total = (
+            w_in.sum(dim=-1, keepdim=True) + w_far.sum(dim=-1, keepdim=True) + w_g
+        ).clamp_min(1e-8)
+        rgb = w_in @ self.blob_colors + w_far @ self.far_colors + w_g * self._ground_rgb(x)
+        return rgb / total
+
+    def _gt_edges(self) -> torch.Tensor:
+        near = torch.linspace(self.NEAR, self.T_SPLIT, self.GT_SAMPLES + 1, device=self.device)
+        # uniform in disparity past T_SPLIT: the steps grow as t^2
+        s = torch.linspace(1.0 / self.T_SPLIT, 1.0 / self.FAR, self.GT_FAR_SAMPLES + 1,
+                           device=self.device)
+        return torch.cat([near, 1.0 / s[1:]])
+
+
 #: the scenes by the names the training scripts take
 PROCEDURAL_SCENES = {
     "procedural": ProceduralSceneLoader,
     "proceduralopaque": ProceduralOpaqueSceneLoader,
 }
+#: the unbounded scenes, by name: the proposal example trains them; the
+#: occupancy example refuses them until its unbounded branch (``alpha_thre``,
+#: a 4-level grid, cone stepping) is ported
+UNBOUNDED_SCENES = {"procedural360": ProceduralUnboundedSceneLoader}

@@ -20,7 +20,7 @@ from torch import nn
 
 from ..ops.cp_level import cp_level_encode
 from ..ops.hat_matmul import hat_cp_level
-from .ngp import MLPField, _mlp_apply, _mlp_init, _weights, normalize_points, trunc_exp
+from .ngp import DensityField, MLPField
 
 
 class CPGridEncoder(nn.Module):
@@ -114,14 +114,12 @@ class CPRadianceField(MLPField):
         )
 
 
-class CPDensityField(nn.Module):
+class CPDensityField(DensityField):
     """Density-only CP field for proposal resampling (PyTorch counterpart of
     nerfacc_tpu/models/cp_field.py::CPDensityField): CP line levels through
-    kernels G1/G4 and a bias-free ``[sum(ranks), hidden_dim, 1]`` MLP,
-    ``density = trunc_exp(raw - 1)``, zeroed outside the AABB (bounded).
-
-    Positions carry no gradient (the proposal path builds them from detached
-    sample bounds); ``cp_level_encode`` raises on one that asks for it.
+    kernels G1/G4 and a bias-free ``[sum(ranks), hidden_dim, 1]`` MLP
+    (:class:`~nerfacc_tpu_torch.models.ngp.DensityField`);
+    ``cp_level_encode`` raises on positions that ask for a gradient.
     """
 
     def __init__(
@@ -133,26 +131,5 @@ class CPDensityField(nn.Module):
         hidden_dim: int = 64,
         compute_dtype=torch.bfloat16,
     ):
-        super().__init__()
-        self.register_buffer(
-            "aabb", torch.as_tensor(list(aabb), dtype=torch.float32), persistent=False
-        )
-        self.unbounded = unbounded
-        self.compute_dtype = compute_dtype
-        self.encoder = CPGridEncoder(resolutions, ranks, compute_dtype)
-        self.base_dims = [self.encoder.output_dim, hidden_dim, 1]
-        self.mlp_base = _weights(self.base_dims)
-
-    @torch.no_grad()
-    def init(self, generator: torch.Generator) -> "CPDensityField":
-        """Draw every parameter from ``generator`` (JAX's distributions)."""
-        self.encoder.init(generator)
-        for p, w in zip(self.mlp_base, _mlp_init(generator, self.base_dims)):
-            p.copy_(w)
-        return self
-
-    def forward(self, positions: torch.Tensor) -> torch.Tensor:
-        """(N, 3) world points -> (N, 1) density."""
-        u, selector = normalize_points(positions, self.aabb, self.unbounded)
-        raw = _mlp_apply(self.mlp_base, self.encoder(u), self.compute_dtype)
-        return trunc_exp(raw - 1.0) * selector[..., None]
+        super().__init__(aabb, unbounded, CPGridEncoder(resolutions, ranks, compute_dtype),
+                         hidden_dim, compute_dtype)

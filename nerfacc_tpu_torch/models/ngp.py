@@ -3,9 +3,9 @@ activations, contraction, MLPs and the field around an encoder.
 
 PyTorch counterpart of nerfacc_tpu/models/ngp.py.  Ported: ``trunc_exp``,
 ``contract_to_unisphere``, the bias-free MLPs, ``_cubify_aabb`` and
-``NGPRadianceField`` (view directions always on); ``NGPDensityField`` (a
-proposal field) is not ported yet: the port's proposal path runs
-``CPDensityField``.
+``NGPRadianceField`` (view directions always on) and the proposal path's
+``NGPDensityField``, both on :class:`DensityField`'s and :class:`MLPField`'s
+shared pieces.
 """
 from __future__ import annotations
 
@@ -229,3 +229,67 @@ class NGPRadianceField(MLPField):
             max_resolution=max_resolution,
         )
         super().__init__(_cubify_aabb(aabb), unbounded, encoder, compute_dtype)
+
+
+class DensityField(nn.Module):
+    """A density-only field for proposal resampling: an encoder and a
+    bias-free ``[encoder.output_dim, hidden_dim, 1]`` MLP,
+    ``density = trunc_exp(raw - 1)``, zeroed outside the AABB (bounded) or
+    on contracted points (unbounded).  Positions carry no gradient (the
+    proposal path builds them from detached sample bounds).
+    """
+
+    def __init__(self, aabb, unbounded: bool, encoder: nn.Module, hidden_dim: int,
+                 compute_dtype):
+        super().__init__()
+        self.register_buffer(
+            "aabb", torch.as_tensor(list(aabb), dtype=torch.float32), persistent=False
+        )
+        self.unbounded = unbounded
+        self.compute_dtype = compute_dtype
+        self.encoder = encoder
+        self.base_dims = [encoder.output_dim, hidden_dim, 1]
+        self.mlp_base = _weights(self.base_dims)
+
+    @torch.no_grad()
+    def init(self, generator: torch.Generator) -> "DensityField":
+        """Draw every parameter from ``generator`` (JAX's distributions)."""
+        self.encoder.init(generator)
+        for p, w in zip(self.mlp_base, _mlp_init(generator, self.base_dims)):
+            p.copy_(w)
+        return self
+
+    def forward(self, positions: torch.Tensor) -> torch.Tensor:
+        """(N, 3) world points -> (N, 1) density."""
+        u, selector = normalize_points(positions, self.aabb, self.unbounded)
+        raw = _mlp_apply(self.mlp_base, self.encoder(u), self.compute_dtype)
+        return trunc_exp(raw - 1.0) * selector[..., None]
+
+
+class NGPDensityField(DensityField):
+    """Instant-NGP density field for proposal resampling (PyTorch
+    counterpart of nerfacc_tpu/models/ngp.py::NGPDensityField): a hash grid
+    of 5 levels x 2 features, 2^17 rows per level, resolutions 16..128,
+    through kernels G6/G7 on the card, and a 10 -> 64 -> 1 MLP.  Unlike
+    :class:`NGPRadianceField` the AABB is taken as given (not cubified).
+    """
+
+    def __init__(
+        self,
+        aabb: Sequence[float],
+        unbounded: bool = False,
+        base_resolution: int = 16,
+        max_resolution: int = 128,
+        n_levels: int = 5,
+        log2_hashmap_size: int = 17,
+        hidden_dim: int = 64,
+        compute_dtype=torch.bfloat16,
+    ):
+        encoder = HashGridEncoder(
+            n_levels=n_levels,
+            n_features_per_level=2,
+            log2_hashmap_size=log2_hashmap_size,
+            base_resolution=base_resolution,
+            max_resolution=max_resolution,
+        )
+        super().__init__(aabb, unbounded, encoder, hidden_dim, compute_dtype)

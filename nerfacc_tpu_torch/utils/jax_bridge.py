@@ -4,6 +4,7 @@ The JAX package keeps parameters as a pytree of arrays; this package keeps
 them in a field's ``state_dict`` (:class:`~nerfacc_tpu_torch.models.cp_field.
 CPRadianceField`, :class:`~nerfacc_tpu_torch.models.cp_field.CPDensityField`,
 :class:`~nerfacc_tpu_torch.models.ngp.NGPRadianceField`,
+:class:`~nerfacc_tpu_torch.models.ngp.NGPDensityField`,
 :class:`~nerfacc_tpu_torch.models.tineuvox.TiNeuVoxRadianceField`), and the
 proposal trainer keeps ``{"field": ..., "props": [...]}`` of them.  An
 :class:`~nerfacc_tpu_torch.estimators.occ_grid.OccGridEstimator` keeps the
@@ -91,23 +92,62 @@ def cp_density_field_params_to_numpy(params: Dict[str, torch.Tensor]) -> Dict:
             "mlp_base": _listed(params, "mlp_base.")}
 
 
+def ngp_density_field_params_from_numpy(
+    tree: Dict, device: Union[str, torch.device] = "cuda"
+) -> Dict[str, torch.Tensor]:
+    """``{"encoder": (L, T, F), "mlp_base": [W...]}`` -> an NGPDensityField
+    state dict (f32 tensors)."""
+    return {"encoder.table": _tensor(tree["encoder"], device),
+            **{f"mlp_base.{i}": _tensor(w, device) for i, w in enumerate(tree["mlp_base"])}}
+
+
+def ngp_density_field_params_to_numpy(params: Dict[str, torch.Tensor]) -> Dict:
+    """The inverse of :func:`ngp_density_field_params_from_numpy`."""
+    return {"encoder": params["encoder.table"].detach().cpu().numpy(),
+            "mlp_base": _listed(params, "mlp_base.")}
+
+
+def field_params_from_numpy(
+    tree: Dict, device: Union[str, torch.device] = "cuda"
+) -> Dict[str, torch.Tensor]:
+    """A CP or hash-grid radiance or density field's JAX tree -> its state
+    dict, the kind read off the tree: CP line levels are a dict under
+    ``"encoder"``, a hash grid its table; a radiance field has an
+    ``"mlp_head"``."""
+    cp = isinstance(tree["encoder"], dict)
+    if "mlp_head" in tree:
+        fn = cp_field_params_from_numpy if cp else ngp_field_params_from_numpy
+    else:
+        fn = cp_density_field_params_from_numpy if cp else ngp_density_field_params_from_numpy
+    return fn(tree, device)
+
+
+def field_params_to_numpy(params: Dict[str, torch.Tensor]) -> Dict:
+    """The inverse of :func:`field_params_from_numpy`, the kind read off
+    the state dict's keys."""
+    cp = "encoder.table" not in params
+    if "mlp_head.0" in params:
+        return (cp_field_params_to_numpy if cp else ngp_field_params_to_numpy)(params)
+    return (cp_density_field_params_to_numpy if cp else ngp_density_field_params_to_numpy)(params)
+
+
 def prop_params_from_numpy(
     tree: Dict, device: Union[str, torch.device] = "cuda"
 ) -> Dict:
-    """The JAX proposal trainer's ``{"field": ..., "props": [...]}`` tree
-    (a CPRadianceField and CPDensityFields) -> the port's
-    ``PropTrainState.params``."""
+    """The JAX proposal trainer's ``{"field": ..., "props": [...]}`` tree (a
+    CP or hash-grid radiance field and one CP or hash-grid density field a
+    proposal level) -> the port's ``PropTrainState.params``."""
     return {
-        "field": cp_field_params_from_numpy(tree["field"], device),
-        "props": [cp_density_field_params_from_numpy(p, device) for p in tree["props"]],
+        "field": field_params_from_numpy(tree["field"], device),
+        "props": [field_params_from_numpy(p, device) for p in tree["props"]],
     }
 
 
 def prop_params_to_numpy(params: Dict) -> Dict:
     """The inverse of :func:`prop_params_from_numpy`."""
     return {
-        "field": cp_field_params_to_numpy(params["field"]),
-        "props": [cp_density_field_params_to_numpy(p) for p in params["props"]],
+        "field": field_params_to_numpy(params["field"]),
+        "props": [field_params_to_numpy(p) for p in params["props"]],
     }
 
 
@@ -151,13 +191,14 @@ def occ_grid_estimator_to_numpy(estimator: OccGridEstimator) -> Dict[str, np.nda
 def prop_fields_from_numpy(prop_fields, trees) -> None:
     """Load the JAX proposal fields' parameter trees (numpy, one a field, as
     in the JAX trainer's ``params["props"]``) into the port's
-    ``CPDensityField`` modules, in place: the modules whose parameters a
+    ``CPDensityField`` or ``NGPDensityField`` modules, in place: the modules
+    whose parameters a
     :class:`~nerfacc_tpu_torch.estimators.prop_net.PropNetEstimator`'s
     optimizer steps."""
     for field, tree in zip(prop_fields, trees, strict=True):
         dev = next(field.parameters()).device
         with torch.no_grad():
-            for name, value in cp_density_field_params_from_numpy(tree, dev).items():
+            for name, value in field_params_from_numpy(tree, dev).items():
                 field.get_parameter(name).copy_(value)
 
 

@@ -110,10 +110,19 @@ The shapes:
 - G14 (importance sampling) at ``chip_smoke.py``'s phase 1f shapes: 4096
   rays, E = 2 -> 128 (the first proposal level, stratified); 4096 rays, E =
   129 -> 64 (the final resampling, a CDF with plateaus, stratified); 8192
-  rays, E = 129 -> 64 with bias 0.5 (the eval chunk); and the 4096-ray
+  rays, E = 129 -> 64 with bias 0.5 (the eval chunk); the 4096-ray
   rows with the CDF phase 1f formed before, a third of its rows out of
-  order by rounding, so that they take the kernel's walk.  Error: the entries
-  of samples and edges unequal to the plain version.
+  order by rounding, so that they take the kernel's walk; and the 360
+  cascade's three resamplings at 4096 rays (E = 2 -> 256, 257 -> 96,
+  97 -> 48).  Error: the entries of samples and edges unequal to the plain
+  version.
+
+The proposal example's shapes (in a tree with the unbounded scene; the
+bounded ones in every tree): G1 at ``CPDensityField``'s levels (16, 16)
+and (64, 16) on the 360 cascade's first level (4096 rays x 256 samples
+uniform in disparity, contracted, N = 2^20); G6 and G7 at
+``NGPDensityField``'s shape (5 levels, T = 2^17) on the bounded path's
+first level (N = 2^19, unclamped) and the 360 cascade's (N = 2^20).
 
 Each row holds the error against the plain version, the CUDA-event time of
 one call (host path included), the device time of its kernels alone from
@@ -312,14 +321,36 @@ def g6_points(dev, g):
 
 def proposal_points(dev, train, g):
     """The proposal field's points: 128 stratified samples per ray of 4096
-    train rays over [2, 6], normalised to the AABB and clamped."""
+    train rays over [2, 6], normalised to the AABB (not clamped:
+    ``NGPDensityField`` takes them so, ``CPDensityField`` clamps them)."""
     po, pd = train["rays_o"], train["rays_d"]
     tp = 2.0 + (torch.arange(128, device=dev) + torch.rand((4096, 128), generator=g,
                                                            device=dev)) * (4.0 / 128)
     pts = po[:, None] + tp[..., None] * pd[:, None]
     lo = torch.tensor(AABB[:3], device=dev)
     hi = torch.tensor(AABB[3:], device=dev)
-    return ((pts.reshape(-1, 3) - lo) / (hi - lo)).clamp(0.0, 1.0).contiguous()
+    return ((pts.reshape(-1, 3) - lo) / (hi - lo)).contiguous()
+
+
+def cascade_points(dev):
+    """The 360 cascade's first proposal level (the proposal example's
+    ``--scene procedural360``): 256 samples per ray of 4096 train rays of
+    the unbounded scene, stratified uniform in disparity over its near and
+    far planes, contracted over the box +-1 as its density fields map them
+    (N = 2^20, in [0, 1]^3); None in a tree without that scene."""
+    from nerfacc_tpu_torch.data import procedural
+    from nerfacc_tpu_torch.models.ngp import contract_to_unisphere
+
+    loader = getattr(procedural, "ProceduralUnboundedSceneLoader", None)
+    if loader is None:
+        return None
+    g = torch.Generator(device=dev).manual_seed(360)
+    rays = loader(split="train", n_train=2, width=64, height=64, num_rays=4096, device=dev)[0]
+    s = (torch.arange(256, device=dev) + torch.rand((4096, 256), generator=g, device=dev)) / 256
+    t = 1.0 / (s / loader.FAR + (1.0 - s) / loader.NEAR)
+    pts = rays["rays_o"][:, None] + t[..., None] * rays["rays_d"][:, None]
+    aabb = torch.tensor([-1.0, -1.0, -1.0, 1.0, 1.0, 1.0], device=dev)
+    return contract_to_unisphere(pts.reshape(-1, 3), aabb).contiguous()
 
 
 class Inputs:
@@ -328,18 +359,25 @@ class Inputs:
     def __init__(self, dev):
         self.dev = dev
         self._cp = None
+        self._cascade = False
 
     def cp(self):
         if self._cp is None:
             g = torch.Generator(device=self.dev).manual_seed(0)
             u_mid, (occ, step, o, d, near, far, train_s, train) = train_midpoints(
                 self.dev, "cp", g)
+            u_prop = proposal_points(self.dev, train, g)
             self._cp = dict(
                 u_train=u_mid.clamp(0.0, 1.0).contiguous(), occ=occ, step=step,
                 o=o, d=d, near=near, far=far, train_s=train_s,
-                u_prop=proposal_points(self.dev, train, g), g=g,
+                u_prop=u_prop.clamp(0.0, 1.0).contiguous(), u_prop_raw=u_prop, g=g,
             )
         return self._cp
+
+    def cascade(self):
+        if self._cascade is False:
+            self._cascade = cascade_points(self.dev)
+        return self._cascade
 
     def sample_buffers(self):
         """The G3/G5 buffers: name -> (t_starts, t_ends, ray ids, rays,
@@ -386,6 +424,9 @@ def g1_rows(inp):
     shapes += [("CP train buffer, ray order", c["u_train"], R, 32) for R in (32, 128, 512)]
     shapes += [("proposal field, ray order", c["u_prop"], R, 16) for R in (16, 64)]
     shapes += [("dense refresh, 128^3 cells", u_refresh, 512, 32)]
+    if inp.cascade() is not None:
+        shapes += [("360 cascade's first proposal level, ray order", inp.cascade(), R, 16)
+                   for R in (16, 64)]
     for name, u, R, rank in shapes:
         lines = 1 + 0.1 * torch.randn((3, R, rank), generator=g, device=dev)
         runs = float((torch.floor(u[1:] * (R - 1)) == torch.floor(u[:-1] * (R - 1)))
@@ -593,6 +634,36 @@ def g6_rows(inp):
         }
         del ref, rows, w
         yield row
+    # the proposal field's shape (NGPDensityField: 5 levels, T = 2^17)
+    enc = HashGridEncoder(n_levels=5, log2_hashmap_size=17, max_resolution=128)
+    L, T, res = enc.n_levels, enc.table_size, enc.resolutions
+    g = torch.Generator(device=dev).manual_seed(66)
+    table = torch.rand((L, T, 2), generator=g, device=dev) * 2.0 - 1.0
+    for name, x in prop_hash_points(inp).items():
+        out = hash_encode_forward(x, table, res)
+        idx = hash_corners_plain(x, res, T)[0]
+        touched = int(torch.unique(idx + T * torch.arange(L, device=dev)[None, :, None]).numel())
+        del idx
+        yield {
+            "kernel": "G6 hash_fwd", "case": name, "N": x.shape[0], "L": L, "T": T,
+            "outside_unit_cube": int(((x < 0) | (x > 1)).any(1).sum()),
+            "unequal_to_plain": unequal(out, hash_encode_plain(x, table, res)),
+            "entries": out.numel(), "rows_touched": touched,
+            "ms": cuda_ms(lambda: hash_encode_forward(x, table, res)),
+            "device_ms": device_ms(lambda: hash_encode_forward(x, table, res)),
+            "plain_ms": cuda_ms(lambda: hash_encode_plain(x, table, res), reps=3),
+            "bound_ms": 1e3 * (nbytes(x, out) + touched * 8) / HBM_BYTES_PER_S,
+        }
+
+
+def prop_hash_points(inp):
+    """The proposal field's points for G6 and G7 at ``NGPDensityField``'s
+    shape: the bounded path's first level (N = 2^19, unclamped) and, in a
+    tree with the unbounded scene, the 360 cascade's (N = 2^20)."""
+    points = {"NGPDensityField, bounded path's first level, ray order": inp.cp()["u_prop_raw"]}
+    if inp.cascade() is not None:
+        points["NGPDensityField, 360 cascade's first level, ray order"] = inp.cascade()
+    return points
 
 
 def g8_axis_rows(g):
@@ -700,7 +771,13 @@ def g7_rows(inp):
     push = 0.1 * torch.rand(n_out, generator=g, device=dev)
     x[:n_out, 0] = torch.where(below, -push, 1.0 + push)
     x_ray, _ = train_midpoints(dev, "ngp", g)
-    for name, x in (("uniform, 1% outside", x), ("NGP train step, ray order", x_ray)):
+    cases = [(name, x, L, T, res)
+             for name, x in (("uniform, 1% outside", x), ("NGP train step, ray order", x_ray))]
+    # the proposal field's shape (NGPDensityField: 5 levels, T = 2^17)
+    prop = HashGridEncoder(n_levels=5, log2_hashmap_size=17, max_resolution=128)
+    cases += [(name, x, prop.n_levels, prop.table_size, prop.resolutions)
+              for name, x in prop_hash_points(inp).items()]
+    for name, x, L, T, res in cases:
         n = x.shape[0]
         cot = torch.randn((n, 2 * L), generator=g, device=dev)
         out = hash_encode_backward(x, cot, (L, T, 2), res)
@@ -799,6 +876,31 @@ def g14_inputs(dev, g, n_rays):
     return unit, bias, edges.contiguous(), cdfs.contiguous(), former.contiguous()
 
 
+def cascade_rows(dev):
+    """The 360 cascade's three resamplings at 4096 rays, stratified (the
+    proposal example's [256, 96] -> 48): E = 2 -> 256, then each level's
+    edges with the CDF formed from seeded densities (a third zero) -> 96,
+    and -> 48, as ``chip_smoke.py``'s phase 1f forms them."""
+    from nerfacc_tpu_torch.pdf import importance_sampling_plain
+    from nerfacc_tpu_torch.volrend import render_transmittance_from_density
+
+    g = torch.Generator(device=dev).manual_seed(360)
+    unit = torch.tensor([[0.0, 1.0]], device=dev).expand(4096, 2).contiguous()
+    bias = torch.rand(4096, generator=g, device=dev)
+    rows = [(unit, unit, 256)]
+    for n in (96, 48):
+        vals, cdfs, m = rows[-1]
+        _, edges = importance_sampling_plain(vals, cdfs, bias, m)
+        sigma = torch.rand((4096, m), generator=g, device=dev) * 40.0
+        sigma = torch.where(torch.rand(sigma.shape, generator=g, device=dev) < 1 / 3, 0.0, sigma)
+        trans, _ = render_transmittance_from_density(edges[:, :-1], edges[:, 1:], sigma)
+        rows.append((edges.contiguous(),
+                     (1.0 - torch.cat([trans, torch.zeros_like(trans[:, :1])], -1)).contiguous(),
+                     n))
+    return [(f"4096 rays, E = {v.shape[1]} -> {n}, 360 cascade, stratified", v, c, bias, n)
+            for v, c, n in rows]
+
+
 def g14_rows(inp):
     from nerfacc_tpu_torch import pdf
 
@@ -813,6 +915,7 @@ def g14_rows(inp):
         ("8192 rays, E = 129 -> 64, plateaued CDF, bias 0.5", eval_edges, eval_cdfs, half, 64),
         ("4096 rays, E = 129 -> 64, the former phase 1f CDF, stratified", edges, former, bias,
          64),
+        *cascade_rows(dev),
     ):
         out = pdf._importance_sampling(vals, c, b, n)
         ref = pdf.importance_sampling_plain(vals, c, b, n)

@@ -155,3 +155,18 @@ def test_entry_point_defaults_to_the_card():
     args = ex.parser().parse_args([])
     assert args.device == "cuda" and args.field == "cp" and args.device_sampler == 1
     assert args.target_sample_batch_size == 1 << 18 and args.init_batch_size == 1024
+
+
+def test_occupancy_example_refuses_the_unbounded_scene():
+    """``--scene procedural360`` is refused, by the parser and by ``build``,
+    with an error that names the unbounded branch's item in ROADMAP.md: the
+    bounded configuration (one grid level, no cone stepping, no
+    ``alpha_thre``) would train it without a word."""
+    import argparse
+
+    with pytest.raises(SystemExit):
+        ex.parser().parse_args(["--scene", "procedural360"])
+    args = argparse.Namespace(**{**vars(ex.parser().parse_args([])), "scene": "procedural360"})
+    with pytest.raises(ValueError, match="queue 1 item 6"):
+        ex.build(args)
+    assert ex.parser().parse_args(["--scene", "proceduralopaque"]).scene == "proceduralopaque"

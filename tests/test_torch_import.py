@@ -54,6 +54,7 @@ def _default_device(fn):
         "data.procedural.ProceduralSceneLoader",
         "data.procedural.ProceduralDynamicSceneLoader",
         "data.procedural.ProceduralOpaqueSceneLoader",
+        "data.procedural.ProceduralUnboundedSceneLoader",
         "utils.checkpoint.load_checkpoint",
         "estimators.occ_grid.init_occ_grid",
         "models.tineuvox.TiNeuVoxRadianceField",
@@ -63,6 +64,8 @@ def _default_device(fn):
         "utils.jax_bridge.occ_state_from_numpy",
         "utils.jax_bridge.cp_density_field_params_from_numpy",
         "utils.jax_bridge.prop_params_from_numpy",
+        "utils.jax_bridge.ngp_density_field_params_from_numpy",
+        "utils.jax_bridge.field_params_from_numpy",
         "trainers.ngp_prop.NGPPropTrainer",
         "data.device_sampler.DeviceRaySampler",
         "estimators.prop_net.propnet_sampling",

@@ -12,10 +12,13 @@ import torch
 
 from nerfacc_tpu_torch import cuda
 from nerfacc_tpu_torch.grid import march, march_plain
-from nerfacc_tpu_torch.data.procedural import ProceduralSceneLoader
+from nerfacc_tpu_torch.data.procedural import (
+    ProceduralSceneLoader,
+    ProceduralUnboundedSceneLoader,
+)
 from nerfacc_tpu_torch.models.cp_field import CPRadianceField
 from nerfacc_tpu_torch.models.encoders import HashGridEncoder
-from nerfacc_tpu_torch.models.ngp import NGPRadianceField
+from nerfacc_tpu_torch.models.ngp import NGPDensityField, NGPRadianceField
 from nerfacc_tpu_torch.models.tineuvox import TiNeuVoxRadianceField
 from nerfacc_tpu_torch.data.procedural import ProceduralDynamicSceneLoader
 from nerfacc_tpu_torch.ops.cp_level import (
@@ -451,6 +454,8 @@ def _g5_case(dev, case):
     rng = np.random.default_rng(len(case))
     if case == "proposal layout":  # 4096 rays x 64 samples, one row each
         counts = np.full(4096, 64)
+    elif case == "opaque last":  # the 360 cascade's 4096 rays x 48 samples
+        counts = np.full(4096, 48)
     else:
         counts = np.concatenate([[1, 31, 32, 33, 257, 1500, 0, 0, 2100],
                                  rng.integers(0, 300, 200)])
@@ -469,6 +474,8 @@ def _g5_case(dev, case):
         sigmas[(ids == 4) | (ids == 9)] = 1e13  # whole rays past sigma*dt = 40
         sigmas[::7] = 40.0 / 5e-3
     ends = np.cumsum(counts)
+    if case == "opaque last":  # the trainer's opaque background
+        sigmas[ends - 1] = np.inf
     ss, se = ends - counts, ends - 1
     if case == "fill and cut":  # rays past the budget empty, one partial
         budget = int(ends[8]) + 100
@@ -485,14 +492,16 @@ def _g5_case(dev, case):
 
 
 @pytest.mark.parametrize("case", [
-    "lengths", "past the cap", "prefix", "fill and cut", "proposal layout",
+    "lengths", "past the cap", "prefix", "fill and cut", "proposal layout", "opaque last",
 ])
 def test_composite_backward_kernel_at_its_edges(dev, case):
     """G5, one warp per ray: rays of 1, 31, 32, 33 and 257 samples (chunk
     edges), 1500 and 2100 (past the 256 kept in registers), empty rays,
     whole rays past the optical-depth cap, a prefix transmittance, fill slots
-    and a budget cut (both read exactly 0), and the proposal path's 64
-    samples per ray; 1e-5 of the largest gradient against the twin."""
+    and a budget cut (both read exactly 0), the proposal path's 64 samples
+    per ray, and the 360 cascade's 48 with an infinite last density (the
+    opaque background: every gradient finite, the last sample's 0); 1e-5
+    of the largest gradient against the twin."""
     args, inside = _g5_case(dev, case)
     n0 = cuda.LAUNCHES["composite_bwd"]
     out = composite_sorted_backward(*args)
@@ -507,17 +516,21 @@ def test_composite_backward_kernel_at_its_edges(dev, case):
     if case == "past the cap":
         capped = args[2] * (args[1] - args[0]) >= 40.0
         assert bool((out[0][capped] == 0).all())
+    if case == "opaque last":
+        assert bool((out[0].reshape(4096, 48)[:, -1] == 0).all())
 
 
 @pytest.mark.parametrize("case", [
     "lengths", "past the cap", "prefix", "fill and cut", "proposal layout", "no weights",
+    "opaque last",
 ])
 def test_composite_kernel_at_its_edges(dev, case):
     """G3, one warp per ray, on G5's edge buffers: rays of 1, 31, 32, 33 and
     257 samples (chunk edges), 1500 and 2100, empty rays, whole rays past
     the optical-depth cap, a prefix transmittance, fill slots and a budget
     cut (their weights stay exactly 0), the proposal path's 64 samples per
-    ray, no weights asked for, and 209 rays (a block partly empty).  Colour
+    ray, the 360 cascade's 48 with an infinite last density (every ray's
+    opacity 1), no weights asked for, and 209 rays (a block partly empty).  Colour
     and opacity within 1e-5, depth within 1e-4 of the twin (chip_smoke.py's
     bounds), the weights within 1e-5."""
     args, inside = _g5_case(dev, "lengths" if case == "no weights" else case)
@@ -536,7 +549,9 @@ def test_composite_kernel_at_its_edges(dev, case):
         assert bool((out[3][~inside] == 0).all())
     empty = args[7] < args[6]
     assert bool((out[1][empty] == 0).all())
-    assert int(empty.sum()) > 0 or case == "proposal layout"
+    assert int(empty.sum()) > 0 or case in ("proposal layout", "opaque last")
+    if case == "opaque last":  # the last sample takes what light is left
+        assert float((out[1] - 1).abs().max()) <= 1e-6
 
 
 def test_composite_output_carries_a_gradient_on_the_card(dev):
@@ -564,10 +579,11 @@ def _hash_inputs(dev, n=2**15, levels=16, log2_t=14):
     return x, table, cot, res
 
 
-@pytest.mark.parametrize("levels,log2_t", [(16, 14), (5, 19)])
+@pytest.mark.parametrize("levels,log2_t", [(16, 14), (5, 19), (5, 17)])
 def test_hash_encode_kernels_match_twins(dev, levels, log2_t):
     """G6 bitwise: the twin rounds each fused multiply-add once, as the
-    kernel does.  G7 within 1e-5 (atomic order)."""
+    kernel does.  G7 within 1e-5 (atomic order).  (5, 17) is the proposal
+    field's ``NGPDensityField``: G6's last group of four levels runs one."""
     x, table, cot, res = _hash_inputs(dev, levels=levels, log2_t=log2_t)
     n0 = dict(cuda.LAUNCHES)
     out = hash_encode_forward(x, table, res)
@@ -1174,14 +1190,16 @@ def _pdf_rows(g, n_rays, E):
 
 
 @pytest.mark.parametrize(
-    "E,n", [(2, 128), (129, 64), (17, 1), (300, 200), (2, 1), (129, 33), (6144, 64)])
+    "E,n", [(2, 128), (129, 64), (17, 1), (300, 200), (2, 1), (129, 33), (6144, 64),
+            (2, 256), (257, 96), (97, 48)])
 def test_importance_sampling_kernel_matches_plain_version(dev, E, n):
     """G14 bit for bit, stratified and not, in one launch on sorted rows
     (with plateaus and an all-zero CDF row, which take its search) mixed
     with rows that fail its monotone-row vote (which take its walk), and
     with biases that put samples below the first edge (cnt = 0) and past
     the last (cnt = E - 1); at E = 2, n = 1, n not a multiple of 32, more
-    samples than a chunk and the largest E the wrapper takes."""
+    samples than a chunk, the largest E the wrapper takes, and the 360
+    cascade's three resamplings (2 -> 256, 257 -> 96, 97 -> 48)."""
     n_rays = 64 if E > 1000 else 1000
     g = torch.Generator(device=dev).manual_seed(E + n)
     vals, cdfs = _pdf_rows(g, n_rays, E)
@@ -1223,22 +1241,40 @@ def test_composite_keeps_a_nan_optical_depth(dev):
     assert torch.isnan(out[1]).all() and torch.isnan(ref[1]).all()
 
 
-def test_prop_train_step_on_the_card_reaches_every_parameter(dev):
+@pytest.mark.parametrize("config", ["bounded-cp", "cascade-ngp"])
+def test_prop_train_step_on_the_card_reaches_every_parameter(dev, config):
     """A proposal train step with ``requires_grad`` through the kernels on a
-    device-sampled batch: G1, G3, G4, G5 and G14 launch, and every leaf of
-    both groups gets a finite, nonzero gradient."""
-    aabb = (-1.5, -1.5, -1.5, 1.5, 1.5, 1.5)
-    ds = ProceduralSceneLoader("train", n_train=2, width=32, height=32, num_rays=256, device=dev)
-    trainer = NGPPropTrainer(
-        field=CPRadianceField(aabb), prop_fields=[CPDensityField(aabb)], device=dev,
-    )
+    device-sampled batch: bench.py's configuration (CP fields: G1, G3, G4,
+    G5 and G14 launch, G14 twice), and the proposal example's 360 cascade
+    with the hash-grid fields (two NGPDensityFields, [256, 96] -> 48,
+    lindisp, the opaque last sample, on the unbounded scene: G6, G7, G3, G5
+    and G14, G14 three times); every leaf of both groups gets a finite,
+    nonzero gradient."""
+    if config == "bounded-cp":
+        aabb = (-1.5, -1.5, -1.5, 1.5, 1.5, 1.5)
+        ds = ProceduralSceneLoader("train", n_train=2, width=32, height=32, num_rays=256,
+                                   device=dev)
+        trainer = NGPPropTrainer(
+            field=CPRadianceField(aabb), prop_fields=[CPDensityField(aabb)], device=dev,
+        )
+        encoder = ("cp_level_fwd", "cp_level_bwd")
+    else:
+        aabb = (-1.0, -1.0, -1.0, 1.0, 1.0, 1.0)
+        ds = ProceduralUnboundedSceneLoader("train", n_train=2, width=32, height=32,
+                                            num_rays=256, device=dev)
+        trainer = NGPPropTrainer(
+            field=NGPRadianceField(aabb, unbounded=True),
+            prop_fields=[NGPDensityField(aabb, unbounded=True) for _ in range(2)],
+            prop_samples=[256, 96], num_samples=48, near_plane=ds.NEAR, far_plane=ds.FAR,
+            sampling_type="lindisp", opaque_bkgd=True, device=dev,
+        )
+        encoder = ("hash_fwd", "hash_bwd")
     state = trainer.init_state()
     cuda.reset_launches()
     state, aux = trainer.train_steps_sampled(state, DeviceRaySampler.from_loader(ds), [True])
-    for name in ("cp_level_fwd", "cp_level_bwd", "composite_fwd", "composite_bwd",
-                 "importance_sampling"):
+    for name in encoder + ("composite_fwd", "composite_bwd", "importance_sampling"):
         assert cuda.LAUNCHES[name] > 0, cuda.LAUNCHES
-    assert cuda.LAUNCHES["importance_sampling"] == 2
+    assert cuda.LAUNCHES["importance_sampling"] == len(trainer.prop_samples) + 1
     assert torch.isfinite(aux["loss"]).all() and float(aux["prop_loss"][0]) > 0
     for p in trainer.leaves(state.params):
         assert p.grad is not None and torch.isfinite(p.grad).all()

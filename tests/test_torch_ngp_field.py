@@ -1,15 +1,25 @@
-"""Port vs JAX: the hash-grid NGPRadianceField, forward and every parameter
-gradient, from the same parameters through the bridge."""
+"""Port vs JAX: the hash-grid NGPRadianceField and NGPDensityField, forward
+and every parameter gradient, from the same parameters through the bridge."""
 import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
+from nerfacc_tpu.models.ngp import NGPDensityField as JaxDensityField
 from nerfacc_tpu.models.ngp import NGPRadianceField as JaxField
 from nerfacc_tpu.models.ngp import _cubify_aabb as jax_cubify_aabb
-from nerfacc_tpu_torch.models.ngp import NGPRadianceField, _cubify_aabb
+from nerfacc_tpu_torch.models.ngp import (
+    NGPDensityField,
+    NGPRadianceField,
+    _cubify_aabb,
+    normalize_points,
+)
 from nerfacc_tpu_torch.utils.jax_bridge import (
+    field_params_from_numpy,
+    field_params_to_numpy,
+    ngp_density_field_params_from_numpy,
+    ngp_density_field_params_to_numpy,
     ngp_field_params_from_numpy,
     ngp_field_params_to_numpy,
 )
@@ -151,3 +161,70 @@ def test_full_width_defaults_match_jax():
     assert enc.resolutions == jfield.encoder.resolutions
     assert field.base_dims == [32, 64, 16] and field.head_dims == [31, 64, 64, 3]
     assert field.compute_dtype == torch.bfloat16
+
+
+PROP_AABB = (-1.0, -1.0, -1.0, 1.0, 1.0, 1.0)  # the unbounded example's box
+
+
+@pytest.mark.parametrize("unbounded", [False, True])
+def test_ngp_density_field_f32_matches_jax(unbounded):
+    """The proposal field's levels and resolutions (5 levels, 16..128) with
+    a 2^12-row table (the full 2^17 only slows the JAX gradient), f32,
+    from the same parameters (the table scaled to O(1)).
+    The hash features of the same encoder coordinates bitwise against the
+    jitted JAX encoder.  The density against the jitted JAX field within
+    1e-5 relative, and every gradient leaf of ``sum(sin(density))`` within
+    1e-5 of its largest entry: jitted XLA divides by the constant box as a
+    product with its reciprocal, so ~1/3 of the coordinates differ from the
+    port's quotient in the last bit (a feature moves by up to ~2.5e-5),
+    and the MLP sums in another order.  Bounded, the density is 0 outside
+    the uncubified box; the bridge round-trips."""
+    aabb = (-1.5, -1.0, -1.0, 1.5, 1.0, 1.0)  # not a cube: no cubification
+    small = dict(log2_hashmap_size=12)
+    jfield = JaxDensityField(aabb=aabb, unbounded=unbounded, compute_dtype=jnp.float32, **small)
+    jparams = jfield.init(jax.random.PRNGKey(3))
+    jparams["encoder"] = jparams["encoder"] * 1e4
+    tree = jax.tree.map(np.asarray, jparams)
+    field = NGPDensityField(aabb, unbounded=unbounded, compute_dtype=torch.float32, **small)
+    field.load_state_dict(ngp_density_field_params_from_numpy(tree, device="cpu"))
+    assert field.encoder.resolutions == jfield.encoder.resolutions
+    assert field.base_dims == [10, 64, 1]
+    x, _ = _points(4, 3000, 6.0 if unbounded else 1.7)
+    want = jax.jit(jfield)(jparams, jnp.asarray(x))
+    want_grads = jax.jit(jax.grad(lambda p: jnp.sum(jnp.sin(jfield(p, jnp.asarray(x))))))(jparams)
+    got = field(torch.tensor(x))
+    torch.sin(got).sum().backward()
+    np.testing.assert_allclose(got.detach().numpy(), np.asarray(want), rtol=1e-5, atol=1e-30)
+    u, _ = normalize_points(torch.tensor(x), field.aabb, unbounded)
+    want_feats = jax.jit(lambda t, v: jfield.encoder(t, v))(jparams["encoder"], jnp.asarray(u.numpy()))
+    np.testing.assert_array_equal(field.encoder(u).detach().numpy(), np.asarray(want_feats))
+    grads = ngp_density_field_params_to_numpy({k: p.grad for k, p in field.named_parameters()})
+    for g, w in zip(jax.tree.leaves(grads), jax.tree.leaves(jax.tree.map(np.asarray, want_grads))):
+        assert g.shape == w.shape and np.abs(w).max() > 0
+        np.testing.assert_allclose(g, w, rtol=0, atol=1e-5 * np.abs(w).max())
+    outside = ((x < np.array(aabb[:3])) | (x > np.array(aabb[3:]))).any(-1)
+    assert outside.any() and (~outside).any()
+    assert (got.detach().numpy()[outside] == 0).all() != unbounded
+    back = field_params_to_numpy(field.state_dict())
+    assert jax.tree.structure(back) == jax.tree.structure(tree)
+    for a, b in zip(jax.tree.leaves(back), jax.tree.leaves(tree)):
+        np.testing.assert_array_equal(a, b)
+    for k, v in field_params_from_numpy(tree, device="cpu").items():
+        assert torch.equal(v, field.state_dict()[k]), k
+
+
+def test_ngp_density_field_init_and_defaults_match_jax():
+    """JAX's defaults (built on the meta device for the shapes) and the
+    init's distributions: table within 1e-4, MLP weights Glorot-uniform."""
+    jfield = JaxDensityField(aabb=PROP_AABB)
+    with torch.device("meta"):
+        meta = NGPDensityField(PROP_AABB)
+    assert meta.encoder.table.shape == (5, 2**17, 2)
+    assert meta.compute_dtype == torch.bfloat16 and not meta.unbounded
+    assert meta.encoder.resolutions == jfield.encoder.resolutions
+    field = NGPDensityField(PROP_AABB, log2_hashmap_size=10).init(torch.Generator().manual_seed(0))
+    assert float(field.encoder.table.detach().abs().max()) <= 1e-4
+    for w in field.mlp_base:
+        a = (6.0 / sum(w.shape)) ** 0.5
+        assert a * 0.9 < float(w.detach().abs().max()) <= a
+    np.testing.assert_array_equal(field.aabb.numpy(), PROP_AABB)

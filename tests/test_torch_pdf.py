@@ -233,3 +233,151 @@ def test_searchsorted_matches_jax():
     got = searchsorted(RayIntervals(torch.tensor(key)), RayIntervals(torch.tensor(query)))
     for g, w in zip(got, want):
         np.testing.assert_array_equal(g.numpy(), np.asarray(w))
+
+
+def _packed(seed, counts, low=0.0, high=1.0):
+    """Sorted values of each ray's segment, flattened, with packed_info."""
+    rng = np.random.default_rng(seed)
+    vals = np.concatenate([np.sort(rng.uniform(low, high, c)) for c in counts]).astype(np.float32)
+    starts = np.concatenate([[0], np.cumsum(counts)[:-1]])
+    return vals, np.stack([starts, counts], -1).astype(np.int32)
+
+
+def _jax_varying(vals, cdfs, n_per_ray, max_n, bias, packed_info=None):
+    """JAX's per-ray-count importance sampling, jitted, stratified with
+    ``bias`` as its draw (as :func:`_jax_sampling`): edges, is_left,
+    is_right, samples, is_valid as numpy."""
+    stratified = bias is not None
+
+    def fn(v, c, n, b, pi):
+        uniform = jax.random.uniform
+        jax.random.uniform = lambda key, shape, dtype=jnp.float32: b.reshape(shape).astype(dtype)
+        try:
+            iv, s = jax_importance_sampling(
+                JaxIntervals(vals=v, packed_info=pi), c, n, stratified,
+                key=jax.random.PRNGKey(0) if stratified else None, max_intervals_per_ray=max_n,
+            )
+        finally:
+            jax.random.uniform = uniform
+        return iv.vals, iv.is_left, iv.is_right, s.vals, s.is_valid
+
+    b = np.zeros(len(n_per_ray), np.float32) if bias is None else bias
+    pi = None if packed_info is None else jnp.asarray(packed_info)
+    out = jax.jit(fn)(jnp.asarray(vals), jnp.asarray(cdfs), jnp.asarray(n_per_ray, jnp.int32),
+                      jnp.asarray(b), pi)
+    return [np.asarray(o) for o in out]
+
+
+def _varying_case(case):
+    """(vals, cdfs, packed_info, counts, max_n, bias) of one case."""
+    counts = np.array([8, 4, 1, 6, 0, 8, 2, 5], np.int32)
+    bias = np.random.default_rng(8).uniform(size=8).astype(np.float32)
+    if case in ("batched", "batched-stratified"):
+        vals, cdfs = _intervals(12, 8, 33)
+        return vals, cdfs, None, counts, 8, bias if case.endswith("stratified") else None
+    if case == "batched-special-rows":  # plateaus, an all-zero CDF, ties
+        vals, cdfs, b = _special_rows(17)
+        return vals, cdfs, None, np.array([16, 3, 1, 7, 16, 2], np.int32), 16, b
+    # flattened: rays of 2 to 40 edges (and one of 1), padded past the counts
+    seg = np.array([2, 9, 40, 1, 17, 5, 33, 3])
+    vals, pi = _packed(13, seg, 2.0, 6.0)
+    cdfs, _ = _packed(14, seg)
+    return vals, cdfs, pi, counts + 3, 12, bias if case == "packed-stratified" else None
+
+
+VARYING_CASES = ["batched", "batched-stratified", "batched-special-rows", "packed",
+                 "packed-stratified"]
+
+
+@pytest.mark.parametrize("case", VARYING_CASES)
+def test_importance_sampling_per_ray_counts_match_jax_bitwise(case):
+    """One count a ray (0, 1, and counts below the padded width among
+    them), on the batched and the flattened layout, stratified and not:
+    padded samples and edges bit for bit against jitted JAX, and the
+    ``is_valid`` / ``is_left`` / ``is_right`` masks equal; each ray's valid
+    samples nondecreasing and its edges within its span."""
+    vals, cdfs, pi, counts, max_n, bias = _varying_case(case)
+    want = _jax_varying(vals, cdfs, counts, max_n, bias, pi)
+    intervals = RayIntervals(torch.tensor(vals),
+                             packed_info=None if pi is None else torch.tensor(pi))
+    iv, s = importance_sampling(
+        intervals, torch.tensor(cdfs), torch.tensor(counts), stratified=bias is not None,
+        bias=None if bias is None else torch.tensor(bias), max_intervals_per_ray=max_n,
+    )
+    got = [iv.vals, iv.is_left, iv.is_right, s.vals, s.is_valid]
+    for name, g, w in zip(("edges", "is_left", "is_right", "samples", "is_valid"), got, want):
+        assert g.shape == w.shape, name
+        if g.dtype == torch.bool:
+            np.testing.assert_array_equal(g.numpy(), w, err_msg=name)
+        else:
+            np.testing.assert_array_equal(g.numpy().view(np.int32), w.view(np.int32), err_msg=name)
+    assert s.vals.shape == (len(counts), max_n) and iv.vals.shape == (len(counts), max_n + 1)
+    for r, n in enumerate(counts):
+        assert int(s.is_valid[r].sum()) == n and int(iv.is_left[r].sum()) == n
+        t = s.vals[r, :n]
+        assert bool((t[1:] >= t[:-1]).all())
+    # the default width is the largest count
+    iv2, s2 = importance_sampling(intervals, torch.tensor(cdfs), counts.tolist(),
+                                  stratified=bias is not None,
+                                  bias=None if bias is None else torch.tensor(bias))
+    assert s2.vals.shape[1] == counts.max()
+    assert torch.equal(s2.vals, s.vals[:, : counts.max()])
+
+
+def test_importance_sampling_per_ray_counts_agree_with_the_int_path():
+    """Each ray of a per-ray-count call (batched) against the int path on
+    that ray alone with its own count, within 1e-5 (the step is a quotient
+    there and a product with 1/n here), closing edge included; n = 1 rays
+    give [t_min, t_max], as JAX's test holds them."""
+    vals, cdfs = _intervals(5, 4, 32)
+    counts = [8, 4, 1, 6]
+    iv, s = importance_sampling(RayIntervals(torch.tensor(vals)), torch.tensor(cdfs),
+                                torch.tensor(counts), max_intervals_per_ray=8)
+    for r, n in enumerate(counts):
+        iv_r, s_r = importance_sampling(RayIntervals(torch.tensor(vals[r : r + 1])),
+                                        torch.tensor(cdfs[r : r + 1]), n)
+        np.testing.assert_allclose(s.vals[r, :n].numpy(), s_r.vals[0].numpy(), atol=1e-5)
+        np.testing.assert_allclose(iv.vals[r, : n + 1].numpy(), iv_r.vals[0].numpy(), atol=1e-5)
+    assert float(iv.vals[2, 0]) == vals[2, 0] and float(iv.vals[2, 1]) == vals[2, -1]
+    with pytest.raises(ValueError, match="one count a ray"):
+        importance_sampling(RayIntervals(torch.tensor(vals.reshape(-1))),
+                            torch.tensor(cdfs.reshape(-1)), 8)
+
+
+def test_searchsorted_flattened_golden():
+    """JAX's docstring golden (tests/test_pdf.py), packed keys and queries."""
+    key = RayIntervals(torch.tensor([0.0, 1.0, 0.0, 1.0, 2.0]),
+                       packed_info=torch.tensor([[0, 2], [2, 3]]))
+    query = RayIntervals(torch.tensor([0.5, 1.5, 2.5]), packed_info=torch.tensor([[0, 1], [1, 2]]))
+    ids_left, ids_right = searchsorted(key, query)
+    assert ids_left.tolist() == [0, 3, 3] and ids_right.tolist() == [1, 4, 4]
+
+
+@pytest.mark.parametrize("layout", ["packed-packed", "packed-ray-indices", "batched-packed",
+                                    "batched-ray-indices"])
+def test_searchsorted_flattened_matches_jax(layout):
+    """Flattened queries (by ``packed_info``, with empty rays, or by
+    ``ray_indices``) into flattened keys (rays of 1 to 40 entries) or
+    batched keys, some queries exactly on keys and some outside each ray's
+    span: both index arrays equal JAX's."""
+    seg = np.array([3, 1, 40, 17, 2, 9])
+    q_counts = np.array([5, 2, 30, 0, 4, 11])
+    k_vals, k_pi = _packed(20, seg, 0.0, 1.0)
+    if layout.startswith("batched"):
+        k_vals = np.sort(np.random.default_rng(21).uniform(size=(6, 33)), -1).astype(np.float32)
+        k_pi = None
+    q_vals, q_pi = _packed(22, q_counts, -0.1, 1.1)
+    q_vals[0] = k_vals.reshape(-1)[1]  # a query on a key
+    ray_ids = np.repeat(np.arange(6), q_counts).astype(np.int32)
+    by_ids = layout.endswith("ray-indices")
+    jkey = JaxIntervals(vals=jnp.asarray(k_vals),
+                        packed_info=None if k_pi is None else jnp.asarray(k_pi))
+    jq = JaxIntervals(vals=jnp.asarray(q_vals), packed_info=None if by_ids else jnp.asarray(q_pi),
+                      ray_indices=jnp.asarray(ray_ids) if by_ids else None)
+    want = jax_searchsorted(jkey, jq)
+    key = RayIntervals(torch.tensor(k_vals), packed_info=None if k_pi is None else torch.tensor(k_pi))
+    q = RayIntervals(torch.tensor(q_vals), packed_info=None if by_ids else torch.tensor(q_pi),
+                     ray_indices=torch.tensor(ray_ids) if by_ids else None)
+    got = searchsorted(key, q)
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g.numpy(), np.asarray(w))

@@ -3,6 +3,7 @@ batches from the same seed."""
 import jax.numpy as jnp
 import numpy as np
 import pytest
+import torch
 
 from nerfacc_tpu.data.procedural import ProceduralSceneLoader as JaxLoader
 from nerfacc_tpu_torch.data.procedural import ProceduralSceneLoader
@@ -101,3 +102,77 @@ def test_opaque_scene_matches_jax(split, monkeypatch):
     for key in ("rays_o", "rays_d"):
         np.testing.assert_allclose(out[key].numpy(), ref[key], rtol=0, atol=1e-6)
     np.testing.assert_allclose(out["rgb"].numpy(), ref["rgb"], rtol=0, atol=1 / 255 + 1e-6)
+
+
+@pytest.fixture(scope="module")
+def unbounded_pair():
+    """The unbounded scene from both packages: train and test splits, 2
+    views of 16x16 each, the JAX ground truth rendered (no disk cache)."""
+    from nerfacc_tpu.data.procedural import ProceduralUnboundedSceneLoader as JaxUnbounded
+    from nerfacc_tpu_torch.data.procedural import ProceduralUnboundedSceneLoader
+
+    kw = dict(n_train=2, n_test=2, width=16, height=16, seed=5)
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setenv("NERFACC_TPU_GT_CACHE", "")
+        jax_train = JaxUnbounded(split="train", num_rays=64, **kw)
+        jax_test = JaxUnbounded(split="test", **kw)
+    ports = (ProceduralUnboundedSceneLoader(split="train", num_rays=64, device="cpu", **kw),
+             ProceduralUnboundedSceneLoader(split="test", device="cpu", **kw))
+    return (jax_train, jax_test), ports
+
+
+def test_unbounded_scene_matches_jax(unbounded_pair):
+    """The 360 scene: the camera ring, K, the object and far blobs and the
+    ground constants bitwise equal to the JAX loader's; both splits' ground
+    truth (two views of 16x16) within one uint8 level; a seeded train batch
+    bitwise, on the JAX images; the near and far planes."""
+    (jax_train, jax_test), (train, test) = unbounded_pair
+    assert (train.NEAR, train.FAR) == (jax_train.NEAR, jax_train.FAR) == (0.05, 20.0)
+    for ds, jds in ((train, jax_train), (test, jax_test)):
+        assert len(ds) == len(jds) == 2
+        np.testing.assert_array_equal(ds.camtoworlds, jds.camtoworlds)
+        np.testing.assert_array_equal(ds.K, jds.K)
+        np.testing.assert_array_equal(ds.aabb, jds.aabb)
+        for name in ("blob_centers", "blob_scales", "blob_density", "blob_colors",
+                     "far_centers", "far_scales", "far_density", "far_colors"):
+            np.testing.assert_array_equal(getattr(ds, name).numpy(),
+                                          np.asarray(getattr(jds, name)), err_msg=name)
+        np.testing.assert_allclose(ds.images.numpy(), jds.images, rtol=0, atol=1)
+    assert (train.CONTENT_RADIUS, train.GROUND_Z0, train.GROUND_H, train.GROUND_DENSITY) == (
+        jax_train.content_radius, jax_train.ground_z0, jax_train.ground_h,
+        jax_train.ground_density)
+    assert train.GT_FAR_SAMPLES == jax_train._gt_far_samples
+    assert train.GT_SAMPLES == jax_train._gt_samples
+    assert train.blob_centers.shape == (16, 3) and train.far_centers.shape == (12, 3)
+    # the test ring sits half a step from the train ring
+    assert not np.array_equal(train.camtoworlds, test.camtoworlds)
+    # the ground and the far blobs fill the background: most test pixels
+    # are opaque, and the view is not one colour
+    alpha = test.images[..., 3].float() / 255
+    assert float(alpha.mean()) > 0.5 and float(test.images[..., :3].float().std()) > 5
+    train.images = torch.tensor(jax_train.images)
+    for _ in range(2):  # consecutive batches: the same rng call sequence
+        ref, out = jax_train[0], train[0]
+        for key in ("rays_o", "rays_d", "rgb", "color_bkgd"):
+            np.testing.assert_array_equal(out[key].numpy(), ref[key], err_msg=key)
+
+
+def test_unbounded_scene_feeds_the_device_sampler(unbounded_pair):
+    """``DeviceRaySampler.from_loader`` takes the unbounded loader as it is:
+    its rays and composited colours for given pixels equal the loader's own
+    item (colours bit for bit, rays within 1e-6)."""
+    from nerfacc_tpu_torch.data.device_sampler import DeviceRaySampler
+
+    _, (train, _) = unbounded_pair
+    sampler = DeviceRaySampler.from_loader(train)
+    assert sampler.num_rays == 64 and sampler.n_images == 2
+    rng = np.random.default_rng(3)
+    image_id, x, y = (rng.integers(0, n, size=64) for n in (2, 16, 16))
+    bkgd = np.ones(3, np.float32)
+    want = train._item(image_id, x, y, bkgd)
+    got = sampler.batch(*(torch.tensor(a) for a in (image_id, x, y)), torch.tensor(bkgd))
+    assert torch.equal(got["rgb"], want["rgb"])
+    for key in ("rays_o", "rays_d"):
+        np.testing.assert_allclose(got[key].numpy(), want[key].numpy(), rtol=0, atol=1e-6)
+    batch = sampler.sample(torch.Generator().manual_seed(0))
+    assert batch["rgb"].shape == (64, 3) and bool(torch.isfinite(batch["rays_d"]).all())

@@ -19,6 +19,8 @@ from nerfacc_tpu.estimators.prop_net import get_proposal_requires_grad_fn as jax
 from nerfacc_tpu.estimators.prop_net import propnet_sampling as jax_propnet_sampling
 from nerfacc_tpu.models.cp_field import CPDensityField as JaxDensityField
 from nerfacc_tpu.models.cp_field import CPRadianceField as JaxField
+from nerfacc_tpu.models.ngp import NGPDensityField as JaxNGPDensityField
+from nerfacc_tpu.models.ngp import NGPRadianceField as JaxNGPField
 from nerfacc_tpu.trainers import NGPPropTrainer as JaxPropTrainer
 from nerfacc_tpu.volrend import rendering as jax_rendering
 from nerfacc_tpu_torch.data.device_sampler import DeviceRaySampler
@@ -31,6 +33,7 @@ from nerfacc_tpu_torch.estimators.prop_net import (
     propnet_sampling,
 )
 from nerfacc_tpu_torch.models.cp_field import CPDensityField, CPRadianceField
+from nerfacc_tpu_torch.models.ngp import NGPDensityField, NGPRadianceField
 from nerfacc_tpu_torch.trainers.ngp_prop import NGPPropTrainer, PropTrainState
 from nerfacc_tpu_torch.utils.jax_bridge import (
     cp_density_field_params_from_numpy,
@@ -205,39 +208,93 @@ def batch():
 TRAINER = dict(prop_samples=[16], num_samples=8, near_plane=2.0, far_plane=6.0, max_steps=100)
 
 
+# the unbounded example's configuration, cut to size: two proposal levels
+# and the final samples ([256, 96] -> 48 in the example), lindisp, the
+# opaque last sample, near 0.2 and far 1e3 over the box +-1
+CASCADE = dict(prop_samples=[16, 12], num_samples=8, near_plane=0.2, far_plane=1e3,
+               sampling_type="lindisp", opaque_bkgd=True)
+NGP_FIELD = dict(n_levels=4, log2_hashmap_size=10, max_resolution=64)
+NGP_PROP = dict(n_levels=5, log2_hashmap_size=10, hidden_dim=16)
+
+
+def _trainer_fields(kind, unbounded, levels):
+    """(JAX field, JAX proposal fields, port field, port proposal fields),
+    f32: the CP pair, or the hash-grid pair ("ngp", the example's --field
+    ngp), over the unbounded example's box when ``unbounded``."""
+    aabb = (-1.0, -1.0, -1.0, 1.0, 1.0, 1.0) if unbounded else AABB
+    if kind == "cp":
+        return (JaxField(aabb=aabb, unbounded=unbounded, compute_dtype=jnp.float32, **FIELD),
+                [JaxDensityField(aabb=aabb, unbounded=unbounded, compute_dtype=jnp.float32, **PROP)
+                 for _ in range(levels)],
+                CPRadianceField(aabb, unbounded, compute_dtype=torch.float32, **FIELD),
+                [CPDensityField(aabb, unbounded, compute_dtype=torch.float32, **PROP)
+                 for _ in range(levels)])
+    return (JaxNGPField(aabb=aabb, unbounded=unbounded, compute_dtype=jnp.float32, **NGP_FIELD),
+            [JaxNGPDensityField(aabb=aabb, unbounded=unbounded, compute_dtype=jnp.float32,
+                                **NGP_PROP) for _ in range(levels)],
+            NGPRadianceField(aabb, unbounded, compute_dtype=torch.float32, **NGP_FIELD),
+            [NGPDensityField(aabb, unbounded, compute_dtype=torch.float32, **NGP_PROP)
+             for _ in range(levels)])
+
+
 @pytest.mark.parametrize(
     "sampling_type,opaque_bkgd,fields",
     [("uniform", False, {}), ("lindisp", True, {}),
      ("uniform", False, dict(lr=5e-3, prop_loss_scaler=256.0, weight_decay=1e-4)),
-     ("uniform", False, dict(stratified=False))],
-    ids=["uniform", "lindisp-opaque", "lr-scaler-decay", "unstratified"],
+     ("uniform", False, dict(stratified=False)),
+     ("lindisp", True, dict(CASCADE, kind="cp")),
+     ("lindisp", True, dict(CASCADE, kind="ngp"))],
+    ids=["uniform", "lindisp-opaque", "lr-scaler-decay", "unstratified", "cascade-cp",
+         "cascade-ngp"],
 )
 def test_prop_train_steps_match_jax(batch, sampling_type, opaque_bkgd, fields):
     """Two steps from the same parameters, batch and JAX's stratified draws:
     one with ``requires_grad`` (the interlevel loss trains the proposal
-    field), then one without (the proposal field's gradients are zero, its
-    Adam moments decay, and it moves by its momentum).  f32 fields.
+    fields), then one without (the proposal fields' gradients are zero,
+    their Adam moments decay, and they move by their momentum).  f32
+    fields.  The cascade cases run the unbounded example's configuration
+    cut to size (two proposal levels, lindisp, the opaque last sample, near
+    0.2, far 1e3, contracted fields over the box +-1) with the CP fields
+    and with the hash-grid fields.
 
     Tolerances.  Loss, mse and prop loss: 1e-5 relative.  Every leaf of both
-    groups after each Adam update: within 1e-6 absolute.  After one update
+    groups after each Adam update: within 1e-6 absolute (1e-5 for the
+    hash-grid cascade, see below).  After one update
     Adam moves an entry by about lr * sign(gradient) (lr 1e-4 at step 0), so
     a leaf that took the wrong step, or none, would miss by ~1e-4; the two
     packages' gradients agree to ~1e-6 of their scale (compositing sums in
     another order), which moves the updates far less.  The trainer fields
     the port took from JAX (``lr``, ``prop_loss_scaler``, ``weight_decay``,
     ``stratified``) are set alike on both."""
-    jtrainer = JaxPropTrainer(
-        field=JaxField(aabb=AABB, compute_dtype=jnp.float32, **FIELD),
-        prop_fields=[JaxDensityField(aabb=AABB, compute_dtype=jnp.float32, **PROP)],
-        sampling_type=sampling_type, opaque_bkgd=opaque_bkgd, **TRAINER, **fields,
-    )
-    trainer = NGPPropTrainer(
-        field=CPRadianceField(AABB, compute_dtype=torch.float32, **FIELD),
-        prop_fields=[CPDensityField(AABB, compute_dtype=torch.float32, **PROP)],
-        sampling_type=sampling_type, opaque_bkgd=opaque_bkgd, device="cpu", **TRAINER,
-        **fields,
-    )
+    fields = dict(fields)
+    kind = fields.pop("kind", "cp")
+    cascade = "prop_samples" in fields
+    settings = {**TRAINER, "sampling_type": sampling_type, "opaque_bkgd": opaque_bkgd, **fields}
+    jfield, jprops, field, props = _trainer_fields(kind, cascade, len(settings["prop_samples"]))
+    jtrainer = JaxPropTrainer(field=jfield, prop_fields=jprops, **settings)
+    trainer = NGPPropTrainer(field=field, prop_fields=props, device="cpu", **settings)
     jstate = jtrainer.init_state()
+    atol = 1e-6
+    if kind == "ngp":
+        # the hash tables scaled to O(1), as tests/test_torch_ngp_field.py
+        # scales them: at their init (1e-4) the features are ~1e-4, and the
+        # density MLP's gradient entries of the features that barely move
+        # read ~1e-15, 1e-7 of the leaf's largest; there the last-bit
+        # differences of the contracted coordinates flip their sign, and
+        # Adam turns each flip into a step of 2 lr (measured: 5 of 1024
+        # entries of field.mlp_base.1 off by 1.7e-4, the gradient itself
+        # within 8e-7 relative Frobenius)
+        # The hash grid's cascade is held at 1e-5 on the step after: the
+        # last-bit differences of the proposal densities move the next
+        # levels' samples, which lindisp to far 1e3 stretches, and the table
+        # gradient of that step reads ~2.4e-4 relative Frobenius from JAX's;
+        # Adam's ratio then leaves entries up to 1.45e-6 apart, still ~1/70
+        # of a step of lr (1e-4) taken wrongly.
+        atol = 1e-5
+        jstate = jstate._replace(params={
+            "field": {**jstate.params["field"], "encoder": jstate.params["field"]["encoder"] * 1e4},
+            "props": [{**p, "encoder": p["encoder"] * 1e4} for p in jstate.params["props"]],
+        })
     params = prop_params_from_numpy(jax.tree.map(np.asarray, jstate.params), device="cpu")
     for leaf in trainer.leaves(params):
         leaf.requires_grad_(True)
@@ -247,19 +304,21 @@ def test_prop_train_steps_match_jax(batch, sampling_type, opaque_bkgd, fields):
         # the step's draws, as _train_step_impl and propnet_sampling split them
         k_strat = jax.random.split(jstate.key)[1]
         biases = [torch.tensor(np.asarray(jax.random.uniform(k, (N_RAYS, 1)))).reshape(-1)
-                  for k in jax.random.split(k_strat, 2)] if trainer.stratified else None
+                  for k in jax.random.split(k_strat, len(props) + 1)] if trainer.stratified else None
         jstate, ref = jtrainer.train_step(jstate, batch, requires_grad=rg)  # donates
         state, aux = trainer.train_step(state, tbatch, requires_grad=rg, biases=biases)
         for key in ("loss", "mse", "prop_loss"):
             assert float(aux[key]) == pytest.approx(float(ref[key]), rel=1e-5, abs=1e-12), (rg, key)
         assert (float(aux["prop_loss"]) > 0) == rg
         want = prop_params_from_numpy(jax.tree.map(np.asarray, jstate.params), device="cpu")
-        for group in ("field", "props"):
-            got_group = state.params[group] if group == "field" else state.params[group][0]
-            want_group = want[group] if group == "field" else want[group][0]
+        groups = [("field", state.params["field"], want["field"])] + [
+            (f"props.{i}", got, ref)
+            for i, (got, ref) in enumerate(zip(state.params["props"], want["props"], strict=True))]
+        for group, got_group, want_group in groups:
+            assert set(got_group) == set(want_group)
             for name, p in got_group.items():
                 np.testing.assert_allclose(
-                    p.detach().numpy(), want_group[name].numpy(), rtol=0, atol=1e-6,
+                    p.detach().numpy(), want_group[name].numpy(), rtol=0, atol=atol,
                     err_msg=f"rg={rg} {group}.{name}",
                 )
     assert state.step == 2 and state.opt_state.count == 2
