@@ -120,7 +120,22 @@ It builds the CUDA kernels from ``nerfacc_tpu_torch/csrc`` and runs:
     CP field behind two ``CPDensityField``s over the box +-1 contracted,
     [256, 96] -> 48 samples uniform in disparity, the opaque last sample,
     the unbounded scene's near 0.05 and far 20, six test views); G1, G4,
-    G3, G5 and G14 must launch.
+    G3, G5 and G14 must launch;
+22. the occupancy example's unbounded branch, built by its own ``build``
+    (``train_ngp_nerf_occ --scene procedural360 --field cp``: the bench CP
+    field contracted over the box +-1, a 4 x 128^3 grid, step 1e-3, cone
+    0.004, near 0.2, a 2^18 budget, the ray-batch controller from 1024
+    rays): served untrained on its six test views (the grid refreshed
+    ``N_REFRESH`` times), trained ``TRAIN_STEPS`` steps through its
+    ``train_loop`` (``train_steps_sampled``, 8 steps a call; the loss must
+    fall; G1-G5 must launch), one step through the kernels against the
+    plain versions (phase 5's bounds), served trained 3 dB above untrained;
+    22b. the occupancy updates past warmup: the bench CP trainer trained
+    through its warmup (``warmup_steps`` steps, dense refreshes), then
+    ``OCC_MODE_STEPS`` steps from that one state with the sampled update
+    (``dense_occ_update=False``) and again with ``occ_refresh_stripes=4``;
+    each update is made twice with the same draws, through G1 and through
+    its plain version, and the two grids' binaries must be equal.
 
 Phase 1d holds the hat kernels G8 (forward), G9 (table gradient) and G10
 (coordinate gradient) against their plain versions at N = 2^18 on each of
@@ -154,6 +169,9 @@ path's shapes and the 360 cascade's three (E = 2 -> 256, 257 -> 96,
 shape (5 levels, T = 2^17) on both proposal paths' first-level points, G7
 and its plain version each within the error bound of f32 summation of the
 exact sum, and phase 1 G1 at the 360 cascade's first level (N = 2^20).
+Phase 1 also holds G2 bitwise against its plain version on a train batch
+of phase 22's unbounded configuration (``G2_TRAIN_RAYS`` rays, 4 levels,
+step 1e-3, cone 0.004, near 0.2 + jitter * step) and times it there.
 
 With ``--quality tineuvox prop [--seeds ...] [--routes kernels plain
 plain:<kernel>,...] [--root DIR] [--label NAME] [--out DIR]`` the script
@@ -161,10 +179,12 @@ only trains and serves those paths as phases 12-14 and 16-18 do, from each
 seed, through each route (the kernels; every kernel of the path on its
 plain version; the named kernels alone on theirs), on this checkout or on
 the tree ``--root`` names (an older commit unpacked by ``git archive`` into
-a git-ignored directory), and prints one JSON line a run.  With ``--example cp|ngp [--steps N] [--seeds
-...]`` it runs the occupancy example alone from each seed (``--max_steps N``,
+a git-ignored directory), and prints one JSON line a run.  With ``--example cp|ngp|occ360 [--steps N] [--seeds
+...]`` it runs the occupancy example alone from each seed (``--field cp``,
+``--field ngp``, ``--scene procedural360 --field cp``; ``--max_steps N``,
 its defaults otherwise) and prints one JSON line a run: PSNR, SSIM, steps,
-training seconds, ray counts, samples a step, and both renderers' frames.
+training seconds, train samples/s, ray counts, samples a step, and both
+renderers' frames.
 With ``--example prop-cp|prop-ngp|prop360 [--steps N] [--seeds ...]
 [--routes kernels plain ...]`` it runs the proposal example alone
 (``--field cp``, ``--field ngp``, ``--scene procedural360``) from each seed
@@ -174,12 +194,13 @@ train samples/s, the losses and seconds a frame.
 Every check raises on failure, so the exit code is nonzero and the result
 line is not printed.  The last line of standard output is a JSON object with
 ``"ok": true`` and the device; the line before it lists each kernel's launch
-count (over the training phases 4, 6d, 8, 12, 16, 19, 20 and 21; for G11-G13, over
+count (over the training phases 4, 6d, 8, 12, 16, 19, 20, 21 and 22; for G11-G13, over
 the gather probe's run), error, times and bound.  Without a CUDA device the
 script fails at once.
 """
 import argparse
 import contextlib
+import copy
 import dataclasses
 import importlib
 import json
@@ -373,6 +394,10 @@ PROP_SAMPLES, PROP_FINAL = 128, 64
 PROP_EVAL_RAYS = 8192  # render_image's chunk
 # Phase 21: the proposal example's 360 cascade, [256, 96] -> 48 samples
 PROP360_COUNTS = (256, 96, 48)
+# Phases 1 and 22: the occupancy example's unbounded branch; 22b: steps of
+# each occupancy-update mode past warmup
+OCC360_ARGS = ["--scene", "procedural360", "--field", "cp"]
+OCC_MODE_STEPS = 64
 
 
 # The least time the card could take for a kernel's work: the bytes the
@@ -481,6 +506,36 @@ def measured(err, ms, plain_ms, moved, ops, library_ms=None):
         "bound_by": "bytes" if t_bytes >= t_ops else "operations",
         "library_ms": library_ms,
     }
+
+
+def cp_taps(u, lines):
+    """The library's stages of a CP level on (N, 3) coordinates in [0, 1]:
+    the two taps and lerp weights of each point on each axis, as rows of
+    the three axes' stacked (3R, rank) table: (3N, 2) rows, (3N, 2)
+    weights, the table."""
+    R = lines.shape[1]
+    x = u.t().reshape(-1) * (R - 1)
+    i0 = torch.floor(x).clamp(0, R - 2)
+    f = x - i0
+    axis = torch.arange(3, device=u.device).repeat_interleave(u.shape[0])
+    rows = (i0.long() + axis * R)[:, None] + torch.tensor([0, 1], device=u.device)
+    return rows, torch.stack([1.0 - f, f], dim=1), lines.reshape(3 * R, -1)
+
+
+def cp_library_ms(u, lines, cot):
+    """One PyTorch call a stage of G1 and of G4 on these inputs (CUDA
+    events): ``F.embedding_bag`` over the precomputed taps (G1's gather
+    stage, the three axes' lerps) and ``index_add_`` of the precomputed
+    per-tap updates into the (3R, rank) table gradient (G4's scatter
+    stage)."""
+    rows, w, table = cp_taps(u, lines)
+    gather = cuda_ms(lambda: F.embedding_bag(rows, table, mode="sum",
+                                             per_sample_weights=w))
+    upd = (w[:, :, None] * cot.repeat(3, 1)[:, None, :]).reshape(-1, cot.shape[1])
+    acc = torch.zeros_like(table)
+    flat = rows.reshape(-1)
+    scatter = cuda_ms(lambda: acc.index_add_(0, flat, upd))
+    return gather, scatter
 
 
 def port_module(name):
@@ -773,9 +828,14 @@ def phase_kernels(dev, trainer, state, ds):
                 g4_ms, g4_plain_ms, g4_bytes = ms, plain, nbytes(u, cot, line, out)
     # per point three cell weights; per point, rank and axis the product of
     # the other two axes' lerps and two weighted taps
+    g1_lib, g4_lib = cp_library_ms(u, trainer.field.encoder.lines[-1], cot)
     report["cp_level_bwd"] = measured(
-        worst, g4_ms, g4_plain_ms, g4_bytes, G1_N * (9 + 32 * 3 * 4)
+        worst, g4_ms, g4_plain_ms, g4_bytes, G1_N * (9 + 32 * 3 * 4), g4_lib
     )
+    report["cp_level_fwd"]["library_ms"] = g1_lib
+    print(f"G1 / G4 at R=512, rank 32, N={G1_N}: F.embedding_bag on the precomputed "
+          f"taps (the gather stage) {g1_lib:.4f} ms, index_add_ of the precomputed "
+          f"per-tap updates (the scatter stage) {g4_lib:.4f} ms")
 
     # G5: G3's buffer, seeded cotangents of the three per-ray sums
     cots = [torch.randn((G2_RAYS, c), generator=g, device=dev) for c in (3, 1, 1)]
@@ -1838,10 +1898,11 @@ def step_readings(what, step, plain, limit=None):
     return what, max(per_run), limit, loss_rel
 
 
-def phase_train_twins(trainer, state, batch, kind="cp"):
+def phase_train_twins(trainer, state, batch, kind="cp", f32=None, name=None):
     """One train step through the kernels against the same step through the
     plain twins: the same state, batch and near-plane jitter, for the
-    trained bf16 field and for the same parameters in an f32 field.  Each
+    trained bf16 field and for the same parameters in an f32 field (``f32``,
+    by default ``kind``'s bench trainer; printed as ``name``).  Each
     kernel step runs ``STEP_REPEATS`` times, since atomics reorder its sums
     from run to run.  For the hat route's f32 field also the plain step
     against itself, and the kernel step under :func:`hat_kernels_alone`
@@ -1849,10 +1910,12 @@ def phase_train_twins(trainer, state, batch, kind="cp"):
     require(state.step % trainer.update_interval != 0, "phase 5 step refreshes")
     gen = torch.Generator(device=trainer.device).manual_seed(5)
     near = torch.rand(batch["rays_o"].shape[0], generator=gen, device=trainer.device)
-    f32 = make_trainer(
-        trainer.device, kind, torch.float32, timestamps=trainer.timestamps,
-        max_steps=TRAIN_STEPS, sample_budget=trainer.sample_budget,
-    )
+    if f32 is None:
+        f32 = make_trainer(
+            trainer.device, kind, torch.float32, timestamps=trainer.timestamps,
+            max_steps=TRAIN_STEPS, sample_budget=trainer.sample_budget,
+        )
+    name = name or kind
     hat = "hat_fwd" in ENCODER_KERNELS[kind]
     plain, checks = {}, []
     for mode, tr, limit in (("f32", f32, F32_HAT_STEP_FRO if hat else F32_STEP_FRO),
@@ -1863,7 +1926,7 @@ def phase_train_twins(trainer, state, batch, kind="cp"):
         def kernel_step():
             return kernel_step_grads(tr, state, batch, near)
 
-        what = f"train step {kind} {mode}"
+        what = f"train step {name} {mode}"
         ref = plain_step()
         plain[mode] = ref[1]
         checks.append(step_readings(f"{what}, kernels vs twins", kernel_step, ref, limit))
@@ -1878,7 +1941,7 @@ def phase_train_twins(trainer, state, batch, kind="cp"):
         require(reading <= limit, f"{what}: a gradient leaf off by {reading} > {limit}")
         require(loss_rel <= 1e-5, f"{what}: losses differ by {loss_rel}")
     contract = relative_fro(plain["f32"], plain["bf16"])
-    print(f"train step {kind}, twins f32 field vs bf16 field (what lost bf16 "
+    print(f"train step {name}, twins f32 field vs bf16 field (what lost bf16 "
           "roundings read): "
           + ", ".join(f"{k} {v:.3g}" for k, v in contract.items()))
 
@@ -2858,6 +2921,169 @@ def phase_prop_path(dev, path):
     return launches
 
 
+def occ360_example(dev):
+    """The occupancy example's unbounded branch from its own ``build``
+    (``OCC360_ARGS``, ``TRAIN_STEPS`` steps): (module, arguments, trainer,
+    train loader, test loader).  Its loop ends at the first multiple of its
+    8-step calls past ``--max_steps``, so ``--max_steps`` is one call short
+    of ``TRAIN_STEPS``."""
+    ex = port_module("examples.train_ngp_nerf_occ")
+    args = ex.parser().parse_args([*OCC360_ARGS, "--max_steps", str(TRAIN_STEPS - 8),
+                                   "--log_every", str(TRAIN_STEPS // 4)])
+    (trainer, train_ds, test_ds), setup = timed(lambda: ex.build(args))
+    print(f"occ360: {type(trainer.field).__name__} (unbounded {trainer.field.unbounded}), "
+          f"{trainer.grid_nlvl} x {trainer.grid_resolution}^3 grid over "
+          f"{trainer.field.aabb.tolist()}, step {trainer.render_step_size}, cone "
+          f"{trainer.cone_angle}, alpha_thre {trainer.alpha_thre}, near "
+          f"{trainer.near_plane}, budget {trainer.sample_budget}, weight decay "
+          f"{trainer.weight_decay}; {len(train_ds)} train views ({train_ds.color_bkgd_aug} "
+          f"backgrounds) and {len(test_ds)} test views {test_ds.WIDTH}x{test_ds.HEIGHT} "
+          f"({type(train_ds).__name__}), built in {setup:.2f} s")
+    return ex, args, trainer, train_ds, test_ds
+
+
+@torch.inference_mode()
+def phase_unbounded_march(dev, trainer, train_ds):
+    """Phase 1's G2 check on the unbounded configuration: the grid refreshed
+    ``N_REFRESH`` times by the untrained field, a train batch of
+    ``G2_TRAIN_RAYS`` rays at the trainer's stratified near planes, G2
+    against its plain version bit for bit (samples, counts, termination
+    planes), timed.  Returns the refreshed state."""
+    g = torch.Generator(device=dev).manual_seed(22)
+    state = refreshed_state(trainer)
+    occ = state.occ_state
+    batch = DeviceRaySampler.from_loader(train_ds, num_rays=G2_TRAIN_RAYS).sample(g)
+    near = trainer.near_plane + torch.rand(G2_TRAIN_RAYS, generator=g, device=dev) \
+        * trainer.render_step_size
+    args = (batch["rays_o"], batch["rays_d"], occ.binaries, occ.aabbs, near,
+            torch.full_like(near, trainer.far_plane), trainer.render_step_size,
+            trainer.cone_angle)
+    out, ref = march(*args), march_plain(*args)
+    n_differ = int((out.counts != ref.counts).sum())
+    same = [torch.equal(a, b) for a, b in zip(out, ref)]
+    require(all(same), f"G2 unbounded train batch: {n_differ} rays differ in count, "
+                       f"fields equal {same}")
+    r = measured(0.0, cuda_ms(lambda: march(*args)), cuda_ms(lambda: march_plain(*args)),
+                 nbytes(*args[:6], *out), 15 * out.ray_indices.shape[0])
+    print(f"G2 march {G2_TRAIN_RAYS} rays (unbounded train batch: {occ.levels} levels, "
+          f"{float(occ.binaries.float().mean()):.3f} occupied, step "
+          f"{trainer.render_step_size}, cone {trainer.cone_angle}, near "
+          f"{trainer.near_plane} + jitter * step): {out.ray_indices.shape[0]} samples, "
+          f"{float(out.counts.float().mean()):.1f} a ray, 0 rays differ, bitwise; kernel "
+          f"{r['ms']:.4f} ms, alone {device_ms(lambda: march(*args)):.4f} ms, bound "
+          f"{r['bound_ms']:.4f} ms, twin {r['plain_ms']:.4f} ms")
+    return state
+
+
+def serve_views(what, trainer, state, ds):
+    """``eval_metrics`` on every view of ``ds``, a line a view: the mean
+    PSNR."""
+    metrics = trainer.eval_metrics(state, ds)
+    for i, v in enumerate(metrics["views"]):
+        print(f"{what} view {i}: {v['seconds']:.4f} s, "
+              f"{v['n_samples'] / v['n_rays']:.2f} samples/ray, psnr {v['psnr']:.3f}, "
+              f"ssim {v['ssim']:.4f}")
+        require(v["finite"], f"{what} view {i}: non-finite output")
+    return metrics
+
+
+def phase_occ360(dev, ex, args, trainer, train_ds, test_ds, untrained_state):
+    """22: the occupancy example's unbounded branch: served untrained (the
+    refreshed grid of phase 1), trained through the example's
+    ``train_loop`` (``train_steps_sampled``, the controller), one step
+    through the kernels against the plain versions, served trained (the
+    loop's evaluation), 3 dB above untrained.  Returns the training's
+    launches."""
+    untrained = serve_views("occ360 untrained", trainer, untrained_state, test_ds)["psnr"]
+    cuda.reset_launches()
+    run = ex.train_loop(trainer, train_ds, test_ds, args)
+    torch.cuda.synchronize()
+    launches = dict(cuda.LAUNCHES)
+    steps = int(run.state.step)
+    samples = sum(r["samples"] for r in run.log)
+    losses = [r["loss"] for r in run.log]
+    first, last = statistics.mean(losses[:5]), statistics.mean(losses[-5:])
+    rays = sorted({r["num_rays"] for r in run.log})
+    print(f"train occ360: {steps} steps in {run.train_seconds:.3f} s, "
+          f"{1e3 * run.train_seconds / steps:.3f} ms/step, "
+          f"{samples / run.train_seconds:.6g} train samples/s ({samples / steps:.1f} "
+          f"rendered a step), ray counts {rays}; mean loss of the first and last five "
+          f"calls {first:.6f} -> {last:.6f}; truncated rays {run.log[-1]['n_rays_truncated']}"
+          f"; per step " + ", ".join(f"{k} {v / steps:.3f}" for k, v in launches.items() if v))
+    require(all(math.isfinite(v) for v in losses), "train occ360: non-finite loss")
+    require(last < first, f"train occ360: loss {first} -> {last} did not fall")
+    for name in ENCODER_KERNELS["cp"] + ("march", "composite_fwd", "composite_bwd"):
+        require(launches.get(name, 0) > 0, f"kernel {name} never launched in occ360 training")
+    state = run.state
+    batch = DeviceRaySampler.from_loader(train_ds, num_rays=train_ds.num_rays).sample(
+        trainer._generator(steps, 3))
+    f32 = dataclasses.replace(trainer, field=type(trainer.field)(
+        trainer.field.aabb.tolist(), unbounded=True, compute_dtype=torch.float32))
+    phase_train_twins(trainer, state, batch, "cp", f32=f32, name="occ360")
+    for i, v in enumerate(run.metrics["views"]):
+        print(f"trained occ360 view {i}: {v['seconds']:.4f} s, "
+              f"{v['n_samples'] / v['n_rays']:.2f} samples/ray, psnr {v['psnr']:.3f}, "
+              f"ssim {v['ssim']:.4f}")
+        require(v["finite"], f"trained occ360 view {i}: non-finite output")
+    print(f"trained occ360: psnr {run.metrics['psnr']:.3f} (untrained {untrained:.3f}), "
+          f"ssim {run.metrics['ssim']:.4f}, occupied share "
+          f"{float(state.occ_state.binaries.float().mean()):.4f}")
+    require(run.metrics["psnr"] >= untrained + 3.0,
+            f"trained occ360 psnr {run.metrics['psnr']} not 3 dB above {untrained}")
+    return launches
+
+
+def phase_occ_modes(dev):
+    """22b: the bench CP trainer through its warmup (dense refreshes), then
+    ``OCC_MODE_STEPS`` steps from that state with the sampled update and
+    again with four stripes; every update made through G1 and through its
+    plain version, with the same draws (the step's generator), whose
+    binaries must be equal; each update timed."""
+    est = port_module("estimators.occ_grid")
+    ds = train_loader(dev, "cp")
+    sampler = DeviceRaySampler.from_loader(ds, num_rays=TRAIN["cp"][1])
+    base = make_trainer(dev, max_steps=TRAIN_STEPS)
+    state, _ = base.train_steps_sampled(base.init_state(), sampler, base.warmup_steps)
+    torch.cuda.synchronize()
+    for mode_name, options in (("sampled", dict(dense_occ_update=False)),
+                               ("striped", dict(occ_refresh_stripes=4))):
+        trainer = dataclasses.replace(base, **options)
+        st = copy.deepcopy(state)
+        update_ms, occ_err, modes, losses = [], 0.0, set(), []
+        t0 = time.perf_counter()
+        for step in range(st.step, st.step + OCC_MODE_STEPS):
+            if step % trainer.update_interval == 0:
+                modes.add(est.update_mode(step, trainer.warmup_steps, trainer.dense_occ_update,
+                                          trainer.occ_refresh_stripes))
+                before = dict(cuda.LAUNCHES)
+                with plain_kernels(("cp_level_fwd",)):
+                    plain = trainer.refresh_occ_grid(st, step).occ_state
+                require(cuda.LAUNCHES == before, "22b: the plain update launched a kernel")
+                update_ms.append(cuda_ms(lambda: trainer.refresh_occ_grid(st, step), reps=3))
+                kern = trainer.refresh_occ_grid(st, step).occ_state
+                require(torch.equal(kern.binaries, plain.binaries),
+                        f"22b {mode_name} step {step}: binaries differ from the plain update's")
+                occ_err = max(occ_err, float((kern.occs - plain.occs).abs().max()))
+            st, aux = trainer.train_step(st, sampler.sample(trainer._generator(step, 3)))
+            losses.append(aux["loss"])
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        losses = torch.stack(losses).cpu()
+        require(bool(torch.isfinite(losses).all()), f"22b {mode_name}: non-finite loss")
+        require(modes == {mode_name}, f"22b {mode_name}: updates took {modes}")
+        cells = est.cells_evaluated(mode_name, st.occ_state.cells_per_lvl,
+                                    trainer.occ_refresh_stripes)
+        print(f"occupancy update {mode_name} past warmup (steps {state.step}-{st.step}): "
+              f"{len(update_ms)} updates of {cells} cells, {statistics.mean(update_ms):.3f} ms "
+              f"an update, kernel and plain binaries equal at every update (occupancy "
+              f"max_abs_err {occ_err:.3g}); {OCC_MODE_STEPS} steps in {seconds:.3f} s, loss "
+              f"{float(losses[:8].mean()):.6f} -> {float(losses[-8:].mean()):.6f}, occupied "
+              f"share {float(st.occ_state.binaries.float().mean()):.4f}")
+    dense_ms = cuda_ms(lambda: base.refresh_occ_grid(state, state.step + 16), reps=3)
+    print(f"occupancy update dense past warmup ({base.grid_resolution}^3, every cell): "
+          f"{dense_ms:.3f} ms an update")
+
+
 def card():
     """The card's name and power limit, from ``nvidia-smi``."""
     return subprocess.run(
@@ -2962,22 +3188,25 @@ def prop_example_study(args):
 
 
 def example_study(args):
-    """``--example cp|ngp``: the occupancy example as a user runs it
+    """``--example cp|ngp|occ360``: the occupancy example as a user runs it
     (``python -m nerfacc_tpu_torch.examples.train_ngp_nerf_occ --field
-    <field> --max_steps <steps> --seed <seed>``, its defaults otherwise)
-    from each seed, then its test views through the exact renderer too; one
-    JSON line a run, printed and appended to ``<out>/example_<label>.jsonl``:
-    eval PSNR and SSIM, the steps trained and their wall seconds (the final
-    evaluation excluded), the last call's ray count, mean rendered samples a
-    step, and seconds a frame and samples a ray of both renderers."""
+    <field> --max_steps <steps> --seed <seed>``, or for occ360 ``--scene
+    procedural360 --field cp``, its defaults otherwise) from each seed,
+    then its test views through the exact renderer too; one JSON line a
+    run, printed and appended to ``<out>/example_<label>.jsonl``: eval PSNR
+    and SSIM, the steps trained and their wall seconds (the final
+    evaluation excluded), train samples/s, the last call's ray count, mean
+    rendered samples a step, and seconds a frame and samples a ray of both
+    renderers."""
     ex = port_module("examples.train_ngp_nerf_occ")
     head = {"label": args.label, "card": card(), "torch": torch.__version__,
             "cuda": torch.version.cuda}
     print(json.dumps(head), flush=True)
     os.makedirs(args.out, exist_ok=True)
     for seed in args.seeds:
+        flags = OCC360_ARGS if args.example == "occ360" else ["--field", args.example]
         eargs = ex.parser().parse_args([
-            "--field", args.example, "--max_steps", str(args.steps), "--seed", str(seed),
+            *flags, "--max_steps", str(args.steps), "--seed", str(seed),
             "--log_every", str(max(args.steps // 10, 8)),
         ])
         (trainer, train_ds, test_ds), setup = timed(lambda: ex.build(eargs))
@@ -2995,9 +3224,11 @@ def example_study(args):
             exact_psnr.append(float(-10.0 * torch.log10(((colors - data["rgb"]) ** 2).mean())))
         rec = {
             "label": args.label, "field": args.example, "seed": seed,
-            "steps": run.state.step, "psnr": run.metrics["psnr"],
+            "scene": eargs.scene, "steps": run.state.step, "psnr": run.metrics["psnr"],
             "ssim": run.metrics["ssim"], "view_psnr": [v["psnr"] for v in views],
             "train_seconds": run.train_seconds, "setup_seconds": setup,
+            "samples_per_s": sum(r["samples"] for r in run.log) / run.train_seconds,
+            "ms_per_step": 1e3 * run.train_seconds / run.state.step,
             "final_num_rays": run.log[-1]["num_rays"],
             "max_num_rays": max(r["num_rays"] for r in run.log),
             "mean_samples_per_step": sum(r["samples"] for r in run.log) / run.state.step,
@@ -3019,9 +3250,9 @@ def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--quality", nargs="+", choices=list(PATH_KERNELS),
                     help="train and serve these paths alone (quality_study)")
-    ap.add_argument("--example", choices=["cp", "ngp", *PROP_PATHS],
-                    help="run the occupancy example (cp, ngp: example_study) or the "
-                         "proposal example (prop-*: prop_example_study) alone")
+    ap.add_argument("--example", choices=["cp", "ngp", "occ360", *PROP_PATHS],
+                    help="run the occupancy example (cp, ngp, occ360: example_study) or "
+                         "the proposal example (prop-*: prop_example_study) alone")
     ap.add_argument("--steps", type=int, default=10000, help="--example's --max_steps")
     ap.add_argument("--seeds", nargs="+", type=int, default=list(QUALITY_SEEDS))
     ap.add_argument("--routes", nargs="+", default=None,
@@ -3073,6 +3304,8 @@ def main():
     gather_report, probe_launches = phase_gather_kernels(dev)
     report.update(gather_report)
     report.update(phase_pdf_kernel(dev))
+    occ360 = occ360_example(dev)
+    occ360_untrained = phase_unbounded_march(dev, *occ360[2:4])
     trainer, state, untrained_psnr = phase_slice(dev, ds)
 
     main_colors = trainer.render_rays(state, ds[0])[0]
@@ -3140,12 +3373,16 @@ def main():
     # 20-21: the proposal example's hash-grid path and its 360 cascade
     prop_ngp_launches = phase_prop_path(dev, "prop-ngp")
     prop360_launches = phase_prop_path(dev, "prop360")
-    # each kernel's launches over the six training runs (phases 4, 8, 12,
-    # 16, 20, 21), the occupancy example's (6d) and the quick start's loops
-    # (19), and the gather kernels' over the gather probe's run
+    # 22: the occupancy example's unbounded branch; 22b: the update modes
+    occ360_launches = phase_occ360(dev, *occ360, occ360_untrained)
+    del occ360, occ360_untrained
+    phase_occ_modes(dev)
+    # each kernel's launches over the seven training runs (phases 4, 8, 12,
+    # 16, 20, 21, 22), the occupancy example's (6d) and the quick start's
+    # loops (19), and the gather kernels' over the gather probe's run
     launches = {k: v + ngp_launches[k] + tnv_launches[k] + prop_launches[k]
                 + example_launches[k] + qs_launches[k] + qs_prop_launches[k]
-                + prop_ngp_launches[k] + prop360_launches[k]
+                + prop_ngp_launches[k] + prop360_launches[k] + occ360_launches.get(k, 0)
                 for k, v in launches.items()}
     launches.update(probe_launches)
 

@@ -1,7 +1,8 @@
 """nerfacc_tpu_torch: nerfacc_tpu's library API (estimators, scans,
 volume rendering, losses), its occupancy-grid and proposal-network render and
 train paths, and its CP, hash-grid (Instant-NGP) and TiNeuVox (dynamic)
-radiance fields with the CP and hash-grid proposal fields, ported to PyTorch and
+radiance fields with the CP and hash-grid proposal fields, the padded
+traversals, lens undistortion and the dataset loaders, ported to PyTorch and
 hand-written CUDA kernels for NVIDIA Hopper.
 
 The functional ops take the JAX package's three layouts: batched rows, and
@@ -13,6 +14,11 @@ for CPU tensors.  Entry points put their state on the card unless given
 ``device="cpu"``.
 """
 from . import cuda
+from .cameras import (
+    opencv_lens_undistortion,
+    opencv_lens_undistortion_12,
+    opencv_lens_undistortion_fisheye,
+)
 from .data.device_sampler import DeviceRaySampler
 from .data_specs import RayIntervals, RaySamples
 from .estimators.base import AbstractEstimator
@@ -29,7 +35,15 @@ from .estimators.prop_net import (
     propnet_loss,
     propnet_sampling,
 )
-from .grid import march, march_plain, ray_aabb_intersect, traverse_grids_padded
+from .grid import (
+    TraversalResult,
+    march,
+    march_plain,
+    ray_aabb_intersect,
+    traverse_grids,
+    traverse_grids_padded,
+    traverse_grids_voxel,
+)
 from .losses import distortion
 from .models.cp_field import CPDensityField, CPGridEncoder, CPRadianceField
 from .models.encoders import HashGridEncoder, SinusoidalEncoder
@@ -67,16 +81,19 @@ __all__ = [
     "CompactSamples", "DeviceRaySampler", "HashGridEncoder", "NGPOccTrainer",
     "NGPDensityField", "NGPPropTrainer", "NGPRadianceField", "OccGridEstimator", "OccGridState",
     "PropNetEstimator", "PropTrainState", "RayIntervals", "RaySamples",
-    "SinusoidalEncoder", "TiNeuVoxRadianceField", "TrainState", "__version__",
+    "SinusoidalEncoder", "TiNeuVoxRadianceField", "TrainState", "TraversalResult",
+    "__version__",
     "accumulate_along_rays", "accumulate_along_rays_", "compact_samples", "cuda",
     "distortion", "exclusive_prod", "exclusive_sum", "get_proposal_requires_grad_fn",
     "importance_sampling", "inclusive_prod", "inclusive_sum", "init_occ_grid",
-    "load_checkpoint", "march", "march_plain", "pack_info", "propnet_loss",
+    "load_checkpoint", "march", "march_plain", "opencv_lens_undistortion",
+    "opencv_lens_undistortion_12", "opencv_lens_undistortion_fisheye", "pack_info",
+    "propnet_loss",
     "propnet_sampling", "ray_aabb_intersect", "render_image_with_occgrid",
     "render_rays_occgrid_test", "render_rays_with_occgrid",
     "render_transmittance_from_alpha", "render_transmittance_from_density",
     "render_visibility_from_alpha", "render_visibility_from_density",
     "render_weight_from_alpha", "render_weight_from_density", "rendering",
-    "sampling", "save_checkpoint", "searchsorted", "traverse_grids_padded",
-    "update_occ_grid",
+    "sampling", "save_checkpoint", "searchsorted", "traverse_grids",
+    "traverse_grids_padded", "traverse_grids_voxel", "update_occ_grid",
 ]

@@ -453,7 +453,6 @@ PROCEDURAL_SCENES = {
     "procedural": ProceduralSceneLoader,
     "proceduralopaque": ProceduralOpaqueSceneLoader,
 }
-#: the unbounded scenes, by name: the proposal example trains them; the
-#: occupancy example refuses them until its unbounded branch (``alpha_thre``,
-#: a 4-level grid, cone stepping) is ported
+#: the unbounded scenes, by name: both examples train them through their
+#: unbounded configurations
 UNBOUNDED_SCENES = {"procedural360": ProceduralUnboundedSceneLoader}

@@ -173,6 +173,21 @@ def _draw_occupied_ids(
     return torch.argsort(keys, dim=1)[:, :n]
 
 
+def update_mode(step: int, warmup_steps: int, dense: bool, dense_stripes: int) -> str:
+    """Which of :func:`update_occ_grid`'s modes an update at ``step`` takes:
+    "dense" (every cell), "striped" or "sampled"."""
+    if step < warmup_steps or (dense and dense_stripes == 1):
+        return "dense"
+    return "striped" if dense else "sampled"
+
+
+def cells_evaluated(mode: str, cells: int, dense_stripes: int = 1) -> int:
+    """Cells a level that an update in ``mode`` evaluates: all of them, one
+    stripe, or ``cells // 4`` uniform and as many occupied ones."""
+    return {"dense": cells, "striped": cells // dense_stripes,
+            "sampled": 2 * (cells // 4)}[mode]
+
+
 def update_occ_grid(
     state: OccGridState,
     occ_eval_fn: Callable,
@@ -220,14 +235,15 @@ def update_occ_grid(
     """
     levels, cells = state.levels, state.cells_per_lvl
     dev = state.occs.device
-    if step < warmup_steps or (dense and dense_stripes == 1):
+    mode = update_mode(step, warmup_steps, dense, dense_stripes)
+    if mode == "dense":
         ids = torch.arange(cells, device=dev).expand(levels, cells)
         jitter = _draw(jitter, (levels, cells, 3), generator, dev)
         occ = _eval_cells(state, ids, jitter, occ_eval_fn, eval_chunk, cell_data).reshape(-1)
         occs = torch.where(
             state.occs >= 0.0, torch.maximum(state.occs * ema_decay, occ), state.occs
         )
-    elif dense:
+    elif mode == "striped":
         if cells % dense_stripes:
             raise ValueError(f"dense_stripes={dense_stripes} must divide cells={cells}")
         n = cells // dense_stripes

@@ -1,20 +1,37 @@
-"""Train a radiance field with an occupancy grid on a procedural scene.
+"""Train a radiance field with an occupancy grid.
 
-PyTorch counterpart of the procedural branch of
-examples/train_ngp_nerf_occ.py::
+PyTorch counterpart of examples/train_ngp_nerf_occ.py::
 
     python -m nerfacc_tpu_torch.examples.train_ngp_nerf_occ --field cp
+    python -m nerfacc_tpu_torch.examples.train_ngp_nerf_occ --scene procedural360
 
 trains the bench ``CPRadianceField`` (resolutions 32/128/512, rank 32, bf16)
-or, with ``--field ngp``, the full-width hash-grid ``NGPRadianceField`` on
-the 24 train views of ``--scene`` (``procedural``, the translucent blob
-scene, or ``proceduralopaque``), with a 2^18-sample budget a step and a ray
-batch that the controller grows from ``--init_batch_size``, then evaluates
-the four test views through the early-stopping eval renderer.  Batches are
-drawn on the device (``--device_sampler 1``) or by the host loader.  With
-``--model_path`` the run resumes from that checkpoint when it exists and
-saves it every ``--ckpt_every`` steps.  Everything runs on the card unless
-``--device cpu`` is given.
+or, with ``--field ngp``, the full-width hash-grid ``NGPRadianceField``, with
+a 2^18-sample budget a step and a ray batch that the controller grows from
+``--init_batch_size``, then evaluates the test views through the
+early-stopping eval renderer.  The scene branches are the JAX script's:
+
+- an unbounded scene (``procedural360`` or a Mip-NeRF 360 name) takes the
+  unbounded configuration: a 4-level grid over the box +-1, step 1e-3,
+  cone 0.004, ``alpha_thre`` 1e-2, near plane 0.2, contracted fields, no
+  weight decay; without ``--data_root`` it trains the procedural 360
+  scene (24 views, random backgrounds, 6 test views);
+- with ``--data_root``, the Mip-NeRF 360 loader at ``factor=4`` for an
+  unbounded scene, the Blender (nerf_synthetic) loader of
+  ``--train_split`` otherwise (weight decay 1e-5 on materials, ficus and
+  drums, 1e-6 on the rest); reading the images needs ``imageio``;
+- otherwise the procedural scene ``--scene`` names (``procedural``, the
+  translucent blob scene, or ``proceduralopaque``; another name falls back
+  to ``procedural``, as in the JAX script), box +-1.5, one grid level,
+  step 5e-3.
+
+``--sampled_occ_update`` takes the reference's sampled occupancy update
+after warmup in place of the dense refresh, and ``--occ_stripes S`` refreshes
+one rotating 1/S stripe of the grid an update.  Batches are drawn on the
+device (``--device_sampler 1``) or by the host loader.  With ``--model_path``
+the run resumes from that checkpoint when it exists and saves it every
+``--ckpt_every`` steps.  Everything runs on the card unless ``--device cpu``
+is given.
 
 The controller: after each call of ``--steps_per_call`` steps, the ray count
 becomes ``num_rays * budget / n_total_samples``, growing at most 2x, rounded
@@ -29,16 +46,9 @@ Flags of the JAX script that the port leaves out:
   set exactly, with no window to size.
 - ``--encoder_remat``: rematerialisation under XLA's memory planning;
   autograd here keeps the encoder's inputs and nothing to recompute.
-- ``--occ_stripes`` and ``--sampled_occ_update``: the striped and sampled
-  occupancy updates are not ported (ROADMAP.md queue 1 item 4); every
-  update is the dense refresh, the JAX script's default.
-- ``--data_root``, ``--train_split``, ``--plane_res``, ``--plane_rank`` and
-  ``--field_reg_weight``, and the fields ``tensorf`` and ``voxel``: the
-  dataset and unbounded branches and the plane levels wait for queue 1
-  items 6 and 7.  ``--scene procedural360`` is refused, naming item 6: the
-  unbounded scene needs the unbounded branch (``alpha_thre``, a 4-level
-  grid, cone stepping), which this bounded configuration would skip without
-  a word.  The proposal example trains that scene.
+- ``--plane_res``, ``--plane_rank`` and ``--field_reg_weight``, and the
+  fields ``tensorf`` and ``voxel``: the plane levels and those fields wait
+  for ROADMAP.md queue 1 item 7.
 
 In process, :func:`build` makes the trainer and the loaders (its keyword
 arguments shrink them, as the tests do) and :func:`train_loop` runs the
@@ -55,13 +65,26 @@ import numpy as np
 import torch
 
 from ..data.device_sampler import DeviceRaySampler
-from ..data.procedural import PROCEDURAL_SCENES, UNBOUNDED_SCENES
+from ..data.procedural import (
+    PROCEDURAL_SCENES,
+    UNBOUNDED_SCENES,
+    ProceduralSceneLoader,
+    ProceduralUnboundedSceneLoader,
+)
 from ..models.cp_field import CPRadianceField
 from ..models.ngp import NGPRadianceField
 from ..trainers.ngp_occ import NGPOccTrainer, TrainState
 from ..utils.checkpoint import load_checkpoint, save_checkpoint
 
 AABB = [-1.5, -1.5, -1.5, 1.5, 1.5, 1.5]
+AABB_UNBOUNDED = [-1.0, -1.0, -1.0, 1.0, 1.0, 1.0]
+# the JAX script's marching configurations (after the reference's)
+BOUNDED = dict(grid_nlvl=1, render_step_size=5e-3)
+UNBOUNDED = dict(grid_nlvl=4, render_step_size=1e-3, cone_angle=0.004, alpha_thre=1e-2,
+                 near_plane=0.2)
+MIPNERF360_UNBOUNDED_SCENES = [
+    "garden", "bicycle", "bonsai", "counter", "kitchen", "room", "stump",
+]
 # 1k .. 128k rays, ~1.33x spacing (the JAX script's buckets)
 BUCKETS = sorted({1024 * 2**i for i in range(8)} | {1536 * 2**i for i in range(7)})
 
@@ -85,28 +108,13 @@ def next_num_rays(num_rays: int, n_total: int, budget: int, buckets=BUCKETS) -> 
     return round_to_bucket(min(want, num_rays * 2), buckets)
 
 
-def _refuse_unbounded(scene: str) -> None:
-    if scene in UNBOUNDED_SCENES:
-        raise ValueError(
-            f"--scene {scene}: the occupancy example's unbounded branch (alpha_thre, "
-            "grid_nlvl=4, cone stepping) is not ported yet (ROADMAP.md queue 1 item 6), "
-            "and its bounded configuration would train this scene wrongly; train it "
-            "with nerfacc_tpu_torch.examples.train_ngp_nerf_prop"
-        )
-
-
-def _scene(name: str) -> str:
-    try:
-        _refuse_unbounded(name)
-    except ValueError as e:
-        raise argparse.ArgumentTypeError(str(e)) from None
-    return name
-
-
 def parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--scene", default="procedural", type=_scene,
-                    choices=list(PROCEDURAL_SCENES))
+    ap.add_argument("--data_root", default=None,
+                    help="a nerf_synthetic or Mip-NeRF 360 root (needs imageio); "
+                         "none: a procedural scene")
+    ap.add_argument("--scene", default="procedural")
+    ap.add_argument("--train_split", default="train")
     ap.add_argument("--field", default="cp", choices=["cp", "ngp"])
     ap.add_argument("--max_steps", type=int, default=20000)
     ap.add_argument("--target_sample_batch_size", type=int, default=1 << 18)
@@ -117,6 +125,12 @@ def parser() -> argparse.ArgumentParser:
     ap.add_argument("--eval_every", type=int, default=0)
     ap.add_argument("--log_every", type=int, default=1000)
     ap.add_argument("--seed", type=int, default=42)
+    ap.add_argument("--occ_stripes", type=int, default=1,
+                    help="S > 1 refreshes one rotating 1/S stripe of the grid per "
+                         "update after warmup (NGPOccTrainer.occ_refresh_stripes)")
+    ap.add_argument("--sampled_occ_update", action="store_true",
+                    help="the reference's sampled occupancy update instead of the "
+                         "dense refresh of every cell")
     ap.add_argument("--model_path", default=None,
                     help="checkpoint path: resumes from it when present; "
                          "saved every --ckpt_every steps")
@@ -125,29 +139,63 @@ def parser() -> argparse.ArgumentParser:
     return ap
 
 
+def is_unbounded(scene: str) -> bool:
+    """The JAX script's test: a Mip-NeRF 360 name or an unbounded
+    procedural scene."""
+    return scene in MIPNERF360_UNBOUNDED_SCENES or scene in UNBOUNDED_SCENES
+
+
+def _loaders(args, unbounded: bool, scene_kwargs: Dict):
+    """The train and test loaders of the JAX script's branch for ``args``,
+    with the branch's box and weight decay."""
+    if args.data_root is not None and unbounded:
+        from ..data.nerf_360_v2 import SubjectLoader as Loader360
+
+        data = dict(subject_id=args.scene, root_fp=args.data_root, factor=4,
+                    device=args.device)
+        train = Loader360(split="train", num_rays=args.init_batch_size,
+                          color_bkgd_aug="random", seed=args.seed, **data)
+        return train, Loader360(split="test", **data), AABB_UNBOUNDED, 0.0
+    if args.data_root is not None:
+        from ..data.nerf_synthetic import SubjectLoader
+
+        data = dict(subject_id=args.scene, root_fp=args.data_root, device=args.device)
+        train = SubjectLoader(split=args.train_split, num_rays=args.init_batch_size,
+                              seed=args.seed, **data)
+        decay = 1e-5 if args.scene in ("materials", "ficus", "drums") else 1e-6
+        return train, SubjectLoader(split="test", **data), AABB, decay
+    scene_kwargs = dict(scene_kwargs, device=args.device)
+    if unbounded:
+        loader_cls = UNBOUNDED_SCENES.get(args.scene, ProceduralUnboundedSceneLoader)
+        train = loader_cls(split="train", num_rays=args.init_batch_size, seed=args.seed,
+                           **{**scene_kwargs, "color_bkgd_aug": "random"})
+        test = loader_cls(split="test", **{"n_test": 6, **scene_kwargs})
+        return train, test, AABB_UNBOUNDED, 0.0
+    loader_cls = PROCEDURAL_SCENES.get(args.scene, ProceduralSceneLoader)
+    train = loader_cls(split="train", num_rays=args.init_batch_size, seed=args.seed,
+                       **scene_kwargs)
+    return train, loader_cls(split="test", **scene_kwargs), AABB, 1e-6
+
+
 def build(args, scene_kwargs: Optional[Dict] = None, field_kwargs: Optional[Dict] = None,
           trainer_kwargs: Optional[Dict] = None):
     """The trainer, the train loader (``args.init_batch_size`` rays a batch)
-    and the test loader of ``args``; the keyword dicts pass more arguments to
-    the loaders, the field and the trainer."""
-    _refuse_unbounded(args.scene)
-    loader_cls = PROCEDURAL_SCENES[args.scene]
-    scene_kwargs = dict(scene_kwargs or {}, device=args.device)
-    train_ds = loader_cls(split="train", num_rays=args.init_batch_size, seed=args.seed,
-                          **scene_kwargs)
-    test_ds = loader_cls(split="test", **scene_kwargs)
+    and the test loader of ``args``'s branch; the keyword dicts pass more
+    arguments to the procedural loaders, the field and the trainer."""
+    unbounded = is_unbounded(args.scene)
+    train_ds, test_ds, aabb, weight_decay = _loaders(args, unbounded, scene_kwargs or {})
     field_cls = CPRadianceField if args.field == "cp" else NGPRadianceField
     trainer = NGPOccTrainer(
-        field=field_cls(AABB, **(field_kwargs or {})),
-        aabb=AABB,
+        field=field_cls(aabb, unbounded=unbounded, **(field_kwargs or {})),
+        aabb=aabb,
         max_steps=args.max_steps,
-        weight_decay=1e-6,
+        weight_decay=weight_decay,
         sample_budget=args.target_sample_batch_size,
         seed=args.seed,
-        grid_nlvl=1,
-        render_step_size=5e-3,
+        dense_occ_update=not args.sampled_occ_update,
+        occ_refresh_stripes=args.occ_stripes,
         device=args.device,
-        **(trainer_kwargs or {}),
+        **{**(UNBOUNDED if unbounded else BOUNDED), **(trainer_kwargs or {})},
     )
     return trainer, train_ds, test_ds
 

@@ -1,7 +1,6 @@
-"""Train a radiance field with proposal networks on a procedural scene.
+"""Train a radiance field with proposal networks.
 
-PyTorch counterpart of the procedural branches of
-examples/train_ngp_nerf_prop.py::
+PyTorch counterpart of examples/train_ngp_nerf_prop.py::
 
     python -m nerfacc_tpu_torch.examples.train_ngp_nerf_prop --field cp
 
@@ -20,7 +19,11 @@ configuration follow ``--scene`` as in the JAX script:
   configuration with near 0.2 and far 1e3 on the bounded procedural scene;
 - any other name (the default ``lego``): the bounded procedural scene with
   one proposal level [128] -> 64, uniform, near 2 and far 6, over the box
-  +-1.5.
+  +-1.5;
+- with ``--data_root``, the Blender (nerf_synthetic) loader of
+  ``--train_split`` under that root in place of the procedural scene, with
+  the scene name's configuration, as in the JAX script (reading the images
+  needs ``imageio``).
 
 The proposal fields take a gradient step on the steps that
 ``get_proposal_requires_grad_fn`` picks.  Batches are drawn on the device
@@ -29,9 +32,6 @@ call.  Everything runs on the card unless ``--device cpu`` is given.
 
 Flags of the JAX script that the port leaves out:
 
-- ``--data_root`` and ``--train_split``: the real datasets (nerf_synthetic,
-  Mip-NeRF 360) are ROADMAP.md queue 1 item 6; ``--data_root`` is taken and
-  raises, naming that item.
 - ``--encoder_remat``: rematerialisation under XLA's memory planning;
   autograd here keeps the encoder's inputs and has nothing to recompute.
 
@@ -63,8 +63,9 @@ MIPNERF360_UNBOUNDED_SCENES = [
 def parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--data_root", default=None,
-                    help="not ported: the real datasets wait for ROADMAP.md queue 1 item 6")
+                    help="a nerf_synthetic root (needs imageio); none: a procedural scene")
     ap.add_argument("--scene", default="lego")
+    ap.add_argument("--train_split", default="train")
     ap.add_argument("--max_steps", type=int, default=20000)
     ap.add_argument("--batch_size", type=int, default=4096)
     ap.add_argument("--log_every", type=int, default=1000)
@@ -97,20 +98,22 @@ def build(args, scene_kwargs: Optional[Dict] = None, field_kwargs: Optional[Dict
     """The trainer, the train loader (``args.batch_size`` rays a batch) and
     the test loader of ``args``; the keyword dicts pass more arguments to the
     loaders, the radiance field, the trainer and each proposal field."""
-    if args.data_root is not None:
-        raise NotImplementedError(
-            "--data_root: the real datasets are not ported yet (ROADMAP.md queue 1 "
-            "item 6); leave it out to train on a procedural scene"
-        )
     cfg = config(args.scene)
     scene_kwargs = dict(scene_kwargs or {}, device=args.device)
-    if args.scene in UNBOUNDED_SCENES:
+    train_split = "train"
+    if args.data_root is not None:
+        from ..data.nerf_synthetic import SubjectLoader
+
+        loader_cls, train_split = SubjectLoader, args.train_split
+        scene_kwargs = dict(subject_id=args.scene, root_fp=args.data_root, device=args.device)
+        test_kwargs = scene_kwargs
+    elif args.scene in UNBOUNDED_SCENES:
         loader_cls = UNBOUNDED_SCENES[args.scene]
         test_kwargs = {"n_test": 6, **scene_kwargs}
         cfg["near_plane"], cfg["far_plane"] = loader_cls.NEAR, loader_cls.FAR
     else:
         loader_cls, test_kwargs = ProceduralSceneLoader, scene_kwargs
-    train_ds = loader_cls(split="train", num_rays=args.batch_size, seed=args.seed,
+    train_ds = loader_cls(split=train_split, num_rays=args.batch_size, seed=args.seed,
                           **scene_kwargs)
     test_ds = loader_cls(split="test", **test_kwargs)
     field_cls, prop_cls = ((CPRadianceField, CPDensityField) if args.field == "cp"

@@ -15,6 +15,12 @@ ray's walk at :func:`march_start`'s candidate, past the orbit's empty prefix.
 With ``max_samples`` only the first ``max_samples`` orbit candidates from
 each ray's near plane may emit: one round of the eval renderer, which
 resumes the rays that did not terminate from their termination planes.
+
+The reference's padded API: :func:`traverse_grids` returns the lattice of
+:func:`traverse_grids_padded` as ``RayIntervals`` / ``RaySamples`` (its
+samples from kernel G2 on the card), and with ``step_size <= 0``
+:func:`traverse_grids_voxel`'s one interval per voxel crossing, in PyTorch
+ops (an XLA path in the JAX package too).
 """
 from __future__ import annotations
 
@@ -24,6 +30,7 @@ from typing import NamedTuple, Optional, Tuple
 import torch
 
 from . import cuda
+from .data_specs import RayIntervals, RaySamples
 from .utils.fp import fma_f32
 
 # G2's bound on a walk (csrc/march.cu kMaxSteps): orbit indices stay exact in f32
@@ -173,6 +180,15 @@ class TraversalResult(NamedTuple):
     termination_planes: torch.Tensor
     terminated: torch.Tensor
 
+    @property
+    def t_mids(self) -> torch.Tensor:
+        return 0.5 * (self.t_starts + self.t_ends)
+
+    @property
+    def t_edges(self) -> torch.Tensor:
+        """The shared edges (n_rays, K + 1) of contiguous intervals."""
+        return torch.cat([self.t_starts, self.t_ends[:, -1:]], dim=-1)
+
 
 class MarchResult(NamedTuple):
     """Exact-size packed samples of a march, in (ray, orbit) order.
@@ -230,6 +246,8 @@ def traverse_grids_padded(
     cone_angle: float = 0.0,
     rays_mask: Optional[torch.Tensor] = None,
     max_samples: Optional[int] = None,
+    valid_samples_limit: Optional[int] = None,
+    through_march: bool = False,
 ) -> TraversalResult:
     """Evaluate every orbit candidate of every ray at once (padded layout).
 
@@ -247,6 +265,12 @@ def traverse_grids_padded(
         cone_angle: step growth; 0 is uniform stepping.
         rays_mask: optional (n_rays,) bool; rays where False emit nothing.
         max_samples: candidates per ray (>= 1), or None for the whole orbit.
+        valid_samples_limit: at most this many samples a ray (the
+            reference's ``traverse_steps_limit``); a ray cut by it ends
+            right after its last sample, not terminated.
+        through_march: on the card, the samples come from kernel G2 (the
+            same set as the PyTorch occupancy test's), placed on the
+            lattice.
     """
     if step_size <= 0.0:
         raise ValueError("step_size must be > 0")
@@ -281,16 +305,27 @@ def traverse_grids_padded(
         inside_any = inside_any | inside_j
         level = torch.where(inside_j, seg_level[:, j : j + 1], level)
 
-    # the midpoint's position as one fused multiply-add (kernel G2 and XLA
-    # fuse it): the f32 product is exact in f64, so this differs from an FMA
-    # only where the f64 sum lands exactly on an f32 rounding tie
-    pos = (
-        rays_o[:, None, :].double()
-        + t_mids[..., None].double() * rays_d[:, None, :].double()
-    ).float()
-    valid = inside_any & _occupancy_lookup(pos, level, binaries, aabbs)
-    if rays_mask is not None:
-        valid = valid & rays_mask[:, None]
+    if through_march and cuda.on_card(rays_o):
+        valid = _on_lattice(
+            march(rays_o, rays_d, binaries, aabbs, near_planes, far_planes, step_size,
+                  cone_angle, rays_mask, n_candidates),
+            t_edges[:, :-1],
+        )
+    else:
+        # the midpoint's position as one fused multiply-add (kernel G2 and
+        # XLA fuse it): the f32 product is exact in f64, so this differs
+        # from an FMA only where the f64 sum lands exactly on an f32
+        # rounding tie
+        pos = (
+            rays_o[:, None, :].double()
+            + t_mids[..., None].double() * rays_d[:, None, :].double()
+        ).float()
+        valid = inside_any & _occupancy_lookup(pos, level, binaries, aabbs)
+        if rays_mask is not None:
+            valid = valid & rays_mask[:, None]
+    if valid_samples_limit is not None:
+        n_upto = torch.cumsum(valid.to(torch.int32), dim=-1)
+        valid = valid & (n_upto - valid.to(torch.int32) < valid_samples_limit)
 
     # termination plane: the first orbit edge whose midpoint clears the
     # farthest valid segment, or the lattice's end (the whole-orbit lattice
@@ -300,6 +335,11 @@ def traverse_grids_padded(
     k_stop = torch.where(
         beyond.any(dim=-1), beyond.to(torch.uint8).argmax(dim=-1), n_candidates
     )
+    if valid_samples_limit is not None:
+        # the candidate right after the limit-th sample
+        reached = n_upto >= valid_samples_limit
+        k_limit = reached.to(torch.uint8).argmax(dim=-1) + 1
+        k_stop = torch.where(reached.any(dim=-1), torch.minimum(k_stop, k_limit), k_stop)
     terminated = k_stop < n_candidates
     if max_samples is None:
         termination_planes = torch.take_along_dim(t_edges, k_stop[:, None], dim=-1)[:, 0]
@@ -314,6 +354,30 @@ def traverse_grids_padded(
     return TraversalResult(
         t_edges[:, :-1], t_edges[:, 1:], valid, termination_planes, terminated
     )
+
+
+def _on_lattice(res: "MarchResult", lattice: torch.Tensor) -> torch.Tensor:
+    """(n_rays, K) bool: the packed samples of a march over the ``K``
+    candidates of ``lattice`` (their (n_rays, K) starts), each placed at the
+    lattice value nearest its start (G2's cone orbit rounds its power apart
+    from PyTorch's by an ulp, far below a step)."""
+    n_rays, K = lattice.shape
+    counts = res.counts.long()
+    valid = torch.zeros((n_rays, K), dtype=torch.bool, device=lattice.device)
+    if res.t_starts.numel() == 0:
+        return valid
+    starts = torch.cumsum(counts, 0) - counts
+    j = torch.arange(int(counts.max()), device=lattice.device)
+    ok = j[None, :] < counts[:, None]
+    idx = (starts[:, None] + j[None, :]).clamp(max=res.t_starts.numel() - 1)
+    t = torch.where(ok, res.t_starts[idx], math.inf)
+    k = torch.searchsorted(lattice.contiguous(), t.contiguous()).clamp(max=K - 1)
+    prev = (k - 1).clamp_min(0)
+    nearer_prev = (t - lattice.gather(1, prev)).abs() < (lattice.gather(1, k) - t).abs()
+    k = torch.where(nearer_prev, prev, k)
+    rows = torch.arange(n_rays, device=lattice.device)[:, None].expand_as(k)
+    valid[rows[ok], k[ok]] = True
+    return valid
 
 
 def march_start(
@@ -471,3 +535,177 @@ def march(
     )
     cuda.LAUNCHES["march"] += 1
     return MarchResult(ray_ids, t_starts, t_ends, counts, term, terminated)
+
+
+def traverse_grids_voxel(
+    rays_o: torch.Tensor,
+    rays_d: torch.Tensor,
+    binaries: torch.Tensor,
+    aabbs: torch.Tensor,
+    near_planes: Optional[torch.Tensor] = None,
+    far_planes: Optional[torch.Tensor] = None,
+    max_edges: int = 1024,
+    rays_mask: Optional[torch.Tensor] = None,
+) -> TraversalResult:
+    """One interval per voxel crossing: the reference's ``step_size <= 0``
+    mode, as nerfacc_tpu's ``traverse_grids_voxel`` computes it.
+
+    A ray's voxel-boundary crossings are, per grid level and axis, an
+    arithmetic progression (spacing ``voxel / |d|``) from the first plane
+    past the ray's entry; with the grid segments' ends they are sorted per
+    ray, and the interval between consecutive edges is emitted iff its
+    midpoint lies in an occupied voxel of its segment's level.
+
+    Returns a :class:`TraversalResult` of ``(n_rays, max_edges - 1)``
+    intervals (``t_starts[k]`` = edge ``k``, ``t_ends[k]`` = edge ``k + 1``).
+    Truncation is reported, not silent: where a ray needs more crossings
+    than ``max_edges`` keeps, or than a progression's ``k_per`` terms, the
+    intervals past the trusted horizon are dropped, ``terminated`` is False
+    and ``termination_planes`` is the horizon, from which a call with
+    ``near_planes = termination_planes`` resumes.
+    """
+    n_rays = rays_o.shape[0]
+    dev, dtype = rays_o.device, rays_o.dtype
+    m = binaries.shape[0]
+    if near_planes is None:
+        near_planes = torch.zeros(n_rays, dtype=dtype, device=dev)
+    if far_planes is None:
+        far_planes = torch.full((n_rays,), math.inf, dtype=dtype, device=dev)
+    seg_lo, seg_hi, seg_level, seg_valid = _segments(
+        rays_o, rays_d, aabbs, near_planes, far_planes
+    )
+    n_segments = seg_lo.shape[-1]
+    has_seg = seg_valid.any(dim=-1)
+    t_enter = torch.where(
+        has_seg, torch.where(seg_valid, seg_lo, math.inf).amin(dim=-1), 0.0
+    )
+    t_exit = torch.where(
+        has_seg, torch.where(seg_valid, seg_hi, -math.inf).amax(dim=-1), 0.0
+    )
+
+    # per (level, axis): the plane crossings from the first plane past t_enter
+    res = torch.tensor(binaries.shape[1:], dtype=dtype, device=dev)
+    k_per = max((max_edges - 2 * n_segments) // (3 * m), 1)
+    ks = torch.arange(k_per, dtype=dtype, device=dev)[None, :]
+    seqs, seq_cov = [], []  # progressions, and each one's trusted horizon
+    for lvl in range(m):
+        lo, hi = aabbs[lvl, :3], aabbs[lvl, 3:]
+        vox = (hi - lo) / res
+        for a in range(3):
+            d_a, o_a = rays_d[:, a], rays_o[:, a]
+            inv = 1.0 / torch.where(d_a.abs() < 1e-12, 1e-12, d_a)
+            delta = (vox[a] * inv).abs()
+            i_enter = (fma_f32(t_enter, d_a, o_a) - lo[a]) / vox[a]
+            next_plane = torch.where(d_a >= 0, torch.ceil(i_enter), torch.floor(i_enter))
+            t_first = (fma_f32(next_plane, vox[a], lo[a]) - o_a) * inv
+            t_first = torch.where(t_first <= t_enter, t_first + delta, t_first)
+            seqs.append(fma_f32(ks, delta[:, None], t_first[:, None]))
+            # the first crossing not generated still before t_exit: the
+            # progression was cut, and nothing past its last term is trusted
+            last = fma_f32(torch.full_like(delta, k_per - 1.0), delta, t_first)
+            seq_cov.append(torch.where(last + delta <= t_exit, last, math.inf))
+    seqs.append(torch.where(seg_valid, seg_lo, math.inf))
+    seqs.append(torch.where(seg_valid, seg_hi, math.inf))
+    edges = torch.cat(seqs, dim=-1)
+    edges = torch.where(
+        (edges >= t_enter[:, None]) & (edges <= t_exit[:, None]), edges, math.inf
+    )
+    n_in_range = torch.isfinite(edges).sum(dim=-1)
+    edges = torch.sort(edges, dim=-1).values
+    E = min(max_edges, edges.shape[-1])
+    cut = n_in_range > E
+    edges = edges[:, :E]
+    t_cov = torch.minimum(
+        torch.stack(seq_cov, dim=-1).amin(dim=-1),
+        torch.where(cut, edges[:, E - 1], math.inf),
+    )
+
+    t0, t1 = edges[:, :-1], edges[:, 1:]
+    t_mids = 0.5 * (t0 + t1)
+    finite = torch.isfinite(t_mids) & (t1 - t0 > 1e-9)
+    inside_any = torch.zeros(t_mids.shape, dtype=torch.bool, device=dev)
+    level = torch.zeros(t_mids.shape, dtype=torch.long, device=dev)
+    for j in range(n_segments):
+        inside_j = (
+            seg_valid[:, j : j + 1]
+            & (t_mids >= seg_lo[:, j : j + 1])
+            & (t_mids < seg_hi[:, j : j + 1])
+        )
+        inside_any = inside_any | inside_j
+        level = torch.where(inside_j, seg_level[:, j : j + 1], level)
+    safe_mids = torch.where(finite, t_mids, 0.0)
+    pos = fma_f32(safe_mids[..., None], rays_d[:, None, :], rays_o[:, None, :])
+    valid = finite & inside_any & _occupancy_lookup(pos, level, binaries, aabbs)
+    # an interval reaching past the horizon may straddle missing crossings
+    valid = valid & (t1 <= t_cov[:, None])
+    if rays_mask is not None:
+        valid = valid & rays_mask[:, None]
+
+    truncated = t_cov < t_exit
+    if rays_mask is not None:
+        truncated = truncated & rays_mask  # a masked ray has nothing to resume
+    termination_planes = torch.where(
+        truncated, t_cov, torch.where(has_seg, t_exit, near_planes)
+    )
+    return TraversalResult(
+        torch.where(torch.isfinite(t0), t0, 0.0), torch.where(torch.isfinite(t1), t1, 0.0),
+        valid, termination_planes, ~truncated,
+    )
+
+
+def traverse_grids(
+    rays_o: torch.Tensor,
+    rays_d: torch.Tensor,
+    binaries: torch.Tensor,
+    aabbs: torch.Tensor,
+    near_planes: Optional[torch.Tensor] = None,
+    far_planes: Optional[torch.Tensor] = None,
+    step_size: float = 1e-3,
+    cone_angle: float = 0.0,
+    traverse_steps_limit: Optional[int] = None,
+    over_allocate: bool = False,
+    rays_mask: Optional[torch.Tensor] = None,
+    max_samples: int = 1024,
+) -> Tuple[RayIntervals, RaySamples, torch.Tensor]:
+    """The reference's ``traverse_grids`` in the padded layout, as
+    nerfacc_tpu's: ``max_samples`` orbit candidates a ray
+    (:func:`traverse_grids_padded`, its samples from kernel G2 on the card),
+    or with ``step_size <= 0`` one interval a voxel crossing
+    (:func:`traverse_grids_voxel`, ``max_samples + 1`` edges).
+
+    Returns ``RayIntervals`` (``vals`` (n_rays, K + 1) edges; ``is_left`` /
+    ``is_right`` mark the edges that open / close a sample's interval, the
+    reference's shared-edge encoding), ``RaySamples`` (``vals`` the (n_rays,
+    K) midpoints, ``ray_indices``, ``is_valid``) and the termination planes,
+    from which a call resumes the rays cut by ``max_samples`` or by
+    ``traverse_steps_limit`` (at most that many samples a ray, in both
+    modes).  ``over_allocate`` is the reference's buffer sizing, which a
+    fixed lattice has no use for; it is taken and ignored.
+    """
+    limit = traverse_steps_limit
+    if step_size <= 0.0:
+        res = traverse_grids_voxel(
+            rays_o, rays_d, binaries, aabbs, near_planes, far_planes,
+            max_edges=max_samples + 1, rays_mask=rays_mask,
+        )
+        if limit is not None:
+            n_upto = torch.cumsum(res.valid.to(torch.int32), dim=-1)
+            res = res._replace(valid=res.valid & (n_upto - res.valid.to(torch.int32) < limit))
+    else:
+        res = traverse_grids_padded(
+            rays_o, rays_d, binaries, aabbs, near_planes, far_planes,
+            step_size=step_size, cone_angle=cone_angle, rays_mask=rays_mask,
+            max_samples=max_samples, valid_samples_limit=limit, through_march=True,
+        )
+    n_rays, K = res.valid.shape
+    pad = torch.zeros((n_rays, 1), dtype=torch.bool, device=res.valid.device)
+    intervals = RayIntervals(
+        vals=res.t_edges, is_left=torch.cat([res.valid, pad], dim=-1),
+        is_right=torch.cat([pad, res.valid], dim=-1),
+    )
+    ray_ids = torch.arange(n_rays, dtype=torch.int32, device=res.valid.device)
+    samples = RaySamples(
+        vals=res.t_mids, ray_indices=ray_ids[:, None].expand(n_rays, K),
+        is_valid=res.valid,
+    )
+    return intervals, samples, res.termination_planes

@@ -1,8 +1,10 @@
 """NGP + occupancy-grid trainer: the train step and the evaluation.
 
 PyTorch counterpart of nerfacc_tpu/trainers/ngp_occ.py.  One train step runs
-``_step_body``'s stages in order: a dense occupancy refresh every
-``update_interval`` steps (with the parameters from before the update),
+``_step_body``'s stages in order: an occupancy update every
+``update_interval`` steps (with the parameters from before the update; the
+dense refresh of every cell through ``warmup_steps``, then the dense, the
+striped or the sampled update of ``update_occ_grid``),
 stratified marching cut at the sample budget, the differentiable render, a
 smooth-L1 loss over the rays the budget left whole (plus the field's
 regulariser when ``field_reg_weight`` is set), backward, and Adam.
@@ -13,19 +15,27 @@ in evaluation.  Ported beside it: the learning-rate schedule,
 the evaluation (PSNR/SSIM through the early-stopping eval renderer), the
 distortion regulariser, the update clip and the table learning-rate
 multiplier (:class:`ChainAdam`).  Not ported (see ROADMAP.md): the dynamic
-budget buckets, ``alpha_thre`` and the pooled and windowed traversals.
+budget buckets and the pooled and windowed traversals.  ``alpha_thre`` is
+taken and changes no sample, as in the JAX trainer (see the class).
 """
 from __future__ import annotations
 
 import dataclasses
 import time
 import warnings
-from typing import Any, Callable, Dict, NamedTuple, Optional, Union
+from typing import Any, Callable, Dict, NamedTuple, Optional, Tuple, Union
 
 import numpy as np
 import torch
 
-from ..estimators.occ_grid import OccGridState, init_occ_grid, sampling, update_occ_grid
+from ..estimators.occ_grid import (
+    OccGridState,
+    cells_evaluated,
+    init_occ_grid,
+    sampling,
+    update_mode,
+    update_occ_grid,
+)
 from ..losses import distortion
 from ..utils.metrics import psnr, ssim
 from ..utils.rendering import (
@@ -193,7 +203,21 @@ class NGPOccTrainer:
         weight_decay: Adam's coupled L2 decay.
         grid_resolution / grid_nlvl: occupancy grid shape.
         render_step_size, near_plane, far_plane, cone_angle: marching.
-        occ_thre / ema_decay / update_interval: occupancy refresh.
+        alpha_thre: taken for the JAX trainer's signature; it changes no
+            sample.  The JAX trainer hands it to ``sampling_padded``
+            (nerfacc_tpu/trainers/ngp_occ.py:463) with no ``sigma_fn`` or
+            ``alpha_fn``, and the visibility filter that reads it runs only
+            with one of them (nerfacc_tpu/estimators/occ_grid.py:408-431);
+            its default pooled traversal and its eval renderer never read
+            it.  So the port runs no density pre-pass for it either.
+        occ_thre / ema_decay / update_interval: occupancy updates.
+        warmup_steps: every update before this step refreshes every cell.
+        dense_occ_update: after warmup, refresh every cell (or a stripe, see
+            ``occ_refresh_stripes``); False: the reference's sampled update,
+            a quarter of the cells drawn uniformly and as many occupied ones.
+        occ_refresh_stripes: with ``dense_occ_update``, S > 1 refreshes one
+            rotating 1/S stripe of every level's cells per update after
+            warmup, with decay ``ema_decay ** S``.
         sample_budget: samples rendered per train step at most; the rays the
             cut leaves incomplete are masked out of the loss.
         stratified: jitter each ray's near plane by up to one step.
@@ -223,9 +247,13 @@ class NGPOccTrainer:
     near_plane: float = 0.0
     far_plane: float = 1e10
     cone_angle: float = 0.0
+    alpha_thre: float = 0.0
     occ_thre: float = 1e-2
     ema_decay: float = 0.95
+    warmup_steps: int = 256
     update_interval: int = 16
+    dense_occ_update: bool = True
+    occ_refresh_stripes: int = 1
     sample_budget: int = 2**18
     stratified: bool = True
     weight_decay: float = 1e-6
@@ -281,7 +309,8 @@ class NGPOccTrainer:
         return adam_update(opt_state, self.schedule)
 
     def _generator(self, step: int, stream: int) -> torch.Generator:
-        """The noise of one step: stream 0 the refresh's cell jitter, 1 the
+        """The noise of one step: stream 0 the occupancy update's draws (the
+        sampled update's cell ids, then the cell jitter), 1 the
         near-plane jitter, 2 the refresh's frame draw, 3 the batch of
         :meth:`train_steps_sampled`, seeded 2^40 above the other three (a
         fourth stream at ``* 3 + 3`` would reuse the next step's stream 0)."""
@@ -302,27 +331,33 @@ class NGPOccTrainer:
         step: int,
         jitter: Optional[torch.Tensor] = None,
         frame_idx: Optional[torch.Tensor] = None,
+        cell_ids: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
     ) -> TrainState:
-        """One dense occupancy update with ``density * render_step_size``.
+        """One occupancy update with ``density * render_step_size``, in the
+        mode ``update_occ_grid`` takes at ``step`` (the dense refresh before
+        ``warmup_steps``, then the dense, striped or sampled update the
+        trainer's fields ask for), the field's points fed in chunks of at
+        most ``min(2^21, field.max_eval_chunk)``.
 
-        ``jitter``: (levels, cells, 3) uniform offsets inside the cells;
-        ``frame_idx``: (levels * cells,) frame of each cell's time, for a
-        time-dependent field.  None draws them from generators seeded by
-        (seed, step), so a refresh at a given step is reproducible."""
+        ``jitter``: (levels, cells evaluated a level, 3) uniform offsets
+        inside the cells; ``cell_ids``: the sampled update's (uniform,
+        occupied) (levels, cells // 4) ids; ``frame_idx``: (levels * cells
+        evaluated a level,) frame of each cell's time, for a time-dependent
+        field.  None draws them: the ids, then the jitter from the step's
+        stream 0, the frames from stream 2, so an update at a given step is
+        reproducible."""
         field = self._bind(state)
         occ = state.occ_state
-        if jitter is None:
-            jitter = torch.rand(
-                (occ.levels, occ.cells_per_lvl, 3),
-                generator=self._generator(step, 0), device=self.device,
-            )
+        mode = update_mode(step, self.warmup_steps, self.dense_occ_update,
+                           self.occ_refresh_stripes)
+        n_eval = cells_evaluated(mode, occ.cells_per_lvl, self.occ_refresh_stripes)
         if self.timestamps is None:
             def occ_eval_fn(x):
                 return field.query_density(x)[..., 0] * self.render_step_size
         else:
             if frame_idx is None:
                 frame_idx = torch.randint(
-                    0, self.timestamps.shape[0], (occ.levels * occ.cells_per_lvl,),
+                    0, self.timestamps.shape[0], (occ.levels * n_eval,),
                     generator=self._generator(step, 2), device=self.device,
                 )
 
@@ -331,9 +366,15 @@ class NGPOccTrainer:
                     x, self.timestamps, self.render_step_size, frames
                 )[..., 0]
 
+        uniform_ids, occupied_ids = (None, None) if cell_ids is None else cell_ids
         occ = update_occ_grid(
             occ, occ_eval_fn, jitter, occ_thre=self.occ_thre,
-            ema_decay=self.ema_decay, cell_data=frame_idx, dense=True,
+            ema_decay=self.ema_decay,
+            eval_chunk=min(2**21, getattr(self.field, "max_eval_chunk", 2**21)),
+            cell_data=frame_idx, step=step, warmup_steps=self.warmup_steps,
+            dense=self.dense_occ_update, dense_stripes=self.occ_refresh_stripes,
+            update_interval=self.update_interval, uniform_ids=uniform_ids,
+            occupied_ids=occupied_ids, generator=self._generator(step, 0),
         )
         return state._replace(occ_state=occ)
 
@@ -345,6 +386,7 @@ class NGPOccTrainer:
         near_jitter: Optional[torch.Tensor] = None,
         cell_jitter: Optional[torch.Tensor] = None,
         frame_idx: Optional[torch.Tensor] = None,
+        cell_ids: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
     ):
         """One step; returns the new state and an aux dict.
 
@@ -353,9 +395,9 @@ class NGPOccTrainer:
                 ``timestamps`` (n_rays, 1) for a time-dependent field.
             near_jitter: (n_rays,) uniform [0, 1) near-plane jitter of a
                 stratified step (None: drawn from the step's generator).
-            cell_jitter / frame_idx: the refresh's cell offsets and frames
-                when this step refreshes (None: drawn, see
-                :meth:`refresh_occ_grid`).
+            cell_jitter / frame_idx / cell_ids: the update's cell offsets,
+                frames and sampled ids when this step updates the grid
+                (None: drawn, see :meth:`refresh_occ_grid`).
 
         The parameters' ``.grad`` hold this step's gradients afterwards.
         Aux: ``loss``, ``mse``, ``n_rays_ok``, ``n_rays_truncated`` as
@@ -365,7 +407,7 @@ class NGPOccTrainer:
         step = int(state.step)
         params = state.params
         if step % self.update_interval == 0:
-            state = self.refresh_occ_grid(state, step, cell_jitter, frame_idx)
+            state = self.refresh_occ_grid(state, step, cell_jitter, frame_idx, cell_ids)
         rays_o, rays_d = batch["rays_o"], batch["rays_d"]
         pixels, render_bkgd = batch["rgb"], batch["color_bkgd"]
         n_rays = rays_o.shape[0]

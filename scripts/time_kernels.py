@@ -25,7 +25,8 @@ The shapes:
   points (below) at (16, 16) and (64, 16); the dense refresh's 2^21 points,
   one jittered point per cell of the 128^3 grid in the refresh's cell
   order, at (512, 32).  Error: the count of entries unequal to the plain
-  version.
+  version; beside it ``embedding_bag`` on the precomputed taps of the three
+  axes (the gather stage alone).
 - G2 (march): the full-width CP trainer's grid after four dense refreshes
   (parameters from seed 42, as ``chip_smoke.py``'s phase 1): the middle
   8192 rays of test view 0 with near plane 0, and a 2048-ray train batch (6
@@ -49,7 +50,9 @@ The shapes:
   uniform at (512, 32); the CP train buffer's midpoints (normalised to the
   AABB and clamped, as ``CPGridEncoder`` does) at (32, 32), (128, 32),
   (512, 32); the proposal field's points (4096 train rays x 128 stratified
-  samples over [2, 6], N = 2^19) at (16, 16) and (64, 16).
+  samples over [2, 6], N = 2^19) at (16, 16) and (64, 16); beside it
+  ``index_add_`` of the precomputed per-tap updates into the (3R, rank)
+  table gradient (the scatter stage alone).
 - G6 (hash encode forward) at the NGP field's width (16 levels, T = 2^19),
   a seeded table in [-1, 1]: N = 2^18 uniform in [0, 1]^3 with 1% of the
   points pushed up to 0.1 outside (``chip_smoke.py``'s phase 1c); the NGP
@@ -140,6 +143,7 @@ import sys
 import time
 
 import torch
+import torch.nn.functional as F
 from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
 
@@ -414,6 +418,19 @@ class Inputs:
         }
 
 
+def cp_taps(u, lines):
+    """A CP level's library stages' inputs: each point's two taps on each
+    axis as rows of the stacked (3R, rank) table, their lerp weights, the
+    table."""
+    R = lines.shape[1]
+    x = u.t().reshape(-1) * (R - 1)
+    i0 = torch.floor(x).clamp(0, R - 2)
+    f = x - i0
+    axis = torch.arange(3, device=u.device).repeat_interleave(u.shape[0])
+    rows = (i0.long() + axis * R)[:, None] + torch.tensor([0, 1], device=u.device)
+    return rows, torch.stack([1.0 - f, f], dim=1), lines.reshape(3 * R, -1)
+
+
 def g1_rows(inp):
     from nerfacc_tpu_torch.ops.cp_level import cp_level_encode, cp_level_encode_plain
 
@@ -431,6 +448,11 @@ def g1_rows(inp):
         lines = 1 + 0.1 * torch.randn((3, R, rank), generator=g, device=dev)
         runs = float((torch.floor(u[1:] * (R - 1)) == torch.floor(u[:-1] * (R - 1)))
                      .all(-1).float().mean())
+        rows, w, table = cp_taps(u, lines)
+
+        def gather():
+            return F.embedding_bag(rows, table, mode="sum", per_sample_weights=w)
+
         for dt in (torch.float32, torch.bfloat16):
             out = cp_level_encode(u, lines, dt)
             ref = cp_level_encode_plain(u, lines, dt)
@@ -441,6 +463,8 @@ def g1_rows(inp):
                 "ms": cuda_ms(lambda: cp_level_encode(u, lines, dt)),
                 "device_ms": device_ms(lambda: cp_level_encode(u, lines, dt)),
                 "plain_ms": cuda_ms(lambda: cp_level_encode_plain(u, lines, dt), reps=5),
+                "embedding_bag_ms": cuda_ms(gather),
+                "embedding_bag_device_ms": device_ms(gather),
                 "bound_ms": bytes_bound_ms(u, lines, out),
             }
 
@@ -552,8 +576,16 @@ def g4_rows(inp):
         out = cp_level_backward(u, cot, lines, dt)
         ref = cp_level_backward_plain(u, cot, lines, dt)
         runs = float((torch.floor(u[1:] * (R - 1)) == torch.floor(u[:-1] * (R - 1))).float().mean())
+        taps, w, table = cp_taps(u, lines)
+        upd = (w[:, :, None] * cot.repeat(3, 1)[:, None, :]).reshape(-1, rank)
+        acc, flat = torch.zeros_like(table), taps.reshape(-1)
+
+        def scatter():
+            return acc.index_add_(0, flat, upd)
+
         yield {
             "kernel": "G4 cp_level_bwd", "case": name, "N": n, "R": R, "rank": rank,
+            "index_add_ms": cuda_ms(scatter), "index_add_device_ms": device_ms(scatter),
             "share_same_row_as_previous": runs,
             "err_of_max": err_of_max([out], [ref]),
             "ms": cuda_ms(lambda: cp_level_backward(u, cot, lines, dt)),

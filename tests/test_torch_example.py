@@ -1,6 +1,7 @@
 """The port's occupancy example (``nerfacc_tpu_torch.examples.train_ngp_nerf_occ``)
 at a tiny size on the CPU: its ray-batch controller against the JAX script's,
 and a run interrupted by a checkpoint against the same run uninterrupted."""
+import dataclasses
 import importlib.util
 import pathlib
 
@@ -26,7 +27,7 @@ def _jax_script():
     return module, JAX_SCRIPT.read_text()
 
 
-def _run(tmp_path, argv, model_path=None):
+def _run(tmp_path, argv, model_path=None, scene_kwargs=SCENE, grid_resolution=16):
     args = ex.parser().parse_args(
         ["--device", "cpu", "--steps_per_call", "8", "--ckpt_every", "8",
          "--target_sample_batch_size", "4096", "--init_batch_size", "64",
@@ -34,8 +35,8 @@ def _run(tmp_path, argv, model_path=None):
         + (["--model_path", str(model_path)] if model_path else [])
     )
     trainer, train_ds, test_ds = ex.build(
-        args, scene_kwargs=SCENE, field_kwargs=FIELD,
-        trainer_kwargs=dict(grid_resolution=16),
+        args, scene_kwargs=scene_kwargs, field_kwargs=FIELD,
+        trainer_kwargs=dict(grid_resolution=grid_resolution),
     )
     return trainer, ex.train_loop(trainer, train_ds, test_ds, args)
 
@@ -157,16 +158,129 @@ def test_entry_point_defaults_to_the_card():
     assert args.target_sample_batch_size == 1 << 18 and args.init_batch_size == 1024
 
 
-def test_occupancy_example_refuses_the_unbounded_scene():
-    """``--scene procedural360`` is refused, by the parser and by ``build``,
-    with an error that names the unbounded branch's item in ROADMAP.md: the
-    bounded configuration (one grid level, no cone stepping, no
-    ``alpha_thre``) would train it without a word."""
-    import argparse
+def test_occupancy_example_refuses_the_unbounded_scene(tmp_path):
+    """The name is kept from when ``--scene procedural360`` was refused; the
+    scene now trains through the unbounded branch: a 4-level grid, step
+    1e-3, cone 0.004, ``alpha_thre`` 1e-2, near 0.2, contracted fields over
+    the box +-1, no weight decay, random train backgrounds and six test
+    views.  Four steps at a tiny size (two calls of two): every call
+    recorded with a finite loss and samples, no ray truncated, and a
+    finite evaluation over the six views."""
+    trainer, run = _run(
+        tmp_path, ["--scene", "procedural360", "--max_steps", "2", "--steps_per_call", "2",
+                   "--init_batch_size", "32"],
+        scene_kwargs=dict(SCENE, n_test=6, width=12, height=12), grid_resolution=8,
+    )
+    assert (trainer.grid_nlvl, trainer.render_step_size, trainer.cone_angle) == (4, 1e-3, 0.004)
+    assert (trainer.alpha_thre, trainer.near_plane, trainer.weight_decay) == (1e-2, 0.2, 0.0)
+    assert trainer.field.unbounded and trainer.field.aabb.tolist() == ex.AABB_UNBOUNDED
+    assert run.state.occ_state.levels == 4 and run.state.step == 4
+    assert [r["step"] for r in run.log] == [2, 4]
+    assert all(np.isfinite(r["loss"]) and r["samples"] > 0 and r["n_rays_truncated"] == 0
+               for r in run.log)
+    assert len(run.metrics["views"]) == 6 and np.isfinite(run.metrics["psnr"])
+    assert all(v["finite"] for v in run.metrics["views"])
 
-    with pytest.raises(SystemExit):
-        ex.parser().parse_args(["--scene", "procedural360"])
-    args = argparse.Namespace(**{**vars(ex.parser().parse_args([])), "scene": "procedural360"})
-    with pytest.raises(ValueError, match="queue 1 item 6"):
-        ex.build(args)
-    assert ex.parser().parse_args(["--scene", "proceduralopaque"]).scene == "proceduralopaque"
+
+class _Captured(Exception):
+    pass
+
+
+def _jax_branch(monkeypatch, argv):
+    """What the JAX script builds for ``argv``: its loaders' (name, keyword
+    arguments), its field and its ``NGPOccTrainer``'s keyword arguments,
+    caught at the trainer's construction (the loaders replaced by
+    stand-ins, so that no ground truth is rendered)."""
+    import nerfacc_tpu.data as jax_data
+    import nerfacc_tpu.data.nerf_360_v2 as jax_360
+    import nerfacc_tpu.trainers as jax_trainers
+    import nerfacc_tpu.utils as jax_utils
+
+    made = []
+
+    def stand_in(name):
+        def init(self, **kw):
+            made.append((name, kw))
+        return type(name, (), {"__init__": init})
+
+    def capture(**kwargs):
+        raise _Captured(kwargs)
+
+    for name in ("ProceduralSceneLoader", "ProceduralUnboundedSceneLoader", "SubjectLoader"):
+        monkeypatch.setattr(jax_data, name, stand_in(name))
+    monkeypatch.setattr(jax_data, "PROCEDURAL_SCENES", {
+        "procedural": jax_data.ProceduralSceneLoader,
+        "proceduralopaque": stand_in("ProceduralOpaqueSceneLoader")})
+    monkeypatch.setattr(jax_360, "SubjectLoader", stand_in("Loader360"))
+    monkeypatch.setattr(jax_trainers, "NGPOccTrainer", capture)
+    monkeypatch.setattr(jax_utils, "setup_compilation_cache", lambda: None)
+    monkeypatch.setattr("sys.argv", ["train_ngp_nerf_occ.py", *argv])
+    with pytest.raises(_Captured) as caught:
+        _jax_script()[0].main()
+    monkeypatch.undo()
+    return made, caught.value.args[0]
+
+
+TRAINER_KEYS = ("grid_nlvl", "render_step_size", "cone_angle", "alpha_thre", "near_plane",
+                "weight_decay", "sample_budget", "seed", "max_steps", "dense_occ_update",
+                "occ_refresh_stripes")
+
+
+@pytest.mark.parametrize("argv", [
+    ["--scene", "procedural360", "--field", "ngp"],
+    ["--scene", "garden", "--sampled_occ_update"],
+    ["--scene", "proceduralopaque", "--occ_stripes", "4", "--seed", "7"],
+    ["--scene", "lego", "--data_root", "ROOT", "--train_split", "trainval"],
+    ["--scene", "ficus", "--data_root", "ROOT", "--sampled_occ_update"],
+    ["--scene", "garden", "--data_root", "ROOT", "--field", "ngp"],
+], ids=["procedural360", "garden-procedural", "opaque-stripes", "lego-data", "ficus-data",
+        "garden-data"])
+def test_branches_match_the_jax_script(monkeypatch, tmp_path, argv):
+    """``build`` for each of the JAX script's branches: the trainer's
+    marching, occupancy-update and optimiser settings and box, the field's
+    class, box and contraction, and each loader's class and arguments (the
+    Blender loader of ``--train_split``, the 360 loader at ``factor=4``
+    with random train backgrounds, the procedural scenes); the data
+    branches on fixtures written into ``tmp_path``."""
+    from test_torch_datasets import _write_blender_fixture, _write_colmap_fixture
+
+    from nerfacc_tpu_torch.data.nerf_360_v2 import SubjectLoader as Loader360
+    from nerfacc_tpu_torch.data.nerf_synthetic import SubjectLoader as Blender
+
+    argv = [str(tmp_path) if a == "ROOT" else a for a in argv]
+    made, want = _jax_branch(monkeypatch, argv)
+    scene = argv[argv.index("--scene") + 1]
+    if "--data_root" in argv:
+        _write_colmap_fixture(str(tmp_path), subject=scene)
+        _write_blender_fixture(str(tmp_path), subject=scene)
+        monkeypatch.setattr(Blender, "WIDTH", 8)
+        monkeypatch.setattr(Blender, "HEIGHT", 8)
+    args = ex.parser().parse_args([*argv, "--device", "cpu"])
+    field_kwargs = FIELD if args.field == "cp" else dict(
+        n_levels=2, log2_hashmap_size=8, max_resolution=32, compute_dtype=torch.float32)
+    trainer, train_ds, test_ds = ex.build(
+        args, scene_kwargs=dict(n_train=2, width=8, height=8), field_kwargs=field_kwargs,
+        trainer_kwargs=dict(grid_resolution=8))
+    from nerfacc_tpu.trainers.ngp_occ import NGPOccTrainer as JaxTrainer
+
+    want = {**{f.name: f.default for f in dataclasses.fields(JaxTrainer)}, **want}
+    for key in TRAINER_KEYS:
+        assert getattr(trainer, key) == want[key], key
+    np.testing.assert_array_equal(trainer.aabb, want["aabb"])
+    jfield = want["field"]
+    assert type(trainer.field).__name__ == type(jfield).__name__
+    assert trainer.field.unbounded == jfield.unbounded
+    names = {"ProceduralSceneLoader": "ProceduralSceneLoader",
+             "ProceduralUnboundedSceneLoader": "ProceduralUnboundedSceneLoader",
+             "ProceduralOpaqueSceneLoader": "ProceduralOpaqueSceneLoader",
+             "SubjectLoader": Blender.__name__, "Loader360": Loader360.__name__}
+    for (name, kw), ds in zip(made, (train_ds, test_ds)):
+        assert type(ds).__name__ == names[name]
+        if name == "Loader360":
+            assert type(ds) is Loader360
+        assert ds.num_rays == kw.get("num_rays") and ds.split == kw.get("split", "train")
+        assert ds.color_bkgd_aug == kw.get("color_bkgd_aug", "white")
+        if "n_test" in kw:
+            assert len(ds) == kw["n_test"]
+        if name == "Loader360":
+            assert kw["factor"] == 4 and ds.WIDTH == 2

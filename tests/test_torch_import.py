@@ -71,6 +71,8 @@ def _default_device(fn):
         "estimators.prop_net.propnet_sampling",
         "estimators.occ_grid.OccGridEstimator",
         "estimators.prop_net.PropNetEstimator.sampling",
+        "data.nerf_synthetic.SubjectLoader",
+        "data.nerf_360_v2.SubjectLoader",
     ],
 )
 def test_entry_points_default_to_the_card(name):

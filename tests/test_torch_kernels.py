@@ -1322,3 +1322,36 @@ def test_library_api_runs_its_kernels(dev):
     assert cpu[0].shape[0] > 1000
     for a, b in zip(cpu[3:], card[3:]):
         torch.testing.assert_close(b, a, rtol=0, atol=1e-5 * float(a.abs().max()))
+
+
+@pytest.mark.parametrize("step,cone,limit,levels", [
+    (5e-3, 0.0, None, 1), (1e-3, 0.004, None, 4), (1e-2, 0.004, 5, 2)])
+def test_traverse_grids_takes_its_samples_from_the_march_kernel(dev, step, cone, limit, levels):
+    """``traverse_grids`` on the card: G2 launched once, its samples placed
+    on the lattice; every output bitwise that of the padded traversal on
+    the card with the PyTorch occupancy test (``through_march=False``), the
+    step limit applied alike."""
+    from nerfacc_tpu_torch.grid import traverse_grids, traverse_grids_padded
+
+    rng = np.random.default_rng(levels)
+    n = 1024
+    o = rng.normal(size=(n, 3))
+    o = o / np.linalg.norm(o, axis=-1, keepdims=True) * 1.8
+    d = -o + rng.normal(size=(n, 3)) * 0.5
+    d /= np.linalg.norm(d, axis=-1, keepdims=True)
+    binaries = rng.uniform(size=(levels, 32, 32, 32)) < 0.3
+    aabbs = np.array([[-1.0 * 2**i] * 3 + [1.0 * 2**i] * 3 for i in range(levels)])
+    near = np.full(n, 0.2)
+    card = [torch.tensor(a, dtype=torch.bool if a.dtype == bool else torch.float32, device=dev)
+            for a in (o, d, binaries, aabbs, near)]
+    kw = dict(step_size=step, cone_angle=cone, max_samples=1200)
+    n0 = cuda.LAUNCHES["march"]
+    ti, ts, tterm = traverse_grids(*card[:4], near_planes=card[4], traverse_steps_limit=limit,
+                                   **kw)
+    assert cuda.LAUNCHES["march"] == n0 + 1
+    ref = traverse_grids_padded(*card[:4], near_planes=card[4], valid_samples_limit=limit,
+                                **kw)
+    assert cuda.LAUNCHES["march"] == n0 + 1 and int(ref.valid.sum()) > 0
+    assert torch.equal(ts.is_valid, ref.valid)
+    assert torch.equal(ti.vals, ref.t_edges) and torch.equal(tterm, ref.termination_planes)
+    assert torch.equal(ti.is_left[:, :-1], ref.valid) and torch.equal(ti.is_right[:, 1:], ref.valid)

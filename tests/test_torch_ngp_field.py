@@ -9,6 +9,7 @@ import torch
 from nerfacc_tpu.models.ngp import NGPDensityField as JaxDensityField
 from nerfacc_tpu.models.ngp import NGPRadianceField as JaxField
 from nerfacc_tpu.models.ngp import _cubify_aabb as jax_cubify_aabb
+from nerfacc_tpu.models.ngp import contract_to_unisphere as jax_contract
 from nerfacc_tpu_torch.models.ngp import (
     NGPDensityField,
     NGPRadianceField,
@@ -172,13 +173,16 @@ def test_ngp_density_field_f32_matches_jax(unbounded):
     a 2^12-row table (the full 2^17 only slows the JAX gradient), f32,
     from the same parameters (the table scaled to O(1)).
     The hash features of the same encoder coordinates bitwise against the
-    jitted JAX encoder.  The density against the jitted JAX field within
-    1e-5 relative, and every gradient leaf of ``sum(sin(density))`` within
-    1e-5 of its largest entry: jitted XLA divides by the constant box as a
-    product with its reciprocal, so ~1/3 of the coordinates differ from the
-    port's quotient in the last bit (a feature moves by up to ~2.5e-5),
-    and the MLP sums in another order.  Bounded, the density is 0 outside
-    the uncubified box; the bridge round-trips."""
+    jitted JAX encoder.  The density against the jitted JAX field:
+    unbounded within 1e-6 relative (the contracted coordinates are bitwise
+    those of the jitted field, see
+    :func:`test_box_map_matches_jitted_jax_bitwise`; the MLP sums in another
+    order), bounded within 1e-5 (jitted XLA divides by the constant box as a
+    product with its reciprocal, the port keeps the quotient, see
+    ``normalize_points``: ~1/3 of the coordinates differ in the last bit,
+    and a feature moves by up to ~2.5e-5); every gradient leaf of
+    ``sum(sin(density))`` within 1e-5 of its largest entry.  Bounded, the
+    density is 0 outside the uncubified box; the bridge round-trips."""
     aabb = (-1.5, -1.0, -1.0, 1.5, 1.0, 1.0)  # not a cube: no cubification
     small = dict(log2_hashmap_size=12)
     jfield = JaxDensityField(aabb=aabb, unbounded=unbounded, compute_dtype=jnp.float32, **small)
@@ -194,7 +198,8 @@ def test_ngp_density_field_f32_matches_jax(unbounded):
     want_grads = jax.jit(jax.grad(lambda p: jnp.sum(jnp.sin(jfield(p, jnp.asarray(x))))))(jparams)
     got = field(torch.tensor(x))
     torch.sin(got).sum().backward()
-    np.testing.assert_allclose(got.detach().numpy(), np.asarray(want), rtol=1e-5, atol=1e-30)
+    np.testing.assert_allclose(got.detach().numpy(), np.asarray(want),
+                               rtol=1e-6 if unbounded else 1e-5, atol=1e-30)
     u, _ = normalize_points(torch.tensor(x), field.aabb, unbounded)
     want_feats = jax.jit(lambda t, v: jfield.encoder(t, v))(jparams["encoder"], jnp.asarray(u.numpy()))
     np.testing.assert_array_equal(field.encoder(u).detach().numpy(), np.asarray(want_feats))
@@ -228,3 +233,24 @@ def test_ngp_density_field_init_and_defaults_match_jax():
         a = (6.0 / sum(w.shape)) ** 0.5
         assert a * 0.9 < float(w.detach().abs().max()) <= a
     np.testing.assert_array_equal(field.aabb.numpy(), PROP_AABB)
+
+
+@pytest.mark.parametrize("aabb", [
+    (-1.0, -1.0, -1.0, 1.0, 1.0, 1.0), (-1.5, -1.5, -1.5, 1.5, 1.5, 1.5),
+    (-1.5, -1.0, -1.0, 1.5, 1.0, 1.0), (-0.5, 0.0, 0.0, 1.5, 2.0, 2.0),
+], ids=["unit", "cube", "box", "shifted"])
+def test_box_map_matches_jitted_jax_bitwise(aabb):
+    """The unbounded ``normalize_points`` against the jitted JAX contraction
+    over a constant box, bit for bit on points out to 6 from the origin:
+    the box map's ``* 2 - 1`` in the form XLA folds and fuses for that box
+    (the unit box's map is the identity).  The bounded map is the quotient,
+    as the eager JAX field computes it."""
+    x = np.random.default_rng(5).uniform(-6, 6, (20000, 3)).astype(np.float32)
+    box = jnp.asarray(aabb, jnp.float32)
+    want_u = jax.jit(lambda p: jax_contract(p, box))(jnp.asarray(x))
+    want_b = (jnp.asarray(x) - box[:3]) / (box[3:] - box[:3])
+    t = torch.tensor(aabb)
+    got_u, _ = normalize_points(torch.tensor(x), t, True)
+    got_b, _ = normalize_points(torch.tensor(x), t, False)
+    np.testing.assert_array_equal(got_u.numpy(), np.asarray(want_u))
+    np.testing.assert_array_equal(got_b.numpy(), np.asarray(want_b))

@@ -30,7 +30,7 @@ SMALL = {
             dict(n_levels=5, log2_hashmap_size=10, hidden_dim=16)),
 }
 # what the port leaves out of the JAX script's flags, and what it adds
-LEFT_OUT, ADDED = {"train_split", "encoder_remat"}, {"device"}
+LEFT_OUT, ADDED = {"encoder_remat"}, {"device"}
 
 
 class _Captured(Exception):
@@ -139,9 +139,34 @@ def test_scene_branches_match_the_jax_script(monkeypatch, scene, field):
     assert len(test_ds) == (6 if scene == "procedural360" else 4)
 
 
-def test_data_root_raises_and_names_the_roadmap_item():
-    args = ex.parser().parse_args(["--data_root", "/data", "--device", "cpu"])
-    with pytest.raises(NotImplementedError, match="queue 1 item 6"):
+def test_data_root_raises_and_names_the_roadmap_item(monkeypatch, tmp_path):
+    """The name is kept from when ``--data_root`` raised; it now takes the
+    JAX script's data branch: the Blender loader of ``--train_split`` under
+    the root, ``--batch_size`` rays a train batch, with the scene name's
+    configuration (the JAX script's trainer arguments), on a fixture
+    written into ``tmp_path``; a root without the scene raises and names
+    the file it misses."""
+    pytest.importorskip("imageio.v2")
+    from test_torch_datasets import _write_blender_fixture
+
+    from nerfacc_tpu_torch.data.nerf_synthetic import SubjectLoader
+
+    want = _jax_trainer_kwargs(monkeypatch, "lego", "cp")
+    _write_blender_fixture(str(tmp_path), subject="lego")
+    monkeypatch.setattr(SubjectLoader, "WIDTH", 8)
+    monkeypatch.setattr(SubjectLoader, "HEIGHT", 8)
+    args = ex.parser().parse_args(["--data_root", str(tmp_path), "--train_split", "trainval",
+                                   "--device", "cpu"])
+    field_kw, prop_kw = SMALL["cp"]
+    trainer, train_ds, test_ds = ex.build(args, field_kwargs=field_kw, prop_kwargs=prop_kw)
+    assert type(train_ds) is SubjectLoader and type(test_ds) is SubjectLoader
+    assert (train_ds.split, train_ds.num_rays, len(train_ds)) == ("trainval", 4096, 4)
+    assert test_ds.split == "test" and not test_ds.training
+    for key in KEYS:
+        got = getattr(trainer, key)
+        assert (list(got) if key == "prop_samples" else got) == want[key], key
+    args = ex.parser().parse_args(["--data_root", str(tmp_path / "none"), "--device", "cpu"])
+    with pytest.raises(FileNotFoundError, match="transforms_train.json"):
         ex.build(args)
 
 
