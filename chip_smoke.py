@@ -135,7 +135,25 @@ It builds the CUDA kernels from ``nerfacc_tpu_torch/csrc`` and runs:
     ``OCC_MODE_STEPS`` steps from that one state with the sampled update
     (``dense_occ_update=False``) and again with ``occ_refresh_stripes=4``;
     each update is made twice with the same draws, through G1 and through
-    its plain version, and the two grids' binaries must be equal.
+    its plain version, and the two grids' binaries must be equal;
+23. the dynamic example, built by its own ``build``
+    (``train_mlp_tnerf --scene proceduraldynamic``: the full-width T-NeRF,
+    a 4x64 warp MLP in front of the 8x256 vanilla NeRF, f32; 24 views of
+    the moving-blob scene at 320x320, a 2^16 budget, the controller from
+    1024 rays): served untrained, trained ``MLP_STEPS`` steps through its
+    ``train_loop`` (the loss must fall; G2, G3 and G5 must launch), one
+    step through the kernels against their plain versions (phase 5's f32
+    bound, the plain step against itself printed beside it), served
+    trained 3 dB above untrained; it prints ms/step, train samples/s, the
+    ray counts and the share of rays the loss masked;
+    23b. the same with ``--field kplanes`` (levels 32/64 x rank 16, bf16,
+    TV 1e-3), and one dense occupancy refresh timed;
+    23c. the same with ``--field tineuvox`` (G8-G10 too), no step check;
+24. the vanilla example (``train_mlp_nerf --model_path P``, the 8x256
+    NeRF on the translucent scene, a 2^16 budget) for ``VANILLA_STEPS``
+    steps with a checkpoint at each log, stopped after the first and
+    resumed from it in a second ``train_loop``: the step carries over, the
+    loss keeps falling, the trained PSNR ends 3 dB above the untrained.
 
 Phase 1d holds the hat kernels G8 (forward), G9 (table gradient) and G10
 (coordinate gradient) against their plain versions at N = 2^18 on each of
@@ -185,6 +203,12 @@ a git-ignored directory), and prints one JSON line a run.  With ``--example cp|n
 its defaults otherwise) and prints one JSON line a run: PSNR, SSIM, steps,
 training seconds, train samples/s, ray counts, samples a step, and both
 renderers' frames.
+With ``--example tnerf|kplanes|tineuvox|mlp-nerf [--steps N] [--seeds ...]
+[--routes kernels plain ...]`` it runs the dynamic example (``--field``, on
+the moving-blob scene, TiNeuVox at ``--lr 5e-3``) or the vanilla example
+alone from each seed through each route, one JSON line a run: PSNR, SSIM,
+training seconds, ms/step, train samples/s, ray counts, the masked share
+and seconds a frame.
 With ``--example prop-cp|prop-ngp|prop360 [--steps N] [--seeds ...]
 [--routes kernels plain ...]`` it runs the proposal example alone
 (``--field cp``, ``--field ngp``, ``--scene procedural360``) from each seed
@@ -194,7 +218,8 @@ train samples/s, the losses and seconds a frame.
 Every check raises on failure, so the exit code is nonzero and the result
 line is not printed.  The last line of standard output is a JSON object with
 ``"ok": true`` and the device; the line before it lists each kernel's launch
-count (over the training phases 4, 6d, 8, 12, 16, 19, 20, 21 and 22; for G11-G13, over
+count (over the training phases 4, 6d, 8, 12, 16, 19, 20, 21, 22, 23-23c and
+24; for G11-G13, over
 the gather probe's run), error, times and bound.  Without a CUDA device the
 script fails at once.
 """
@@ -398,6 +423,27 @@ PROP360_COUNTS = (256, 96, 48)
 # each occupancy-update mode past warmup
 OCC360_ARGS = ["--scene", "procedural360", "--field", "cp"]
 OCC_MODE_STEPS = 64
+# the kernels the TiNeuVox path launches
+PATH_KERNELS_TINEUVOX = ("march", "composite_fwd", "composite_bwd", "hat_fwd",
+                         "hat_bwd_line", "hat_bwd_x")
+# Phases 23-24: the dynamic example (nerfacc_tpu_torch.examples.train_mlp_tnerf)
+# per field, at its full widths on the moving-blob scene, and the vanilla
+# example (train_mlp_nerf); --example tnerf|kplanes|tineuvox|mlp-nerf runs
+# them alone.  Each loop ends at the first multiple of its 8-step calls past
+# --max_steps, so --max_steps is one call short of the steps wanted.
+MLP_CALL = 8
+MLP_STEPS = {"tnerf": 1000, "kplanes": 1000, "tineuvox": 504}
+# field -> the example's flags and the kernels its path launches; --example
+# adds MLP_EXAMPLE_FLAGS (TiNeuVox at the lr of the TPU v5e's quality rows,
+# docs/benchmarks.md:100-101)
+MLP_PATHS = {
+    "tnerf": ([], ("march", "composite_fwd", "composite_bwd")),
+    "kplanes": (["--field", "kplanes"], ("march", "composite_fwd", "composite_bwd")),
+    "tineuvox": (["--field", "tineuvox"], PATH_KERNELS_TINEUVOX),
+    "mlp-nerf": ([], ("march", "composite_fwd", "composite_bwd")),
+}
+MLP_EXAMPLE_FLAGS = {"tineuvox": ["--lr", "5e-3"]}
+VANILLA_STEPS, VANILLA_LOG = 600, 300  # phase 24: a checkpoint at each log
 
 
 # The least time the card could take for a kernel's work: the bytes the
@@ -2316,8 +2362,7 @@ PLAIN_SWAPS = {
 }
 # path -> the kernels its training and serving launch
 PATH_KERNELS = {
-    "tineuvox": ("march", "composite_fwd", "composite_bwd", "hat_fwd", "hat_bwd_line",
-                 "hat_bwd_x"),
+    "tineuvox": PATH_KERNELS_TINEUVOX,
     "prop": ("cp_level_fwd", "cp_level_bwd", "composite_fwd", "composite_bwd",
              "importance_sampling"),
 }
@@ -3084,6 +3129,301 @@ def phase_occ_modes(dev):
           f"{dense_ms:.3f} ms an update")
 
 
+def mlp_example(path, steps, seed=QUALITY_SEEDS[0], extra=()):
+    """The MLP example of ``path`` (``mlp-nerf``: train_mlp_nerf; a field:
+    train_mlp_tnerf on the moving-blob scene) and its arguments for
+    ``steps`` steps."""
+    if path == "mlp-nerf":
+        ex = port_module("examples.train_mlp_nerf")
+        flags = []
+    else:
+        ex = port_module("examples.train_mlp_tnerf")
+        flags = [*MLP_PATHS[path][0], "--scene", "proceduraldynamic"]
+    args = ex.parser().parse_args([*flags, "--max_steps", str(steps - MLP_CALL),
+                                   "--steps_per_call", str(MLP_CALL), "--seed", str(seed),
+                                   "--log_every", str(max(steps // 4, MLP_CALL)), *extra])
+    return ex, args
+
+
+def mlp_run_record(run, steps_done, seconds):
+    """The numbers of one MLP example run: ms/step, train samples/s (the
+    rendered samples), the final and largest ray counts, the masked share
+    of the last quarter of calls and the losses."""
+    log = run.log
+    samples = sum(r["samples"] for r in log)
+    tail = log[-max(len(log) // 4, 1):]
+    return {
+        "steps": steps_done, "train_seconds": seconds,
+        "ms_per_step": 1e3 * seconds / max(steps_done, 1),
+        "samples_per_s": samples / seconds,
+        "final_num_rays": log[-1]["num_rays"], "max_num_rays": max(r["num_rays"] for r in log),
+        "loss_first5": statistics.mean(r["loss"] for r in log[:5]),
+        "loss_last5": statistics.mean(r["loss"] for r in log[-5:]),
+        "masked_share_last_quarter": statistics.mean(r["masked"] for r in tail),
+        "masked_share_first_call": log[0]["masked"],
+    }
+
+
+def phase_mlp_example(dev, path):
+    """23 (``tnerf``), 23b (``kplanes``), 23c (``tineuvox``): the dynamic
+    example built by its own ``build`` (full widths, 24 train views of the
+    moving-blob scene at 320x320, a 2^16 budget, the controller from 1024
+    rays), served untrained on its four test views (the grid refreshed
+    ``N_REFRESH`` times), trained ``MLP_STEPS`` steps through its
+    ``train_loop`` (the loss must fall, the path's kernels launch), one
+    step through the kernels against the plain versions (phase 5's bounds;
+    T-NeRF and K-Planes; the plain step against itself printed beside it),
+    served trained 3 dB above untrained; K-Planes' occupancy refresh timed
+    (32 chunks of its ``max_eval_chunk``).  Returns the training's
+    launches."""
+    steps = MLP_STEPS[path]
+    ex, args = mlp_example(path, steps)
+    (trainer, train_ds, test_ds), setup = timed(lambda: ex.build(args))
+    kernels = MLP_PATHS[path][1]
+    n_params = sum(p.numel() for p in trainer.field.parameters())
+    print(f"{path}: {type(trainer.field).__name__} ({n_params} parameters, "
+          f"{str(trainer.field.compute_dtype).split('.')[-1]} operands), lr {trainer.lr}, "
+          f"Adam eps {trainer.adam_eps}, warmup {trainer.warmup_lr_steps}, prior weight "
+          f"{trainer.field_reg_weight}, weight decay {trainer.weight_decay}, budget "
+          f"{trainer.sample_budget}; {len(train_ds)} train and {len(test_ds)} test views "
+          f"{test_ds.WIDTH}x{test_ds.HEIGHT} ({type(train_ds).__name__}), built in "
+          f"{setup:.2f} s")
+    untrained = serve_views(f"{path} untrained", trainer, refreshed_state(trainer),
+                            test_ds)["psnr"]
+    cuda.reset_launches()
+    run = ex.train_loop(trainer, train_ds, test_ds, args)
+    torch.cuda.synchronize()
+    launches = dict(cuda.LAUNCHES)
+    steps_done = int(run.state.step)
+    rec = mlp_run_record(run, steps_done, run.train_seconds)
+    rays = sorted({r["num_rays"] for r in run.log})
+    print(f"train {path}: {steps_done} steps in {run.train_seconds:.3f} s, "
+          f"{rec['ms_per_step']:.3f} ms/step, {rec['samples_per_s']:.6g} train samples/s "
+          f"(rendered), ray counts {rays} (final {rec['final_num_rays']}), masked share "
+          f"{rec['masked_share_first_call']:.3f} in the first call, "
+          f"{rec['masked_share_last_quarter']:.3f} over the last quarter of calls; mean loss "
+          f"of the first and last five calls {rec['loss_first5']:.6f} -> "
+          f"{rec['loss_last5']:.6f}; per step "
+          + ", ".join(f"{k} {v / steps_done:.3f}" for k, v in launches.items() if v))
+    require(steps_done == steps, f"train {path}: ended at step {steps_done}")
+    require(all(math.isfinite(r["loss"]) for r in run.log), f"train {path}: non-finite loss")
+    require(rec["loss_last5"] < rec["loss_first5"],
+            f"train {path}: loss {rec['loss_first5']} -> {rec['loss_last5']} did not fall")
+    for name in kernels:
+        require(launches.get(name, 0) > 0, f"kernel {name} never launched in {path} training")
+    state = run.state
+    if path in ("tnerf", "kplanes"):
+        phase_step_vs_plain(trainer, state, train_ds[0], path, kernels)
+    if path == "kplanes":
+        step = steps_done + trainer.update_interval - steps_done % trainer.update_interval
+        ms = cuda_ms(lambda: trainer.refresh_occ_grid(state, step), reps=3)
+        cells = state.occ_state.occs.numel()
+        print(f"kplanes refresh past warmup: {cells} cells in "
+              f"{-(-cells // trainer.field.max_eval_chunk)} chunks of "
+              f"{trainer.field.max_eval_chunk}, {ms:.3f} ms an update")
+    for i, v in enumerate(run.metrics["views"]):
+        print(f"trained {path} view {i}: {v['seconds']:.4f} s, "
+              f"{v['n_samples'] / v['n_rays']:.2f} samples/ray, psnr {v['psnr']:.3f}, "
+              f"ssim {v['ssim']:.4f}")
+        require(v["finite"], f"trained {path} view {i}: non-finite output")
+    print(f"trained {path}: psnr {run.metrics['psnr']:.3f} (untrained {untrained:.3f}), "
+          f"ssim {run.metrics['ssim']:.4f}, occupied share "
+          f"{float(state.occ_state.binaries.float().mean()):.4f}; summary "
+          f"{json.dumps(run.summary)}")
+    require(run.metrics["psnr"] >= untrained + 3.0,
+            f"trained {path} psnr {run.metrics['psnr']} not 3 dB above {untrained}")
+    return launches
+
+
+def phase_step_vs_plain(trainer, state, batch, name, kernels):
+    """One train step through the kernels against the same step with
+    ``kernels`` on their plain versions (:func:`plain_kernels`), from
+    ``state``, with the same batch and near-plane jitter, ``STEP_REPEATS``
+    times (atomics reorder the sums), held to phase 5's bound for the
+    field's compute dtype; the plain step against itself is printed beside
+    it."""
+    require(state.step % trainer.update_interval != 0, f"{name}: the step refreshes")
+    gen = torch.Generator(device=trainer.device).manual_seed(5)
+    near = torch.rand(batch["rays_o"].shape[0], generator=gen, device=trainer.device)
+    bf16 = trainer.field.compute_dtype == torch.bfloat16
+    limit = BF16_STEP_FRO if bf16 else F32_STEP_FRO
+
+    def kernel_step():
+        return kernel_step_grads(trainer, state, batch, near)
+
+    def plain_step():
+        with plain_kernels(kernels):
+            return kernel_step_grads(trainer, state, batch, near)
+
+    what = f"train step {name} {'bf16' if bf16 else 'f32'}"
+    before = dict(cuda.LAUNCHES)
+    ref = plain_step()
+    require(all(cuda.LAUNCHES[k] == before[k] for k in kernels),
+            f"{what}: the plain step launched a kernel")
+    step_readings(f"{what}, plain vs plain", plain_step, ref)
+    _, reading, _, loss_rel = step_readings(f"{what}, kernels vs plain versions", kernel_step,
+                                            ref, limit)
+    require(reading <= limit, f"{what}: a gradient leaf off by {reading} > {limit}")
+    require(loss_rel <= 1e-5, f"{what}: losses differ by {loss_rel}")
+
+
+def phase_vanilla_example(dev):
+    """24: ``python -m nerfacc_tpu_torch.examples.train_mlp_nerf
+    --model_path P`` (the full-width vanilla NeRF, 24 views of the
+    translucent scene at 320x320, a 2^16 budget, the controller from 1024
+    rays) for ``VANILLA_STEPS`` steps, a checkpoint at each log
+    (``VANILLA_LOG`` steps): stopped right after the first checkpoint, then
+    run again with the same arguments in a second ``train_loop``, which
+    resumes at its step.  The step count carries over, the loss keeps
+    falling, the trained PSNR ends 3 dB above the untrained.  Returns the
+    launches of both runs."""
+    ex, _ = mlp_example("mlp-nerf", VANILLA_STEPS)
+    ckpt = os.path.join("build", "chip_smoke", "vanilla.ckpt")
+    if os.path.exists(ckpt):
+        os.remove(ckpt)
+    args = ex.parser().parse_args([
+        "--max_steps", str(VANILLA_STEPS - MLP_CALL), "--log_every", str(VANILLA_LOG),
+        "--steps_per_call", str(MLP_CALL), "--model_path", ckpt,
+    ])
+    (trainer, train_ds, test_ds), setup = timed(lambda: ex.build(args))
+    n_params = sum(p.numel() for p in trainer.field.parameters())
+    print(f"mlp-nerf: {type(trainer.field).__name__} ({n_params} parameters), lr "
+          f"{trainer.lr}, Adam eps {trainer.adam_eps}, warmup {trainer.warmup_lr_steps}; "
+          f"{len(train_ds)} train and {len(test_ds)} test views {test_ds.WIDTH}x"
+          f"{test_ds.HEIGHT}, built in {setup:.2f} s")
+    untrained = serve_views("mlp-nerf untrained", trainer, refreshed_state(trainer),
+                            test_ds)["psnr"]
+    save, stops = ex.save_checkpoint, []
+
+    def save_then_stop(path, state):
+        save(path, state)
+        stops.append(int(state.step))
+        if len(stops) == 1:
+            raise _Stop
+
+    cuda.reset_launches()
+    first = []
+    ex.save_checkpoint = save_then_stop
+    try:
+        try:
+            ex.train_loop(trainer, train_ds, test_ds, args, first)
+        except _Stop:
+            pass
+        trainer, train_ds, test_ds = ex.build(args)
+        run = ex.train_loop(trainer, train_ds, test_ds, args)
+    finally:
+        ex.save_checkpoint = save
+    torch.cuda.synchronize()
+    launches = dict(cuda.LAUNCHES)
+    second = run.log
+    steps = int(run.state.step)
+    rec = mlp_run_record(run, steps - stops[0], run.train_seconds)
+    losses = [r["loss"] for r in first + second]
+    print(f"mlp-nerf: first run stopped after its checkpoint at step {stops[0]}, resumed "
+          f"from it to step {steps} ({second[0]['step'] - MLP_CALL} -> {second[-1]['step']}); "
+          f"the resumed run {rec['ms_per_step']:.3f} ms/step, {rec['samples_per_s']:.6g} "
+          f"train samples/s, ray counts {sorted({r['num_rays'] for r in first + second})}; "
+          f"mean loss of the first run's first five calls "
+          f"{statistics.mean(losses[:5]):.6f}, its last five "
+          f"{statistics.mean(r['loss'] for r in first[-5:]):.6f}, the resumed run's first "
+          f"five {statistics.mean(r['loss'] for r in second[:5]):.6f} and last five "
+          f"{statistics.mean(r['loss'] for r in second[-5:]):.6f}; launches per step "
+          + ", ".join(f"{k} {v / steps:.3f}" for k, v in launches.items() if v))
+    for i, v in enumerate(run.metrics["views"]):
+        print(f"trained mlp-nerf view {i}: {v['seconds']:.4f} s, "
+              f"{v['n_samples'] / v['n_rays']:.2f} samples/ray, psnr {v['psnr']:.3f}, "
+              f"ssim {v['ssim']:.4f}")
+        require(v["finite"], f"trained mlp-nerf view {i}: non-finite output")
+    print(f"trained mlp-nerf: psnr {run.metrics['psnr']:.3f} (untrained {untrained:.3f}), "
+          f"ssim {run.metrics['ssim']:.4f}")
+    require(stops[0] % VANILLA_LOG < MLP_CALL and VANILLA_LOG <= stops[0] < 2 * VANILLA_LOG,
+            f"mlp-nerf: first checkpoint at step {stops[0]}")
+    require(second[0]["step"] == stops[0] + MLP_CALL and steps == VANILLA_STEPS,
+            f"mlp-nerf: resumed at {second[0]['step'] - MLP_CALL}, ended at {steps}")
+    require(all(math.isfinite(v) for v in losses), "mlp-nerf: non-finite loss")
+    require(statistics.mean(r["loss"] for r in second[-5:])
+            < statistics.mean(r["loss"] for r in second[:5])
+            < statistics.mean(losses[:5]), "mlp-nerf: the loss did not keep falling")
+    require(run.metrics["psnr"] >= untrained + 3.0,
+            f"mlp-nerf: psnr {run.metrics['psnr']} not 3 dB above {untrained}")
+    for name in MLP_PATHS["mlp-nerf"][1]:
+        require(launches.get(name, 0) > 0, f"mlp-nerf: kernel {name} never launched")
+    return launches
+
+
+def _plain_for(route, kernels):
+    """The kernels that ``route`` puts on their plain versions: none for
+    "kernels", all of ``kernels`` for "plain", the named ones for
+    "plain:<kernel>,<kernel>" (by their launch-count names)."""
+    if route == "kernels":
+        return ()
+    if route == "plain":
+        return tuple(kernels)
+    return tuple(route.removeprefix("plain:").split(","))
+
+
+def _example_study(args, kernels, make_example, record):
+    """An example script as a user runs it, from each seed through each
+    route of ``--routes``: ``make_example(seed)`` gives the script's module
+    and its parsed flags, its own ``build`` and ``train_loop`` run, each
+    kernel of ``kernels`` must launch unless the route puts it on its plain
+    version, and ``record(trainer, run, eargs)`` gives the run's figures;
+    one JSON line a run, printed and appended to
+    ``<out>/example_<label>.jsonl``."""
+    head = {"label": args.label, "card": card(), "torch": torch.__version__,
+            "cuda": torch.version.cuda}
+    print(json.dumps(head), flush=True)
+    os.makedirs(args.out, exist_ok=True)
+    cuda_mod = port_module("cuda")
+    for route in args.routes:
+        plain = _plain_for(route, kernels)
+        for seed in args.seeds:
+            ex, eargs = make_example(seed)
+            with plain_kernels(plain):
+                (trainer, train_ds, test_ds), setup = timed(lambda: ex.build(eargs))
+                cuda_mod.reset_launches()
+                run = ex.train_loop(trainer, train_ds, test_ds, eargs)
+            launches = {k: v for k, v in cuda_mod.LAUNCHES.items() if v}
+            for kernel in kernels:
+                n = launches.get(kernel, 0)
+                require((n > 0) != (kernel in plain),
+                        f"{args.example} {route}: kernel {kernel} launched {n} times")
+            rec = {"label": args.label, "example": args.example, "route": route, "seed": seed,
+                   **record(trainer, run, eargs), "setup_seconds": setup,
+                   "launches": launches}
+            print(json.dumps(rec), flush=True)
+            with open(os.path.join(args.out, f"example_{args.label}.jsonl"), "a") as f:
+                f.write(json.dumps({**head, **rec}) + "\n")
+
+
+def mlp_example_study(args):
+    """``--example tnerf|kplanes|tineuvox|mlp-nerf``: the MLP example
+    (``python -m nerfacc_tpu_torch.examples.train_mlp_tnerf --field <field>
+    --scene proceduraldynamic --max_steps <steps> --seed <seed>``, TiNeuVox
+    at ``--lr 5e-3``; or ``train_mlp_nerf``) through
+    :func:`_example_study`: eval PSNR and SSIM (four test views), the steps
+    trained and their wall seconds, ms/step, train samples/s (rendered), the
+    final and largest ray counts, the masked share, the losses, eval
+    seconds a frame and samples a ray."""
+    def record(trainer, run, eargs):
+        views = run.metrics["views"]
+        return {
+            "lr": trainer.lr, "psnr": run.metrics["psnr"], "ssim": run.metrics["ssim"],
+            "view_psnr": [v["psnr"] for v in views],
+            "all_finite": all(v["finite"] for v in views),
+            **mlp_run_record(run, int(run.state.step), run.train_seconds),
+            "eval_s_per_frame": sum(v["seconds"] for v in views) / len(views),
+            "eval_samples_per_ray": (sum(v["n_samples"] for v in views)
+                                     / sum(v["n_rays"] for v in views)),
+            "summary": getattr(run, "summary", None),
+        }
+
+    _example_study(args, MLP_PATHS[args.example][1],
+                   lambda seed: mlp_example(args.example, args.steps, seed,
+                                            MLP_EXAMPLE_FLAGS.get(args.example, [])),
+                   record)
+
+
 def card():
     """The card's name and power limit, from ``nvidia-smi``."""
     return subprocess.run(
@@ -3114,12 +3454,7 @@ def quality_study(args):
     os.makedirs(args.out, exist_ok=True)
     for path in args.quality:
         for route in args.routes:
-            if route == "kernels":
-                plain = ()
-            elif route == "plain":
-                plain = PATH_KERNELS[path]
-            else:
-                plain = tuple(route.removeprefix("plain:").split(","))
+            plain = _plain_for(route, PATH_KERNELS[path])
             for seed in args.seeds:
                 run = {"label": args.label, "route": route,
                        **quality_run(dev, path, seed, plain)}
@@ -3129,62 +3464,34 @@ def quality_study(args):
 
 
 def prop_example_study(args):
-    """``--example prop-cp|prop-ngp|prop360``: the proposal example as a
-    user runs it (``python -m nerfacc_tpu_torch.examples.train_ngp_nerf_prop
-    <the path's flags> --max_steps <steps> --seed <seed>``, its defaults
-    otherwise) from each seed, through each route of ``--routes``
-    ("kernels"; "plain", every kernel of the path on its plain version;
-    "plain:<kernel>,..."); one JSON line a run, printed and appended to
-    ``<out>/example_<label>.jsonl``: eval PSNR and SSIM (all test views),
+    """``--example prop-cp|prop-ngp|prop360``: the proposal example
+    (``python -m nerfacc_tpu_torch.examples.train_ngp_nerf_prop <the path's
+    flags> --max_steps <steps> --seed <seed>``, its defaults otherwise)
+    through :func:`_example_study`: eval PSNR and SSIM (all test views),
     steps, wall seconds of the loop and train samples/s by the script's
-    count, the reconstruction and proposal losses, seconds a frame, and
-    the launches."""
-    head = {"label": args.label, "card": card(), "torch": torch.__version__,
-            "cuda": torch.version.cuda}
-    print(json.dumps(head), flush=True)
-    os.makedirs(args.out, exist_ok=True)
-    cuda_mod = port_module("cuda")
-    for route in args.routes:
-        if route == "kernels":
-            plain = ()
-        elif route == "plain":
-            plain = PROP_PATHS[args.example][1]
-        else:
-            plain = tuple(route.removeprefix("plain:").split(","))
-        for seed in args.seeds:
-            ex, eargs = prop_example(args.example, args.steps, seed,
-                                     ["--log_every", str(max(args.steps // 10, 32))])
-            with plain_kernels(plain):
-                (trainer, train_ds, test_ds), setup = timed(lambda: ex.build(eargs))
-                cuda_mod.reset_launches()
-                run = ex.train_loop(trainer, train_ds, test_ds, eargs)
-            launches = {k: v for k, v in cuda_mod.LAUNCHES.items() if v}
-            for kernel in PROP_PATHS[args.example][1]:
-                n = launches.get(kernel, 0)
-                require((n > 0) != (kernel in plain),
-                        f"{args.example} {route}: kernel {kernel} launched {n} times")
-            log, views = run.log, run.metrics["views"]
-            recon = log["loss"] - log["prop_loss"]
-            rg = log["requires_grad"]
-            per_ray = trainer.num_samples + sum(trainer.prop_samples)
-            steps = int(run.state.step)
-            rec = {
-                "label": args.label, "example": args.example, "route": route, "seed": seed,
-                "steps": steps, "psnr": run.metrics["psnr"], "ssim": run.metrics["ssim"],
-                "view_psnr": [v["psnr"] for v in views], "n_views": len(views),
-                "all_finite": all(v["finite"] for v in views),
-                "train_seconds": run.train_seconds, "setup_seconds": setup,
-                "samples_per_s": steps * eargs.batch_size * per_ray / run.train_seconds,
-                "ms_per_step": 1e3 * run.train_seconds / steps,
-                "recon_loss_first100": float(recon[:100].mean()),
-                "recon_loss_last100": float(recon[-100:].mean()),
-                "prop_loss_last": float(log["prop_loss"][rg][-50:].mean()),
-                "eval_s_per_frame": sum(v["seconds"] for v in views) / len(views),
-                "launches": launches,
-            }
-            print(json.dumps(rec), flush=True)
-            with open(os.path.join(args.out, f"example_{args.label}.jsonl"), "a") as f:
-                f.write(json.dumps({**head, **rec}) + "\n")
+    count, the reconstruction and proposal losses, and seconds a frame."""
+    def record(trainer, run, eargs):
+        log, views = run.log, run.metrics["views"]
+        recon = log["loss"] - log["prop_loss"]
+        per_ray = trainer.num_samples + sum(trainer.prop_samples)
+        steps = int(run.state.step)
+        return {
+            "steps": steps, "psnr": run.metrics["psnr"], "ssim": run.metrics["ssim"],
+            "view_psnr": [v["psnr"] for v in views], "n_views": len(views),
+            "all_finite": all(v["finite"] for v in views),
+            "train_seconds": run.train_seconds,
+            "samples_per_s": steps * eargs.batch_size * per_ray / run.train_seconds,
+            "ms_per_step": 1e3 * run.train_seconds / steps,
+            "recon_loss_first100": float(recon[:100].mean()),
+            "recon_loss_last100": float(recon[-100:].mean()),
+            "prop_loss_last": float(log["prop_loss"][log["requires_grad"]][-50:].mean()),
+            "eval_s_per_frame": sum(v["seconds"] for v in views) / len(views),
+        }
+
+    _example_study(args, PROP_PATHS[args.example][1],
+                   lambda seed: prop_example(args.example, args.steps, seed,
+                                             ["--log_every", str(max(args.steps // 10, 32))]),
+                   record)
 
 
 def example_study(args):
@@ -3250,14 +3557,16 @@ def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--quality", nargs="+", choices=list(PATH_KERNELS),
                     help="train and serve these paths alone (quality_study)")
-    ap.add_argument("--example", choices=["cp", "ngp", "occ360", *PROP_PATHS],
-                    help="run the occupancy example (cp, ngp, occ360: example_study) or "
-                         "the proposal example (prop-*: prop_example_study) alone")
+    ap.add_argument("--example", choices=["cp", "ngp", "occ360", *PROP_PATHS, *MLP_PATHS],
+                    help="run the occupancy example (cp, ngp, occ360: example_study), "
+                         "the proposal example (prop-*: prop_example_study) or the MLP "
+                         "examples (tnerf, kplanes, tineuvox, mlp-nerf: "
+                         "mlp_example_study) alone")
     ap.add_argument("--steps", type=int, default=10000, help="--example's --max_steps")
     ap.add_argument("--seeds", nargs="+", type=int, default=list(QUALITY_SEEDS))
     ap.add_argument("--routes", nargs="+", default=None,
                     help="--quality's (default: kernels plain) and --example prop-*'s "
-                         "(default: kernels)")
+                         "and the MLP examples' (default: kernels)")
     ap.add_argument("--root", help="the tree whose nerfacc_tpu_torch --quality imports")
     ap.add_argument("--label", default="change")
     ap.add_argument("--out", default="build/quality")
@@ -3271,6 +3580,10 @@ def main():
     if args.example in PROP_PATHS:
         args.routes = args.routes or ["kernels"]
         prop_example_study(args)
+        return
+    if args.example in MLP_PATHS:
+        args.routes = args.routes or ["kernels"]
+        mlp_example_study(args)
         return
     if args.example:
         example_study(args)
@@ -3377,12 +3690,16 @@ def main():
     occ360_launches = phase_occ360(dev, *occ360, occ360_untrained)
     del occ360, occ360_untrained
     phase_occ_modes(dev)
-    # each kernel's launches over the seven training runs (phases 4, 8, 12,
-    # 16, 20, 21, 22), the occupancy example's (6d) and the quick start's
-    # loops (19), and the gather kernels' over the gather probe's run
+    # 23-23c: the dynamic example per field; 24: the vanilla example
+    mlp_launches = [phase_mlp_example(dev, path) for path in ("tnerf", "kplanes", "tineuvox")]
+    mlp_launches.append(phase_vanilla_example(dev))
+    # each kernel's launches over the training runs (phases 4, 8, 12, 16,
+    # 20, 21, 22, 23-23c, 24), the occupancy example's (6d) and the quick
+    # start's loops (19), and the gather kernels' over the gather probe's run
     launches = {k: v + ngp_launches[k] + tnv_launches[k] + prop_launches[k]
                 + example_launches[k] + qs_launches[k] + qs_prop_launches[k]
                 + prop_ngp_launches[k] + prop360_launches[k] + occ360_launches.get(k, 0)
+                + sum(m.get(k, 0) for m in mlp_launches)
                 for k, v in launches.items()}
     launches.update(probe_launches)
 

@@ -1,7 +1,9 @@
 """nerfacc_tpu_torch: nerfacc_tpu's library API (estimators, scans,
 volume rendering, losses), its occupancy-grid and proposal-network render and
 train paths, and its CP, hash-grid (Instant-NGP) and TiNeuVox (dynamic)
-radiance fields with the CP and hash-grid proposal fields, the padded
+radiance fields, the MLP fields (vanilla NeRF, and T-NeRF and NDRT for
+dynamic scenes) and the K-Planes space-time field, with the CP and
+hash-grid proposal fields, the padded
 traversals, lens undistortion and the dataset loaders, ported to PyTorch and
 hand-written CUDA kernels for NVIDIA Hopper.
 
@@ -47,6 +49,12 @@ from .grid import (
 from .losses import distortion
 from .models.cp_field import CPDensityField, CPGridEncoder, CPRadianceField
 from .models.encoders import HashGridEncoder, SinusoidalEncoder
+from .models.kplanes import KPlanesEncoder, KPlanesRadianceField
+from .models.mlp import (
+    NDRTNeRFRadianceField,
+    TNeRFRadianceField,
+    VanillaNeRFRadianceField,
+)
 from .models.ngp import NGPDensityField, NGPRadianceField
 from .models.tineuvox import TiNeuVoxRadianceField
 from .pack import pack_info
@@ -78,10 +86,12 @@ __version__ = "0.1.0"
 
 __all__ = [
     "AbstractEstimator", "CPDensityField", "CPGridEncoder", "CPRadianceField",
-    "CompactSamples", "DeviceRaySampler", "HashGridEncoder", "NGPOccTrainer",
+    "CompactSamples", "DeviceRaySampler", "HashGridEncoder", "KPlanesEncoder",
+    "KPlanesRadianceField", "NDRTNeRFRadianceField", "NGPOccTrainer",
     "NGPDensityField", "NGPPropTrainer", "NGPRadianceField", "OccGridEstimator", "OccGridState",
     "PropNetEstimator", "PropTrainState", "RayIntervals", "RaySamples",
-    "SinusoidalEncoder", "TiNeuVoxRadianceField", "TrainState", "TraversalResult",
+    "SinusoidalEncoder", "TNeRFRadianceField", "TiNeuVoxRadianceField", "TrainState",
+    "TraversalResult", "VanillaNeRFRadianceField",
     "__version__",
     "accumulate_along_rays", "accumulate_along_rays_", "compact_samples", "cuda",
     "distortion", "exclusive_prod", "exclusive_sum", "get_proposal_requires_grad_fn",

@@ -1,21 +1,21 @@
 """Procedural benchmark scenes: Gaussian density blobs rendered analytically
 to ground-truth images, still or moving.
 
-PyTorch counterpart of nerfacc_tpu/data/procedural.py's
-``ProceduralSceneLoader``, ``ProceduralOpaqueSceneLoader``,
-``ProceduralDynamicSceneLoader``, ``ProceduralUnboundedSceneLoader``, the
-``PROCEDURAL_SCENES`` names of the first two and ``UNBOUNDED_SCENES``'s of
-the last.  The scene
-constants come from the same ``np.random.default_rng(1234)`` draws (the
-motion from ``default_rng(4321)``, the unbounded scene's far blobs from
-``default_rng(777)``) and the camera rays from the same numpy
+PyTorch counterpart of nerfacc_tpu/data/procedural.py: its eight scenes
+(the translucent blobs, the opaque, textured, thin and mixed variants, the
+unbounded scene and the two dynamic scenes), ``PROCEDURAL_SCENES`` with the
+JAX package's eight names, and ``UNBOUNDED_SCENES``, the names the examples'
+unbounded configurations take.  The scene constants come from the same
+numpy draws as the JAX loaders' (``np.random.default_rng(1234)`` for the
+blobs, 4321 for the motion and the opaque densities, 777 for the unbounded
+scene's far blobs, 9999 for the textures, 8888 for the rods, 7777 for the
+fog and 5555 for the local motion) and the camera rays from the same numpy
 arithmetic, so both packages build the identical scene and rays; the ground
 truth is integrated in PyTorch on the loader's device (no disk cache).
 Ported: the test split and the train split's random ray batches, whose
 pixels come from the same ``np.random.default_rng(seed)`` call sequence as
-the JAX loader's, so both loaders yield identical batches.  Not ported: the
-other procedural scenes (textured, thin, mixed and the local-motion
-dynamic scene).
+the JAX loader's, so both loaders yield identical batches.  Not ported:
+``pixel_batch`` (BARF's pixel-level batches).
 """
 from __future__ import annotations
 
@@ -338,6 +338,122 @@ class ProceduralOpaqueSceneLoader(ProceduralSceneLoader):
         )
 
 
+class ProceduralTexturedSceneLoader(ProceduralOpaqueSceneLoader):
+    """The opaque scene with high-frequency albedo: each colour channel of
+    the balls is modulated by ``0.55 + 0.45 sum_k w_ck sin(x . f_ck +
+    phi_ck)``, clipped to [0.1, 1], over ``num_gratings`` gratings of 8 to
+    32 radians a unit, drawn from ``default_rng(9999)``.  Fine texture
+    separates encoders by their high-frequency capacity.  Takes the
+    arguments of :class:`ProceduralOpaqueSceneLoader`, and ``num_gratings``.
+    """
+
+    def __init__(self, *args, num_gratings: int = 6, **kwargs):
+        rng = np.random.default_rng(9999)  # texture fixed across seeds
+        k = num_gratings
+        freq = rng.uniform(8.0, 32.0, (3, k, 1))
+        dirs = rng.normal(size=(3, k, 3))
+        dirs /= np.linalg.norm(dirs, axis=-1, keepdims=True)
+        device = kwargs.get("device", "cuda")
+        f32 = lambda a: torch.tensor(a, dtype=torch.float32, device=device)
+        self.tex_freqs = f32(freq * dirs)  # (3, k, 3)
+        self.tex_phases = f32(rng.uniform(0.0, 2 * np.pi, (3, k)))
+        self.tex_weights = f32(rng.dirichlet(np.ones(k), 3))  # (3, k), rows sum to 1
+        super().__init__(*args, **kwargs)
+
+    def _texture(self, x: torch.Tensor) -> torch.Tensor:
+        """(N, 3) multiplicative albedo in [0.1, 1]."""
+        ph = torch.einsum("nd,ckd->ckn", x, self.tex_freqs) + self.tex_phases[..., None]
+        pat = torch.einsum("ck,ckn->cn", self.tex_weights, torch.sin(ph))  # (3, N)
+        return (0.55 + 0.45 * pat).T.clamp(0.1, 1.0)
+
+    def query_rgb(self, x: torch.Tensor, centers: torch.Tensor) -> torch.Tensor:
+        return super().query_rgb(x, centers) * self._texture(x)
+
+
+class ProceduralThinSceneLoader(ProceduralSceneLoader):
+    """Thin geometry: ``num_rods`` hard capsules of radius 0.02-0.04 (a
+    128^3 grid over +-1.5 has 23 mm cells) and one thin spherical shell of
+    radius 0.55, from ``default_rng(8888)``; the blobs take no part.  Takes
+    the arguments of :class:`ProceduralSceneLoader`, and ``num_rods``.
+    """
+
+    SHELL_RADIUS, SHELL_WIDTH, EDGE_WIDTH = 0.55, 0.015, 0.008
+    SHELL_RGB = (0.85, 0.8, 0.3)
+
+    def __init__(self, *args, num_rods: int = 14, **kwargs):
+        rng = np.random.default_rng(8888)  # scene fixed across seeds
+        half = 0.9
+        a = rng.uniform(-half, half, (num_rods, 3))
+        d = rng.normal(size=(num_rods, 3))
+        d /= np.linalg.norm(d, axis=-1, keepdims=True)
+        length = rng.uniform(0.6, 1.6, (num_rods, 1))
+        b = np.clip(a + length * d, -1.05, 1.05)
+        device = kwargs.get("device", "cuda")
+        f32 = lambda v: torch.tensor(v, dtype=torch.float32, device=device)
+        self.rod_a, self.rod_b = f32(a), f32(b)
+        self.rod_radius = f32(rng.uniform(0.02, 0.04, (num_rods,)))
+        self.rod_colors = f32(rng.uniform(0.15, 1.0, (num_rods, 3)))
+        self.shell_rgb = f32(self.SHELL_RGB)
+        super().__init__(*args, **kwargs)
+
+    def _rod_weights(self, x: torch.Tensor) -> torch.Tensor:
+        """(N, M) hard-edged capsule densities."""
+        a, b = self.rod_a[None], self.rod_b[None]  # (1, M, 3)
+        ab = b - a
+        t = (((x[:, None, :] - a) * ab).sum(dim=-1) / (ab * ab).sum(dim=-1)).clamp(0.0, 1.0)
+        closest = a + t[..., None] * ab
+        r = torch.linalg.norm(x[:, None, :] - closest, dim=-1)
+        return 600.0 * torch.sigmoid((self.rod_radius[None] - r) / self.EDGE_WIDTH)
+
+    def _shell_weight(self, x: torch.Tensor) -> torch.Tensor:
+        r = torch.linalg.norm(x, dim=-1)
+        return 400.0 * torch.exp(-0.5 * ((r - self.SHELL_RADIUS) / self.SHELL_WIDTH) ** 2)
+
+    def query_density(self, x: torch.Tensor, centers: torch.Tensor) -> torch.Tensor:
+        return (self._rod_weights(x).sum(dim=-1) + self._shell_weight(x))[:, None]
+
+    def query_rgb(self, x: torch.Tensor, centers: torch.Tensor) -> torch.Tensor:
+        w_rod = self._rod_weights(x)
+        w_sh = self._shell_weight(x)[:, None]
+        total = (w_rod.sum(dim=-1, keepdim=True) + w_sh).clamp_min(1e-8)
+        return (w_rod @ self.rod_colors + w_sh * self.shell_rgb) / total
+
+
+class ProceduralMixedSceneLoader(ProceduralOpaqueSceneLoader):
+    """Mixed opacity: the opaque scene's solid balls inside ``num_fog``
+    large translucent Gaussian fog blobs (peak density 2-7) from
+    ``default_rng(7777)``: early termination pays on some rays while others
+    cross fog the grid must keep occupied.  Takes the arguments of
+    :class:`ProceduralOpaqueSceneLoader`, and ``num_fog``.
+    """
+
+    def __init__(self, *args, num_fog: int = 8, **kwargs):
+        rng = np.random.default_rng(7777)  # scene fixed across seeds
+        device = kwargs.get("device", "cuda")
+        f32 = lambda a: torch.tensor(a, dtype=torch.float32, device=device)
+        self.fog_centers = f32(rng.uniform(-0.85, 0.85, (num_fog, 3)))
+        self.fog_scales = f32(rng.uniform(0.25, 0.5, (num_fog,)))
+        self.fog_density = f32(rng.uniform(2.0, 7.0, (num_fog,)))
+        self.fog_colors = f32(rng.uniform(0.3, 1.0, (num_fog, 3)))
+        super().__init__(*args, **kwargs)
+
+    def _fog_weights(self, x: torch.Tensor) -> torch.Tensor:
+        d2 = ((x[:, None, :] - self.fog_centers[None]) ** 2).sum(dim=-1)
+        return self.fog_density * torch.exp(-0.5 * d2 / self.fog_scales**2)
+
+    def query_density(self, x: torch.Tensor, centers: torch.Tensor) -> torch.Tensor:
+        solid = self._blob_weights(x, centers).sum(dim=-1)
+        return (solid + self._fog_weights(x).sum(dim=-1))[:, None]
+
+    def query_rgb(self, x: torch.Tensor, centers: torch.Tensor) -> torch.Tensor:
+        w_solid = self._blob_weights(x, centers)
+        w_fog = self._fog_weights(x)
+        total = (
+            w_solid.sum(dim=-1, keepdim=True) + w_fog.sum(dim=-1, keepdim=True)
+        ).clamp_min(1e-8)
+        return (w_solid @ self.blob_colors + w_fog @ self.fog_colors) / total
+
+
 class ProceduralUnboundedSceneLoader(ProceduralSceneLoader):
     """The unbounded (Mip-NeRF 360 role) scene: ``NUM_BLOBS`` object blobs
     within ``0.8 * AABB_HALF`` of the origin, a ground slab at
@@ -448,10 +564,54 @@ class ProceduralUnboundedSceneLoader(ProceduralSceneLoader):
         return torch.cat([near, 1.0 / s[1:]])
 
 
-#: the scenes by the names the training scripts take
+class ProceduralLocalDynamicSceneLoader(ProceduralDynamicSceneLoader):
+    """The moving-blob scene with local, non-smooth motion: each blob
+    oscillates at its own whole number of cycles (1-4) over the capture,
+    and about 40% of them appear and vanish through sharp time windows
+    (sigmoids of width ``APPEAR_SHARP``), drawn from ``default_rng(5555)``.
+    No warp of one canonical frame represents it.  Takes the arguments of
+    :class:`ProceduralDynamicSceneLoader` (``motion_amp`` 0.22 here).
+    """
+
+    APPEAR_SHARP = float(np.float32(0.02))  # ~2 frames of a 24-frame rig
+
+    def __init__(self, *args, motion_amp: float = 0.22, **kwargs):
+        rng = np.random.default_rng(5555)  # fixed across seeds
+        n = self.NUM_BLOBS
+        freq = rng.integers(1, 5, (n,)).astype(np.float32)
+        gated = rng.random(n) < 0.4
+        t0 = np.where(gated, rng.uniform(0.1, 0.55, n), -1.0)
+        t1 = np.where(gated, t0 + rng.uniform(0.2, 0.4, n), 2.0)
+        device = kwargs.get("device", "cuda")
+        f32 = lambda a: torch.tensor(a, dtype=torch.float32, device=device)
+        self.motion_freq, self.appear_t0, self.appear_t1 = f32(freq), f32(t0), f32(t1)
+        super().__init__(*args, motion_amp=motion_amp, **kwargs)
+
+    def _centers(self, view: int):
+        """(centres (B, 3), density gates (B,)) at view ``view``'s time."""
+        t = torch.tensor(self.view_times[view], device=self.device)
+        osc = torch.sin(2 * np.pi * self.motion_freq * t + self.motion_phase)[:, None]
+        s = self.APPEAR_SHARP
+        gate = torch.sigmoid((t - self.appear_t0) / s) * torch.sigmoid((self.appear_t1 - t) / s)
+        return self.blob_centers + self.motion_amp * osc * self.motion_dirs, gate
+
+    def _blob_weights(self, x: torch.Tensor, centers) -> torch.Tensor:
+        centers, gate = centers
+        d2 = ((x[:, None, :] - centers[None]) ** 2).sum(dim=-1)
+        return self.blob_density * gate * torch.exp(-0.5 * d2 / self.blob_scales**2)
+
+
+#: the scenes by the names the training scripts take (the JAX package's
+#: eight)
 PROCEDURAL_SCENES = {
     "procedural": ProceduralSceneLoader,
     "proceduralopaque": ProceduralOpaqueSceneLoader,
+    "proceduraltextured": ProceduralTexturedSceneLoader,
+    "proceduralthin": ProceduralThinSceneLoader,
+    "proceduralmixed": ProceduralMixedSceneLoader,
+    "procedural360": ProceduralUnboundedSceneLoader,
+    "proceduraldynamic": ProceduralDynamicSceneLoader,
+    "procedurallocaldyn": ProceduralLocalDynamicSceneLoader,
 }
 #: the unbounded scenes, by name: both examples train them through their
 #: unbounded configurations

@@ -21,9 +21,10 @@ early-stopping eval renderer.  The scene branches are the JAX script's:
   ``--train_split`` otherwise (weight decay 1e-5 on materials, ficus and
   drums, 1e-6 on the rest); reading the images needs ``imageio``;
 - otherwise the procedural scene ``--scene`` names (``procedural``, the
-  translucent blob scene, or ``proceduralopaque``; another name falls back
-  to ``procedural``, as in the JAX script), box +-1.5, one grid level,
-  step 5e-3.
+  translucent blob scene, ``proceduralopaque``, ``proceduraltextured``,
+  ``proceduralthin`` or ``proceduralmixed``; a name not in
+  ``PROCEDURAL_SCENES`` falls back to ``procedural``, as in the JAX
+  script), box +-1.5, one grid level, step 5e-3.
 
 ``--sampled_occ_update`` takes the reference's sampled occupancy update
 after warmup in place of the dense refresh, and ``--occ_stripes S`` refreshes

@@ -5,11 +5,11 @@ PyTorch counterpart of nerfacc_tpu/models/ngp.py.  Ported: ``trunc_exp``,
 ``contract_to_unisphere``, the bias-free MLPs, ``_cubify_aabb`` and
 ``NGPRadianceField`` (view directions always on) and the proposal path's
 ``NGPDensityField``, both on :class:`DensityField`'s and :class:`MLPField`'s
-shared pieces.
+shared pieces, and the time-dependent fields' :class:`FrameQuery`.
 """
 from __future__ import annotations
 
-from typing import List, Sequence, Tuple
+from typing import List, Optional, Sequence, Tuple
 
 import torch
 from torch import nn
@@ -239,6 +239,29 @@ class MLPField(nn.Module):
         """(N, 3) points and unit directions -> (rgb (N, 3), density (N, 1))."""
         density, embedding = self.query_density(positions, return_feat=True)
         return self.query_rgb(directions, embedding), density
+
+
+class FrameQuery:
+    """``query_opacity`` of a time-dependent field (one with
+    ``query_density(x, t)``): the occupancy refresh's query."""
+
+    def query_opacity(
+        self,
+        x: torch.Tensor,
+        timestamps: torch.Tensor,
+        step_size: float,
+        frame_idx: Optional[torch.Tensor] = None,
+        generator: Optional[torch.Generator] = None,
+    ) -> torch.Tensor:
+        """``density * step_size`` at one frame time per point: frame
+        ``frame_idx`` (N,) of ``timestamps`` (n_frames, 1), or frames drawn
+        uniformly from ``generator`` when none are given (the JAX fields
+        draw them inside)."""
+        if frame_idx is None:
+            frame_idx = torch.randint(
+                0, timestamps.shape[0], (x.shape[0],), generator=generator, device=x.device
+            )
+        return self.query_density(x, timestamps[frame_idx]) * step_size
 
 
 class NGPRadianceField(MLPField):

@@ -17,10 +17,10 @@ import torch
 
 from .cp_field import CPGridEncoder
 from .encoders import SinusoidalEncoder
-from .ngp import MLPField, _mlp_apply, _mlp_init, _weights
+from .ngp import FrameQuery, MLPField, _mlp_apply, _mlp_init, _weights
 
 
-class TiNeuVoxRadianceField(MLPField):
+class TiNeuVoxRadianceField(FrameQuery, MLPField):
     """Time-aware neural-voxel field at the JAX package's defaults.
 
     Args:
@@ -91,24 +91,6 @@ class TiNeuVoxRadianceField(MLPField):
         u, selector = self.normalize(x + self.warp(x, t))
         feats = torch.cat([self.encoder(u), self.time_features(t)], dim=-1)
         return self.density_from_features(feats, selector, return_feat)
-
-    def query_opacity(
-        self,
-        x: torch.Tensor,
-        timestamps: torch.Tensor,
-        step_size: float,
-        frame_idx: Optional[torch.Tensor] = None,
-        generator: Optional[torch.Generator] = None,
-    ) -> torch.Tensor:
-        """``density * step_size`` at one frame time per point: frame
-        ``frame_idx`` (N,) of ``timestamps`` (n_frames, 1), or frames drawn
-        uniformly from ``generator`` when none are given."""
-        if frame_idx is None:
-            frame_idx = torch.randint(
-                0, timestamps.shape[0], (x.shape[0],), generator=generator,
-                device=x.device,
-            )
-        return self.query_density(x, timestamps[frame_idx]) * step_size
 
     def param_regularizer(self, params: Optional[Dict[str, torch.Tensor]] = None):
         """Total variation of the line tables (weigh it with the trainer's

@@ -47,8 +47,8 @@ from ..utils.rendering import (
 from ..volrend import render_weight_from_density
 
 
-# The JAX trainer's learning rate, warmup and Adam epsilon, which every
-# configuration of the port keeps; the weight decay is a field.
+# The JAX trainer's defaults for its fields lr, warmup_lr_steps and adam_eps
+# (the MLP examples take 5e-4, no warmup and 1e-8).
 LR = 1e-2
 WARMUP_STEPS = 100
 ADAM_EPS = 1e-15
@@ -67,19 +67,23 @@ def disable_tf32() -> None:
     torch.backends.cudnn.allow_tf32 = False
 
 
-def make_lr_schedule(max_steps: int, base_lr: float = LR) -> Callable[[int], float]:
+def make_lr_schedule(max_steps: int, base_lr: float = LR,
+                     warmup: int = WARMUP_STEPS) -> Callable[[int], float]:
     """The JAX package's schedule, as a function of the optimizer's update
-    count: a linear warmup from 0.01x ``base_lr`` over ``WARMUP_STEPS``
-    updates, then 0.33x at 1/2, 3/4 and 9/10 of ``max_steps`` (optax's
-    ``join_schedules``; coinciding boundaries collapse as there)."""
+    count: a linear warmup from 0.01x ``base_lr`` over ``warmup`` updates
+    (0: the constant ``base_lr``), then 0.33x at 1/2, 3/4 and 9/10 of
+    ``max_steps`` (optax's ``join_schedules``; coinciding boundaries
+    collapse as there)."""
     boundaries = list(
         {max_steps // 2: 0.33, max_steps * 3 // 4: 0.33, max_steps * 9 // 10: 0.33}
     )
     init = base_lr * 0.01
 
     def schedule(count: int) -> float:
-        frac = 1.0 - min(max(count, 0), WARMUP_STEPS) / WARMUP_STEPS
-        lr = (init - base_lr) * frac + base_lr
+        lr = base_lr
+        if warmup > 0:
+            frac = 1.0 - min(max(count, 0), warmup) / warmup
+            lr = (init - base_lr) * frac + base_lr
         for i, boundary in enumerate(boundaries):
             if count >= boundary:
                 lr = base_lr * 0.33 ** (i + 1)
@@ -149,20 +153,21 @@ class ChainAdam(torch.optim.Optimizer):
 
 
 def make_adam(leaves, schedule: Callable[[int], float], weight_decay: float,
-              grad_clip: float = 0.0, table_lr_mult: float = 1.0, tables=()) -> OptState:
-    """Adam over the tensors ``leaves``.  Without ``grad_clip`` and
-    ``table_lr_mult``, ``torch.optim.Adam``: optax's
+              grad_clip: float = 0.0, table_lr_mult: float = 1.0, tables=(),
+              eps: float = ADAM_EPS) -> OptState:
+    """Adam (epsilon ``eps``) over the tensors ``leaves``.  Without
+    ``grad_clip`` and ``table_lr_mult``, ``torch.optim.Adam``: optax's
     ``add_decayed_weights`` before ``scale_by_adam`` is its coupled L2
     ``weight_decay``.  With either, :class:`ChainAdam`, which clips the
     update's global norm at ``grad_clip`` and scales the update of the
     leaves that ``tables`` marks (one bool a leaf) by ``table_lr_mult``."""
     leaves = list(leaves)
     if grad_clip > 0 or table_lr_mult != 1.0:
-        opt = ChainAdam(leaves, lr=schedule(0), weight_decay=weight_decay,
+        opt = ChainAdam(leaves, lr=schedule(0), eps=eps, weight_decay=weight_decay,
                         max_norm=grad_clip, scale=table_lr_mult, scaled=tables)
         return OptState(opt, 0)
     adam = torch.optim.Adam(
-        leaves, lr=schedule(0), betas=(0.9, 0.999), eps=ADAM_EPS,
+        leaves, lr=schedule(0), betas=(0.9, 0.999), eps=eps,
         weight_decay=weight_decay,
     )
     return OptState(adam, 0)
@@ -200,6 +205,10 @@ class NGPOccTrainer:
             ``param_regularizer(params)``.
         aabb: scene roi (6 floats).
         max_steps: length of the learning-rate schedule.
+        lr: its base learning rate.
+        warmup_lr_steps: updates of its linear warmup from 0.01 ``lr`` (0:
+            none, the constant ``lr`` until the first decay).
+        adam_eps: Adam's epsilon.
         weight_decay: Adam's coupled L2 decay.
         grid_resolution / grid_nlvl: occupancy grid shape.
         render_step_size, near_plane, far_plane, cone_angle: marching.
@@ -257,6 +266,9 @@ class NGPOccTrainer:
     sample_budget: int = 2**18
     stratified: bool = True
     weight_decay: float = 1e-6
+    lr: float = LR
+    adam_eps: float = ADAM_EPS
+    warmup_lr_steps: int = WARMUP_STEPS
     timestamps: Any = None
     field_reg_weight: float = 0.0
     distortion_loss_weight: float = 0.0
@@ -269,7 +281,7 @@ class NGPOccTrainer:
         self.device = torch.device(self.device)
         disable_tf32()
         self.field = self.field.to(self.device)
-        self.schedule = make_lr_schedule(self.max_steps)
+        self.schedule = make_lr_schedule(self.max_steps, self.lr, self.warmup_lr_steps)
         if self.timestamps is not None:
             ts = self.timestamps
             if not isinstance(ts, torch.Tensor):
@@ -302,6 +314,7 @@ class NGPOccTrainer:
         return make_adam(
             params.values(), self.schedule, self.weight_decay, self.grad_clip,
             self.table_lr_mult, [k.startswith("encoder.") for k in params],
+            self.adam_eps,
         )
 
     def apply_gradients(self, opt_state: OptState) -> OptState:

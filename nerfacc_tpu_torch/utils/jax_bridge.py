@@ -5,7 +5,9 @@ them in a field's ``state_dict`` (:class:`~nerfacc_tpu_torch.models.cp_field.
 CPRadianceField`, :class:`~nerfacc_tpu_torch.models.cp_field.CPDensityField`,
 :class:`~nerfacc_tpu_torch.models.ngp.NGPRadianceField`,
 :class:`~nerfacc_tpu_torch.models.ngp.NGPDensityField`,
-:class:`~nerfacc_tpu_torch.models.tineuvox.TiNeuVoxRadianceField`), and the
+:class:`~nerfacc_tpu_torch.models.tineuvox.TiNeuVoxRadianceField`, the MLP
+fields of :mod:`~nerfacc_tpu_torch.models.mlp` and
+:class:`~nerfacc_tpu_torch.models.kplanes.KPlanesRadianceField`), and the
 proposal trainer keeps ``{"field": ..., "props": [...]}`` of them.  An
 :class:`~nerfacc_tpu_torch.estimators.occ_grid.OccGridEstimator` keeps the
 JAX estimator's ``state_dict()`` keys as buffers.
@@ -107,13 +109,121 @@ def ngp_density_field_params_to_numpy(params: Dict[str, torch.Tensor]) -> Dict:
             "mlp_base": _listed(params, "mlp_base.")}
 
 
+def _mlp_from_numpy(tree: Dict, prefix: str, device) -> Dict[str, torch.Tensor]:
+    """An MLP's ``{"hidden": [{"w", "b"}...], "output": {"w", "b"}}`` (no
+    ``"output"`` without an output layer) -> its state dict entries under
+    ``prefix``."""
+    layers = [(f"hidden.{i}", layer) for i, layer in enumerate(tree["hidden"])]
+    if "output" in tree:
+        layers.append(("output", tree["output"]))
+    return {f"{prefix}{name}.{k}": _tensor(layer[k], device)
+            for name, layer in layers for k in ("w", "b")}
+
+
+def _mlp_to_numpy(params: Dict[str, torch.Tensor], prefix: str) -> Dict:
+    """The inverse of :func:`_mlp_from_numpy`."""
+    n = sum(1 for k in params if k.startswith(f"{prefix}hidden.") and k.endswith(".w"))
+    layer = lambda name: {k: params[f"{prefix}{name}.{k}"].detach().cpu().numpy()
+                          for k in ("w", "b")}
+    tree = {"hidden": [layer(f"hidden.{i}") for i in range(n)]}
+    if f"{prefix}output.w" in params:
+        tree["output"] = layer("output")
+    return tree
+
+
+_NERF_MLPS = ("base", "sigma", "bottleneck", "rgb")
+
+
+def vanilla_field_params_from_numpy(
+    tree: Dict, device: Union[str, torch.device] = "cuda", prefix: str = ""
+) -> Dict[str, torch.Tensor]:
+    """``{"base", "sigma", "bottleneck", "rgb"}``, each an MLP's
+    ``{"hidden": [{"w", "b"}...], "output"}`` -> a VanillaNeRFRadianceField
+    state dict (f32 tensors), its keys under ``prefix``."""
+    return {k: v for name in _NERF_MLPS
+            for k, v in _mlp_from_numpy(tree[name], f"{prefix}mlp.{name}.", device).items()}
+
+
+def vanilla_field_params_to_numpy(params: Dict[str, torch.Tensor], prefix: str = "") -> Dict:
+    """The inverse of :func:`vanilla_field_params_from_numpy`."""
+    return {name: _mlp_to_numpy(params, f"{prefix}mlp.{name}.") for name in _NERF_MLPS}
+
+
+def tnerf_field_params_from_numpy(
+    tree: Dict, device: Union[str, torch.device] = "cuda"
+) -> Dict[str, torch.Tensor]:
+    """``{"warp": MLP, "nerf": vanilla}`` -> a TNeRFRadianceField state
+    dict (f32 tensors)."""
+    return {**_mlp_from_numpy(tree["warp"], "warp_mlp.", device),
+            **vanilla_field_params_from_numpy(tree["nerf"], device, "nerf.")}
+
+
+def tnerf_field_params_to_numpy(params: Dict[str, torch.Tensor]) -> Dict:
+    """The inverse of :func:`tnerf_field_params_from_numpy`."""
+    return {"warp": _mlp_to_numpy(params, "warp_mlp."),
+            "nerf": vanilla_field_params_to_numpy(params, "nerf.")}
+
+
+def ndrt_field_params_from_numpy(
+    tree: Dict, device: Union[str, torch.device] = "cuda"
+) -> Dict[str, torch.Tensor]:
+    """``{"warp1": [MLP] * 3, "warp2": [MLP] * 3, "time1": [{"w", "b"}] * 3,
+    "time2": [...] * 3, "nerf": vanilla}`` -> an NDRTNeRFRadianceField state
+    dict (f32 tensors)."""
+    params = vanilla_field_params_from_numpy(tree["nerf"], device, "nerf.")
+    for name in ("warp1", "warp2"):
+        for i, mlp in enumerate(tree[name]):
+            params.update(_mlp_from_numpy(mlp, f"{name}.{i}.", device))
+    for name in ("time1", "time2"):
+        for i, layer in enumerate(tree[name]):
+            params.update({f"{name}.{i}.{k}": _tensor(layer[k], device) for k in ("w", "b")})
+    return params
+
+
+def ndrt_field_params_to_numpy(params: Dict[str, torch.Tensor]) -> Dict:
+    """The inverse of :func:`ndrt_field_params_from_numpy`."""
+    tree = {name: [_mlp_to_numpy(params, f"{name}.{i}.") for i in range(3)]
+            for name in ("warp1", "warp2")}
+    for name in ("time1", "time2"):
+        tree[name] = [{k: params[f"{name}.{i}.{k}"].detach().cpu().numpy() for k in ("w", "b")}
+                      for i in range(3)]
+    return {**tree, "nerf": vanilla_field_params_to_numpy(params, "nerf.")}
+
+
+def kplanes_field_params_from_numpy(
+    tree: Dict, device: Union[str, torch.device] = "cuda"
+) -> Dict[str, torch.Tensor]:
+    """``{"encoder": {"planes": [(6, R, R, rank)...]}, "mlp_base": [W...],
+    "mlp_head": [W...]}`` -> a KPlanesRadianceField state dict (f32
+    tensors)."""
+    params = {f"encoder.planes.{i}": _tensor(plane, device)
+              for i, plane in enumerate(tree["encoder"]["planes"])}
+    return {**params, **_mlps_from_numpy(tree, device)}
+
+
+def kplanes_field_params_to_numpy(params: Dict[str, torch.Tensor]) -> Dict:
+    """The inverse of :func:`kplanes_field_params_from_numpy`."""
+    return {"encoder": {"planes": _listed(params, "encoder.planes.")},
+            **_mlps_to_numpy(params)}
+
+
 def field_params_from_numpy(
     tree: Dict, device: Union[str, torch.device] = "cuda"
 ) -> Dict[str, torch.Tensor]:
-    """A CP or hash-grid radiance or density field's JAX tree -> its state
-    dict, the kind read off the tree: CP line levels are a dict under
-    ``"encoder"``, a hash grid its table; a radiance field has an
+    """A field's JAX tree -> its state dict, the kind read off the tree: the
+    MLP fields by their top-level keys (vanilla ``"base"``, T-NeRF
+    ``"warp"``, NDRT ``"warp1"``), TiNeuVox by ``"deform"``, K-Planes by
+    ``"planes"`` under ``"encoder"``; otherwise CP line levels are a dict
+    under ``"encoder"``, a hash grid its table, and a radiance field has an
     ``"mlp_head"``."""
+    for key, fn in (("base", vanilla_field_params_from_numpy),
+                    ("warp", tnerf_field_params_from_numpy),
+                    ("warp1", ndrt_field_params_from_numpy),
+                    ("deform", tineuvox_field_params_from_numpy)):
+        if key in tree:
+            return fn(tree, device)
+    if isinstance(tree["encoder"], dict) and "planes" in tree["encoder"]:
+        return kplanes_field_params_from_numpy(tree, device)
     cp = isinstance(tree["encoder"], dict)
     if "mlp_head" in tree:
         fn = cp_field_params_from_numpy if cp else ngp_field_params_from_numpy
@@ -125,6 +235,13 @@ def field_params_from_numpy(
 def field_params_to_numpy(params: Dict[str, torch.Tensor]) -> Dict:
     """The inverse of :func:`field_params_from_numpy`, the kind read off
     the state dict's keys."""
+    for key, fn in (("mlp.base.hidden.0.w", vanilla_field_params_to_numpy),
+                    ("warp_mlp.hidden.0.w", tnerf_field_params_to_numpy),
+                    ("warp1.0.hidden.0.w", ndrt_field_params_to_numpy),
+                    ("deform.0", tineuvox_field_params_to_numpy),
+                    ("encoder.planes.0", kplanes_field_params_to_numpy)):
+        if key in params:
+            return fn(params)
     cp = "encoder.table" not in params
     if "mlp_head.0" in params:
         return (cp_field_params_to_numpy if cp else ngp_field_params_to_numpy)(params)

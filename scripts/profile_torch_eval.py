@@ -9,6 +9,7 @@ Run from the root of a checkout:
     python3 scripts/profile_torch_eval.py --field ngp [--train]
     python3 scripts/profile_torch_eval.py --field tineuvox [--train]
     python3 scripts/profile_torch_eval.py --field prop [--train]
+    python3 scripts/profile_torch_eval.py --field tnerf|kplanes [--train]
     python3 scripts/profile_torch_eval.py --renderer eval [--field ngp]
 
 Serving (the default) sets up the slice as ``chip_smoke.py`` does
@@ -19,7 +20,9 @@ Serving (the default) sets up the slice as ``chip_smoke.py`` does
 time; all bf16, parameters from seed 42, four dense refreshes of the 128^3
 grid; ``--field prop``: the proposal-network path of phase 15, the CP field
 behind one ``CPDensityField``, 128 proposal and 64 final samples per ray, no
-grid), times a dense refresh and three renders of one test view on the host
+grid; ``--field tnerf`` / ``kplanes``: the dynamic example's full-width
+field, built by its own ``build`` on the moving-blob scene), times a dense
+refresh and three renders of one test view on the host
 clock, then renders the view once more under ``torch.profiler``.  An
 occupancy-grid field renders through the exact renderer (``render_rays``,
 ``--renderer exact``, the default) or the early-stopping eval renderer
@@ -28,7 +31,9 @@ occupancy-grid field renders through the exact renderer (``render_rays``,
 at 256x256, 2048 rays, a 2^18-sample budget; for TiNeuVox phase 12's: 24
 views at 320x320, 1024 rays, a 2^16-sample budget and the dynamic example's
 optimiser; for ``prop`` phase 16's: 4096 rays drawn on the card by
-``DeviceRaySampler``, the proposal-gradient schedule), runs ``--warmup``
+``DeviceRaySampler``, the proposal-gradient schedule; for ``tnerf`` and
+``kplanes`` phase 23's: the example's loader batches, a 2^16 budget and
+its controller, applied every 8 steps), runs ``--warmup``
 steps so that the grid is no longer the untrained one, times three steps and
 profiles one more (none of them refreshes the grid; the refresh is timed on
 its own; the proposal path's timed and profiled steps all train the
@@ -37,7 +42,9 @@ proposal field, its heavier kind of step).  It prints:
 - the device busy share: the union of all kernel and memcpy intervals over
   the profiled frame's or step's wall time;
 - each kernel class's share of device time (the port's kernels G1-G14, the
-  MLP GEMMs, concatenation, Adam, other PyTorch kernels);
+  MLP GEMMs, concatenation, Adam, the indexing gathers and their
+  accumulating backward with its sort, K-Planes' plane lookup, other
+  PyTorch kernels);
 - the PyTorch ops with the most self device time;
 - the host syncs: calls of ``aten::_local_scalar_dense``, each a read of a
   device value on the host.
@@ -58,11 +65,13 @@ from torch.profiler import ProfilerActivity, profile
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 from chip_smoke import (  # noqa: E402
+    MLP_CALL,
     N_REFRESH,
     PROP_RAYS,
     TRAIN,
     make_prop_trainer,
     make_trainer,
+    mlp_example,
     train_loader,
 )
 from nerfacc_tpu_torch import cuda  # noqa: E402
@@ -91,6 +100,9 @@ CLASSES = (
     ("gemm", "GEMM (MLPs)"),
     ("multi_tensor_apply", "Adam (foreach)"),
     ("CatArrayBatchedCopy", "cat"),
+    ("indexing_backward_kernel", "index_put_ accumulate (gather backward)"),
+    ("RadixSort", "sort (gather backward)"),
+    ("index_elementwise_kernel", "indexing gather"),
     ("Memcpy", "memcpy"),
     ("Memset", "memset"),
 )
@@ -118,6 +130,9 @@ def self_device_us(evt):
     return value if value is not None else evt.self_cuda_time_total
 
 
+MLP_FIELDS = ("tnerf", "kplanes")
+
+
 def eval_target(dev, field, view, renderer="exact"):
     """The serving slice; returns the profiled call and its label."""
     if field == "prop":
@@ -130,7 +145,10 @@ def eval_target(dev, field, view, renderer="exact"):
             return f"{trainer.prop_samples[0]} + {trainer.num_samples} samples per ray"
 
         return run_prop, f"view {view}", "eval"
-    if field == "tineuvox":
+    if field in MLP_FIELDS:
+        ex, args = mlp_example(field, 8)
+        trainer, _, ds = ex.build(args)
+    elif field == "tineuvox":
         ds = ProceduralDynamicSceneLoader(split="test", device=dev)
         trainer = make_trainer(dev, field, timestamps=train_loader(dev, field).timestamps)
     else:
@@ -171,11 +189,42 @@ def prop_train_target(dev, warmup):
     return run, "train step", "train"
 
 
+def mlp_train_target(dev, field, warmup):
+    """Phase 23's (23b's) training after ``warmup`` steps of loader batches,
+    the ray count set by the example's controller every ``MLP_CALL``
+    steps; the profiled call is one step at the last ray count."""
+    ex, args = mlp_example(field, warmup + MLP_CALL)
+    trainer, ds, _ = ex.build(args)
+    state = trainer.init_state()
+    for i in range(warmup):
+        state, aux = trainer.train_step(state, ds[0])
+        if i % MLP_CALL == MLP_CALL - 1:
+            ds.update_num_rays(ex.next_num_rays(ds.num_rays, int(aux["n_total_samples"]),
+                                                trainer.sample_budget))
+    print(f"{field}: {ds.num_rays} rays a step after {warmup} steps")
+    time_refresh(trainer, state, state.step)
+    batches = [ds[0] for _ in range(8)]
+    holder = {"state": state}
+
+    def run():
+        st = holder["state"]
+        if st.step % trainer.update_interval == 0:  # keep the refresh out
+            st = st._replace(step=st.step + 1)
+        st, aux = trainer.train_step(st, batches[st.step % len(batches)])
+        holder["state"] = st
+        return (f"{aux['n_rendering_samples']} samples of "
+                f"{aux['n_total_samples']}, loss {float(aux['loss']):.5f}")
+
+    return run, "train step", "train"
+
+
 def train_target(dev, field, warmup):
     """The train slice after ``warmup`` steps; the profiled call is one
     train step that does not refresh the grid."""
     if field == "prop":
         return prop_train_target(dev, warmup)
+    if field in MLP_FIELDS:
+        return mlp_train_target(dev, field, warmup)
     ds = train_loader(dev, field)
     trainer = make_trainer(
         dev, field, timestamps=getattr(ds, "timestamps", None), max_steps=warmup + 8,
@@ -214,9 +263,10 @@ def time_refresh(trainer, state, step):
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--view", type=int, default=0)
-    ap.add_argument("--field", choices=sorted(TRAIN) + ["prop"], default="cp",
-                    help="the radiance field: CP lines, the hash grid or TiNeuVox "
-                         "behind the occupancy grid, or the proposal-network path")
+    ap.add_argument("--field", choices=sorted(TRAIN) + ["prop", *MLP_FIELDS], default="cp",
+                    help="the radiance field: CP lines, the hash grid, TiNeuVox, T-NeRF "
+                         "or K-Planes behind the occupancy grid, or the proposal-network "
+                         "path")
     ap.add_argument("--train", action="store_true",
                     help="profile a train step instead of a frame")
     ap.add_argument("--warmup", type=int, default=1000,

@@ -73,6 +73,14 @@ def _default_device(fn):
         "estimators.prop_net.PropNetEstimator.sampling",
         "data.nerf_synthetic.SubjectLoader",
         "data.nerf_360_v2.SubjectLoader",
+        "models.mlp.VanillaNeRFRadianceField",
+        "models.mlp.TNeRFRadianceField",
+        "models.mlp.NDRTNeRFRadianceField",
+        "models.kplanes.KPlanesRadianceField",
+        "utils.jax_bridge.vanilla_field_params_from_numpy",
+        "utils.jax_bridge.tnerf_field_params_from_numpy",
+        "utils.jax_bridge.ndrt_field_params_from_numpy",
+        "utils.jax_bridge.kplanes_field_params_from_numpy",
     ],
 )
 def test_entry_points_default_to_the_card(name):

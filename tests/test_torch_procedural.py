@@ -74,7 +74,7 @@ def test_opaque_scene_matches_jax(split, monkeypatch):
     """The hard-surface scene: the same densities (``default_rng(4321)``),
     its test views' ground truth rendered by each package within 1e-5
     before the uint8 rounding and one level after it, and the same train
-    batches; ``PROCEDURAL_SCENES`` names both ported scenes."""
+    batches; ``PROCEDURAL_SCENES`` holds the JAX package's eight names."""
     from nerfacc_tpu.data.procedural import PROCEDURAL_SCENES as JAX_SCENES
     from nerfacc_tpu_torch.data.procedural import PROCEDURAL_SCENES
 
@@ -84,7 +84,7 @@ def test_opaque_scene_matches_jax(split, monkeypatch):
         kw["num_rays"] = 64
     jax_ds = JAX_SCENES["proceduralopaque"](**kw)
     ds = PROCEDURAL_SCENES["proceduralopaque"](**kw, device="cpu")
-    assert set(PROCEDURAL_SCENES) == {"procedural", "proceduralopaque"}
+    assert set(PROCEDURAL_SCENES) == set(JAX_SCENES)
     assert PROCEDURAL_SCENES["procedural"] is ProceduralSceneLoader
     np.testing.assert_array_equal(ds.blob_density.numpy(), np.asarray(jax_ds.blob_density))
     np.testing.assert_array_equal(ds.blob_colors.numpy(), np.asarray(jax_ds.blob_colors))
@@ -176,3 +176,47 @@ def test_unbounded_scene_feeds_the_device_sampler(unbounded_pair):
         np.testing.assert_allclose(got[key].numpy(), want[key].numpy(), rtol=0, atol=1e-6)
     batch = sampler.sample(torch.Generator().manual_seed(0))
     assert batch["rgb"].shape == (64, 3) and bool(torch.isfinite(batch["rays_d"]).all())
+
+
+# the scenes ported with the dynamic example: name -> the constants both
+# loaders draw from the scene's own numpy generator
+NEW_SCENES = {
+    "proceduraltextured": ("tex_freqs", "tex_phases", "tex_weights", "blob_density"),
+    "proceduralthin": ("rod_a", "rod_b", "rod_radius", "rod_colors"),
+    "proceduralmixed": ("fog_centers", "fog_scales", "fog_density", "fog_colors",
+                        "blob_density"),
+    "procedurallocaldyn": ("motion_freq", "appear_t0", "appear_t1", "motion_dirs",
+                           "motion_phase"),
+}
+
+
+@pytest.mark.parametrize("name", list(NEW_SCENES))
+def test_new_scenes_match_jax(name, monkeypatch):
+    """``PROCEDURAL_SCENES`` names the JAX package's loader classes by the
+    same names (``--scene proceduraltextured`` and ``proceduralthin`` no
+    longer fall back to the translucent scene); each new scene's constants
+    bitwise, its test views (two of 20x16) within one uint8 level of the
+    JAX ground truth and a train batch's rays and per-ray times equal."""
+    from nerfacc_tpu.data.procedural import PROCEDURAL_SCENES as JAX_SCENES
+    from nerfacc_tpu_torch.data.procedural import PROCEDURAL_SCENES
+
+    monkeypatch.setenv("NERFACC_TPU_GT_CACHE", "")  # render, do not cache on disk
+    assert list(PROCEDURAL_SCENES) == list(JAX_SCENES)
+    for key, cls in PROCEDURAL_SCENES.items():
+        assert cls.__name__ == JAX_SCENES[key].__name__, key
+    kw = dict(n_train=3, n_test=2, width=20, height=16, seed=3)
+    jax_test, test = JAX_SCENES[name](split="test", **kw), PROCEDURAL_SCENES[name](
+        split="test", device="cpu", **kw)
+    for attr in NEW_SCENES[name]:
+        np.testing.assert_array_equal(getattr(test, attr).numpy(),
+                                      np.asarray(getattr(jax_test, attr)), err_msg=attr)
+    np.testing.assert_allclose(test.images.numpy(), jax_test.images, rtol=0, atol=1)
+    assert float(test.images[..., 3].float().mean()) > 10  # something is in view
+    jax_train = JAX_SCENES[name](split="train", num_rays=64, **kw)
+    train = PROCEDURAL_SCENES[name](split="train", num_rays=64, device="cpu", **kw)
+    train.images = torch.tensor(jax_train.images)
+    ref, out = jax_train[0], train[0]
+    assert set(out) == set(ref)
+    for key in ref:
+        np.testing.assert_allclose(out[key].numpy(), np.asarray(ref[key]), rtol=0, atol=1e-6,
+                                   err_msg=key)
