@@ -153,7 +153,28 @@ It builds the CUDA kernels from ``nerfacc_tpu_torch/csrc`` and runs:
     NeRF on the translucent scene, a 2^16 budget) for ``VANILLA_STEPS``
     steps with a checkpoint at each log, stopped after the first and
     resumed from it in a second ``train_loop``: the step carries over, the
-    loss keeps falling, the trained PSNR ends 3 dB above the untrained.
+    loss keeps falling, the trained PSNR ends 3 dB above the untrained;
+25. the occupancy example's other fields, each built by its ``build`` at
+    full width (``--field tensorf``: lines 64/192 x 32 and tri-planes
+    64/128 x 16; ``--field voxel``: grids 64/128 x 4; ``--field cp
+    --plane_res 64 --plane_rank 16 --field_reg_weight 1e-3``): served
+    untrained, trained ``FIELD_STEPS`` steps through its ``train_loop``
+    (the loss must fall; G2, G3, G5 and for the CP-line fields G1, G4 must
+    launch), one step through the kernels against the plain versions
+    (phase 5's bounds), served trained 3 dB above untrained, and one dense
+    refresh timed;
+26. the BARF example (``train_barf``: the 8x256 vanilla NeRF with
+    per-image SE(3) deltas, 320x320 views from poses perturbed by 0.05 rad
+    / 0.05) for ``BARF_STEPS`` steps: the initial and final pose errors
+    printed, the loss must fall and G2, G3, G5 launch; one step through the
+    kernels against the plain versions (phase 5's f32 bound, the pose
+    deltas' gradient included); and the pose math's precision floor
+    (tests/test_pose.py:113) on the card with TF32 allowed.
+
+Phase 6b classifies a ray by its sample set: the early-stop renderer's
+rounds against the ray's whole orbit, the same count and every bound
+within 1e-2 of a step (:func:`same_sample_sets`), and prints the worst ray
+of each class.
 
 Phase 1d holds the hat kernels G8 (forward), G9 (table gradient) and G10
 (coordinate gradient) against their plain versions at N = 2^18 on each of
@@ -203,6 +224,11 @@ a git-ignored directory), and prints one JSON line a run.  With ``--example cp|n
 its defaults otherwise) and prints one JSON line a run: PSNR, SSIM, steps,
 training seconds, train samples/s, ray counts, samples a step, and both
 renderers' frames.
+With ``--example tensorf|voxel|cp-planes|barf [--steps N] [--seeds ...]
+[--routes kernels plain ...]`` it runs phase 25's or 26's example alone
+from each seed through each route, one JSON line a run: PSNR, SSIM,
+ms/step, train samples/s, the losses, seconds a frame and, for BARF, the
+pose errors.
 With ``--example tnerf|kplanes|tineuvox|mlp-nerf [--steps N] [--seeds ...]
 [--routes kernels plain ...]`` it runs the dynamic example (``--field``, on
 the moving-blob scene, TiNeuVox at ``--lr 5e-3``) or the vanilla example
@@ -218,8 +244,8 @@ train samples/s, the losses and seconds a frame.
 Every check raises on failure, so the exit code is nonzero and the result
 line is not printed.  The last line of standard output is a JSON object with
 ``"ok": true`` and the device; the line before it lists each kernel's launch
-count (over the training phases 4, 6d, 8, 12, 16, 19, 20, 21, 22, 23-23c and
-24; for G11-G13, over
+count (over the training phases 4, 6d, 8, 12, 16, 19, 20, 21, 22, 23-23c,
+24, 25 and 26; for G11-G13, over
 the gather probe's run), error, times and bound.  Without a CUDA device the
 script fails at once.
 """
@@ -444,6 +470,25 @@ MLP_PATHS = {
 }
 MLP_EXAMPLE_FLAGS = {"tineuvox": ["--lr", "5e-3"]}
 VANILLA_STEPS, VANILLA_LOG = 600, 300  # phase 24: a checkpoint at each log
+# Phase 25 and --example tensorf|voxel|cp-planes: the occupancy example's
+# other fields (its flags; the kernels their training launches).  Each run
+# ends at the first multiple of its 8-step calls past --max_steps, one call
+# short of FIELD_STEPS, which is no multiple of the refresh interval: the
+# step checked against the plain versions does not refresh.
+CP_PATH_KERNELS = ("cp_level_fwd", "cp_level_bwd", "march", "composite_fwd", "composite_bwd")
+OCC_FIELD_PATHS = {
+    "tensorf": (["--field", "tensorf"], CP_PATH_KERNELS),
+    "voxel": (["--field", "voxel"], ("march", "composite_fwd", "composite_bwd")),
+    "cp-planes": (["--field", "cp", "--plane_res", "64", "--plane_rank", "16",
+                   "--field_reg_weight", "1e-3"], CP_PATH_KERNELS),
+}
+FIELD_STEPS = 408
+# Phase 26 and --example barf: the BARF example (examples.train_barf) at
+# its 320x320 procedural scene from poses perturbed by 0.05 rad / 0.05;
+# BARF_STEPS is a multiple of its 8-step calls and no multiple of the
+# refresh interval, past the poses' unfreezing at BARF_STEPS // 4.
+BARF_STEPS = 312
+BARF_KERNELS = ("march", "composite_fwd", "composite_bwd")
 
 
 # The least time the card could take for a kernel's work: the bytes the
@@ -2031,12 +2076,48 @@ def rounds_render(field_fn, occ, data, step, eps):
     return torch.cat([p[0] for p in parts]), torch.cat([p[3]["counts"] for p in parts])
 
 
-def orbit_counts(occ, data, step):
-    """Each ray's samples on its whole orbit from near 0 (the exact
-    renderer's march)."""
+def same_sample_sets(occ, data, step):
+    """Per ray, whether the eval renderer's rounds without the early stop
+    (windows of ``EVAL_WINDOW`` candidates, at most ``EVAL_MAX_ROUNDS``,
+    each resumed from the last one's termination plane) emit the samples of
+    the ray's whole orbit from near 0 (the exact renderer's march): the same
+    count and every bound within 1e-2 of a step (a candidate that moved
+    across a voxel face shifts the set by a step or more; rounding moves a
+    bound by ulps).  Also each ray's count on the whole orbit.  The rounds'
+    samples do not depend on the field: without the early stop a ray stays
+    alive until its orbit ends."""
     o, d = data["rays_o"], data["rays_d"]
-    near = torch.zeros(o.shape[0], device=o.device)
-    return march(o, d, occ.binaries, occ.aabbs, near, torch.full_like(near, 1e10), step).counts
+    n = o.shape[0]
+    near = torch.zeros(n, device=o.device)
+    far = torch.full_like(near, 1e10)
+    whole = march(o, d, occ.binaries, occ.aabbs, near, far, step)
+    alive = torch.ones(n, dtype=torch.bool, device=o.device)
+    ids, t0, t1 = [], [], []
+    for _ in range(EVAL_MAX_ROUNDS):
+        res = march(o, d, occ.binaries, occ.aabbs, near, far, step, rays_mask=alive,
+                    max_samples=EVAL_WINDOW)
+        ids.append(res.ray_indices.long())
+        t0.append(res.t_starts)
+        t1.append(res.t_ends)
+        alive = alive & ~res.terminated
+        near = res.termination_planes
+        if not bool(alive.any()):
+            break
+    ids, t0, t1 = torch.cat(ids), torch.cat(t0), torch.cat(t1)
+    order = torch.argsort(t0, stable=True)
+    order = order[torch.argsort(ids[order], stable=True)]
+    ids, t0, t1 = ids[order], t0[order], t1[order]
+    counts = torch.bincount(ids, minlength=n)
+    same = counts == whole.counts
+    start = torch.cumsum(counts, 0) - counts
+    wid = whole.ray_indices.long()
+    wstart = torch.cumsum(whole.counts.long(), 0) - whole.counts.long()
+    sel = same[wid]
+    pos = start[wid[sel]] + torch.arange(wid.shape[0], device=o.device)[sel] - wstart[wid[sel]]
+    moved = torch.maximum((t0[pos] - whole.t_starts[sel]).abs(),
+                          (t1[pos] - whole.t_ends[sel]).abs())
+    worst = torch.zeros(n, device=o.device).scatter_reduce(0, wid[sel], moved, "amax")
+    return same & (worst <= 1e-2 * step), whole.counts
 
 
 def compare_renderers(label, views, field_fn, occ, step, early, exact):
@@ -2047,25 +2128,43 @@ def compare_renderers(label, views, field_fn, occ, step, early, exact):
     (:func:`rounds_render` at eps -inf, with ``field_fn(data)``'s field on
     ``occ``): the early stop alone moves a colour by at most
     ``RENDERER_COLOUR_ERR``; so does the early-stop renderer against the
-    exact one on every ray whose rounds emit as many samples as its whole
-    orbit; the rays where a resumed orbit emits another candidate than the
-    whole orbit (one that moved across a voxel face by rounding) are
-    counted, held to ``FLIP_ALLOWANCE`` of the rays, and every ray's colour
-    to ``RENDERER_FLIP_COLOUR_ERR``; and the early stop renders fewer
-    samples."""
+    exact one on every ray whose rounds emit the samples of its whole orbit
+    (:func:`same_sample_sets`: the same set, not only as many); the rays
+    where a resumed orbit emits another candidate than the whole orbit (one
+    that moved across a voxel face by rounding) are counted, held to
+    ``FLIP_ALLOWANCE`` of the rays, and every ray's colour to
+    ``RENDERER_FLIP_COLOUR_ERR``; and the early stop renders fewer samples.
+    The worst ray of each class is printed, with its view, index and
+    count; a ray of the same set past ``RENDERER_COLOUR_ERR`` is printed
+    with its samples."""
     early(views[0])
     exact(views[0])
     totals = {"early stop": [0, 0.0], "exact": [0, 0.0]}
     worst = {"early stop alone": 0.0, "same samples": 0.0, "all rays": 0.0}
-    flipped = 0
+    worst_ray = {"same set": None, "another set": None}
+    flipped = equal_count_moved = 0
     for i, data in enumerate(views):
         n_rays = data["rays_o"].shape[0]
         (c_early, n_early), s_early = timed(lambda: early(data))
         (c_exact, n_exact), s_exact = timed(lambda: exact(data))
         with torch.no_grad():  # no ray retires for its opacity, even past 1 by rounding
             c_rounds, counts = rounds_render(field_fn(data), occ, data, step, -math.inf)
-        same = counts == orbit_counts(occ, data, step)
+        same, whole_counts = same_sample_sets(occ, data, step)
+        equal_count_moved += int(((counts == whole_counts) & ~same).sum())
         err = (c_early - c_exact).abs().amax(dim=-1)
+        for cls, mask in (("same set", same), ("another set", ~same)):
+            if bool(mask.any()):
+                e, r = err.masked_fill(~mask, -1.0).max(0)
+                if worst_ray[cls] is None or float(e) > worst_ray[cls][0]:
+                    worst_ray[cls] = (float(e), i, int(r), int(whole_counts[r]), int(counts[r]))
+        if bool(same.any()) and float(err[same].max()) > RENDERER_COLOUR_ERR:
+            r = int(err.masked_fill(~same, -1.0).argmax())
+            o, d = data["rays_o"][r : r + 1], data["rays_d"][r : r + 1]
+            z = torch.zeros(1, device=o.device)
+            ray = march(o, d, occ.binaries, occ.aabbs, z, z + 1e10, step)
+            print(f"{label} view {i} ray {r}: same sample set, colour difference "
+                  f"{float(err[r]):.6g}; origin {o.tolist()}, direction {d.tolist()}, "
+                  f"samples t_starts {ray.t_starts.tolist()}")
         readings = {
             "early stop alone": float((c_early - c_rounds).abs().max()),
             "same samples": float(err[same].max()) if bool(same.any()) else 0.0,
@@ -2082,6 +2181,12 @@ def compare_renderers(label, views, field_fn, occ, step, early, exact):
               f"max colour difference {readings['all rays']:.3g} ({int((~same).sum())} "
               f"rays with another sample set), early stop alone "
               f"{readings['early stop alone']:.3g}")
+    for cls, w in worst_ray.items():
+        if w is not None:
+            print(f"{label}: worst ray with {cls}: colour difference {w[0]:.6g}, view {w[1]} "
+                  f"ray {w[2]}, {w[3]} samples on its whole orbit, {w[4]} in its rounds")
+    print(f"{label}: {equal_count_moved} rays with as many samples as their whole orbit "
+          f"but another set")
     n_rays = sum(v["rays_o"].shape[0] for v in views)
     print(f"{label}: " + "; ".join(
         f"{name} {n / n_rays:.2f} samples/ray, {sec / len(views):.4f} s/frame"
@@ -3351,6 +3456,213 @@ def phase_vanilla_example(dev):
     return launches
 
 
+def occ_field_example(path, steps, seed=QUALITY_SEEDS[0], extra=()):
+    """The occupancy example with ``path``'s field flags and its arguments
+    for ``steps`` steps (``--max_steps`` one call short)."""
+    ex = port_module("examples.train_ngp_nerf_occ")
+    args = ex.parser().parse_args([
+        *OCC_FIELD_PATHS[path][0], "--max_steps", str(steps - EXAMPLE_CALL),
+        "--steps_per_call", str(EXAMPLE_CALL), "--seed", str(seed), *extra])
+    return ex, args
+
+
+def occ_run_record(run, steps):
+    """The numbers of one occupancy example run: ms/step, train samples/s
+    (the rendered samples), the ray counts and the losses."""
+    log = run.log
+    return {
+        "steps": steps, "train_seconds": run.train_seconds,
+        "ms_per_step": 1e3 * run.train_seconds / steps,
+        "samples_per_s": sum(r["samples"] for r in log) / run.train_seconds,
+        "final_num_rays": log[-1]["num_rays"], "max_num_rays": max(r["num_rays"] for r in log),
+        "loss_first5": statistics.mean(r["loss"] for r in log[:5]),
+        "loss_last5": statistics.mean(r["loss"] for r in log[-5:]),
+    }
+
+
+def phase_occ_field(dev, path):
+    """25: the occupancy example with ``--field tensorf``, ``--field voxel``
+    or ``--field cp --plane_res 64 --plane_rank 16 --field_reg_weight 1e-3``
+    (``path``), built by its own ``build`` at full width (the bench budget
+    2^18, the controller from 1024 rays, 24 views of the translucent scene at
+    320x320): served untrained (the grid refreshed ``N_REFRESH`` times),
+    trained ``FIELD_STEPS`` steps through its ``train_loop`` (the loss must
+    fall, the path's kernels launch), one step through the kernels against
+    the plain versions (phase 5's bounds), served trained 3 dB above
+    untrained, and one dense refresh timed.  Returns the training's
+    launches."""
+    ex, args = occ_field_example(path, FIELD_STEPS, extra=["--log_every", "200"])
+    (trainer, train_ds, test_ds), setup = timed(lambda: ex.build(args))
+    field, kernels = trainer.field, OCC_FIELD_PATHS[path][1]
+    enc = field.encoder
+    levels = (f"voxel grids {enc.resolutions} x channels {enc.channels}"
+              if path == "voxel" else
+              f"lines {enc.resolutions} x {enc.ranks}, planes {enc.plane_resolutions} x "
+              f"{enc.plane_ranks} ({enc.plane_mode})")
+    print(f"{path}: {type(field).__name__} ({sum(p.numel() for p in field.parameters())} "
+          f"parameters, {str(field.compute_dtype).split('.')[-1]} operands), {levels}, "
+          f"{enc.output_dim} features, refresh chunk {field.max_eval_chunk}, prior weight "
+          f"{trainer.field_reg_weight}, budget {trainer.sample_budget}; built in {setup:.2f} s")
+    untrained = serve_views(f"{path} untrained", trainer, refreshed_state(trainer),
+                            test_ds)["psnr"]
+    cuda.reset_launches()
+    run = ex.train_loop(trainer, train_ds, test_ds, args)
+    torch.cuda.synchronize()
+    launches = dict(cuda.LAUNCHES)
+    steps = int(run.state.step)
+    rec = occ_run_record(run, steps)
+    print(f"train {path}: {steps} steps in {run.train_seconds:.3f} s, "
+          f"{rec['ms_per_step']:.3f} ms/step, {rec['samples_per_s']:.6g} train samples/s, "
+          f"ray counts {sorted({r['num_rays'] for r in run.log})}; mean loss of the first "
+          f"and last five calls {rec['loss_first5']:.6f} -> {rec['loss_last5']:.6f}; per "
+          "step " + ", ".join(f"{k} {v / steps:.3f}" for k, v in launches.items() if v))
+    require(steps == FIELD_STEPS, f"train {path}: ended at step {steps}")
+    require(all(math.isfinite(r["loss"]) for r in run.log), f"train {path}: non-finite loss")
+    require(rec["loss_last5"] < rec["loss_first5"], f"train {path}: the loss did not fall")
+    for name in kernels:
+        require(launches.get(name, 0) > 0, f"kernel {name} never launched in {path} training")
+    state = run.state
+    phase_step_vs_plain(trainer, state, train_ds[0], path, kernels)
+    step = steps + trainer.update_interval - steps % trainer.update_interval
+    ms = cuda_ms(lambda: trainer.refresh_occ_grid(state, step), reps=3)
+    cells = state.occ_state.occs.numel()
+    print(f"{path} dense refresh past warmup: {cells} cells in "
+          f"{-(-cells // min(2**21, field.max_eval_chunk))} chunks, {ms:.3f} ms an update")
+    for i, v in enumerate(run.metrics["views"]):
+        print(f"trained {path} view {i}: {v['seconds']:.4f} s, "
+              f"{v['n_samples'] / v['n_rays']:.2f} samples/ray, psnr {v['psnr']:.3f}, "
+              f"ssim {v['ssim']:.4f}")
+        require(v["finite"], f"trained {path} view {i}: non-finite output")
+    print(f"trained {path}: psnr {run.metrics['psnr']:.3f} (untrained {untrained:.3f}), "
+          f"ssim {run.metrics['ssim']:.4f}, occupied share "
+          f"{float(state.occ_state.binaries.float().mean()):.4f}")
+    require(run.metrics["psnr"] >= untrained + 3.0,
+            f"trained {path} psnr {run.metrics['psnr']} not 3 dB above {untrained}")
+    return launches
+
+
+def barf_example(steps, seed=QUALITY_SEEDS[0], extra=()):
+    """The BARF example and its arguments for ``steps`` steps."""
+    ex = port_module("examples.train_barf")
+    return ex, ex.parser().parse_args(["--max_steps", str(steps), "--seed", str(seed), *extra])
+
+
+def barf_step_grads(trainer, state, batch, near):
+    """One BARF ``train_step`` from a copy of ``state``: its loss and the
+    field's and the pose deltas' gradients, each checked finite and
+    nonzero."""
+    params = {"field": {k: v.detach().clone().requires_grad_(True)
+                        for k, v in state.params["field"].items()},
+              "pose_deltas": state.params["pose_deltas"].detach().clone().requires_grad_(True)}
+    st = type(state)(params, trainer.init_optimizer(params), state.occ_state, state.step)
+    _, aux = trainer.train_step(st, batch, near_jitter=near)
+    grads = {f"field.{k}": p.grad for k, p in params["field"].items()}
+    grads["pose_deltas"] = params["pose_deltas"].grad
+    for name, g in grads.items():
+        require(torch.isfinite(g).all() and float(g.abs().max()) > 0,
+                f"barf step: gradient of {name} is zero or not finite")
+    return float(aux["loss"]), grads
+
+
+def pose_floor_on_card(dev):
+    """tests/test_pose.py:113 on the card with TF32 allowed for matmuls:
+    1e-4 rad of noise on 24 poses must read back within 3x its magnitude
+    plus 0.02 deg (bf16-rounded pose math read ~1.2 deg)."""
+    pose = port_module("models.pose")
+    g = torch.Generator(device=dev).manual_seed(11)
+    w = torch.randn(24, 3, generator=g, device=dev)
+    c2w = pose.se3_exp(torch.cat([w, 4.0 * torch.randn(24, 3, generator=g, device=dev)], -1))
+    c2w = torch.cat([c2w[:, :, :3], 4.0 * torch.randn(24, 3, 1, generator=g, device=dev)], -1)
+    xi = 1e-4 * torch.randn(24, 6, generator=g, device=dev)
+    saved = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        noisy, _ = pose.perturb_poses(c2w, xi=xi)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = saved
+    err = pose.pose_registration_errors(noisy, c2w)
+    applied = float(torch.rad2deg(xi[:, :3].norm(dim=-1)).mean())
+    print(f"barf pose precision floor on the card (TF32 allowed): 1e-4 rad of noise reads "
+          f"{err['rot_deg']:.6f} deg against {applied:.6f} applied (limit "
+          f"{3.0 * applied + 0.02:.6f})")
+    require(err["rot_deg"] < 3.0 * applied + 0.02, f"barf pose floor: {err}")
+
+
+def phase_barf(dev):
+    """26: ``python -m nerfacc_tpu_torch.examples.train_barf`` (the 8x256
+    vanilla NeRF with per-image SE(3) deltas, 320x320 procedural views, poses
+    perturbed by 0.05 rad / 0.05) for ``BARF_STEPS`` steps through its
+    ``build`` and ``train_loop``: the initial and final pose errors printed,
+    the loss must fall and G2, G3, G5 launch; one step through the kernels
+    against the plain versions (phase 5's f32 bound), the pose-delta
+    gradient included; the pose math's precision floor on the card.
+    Returns the training's launches."""
+    ex, args = barf_example(BARF_STEPS, extra=["--log_every", str(BARF_STEPS // 2),
+                                                "--eval_images", "4"])
+    (trainer, train_ds, test_ds), setup = timed(lambda: ex.build(args))
+    print(f"barf: {type(trainer.field).__name__} "
+          f"({sum(p.numel() for p in trainer.field.parameters())} parameters), "
+          f"{trainer.n_images} poses, {len(test_ds)} test views {test_ds.WIDTH}x"
+          f"{test_ds.HEIGHT}, {args.num_rays} rays a step, {trainer.max_samples_per_ray} "
+          f"candidates a ray at most, poses frozen before step {trainer.pose_start_step}, "
+          f"window {trainer.pe_c2f}; built in {setup:.2f} s")
+    untrained = trainer.eval_metrics(trainer.refresh_occ_grid(trainer.init_state(), 0),
+                                     test_ds, 4)["psnr"]
+    cuda.reset_launches()
+    run = ex.train_loop(trainer, train_ds, test_ds, args)
+    torch.cuda.synchronize()
+    launches = dict(cuda.LAUNCHES)
+    steps = int(run.state.step)
+    log = run.log
+    first5 = statistics.mean(r["loss"] for r in log[:5])
+    last5 = statistics.mean(r["loss"] for r in log[-5:])
+    e0, e1 = run.pose_errors["initial"], run.pose_errors["final"]
+    print(f"train barf: {steps} steps in {run.train_seconds:.3f} s, "
+          f"{1e3 * run.train_seconds / steps:.3f} ms/step, "
+          f"{sum(r['samples'] for r in log) / run.train_seconds:.6g} train samples/s; mean "
+          f"loss of the first and last five calls {first5:.6f} -> {last5:.6f}; pose error "
+          f"R {e0['rot_deg']:.4f} -> {e1['rot_deg']:.4f} deg, T {e0['trans']:.5f} -> "
+          f"{e1['trans']:.5f}; per step "
+          + ", ".join(f"{k} {v / steps:.3f}" for k, v in launches.items() if v))
+    for i, v in enumerate(run.metrics["views"]):
+        print(f"trained barf view {i}: {v['seconds']:.4f} s, "
+              f"{v['n_samples'] / v['n_rays']:.2f} samples/ray, psnr {v['psnr']:.3f}, "
+              f"ssim {v['ssim']:.4f}")
+        require(v["finite"], f"trained barf view {i}: non-finite output")
+    print(f"trained barf: psnr {run.metrics['psnr']:.3f} (untrained {untrained:.3f}), ssim "
+          f"{run.metrics['ssim']:.4f}; summary {json.dumps(run.summary)}")
+    require(steps == BARF_STEPS, f"barf: ended at step {steps}")
+    require(all(math.isfinite(r["loss"]) for r in log), "barf: non-finite loss")
+    require(last5 < first5, f"barf: loss {first5} -> {last5} did not fall")
+    for name in BARF_KERNELS:
+        require(launches.get(name, 0) > 0, f"barf: kernel {name} never launched")
+    state = run.state
+    require(state.step % trainer.update_interval != 0 and state.step >= trainer.pose_start_step,
+            "barf: the step checked refreshes or has frozen poses")
+    batch = train_ds.pixel_batch(0)
+    near = torch.rand(batch["rgb"].shape[0], generator=torch.Generator(device=dev).manual_seed(5),
+                      device=dev)
+    what = "train step barf f32"
+    before = dict(cuda.LAUNCHES)
+    with plain_kernels(BARF_KERNELS):
+        ref = barf_step_grads(trainer, state, batch, near)
+    require(all(cuda.LAUNCHES[k] == before[k] for k in BARF_KERNELS),
+            f"{what}: the plain step launched a kernel")
+
+    def plain_step():
+        with plain_kernels(BARF_KERNELS):
+            return barf_step_grads(trainer, state, batch, near)
+
+    step_readings(f"{what}, plain vs plain", plain_step, ref)
+    _, reading, _, loss_rel = step_readings(
+        f"{what}, kernels vs plain versions",
+        lambda: barf_step_grads(trainer, state, batch, near), ref, F32_STEP_FRO)
+    require(reading <= F32_STEP_FRO, f"{what}: a gradient leaf off by {reading}")
+    require(loss_rel <= 1e-5, f"{what}: losses differ by {loss_rel}")
+    pose_floor_on_card(dev)
+    return launches
+
+
 def _plain_for(route, kernels):
     """The kernels that ``route`` puts on their plain versions: none for
     "kernels", all of ``kernels`` for "plain", the named ones for
@@ -3421,6 +3733,65 @@ def mlp_example_study(args):
     _example_study(args, MLP_PATHS[args.example][1],
                    lambda seed: mlp_example(args.example, args.steps, seed,
                                             MLP_EXAMPLE_FLAGS.get(args.example, [])),
+                   record)
+
+
+def occ_field_example_study(args):
+    """``--example tensorf|voxel|cp-planes``: the occupancy example with the
+    field's flags (``--field tensorf``, ``--field voxel``, ``--field cp
+    --plane_res 64 --plane_rank 16 --field_reg_weight 1e-3``; ``--max_steps
+    <steps>``) through :func:`_example_study`: eval PSNR and SSIM over the
+    test views, the steps, ms/step, train samples/s, ray counts, the losses,
+    and the eval renderer's seconds a frame and samples a ray."""
+    def record(trainer, run, eargs):
+        views = run.metrics["views"]
+        return {
+            "psnr": run.metrics["psnr"], "ssim": run.metrics["ssim"],
+            "view_psnr": [v["psnr"] for v in views],
+            "all_finite": all(v["finite"] for v in views),
+            **occ_run_record(run, int(run.state.step)),
+            "eval_s_per_frame": sum(v["seconds"] for v in views) / len(views),
+            "eval_samples_per_ray": (sum(v["n_samples"] for v in views)
+                                     / sum(v["n_rays"] for v in views)),
+        }
+
+    _example_study(args, OCC_FIELD_PATHS[args.example][1],
+                   lambda seed: occ_field_example(
+                       args.example, args.steps, seed,
+                       ["--log_every", str(max(args.steps // 10, EXAMPLE_CALL))]),
+                   record)
+
+
+def barf_example_study(args):
+    """``--example barf``: ``python -m nerfacc_tpu_torch.examples.train_barf
+    --max_steps <steps> --seed <seed>`` through :func:`_example_study`: eval
+    PSNR and SSIM (its three eval views), the initial and final pose
+    errors, the steps, ms/step, train samples/s (the rendered samples), the
+    losses, and seconds a frame and samples a ray."""
+    def record(trainer, run, eargs):
+        views, log = run.metrics["views"], run.log
+        steps = int(run.state.step)
+        e0, e1 = run.pose_errors["initial"], run.pose_errors["final"]
+        return {
+            "steps": steps, "psnr": run.metrics["psnr"], "ssim": run.metrics["ssim"],
+            "view_psnr": [v["psnr"] for v in views],
+            "all_finite": all(v["finite"] for v in views),
+            "rot_deg": e1["rot_deg"], "trans": e1["trans"],
+            "rot_deg_init": e0["rot_deg"], "trans_init": e0["trans"],
+            "train_seconds": run.train_seconds,
+            "ms_per_step": 1e3 * run.train_seconds / steps,
+            "samples_per_s": sum(r["samples"] for r in log) / run.train_seconds,
+            "loss_first5": statistics.mean(r["loss"] for r in log[:5]),
+            "loss_last5": statistics.mean(r["loss"] for r in log[-5:]),
+            "eval_s_per_frame": sum(v["seconds"] for v in views) / len(views),
+            "eval_samples_per_ray": (sum(v["n_samples"] for v in views)
+                                     / sum(v["n_rays"] for v in views)),
+            "summary": run.summary,
+        }
+
+    _example_study(args, BARF_KERNELS,
+                   lambda seed: barf_example(args.steps, seed,
+                                             ["--log_every", str(max(args.steps // 10, 8))]),
                    record)
 
 
@@ -3557,11 +3928,13 @@ def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--quality", nargs="+", choices=list(PATH_KERNELS),
                     help="train and serve these paths alone (quality_study)")
-    ap.add_argument("--example", choices=["cp", "ngp", "occ360", *PROP_PATHS, *MLP_PATHS],
-                    help="run the occupancy example (cp, ngp, occ360: example_study), "
-                         "the proposal example (prop-*: prop_example_study) or the MLP "
-                         "examples (tnerf, kplanes, tineuvox, mlp-nerf: "
-                         "mlp_example_study) alone")
+    ap.add_argument("--example", choices=["cp", "ngp", "occ360", *OCC_FIELD_PATHS, "barf",
+                                          *PROP_PATHS, *MLP_PATHS],
+                    help="run the occupancy example (cp, ngp, occ360: example_study; "
+                         "tensorf, voxel, cp-planes: occ_field_example_study), the BARF "
+                         "example (barf: barf_example_study), the proposal example "
+                         "(prop-*: prop_example_study) or the MLP examples (tnerf, "
+                         "kplanes, tineuvox, mlp-nerf: mlp_example_study) alone")
     ap.add_argument("--steps", type=int, default=10000, help="--example's --max_steps")
     ap.add_argument("--seeds", nargs="+", type=int, default=list(QUALITY_SEEDS))
     ap.add_argument("--routes", nargs="+", default=None,
@@ -3584,6 +3957,14 @@ def main():
     if args.example in MLP_PATHS:
         args.routes = args.routes or ["kernels"]
         mlp_example_study(args)
+        return
+    if args.example in OCC_FIELD_PATHS:
+        args.routes = args.routes or ["kernels"]
+        occ_field_example_study(args)
+        return
+    if args.example == "barf":
+        args.routes = args.routes or ["kernels"]
+        barf_example_study(args)
         return
     if args.example:
         example_study(args)
@@ -3693,9 +4074,13 @@ def main():
     # 23-23c: the dynamic example per field; 24: the vanilla example
     mlp_launches = [phase_mlp_example(dev, path) for path in ("tnerf", "kplanes", "tineuvox")]
     mlp_launches.append(phase_vanilla_example(dev))
+    # 25: the occupancy example's other fields; 26: the BARF example
+    mlp_launches += [phase_occ_field(dev, path) for path in OCC_FIELD_PATHS]
+    mlp_launches.append(phase_barf(dev))
     # each kernel's launches over the training runs (phases 4, 8, 12, 16,
-    # 20, 21, 22, 23-23c, 24), the occupancy example's (6d) and the quick
-    # start's loops (19), and the gather kernels' over the gather probe's run
+    # 20, 21, 22, 23-23c, 24, 25, 26), the occupancy example's (6d) and the
+    # quick start's loops (19), and the gather kernels' over the gather
+    # probe's run
     launches = {k: v + ngp_launches[k] + tnv_launches[k] + prop_launches[k]
                 + example_launches[k] + qs_launches[k] + qs_prop_launches[k]
                 + prop_ngp_launches[k] + prop360_launches[k] + occ360_launches.get(k, 0)

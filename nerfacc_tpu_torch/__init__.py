@@ -2,8 +2,9 @@
 volume rendering, losses), its occupancy-grid and proposal-network render and
 train paths, and its CP, hash-grid (Instant-NGP) and TiNeuVox (dynamic)
 radiance fields, the MLP fields (vanilla NeRF, and T-NeRF and NDRT for
-dynamic scenes) and the K-Planes space-time field, with the CP and
-hash-grid proposal fields, the padded
+dynamic scenes), the K-Planes space-time field, the CP field's tri-plane
+levels with TensoRF, and the dense voxel field, with the CP and hash-grid
+proposal fields, BARF's pose refinement and its trainer, the padded
 traversals, lens undistortion and the dataset loaders, ported to PyTorch and
 hand-written CUDA kernels for NVIDIA Hopper.
 
@@ -47,7 +48,12 @@ from .grid import (
     traverse_grids_voxel,
 )
 from .losses import distortion
-from .models.cp_field import CPDensityField, CPGridEncoder, CPRadianceField
+from .models.cp_field import (
+    CPDensityField,
+    CPGridEncoder,
+    CPRadianceField,
+    TensoRFRadianceField,
+)
 from .models.encoders import HashGridEncoder, SinusoidalEncoder
 from .models.kplanes import KPlanesEncoder, KPlanesRadianceField
 from .models.mlp import (
@@ -56,10 +62,20 @@ from .models.mlp import (
     VanillaNeRFRadianceField,
 )
 from .models.ngp import NGPDensityField, NGPRadianceField
+from .models.pose import (
+    coarse_to_fine_alpha,
+    compose_pose,
+    perturb_poses,
+    pose_registration_errors,
+    se3_exp,
+    umeyama_alignment,
+)
 from .models.tineuvox import TiNeuVoxRadianceField
+from .models.voxel_field import VoxelGridEncoder, VoxelRadianceField
 from .pack import pack_info
 from .pdf import importance_sampling, searchsorted
 from .scan import exclusive_prod, exclusive_sum, inclusive_prod, inclusive_sum
+from .trainers.barf import BARFTrainer, BARFTrainState
 from .trainers.ngp_occ import NGPOccTrainer, TrainState
 from .trainers.ngp_prop import NGPPropTrainer, PropTrainState
 from .utils.checkpoint import load_checkpoint, save_checkpoint
@@ -85,13 +101,15 @@ from .volrend import (
 __version__ = "0.1.0"
 
 __all__ = [
-    "AbstractEstimator", "CPDensityField", "CPGridEncoder", "CPRadianceField",
+    "AbstractEstimator", "BARFTrainState", "BARFTrainer", "CPDensityField", "CPGridEncoder", "CPRadianceField",
     "CompactSamples", "DeviceRaySampler", "HashGridEncoder", "KPlanesEncoder",
     "KPlanesRadianceField", "NDRTNeRFRadianceField", "NGPOccTrainer",
     "NGPDensityField", "NGPPropTrainer", "NGPRadianceField", "OccGridEstimator", "OccGridState",
     "PropNetEstimator", "PropTrainState", "RayIntervals", "RaySamples",
-    "SinusoidalEncoder", "TNeRFRadianceField", "TiNeuVoxRadianceField", "TrainState",
-    "TraversalResult", "VanillaNeRFRadianceField",
+    "SinusoidalEncoder", "TNeRFRadianceField", "TensoRFRadianceField",
+    "TiNeuVoxRadianceField", "TrainState", "TraversalResult", "VanillaNeRFRadianceField",
+    "VoxelGridEncoder", "VoxelRadianceField", "coarse_to_fine_alpha", "compose_pose",
+    "perturb_poses", "pose_registration_errors", "se3_exp", "umeyama_alignment",
     "__version__",
     "accumulate_along_rays", "accumulate_along_rays_", "compact_samples", "cuda",
     "distortion", "exclusive_prod", "exclusive_sum", "get_proposal_requires_grad_fn",

@@ -4,7 +4,8 @@ PyTorch counterpart of nerfacc_tpu/data/nerf_synthetic.py: 800x800 Blender
 JSON scenes, the OpenGL camera convention with +0.5 pixel centres, train
 batches of ``num_rays`` random (image, x, y) triples drawn from
 ``np.random.default_rng(seed)`` in the JAX loader's order, and whole views
-in the test split.  The rays are computed in numpy with the JAX loader's
+in the test split; ``pixel_batch`` gives a train batch as pixels (BARF's
+batches), from the same draws.  The rays are computed in numpy with the JAX loader's
 arithmetic, so both packages give the same rays; the images live on the
 loader's device as uint8 and every item comes back as tensors there.
 Reading the images needs ``imageio``.
@@ -209,3 +210,15 @@ class SubjectLoader(PinholeLoader):
     def _load_split(self, root_fp, subject_id, split):
         images, camtoworlds, focal, _ = _load_renderings(root_fp, subject_id, split)
         return images, camtoworlds, focal
+
+    def pixel_batch(self, index: int):
+        """A train batch as pixels, for a trainer that makes the rays from
+        poses it refines (BARF): ``{img_ids, x, y}`` (int32), the pixels'
+        ``rgb`` over the batch's ``color_bkgd``, on the loader's device,
+        from the draws :meth:`__getitem__` makes (image ids, x, y, then the
+        background)."""
+        image_id, x, y = self._sample_pixels(index)
+        color_bkgd = torch.tensor(self._background(), device=self.device)
+        as_int = lambda a: torch.as_tensor(np.asarray(a, np.int32), device=self.device)
+        return {"img_ids": as_int(image_id), "x": as_int(x), "y": as_int(y),
+                "rgb": self._pixels(image_id, x, y, color_bkgd), "color_bkgd": color_bkgd}

@@ -14,8 +14,8 @@ arithmetic, so both packages build the identical scene and rays; the ground
 truth is integrated in PyTorch on the loader's device (no disk cache).
 Ported: the test split and the train split's random ray batches, whose
 pixels come from the same ``np.random.default_rng(seed)`` call sequence as
-the JAX loader's, so both loaders yield identical batches.  Not ported:
-``pixel_batch`` (BARF's pixel-level batches).
+the JAX loader's, so both loaders yield identical batches, as rays or, for
+BARF, as pixels (``pixel_batch``).
 """
 from __future__ import annotations
 
@@ -233,6 +233,22 @@ class ProceduralSceneLoader:
         """A train ray batch or one full view: rays and the ground truth
         alpha-blended over the item's background."""
         return self._item(*self._select_pixels(index))
+
+    def pixel_batch(self, index: int):
+        """A train batch as pixels, for a trainer that makes the rays from
+        poses it refines (BARF): ``{img_ids, x, y}`` (int32), the pixels'
+        ``rgb`` over the batch's ``color_bkgd``, on the loader's device,
+        from the draws :meth:`__getitem__` makes."""
+        image_id, x, y, color_bkgd = self._select_pixels(index)
+        pick = tuple(torch.as_tensor(a, device=self.device) for a in (image_id, y, x))
+        rgba = self.images[pick].to(torch.float32) / 255.0
+        color_bkgd = torch.tensor(color_bkgd, device=self.device)
+        as_int = lambda a: torch.as_tensor(np.asarray(a, np.int32), device=self.device)
+        return {
+            "img_ids": as_int(image_id), "x": as_int(x), "y": as_int(y),
+            "rgb": rgba[:, :3] * rgba[:, 3:] + color_bkgd * (1.0 - rgba[:, 3:]),
+            "color_bkgd": color_bkgd,
+        }
 
     def _item(self, image_id, x, y, color_bkgd):
         pick = tuple(torch.as_tensor(a, device=self.device) for a in (image_id, y, x))

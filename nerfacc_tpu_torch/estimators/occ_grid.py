@@ -281,6 +281,7 @@ def sampling(
     render_step_size: float = 1e-3,
     cone_angle: float = 0.0,
     near_jitter: Optional[torch.Tensor] = None,
+    max_samples: Optional[int] = None,
 ) -> MarchResult:
     """March the occupied cells along every ray, packed exactly (kernel G2).
 
@@ -288,6 +289,9 @@ def sampling(
     ray's near plane by ``jitter * render_step_size`` with a uniform
     ``jitter`` in [0, 1); here that draw is the explicit (n_rays,)
     ``near_jitter`` (None: no jitter), so a caller can feed the JAX draw.
+    ``max_samples`` keeps each ray's occupied candidates among the first
+    that many of its orbit (``sampling_padded``'s lattice); None marches
+    every orbit to its end.
     """
     n_rays = rays_o.shape[0]
     like = dict(dtype=rays_o.dtype, device=rays_o.device)
@@ -298,7 +302,41 @@ def sampling(
         rays_o, rays_d, state.binaries, state.aabbs,
         near_planes=near_planes,
         far_planes=torch.full((n_rays,), far_plane, **like),
-        step_size=render_step_size, cone_angle=cone_angle,
+        step_size=render_step_size, cone_angle=cone_angle, max_samples=max_samples,
+    )
+
+
+@torch.no_grad()
+def visible_samples(
+    occs: torch.Tensor,
+    ray_indices: torch.Tensor,
+    t_starts: torch.Tensor,
+    t_ends: torch.Tensor,
+    n_rays: int,
+    sigma_fn: Optional[Callable] = None,
+    alpha_fn: Optional[Callable] = None,
+    early_stop_eps: float = 1e-4,
+    alpha_thre: float = 0.0,
+) -> Optional[torch.Tensor]:
+    """The visibility filter of ``sampling_padded``: given ``sigma_fn`` or
+    ``alpha_fn`` (``(t_starts, t_ends, ray_indices) -> (n,)``, run without
+    gradients), the mask of the samples whose transmittance is at least
+    ``early_stop_eps`` and, where the threshold ``min(alpha_thre,
+    mean(occs))`` is positive, whose alpha is at least it; None when
+    nothing filters."""
+    fn = sigma_fn if sigma_fn is not None else alpha_fn
+    if fn is None or (alpha_thre <= 0.0 and early_stop_eps <= 0.0):
+        return None
+    thre = torch.clamp(occs.mean(), max=alpha_thre)
+    out = fn(t_starts, t_ends, ray_indices).reshape(t_starts.shape)
+    if sigma_fn is not None:
+        return render_visibility_from_density(
+            t_starts, t_ends, out, ray_indices=ray_indices, n_rays=n_rays,
+            early_stop_eps=early_stop_eps, alpha_thre=thre,
+        )
+    return render_visibility_from_alpha(
+        out, ray_indices=ray_indices, n_rays=n_rays,
+        early_stop_eps=early_stop_eps, alpha_thre=thre,
     )
 
 
@@ -417,21 +455,9 @@ class OccGridEstimator(AbstractEstimator):
             max_samples=self.max_samples,
         )
         ray_indices, t_starts, t_ends = res.ray_indices.long(), res.t_starts, res.t_ends
-        fn = sigma_fn if sigma_fn is not None else alpha_fn
-        if fn is not None and (alpha_thre > 0.0 or early_stop_eps > 0.0):
-            thre = torch.clamp(self.occs.mean(), max=alpha_thre)
-            with torch.no_grad():
-                out = fn(t_starts, t_ends, ray_indices).reshape(t_starts.shape)
-                if sigma_fn is not None:
-                    vis = render_visibility_from_density(
-                        t_starts, t_ends, out, ray_indices=ray_indices, n_rays=n_rays,
-                        early_stop_eps=early_stop_eps, alpha_thre=thre,
-                    )
-                else:
-                    vis = render_visibility_from_alpha(
-                        out, ray_indices=ray_indices, n_rays=n_rays,
-                        early_stop_eps=early_stop_eps, alpha_thre=thre,
-                    )
+        vis = visible_samples(self.occs, ray_indices, t_starts, t_ends, n_rays, sigma_fn,
+                              alpha_fn, early_stop_eps, alpha_thre)
+        if vis is not None:
             ray_indices, t_starts, t_ends = ray_indices[vis], t_starts[vis], t_ends[vis]
         return ray_indices, t_starts, t_ends
 

@@ -5,8 +5,13 @@ PyTorch counterpart of examples/train_ngp_nerf_occ.py::
     python -m nerfacc_tpu_torch.examples.train_ngp_nerf_occ --field cp
     python -m nerfacc_tpu_torch.examples.train_ngp_nerf_occ --scene procedural360
 
-trains the bench ``CPRadianceField`` (resolutions 32/128/512, rank 32, bf16)
-or, with ``--field ngp``, the full-width hash-grid ``NGPRadianceField``, with
+trains the bench ``CPRadianceField`` (resolutions 32/128/512, rank 32, bf16;
+``--plane_res R... --plane_rank r...`` appends tri-plane levels) or, with
+``--field ngp``, the full-width hash-grid ``NGPRadianceField``, with
+``--field tensorf`` the ``TensoRFRadianceField`` (lines 64/192 x 32, planes
+64/128 x 16) and with ``--field voxel`` the dense ``VoxelRadianceField``
+(grids 64/128 x 4 channels); ``--field_reg_weight w`` adds ``w`` times the
+field's total variation to the loss.  Each trains with
 a 2^18-sample budget a step and a ray batch that the controller grows from
 ``--init_batch_size``, then evaluates the test views through the
 early-stopping eval renderer.  The scene branches are the JAX script's:
@@ -47,9 +52,6 @@ Flags of the JAX script that the port leaves out:
   set exactly, with no window to size.
 - ``--encoder_remat``: rematerialisation under XLA's memory planning;
   autograd here keeps the encoder's inputs and nothing to recompute.
-- ``--plane_res``, ``--plane_rank`` and ``--field_reg_weight``, and the
-  fields ``tensorf`` and ``voxel``: the plane levels and those fields wait
-  for ROADMAP.md queue 1 item 7.
 
 In process, :func:`build` makes the trainer and the loaders (its keyword
 arguments shrink them, as the tests do) and :func:`train_loop` runs the
@@ -72,8 +74,9 @@ from ..data.procedural import (
     ProceduralSceneLoader,
     ProceduralUnboundedSceneLoader,
 )
-from ..models.cp_field import CPRadianceField
+from ..models.cp_field import CPRadianceField, TensoRFRadianceField
 from ..models.ngp import NGPRadianceField
+from ..models.voxel_field import VoxelRadianceField
 from ..trainers.ngp_occ import NGPOccTrainer, TrainState
 from ..utils.checkpoint import load_checkpoint, save_checkpoint
 
@@ -86,6 +89,8 @@ UNBOUNDED = dict(grid_nlvl=4, render_step_size=1e-3, cone_angle=0.004, alpha_thr
 MIPNERF360_UNBOUNDED_SCENES = [
     "garden", "bicycle", "bonsai", "counter", "kitchen", "room", "stump",
 ]
+FIELDS = {"cp": CPRadianceField, "ngp": NGPRadianceField,
+          "tensorf": TensoRFRadianceField, "voxel": VoxelRadianceField}
 # 1k .. 128k rays, ~1.33x spacing (the JAX script's buckets)
 BUCKETS = sorted({1024 * 2**i for i in range(8)} | {1536 * 2**i for i in range(7)})
 
@@ -116,7 +121,10 @@ def parser() -> argparse.ArgumentParser:
                          "none: a procedural scene")
     ap.add_argument("--scene", default="procedural")
     ap.add_argument("--train_split", default="train")
-    ap.add_argument("--field", default="cp", choices=["cp", "ngp"])
+    ap.add_argument("--field", default="cp", choices=["cp", "ngp", "tensorf", "voxel"],
+                    help="cp: CP lines (and --plane_res planes); ngp: the hash grid; "
+                         "tensorf: TensoRF's line and tri-plane levels; voxel: dense "
+                         "voxel grids")
     ap.add_argument("--max_steps", type=int, default=20000)
     ap.add_argument("--target_sample_batch_size", type=int, default=1 << 18)
     ap.add_argument("--init_batch_size", type=int, default=1024)
@@ -126,6 +134,12 @@ def parser() -> argparse.ArgumentParser:
     ap.add_argument("--eval_every", type=int, default=0)
     ap.add_argument("--log_every", type=int, default=1000)
     ap.add_argument("--seed", type=int, default=42)
+    ap.add_argument("--plane_res", type=int, nargs="*", default=[],
+                    help="tri-plane levels appended to the cp field (e.g. 64)")
+    ap.add_argument("--plane_rank", type=int, nargs="*", default=[],
+                    help="their ranks (e.g. 16)")
+    ap.add_argument("--field_reg_weight", type=float, default=0.0,
+                    help="weight of the field's total variation in the loss")
     ap.add_argument("--occ_stripes", type=int, default=1,
                     help="S > 1 refreshes one rotating 1/S stripe of the grid per "
                          "update after warmup (NGPOccTrainer.occ_refresh_stripes)")
@@ -185,12 +199,17 @@ def build(args, scene_kwargs: Optional[Dict] = None, field_kwargs: Optional[Dict
     arguments to the procedural loaders, the field and the trainer."""
     unbounded = is_unbounded(args.scene)
     train_ds, test_ds, aabb, weight_decay = _loaders(args, unbounded, scene_kwargs or {})
-    field_cls = CPRadianceField if args.field == "cp" else NGPRadianceField
+    field_kwargs = dict(field_kwargs or {})
+    if args.field == "cp":
+        field_kwargs = {"plane_resolutions": tuple(args.plane_res),
+                        "plane_ranks": tuple(args.plane_rank), **field_kwargs}
+    field_cls = FIELDS[args.field]
     trainer = NGPOccTrainer(
-        field=field_cls(aabb, unbounded=unbounded, **(field_kwargs or {})),
+        field=field_cls(aabb, unbounded=unbounded, **field_kwargs),
         aabb=aabb,
         max_steps=args.max_steps,
         weight_decay=weight_decay,
+        field_reg_weight=args.field_reg_weight,
         sample_budget=args.target_sample_batch_size,
         seed=args.seed,
         dense_occ_update=not args.sampled_occ_update,

@@ -8,23 +8,34 @@ rows, and the levels are concatenated.  Each level runs through
 the card, no coordinate gradient), or with ``use_pallas=True`` through
 :func:`~nerfacc_tpu_torch.ops.hat_matmul.hat_cp_level` (the hat route: one
 launch of kernel G8 a level, G9 and G10 per axis, with a coordinate
-gradient).  Only the line levels are ported; tri-plane levels, tensor
-parallelism and the TPU layout options are not.  :class:`CPDensityField` is the proposal path's density-only field.
+gradient).  Tri-plane levels follow the line levels: three (xy, xz, yz)
+planes a level, each read by a bilinear lookup of four texels (plain
+PyTorch gathers, in the rounding of the jitted JAX level), combined by
+their product (K-Planes) or, in TensoRF's vector-matrix mode, each times a
+line of its complementary axis and concatenated.
+:class:`TensoRFRadianceField` is the field with TensoRF's levels;
+:class:`CPDensityField` the proposal path's density-only field.  Not
+ported: tensor parallelism and the TPU layout options.
 """
 from __future__ import annotations
 
-from typing import Optional, Sequence
+from typing import Dict, Optional, Sequence
 
 import torch
 from torch import nn
 
 from ..ops.cp_level import cp_level_encode
 from ..ops.hat_matmul import hat_cp_level
-from .ngp import DensityField, MLPField
+from .ngp import DensityField, MLPField, _round
+
+# (xy, xz, yz): the axes of each plane; the VM line of a plane takes the
+# third, complementary axis (z, y, x)
+PLANE_PAIRS = ((0, 1), (0, 2), (1, 2))
+PLANE_LINE_AXES = (2, 1, 0)
 
 
 class CPGridEncoder(nn.Module):
-    """Multi-resolution CP line encoder.
+    """Multi-resolution CP line encoder, with optional tri-plane levels.
 
     Args:
         resolutions: per-level 1D grid sizes.
@@ -38,6 +49,13 @@ class CPGridEncoder(nn.Module):
             launch (:func:`~nerfacc_tpu_torch.ops.hat_matmul.hat_cp_level`),
             always bf16 operands with f32 sums, differentiable in ``u`` too.  False (the
             default) runs the fused CP level, which gives ``u`` no gradient.
+        plane_resolutions / plane_ranks: tri-plane levels after the line
+            levels, each three (R, R, rank) planes (xy, xz, yz).
+        plane_mode: "product", the three plane features' product (rank
+            outputs a level), or "vm", TensoRF's vector-matrix mode: each
+            plane feature times its complementary axis's line feature (a
+            (3, R, rank) ``plane_lines`` table a level), concatenated (3 *
+            rank outputs a level).
     """
 
     def __init__(
@@ -46,10 +64,20 @@ class CPGridEncoder(nn.Module):
         ranks: Sequence[int] = (32, 32, 32),
         compute_dtype=torch.bfloat16,
         use_pallas: bool = False,
+        plane_resolutions: Sequence[int] = (),
+        plane_ranks: Sequence[int] = (),
+        plane_mode: str = "product",
     ):
         super().__init__()
+        if plane_mode not in ("product", "vm"):
+            raise ValueError(f"plane_mode {plane_mode!r}: 'product' or 'vm'")
+        if len(plane_resolutions) != len(plane_ranks):
+            raise ValueError("one plane rank per plane resolution")
         self.resolutions = tuple(int(r) for r in resolutions)
         self.ranks = tuple(int(r) for r in ranks)
+        self.plane_resolutions = tuple(int(r) for r in plane_resolutions)
+        self.plane_ranks = tuple(int(r) for r in plane_ranks)
+        self.plane_mode = plane_mode
         self.compute_dtype = compute_dtype
         self.use_pallas = use_pallas
         self.lines = nn.ParameterList(
@@ -58,47 +86,150 @@ class CPGridEncoder(nn.Module):
                 for R, rank in zip(self.resolutions, self.ranks)
             ]
         )
+        levels = list(zip(self.plane_resolutions, self.plane_ranks))
+        self.planes = nn.ParameterList(
+            [nn.Parameter(torch.ones(3, R, R, rank)) for R, rank in levels]
+        )
+        self.plane_lines = nn.ParameterList(
+            [nn.Parameter(torch.ones(3, R, rank)) for R, rank in levels]
+            if plane_mode == "vm" else []
+        )
 
     @property
     def output_dim(self) -> int:
-        return sum(self.ranks)
+        per_plane = 3 if self.plane_mode == "vm" else 1
+        return sum(self.ranks) + per_plane * sum(self.plane_ranks)
 
     @torch.no_grad()
     def init(self, generator: torch.Generator) -> "CPGridEncoder":
-        """Lines ``1 + 0.1 N(0, 1)``: products start near 1 (K-Planes init)."""
-        for line in self.lines:
+        """Every table ``1 + 0.1 N(0, 1)``: products start near 1 (K-Planes
+        init); drawn in the JAX encoder's order (the lines, then each plane
+        level's planes and VM line)."""
+        tables = list(self.lines)
+        for i, plane in enumerate(self.planes):
+            tables.append(plane)
+            if self.plane_mode == "vm":
+                tables.append(self.plane_lines[i])
+        for table in tables:
             noise = torch.randn(
-                line.shape, generator=generator, device=generator.device
+                table.shape, generator=generator, device=generator.device
             )
-            line.copy_(1.0 + 0.1 * noise)
+            table.copy_(1.0 + 0.1 * noise)
         return self
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        """(N, 3) points in [0, 1]^3 (clamped) -> (N, sum(ranks)) features."""
+        """(N, 3) points in [0, 1]^3 (clamped) -> (N, output_dim) features,
+        the line levels first."""
         x = x.clamp(0.0, 1.0)
         if not self.use_pallas:
-            return torch.cat(
-                [cp_level_encode(x, line, self.compute_dtype) for line in self.lines],
-                dim=-1,
-            )
-        # one launch a level, (a_x * a_y) * a_z in JAX's order
-        return torch.cat([hat_cp_level(x, line) for line in self.lines], dim=-1)
+            feats = [cp_level_encode(x, line, self.compute_dtype) for line in self.lines]
+        else:
+            # one launch a level, (a_x * a_y) * a_z in JAX's order
+            feats = [hat_cp_level(x, line) for line in self.lines]
+        if self.plane_mode == "vm":
+            feats += [self.plane_level(x, p, pl) for p, pl in zip(self.planes, self.plane_lines)]
+        else:
+            feats += [self.plane_level(x, p) for p in self.planes]
+        return torch.cat(feats, dim=-1)
 
-    def param_regularizer(self, lines: Optional[Sequence[torch.Tensor]] = None):
-        """Total variation of the line tables: the mean squared difference of
-        adjacent rows, summed over levels (the JAX encoder's line terms).
-        ``lines`` replaces the module's own tables (the trainer passes its
-        parameter tensors)."""
+    def plane_level(self, x: torch.Tensor, plane: torch.Tensor,
+                    pline: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """One tri-plane level on (N, 3) points in [0, 1]^3: (N, rank)
+        product features, or (N, 3 * rank) VM features given ``pline``.
+
+        Each coordinate's two hat weights ``max(0, 1 - |pos - j|)`` at
+        ``pos = x (R - 1)`` are formed in f32 and rounded to the compute
+        dtype, as JAX forms its hat rows.  Then, as in the jitted JAX level
+        (``hat_u @ P`` and a ``hat_v`` contraction): the lerp along the
+        plane's first axis, ``t = w0 P[i] + w1 P[i + 1]``, is rounded once
+        (the dot's output); the lerp of ``t`` along the second axis is
+        summed in f32 and rounded once.  Product mode rounds ``f_xy * f_xz``
+        and returns its product with ``f_yz`` unrounded (XLA drops the round
+        trip through the compute dtype before the output's f32 convert),
+        its cotangent rounded to the compute dtype (autodiff hands it back
+        through that convert); VM mode rounds the line's lerp once (its dot)
+        and each plane feature's product with it.  In bf16 the forward and
+        both table gradients are bitwise the jitted JAX level's
+        (tests/test_torch_planes.py)."""
+        R = plane.shape[1]
+        rank = plane.shape[-1]
+        cd = self.compute_dtype
+        pos = x.t() * (R - 1)  # (3, N)
+        i0 = torch.floor(pos).clamp(0, R - 2)
+        w = torch.stack([
+            (1.0 - (pos - i0).abs()).clamp_min(0.0),
+            (1.0 - (pos - (i0 + 1)).abs()).clamp_min(0.0),
+        ])  # (2, 3, N): the weights of rows i0 and i0 + 1
+        w = _round(w, cd)
+        i0 = i0.long()
+        table = _round(plane, cd).reshape(3 * R * R, rank)
+        feats = []
+        for p, (a, b) in enumerate(PLANE_PAIRS):
+            base = p * R * R + i0[a] * R + i0[b]  # (N,): texel (i0_a, i0_b)
+            texels = table[torch.stack([base, base + R, base + 1, base + R + 1])]
+            t0 = _round(w[0, a, :, None] * texels[0] + w[1, a, :, None] * texels[1], cd)
+            t1 = _round(w[0, a, :, None] * texels[2] + w[1, a, :, None] * texels[3], cd)
+            feats.append(_round(t0 * w[0, b, :, None] + t1 * w[1, b, :, None], cd))
+        if pline is None:
+            out = _round(feats[0] * feats[1], cd) * feats[2]
+            return out if cd == torch.float32 else _RoundGrad.apply(out)
+        lines = _round(pline, cd).reshape(3 * R, rank)
+        out = []
+        for p, c in enumerate(PLANE_LINE_AXES):
+            row = p * R + i0[c]
+            lf = _round(w[0, c, :, None] * lines[row] + w[1, c, :, None] * lines[row + 1], cd)
+            out.append(_round(feats[p] * lf, cd))
+        return torch.cat(out, dim=-1)
+
+    def param_regularizer(self, lines: Optional[Sequence[torch.Tensor]] = None,
+                          planes: Sequence[torch.Tensor] = (),
+                          plane_lines: Sequence[torch.Tensor] = ()):
+        """Total variation of the tables: the mean squared difference of
+        adjacent rows of every line table, of adjacent rows along both axes
+        of every plane, and of adjacent rows of every VM line, summed (the
+        JAX encoder's terms).  ``lines`` (with ``planes`` and ``plane_lines``)
+        replaces the module's own tables (the trainer passes its parameter
+        tensors)."""
+        if lines is None:
+            lines, planes, plane_lines = self.lines, self.planes, self.plane_lines
         terms = []
-        for line in self.lines if lines is None else lines:
+        for line in lines:
             d = line[:, 1:, :] - line[:, :-1, :]
+            terms.append((d * d).mean())
+        for plane in planes:
+            du = plane[:, 1:, :, :] - plane[:, :-1, :, :]
+            dv = plane[:, :, 1:, :] - plane[:, :, :-1, :]
+            terms.append((du * du).mean() + (dv * dv).mean())
+        for pline in plane_lines:
+            d = pline[:, 1:, :] - pline[:, :-1, :]
             terms.append((d * d).mean())
         return sum(terms)
 
 
+class _RoundGrad(torch.autograd.Function):
+    """The identity, whose backward rounds the cotangent to bf16: JAX's
+    ``astype(f32)`` of a bf16 value hands the cotangent back in bf16."""
+
+    @staticmethod
+    def forward(ctx, x):
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _round(g, torch.bfloat16)
+
+
 class CPRadianceField(MLPField):
-    """Radiance field with CP line features and small bias-free MLPs (see
-    :class:`~nerfacc_tpu_torch.models.ngp.MLPField`)."""
+    """Radiance field with CP line (and tri-plane) features and small
+    bias-free MLPs (see :class:`~nerfacc_tpu_torch.models.ngp.MLPField`).
+
+    Args:
+        aabb / unbounded: the scene box and the contraction (MLPField's).
+        resolutions / ranks: the line levels.
+        compute_dtype: the encoder's and the MLPs' operand dtype.
+        plane_resolutions / plane_ranks / plane_mode: tri-plane levels
+            after the line levels (see :class:`CPGridEncoder`).
+    """
 
     def __init__(
         self,
@@ -107,11 +238,60 @@ class CPRadianceField(MLPField):
         resolutions: Sequence[int] = (32, 128, 512),
         ranks: Sequence[int] = (32, 32, 32),
         compute_dtype=torch.bfloat16,
+        plane_resolutions: Sequence[int] = (),
+        plane_ranks: Sequence[int] = (),
+        plane_mode: str = "product",
     ):
-        super().__init__(
-            list(aabb), unbounded, CPGridEncoder(resolutions, ranks, compute_dtype),
-            compute_dtype,
-        )
+        encoder = CPGridEncoder(resolutions, ranks, compute_dtype,
+                                plane_resolutions=plane_resolutions,
+                                plane_ranks=plane_ranks, plane_mode=plane_mode)
+        super().__init__(list(aabb), unbounded, encoder, compute_dtype)
+
+    @property
+    def max_eval_chunk(self) -> int:
+        """The occupancy refresh's chunk, the JAX field's: the whole grid
+        (2^21) for line levels alone; with planes at most 2.5e8 over the sum
+        of ``R * rank`` (JAX materialises a (3, N, R * rank) dot output a
+        plane level), at least 2^12, rounded down to a power of 2."""
+        enc = self.encoder
+        per = sum(R * r for R, r in zip(enc.plane_resolutions, enc.plane_ranks))
+        if per == 0:
+            return 2**21
+        cap = max(2**12, int(2.5e8) // per)
+        return 1 << (cap.bit_length() - 1)
+
+    def param_regularizer(self, params: Optional[Dict[str, torch.Tensor]] = None):
+        """The encoder's total variation (weigh it with the trainer's
+        ``field_reg_weight``); ``params``, a state dict, replaces the
+        module's own tables."""
+        if params is None:
+            return self.encoder.param_regularizer()
+        tables = {
+            name: [params[f"encoder.{name}.{i}"] for i in range(len(getattr(self.encoder, name)))]
+            for name in ("lines", "planes", "plane_lines")
+        }
+        return self.encoder.param_regularizer(**tables)
+
+
+class TensoRFRadianceField(CPRadianceField):
+    """The CP field at TensoRF's levels: lines 64/192 x rank 32 and
+    tri-planes 64/128 x rank 16.  As in the JAX class, the planes take the
+    inherited ``plane_mode="product"``; TensoRF's vector-matrix mode is
+    ``CPRadianceField(plane_mode="vm")``."""
+
+    def __init__(
+        self,
+        aabb: Sequence[float],
+        unbounded: bool = False,
+        resolutions: Sequence[int] = (64, 192),
+        ranks: Sequence[int] = (32, 32),
+        compute_dtype=torch.bfloat16,
+        plane_resolutions: Sequence[int] = (64, 128),
+        plane_ranks: Sequence[int] = (16, 16),
+        plane_mode: str = "product",
+    ):
+        super().__init__(aabb, unbounded, resolutions, ranks, compute_dtype,
+                         plane_resolutions, plane_ranks, plane_mode)
 
 
 class CPDensityField(DensityField):

@@ -1,7 +1,7 @@
 """Input encoders: the multiresolution hash grid, the sinusoidal
-(positional) encoding and the view-direction encoding (PyTorch counterpart
-of nerfacc_tpu/models/encoders.py; the sinusoidal encoder without BARF's
-coarse-to-fine window)."""
+(positional) encoding with BARF's coarse-to-fine window, and the
+view-direction encoding (PyTorch counterpart of
+nerfacc_tpu/models/encoders.py)."""
 from __future__ import annotations
 
 import math
@@ -111,8 +111,15 @@ class SinusoidalEncoder(nn.Module):
     def latent_dim(self) -> int:
         return (int(self.use_identity) + (self.max_deg - self.min_deg) * 2) * self.x_dim
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        """(..., x_dim) -> (..., latent_dim)."""
+    def forward(self, x: torch.Tensor, alpha=None) -> torch.Tensor:
+        """(..., x_dim) -> (..., latent_dim); ``alpha`` enables BARF's
+        coarse-to-fine window.
+
+        With ``alpha`` set (a scalar in ``[0, max_deg - min_deg]``), band
+        ``k`` (0-based from ``min_deg``) is weighted by ``(1 - cos(pi *
+        clip(alpha - k, 0, 1))) / 2``, on its sines and its shifted cosines
+        alike; the identity part is never windowed.  The cosine is taken in
+        f64 of the f32 argument and rounded once, as the sine is."""
         if self.max_deg == self.min_deg:
             return x
         # the width is spelled out: -1 is ambiguous for an empty batch
@@ -124,6 +131,12 @@ class SinusoidalEncoder(nn.Module):
         # runs at (on the CPU PyTorch takes it from MKL's vector math, which
         # has computed a chunk of it at ~11 correct bits in a test process)
         latent = torch.sin(args.double()).to(args.dtype)
+        if alpha is not None:
+            k = torch.arange(self.scales.numel(), dtype=latent.dtype, device=latent.device)
+            arg = math.pi * torch.clamp(alpha - k, 0.0, 1.0)
+            w = 0.5 * (1.0 - torch.cos(arg.double()).to(latent.dtype))
+            w = w.repeat_interleave(x.shape[-1])  # the degree-major layout of xb
+            latent = latent * torch.cat([w, w])
         if self.use_identity:
             latent = torch.cat([x, latent], dim=-1)
         return latent

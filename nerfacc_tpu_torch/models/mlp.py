@@ -8,8 +8,8 @@ whose products of bf16 values are exact.  On the card the f32 matmuls must
 not run in TF32 (``NGPOccTrainer`` turns it off).  Each field is an
 ``nn.Module`` whose state dict follows the JAX parameter tree's paths
 (:mod:`~nerfacc_tpu_torch.utils.jax_bridge` moves them), with
-``init(generator)`` drawing JAX's distributions.  Not ported: BARF's
-coarse-to-fine ``pe_alpha`` window (ROADMAP queue 1, item 7).
+``init(generator)`` drawing JAX's distributions.  The vanilla field takes
+BARF's coarse-to-fine ``pe_alpha`` window.
 """
 from __future__ import annotations
 
@@ -196,20 +196,24 @@ class VanillaNeRFRadianceField(nn.Module):
         self.mlp.init(generator)
         return self
 
-    def query_density(self, x: torch.Tensor) -> torch.Tensor:
-        """(N, 3) points -> (N, 1) ``relu(sigma)``."""
-        return torch.relu(self.mlp.query_density(self.posi_encoder(x)))
+    def query_density(self, x: torch.Tensor, pe_alpha=None) -> torch.Tensor:
+        """(N, 3) points -> (N, 1) ``relu(sigma)``; ``pe_alpha`` is BARF's
+        coarse-to-fine window of the point's encoding (see
+        :func:`~nerfacc_tpu_torch.models.pose.coarse_to_fine_alpha`; None:
+        the full spectrum)."""
+        return torch.relu(self.mlp.query_density(self.posi_encoder(x, pe_alpha)))
 
     def query_opacity(self, x: torch.Tensor, step_size: float) -> torch.Tensor:
         """``density * step_size``, the small-step form of ``1 - exp(-density
         * step_size)`` the JAX field uses."""
         return self.query_density(x) * step_size
 
-    def forward(self, positions: torch.Tensor, directions: Optional[torch.Tensor] = None):
+    def forward(self, positions: torch.Tensor, directions: Optional[torch.Tensor] = None,
+                pe_alpha=None):
         """(N, 3) points seen along unit directions -> (rgb (N, 3), density
-        (N, 1))."""
+        (N, 1)); ``pe_alpha`` as in :meth:`query_density`."""
         cond = self.view_encoder(directions) if directions is not None else None
-        rgb, sigma = self.mlp(self.posi_encoder(positions), cond)
+        rgb, sigma = self.mlp(self.posi_encoder(positions, pe_alpha), cond)
         return torch.sigmoid(rgb), torch.relu(sigma)
 
 

@@ -1,5 +1,5 @@
 """Analytic matmul FLOP counts of the CP radiance and density fields
-(PyTorch counterpart of nerfacc_tpu/utils/flops.py, line levels only).
+(PyTorch counterpart of nerfacc_tpu/utils/flops.py).
 
 A deliberate lower bound of useful work: the dense matmul FLOPs of the
 encoder (counted as the JAX package's (1, R) @ (R, rank) hat dots, although
@@ -19,8 +19,19 @@ def _mlp_flops(dims) -> int:
 
 
 def cp_encoder_flops_per_sample(encoder) -> int:
-    """Forward FLOPs/sample of a CPGridEncoder: three hat dots per level."""
-    return sum(3 * 2 * R * rank for R, rank in zip(encoder.resolutions, encoder.ranks))
+    """Forward FLOPs/sample of a CPGridEncoder, counted as the JAX
+    package's dense dots (the port's gathers read two rows a hat): three (1,
+    R) @ (R, rank) hat dots per line level; per tri-plane level three (1, R)
+    @ (R, R * rank) dots and the (R, rank) x (R, 1) contraction, and in VM
+    mode three more line dots."""
+    total = sum(3 * 2 * R * rank for R, rank in zip(encoder.resolutions, encoder.ranks))
+    vm = getattr(encoder, "plane_mode", "product") == "vm"
+    for R, rank in zip(getattr(encoder, "plane_resolutions", ()),
+                       getattr(encoder, "plane_ranks", ())):
+        total += 3 * (2 * R * R * rank + 2 * R * rank)
+        if vm:
+            total += 3 * 2 * R * rank  # the complementary-axis line dots
+    return total
 
 
 def cp_field_flops_per_sample(field) -> int:

@@ -7,8 +7,11 @@ CPRadianceField`, :class:`~nerfacc_tpu_torch.models.cp_field.CPDensityField`,
 :class:`~nerfacc_tpu_torch.models.ngp.NGPDensityField`,
 :class:`~nerfacc_tpu_torch.models.tineuvox.TiNeuVoxRadianceField`, the MLP
 fields of :mod:`~nerfacc_tpu_torch.models.mlp` and
-:class:`~nerfacc_tpu_torch.models.kplanes.KPlanesRadianceField`), and the
-proposal trainer keeps ``{"field": ..., "props": [...]}`` of them.  An
+:class:`~nerfacc_tpu_torch.models.kplanes.KPlanesRadianceField`,
+:class:`~nerfacc_tpu_torch.models.voxel_field.VoxelRadianceField`, the CP
+field's tri-plane levels and TensoRF), the proposal trainer keeps
+``{"field": ..., "props": [...]}`` of them, and the BARF trainer
+``{"field": ..., "pose_deltas": ...}``.  An
 :class:`~nerfacc_tpu_torch.estimators.occ_grid.OccGridEstimator` keeps the
 JAX estimator's ``state_dict()`` keys as buffers.
 The bridge speaks numpy on the JAX side, so it needs no JAX import: convert
@@ -27,22 +30,62 @@ from ..estimators.occ_grid import OccGridEstimator, OccGridState
 _MLPS = ("mlp_base", "mlp_head")
 
 
+_CP_TABLES = ("lines", "planes", "plane_lines")
+
+
 def cp_field_params_from_numpy(
     tree: Dict, device: Union[str, torch.device] = "cuda"
 ) -> Dict[str, torch.Tensor]:
-    """``{"encoder": {"lines": [(3, R, rank)...]}, "mlp_base": [W...],
-    "mlp_head": [W...]}`` -> a CPRadianceField state dict (f32 tensors)."""
+    """``{"encoder": {"lines": [(3, R, rank)...], "planes": [(3, R, R,
+    rank)...], "plane_lines": [(3, R, rank)...]}, "mlp_base": [W...],
+    "mlp_head": [W...]}`` (``planes`` and ``plane_lines`` where the field
+    has them) -> a CPRadianceField or TensoRFRadianceField state dict (f32
+    tensors)."""
     params = {
-        f"encoder.lines.{i}": _tensor(line, device)
-        for i, line in enumerate(tree["encoder"]["lines"])
+        f"encoder.{name}.{i}": _tensor(table, device)
+        for name in _CP_TABLES
+        for i, table in enumerate(tree["encoder"].get(name, ()))
     }
     return {**params, **_mlps_from_numpy(tree, device)}
 
 
 def cp_field_params_to_numpy(params: Dict[str, torch.Tensor]) -> Dict:
     """The inverse of :func:`cp_field_params_from_numpy`."""
-    return {"encoder": {"lines": _listed(params, "encoder.lines.")},
+    encoder = {name: _listed(params, f"encoder.{name}.") for name in _CP_TABLES}
+    encoder = {k: v for k, v in encoder.items() if v or k == "lines"}
+    return {"encoder": encoder, **_mlps_to_numpy(params)}
+
+
+def voxel_field_params_from_numpy(
+    tree: Dict, device: Union[str, torch.device] = "cuda"
+) -> Dict[str, torch.Tensor]:
+    """``{"encoder": {"grids": [(R, R, R, C)...]}, "mlp_base": [W...],
+    "mlp_head": [W...]}`` -> a VoxelRadianceField state dict (f32
+    tensors)."""
+    params = {f"encoder.grids.{i}": _tensor(grid, device)
+              for i, grid in enumerate(tree["encoder"]["grids"])}
+    return {**params, **_mlps_from_numpy(tree, device)}
+
+
+def voxel_field_params_to_numpy(params: Dict[str, torch.Tensor]) -> Dict:
+    """The inverse of :func:`voxel_field_params_from_numpy`."""
+    return {"encoder": {"grids": _listed(params, "encoder.grids.")},
             **_mlps_to_numpy(params)}
+
+
+def barf_params_from_numpy(
+    tree: Dict, device: Union[str, torch.device] = "cuda"
+) -> Dict:
+    """The JAX BARF trainer's ``{"field": vanilla field, "pose_deltas": (n,
+    6)}`` -> the port's ``BARFTrainState.params``."""
+    return {"field": field_params_from_numpy(tree["field"], device),
+            "pose_deltas": _tensor(tree["pose_deltas"], device)}
+
+
+def barf_params_to_numpy(params: Dict) -> Dict:
+    """The inverse of :func:`barf_params_from_numpy`."""
+    return {"field": field_params_to_numpy(params["field"]),
+            "pose_deltas": params["pose_deltas"].detach().cpu().numpy()}
 
 
 def ngp_field_params_from_numpy(
@@ -213,18 +256,22 @@ def field_params_from_numpy(
     """A field's JAX tree -> its state dict, the kind read off the tree: the
     MLP fields by their top-level keys (vanilla ``"base"``, T-NeRF
     ``"warp"``, NDRT ``"warp1"``), TiNeuVox by ``"deform"``, K-Planes by
-    ``"planes"`` under ``"encoder"``; otherwise CP line levels are a dict
-    under ``"encoder"``, a hash grid its table, and a radiance field has an
-    ``"mlp_head"``."""
+    ``"planes"`` without ``"lines"`` under ``"encoder"``, the voxel field by
+    ``"grids"`` there; otherwise CP levels (lines, and planes where the
+    field has them) are a dict under ``"encoder"``, a hash grid its table,
+    and a radiance field has an ``"mlp_head"``."""
     for key, fn in (("base", vanilla_field_params_from_numpy),
                     ("warp", tnerf_field_params_from_numpy),
                     ("warp1", ndrt_field_params_from_numpy),
                     ("deform", tineuvox_field_params_from_numpy)):
         if key in tree:
             return fn(tree, device)
-    if isinstance(tree["encoder"], dict) and "planes" in tree["encoder"]:
+    encoder = tree["encoder"]
+    if isinstance(encoder, dict) and "planes" in encoder and "lines" not in encoder:
         return kplanes_field_params_from_numpy(tree, device)
-    cp = isinstance(tree["encoder"], dict)
+    if isinstance(encoder, dict) and "grids" in encoder:
+        return voxel_field_params_from_numpy(tree, device)
+    cp = isinstance(encoder, dict)
     if "mlp_head" in tree:
         fn = cp_field_params_from_numpy if cp else ngp_field_params_from_numpy
     else:
@@ -239,9 +286,11 @@ def field_params_to_numpy(params: Dict[str, torch.Tensor]) -> Dict:
                     ("warp_mlp.hidden.0.w", tnerf_field_params_to_numpy),
                     ("warp1.0.hidden.0.w", ndrt_field_params_to_numpy),
                     ("deform.0", tineuvox_field_params_to_numpy),
-                    ("encoder.planes.0", kplanes_field_params_to_numpy)):
+                    ("encoder.grids.0", voxel_field_params_to_numpy)):
         if key in params:
             return fn(params)
+    if "encoder.planes.0" in params and "encoder.lines.0" not in params:
+        return kplanes_field_params_to_numpy(params)
     cp = "encoder.table" not in params
     if "mlp_head.0" in params:
         return (cp_field_params_to_numpy if cp else ngp_field_params_to_numpy)(params)

@@ -10,6 +10,7 @@ Run from the root of a checkout:
     python3 scripts/profile_torch_eval.py --field tineuvox [--train]
     python3 scripts/profile_torch_eval.py --field prop [--train]
     python3 scripts/profile_torch_eval.py --field tnerf|kplanes [--train]
+    python3 scripts/profile_torch_eval.py --field tensorf|voxel|cp-planes|barf --train
     python3 scripts/profile_torch_eval.py --renderer eval [--field ngp]
 
 Serving (the default) sets up the slice as ``chip_smoke.py`` does
@@ -33,7 +34,10 @@ views at 320x320, 1024 rays, a 2^16-sample budget and the dynamic example's
 optimiser; for ``prop`` phase 16's: 4096 rays drawn on the card by
 ``DeviceRaySampler``, the proposal-gradient schedule; for ``tnerf`` and
 ``kplanes`` phase 23's: the example's loader batches, a 2^16 budget and
-its controller, applied every 8 steps), runs ``--warmup``
+its controller, applied every 8 steps; for ``tensorf``, ``voxel`` and
+``cp-planes`` phase 25's: the occupancy example's field built by its own
+``build``, loader batches and its controller; for ``barf`` phase 26's: the
+BARF example's pixel batches), runs ``--warmup``
 steps so that the grid is no longer the untrained one, times three steps and
 profiles one more (none of them refreshes the grid; the refresh is timed on
 its own; the proposal path's timed and profiled steps all train the
@@ -67,11 +71,14 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 from chip_smoke import (  # noqa: E402
     MLP_CALL,
     N_REFRESH,
+    OCC_FIELD_PATHS,
     PROP_RAYS,
     TRAIN,
+    barf_example,
     make_prop_trainer,
     make_trainer,
     mlp_example,
+    occ_field_example,
     train_loader,
 )
 from nerfacc_tpu_torch import cuda  # noqa: E402
@@ -101,6 +108,7 @@ CLASSES = (
     ("multi_tensor_apply", "Adam (foreach)"),
     ("CatArrayBatchedCopy", "cat"),
     ("indexing_backward_kernel", "index_put_ accumulate (gather backward)"),
+    ("indexFunc", "index_add_ (scatter)"),
     ("RadixSort", "sort (gather backward)"),
     ("index_elementwise_kernel", "indexing gather"),
     ("Memcpy", "memcpy"),
@@ -190,10 +198,14 @@ def prop_train_target(dev, warmup):
 
 
 def mlp_train_target(dev, field, warmup):
-    """Phase 23's (23b's) training after ``warmup`` steps of loader batches,
-    the ray count set by the example's controller every ``MLP_CALL``
-    steps; the profiled call is one step at the last ray count."""
-    ex, args = mlp_example(field, warmup + MLP_CALL)
+    """Phase 23's (23b's, 25's) training after ``warmup`` steps of loader
+    batches, the ray count set by the example's controller every
+    ``MLP_CALL`` steps; the profiled call is one step at the last ray
+    count."""
+    if field in OCC_FIELD_PATHS:
+        ex, args = occ_field_example(field, warmup + MLP_CALL)
+    else:
+        ex, args = mlp_example(field, warmup + MLP_CALL)
     trainer, ds, _ = ex.build(args)
     state = trainer.init_state()
     for i in range(warmup):
@@ -218,12 +230,38 @@ def mlp_train_target(dev, field, warmup):
     return run, "train step", "train"
 
 
+def barf_train_target(dev, warmup):
+    """Phase 26's BARF training after ``warmup`` steps of pixel batches; the
+    profiled call is one step that does not refresh the grid."""
+    ex, args = barf_example(warmup + MLP_CALL)
+    trainer, ds, _ = ex.build(args)
+    state = trainer.init_state()
+    for _ in range(warmup):
+        state, _ = trainer.train_step(state, ds.pixel_batch(0))
+    print(f"barf: pose error after {warmup} steps "
+          f"{ex.pose_registration_errors(trainer.refined_poses(state), ds.camtoworlds)}")
+    batches = [ds.pixel_batch(0) for _ in range(8)]
+    holder = {"state": state}
+
+    def run():
+        st = holder["state"]
+        if st.step % trainer.update_interval == 0:  # keep the refresh out
+            st = st._replace(step=st.step + 1)
+        st, aux = trainer.train_step(st, batches[st.step % len(batches)])
+        holder["state"] = st
+        return f"{aux['n_total_samples']} samples, loss {float(aux['loss']):.5f}"
+
+    return run, "train step", "train"
+
+
 def train_target(dev, field, warmup):
     """The train slice after ``warmup`` steps; the profiled call is one
     train step that does not refresh the grid."""
     if field == "prop":
         return prop_train_target(dev, warmup)
-    if field in MLP_FIELDS:
+    if field == "barf":
+        return barf_train_target(dev, warmup)
+    if field in MLP_FIELDS or field in OCC_FIELD_PATHS:
         return mlp_train_target(dev, field, warmup)
     ds = train_loader(dev, field)
     trainer = make_trainer(
@@ -263,10 +301,12 @@ def time_refresh(trainer, state, step):
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--view", type=int, default=0)
-    ap.add_argument("--field", choices=sorted(TRAIN) + ["prop", *MLP_FIELDS], default="cp",
+    ap.add_argument("--field", choices=sorted(TRAIN) + ["prop", *MLP_FIELDS, *OCC_FIELD_PATHS,
+                                                        "barf"], default="cp",
                     help="the radiance field: CP lines, the hash grid, TiNeuVox, T-NeRF "
                          "or K-Planes behind the occupancy grid, or the proposal-network "
-                         "path")
+                         "path; with --train also the occupancy example's tensorf, voxel "
+                         "and cp-planes fields and the BARF example")
     ap.add_argument("--train", action="store_true",
                     help="profile a train step instead of a frame")
     ap.add_argument("--warmup", type=int, default=1000,
@@ -275,6 +315,8 @@ def main():
                     help="an occupancy-grid field's renderer: render_rays or render_view")
     ap.add_argument("--out", default="build/profile")
     args = ap.parse_args()
+    if not args.train and (args.field in OCC_FIELD_PATHS or args.field == "barf"):
+        raise SystemExit(f"profile_torch_eval: --field {args.field} profiles --train only")
     if not torch.cuda.is_available():
         raise SystemExit("profile_torch_eval: torch.cuda.is_available() is false")
     dev = torch.device("cuda", 0)

@@ -223,7 +223,14 @@ def _jax_branch(monkeypatch, argv):
 
 TRAINER_KEYS = ("grid_nlvl", "render_step_size", "cone_angle", "alpha_thre", "near_plane",
                 "weight_decay", "sample_budget", "seed", "max_steps", "dense_occ_update",
-                "occ_refresh_stripes")
+                "occ_refresh_stripes", "field_reg_weight")
+# each field kind's widths in the branch test (the hash grid's otherwise)
+SMALL_FIELDS = {
+    "cp": FIELD,
+    "tensorf": dict(resolutions=(8, 16), ranks=(4, 4), plane_resolutions=(8,),
+                    plane_ranks=(4,), compute_dtype=torch.float32),
+    "voxel": dict(resolutions=(8,), channels=(2,), compute_dtype=torch.float32),
+}
 
 
 @pytest.mark.parametrize("argv", [
@@ -233,8 +240,12 @@ TRAINER_KEYS = ("grid_nlvl", "render_step_size", "cone_angle", "alpha_thre", "ne
     ["--scene", "lego", "--data_root", "ROOT", "--train_split", "trainval"],
     ["--scene", "ficus", "--data_root", "ROOT", "--sampled_occ_update"],
     ["--scene", "garden", "--data_root", "ROOT", "--field", "ngp"],
+    ["--scene", "procedural", "--field", "tensorf"],
+    ["--scene", "proceduralopaque", "--field", "voxel", "--field_reg_weight", "1e-4"],
+    ["--scene", "procedural", "--field", "cp", "--plane_res", "8", "--plane_rank", "4",
+     "--field_reg_weight", "1e-3"],
 ], ids=["procedural360", "garden-procedural", "opaque-stripes", "lego-data", "ficus-data",
-        "garden-data"])
+        "garden-data", "tensorf", "voxel", "cp-planes"])
 def test_branches_match_the_jax_script(monkeypatch, tmp_path, argv):
     """``build`` for each of the JAX script's branches: the trainer's
     marching, occupancy-update and optimiser settings and box, the field's
@@ -256,8 +267,8 @@ def test_branches_match_the_jax_script(monkeypatch, tmp_path, argv):
         monkeypatch.setattr(Blender, "WIDTH", 8)
         monkeypatch.setattr(Blender, "HEIGHT", 8)
     args = ex.parser().parse_args([*argv, "--device", "cpu"])
-    field_kwargs = FIELD if args.field == "cp" else dict(
-        n_levels=2, log2_hashmap_size=8, max_resolution=32, compute_dtype=torch.float32)
+    field_kwargs = SMALL_FIELDS.get(args.field, dict(
+        n_levels=2, log2_hashmap_size=8, max_resolution=32, compute_dtype=torch.float32))
     trainer, train_ds, test_ds = ex.build(
         args, scene_kwargs=dict(n_train=2, width=8, height=8), field_kwargs=field_kwargs,
         trainer_kwargs=dict(grid_resolution=8))
@@ -270,6 +281,11 @@ def test_branches_match_the_jax_script(monkeypatch, tmp_path, argv):
     jfield = want["field"]
     assert type(trainer.field).__name__ == type(jfield).__name__
     assert trainer.field.unbounded == jfield.unbounded
+    if args.field == "cp":  # the plane flags reach the field
+        enc = trainer.field.encoder
+        assert enc.plane_resolutions == tuple(jfield.plane_resolutions)
+        assert enc.plane_ranks == tuple(jfield.plane_ranks)
+        assert enc.plane_mode == jfield.plane_mode
     names = {"ProceduralSceneLoader": "ProceduralSceneLoader",
              "ProceduralUnboundedSceneLoader": "ProceduralUnboundedSceneLoader",
              "ProceduralOpaqueSceneLoader": "ProceduralOpaqueSceneLoader",
@@ -284,3 +300,25 @@ def test_branches_match_the_jax_script(monkeypatch, tmp_path, argv):
             assert len(ds) == kw["n_test"]
         if name == "Loader360":
             assert kw["factor"] == 4 and ds.WIDTH == 2
+
+
+@pytest.mark.parametrize("argv", [
+    ["--field", "cp", "--plane_res", "8", "--plane_rank", "4", "--field_reg_weight", "1e-3"],
+    ["--field", "voxel", "--field_reg_weight", "1e-3"],
+], ids=["cp-planes", "voxel"])
+def test_field_flags_train(tmp_path, argv):
+    """Two calls of two steps at a tiny size with tri-plane levels or the
+    voxel field and the regulariser on: every call recorded with a finite
+    loss, and a finite evaluation."""
+    args = ex.parser().parse_args(
+        ["--device", "cpu", "--max_steps", "2", "--steps_per_call", "2",
+         "--target_sample_batch_size", "4096", "--init_batch_size", "32", *argv])
+    trainer, train_ds, test_ds = ex.build(
+        args, scene_kwargs=dict(SCENE, width=12, height=12),
+        field_kwargs={k: v for k, v in SMALL_FIELDS[args.field].items() if "plane" not in k},
+        trainer_kwargs=dict(grid_resolution=8))
+    assert trainer.field_reg_weight == 1e-3
+    run = ex.train_loop(trainer, train_ds, test_ds, args)
+    assert [r["step"] for r in run.log] == [2, 4]
+    assert all(np.isfinite(r["loss"]) for r in run.log)
+    assert all(v["finite"] for v in run.metrics["views"])

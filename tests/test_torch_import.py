@@ -42,6 +42,8 @@ def test_no_source_imports_jax(path):
 
 
 def _default_device(fn):
+    if fn.__name__ == "parser":  # an example script's flags
+        return fn().get_default("device")
     if dataclasses.is_dataclass(fn):
         return {f.name: f.default for f in dataclasses.fields(fn)}["device"]
     return inspect.signature(fn).parameters["device"].default
@@ -81,6 +83,11 @@ def _default_device(fn):
         "utils.jax_bridge.tnerf_field_params_from_numpy",
         "utils.jax_bridge.ndrt_field_params_from_numpy",
         "utils.jax_bridge.kplanes_field_params_from_numpy",
+        "utils.jax_bridge.voxel_field_params_from_numpy",
+        "utils.jax_bridge.barf_params_from_numpy",
+        "trainers.barf.BARFTrainer",
+        "examples.train_barf.parser",
+        "examples.train_ngp_nerf_occ.parser",
     ],
 )
 def test_entry_points_default_to_the_card(name):
