@@ -169,7 +169,18 @@ It builds the CUDA kernels from ``nerfacc_tpu_torch/csrc`` and runs:
     printed, the loss must fall and G2, G3, G5 launch; one step through the
     kernels against the plain versions (phase 5's f32 bound, the pose
     deltas' gradient included); and the pose math's precision floor
-    (tests/test_pose.py:113) on the card with TF32 allowed.
+    (tests/test_pose.py:113) on the card with TF32 allowed;
+27. phase 19's loop with ``VDBEstimator`` (128^3 over +-1.5; the update
+    changes the touched voxels only) in place of ``OccGridEstimator``: the
+    loss must fall below ``QS_LOSS_RATIO`` of its start and G1-G5 must
+    launch; one step through the kernels against their plain versions
+    (phase 5's bounds); on the trained grid, ``VDBEstimator`` and
+    ``N3TreeEstimator`` on view 0's rays, ``traversal="windowed"`` bit for
+    bit ``OccGridEstimator``'s samples over the whole orbit and
+    ``"padded"`` its samples at 1024 candidates; view 0 through
+    ``sampling`` + ``rendering`` against ``trainer.render_rays`` within
+    2e-3; a loop step timed by ``utils.profiler.benchmark`` against the same
+    step with ``OccGridEstimator``, beside phase 19's.
 
 Phase 6b classifies a ray by its sample set: the early-stop renderer's
 rounds against the ray's whole orbit, the same count and every bound
@@ -245,7 +256,7 @@ Every check raises on failure, so the exit code is nonzero and the result
 line is not printed.  The last line of standard output is a JSON object with
 ``"ok": true`` and the device; the line before it lists each kernel's launch
 count (over the training phases 4, 6d, 8, 12, 16, 19, 20, 21, 22, 23-23c,
-24, 25 and 26; for G11-G13, over
+24, 25, 26 and 27; for G11-G13, over
 the gather probe's run), error, times and bound.  Without a CUDA device the
 script fails at once.
 """
@@ -2450,6 +2461,7 @@ PLAIN_SWAPS = {
     "cp_level_bwd": [("ops.cp_level", "cp_level_backward", "ops.cp_level",
                       "cp_level_backward_plain")],
     "march": [("estimators.occ_grid", "march", "grid", "march_plain"),
+              ("estimators.sparse_grid", "march", "grid", "march_plain"),
               ("utils.rendering", "march", "grid", "march_plain")],
     "composite_fwd": [("ops.sorted_segments", "_composite_forward", "ops.sorted_segments",
                        "composite_sorted_plain")],
@@ -2779,22 +2791,42 @@ def qs_scan_times(field, estimator, batch, near):
               f"({card()})")
 
 
-def phase_quickstart(dev, ds):
-    """19. The README's quick start as a user writes it against the port:
-    ``OccGridEstimator`` (128^3 over +-1.5), ``sampling`` with a density
-    callback, ``rendering``, a smooth-L1 loss plus ``distortion``, and
-    ``torch.optim.Adam``, on the full-width bf16 CP field from seed 42, for
-    ``QS_STEPS`` steps on phase 4's train split; launches counted.  Then one
-    step through the kernels against their plain versions (phase 5's
-    bounds), view 0 against ``trainer.render_rays`` on the same field and
-    grid, and the timings."""
-    print(f"quick start: {card()}")
+def qs_step_checks(dev, field, estimator, batch, name):
+    """One loop step (no grid update, no Adam) through the kernels against
+    the same step through their plain versions (phase 5's bounds), for the
+    bf16 ``field`` and for its parameters in an f32 field; returns the
+    near-plane jitter it used."""
+    near = torch.rand(batch["rays_o"].shape[0], device=dev,
+                      generator=torch.Generator(device=dev).manual_seed(19))
+    f32 = port_module("models.cp_field").CPRadianceField(AABB, compute_dtype=torch.float32)
+    f32 = f32.to(dev)
+    f32.load_state_dict(field.state_dict())
+    checks = []
+    for mode, fld, limit in (("f32", f32, F32_STEP_FRO), ("bf16", field, BF16_STEP_FRO)):
+        ref = qs_step_grads(fld, estimator, batch, near, plain=True)
+        checks.append(step_readings(
+            f"{name} step {mode}, kernels vs plain versions",
+            lambda fld=fld: qs_step_grads(fld, estimator, batch, near), ref, limit))
+    for what, reading, limit, loss_rel in checks:
+        require(reading <= limit, f"{what}: a gradient leaf off by {reading} > {limit}")
+        require(loss_rel <= 1e-5, f"{what}: losses differ by {loss_rel}")
+    return near
+
+
+def qs_train(dev, estimator_cls, name):
+    """The quick start's loop: the full-width bf16 CP field from seed 42
+    behind ``estimator_cls(roi_aabb=AABB, resolution=QS_RES)``,
+    ``QS_STEPS`` steps on phase 4's train split of the estimator's update,
+    ``qs_loss`` and Adam, launches counted; every 50 steps the loss, the
+    samples, the launches a step so far and the grid's occupied share.  The
+    loss must fall below ``QS_LOSS_RATIO`` of its start and G1-G5 must
+    launch.  Returns the field, the estimator, the ``QS_STEPS + 1``
+    batches, the launches and each step's seconds."""
     train = train_loader(dev, "cp")
     batches = [train[0] for _ in range(QS_STEPS + 1)]
     field = port_module("models.cp_field").CPRadianceField(AABB).to(dev)
     field.init(torch.Generator().manual_seed(QUALITY_SEEDS[0]))
-    estimator = nerfacc_tpu_torch.OccGridEstimator(roi_aabb=AABB, resolution=QS_RES,
-                                                   device=dev)
+    estimator = estimator_cls(roi_aabb=AABB, resolution=QS_RES, device=dev)
     optimizer = torch.optim.Adam(field.parameters(), lr=1e-2, eps=1e-15)
 
     def occ_eval_fn(x):
@@ -2815,39 +2847,39 @@ def phase_quickstart(dev, ds):
         torch.cuda.synchronize()
         step_s.append(time.perf_counter() - t0)
         if step % 50 == 0 or step == QS_STEPS - 1:
-            print(f"quick start step {step}: loss {float(loss.detach()):.6f}, {n} samples, "
-                  f"occupied share {float(estimator.binaries.float().mean()):.4f}")
+            print(f"{name} step {step}: loss {float(loss.detach()):.6f}, {n} samples, "
+                  f"launches a step " + ", ".join(
+                      f"{k} {cuda.LAUNCHES[k] / (step + 1):.3f}" for k in QS_KERNELS)
+                  + f", occupied share {float(estimator.binaries.float().mean()):.4f}")
     launches = dict(cuda.LAUNCHES)
     losses = torch.stack(losses).cpu()
-    require(bool(torch.isfinite(losses).all()), "quick start: non-finite loss")
+    require(bool(torch.isfinite(losses).all()), f"{name}: non-finite loss")
     first, last = float(losses[:20].mean()), float(losses[-20:].mean())
-    print(f"quick start: {QS_STEPS} steps in {sum(step_s):.3f} s, mean loss of the first "
+    print(f"{name}: {QS_STEPS} steps in {sum(step_s):.3f} s, mean loss of the first "
           f"20 steps {first:.6f}, of the last 20 {last:.6f} (ratio {last / first:.4f}, "
           f"limit {QS_LOSS_RATIO}); {statistics.mean(samples):.1f} samples a step; "
           f"launches {launches}, per step "
           + ", ".join(f"{k} {v / QS_STEPS:.3f}" for k, v in launches.items() if v))
     require(last < QS_LOSS_RATIO * first,
-            f"quick start: loss {first} -> {last} not below {QS_LOSS_RATIO}x")
-    for name in ("march", "composite_fwd", "composite_bwd", "cp_level_fwd", "cp_level_bwd"):
-        require(launches[name] > 0, f"kernel {name} never launched in the quick start")
+            f"{name}: loss {first} -> {last} not below {QS_LOSS_RATIO}x")
+    for kernel in QS_KERNELS:
+        require(launches[kernel] > 0, f"kernel {kernel} never launched in the {name} loop")
+    return field, estimator, batches, launches, step_s
 
-    # one step through the kernels against their plain versions, the bf16
-    # field and the same parameters in an f32 field
-    batch = batches[QS_STEPS]
-    near = torch.rand(batch["rays_o"].shape[0], device=dev,
-                      generator=torch.Generator(device=dev).manual_seed(19))
-    f32 = port_module("models.cp_field").CPRadianceField(AABB, compute_dtype=torch.float32)
-    f32 = f32.to(dev)
-    f32.load_state_dict(field.state_dict())
-    checks = []
-    for mode, fld, limit in (("f32", f32, F32_STEP_FRO), ("bf16", field, BF16_STEP_FRO)):
-        ref = qs_step_grads(fld, estimator, batch, near, plain=True)
-        checks.append(step_readings(
-            f"quick start step {mode}, kernels vs plain versions",
-            lambda fld=fld: qs_step_grads(fld, estimator, batch, near), ref, limit))
-    for what, reading, limit, loss_rel in checks:
-        require(reading <= limit, f"{what}: a gradient leaf off by {reading} > {limit}")
-        require(loss_rel <= 1e-5, f"{what}: losses differ by {loss_rel}")
+
+def phase_quickstart(dev, ds):
+    """19. The README's quick start as a user writes it against the port:
+    ``OccGridEstimator`` (128^3 over +-1.5), ``sampling`` with a density
+    callback, ``rendering``, a smooth-L1 loss plus ``distortion``, and
+    ``torch.optim.Adam``, on the full-width bf16 CP field from seed 42, for
+    ``QS_STEPS`` steps on phase 4's train split; launches counted.  Then one
+    step through the kernels against their plain versions (phase 5's
+    bounds), view 0 against ``trainer.render_rays`` on the same field and
+    grid, and the timings."""
+    print(f"quick start: {card()}")
+    field, estimator, batches, launches, step_s = qs_train(
+        dev, nerfacc_tpu_torch.OccGridEstimator, "quick start")
+    near = qs_step_checks(dev, field, estimator, batches[QS_STEPS], "quick start")
 
     # view 0 through the quick start against the trainer's exact renderer
     trainer = make_trainer(dev)
@@ -2891,7 +2923,7 @@ def phase_quickstart(dev, ds):
           f"{QS_TIMED_STEPS}) against {1e3 * statistics.median(trainer_s):.3f} ms for "
           f"NGPOccTrainer.train_step on the same field and rays (median of "
           f"{QS_TIMED_STEPS}, its budget {trainer.sample_budget}) ({card()})")
-    return launches
+    return launches, loop_ms
 
 
 def phase_quickstart_prop(dev):
@@ -3000,6 +3032,118 @@ PROP_PATHS = {
                   "importance_sampling")),
     "prop360": (["--scene", "procedural360", "--field", "cp"], PATH_KERNELS["prop"]),
 }
+
+
+# Phase 27: the quick start's loop through the sparse estimator.  JAX's
+# windowed rounds end after 64, and a round moves a live ray on by at least
+# its 40 windows of 8 candidates (nerfacc_tpu/grid.py:1202-1320).
+VDB_ROUND_REACH = 64 * 40 * 8
+
+
+def same_samples(a, b):
+    """True if two ``(ray_indices, t_starts, t_ends)`` are equal bit for bit."""
+    return all(same_bits(x, y) for x, y in zip(a, b))
+
+
+def phase_quickstart_vdb(dev, ds, qs_loop_ms):
+    """27. Phase 19's loop with ``VDBEstimator`` (128^3 over +-1.5, the VDB
+    update: only the touched voxels change) in place of
+    ``OccGridEstimator``; launches counted, G1-G5 must launch and the loss
+    must fall below ``QS_LOSS_RATIO``.  One step through the kernels
+    against their plain versions (phase 5's bounds).  On the trained grid,
+    through ``sparse_grid_from_dense``, a ``VDBEstimator`` and an
+    ``N3TreeEstimator`` sample view 0's rays: ``traversal="windowed"`` must
+    equal ``OccGridEstimator``'s samples with ``QS_VIEW_MAX_SAMPLES``
+    candidates, ``"padded"`` its samples with 1024, bit for bit; no orbit
+    may reach ``VDB_ROUND_REACH``.  View 0 through ``qs_frame`` against
+    ``trainer.render_rays`` within 2e-3.  A loop step timed by
+    ``utils.profiler.benchmark`` against the same step with
+    ``OccGridEstimator`` on the same grid, field and rays, and beside
+    phase 19's (``qs_loop_ms``)."""
+    from nerfacc_tpu_torch.utils import profiler
+
+    print(f"vdb quick start: {card()}")
+    t_phase = time.perf_counter()
+    field, estimator, batches, launches, step_s = qs_train(
+        dev, nerfacc_tpu_torch.VDBEstimator, "vdb quick start")
+    qs_step_checks(dev, field, estimator, batches[QS_STEPS], "vdb quick start")
+
+    # both traversals and the octree estimator against the exact occupancy
+    # estimator on the trained grid, view 0's rays
+    dense = estimator.binaries[0]
+    grid = nerfacc_tpu_torch.sparse_grid_from_dense(dense, AABB, device=dev)
+    occ = nerfacc_tpu_torch.OccGridEstimator(roi_aabb=AABB, resolution=QS_RES,
+                                             max_samples=QS_VIEW_MAX_SAMPLES, device=dev)
+    occ.binaries = dense[None].clone()
+    occ.occs = estimator.occs.clone()
+    data = ds[0]
+    rays_o, rays_d = data["rays_o"].reshape(-1, 3), data["rays_d"].reshape(-1, 3)
+    n_rays = rays_o.shape[0]
+    kw = dict(render_step_size=QS_STEP, early_stop_eps=0.0, alpha_thre=0.0)
+    exact = occ.sampling(rays_o, rays_d, **kw)
+    occ.max_samples = 1024  # from here on phase 19's cap
+    capped = occ.sampling(rays_o, rays_d, **kw)
+    for cls in (nerfacc_tpu_torch.VDBEstimator, nerfacc_tpu_torch.N3TreeEstimator):
+        est = cls(init_grid=grid, device=dev)
+        require(torch.equal(est.binaries, occ.binaries), f"{cls.__name__}: grid differs")
+        windowed = est.sampling(rays_o, rays_d, traversal="windowed", **kw)
+        padded = est.sampling(rays_o, rays_d, traversal="padded", **kw)
+        ok_w, ok_p = same_samples(windowed, exact), same_samples(padded, capped)
+        print(f"vdb traversals, {cls.__name__}, view 0 ({n_rays} rays): windowed "
+              f"{windowed[0].shape[0]} samples, bitwise OccGridEstimator's at "
+              f"{QS_VIEW_MAX_SAMPLES} candidates: {ok_w}; padded {padded[0].shape[0]}, "
+              f"bitwise its at 1024: {ok_p}")
+        require(ok_w and ok_p, f"{cls.__name__}: samples differ from OccGridEstimator's")
+    per_ray = [torch.bincount(s[0], minlength=n_rays) for s in (exact, capped)]
+    _, t_far, hits = nerfacc_tpu_torch.ray_aabb_intersect(rays_o, rays_d, occ.aabbs)
+    longest = float(t_far[hits].max()) / QS_STEP
+    print(f"vdb traversals: the 1024-candidate cap cut {int((per_ray[1] < per_ray[0]).sum())} "
+          f"of {n_rays} rays ({int(per_ray[0].sum() - per_ray[1].sum())} samples); the "
+          f"longest orbit to the box's far side holds {longest:.1f} candidates, JAX's "
+          f"windowed rounds reach at least {VDB_ROUND_REACH}")
+    require(longest < VDB_ROUND_REACH, "an orbit outreaches JAX's windowed rounds")
+
+    # view 0 through the quick start's calls against the exact renderer
+    trainer = make_trainer(dev)
+    state = TrainState({k: v.detach() for k, v in field.state_dict().items()}, None,
+                       occ.state, 0)
+    colors, vdb_seconds = qs_frame_timed(field, estimator, data)
+    vdb_seconds = min([vdb_seconds] + [qs_frame_timed(field, estimator, data)[1]
+                                       for _ in range(2)])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    exact_colors = trainer.render_rays(state, data)[0]
+    torch.cuda.synchronize()
+    exact_seconds = time.perf_counter() - t0
+    diff = float((colors - exact_colors).abs().max())
+    print(f"vdb quick start view 0: sampling + rendering vs trainer.render_rays, max colour "
+          f"difference {diff:.3g} (limit 2e-3); {vdb_seconds:.4f} s/frame against "
+          f"{exact_seconds:.4f} s/frame for render_rays ({card()})")
+    require(diff <= 2e-3, f"vdb quick start view 0: differs from render_rays by {diff}")
+
+    # a loop step off the update interval, VDBEstimator against
+    # OccGridEstimator on the same grid, field and rays: occ, vdb, vdb, occ
+    optimizer = torch.optim.Adam(field.parameters(), lr=1e-2, eps=1e-15)
+
+    def loop_step(est, batch):
+        loss, _ = qs_loss(field, est, batch)
+        optimizer.zero_grad()
+        loss.backward()
+        optimizer.step()
+        return loss
+
+    times = {"OccGridEstimator": [], "VDBEstimator": []}
+    for name, est in (("OccGridEstimator", occ), ("VDBEstimator", estimator)) * 2:
+        times[name].append(profiler.benchmark(
+            loop_step, est, batches[QS_STEPS], iters=QS_TIMED_STEPS, warmup=2)["mean_ms"])
+    print(f"vdb quick start: a loop step {times['VDBEstimator'][0]:.3f} / "
+          f"{times['VDBEstimator'][1]:.3f} ms against {times['OccGridEstimator'][0]:.3f} / "
+          f"{times['OccGridEstimator'][1]:.3f} ms with OccGridEstimator on the same grid "
+          f"(profiler.benchmark, mean of {QS_TIMED_STEPS}); phase 19's loop step "
+          f"{qs_loop_ms:.3f} ms (median of its last {QS_TIMED_STEPS}); the VDB loop's "
+          f"median {1e3 * statistics.median(step_s[-QS_TIMED_STEPS:]):.3f} ms; phase 27 took "
+          f"{time.perf_counter() - t_phase:.1f} s ({card()})")
+    return launches
 
 
 def prop_example(path, steps, seed=QUALITY_SEEDS[0], extra=()):
@@ -4062,7 +4206,7 @@ def main():
     phase_plain_quality(dev, "prop", psnr)
 
     # 19: the library API's quick start, and its proposal leg
-    qs_launches = phase_quickstart(dev, ds)
+    qs_launches, qs_loop_ms = phase_quickstart(dev, ds)
     qs_prop_launches = phase_quickstart_prop(dev)
     # 20-21: the proposal example's hash-grid path and its 360 cascade
     prop_ngp_launches = phase_prop_path(dev, "prop-ngp")
@@ -4077,9 +4221,11 @@ def main():
     # 25: the occupancy example's other fields; 26: the BARF example
     mlp_launches += [phase_occ_field(dev, path) for path in OCC_FIELD_PATHS]
     mlp_launches.append(phase_barf(dev))
+    # 27: the quick start's loop through the sparse estimator
+    mlp_launches.append(phase_quickstart_vdb(dev, ds, qs_loop_ms))
     # each kernel's launches over the training runs (phases 4, 8, 12, 16,
     # 20, 21, 22, 23-23c, 24, 25, 26), the occupancy example's (6d) and the
-    # quick start's loops (19), and the gather kernels' over the gather
+    # quick start's loops (19, 27), and the gather kernels' over the gather
     # probe's run
     launches = {k: v + ngp_launches[k] + tnv_launches[k] + prop_launches[k]
                 + example_launches[k] + qs_launches[k] + qs_prop_launches[k]

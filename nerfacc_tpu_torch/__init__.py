@@ -5,7 +5,8 @@ radiance fields, the MLP fields (vanilla NeRF, and T-NeRF and NDRT for
 dynamic scenes), the K-Planes space-time field, the CP field's tri-plane
 levels with TensoRF, and the dense voxel field, with the CP and hash-grid
 proposal fields, BARF's pose refinement and its trainer, the padded
-traversals, lens undistortion and the dataset loaders, ported to PyTorch and
+traversals, the sparse-grid (VDB and octree) estimators, the profiler, lens
+undistortion and the dataset loaders, ported to PyTorch and
 hand-written CUDA kernels for NVIDIA Hopper.
 
 The functional ops take the JAX package's three layouts: batched rows, and
@@ -37,6 +38,15 @@ from .estimators.prop_net import (
     get_proposal_requires_grad_fn,
     propnet_loss,
     propnet_sampling,
+)
+from .estimators.sparse_grid import (
+    N3TreeEstimator,
+    SparseGrid,
+    SparseGridEstimator,
+    VDBEstimator,
+    sparse_grid_from_dense,
+    sparse_grid_from_ijk,
+    traverse_vdbs,
 )
 from .grid import (
     TraversalResult,
@@ -103,11 +113,11 @@ __version__ = "0.1.0"
 __all__ = [
     "AbstractEstimator", "BARFTrainState", "BARFTrainer", "CPDensityField", "CPGridEncoder", "CPRadianceField",
     "CompactSamples", "DeviceRaySampler", "HashGridEncoder", "KPlanesEncoder",
-    "KPlanesRadianceField", "NDRTNeRFRadianceField", "NGPOccTrainer",
+    "KPlanesRadianceField", "N3TreeEstimator", "NDRTNeRFRadianceField", "NGPOccTrainer",
     "NGPDensityField", "NGPPropTrainer", "NGPRadianceField", "OccGridEstimator", "OccGridState",
     "PropNetEstimator", "PropTrainState", "RayIntervals", "RaySamples",
-    "SinusoidalEncoder", "TNeRFRadianceField", "TensoRFRadianceField",
-    "TiNeuVoxRadianceField", "TrainState", "TraversalResult", "VanillaNeRFRadianceField",
+    "SinusoidalEncoder", "SparseGrid", "SparseGridEstimator", "TNeRFRadianceField", "TensoRFRadianceField",
+    "TiNeuVoxRadianceField", "TrainState", "TraversalResult", "VDBEstimator", "VanillaNeRFRadianceField",
     "VoxelGridEncoder", "VoxelRadianceField", "coarse_to_fine_alpha", "compose_pose",
     "perturb_poses", "pose_registration_errors", "se3_exp", "umeyama_alignment",
     "__version__",
@@ -122,6 +132,7 @@ __all__ = [
     "render_transmittance_from_alpha", "render_transmittance_from_density",
     "render_visibility_from_alpha", "render_visibility_from_density",
     "render_weight_from_alpha", "render_weight_from_density", "rendering",
-    "sampling", "save_checkpoint", "searchsorted", "traverse_grids",
-    "traverse_grids_padded", "traverse_grids_voxel", "update_occ_grid",
+    "sampling", "save_checkpoint", "searchsorted", "sparse_grid_from_dense",
+    "sparse_grid_from_ijk", "traverse_grids", "traverse_grids_padded",
+    "traverse_grids_voxel", "traverse_vdbs", "update_occ_grid",
 ]

@@ -306,6 +306,58 @@ def sampling(
     )
 
 
+def grid_samples(
+    binaries: torch.Tensor,
+    aabbs: torch.Tensor,
+    occs: torch.Tensor,
+    rays_o: torch.Tensor,
+    rays_d: torch.Tensor,
+    sigma_fn: Optional[Callable] = None,
+    alpha_fn: Optional[Callable] = None,
+    near_plane: float = 0.0,
+    far_plane: float = 1e10,
+    t_min: Optional[torch.Tensor] = None,
+    t_max: Optional[torch.Tensor] = None,
+    render_step_size: float = 1e-3,
+    early_stop_eps: float = 1e-4,
+    alpha_thre: float = 0.0,
+    stratified: bool = False,
+    cone_angle: float = 0.0,
+    near_jitter: Optional[torch.Tensor] = None,
+    max_samples: Optional[int] = None,
+    generator: Optional[torch.Generator] = None,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """An estimator's ``sampling`` on explicit buffers: the march (kernel
+    G2) through the occupied cells of ``binaries`` (levels, rx, ry, rz) over
+    ``aabbs`` (levels, 6), each ray's candidates among its first
+    ``max_samples`` (None: the whole orbit), then :func:`visible_samples`
+    against ``occs``.  ``stratified`` jitters the near planes by
+    ``near_jitter`` or, where it is None, by a draw from ``generator``.
+    Returns int64 ray ids and the bounds, exact-size."""
+    n_rays = rays_o.shape[0]
+    like = dict(dtype=rays_o.dtype, device=rays_o.device)
+    near_planes = torch.full((n_rays,), near_plane, **like)
+    far_planes = torch.full((n_rays,), far_plane, **like)
+    if t_min is not None:
+        near_planes = torch.maximum(near_planes, t_min)
+    if t_max is not None:
+        far_planes = torch.minimum(far_planes, t_max)
+    if stratified:
+        if near_jitter is None:
+            near_jitter = torch.rand(n_rays, generator=generator, **like)
+        near_planes = near_planes + near_jitter * render_step_size
+    res = march(
+        rays_o, rays_d, binaries, aabbs, near_planes=near_planes, far_planes=far_planes,
+        step_size=render_step_size, cone_angle=cone_angle, max_samples=max_samples,
+    )
+    ray_indices, t_starts, t_ends = res.ray_indices.long(), res.t_starts, res.t_ends
+    vis = visible_samples(occs, ray_indices, t_starts, t_ends, n_rays, sigma_fn, alpha_fn,
+                          early_stop_eps, alpha_thre)
+    if vis is not None:
+        ray_indices, t_starts, t_ends = ray_indices[vis], t_starts[vis], t_ends[vis]
+    return ray_indices, t_starts, t_ends
+
+
 @torch.no_grad()
 def visible_samples(
     occs: torch.Tensor,
@@ -437,29 +489,12 @@ class OccGridEstimator(AbstractEstimator):
             ray_indices (n,) int64, sorted; t_starts (n,); t_ends (n,).
             Waits on the device once for the count (twice with a filter).
         """
-        n_rays = rays_o.shape[0]
-        like = dict(dtype=rays_o.dtype, device=rays_o.device)
-        near_planes = torch.full((n_rays,), near_plane, **like)
-        far_planes = torch.full((n_rays,), far_plane, **like)
-        if t_min is not None:
-            near_planes = torch.maximum(near_planes, t_min)
-        if t_max is not None:
-            far_planes = torch.minimum(far_planes, t_max)
-        if stratified:
-            if near_jitter is None:
-                near_jitter = torch.rand(n_rays, generator=self.generator, **like)
-            near_planes = near_planes + near_jitter * render_step_size
-        res = march(
-            rays_o, rays_d, self.binaries, self.aabbs, near_planes=near_planes,
-            far_planes=far_planes, step_size=render_step_size, cone_angle=cone_angle,
-            max_samples=self.max_samples,
+        return grid_samples(
+            self.binaries, self.aabbs, self.occs, rays_o, rays_d, sigma_fn, alpha_fn,
+            near_plane, far_plane, t_min, t_max, render_step_size, early_stop_eps,
+            alpha_thre, stratified, cone_angle, near_jitter, self.max_samples,
+            self.generator,
         )
-        ray_indices, t_starts, t_ends = res.ray_indices.long(), res.t_starts, res.t_ends
-        vis = visible_samples(self.occs, ray_indices, t_starts, t_ends, n_rays, sigma_fn,
-                              alpha_fn, early_stop_eps, alpha_thre)
-        if vis is not None:
-            ray_indices, t_starts, t_ends = ray_indices[vis], t_starts[vis], t_ends[vis]
-        return ray_indices, t_starts, t_ends
 
     @torch.no_grad()
     def update_every_n_steps(

@@ -123,6 +123,18 @@ def _mlp_init(generator: torch.Generator, dims: Sequence[int]) -> List[torch.Ten
     return weights
 
 
+# cuBLAS picks its f32 GEMM kernel by the problem's shape, and on an H100
+# the kernels it takes for a few thousand rows sum a row's products in
+# another order than those it takes for large batches: rows of a 4096-row
+# batch differ in the last bit from the same rows in a 2^20-row batch, rows
+# of a 10,000-row batch do not (scripts/diag_field_batch.py).  A bf16
+# rounding in the next layer can grow that bit to a percent of a density,
+# so a point's output would depend on the batch it came in (the eval
+# renderer's late rounds are small).  On the card a smaller batch is padded
+# to this many rows.
+_GEMM_MIN_ROWS = 1 << 16
+
+
 def _mlp_apply(
     weights: Sequence[torch.Tensor], x: torch.Tensor, compute_dtype=torch.bfloat16
 ) -> torch.Tensor:
@@ -133,15 +145,20 @@ def _mlp_apply(
     compute dtype and multiplied as f32: a product of two bf16 values is
     exact in f32, so this is a bf16 matmul with f32 accumulation.  On the
     card the f32 matmul must not run in TF32
-    (``torch.backends.cuda.matmul.allow_tf32 = False``, the default).
+    (``torch.backends.cuda.matmul.allow_tf32 = False``, the default), and
+    ``x`` (rows, features) is padded to ``_GEMM_MIN_ROWS`` rows, so that a
+    row's output does not depend on the batch.
     """
+    n = x.shape[0]
+    if x.is_cuda and n < _GEMM_MIN_ROWS:
+        x = torch.cat([x, x.new_zeros((_GEMM_MIN_ROWS - n,) + x.shape[1:])])
     x = _round(x, compute_dtype)
     last = len(weights) - 1
     for i, w in enumerate(weights):
         x = x @ _round(w, compute_dtype)
         if i < last:
             x = _round(torch.relu(x), compute_dtype)
-    return x
+    return x[:n]
 
 
 def _round(x: torch.Tensor, dtype) -> torch.Tensor:

@@ -13,7 +13,8 @@ field's tri-plane levels and TensoRF), the proposal trainer keeps
 ``{"field": ..., "props": [...]}`` of them, and the BARF trainer
 ``{"field": ..., "pose_deltas": ...}``.  An
 :class:`~nerfacc_tpu_torch.estimators.occ_grid.OccGridEstimator` keeps the
-JAX estimator's ``state_dict()`` keys as buffers.
+JAX estimator's ``state_dict()`` keys as buffers, and so does a
+:class:`~nerfacc_tpu_torch.estimators.sparse_grid.SparseGridEstimator`.
 The bridge speaks numpy on the JAX side, so it needs no JAX import: convert
 a JAX tree with ``jax.tree.map(np.asarray, params)`` first.  Tensors land on
 the card unless ``device`` says otherwise.
@@ -26,6 +27,7 @@ import numpy as np
 import torch
 
 from ..estimators.occ_grid import OccGridEstimator, OccGridState
+from ..estimators.sparse_grid import SparseGrid, SparseGridEstimator
 
 _MLPS = ("mlp_base", "mlp_head")
 
@@ -352,6 +354,20 @@ def occ_grid_estimator_from_numpy(estimator: OccGridEstimator, state_dict: Dict)
 def occ_grid_estimator_to_numpy(estimator: OccGridEstimator) -> Dict[str, np.ndarray]:
     """The inverse of :func:`occ_grid_estimator_from_numpy`."""
     return {k: v.detach().cpu().numpy() for k, v in estimator.state_dict().items()}
+
+
+def sparse_grid_estimator_from_numpy(estimator: SparseGridEstimator, state_dict: Dict) -> None:
+    """Load the JAX ``SparseGridEstimator.state_dict()`` or
+    ``N3TreeEstimator.state_dict()`` (``grid_words``, ``grid_aabb``,
+    ``grid_resolution``, ``occs`` as numpy) into ``estimator``, on its
+    device, whatever resolution it had."""
+    dev = estimator.occs.device
+    estimator.grid = SparseGrid(
+        words=torch.tensor(np.asarray(state_dict["grid_words"], np.int32), device=dev),
+        aabb=_tensor(state_dict["grid_aabb"], dev),
+        resolution=tuple(int(r) for r in np.asarray(state_dict["grid_resolution"])),
+    )
+    estimator.occs = _tensor(state_dict["occs"], dev)
 
 
 def prop_fields_from_numpy(prop_fields, trees) -> None:

@@ -1,12 +1,14 @@
 """Runs some of chip_smoke.py's phases alone on the card:
 
-    python3 scripts/run_chip_phases.py [25] [26] [6b]
+    python3 scripts/run_chip_phases.py [25] [26] [6b] [27]
 
 25: the occupancy example's tensorf, voxel and cp-planes fields; 26: the
 BARF example; 6b: five times, the CP field trained as phase 4 trains it,
 then its test views through the early-stop and the exact renderers (the
-sample-set classification and its worst rays).  Each phase is caught and
-reported, so that the others still run.  No argument runs all three.
+sample-set classification and its worst rays); 27: the quick start's loop
+(phase 19), then the same loop through ``VDBEstimator``.  Each phase is
+caught and reported, so that the others still run.  No argument runs
+25, 26 and 6b.
 """
 import os
 import sys
@@ -44,6 +46,11 @@ for path in cs.OCC_FIELD_PATHS if "25" in which else ():
 if "26" in which:
     run("26", lambda: cs.phase_barf(dev))
 ds = cs.ProceduralSceneLoader(split="test", device=dev)
+if "27" in which:
+    def twenty_seven():
+        _, loop_ms = cs.phase_quickstart(dev, ds)
+        cs.phase_quickstart_vdb(dev, ds, loop_ms)
+    run("19 + 27", twenty_seven)
 for i in range(5 if "6b" in which else 0):
     def six_b():
         trainer, state, _, _ = cs.phase_train(dev)

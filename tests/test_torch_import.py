@@ -17,6 +17,7 @@ def test_import_pulls_in_no_jax_and_builds_nothing():
     code = (
         "import sys\n"
         "import nerfacc_tpu_torch\n"
+        "import nerfacc_tpu_torch.utils.profiler\n"
         "from nerfacc_tpu_torch.cuda import _build\n"
         "assert 'jax' not in sys.modules, 'jax imported'\n"
         "assert 'nerfacc_tpu' not in sys.modules, 'nerfacc_tpu imported'\n"
@@ -88,6 +89,9 @@ def _default_device(fn):
         "trainers.barf.BARFTrainer",
         "examples.train_barf.parser",
         "examples.train_ngp_nerf_occ.parser",
+        "estimators.sparse_grid.SparseGridEstimator",
+        "estimators.sparse_grid.sparse_grid_from_dense",
+        "estimators.sparse_grid.sparse_grid_from_ijk",
     ],
 )
 def test_entry_points_default_to_the_card(name):

@@ -1355,3 +1355,23 @@ def test_traverse_grids_takes_its_samples_from_the_march_kernel(dev, step, cone,
     assert torch.equal(ts.is_valid, ref.valid)
     assert torch.equal(ti.vals, ref.t_edges) and torch.equal(tterm, ref.termination_planes)
     assert torch.equal(ti.is_left[:, :-1], ref.valid) and torch.equal(ti.is_right[:, 1:], ref.valid)
+
+
+@pytest.mark.parametrize("kind", ["cp", "ngp"])
+def test_field_rows_do_not_depend_on_the_batch(dev, kind):
+    """A point's colour and density on the card are the same, bit for bit,
+    in a batch of 1, 100, 4096 or 2^18 rows: the MLPs pad small batches
+    (``models/ngp.py::_GEMM_MIN_ROWS``), so cuBLAS does not sum their rows
+    in another order than a large batch's."""
+    aabb = [-1.5] * 3 + [1.5] * 3
+    field = CPRadianceField(aabb) if kind == "cp" else NGPRadianceField(aabb)
+    field.init(torch.Generator().manual_seed(3))
+    field = field.to(dev)
+    g = torch.Generator(device=dev).manual_seed(0)
+    x = torch.rand((1 << 18, 3), generator=g, device=dev) * 3.0 - 1.5
+    d = torch.nn.functional.normalize(torch.randn((1 << 18, 3), generator=g, device=dev), dim=-1)
+    with torch.no_grad():
+        rgb, density = field(x, d)
+        for m in (1, 100, 4096):
+            rgb_m, density_m = field(x[:m].clone(), d[:m].clone())
+            assert torch.equal(rgb_m, rgb[:m]) and torch.equal(density_m, density[:m]), m
