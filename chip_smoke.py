@@ -71,7 +71,8 @@ It builds the CUDA kernels from ``nerfacc_tpu_torch/csrc`` and runs:
     weight decay, TV weight 1e-4); G8, G9 and G10 must launch;
 13. phase 5 with that field, the deformation leaves included;
 14. phase 6 with that field, against phase 11's PSNR;
-    14b. phases 12 and 14 again from two more seeds, and from all three
+    14b. phases 12 and 14 again from one more seed (the first
+    ``SMOKE_QUALITY_SEEDS`` of ``QUALITY_SEEDS``), and from both
     with every kernel of the path (G2, G3, G5, G8-G10) on its plain version
     in training and serving: the mean trained PSNR through the kernels must
     be at most ``PSNR_MARGIN`` below the mean through the plain versions;
@@ -180,7 +181,18 @@ It builds the CUDA kernels from ``nerfacc_tpu_torch/csrc`` and runs:
     ``"padded"`` its samples at 1024 candidates; view 0 through
     ``sampling`` + ``rendering`` against ``trainer.render_rays`` within
     2e-3; a loop step timed by ``utils.profiler.benchmark`` against the same
-    step with ``OccGridEstimator``, beside phase 19's.
+    step with ``OccGridEstimator``, beside phase 19's;
+28. the distributed layer (``nerfacc_tpu_torch.parallel``) at the bench
+    widths, ranks started by ``spawn``: a) NCCL at world size 1,
+    ``make_dp_train_step`` against ``train_step`` bit for bit (G4 on its
+    plain version; through every kernel, within phase 5's bound), NCCL
+    with two ranks on one card refused; b) gloo, two ranks on the card: a
+    stratified DP step against the single-process step, 200 DP steps (the
+    loss must halve; ms/step, the collectives' share), a DP step through
+    the kernels against the plain versions; c) gloo, four ranks on a
+    (2, 2) data x model mesh: two tensor-parallel steps against the
+    single-process steps, rank 16 a shard, the checkpoint round trip; d)
+    the proposal DP step on two ranks; e) ``dryrun_multichip(4)``.
 
 Phase 6b classifies a ray by its sample set: the early-stop renderer's
 rounds against the ray's whole orbit, the same count and every bound
@@ -256,7 +268,7 @@ Every check raises on failure, so the exit code is nonzero and the result
 line is not printed.  The last line of standard output is a JSON object with
 ``"ok": true`` and the device; the line before it lists each kernel's launch
 count (over the training phases 4, 6d, 8, 12, 16, 19, 20, 21, 22, 23-23c,
-24, 25, 26 and 27; for G11-G13, over
+24, 25, 26, 27 and 28, every rank of 28; for G11-G13, over
 the gather probe's run), error, times and bound.  Without a CUDA device the
 script fails at once.
 """
@@ -273,6 +285,7 @@ import subprocess
 import sys
 import time
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 from torch.autograd import DeviceType
@@ -432,8 +445,11 @@ STEP_REPEATS = 8
 # repeat from call to call there.  Across three seeds each route's PSNR spread
 # over 0.8-1.9 dB on an H100 (PERF.md §6); 1.5 dB between the means of
 # three is ~2 standard errors of their difference, and a kernel that cost
-# every seed ~3 dB would fail it.
+# every seed ~3 dB would fail it.  The default run takes the first
+# SMOKE_QUALITY_SEEDS of them (the script's time limit; 1.5 dB is then ~1.6
+# standard errors); ``--quality`` takes every seed it is given.
 QUALITY_SEEDS = (42, 7, 1234)  # the first is the trainers' default
+SMOKE_QUALITY_SEEDS = 2
 PSNR_MARGIN = 1.5
 F32_STEP_FRO = 1e-4
 F32_HAT_STEP_FRO = 5e-4
@@ -502,6 +518,15 @@ BARF_STEPS = 312
 BARF_KERNELS = ("march", "composite_fwd", "composite_bwd")
 
 
+# Phase 28: the distributed layer.  Every rank's budget holds the whole
+# train batch's samples (the bench's 2048 rays march ~0.9M), so no rank cuts.
+DIST_BUDGET = 2**20
+DIST_STEPS = 20
+DIST_TRAIN_STEPS = 200
+DIST_TIMEOUT = 600
+DIST_KERNELS = ("cp_level_fwd", "cp_level_bwd", "march", "composite_fwd", "composite_bwd")
+DIST_PROP_KERNELS = ("cp_level_fwd", "cp_level_bwd", "composite_fwd", "composite_bwd",
+                     "importance_sampling")
 # The least time the card could take for a kernel's work: the bytes the
 # function must move over the H100's memory rate, or
 # its f32 operations over the f32 peak outside the tensor cores, whichever
@@ -2580,14 +2605,16 @@ def quality_run(dev, path, seed, plain=()):
 
 
 def phase_plain_quality(dev, path, kernel_psnr):
-    """14b / 18b. ``path`` trained from the other ``QUALITY_SEEDS`` through
-    its kernels (``kernel_psnr``: phase 14's / 18's, from the first) and
-    from all of them through the plain versions of its kernels
+    """14b / 18b. ``path`` trained from the other seeds of the first
+    ``SMOKE_QUALITY_SEEDS`` of ``QUALITY_SEEDS`` through its kernels
+    (``kernel_psnr``: phase 14's / 18's, from the first) and from all of
+    them through the plain versions of its kernels
     (:func:`quality_run`), each served as it was trained: the kernel
     route's mean trained PSNR must be no more than ``PSNR_MARGIN`` below the
     plain route's."""
     psnr = {"kernels": [kernel_psnr], "plain": []}
-    for seed in QUALITY_SEEDS:
+    seeds = QUALITY_SEEDS[:SMOKE_QUALITY_SEEDS]
+    for seed in seeds:
         for route, plain in (("kernels", ()), ("plain", PATH_KERNELS[path])):
             if route == "kernels" and seed == QUALITY_SEEDS[0]:
                 continue
@@ -2598,7 +2625,7 @@ def phase_plain_quality(dev, path, kernel_psnr):
                   f"{run['loss_last50']:.6f} (first and last 50 steps), {TRAIN_STEPS} steps "
                   f"and the test views in {run['seconds']:.1f} s")
     mean = {k: statistics.mean(v) for k, v in psnr.items()}
-    print(f"trained {path} psnr over seeds {QUALITY_SEEDS}: through the kernels "
+    print(f"trained {path} psnr over seeds {seeds}: through the kernels "
           f"{[round(v, 3) for v in psnr['kernels']]}, mean {mean['kernels']:.3f}; through "
           f"the plain versions {[round(v, 3) for v in psnr['plain']]}, mean "
           f"{mean['plain']:.3f}; margin {PSNR_MARGIN} dB")
@@ -3144,6 +3171,252 @@ def phase_quickstart_vdb(dev, ds, qs_loop_ms):
           f"median {1e3 * statistics.median(step_s[-QS_TIMED_STEPS:]):.3f} ms; phase 27 took "
           f"{time.perf_counter() - t_phase:.1f} s ({card()})")
     return launches
+
+
+def dist_occ_spec(steps, **kw):
+    """A phase 28 occupancy case: the bench CP field (bf16) and trainer with
+    a per-rank budget of ``DIST_BUDGET`` (nothing truncates), a global batch
+    of ``TRAIN["cp"][1]`` rays drawn each step from phase 4's scene."""
+    return dict(field=dict(aabb=AABB, compute_dtype=torch.bfloat16),
+                trainer=dict(sample_budget=DIST_BUDGET),
+                scene=dict(split="train", n_train=6, width=256, height=256,
+                           num_rays=TRAIN["cp"][1]),
+                steps=steps, **kw)
+
+
+def per_rank_step(launches, steps, kernels=DIST_KERNELS):
+    """A rank's launches a step, of ``kernels``."""
+    return ", ".join(f"{k} {launches.get(k, 0) / steps:.3f}" for k in kernels)
+
+
+def leaf_fro(got, want):
+    """The largest relative Frobenius distance of ``got``'s leaves from
+    ``want``'s (dicts of numpy arrays)."""
+    return max(float(np.linalg.norm(got[k] - w) / max(np.linalg.norm(w), 1e-30))
+               for k, w in want.items())
+
+
+def require_adam_close(got, want, got_grads, want_grads, rtol, atol, what, weight_decay=0.0):
+    """Every leaf of ``got`` (parameters after Adam steps) within ``atol +
+    rtol |want|`` of ``want``'s, except the entries whose update may
+    rightly differ: Adam's first steps move an entry by about lr times the
+    sign of its gradient (plus the decay), so an entry whose gradient at
+    some step (``*_grads``: one dict a step) lay within the two runs'
+    difference of zero may step the other way, by up to 2 lr.  Both runs'
+    gradients must agree within ``BF16_STEP_FRO`` per leaf.  Returns the
+    count of such entries and the worst excess elsewhere."""
+    exempt, worst = 0, -np.inf
+    for k, w in want.items():
+        ambiguous = np.zeros(w.shape, bool)
+        for g, h in zip(got_grads, want_grads):
+            fro = np.linalg.norm(g[k] - h[k]) / max(np.linalg.norm(h[k]), 1e-30)
+            require(fro <= BF16_STEP_FRO, f"{what}: gradient of {k} {fro:.3g} from the other's")
+            ambiguous |= np.abs(h[k] + weight_decay * w) <= np.abs(g[k] - h[k])
+        excess = np.abs(got[k] - w) - (atol + rtol * np.abs(w))
+        exempt += int((ambiguous & (excess > 0)).sum())
+        if (~ambiguous).any():
+            worst = max(worst, float(excess[~ambiguous].max()))
+    require(worst <= 0, f"{what}: past rtol {rtol} / atol {atol} by {worst:.3g}")
+    return exempt, worst
+
+
+def phase_distributed(dev):
+    """28. The distributed layer on the card (``nerfacc_tpu_torch.parallel``,
+    ranks started by ``spawn``, the rank bodies of ``parallel.dryrun``):
+    a) NCCL, one rank: ``make_dp_train_step`` over ``DIST_STEPS`` steps of
+    the bench CP trainer against ``train_step`` from the same state, bit
+    for bit (parameters, gradients, grid, aux) with G4 on its plain version
+    and PyTorch's deterministic algorithms (G4's atomics reorder its sums
+    from run to run), then through every kernel: the first step's loss,
+    aux and grid bit for bit, the parameters after ``DIST_STEPS`` steps
+    within ``BF16_STEP_FRO``; NCCL with two ranks on one card must raise.
+    b) gloo, two ranks on ``cuda:0``: one stratified DP step against the
+    single-process step on the global batch (tests/test_parallel.py's DP
+    bounds, binaries equal, the ranks bitwise equal), then
+    ``DIST_TRAIN_STEPS`` DP steps (the loss must halve; ms/step and the
+    collectives' share of a step), then one DP step through the kernels
+    against one through the plain versions (phase 5's bf16 bound).
+    c) gloo, four ranks on a (2, 2) mesh: two DP+TP steps against the
+    single-process steps (tests/test_parallel.py's TP bounds, W1 in
+    shard-major order), rank 16 a shard, the checkpoint round trip.
+    d) the proposal DP step on b's two ranks, ``bench_prop``'s fields,
+    against the single-process step.  e) ``dryrun_multichip(4)`` on the
+    card.
+    Every rank launches the path's kernels (G1-G5; G14 in d).  Returns the
+    launches summed over ranks and steps."""
+    from nerfacc_tpu_torch import parallel
+    from nerfacc_tpu_torch.parallel import dryrun
+
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    print(f"distributed: {card()}")
+    total = {}
+
+    def add(launches, what, kernels=DIST_KERNELS):
+        """Count a rank's launches; each of ``kernels`` must be among them."""
+        for k in kernels:
+            require(launches.get(k, 0) > 0, f"{what}: kernel {k} never launched on a rank")
+        for k, v in launches.items():
+            total[k] = total.get(k, 0) + v
+
+    # a) NCCL at world size 1: every collective real, no bit may move
+    try:
+        parallel.make_mesh(2, 0, "tcp://127.0.0.1:1", backend="nccl", device=dev)
+        require(False, "NCCL with two ranks on one card did not raise")
+    except ValueError as e:
+        print(f"distributed a: NCCL with two ranks on one card raises: {e}")
+    g4_plain = {"cp_level_bwd": PLAIN_SWAPS["cp_level_bwd"]}
+    t0 = time.perf_counter()
+    a = parallel.spawn(1, dryrun.run_cases, None, [
+        ("bitwise", "occ", dist_occ_spec(DIST_STEPS, single=True, plain_route=g4_plain)),
+        ("kernels", "occ", dist_occ_spec(DIST_STEPS, single=True)),
+    ], backend="nccl", timeout=DIST_TIMEOUT)[0]
+    print(f"distributed a: one rank ran in {time.perf_counter() - t0:.1f} s ({card()})")
+    dp, single = a["bitwise"]["dp"], a["bitwise"]["single"]
+    same = [all(np.array_equal(dp[part][k], single[part][k]) for k in single[part])
+            for part in ("params", "grads")]
+    same += [np.array_equal(dp[k], single[k]) for k in ("occs", "binaries")]
+    same.append(all(np.array_equal(np.asarray(x[k]), np.asarray(y[k]))
+                    for x, y in zip(dp["aux"], single["aux"]) for k in y))
+    print(f"distributed a: NCCL, 1 rank, {DIST_STEPS} DP steps vs train_step, G4 on its "
+          f"plain version: parameters, gradients, occs, binaries, aux bit for bit {same}; "
+          f"launches a step {per_rank_step(a['bitwise']['launches'], DIST_STEPS)}")
+    require(all(same), "a: the DP step at world size 1 moved a bit")
+    dp, single = a["kernels"]["dp"], a["kernels"]["single"]
+    first = (all(np.array_equal(np.asarray(dp["aux"][0][k]), np.asarray(single["aux"][0][k]))
+                 for k in single["aux"][0]))
+    fro = leaf_fro(dp["params"], single["params"])
+    print(f"distributed a: NCCL, 1 rank, through every kernel: step 0's aux bitwise {first}; "
+          f"parameters after {DIST_STEPS} steps {fro:.3g} relative Frobenius at most (limit "
+          f"{BF16_STEP_FRO}: G4's atomic order); launches a step "
+          f"{per_rank_step(a['kernels']['launches'], DIST_STEPS)}")
+    require(first and fro <= BF16_STEP_FRO, "a: the DP step through the kernels drifted")
+    add(a["bitwise"]["launches"], "a", [k for k in DIST_KERNELS if k != "cp_level_bwd"])
+    add(a["kernels"]["launches"], "a")
+
+    # b) gloo, two ranks sharing the card; they run d) too
+    t0 = time.perf_counter()
+    prop_spec = dict(field=dict(aabb=AABB, compute_dtype=torch.bfloat16),
+                     prop=dict(aabb=AABB, compute_dtype=torch.bfloat16),
+                     trainer=dict(prop_samples=[PROP_SAMPLES], num_samples=PROP_FINAL,
+                                  near_plane=2.0, far_plane=6.0),
+                     scene=dict(split="train", n_train=6, width=256, height=256,
+                                num_rays=PROP_RAYS), single=True)
+    b = parallel.spawn(2, dryrun.run_cases, None, [
+        ("one", "occ", dist_occ_spec(1, single=True, record_grads=True)),
+        ("train", "occ", dist_occ_spec(DIST_TRAIN_STEPS, timed=True, single=True,
+                                       plain_swaps={k: PLAIN_SWAPS[k] for k in DIST_KERNELS})),
+        ("prop", "prop", prop_spec),
+    ], backend="gloo", device=str(dev), timeout=DIST_TIMEOUT)
+    print(f"distributed b, d: two ranks ran in {time.perf_counter() - t0:.1f} s ({card()})")
+    single = b[0]["one"]["single"]
+    for r, rank in enumerate(b):
+        dp = rank["one"]["dp"]
+        loss, want = float(dp["aux"][0]["loss"]), float(single["aux"][0]["loss"])
+        exempt, worst = require_adam_close(dp["params"], single["params"], dp["step_grads"],
+                                           single["step_grads"], 2e-4, 2e-6,
+                                           "b: DP parameters", weight_decay=1e-6)
+        print(f"distributed b: gloo, rank {r} of 2, one stratified DP step vs the "
+              f"single-process step on {TRAIN['cp'][1]} rays: loss {loss:.7g} / {want:.7g}, "
+              f"samples {int(dp['aux'][0]['n_rendering_samples'])} of "
+              f"{int(single['aux'][0]['n_rendering_samples'])}, gradients "
+              f"{leaf_fro(dp['grads'], single['grads']):.3g} and parameters "
+              f"{leaf_fro(dp['params'], single['params']):.3g} relative Frobenius at most; "
+              f"parameters within rtol 2e-4 / atol 2e-6 (worst excess {worst:.3g}) but "
+              f"{exempt} entries of gradient within the runs' difference of zero")
+        require(abs(loss - want) <= 1e-5 * abs(want), "b: DP loss")
+        require(np.array_equal(dp["binaries"], single["binaries"]), "b: binaries")
+        add(rank["one"]["launches"], "b")
+    require(all(np.array_equal(b[0][c]["dp"]["params"][k], b[1][c]["dp"]["params"][k])
+                for c in ("one", "train") for k in single["params"]),
+            "b: the ranks' parameters differ")
+    for r, rank in enumerate(b):
+        run = rank["train"]
+        losses = [float(x["loss"]) for x in run["dp"]["aux"]]
+        first, last = statistics.mean(losses[:20]), statistics.mean(losses[-20:])
+        print(f"distributed b: gloo, rank {r} of 2, {DIST_TRAIN_STEPS} DP steps: loss "
+              f"{first:.5f} -> {last:.5f} (means of the first and last 20), "
+              f"{run['ms_step']:.3f} ms/step (one process on the global batch, rank 1 "
+              f"waiting: {b[0]['train']['single_ms_step']:.3f}), one step's collectives alone "
+              f"{run['collectives_ms']:.3f} ms ({run['collectives_ms'] / run['ms_step']:.1%} of "
+              f"a step); launches a step {per_rank_step(run['launches'], DIST_TRAIN_STEPS)} "
+              f"({card()})")
+        require(last <= 0.5 * first, "b: the DP loss did not halve")
+        plain = run["plain"]
+        worst = max(plain["fro"].values())
+        print(f"distributed b: rank {r}, a DP step through the kernels vs the plain "
+              f"versions: loss {plain['loss']:.7g} / {plain['plain_loss']:.7g}, gradients "
+              f"{worst:.3g} relative Frobenius at most (limit {BF16_STEP_FRO})")
+        require(abs(plain["loss"] - plain["plain_loss"]) <= 1e-5 * abs(plain["plain_loss"])
+                and worst <= BF16_STEP_FRO, "b: kernels vs plain versions")
+        add(run["launches"], "b")
+
+    # c) gloo, four ranks on a (2, 2) data x model mesh
+    t0 = time.perf_counter()
+    c = parallel.spawn(4, dryrun.run_cases, (2, 2), [
+        ("tp", "tp", dist_occ_spec(2, single=True, record_grads=True)),
+    ], backend="gloo", device=str(dev), timeout=DIST_TIMEOUT)
+    print(f"distributed c: four ranks ran in {time.perf_counter() - t0:.1f} s ({card()})")
+    single, gathered = c[0]["tp"]["single"], c[0]["tp"]["gathered"]
+    perm = c[0]["tp"]["perm"]
+    want = dict(single["params"], **{"mlp_base.0": single["params"]["mlp_base.0"][perm]})
+    for r, rank in enumerate(c):
+        res = rank["tp"]
+        lines = [v[0] for k, v in res["shapes"].items() if k.startswith("encoder.lines.")]
+        losses = [float(x["loss"]) for x in res["aux"]]
+        print(f"distributed c: gloo, rank {r} of a (2, 2) mesh: line tables {lines} (and "
+              f"their moments {res['shapes']['encoder.lines.0'][1:]}), W1 "
+              f"{res['shapes']['mlp_base.0'][0]}; losses {losses} vs "
+              f"{[float(x['loss']) for x in single['aux']]}; checkpoint round trip "
+              f"{res['roundtrip']}; init is its part of the whole draw {res['init_equal']}; "
+              f"launches a step {per_rank_step(res['launches'], 2)}")
+        require(all(s[-1] == 16 for s in lines), "c: line tables not rank 16 a shard")
+        require(all(abs(x - float(y["loss"])) <= 1e-4 * abs(float(y["loss"]))
+                    for x, y in zip(losses, single["aux"])), "c: TP losses")
+        require(abs(res["roundtrip"][0] - res["roundtrip"][1]) < 1e-6, "c: round trip")
+        require(res["init_equal"], "c: the sharded field's draw")
+        add(res["launches"], "c")
+    permuted = [dict(g, **{"mlp_base.0": g["mlp_base.0"][perm]}) for g in single["step_grads"]]
+    exempt, worst = require_adam_close(gathered["params"], want, gathered["step_grads"],
+                                       permuted, 2e-4, 2e-5, "c: TP parameters",
+                                       weight_decay=1e-6)
+    print(f"distributed c: gathered parameters after 2 TP steps vs the single-process "
+          f"steps: {leaf_fro(gathered['params'], want):.3g} relative Frobenius at most, "
+          f"within rtol 2e-4 / atol 2e-5 (worst excess {worst:.3g}) but {exempt} entries "
+          f"of gradient within the runs' difference of zero; last step's gradients "
+          f"{leaf_fro(gathered['step_grads'][-1], permuted[-1]):.3g}")
+
+    # d) the proposal path, on b's two ranks
+    single = b[0]["prop"]["single"]
+    for r, rank in enumerate(b):
+        dp = rank["prop"]["dp"]
+        leaves = [dict(enumerate(run[part])) for run in (dp, single)
+                  for part in ("params", "grads")]
+        exempt, worst = require_adam_close(leaves[0], leaves[2], [leaves[1]], [leaves[3]],
+                                           2e-4, 2e-6, "d: proposal DP parameters")
+        print(f"distributed d: gloo, rank {r} of 2, a proposal DP step vs the single-process "
+              f"step on {PROP_RAYS} rays: loss {float(dp['aux']['loss']):.7g} / "
+              f"{float(single['aux']['loss']):.7g}, prop loss "
+              f"{float(dp['aux']['prop_loss']):.7g} / {float(single['aux']['prop_loss']):.7g}; "
+              f"gradients {leaf_fro(leaves[1], leaves[3]):.3g} relative Frobenius at most, "
+              f"parameters within rtol 2e-4 / atol 2e-6 (worst excess {worst:.3g}) but "
+              f"{exempt} entries of gradient within the runs' difference of zero; launches a "
+              f"step {per_rank_step(rank['prop']['launches'], 1, DIST_PROP_KERNELS)}")
+        for key in ("loss", "mse", "prop_loss"):
+            want = float(single["aux"][key])
+            require(abs(float(dp["aux"][key]) - want) <= 1e-5 * abs(want), f"d: {key}")
+        add(rank["prop"]["launches"], "d", DIST_PROP_KERNELS)
+
+    # e) the dry run
+    t0 = time.perf_counter()
+    e = parallel.dryrun_multichip(4, backend="gloo", device=str(dev), timeout=DIST_TIMEOUT)
+    print(f"distributed e: four ranks ran in {time.perf_counter() - t0:.1f} s ({card()})")
+    print(f"distributed e: {e[0]['line']}; launches a step, by rank: "
+          + "; ".join(per_rank_step(rank["launches"], 2) for rank in e))
+    for rank in e:
+        add(rank["launches"], "e")
+    print(f"distributed: phase 28 took {time.perf_counter() - t_phase:.1f} s ({card()})")
+    return total
 
 
 def prop_example(path, steps, seed=QUALITY_SEEDS[0], extra=()):
@@ -4223,10 +4496,12 @@ def main():
     mlp_launches.append(phase_barf(dev))
     # 27: the quick start's loop through the sparse estimator
     mlp_launches.append(phase_quickstart_vdb(dev, ds, qs_loop_ms))
+    # 28: the distributed layer, its ranks' launches summed
+    mlp_launches.append(phase_distributed(dev))
     # each kernel's launches over the training runs (phases 4, 8, 12, 16,
-    # 20, 21, 22, 23-23c, 24, 25, 26), the occupancy example's (6d) and the
-    # quick start's loops (19, 27), and the gather kernels' over the gather
-    # probe's run
+    # 20, 21, 22, 23-23c, 24, 25, 26, 28), the occupancy example's (6d) and
+    # the quick start's loops (19, 27), and the gather kernels' over the
+    # gather probe's run
     launches = {k: v + ngp_launches[k] + tnv_launches[k] + prop_launches[k]
                 + example_launches[k] + qs_launches[k] + qs_prop_launches[k]
                 + prop_ngp_launches[k] + prop360_launches[k] + occ360_launches.get(k, 0)

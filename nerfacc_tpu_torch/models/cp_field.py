@@ -14,14 +14,22 @@ PyTorch gathers, in the rounding of the jitted JAX level), combined by
 their product (K-Planes) or, in TensoRF's vector-matrix mode, each times a
 line of its complementary axis and concatenated.
 :class:`TensoRFRadianceField` is the field with TensoRF's levels;
-:class:`CPDensityField` the proposal path's density-only field.  Not
-ported: tensor parallelism and the TPU layout options.
+:class:`CPDensityField` the proposal path's density-only field.
+
+Tensor parallelism (JAX's ``tp_axis``): given a ``tp_group`` of n ranks, a
+line field keeps rank ``m``'s slice of every level's rank dimension, (3, R,
+rank / n), and the matching rows of the first base-MLP weight in
+shard-major order (``parallel.tp.tp_w1_permutation``); layer 0's partial
+products are summed over the group (:class:`TPAllReduce`, whose backward is
+the identity) before the activation, and every later layer is replicated.
+Not ported: the TPU layout options.
 """
 from __future__ import annotations
 
 from typing import Dict, Optional, Sequence
 
 import torch
+import torch.distributed as dist
 from torch import nn
 
 from ..ops.cp_level import cp_level_encode
@@ -219,7 +227,75 @@ class _RoundGrad(torch.autograd.Function):
         return _round(g, torch.bfloat16)
 
 
-class CPRadianceField(MLPField):
+class TPAllReduce(torch.autograd.Function):
+    """Sum of the tensor-parallel partial products over the model group,
+    with an identity backward (JAX's ``tp_allreduce``,
+    nerfacc_tpu/models/cp_field.py:31-54): each rank holds the product of
+    its feature slice with its rows of the first weight; the sum is
+    replicated over the group, so is its cotangent, and each partial enters
+    the sum once, so the partial's cotangent is the cotangent itself."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        out = x.clone()
+        dist.all_reduce(out, group=group)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+class _TPReduce:
+    """``_mlp_apply``'s ``reduce0`` for a model group."""
+
+    def __init__(self, group):
+        self.group = group
+
+    def __call__(self, x):
+        return TPAllReduce.apply(x, self.group)
+
+
+def _tp_ranks(ranks, tp_group, planes) -> tuple:
+    """The local ranks of a field sharded over ``tp_group`` (None: the
+    ranks), and the group's size and this rank's place in it."""
+    if tp_group is None:
+        return tuple(ranks), 1, 0
+    if planes:
+        raise ValueError("tri-plane levels with tensor parallelism are not supported")
+    n = dist.get_world_size(tp_group)
+    if any(r % n for r in ranks):
+        raise ValueError(f"level ranks {tuple(ranks)} must divide over {n} model shards")
+    return tuple(r // n for r in ranks), n, dist.get_rank(tp_group)
+
+
+class _TensorParallel:
+    """The tensor-parallel side of a CP line field: ``config`` rebuilds the
+    whole field, and a sharded field draws its parameters as the whole field
+    does and keeps its slice."""
+
+    def _set_tp(self, config, tp_group, n, m):
+        self.config = config
+        self.tp_group, self.tp_size, self.tp_rank = tp_group, n, m
+        if tp_group is not None:
+            self.base_reduce = _TPReduce(tp_group)
+
+    @torch.no_grad()
+    def init(self, generator: torch.Generator):
+        if self.tp_group is None:
+            return super().init(generator)
+        from ..parallel.tp import permute_w1, shard_params, tp_w1_permutation
+
+        whole = type(self)(**self.config)
+        whole.init(generator)
+        params = permute_w1(whole.state_dict(),
+                            tp_w1_permutation(whole.encoder.ranks, self.tp_size))
+        for name, value in shard_params(params, self.tp_size, self.tp_rank).items():
+            self.get_parameter(name).copy_(value)
+        return self
+
+
+class CPRadianceField(_TensorParallel, MLPField):
     """Radiance field with CP line (and tri-plane) features and small
     bias-free MLPs (see :class:`~nerfacc_tpu_torch.models.ngp.MLPField`).
 
@@ -229,6 +305,9 @@ class CPRadianceField(MLPField):
         compute_dtype: the encoder's and the MLPs' operand dtype.
         plane_resolutions / plane_ranks / plane_mode: tri-plane levels
             after the line levels (see :class:`CPGridEncoder`).
+        tp_group: shard the line levels and the first base-MLP weight over
+            this ``torch.distributed`` group (see the module docstring);
+            None: the whole field.  Raises with tri-plane levels.
     """
 
     def __init__(
@@ -241,11 +320,18 @@ class CPRadianceField(MLPField):
         plane_resolutions: Sequence[int] = (),
         plane_ranks: Sequence[int] = (),
         plane_mode: str = "product",
+        tp_group=None,
     ):
-        encoder = CPGridEncoder(resolutions, ranks, compute_dtype,
+        config = dict(aabb=[float(a) for a in aabb], unbounded=unbounded,
+                      resolutions=tuple(resolutions), ranks=tuple(ranks),
+                      compute_dtype=compute_dtype, plane_resolutions=tuple(plane_resolutions),
+                      plane_ranks=tuple(plane_ranks), plane_mode=plane_mode)
+        local, n, m = _tp_ranks(ranks, tp_group, plane_resolutions)
+        encoder = CPGridEncoder(resolutions, local, compute_dtype,
                                 plane_resolutions=plane_resolutions,
                                 plane_ranks=plane_ranks, plane_mode=plane_mode)
         super().__init__(list(aabb), unbounded, encoder, compute_dtype)
+        self._set_tp(config, tp_group, n, m)
 
     @property
     def max_eval_chunk(self) -> int:
@@ -294,12 +380,13 @@ class TensoRFRadianceField(CPRadianceField):
                          plane_resolutions, plane_ranks, plane_mode)
 
 
-class CPDensityField(DensityField):
+class CPDensityField(_TensorParallel, DensityField):
     """Density-only CP field for proposal resampling (PyTorch counterpart of
     nerfacc_tpu/models/cp_field.py::CPDensityField): CP line levels through
     kernels G1/G4 and a bias-free ``[sum(ranks), hidden_dim, 1]`` MLP
     (:class:`~nerfacc_tpu_torch.models.ngp.DensityField`);
     ``cp_level_encode`` raises on positions that ask for a gradient.
+    ``tp_group`` shards it as :class:`CPRadianceField`'s.
     """
 
     def __init__(
@@ -310,6 +397,12 @@ class CPDensityField(DensityField):
         ranks: Sequence[int] = (16, 16),
         hidden_dim: int = 64,
         compute_dtype=torch.bfloat16,
+        tp_group=None,
     ):
-        super().__init__(aabb, unbounded, CPGridEncoder(resolutions, ranks, compute_dtype),
+        config = dict(aabb=[float(a) for a in aabb], unbounded=unbounded,
+                      resolutions=tuple(resolutions), ranks=tuple(ranks),
+                      hidden_dim=hidden_dim, compute_dtype=compute_dtype)
+        local, n, m = _tp_ranks(ranks, tp_group, ())
+        super().__init__(aabb, unbounded, CPGridEncoder(resolutions, local, compute_dtype),
                          hidden_dim, compute_dtype)
+        self._set_tp(config, tp_group, n, m)

@@ -9,7 +9,7 @@ shared pieces, and the time-dependent fields' :class:`FrameQuery`.
 """
 from __future__ import annotations
 
-from typing import List, Optional, Sequence, Tuple
+from typing import Callable, List, Optional, Sequence, Tuple
 
 import torch
 from torch import nn
@@ -136,7 +136,8 @@ _GEMM_MIN_ROWS = 1 << 16
 
 
 def _mlp_apply(
-    weights: Sequence[torch.Tensor], x: torch.Tensor, compute_dtype=torch.bfloat16
+    weights: Sequence[torch.Tensor], x: torch.Tensor, compute_dtype=torch.bfloat16,
+    reduce0: Optional[Callable[[torch.Tensor], torch.Tensor]] = None,
 ) -> torch.Tensor:
     """Bias-free ReLU MLP with the JAX package's rounding contract.
 
@@ -147,7 +148,9 @@ def _mlp_apply(
     card the f32 matmul must not run in TF32
     (``torch.backends.cuda.matmul.allow_tf32 = False``, the default), and
     ``x`` (rows, features) is padded to ``_GEMM_MIN_ROWS`` rows, so that a
-    row's output does not depend on the batch.
+    row's output does not depend on the batch.  ``reduce0``, given, takes
+    layer 0's f32 product before its activation and rounding: a
+    tensor-parallel field's sum of its shards' partial products.
     """
     n = x.shape[0]
     if x.is_cuda and n < _GEMM_MIN_ROWS:
@@ -156,6 +159,8 @@ def _mlp_apply(
     last = len(weights) - 1
     for i, w in enumerate(weights):
         x = x @ _round(w, compute_dtype)
+        if i == 0 and reduce0 is not None:
+            x = reduce0(x)
         if i < last:
             x = _round(torch.relu(x), compute_dtype)
     return x[:n]
@@ -217,6 +222,7 @@ class MLPField(nn.Module):
         self.head_dims = [16 + geo, hidden, hidden, 3]
         self.mlp_base = _weights(self.base_dims)
         self.mlp_head = _weights(self.head_dims)
+        self.base_reduce = None  # see _mlp_apply's reduce0
 
     @torch.no_grad()
     def init(self, generator: torch.Generator) -> "MLPField":
@@ -241,7 +247,7 @@ class MLPField(nn.Module):
         self, feats: torch.Tensor, selector: torch.Tensor, return_feat: bool = False
     ):
         """Base MLP on encoder features: (N, 1) density [, (N, geo) feats]."""
-        h = _mlp_apply(self.mlp_base, feats, self.compute_dtype)
+        h = _mlp_apply(self.mlp_base, feats, self.compute_dtype, self.base_reduce)
         raw_density, geo_feat = h[..., :1], h[..., 1:]
         density = trunc_exp(raw_density - 1.0) * selector[..., None]
         if return_feat:
@@ -329,6 +335,7 @@ class DensityField(nn.Module):
         self.encoder = encoder
         self.base_dims = [encoder.output_dim, hidden_dim, 1]
         self.mlp_base = _weights(self.base_dims)
+        self.base_reduce = None  # see _mlp_apply's reduce0
 
     @torch.no_grad()
     def init(self, generator: torch.Generator) -> "DensityField":
@@ -341,7 +348,7 @@ class DensityField(nn.Module):
     def forward(self, positions: torch.Tensor) -> torch.Tensor:
         """(N, 3) world points -> (N, 1) density."""
         u, selector = normalize_points(positions, self.aabb, self.unbounded)
-        raw = _mlp_apply(self.mlp_base, self.encoder(u), self.compute_dtype)
+        raw = _mlp_apply(self.mlp_base, self.encoder(u), self.compute_dtype, self.base_reduce)
         return trunc_exp(raw - 1.0) * selector[..., None]
 
 

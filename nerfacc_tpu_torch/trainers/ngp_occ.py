@@ -27,6 +27,7 @@ from typing import Any, Callable, Dict, NamedTuple, Optional, Tuple, Union
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..estimators.occ_grid import (
     OccGridState,
@@ -37,6 +38,7 @@ from ..estimators.occ_grid import (
     update_occ_grid,
 )
 from ..losses import distortion
+from ..parallel.mesh import take_block
 from ..utils.metrics import psnr, ssim
 from ..utils.rendering import (
     compact_samples,
@@ -183,6 +185,34 @@ def adam_update(opt_state: OptState, schedule: Callable[[int], float]) -> OptSta
         group["lr"] = lr
     opt_state.optimizer.step()
     return OptState(opt_state.optimizer, opt_state.count + 1)
+
+
+def all_reduce_grads(leaves, group, extras=(), average: bool = False):
+    """Sum (or, with ``average``, average) the leaves' ``.grad`` and the
+    scalars ``extras`` over ``group`` in one all-reduce of a flat f32
+    buffer; write the gradients back and return the reduced ``extras``.
+    A leaf whose ``.grad`` is None sends zeros and gets the sum."""
+    leaves = list(leaves)
+    grads = [p.grad if p.grad is not None else torch.zeros_like(p) for p in leaves]
+    flat = torch.cat([g.reshape(-1) for g in grads] + [e.reshape(1).float() for e in extras])
+    dist.all_reduce(flat, group=group)
+    if average:
+        flat = flat / dist.get_world_size(group)
+    offset = 0
+    for p, g in zip(leaves, grads):
+        p.grad = flat[offset : offset + g.numel()].view_as(g)
+        offset += g.numel()
+    return [flat[offset + i] for i in range(len(extras))]
+
+
+def all_reduce_counts(counts, group):
+    """Sum integer counts (ints or 0-d tensors) over ``group``, in one
+    all-reduce; ints come back as ints, tensors as int64 tensors."""
+    device = next((c.device for c in counts if isinstance(c, torch.Tensor)), None)
+    flat = torch.stack([torch.as_tensor(c, dtype=torch.int64, device=device) for c in counts])
+    dist.all_reduce(flat, group=group)
+    host = flat.tolist()
+    return [flat[i] if isinstance(c, torch.Tensor) else host[i] for i, c in enumerate(counts)]
 
 
 class TrainState(NamedTuple):
@@ -400,6 +430,7 @@ class NGPOccTrainer:
         cell_jitter: Optional[torch.Tensor] = None,
         frame_idx: Optional[torch.Tensor] = None,
         cell_ids: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+        group=None,
     ):
         """One step; returns the new state and an aux dict.
 
@@ -411,6 +442,16 @@ class NGPOccTrainer:
             cell_jitter / frame_idx / cell_ids: the update's cell offsets,
                 frames and sampled ids when this step updates the grid
                 (None: drawn, see :meth:`refresh_occ_grid`).
+            group: a ``torch.distributed`` group whose ranks each hold one
+                block of a global batch (see ``parallel.mesh``), with the
+                JAX step body's collectives under ``axis_name``: the mean of
+                ``frac_ok`` and the sum of the completed rays before the
+                loss divides by them, the regulariser divided by the group's
+                size, the gradients, loss, mse and aux counts summed.  The
+                near-plane jitter is the global batch's, drawn from stream 1
+                on every rank and cut to this rank's block, so a step equals
+                the single-process step on the global batch.  None: one
+                process, no collective.
 
         The parameters' ``.grad`` hold this step's gradients afterwards.
         Aux: ``loss``, ``mse``, ``n_rays_ok``, ``n_rays_truncated`` as
@@ -424,12 +465,14 @@ class NGPOccTrainer:
         rays_o, rays_d = batch["rays_o"], batch["rays_d"]
         pixels, render_bkgd = batch["rgb"], batch["color_bkgd"]
         n_rays = rays_o.shape[0]
+        world, rank = (1, 0) if group is None else (dist.get_world_size(group),
+                                                     dist.get_rank(group))
         if not self.stratified:
             near_jitter = None
         elif near_jitter is None:
             near_jitter = torch.rand(
-                n_rays, generator=self._generator(step, 1), device=self.device
-            )
+                n_rays * world, generator=self._generator(step, 1), device=self.device
+            )[rank * n_rays : (rank + 1) * n_rays]
         samples = compact_samples(
             sampling(
                 state.occ_state, rays_o, rays_d,
@@ -463,8 +506,18 @@ class NGPOccTrainer:
         )
         window_ok = terminated[:, None] | (opacities > 1.0 - 1e-3)
         frac_ok = window_ok.float().mean()
-        ray_ok = budget_ok & torch.where(frac_ok > 0.25, window_ok, True)
-        n_ok = ray_ok.sum().clamp_min(1)
+        if group is None:
+            ray_ok = budget_ok & torch.where(frac_ok > 0.25, window_ok, True)
+            n_ok = ray_ok.sum().clamp_min(1)
+        else:
+            # one all-reduce: the shards' frac_ok and their completed rays
+            # under either branch of the mask
+            sums = torch.stack([frac_ok.double(), (budget_ok & window_ok).sum().double(),
+                                budget_ok.sum().double()])
+            dist.all_reduce(sums, group=group)
+            frac_ok = sums[0].float() / world
+            ray_ok = budget_ok & torch.where(frac_ok > 0.25, window_ok, True)
+            n_ok = torch.where(frac_ok > 0.25, sums[1], sums[2]).long().clamp_min(1)
         diff = (colors - pixels).abs() * ray_ok
         loss = torch.where(diff < 1.0, 0.5 * diff**2, diff - 0.5).sum() / (n_ok * 3)
         mse = (diff.detach() ** 2).sum() / (n_ok * 3)
@@ -475,40 +528,53 @@ class NGPOccTrainer:
                 ray_indices=samples.ray_indices, n_rays=n_rays, indices_sorted=True,
                 seg_starts=samples.seg_starts, seg_ends=samples.seg_ends,
             )
-            dist = distortion(weights, samples.t_starts, samples.t_ends,
-                              samples.ray_indices, n_rays)
-            loss = loss + self.distortion_loss_weight * (dist * ray_ok).sum() / n_ok
+            per_ray = distortion(weights, samples.t_starts, samples.t_ends,
+                                 samples.ray_indices, n_rays)
+            loss = loss + self.distortion_loss_weight * (per_ray * ray_ok).sum() / n_ok
         if self.field_reg_weight > 0:
-            loss = loss + self.field_reg_weight * self.field.param_regularizer(params)
+            # replicated parameters and summed shard losses: divide by the
+            # group's size so the global loss carries the term once
+            loss = loss + self.field_reg_weight * self.field.param_regularizer(params) / world
         loss.backward()
+        loss = loss.detach()
+        counts = (ray_ok.sum(), extras["n_rendering_samples"],
+                  samples.num_valid + samples.overflow, samples.overflow, (~terminated).sum())
+        if group is not None:
+            loss, mse = all_reduce_grads(params.values(), group, (loss, mse))
+            counts = all_reduce_counts(counts, group)
         opt_state = self.apply_gradients(state.opt_state)
 
         aux = {
-            "loss": loss.detach(),
+            "loss": loss,
             "mse": mse,
-            "n_rays_ok": ray_ok.sum(),
-            "n_rendering_samples": extras["n_rendering_samples"],
-            "n_total_samples": samples.num_valid + samples.overflow,
-            "overflow": samples.overflow,
-            "n_rays_truncated": (~terminated).sum(),
+            "n_rays_ok": counts[0],
+            "n_rendering_samples": counts[1],
+            "n_total_samples": counts[2],
+            "overflow": counts[3],
+            "n_rays_truncated": counts[4],
         }
         return TrainState(params, opt_state, state.occ_state, step + 1), aux
 
-    def train_steps(self, state: TrainState, batches: Dict):
+    def train_steps(self, state: TrainState, batches: Dict, group=None):
         """``batches['rgb'].shape[0]`` steps over batches stacked along a
-        leading axis; the aux values come back stacked the same way."""
+        leading axis; the aux values come back stacked the same way.
+        ``group``: see :meth:`train_step` (each rank passes its blocks)."""
         auxs = []
         for i in range(batches["rgb"].shape[0]):
-            state, aux = self.train_step(state, {k: v[i] for k, v in batches.items()})
+            state, aux = self.train_step(
+                state, {k: v[i] for k, v in batches.items()}, group=group
+            )
             auxs.append(aux)
         return state, self._stack(auxs)
 
-    def train_steps_sampled(self, state: TrainState, sampler, n_steps: int):
+    def train_steps_sampled(self, state: TrainState, sampler, n_steps: int, group=None):
         """``n_steps`` steps, each on a batch that ``sampler`` (a
         :class:`~nerfacc_tpu_torch.data.device_sampler.DeviceRaySampler`)
         draws on the device from the step's own generator (stream 3), so a
         run resumed at a step draws the batches the whole run drew.  The
-        aux values come back stacked, as from :meth:`train_steps`."""
+        aux values come back stacked, as from :meth:`train_steps`.  With a
+        ``group`` (see :meth:`train_step`) every rank draws the global batch
+        and trains on its block of it."""
         if self.timestamps is not None:
             raise ValueError(
                 "train_steps_sampled draws no ray times: use train_steps for a "
@@ -517,7 +583,9 @@ class NGPOccTrainer:
         auxs = []
         for _ in range(int(n_steps)):
             batch = sampler.sample(self._generator(state.step, 3))
-            state, aux = self.train_step(state, batch)
+            if group is not None:
+                batch = take_block(batch, dist.get_rank(group), dist.get_world_size(group))
+            state, aux = self.train_step(state, batch, group=group)
             auxs.append(aux)
         return state, self._stack(auxs)
 

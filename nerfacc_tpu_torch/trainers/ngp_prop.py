@@ -9,8 +9,8 @@ the interlevel loss that trains the proposal fields, one backward, and one
 Adam update of both parameter groups.  Ported beside it: ``train_steps``,
 ``train_steps_sampled`` (batches drawn on the device by
 :class:`~nerfacc_tpu_torch.data.device_sampler.DeviceRaySampler`),
-``render_image`` and the PSNR/SSIM evaluation.  Not ported: the
-data-parallel ``axis_name`` path.
+``render_image`` and the PSNR/SSIM evaluation.  With a ``group`` a step is
+the JAX body's data-parallel ``axis_name`` path (``parallel.mesh``).
 """
 from __future__ import annotations
 
@@ -20,12 +20,21 @@ from typing import Any, Dict, List, NamedTuple, Optional, Sequence, Union
 
 import numpy as np
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 
 from ..estimators.prop_net import propnet_loss, propnet_sampling
+from ..parallel.mesh import take_block
 from ..utils.metrics import psnr, ssim
 from ..volrend import rendering
-from .ngp_occ import OptState, adam_update, disable_tf32, make_adam, make_lr_schedule
+from .ngp_occ import (
+    OptState,
+    adam_update,
+    all_reduce_grads,
+    disable_tf32,
+    make_adam,
+    make_lr_schedule,
+)
 
 class PropTrainState(NamedTuple):
     params: Dict[str, Any]  # {"field": state dict, "props": [state dict, ...]}
@@ -170,6 +179,7 @@ class NGPPropTrainer:
         batch: Dict,
         requires_grad: bool = False,
         biases: Optional[Sequence[torch.Tensor]] = None,
+        group=None,
     ):
         """One step; returns the new state and ``{loss, mse, prop_loss}``
         (device tensors; ``loss`` includes ``prop_loss``).
@@ -180,6 +190,12 @@ class NGPPropTrainer:
             biases: the resamplings' stratified jitter, one (n_rays,)
                 uniform draw per proposal level and one for the final
                 samples (None: drawn from the step's generator).
+            group: a ``torch.distributed`` group whose ranks each hold one
+                block of a global batch: gradients, loss, mse and
+                ``prop_loss`` are averaged over it (JAX's ``pmean``), and
+                the jitter is the global batch's, drawn level by level on
+                every rank and cut to this rank's block.  None: one
+                process, no collective.
 
         Every parameter's ``.grad`` holds this step's gradient afterwards;
         the proposal fields' are zeros on a step without ``requires_grad``,
@@ -192,6 +208,12 @@ class NGPPropTrainer:
         for p in leaves:
             p.grad = None
         gen = self._generator(step, 1) if biases is None and self.stratified else None
+        if gen is not None and group is not None:
+            n, world, rank = batch["rays_o"].shape[0], dist.get_world_size(group), dist.get_rank(group)
+            biases = [
+                torch.rand(n * world, generator=gen, device=self.device)[rank * n : (rank + 1) * n]
+                for _ in range(len(self.prop_samples) + 1)
+            ]
         colors, _, _, extras, cache = self._sample_and_render(
             params, batch["rays_o"], batch["rays_d"], batch["color_bkgd"],
             requires_grad, self.stratified, gen, biases,
@@ -208,28 +230,37 @@ class NGPPropTrainer:
         for p in leaves:
             if p.grad is None:
                 p.grad = torch.zeros_like(p)
+        loss, p_loss = loss.detach(), p_loss.detach()
+        if group is not None:
+            loss, mse, p_loss = all_reduce_grads(leaves, group, (loss, mse, p_loss), average=True)
         opt_state = adam_update(state.opt_state, self.schedule)
-        aux = {"loss": loss.detach(), "mse": mse, "prop_loss": p_loss.detach()}
+        aux = {"loss": loss, "mse": mse, "prop_loss": p_loss}
         return PropTrainState(params, opt_state, step + 1), aux
 
-    def train_steps(self, state: PropTrainState, batches: Dict, requires_grads):
+    def train_steps(self, state: PropTrainState, batches: Dict, requires_grads, group=None):
         """``len(requires_grads)`` steps over batches stacked along a leading
-        axis; the aux values come back stacked the same way."""
+        axis; the aux values come back stacked the same way.  ``group``: see
+        :meth:`train_step` (each rank passes its blocks)."""
         auxs = []
         for i, rg in enumerate(requires_grads):
-            state, aux = self.train_step(state, {k: v[i] for k, v in batches.items()}, bool(rg))
+            state, aux = self.train_step(
+                state, {k: v[i] for k, v in batches.items()}, bool(rg), group=group
+            )
             auxs.append(aux)
         return state, self._stack(auxs)
 
-    def train_steps_sampled(self, state: PropTrainState, sampler, requires_grads):
+    def train_steps_sampled(self, state: PropTrainState, sampler, requires_grads, group=None):
         """``len(requires_grads)`` steps, each on a batch that ``sampler``
         (a :class:`~nerfacc_tpu_torch.data.device_sampler.DeviceRaySampler`)
         draws on the device from the step's generator: no host data per
-        step."""
+        step.  With a ``group`` (see :meth:`train_step`) every rank draws
+        the global batch and trains on its block of it."""
         auxs = []
         for rg in requires_grads:
             batch = sampler.sample(self._generator(state.step, 2))
-            state, aux = self.train_step(state, batch, bool(rg))
+            if group is not None:
+                batch = take_block(batch, dist.get_rank(group), dist.get_world_size(group))
+            state, aux = self.train_step(state, batch, bool(rg), group=group)
             auxs.append(aux)
         return state, self._stack(auxs)
 

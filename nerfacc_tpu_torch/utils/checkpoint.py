@@ -7,7 +7,11 @@ named plain tensors (parameters, Adam's moments and step counts, the
 update count, the occupancy grid's ``occs``, ``binaries`` and ``aabbs``, and
 the step) and written with ``torch.save``; loading reads them back with
 ``weights_only=True`` and refuses a checkpoint whose names or shapes differ
-from the template's, the port's form of JAX's treedef guard.
+from the template's, the port's form of JAX's treedef guard.  A data- or
+tensor-parallel state (``parallel``) saves from rank 0, a tensor-parallel
+one gathered into the whole layout (W1's rows in shard-major order, as JAX
+writes it); ``load_checkpoint`` of the whole state, then
+``parallel.tp.shard_state``, restores a rank's part.
 """
 from __future__ import annotations
 
@@ -34,9 +38,22 @@ def _flatten(state: TrainState) -> Dict[str, torch.Tensor]:
     return flat
 
 
-def save_checkpoint(path: str, state: TrainState) -> None:
+def save_checkpoint(path: str, state: TrainState, trainer=None, mesh=None) -> None:
     """Write ``state`` to ``path`` (through a temporary file, so an
-    interrupted save leaves the previous checkpoint whole)."""
+    interrupted save leaves the previous checkpoint whole).  With a
+    ``mesh`` (and the ``trainer`` whose state it is) every rank calls it:
+    a model-sharded state is gathered first, rank 0 writes, and every rank
+    returns once the file is whole."""
+    if mesh is not None:
+        from ..parallel.mesh import barrier
+        from ..parallel.tp import gather_state
+
+        if mesh.n_model > 1:
+            state = gather_state(state, trainer, mesh)
+        if mesh.rank == 0:
+            save_checkpoint(path, state)
+        barrier(mesh)
+        return
     os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
     tmp = f"{path}.tmp{os.getpid()}"
     torch.save(_flatten(state), tmp)

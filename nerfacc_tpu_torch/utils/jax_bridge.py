@@ -28,6 +28,7 @@ import torch
 
 from ..estimators.occ_grid import OccGridEstimator, OccGridState
 from ..estimators.sparse_grid import SparseGrid, SparseGridEstimator
+from ..trainers.ngp_occ import TrainState
 
 _MLPS = ("mlp_base", "mlp_head")
 
@@ -338,6 +339,49 @@ def occ_state_to_numpy(state: OccGridState):
     return tuple(
         t.detach().cpu().numpy() for t in (state.aabbs, state.occs, state.binaries)
     )
+
+
+def occ_train_state_from_numpy(
+    trainer,
+    params: Dict,
+    occ,
+    adam=None,
+    step: int = 0,
+    mesh=None,
+    device: Union[str, torch.device] = "cuda",
+):
+    """A JAX occupancy ``TrainState`` (numpy) -> this rank's port
+    ``TrainState`` for ``trainer`` (an ``NGPOccTrainer`` over a CP field).
+
+    Args:
+        params: the CP field's parameter tree, whole, as JAX holds it (under
+            tensor parallelism W1's rows in shard-major order).
+        occ: the grid's (aabbs, occs, binaries).
+        adam: optax's ``(count, mu, nu)`` (``ScaleByAdamState``; ``mu`` and
+            ``nu`` trees like ``params``), or None for fresh moments.
+        step: the state's step.
+        mesh: a ``parallel`` mesh: the state is cut to this rank's part
+            (``parallel.tp.shard_state``); None keeps it whole.
+    """
+    whole = cp_field_params_from_numpy(params, device)
+    for p in whole.values():
+        p.requires_grad_(True)
+    opt_state = trainer.init_optimizer(whole)
+    if adam is not None:
+        count, mu, nu = adam
+        moments = [cp_field_params_from_numpy(m, device) for m in (mu, nu)]
+        for name, p in whole.items():
+            opt_state.optimizer.state[p] = {
+                "step": torch.tensor(float(count)),
+                "exp_avg": moments[0][name], "exp_avg_sq": moments[1][name],
+            }
+        opt_state = opt_state._replace(count=int(count))
+    state = TrainState(whole, opt_state, occ_state_from_numpy(*occ, device=device), int(step))
+    if mesh is None:
+        return state
+    from ..parallel.tp import shard_state
+
+    return shard_state(state, trainer, mesh)
 
 
 def occ_grid_estimator_from_numpy(estimator: OccGridEstimator, state_dict: Dict) -> None:

@@ -92,6 +92,8 @@ def _default_device(fn):
         "estimators.sparse_grid.SparseGridEstimator",
         "estimators.sparse_grid.sparse_grid_from_dense",
         "estimators.sparse_grid.sparse_grid_from_ijk",
+        "parallel.dryrun.entry",
+        "utils.jax_bridge.occ_train_state_from_numpy",
     ],
 )
 def test_entry_points_default_to_the_card(name):
