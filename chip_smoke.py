@@ -71,8 +71,9 @@ It builds the CUDA kernels from ``nerfacc_tpu_torch/csrc`` and runs:
     weight decay, TV weight 1e-4); G8, G9 and G10 must launch;
 13. phase 5 with that field, the deformation leaves included;
 14. phase 6 with that field, against phase 11's PSNR;
-    14b. phases 12 and 14 again from one more seed (the first
-    ``SMOKE_QUALITY_SEEDS`` of ``QUALITY_SEEDS``), and from both
+    14b. phases 12 and 14 again from the other seeds of the first
+    ``SMOKE_QUALITY_SEEDS`` (three) of ``QUALITY_SEEDS``, and from all of
+    them (each run in a process of its own, side by side on the card)
     with every kernel of the path (G2, G3, G5, G8-G10) on its plain version
     in training and serving: the mean trained PSNR through the kernels must
     be at most ``PSNR_MARGIN`` below the mean through the plain versions;
@@ -181,7 +182,11 @@ It builds the CUDA kernels from ``nerfacc_tpu_torch/csrc`` and runs:
     ``"padded"`` its samples at 1024 candidates; view 0 through
     ``sampling`` + ``rendering`` against ``trainer.render_rays`` within
     2e-3; a loop step timed by ``utils.profiler.benchmark`` against the same
-    step with ``OccGridEstimator``, beside phase 19's;
+    step with ``OccGridEstimator``, beside phase 19's; then the loop again on
+    the hard-surface scene (``proceduralopaque``), its VDB update driven by
+    the scene's own density, which must disable voxels (the occupied share
+    printed, below 1), and that grid's samples of the scene's view 0 held
+    bit for bit to ``OccGridEstimator``'s as above;
 28. the distributed layer (``nerfacc_tpu_torch.parallel``) at the bench
     widths, ranks started by ``spawn``: a) NCCL at world size 1,
     ``make_dp_train_step`` against ``train_step`` bit for bit (G4 on its
@@ -192,7 +197,18 @@ It builds the CUDA kernels from ``nerfacc_tpu_torch/csrc`` and runs:
     the kernels against the plain versions; c) gloo, four ranks on a
     (2, 2) data x model mesh: two tensor-parallel steps against the
     single-process steps, rank 16 a shard, the checkpoint round trip; d)
-    the proposal DP step on two ranks; e) ``dryrun_multichip(4)``.
+    the proposal DP step on two ranks; e) the dry run of
+    ``dryrun_multichip(4)`` on c's four ranks;
+29. the occupancy estimator's windowed and pooled entry points on phase
+    4's trained bench CP field and its 128^3 grid (step 5e-3), a train
+    batch of 2048 rays with its near-plane jitter: ``sampling_padded`` (the
+    whole orbit's lattice, and windowed) and ``sampling_pooled`` with
+    ``compact_samples_from_windows`` must emit ``sampling``'s samples (G2)
+    bit for bit; ``render_rays_occgrid_pooled`` without the early stop, in
+    one round, must give the exact renderer's image on those rays bit for
+    bit, and with its default early stop, like ``make_cursor_eval_chunk``,
+    within 2e-3 of it; G1, G2 and G3 must launch; each call timed beside
+    the exact renderer.
 
 Phase 6b classifies a ray by its sample set: the early-stop renderer's
 rounds against the ray's whole orbit, the same count and every bound
@@ -279,6 +295,7 @@ import dataclasses
 import importlib
 import json
 import math
+import multiprocessing
 import os
 import statistics
 import subprocess
@@ -446,10 +463,10 @@ STEP_REPEATS = 8
 # over 0.8-1.9 dB on an H100 (PERF.md §6); 1.5 dB between the means of
 # three is ~2 standard errors of their difference, and a kernel that cost
 # every seed ~3 dB would fail it.  The default run takes the first
-# SMOKE_QUALITY_SEEDS of them (the script's time limit; 1.5 dB is then ~1.6
-# standard errors); ``--quality`` takes every seed it is given.
+# SMOKE_QUALITY_SEEDS of them, all three; ``--quality`` takes every seed it
+# is given.
 QUALITY_SEEDS = (42, 7, 1234)  # the first is the trainers' default
-SMOKE_QUALITY_SEEDS = 2
+SMOKE_QUALITY_SEEDS = 3
 PSNR_MARGIN = 1.5
 F32_STEP_FRO = 1e-4
 F32_HAT_STEP_FRO = 5e-4
@@ -485,7 +502,7 @@ PATH_KERNELS_TINEUVOX = ("march", "composite_fwd", "composite_bwd", "hat_fwd",
 # them alone.  Each loop ends at the first multiple of its 8-step calls past
 # --max_steps, so --max_steps is one call short of the steps wanted.
 MLP_CALL = 8
-MLP_STEPS = {"tnerf": 1000, "kplanes": 1000, "tineuvox": 504}
+MLP_STEPS = {"tnerf": 504, "kplanes": 504, "tineuvox": 504}
 # field -> the example's flags and the kernels its path launches; --example
 # adds MLP_EXAMPLE_FLAGS (TiNeuVox at the lr of the TPU v5e's quality rows,
 # docs/benchmarks.md:100-101)
@@ -2604,26 +2621,46 @@ def quality_run(dev, path, seed, plain=()):
     }
 
 
+def _quality_job(device, path, seed, plain):
+    return quality_run(torch.device(device), path, seed, plain)
+
+
+def quality_runs(dev, jobs):
+    """:func:`quality_run` for each ``(path, seed, plain)`` of ``jobs``, all
+    at once, each in a process of its own on the card, with one CPU thread
+    (the processes share the host's cores): the train loops are host-bound,
+    so the processes overlap on the host and share the card.  A run's
+    result does not depend on the others (its seed fixes its draws), but
+    its seconds include theirs.  Returns the results in job order; every
+    process has ended when it returns."""
+    with multiprocessing.get_context("spawn").Pool(
+            len(jobs), initializer=torch.set_num_threads, initargs=(1,)) as pool:
+        return pool.starmap(_quality_job, [(str(dev), *job) for job in jobs])
+
+
 def phase_plain_quality(dev, path, kernel_psnr):
     """14b / 18b. ``path`` trained from the other seeds of the first
     ``SMOKE_QUALITY_SEEDS`` of ``QUALITY_SEEDS`` through its kernels
     (``kernel_psnr``: phase 14's / 18's, from the first) and from all of
     them through the plain versions of its kernels
-    (:func:`quality_run`), each served as it was trained: the kernel
-    route's mean trained PSNR must be no more than ``PSNR_MARGIN`` below the
-    plain route's."""
+    (:func:`quality_run`, the runs side by side, :func:`quality_runs`),
+    each served as it was trained: the kernel route's mean trained PSNR
+    must be no more than ``PSNR_MARGIN`` below the plain route's."""
     psnr = {"kernels": [kernel_psnr], "plain": []}
     seeds = QUALITY_SEEDS[:SMOKE_QUALITY_SEEDS]
-    for seed in seeds:
-        for route, plain in (("kernels", ()), ("plain", PATH_KERNELS[path])):
-            if route == "kernels" and seed == QUALITY_SEEDS[0]:
-                continue
-            run = quality_run(dev, path, seed, plain)
-            psnr[route].append(run["psnr"])
-            print(f"trained {path}, seed {seed}, through the {route}: psnr {run['psnr']:.3f}, "
-                  f"ssim {run['ssim']:.4f}, mean loss {run['loss_first50']:.6f} -> "
-                  f"{run['loss_last50']:.6f} (first and last 50 steps), {TRAIN_STEPS} steps "
-                  f"and the test views in {run['seconds']:.1f} s")
+    jobs = [(route, seed, plain) for seed in seeds
+            for route, plain in (("kernels", ()), ("plain", PATH_KERNELS[path]))
+            if route == "plain" or seed != QUALITY_SEEDS[0]]
+    t0 = time.perf_counter()
+    runs = quality_runs(dev, [(path, seed, plain) for _, seed, plain in jobs])
+    for (route, seed, _), run in zip(jobs, runs):
+        psnr[route].append(run["psnr"])
+        print(f"trained {path}, seed {seed}, through the {route}: psnr {run['psnr']:.3f}, "
+              f"ssim {run['ssim']:.4f}, mean loss {run['loss_first50']:.6f} -> "
+              f"{run['loss_last50']:.6f} (first and last 50 steps), {TRAIN_STEPS} steps "
+              f"and the test views in {run['seconds']:.1f} s beside the other runs")
+    print(f"trained {path}: {len(jobs)} runs side by side in {time.perf_counter() - t0:.1f} s "
+          f"({card()})")
     mean = {k: statistics.mean(v) for k, v in psnr.items()}
     print(f"trained {path} psnr over seeds {seeds}: through the kernels "
           f"{[round(v, 3) for v in psnr['kernels']]}, mean {mean['kernels']:.3f}; through "
@@ -2840,24 +2877,27 @@ def qs_step_checks(dev, field, estimator, batch, name):
     return near
 
 
-def qs_train(dev, estimator_cls, name):
+def qs_train(dev, estimator_cls, name, train=None, occ_eval_fn=None):
     """The quick start's loop: the full-width bf16 CP field from seed 42
     behind ``estimator_cls(roi_aabb=AABB, resolution=QS_RES)``,
-    ``QS_STEPS`` steps on phase 4's train split of the estimator's update,
+    ``QS_STEPS`` steps on ``train`` (default: phase 4's train split) of the
+    estimator's update (from ``occ_eval_fn``, default the field's density
+    times the step),
     ``qs_loss`` and Adam, launches counted; every 50 steps the loss, the
     samples, the launches a step so far and the grid's occupied share.  The
     loss must fall below ``QS_LOSS_RATIO`` of its start and G1-G5 must
     launch.  Returns the field, the estimator, the ``QS_STEPS + 1``
     batches, the launches and each step's seconds."""
-    train = train_loader(dev, "cp")
+    train = train_loader(dev, "cp") if train is None else train
     batches = [train[0] for _ in range(QS_STEPS + 1)]
     field = port_module("models.cp_field").CPRadianceField(AABB).to(dev)
     field.init(torch.Generator().manual_seed(QUALITY_SEEDS[0]))
     estimator = estimator_cls(roi_aabb=AABB, resolution=QS_RES, device=dev)
     optimizer = torch.optim.Adam(field.parameters(), lr=1e-2, eps=1e-15)
 
-    def occ_eval_fn(x):
-        return field.query_density(x)[..., 0] * QS_STEP
+    if occ_eval_fn is None:
+        def occ_eval_fn(x):
+            return field.query_density(x)[..., 0] * QS_STEP
 
     torch.cuda.synchronize()
     cuda.reset_launches()
@@ -3072,38 +3112,19 @@ def same_samples(a, b):
     return all(same_bits(x, y) for x, y in zip(a, b))
 
 
-def phase_quickstart_vdb(dev, ds, qs_loop_ms):
-    """27. Phase 19's loop with ``VDBEstimator`` (128^3 over +-1.5, the VDB
-    update: only the touched voxels change) in place of
-    ``OccGridEstimator``; launches counted, G1-G5 must launch and the loss
-    must fall below ``QS_LOSS_RATIO``.  One step through the kernels
-    against their plain versions (phase 5's bounds).  On the trained grid,
-    through ``sparse_grid_from_dense``, a ``VDBEstimator`` and an
-    ``N3TreeEstimator`` sample view 0's rays: ``traversal="windowed"`` must
-    equal ``OccGridEstimator``'s samples with ``QS_VIEW_MAX_SAMPLES``
-    candidates, ``"padded"`` its samples with 1024, bit for bit; no orbit
-    may reach ``VDB_ROUND_REACH``.  View 0 through ``qs_frame`` against
-    ``trainer.render_rays`` within 2e-3.  A loop step timed by
-    ``utils.profiler.benchmark`` against the same step with
-    ``OccGridEstimator`` on the same grid, field and rays, and beside
-    phase 19's (``qs_loop_ms``)."""
-    from nerfacc_tpu_torch.utils import profiler
-
-    print(f"vdb quick start: {card()}")
-    t_phase = time.perf_counter()
-    field, estimator, batches, launches, step_s = qs_train(
-        dev, nerfacc_tpu_torch.VDBEstimator, "vdb quick start")
-    qs_step_checks(dev, field, estimator, batches[QS_STEPS], "vdb quick start")
-
-    # both traversals and the octree estimator against the exact occupancy
-    # estimator on the trained grid, view 0's rays
+def vdb_traversals(dev, estimator, data, label):
+    """On ``estimator``'s trained grid, through ``sparse_grid_from_dense``, a
+    ``VDBEstimator`` and an ``N3TreeEstimator`` sample ``data``'s rays:
+    ``traversal="windowed"`` must equal ``OccGridEstimator``'s samples with
+    ``QS_VIEW_MAX_SAMPLES`` candidates, ``"padded"`` its samples with 1024,
+    bit for bit; no orbit may reach ``VDB_ROUND_REACH``.  Returns that
+    ``OccGridEstimator`` (its cap 1024)."""
     dense = estimator.binaries[0]
     grid = nerfacc_tpu_torch.sparse_grid_from_dense(dense, AABB, device=dev)
     occ = nerfacc_tpu_torch.OccGridEstimator(roi_aabb=AABB, resolution=QS_RES,
                                              max_samples=QS_VIEW_MAX_SAMPLES, device=dev)
     occ.binaries = dense[None].clone()
     occ.occs = estimator.occs.clone()
-    data = ds[0]
     rays_o, rays_d = data["rays_o"].reshape(-1, 3), data["rays_d"].reshape(-1, 3)
     n_rays = rays_o.shape[0]
     kw = dict(render_step_size=QS_STEP, early_stop_eps=0.0, alpha_thre=0.0)
@@ -3116,19 +3137,49 @@ def phase_quickstart_vdb(dev, ds, qs_loop_ms):
         windowed = est.sampling(rays_o, rays_d, traversal="windowed", **kw)
         padded = est.sampling(rays_o, rays_d, traversal="padded", **kw)
         ok_w, ok_p = same_samples(windowed, exact), same_samples(padded, capped)
-        print(f"vdb traversals, {cls.__name__}, view 0 ({n_rays} rays): windowed "
+        print(f"{label}, {cls.__name__}, view 0 ({n_rays} rays): windowed "
               f"{windowed[0].shape[0]} samples, bitwise OccGridEstimator's at "
               f"{QS_VIEW_MAX_SAMPLES} candidates: {ok_w}; padded {padded[0].shape[0]}, "
               f"bitwise its at 1024: {ok_p}")
-        require(ok_w and ok_p, f"{cls.__name__}: samples differ from OccGridEstimator's")
+        require(ok_w and ok_p, f"{label}: {cls.__name__}'s samples differ from "
+                "OccGridEstimator's")
     per_ray = [torch.bincount(s[0], minlength=n_rays) for s in (exact, capped)]
     _, t_far, hits = nerfacc_tpu_torch.ray_aabb_intersect(rays_o, rays_d, occ.aabbs)
     longest = float(t_far[hits].max()) / QS_STEP
-    print(f"vdb traversals: the 1024-candidate cap cut {int((per_ray[1] < per_ray[0]).sum())} "
+    print(f"{label}: the 1024-candidate cap cut {int((per_ray[1] < per_ray[0]).sum())} "
           f"of {n_rays} rays ({int(per_ray[0].sum() - per_ray[1].sum())} samples); the "
           f"longest orbit to the box's far side holds {longest:.1f} candidates, JAX's "
           f"windowed rounds reach at least {VDB_ROUND_REACH}")
-    require(longest < VDB_ROUND_REACH, "an orbit outreaches JAX's windowed rounds")
+    require(longest < VDB_ROUND_REACH, f"{label}: an orbit outreaches JAX's windowed rounds")
+    return occ
+
+
+def phase_quickstart_vdb(dev, ds, qs_loop_ms):
+    """27. Phase 19's loop with ``VDBEstimator`` (128^3 over +-1.5, the VDB
+    update: only the touched voxels change) in place of
+    ``OccGridEstimator``; launches counted, G1-G5 must launch and the loss
+    must fall below ``QS_LOSS_RATIO``.  One step through the kernels
+    against their plain versions (phase 5's bounds).  On the trained grid
+    :func:`vdb_traversals` for view 0's rays.  View 0 through ``qs_frame``
+    against ``trainer.render_rays`` within 2e-3.  A loop step timed by
+    ``utils.profiler.benchmark`` against the same step with
+    ``OccGridEstimator`` on the same grid, field and rays, and beside
+    phase 19's (``qs_loop_ms``).  Then the loop on the hard-surface scene's
+    train split (6 views at 256x256), its VDB update driven by the scene's
+    own density times the step (the learned field raises its density in
+    every cell there): the update must leave fewer than all voxels
+    occupied, and :func:`vdb_traversals` holds that grid's samples of the
+    scene's view 0.  Returns both loops' launches."""
+    from nerfacc_tpu_torch.utils import profiler
+
+    print(f"vdb quick start: {card()}")
+    t_phase = time.perf_counter()
+    field, estimator, batches, launches, step_s = qs_train(
+        dev, nerfacc_tpu_torch.VDBEstimator, "vdb quick start")
+    qs_step_checks(dev, field, estimator, batches[QS_STEPS], "vdb quick start")
+
+    occ = vdb_traversals(dev, estimator, ds[0], "vdb traversals")
+    data = ds[0]
 
     # view 0 through the quick start's calls against the exact renderer
     trainer = make_trainer(dev)
@@ -3168,9 +3219,25 @@ def phase_quickstart_vdb(dev, ds, qs_loop_ms):
           f"{times['OccGridEstimator'][1]:.3f} ms with OccGridEstimator on the same grid "
           f"(profiler.benchmark, mean of {QS_TIMED_STEPS}); phase 19's loop step "
           f"{qs_loop_ms:.3f} ms (median of its last {QS_TIMED_STEPS}); the VDB loop's "
-          f"median {1e3 * statistics.median(step_s[-QS_TIMED_STEPS:]):.3f} ms; phase 27 took "
-          f"{time.perf_counter() - t_phase:.1f} s ({card()})")
-    return launches
+          f"median {1e3 * statistics.median(step_s[-QS_TIMED_STEPS:]):.3f} ms ({card()})")
+
+    # the hard-surface scene, whose empty space the VDB update must disable;
+    # the update reads the scene's own density (a learned CP field raises
+    # its density in every cell of this scene, PERF.md §6)
+    opaque = ProceduralOpaqueSceneLoader(split="train", n_train=6, width=256, height=256,
+                                         num_rays=TRAIN["cp"][1], seed=QUALITY_SEEDS[0],
+                                         device=dev)
+    _, estimator, _, opaque_launches, _ = qs_train(
+        dev, nerfacc_tpu_torch.VDBEstimator, "vdb opaque", train=opaque,
+        occ_eval_fn=lambda x: opaque.query_density(x, opaque.blob_centers)[:, 0] * QS_STEP)
+    share = float(estimator.binaries.float().mean())
+    print(f"vdb opaque: after {QS_STEPS} steps the VDB update, from the scene's density, "
+          f"left {share:.4f} of the {QS_RES}^3 voxels occupied")
+    require(share < 1.0, "vdb opaque: the VDB update disabled no voxel")
+    vdb_traversals(dev, estimator, ProceduralOpaqueSceneLoader(split="test", device=dev)[0],
+                   "vdb opaque traversals")
+    print(f"vdb quick start: phase 27 took {time.perf_counter() - t_phase:.1f} s ({card()})")
+    return {k: v + opaque_launches.get(k, 0) for k, v in launches.items()}
 
 
 def dist_occ_spec(steps, **kw):
@@ -3240,8 +3307,9 @@ def phase_distributed(dev):
     single-process steps (tests/test_parallel.py's TP bounds, W1 in
     shard-major order), rank 16 a shard, the checkpoint round trip.
     d) the proposal DP step on b's two ranks, ``bench_prop``'s fields,
-    against the single-process step.  e) ``dryrun_multichip(4)`` on the
-    card.
+    against the single-process step.  e) the dry run of
+    ``dryrun_multichip(4)`` (its rank body, ``case_dryrun``) on c's four
+    ranks.
     Every rank launches the path's kernels (G1-G5; G14 in d).  Returns the
     launches summed over ranks and steps."""
     from nerfacc_tpu_torch import parallel
@@ -3351,12 +3419,13 @@ def phase_distributed(dev):
                 and worst <= BF16_STEP_FRO, "b: kernels vs plain versions")
         add(run["launches"], "b")
 
-    # c) gloo, four ranks on a (2, 2) data x model mesh
+    # c) gloo, four ranks on a (2, 2) data x model mesh; they run e) too
     t0 = time.perf_counter()
     c = parallel.spawn(4, dryrun.run_cases, (2, 2), [
         ("tp", "tp", dist_occ_spec(2, single=True, record_grads=True)),
+        ("dryrun", "dryrun", 4),
     ], backend="gloo", device=str(dev), timeout=DIST_TIMEOUT)
-    print(f"distributed c: four ranks ran in {time.perf_counter() - t0:.1f} s ({card()})")
+    print(f"distributed c, e: four ranks ran in {time.perf_counter() - t0:.1f} s ({card()})")
     single, gathered = c[0]["tp"]["single"], c[0]["tp"]["gathered"]
     perm = c[0]["tp"]["perm"]
     want = dict(single["params"], **{"mlp_base.0": single["params"]["mlp_base.0"][perm]})
@@ -3407,15 +3476,137 @@ def phase_distributed(dev):
             require(abs(float(dp["aux"][key]) - want) <= 1e-5 * abs(want), f"d: {key}")
         add(rank["prop"]["launches"], "d", DIST_PROP_KERNELS)
 
-    # e) the dry run
-    t0 = time.perf_counter()
-    e = parallel.dryrun_multichip(4, backend="gloo", device=str(dev), timeout=DIST_TIMEOUT)
-    print(f"distributed e: four ranks ran in {time.perf_counter() - t0:.1f} s ({card()})")
+    # e) the dry run's rank body (dryrun_multichip's) on c's four ranks
+    e = [rank["dryrun"] for rank in c]
     print(f"distributed e: {e[0]['line']}; launches a step, by rank: "
           + "; ".join(per_rank_step(rank["launches"], 2) for rank in e))
     for rank in e:
         add(rank["launches"], "e")
     print(f"distributed: phase 28 took {time.perf_counter() - t_phase:.1f} s ({card()})")
+    return total
+
+
+# Phase 29: the windowed sweep and pool sized so that no ray is cut (an
+# orbit of the bench grid holds ~1040 candidates from near 0, 130 windows)
+POOLED_SWEEP = 160
+POOLED_WINDOW_BUDGET = 2**18
+POOLED_SAMPLE_BUDGET = 2**22
+
+
+def flat_samples(valid, t_starts, t_ends, ray_of_row):
+    """(int64 ray ids, starts, ends) of the valid candidates of a padded
+    layout, in row-major order."""
+    rays = ray_of_row.long()[:, None].expand_as(valid)
+    return rays[valid], t_starts[valid], t_ends[valid]
+
+
+def phase_pooled_entry_points(dev, trainer, state, batch):
+    """29. The occupancy estimator's windowed and pooled entry points on
+    phase 4's trained bench CP field, its 128^3 grid and one of its train
+    batches (2048 rays, near planes jittered by a seeded draw), against
+    ``sampling`` (the march, G2): ``sampling_padded`` over the whole orbit's
+    lattice and windowed (``POOLED_SWEEP`` windows, so that no ray is
+    cut), ``sampling_pooled`` (``POOLED_WINDOW_BUDGET`` windows) and its
+    ``compact_samples_from_windows`` must emit its samples bit for bit.
+    Without jitter, ``render_rays_occgrid_pooled`` with no early stop in one
+    round must give ``render_rays_with_occgrid``'s image on ``sampling``'s
+    samples bit for bit, and with its defaults (early stop at 1 - 1e-4),
+    like ``make_cursor_eval_chunk``, within ``RENDERER_COLOUR_ERR``.  Each
+    call timed (host clock after a sync, the best of three); every entry
+    point must launch G2, and the renderers G1 and G3.  Returns the
+    phase's launches."""
+    from nerfacc_tpu_torch.estimators.occ_grid import sampling, sampling_padded, sampling_pooled
+    from nerfacc_tpu_torch.utils import rendering
+
+    print(f"pooled entry points: {card()}")
+    t_phase = time.perf_counter()
+    occ, step = state.occ_state, trainer.render_step_size
+    o, d = batch["rays_o"], batch["rays_d"]
+    n_rays = o.shape[0]
+    bkgd = batch["color_bkgd"]
+    field_fn = trainer._field_fn(state, batch)
+    jitter = torch.rand(n_rays, device=dev, generator=torch.Generator(device=dev).manual_seed(29))
+    total = {}
+
+    def call(what, fn, kernels):
+        """``fn()`` three times: its result, best seconds and launches of one
+        call; each of ``kernels`` must launch."""
+        best = math.inf
+        for _ in range(3):
+            before = dict(cuda.LAUNCHES)
+            out, seconds = timed(fn)
+            best = min(best, seconds)
+        launched = {k: cuda.LAUNCHES[k] - before[k] for k in cuda.LAUNCHES}
+        for k in kernels:
+            require(launched[k] > 0, f"29: {what} launched no {k}")
+        for k, v in launched.items():
+            total[k] = total.get(k, 0) + v
+        return out, best, launched
+
+    with torch.no_grad():
+        ref, ref_s, _ = call("sampling", lambda: sampling(
+            occ, o, d, render_step_size=step, near_jitter=jitter), ["march"])
+        want = (ref.ray_indices.long(), ref.t_starts, ref.t_ends)
+        rows = torch.arange(n_rays, device=dev)
+        kw = dict(render_step_size=step, stratified=True, near_jitter=jitter)
+        def padded(**extra):
+            res = sampling_padded(occ, o, d, **kw, **extra)
+            return flat_samples(res.valid, res.t_starts, res.t_ends, rows)
+
+        outs = {
+            "sampling_padded (lattice)": lambda: padded(max_samples=None),
+            f"sampling_padded (windowed, {POOLED_SWEEP} windows)": lambda: padded(
+                windowed=True, n_windows=POOLED_SWEEP, max_coarse=POOLED_SWEEP),
+            "sampling_pooled + compact_samples_from_windows": lambda: (lambda c: (
+                c.ray_indices.long(), c.t_starts, c.t_ends))(
+                rendering.compact_samples_from_windows(sampling_pooled(
+                    occ, o, d, window_budget=POOLED_WINDOW_BUDGET, max_coarse=POOLED_SWEEP,
+                    **kw), POOLED_SAMPLE_BUDGET, n_rays)),
+        }
+        for what, fn in outs.items():
+            got, seconds, launched = call(what, fn, ["march"])
+            same = same_samples(got, want)
+            print(f"pooled entry points: {what}: {got[0].shape[0]} samples of {n_rays} rays, "
+                  f"bitwise sampling's {want[0].shape[0]}: {same}; {seconds:.4f} s against "
+                  f"{ref_s:.4f} s for sampling; launches {launched['march']} march ({card()})")
+            require(same, f"29: {what}'s samples differ from sampling's")
+
+        exact_samples = compact_samples(sampling(occ, o, d, render_step_size=step))
+        (exact, exact_s, _) = call("the exact renderer", lambda: rendering.render_rays_with_occgrid(
+            lambda p, dirs, _ids: field_fn(p, dirs), o, d, exact_samples, bkgd)[:3],
+            ["cp_level_fwd", "composite_fwd"])
+        pooled, pooled_s, _ = call("render_rays_occgrid_pooled", lambda: (
+            rendering.render_rays_occgrid_pooled(
+                field_fn, occ, o, d, render_bkgd=bkgd, render_step_size=step,
+                early_stop_eps=0.0, budget=POOLED_SAMPLE_BUDGET,
+                window_budget=POOLED_WINDOW_BUDGET, max_coarse=POOLED_SWEEP, max_rounds=1)),
+            ["march", "cp_level_fwd", "composite_fwd"])
+        same = all(torch.equal(a, b) for a, b in zip(pooled, exact))
+        print(f"pooled entry points: render_rays_occgrid_pooled, no early stop, one round: "
+              f"colours, opacities and depths bitwise the exact renderer's on "
+              f"{exact_samples.num_valid} samples: {same}; {pooled_s:.4f} s against "
+              f"{exact_s:.4f} s for render_rays_with_occgrid ({card()})")
+        require(same, "29: the pooled renderer without early stop is not the exact one")
+        early, early_s, launched = call("render_rays_occgrid_pooled (defaults)", lambda: (
+            rendering.render_rays_occgrid_pooled(field_fn, occ, o, d, render_bkgd=bkgd,
+                                                 render_step_size=step)),
+            ["march", "cp_level_fwd", "composite_fwd"])
+        chunk_fn = rendering.make_cursor_eval_chunk(field_fn, occ, render_step_size=step)
+        cursor, cursor_s, cursor_launched = call("make_cursor_eval_chunk", lambda: chunk_fn(o, d),
+                                                 ["march", "cp_level_fwd", "composite_fwd"])
+        cursor_colors = cursor[0] + bkgd * (1.0 - cursor[1])
+        for what, colors, seconds, n in (
+                ("render_rays_occgrid_pooled (defaults)", early[0], early_s, launched),
+                ("make_cursor_eval_chunk (defaults)", cursor_colors, cursor_s,
+                 cursor_launched)):
+            diff = float((colors - exact[0]).abs().max())
+            print(f"pooled entry points: {what}: max colour difference from the exact "
+                  f"renderer {diff:.3g} (limit {RENDERER_COLOUR_ERR}); {seconds:.4f} s, "
+                  f"launches march {n['march']}, composite_fwd {n['composite_fwd']} "
+                  f"({card()})")
+            require(diff <= RENDERER_COLOUR_ERR, f"29: {what} differs by {diff}")
+    print(f"pooled entry points: phase 29 took {time.perf_counter() - t_phase:.1f} s "
+          f"({card()})")
     return total
 
 
@@ -4390,6 +4581,10 @@ def main():
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     print(f"card: {card()}")
+    t_start = time.perf_counter()
+
+    def mark(phases):
+        print(f"chip_smoke: phases {phases} done, {time.perf_counter() - t_start:.1f} s in")
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"{torch.cuda.get_device_name(0)}")
 
@@ -4415,6 +4610,7 @@ def main():
     gather_report, probe_launches = phase_gather_kernels(dev)
     report.update(gather_report)
     report.update(phase_pdf_kernel(dev))
+    mark("1-1f")
     occ360 = occ360_example(dev)
     occ360_untrained = phase_unbounded_march(dev, *occ360[2:4])
     trainer, state, untrained_psnr = phase_slice(dev, ds)
@@ -4441,9 +4637,11 @@ def main():
     phase_train_twins(trainer, state, batch)
     phase_serve_trained(trainer, state, ds, untrained_psnr)
     phase_trained_frames(trainer, state, ds)
+    cp_trained = (trainer, state, batch)  # phase 29's
     del trainer, state
     phase_opaque_frames(dev)
     example_launches = phase_example(dev, untrained_psnr)
+    mark("2-6d")
 
     # 7-10: the hash-grid NGP field through the same entry points
     _, _, untrained_psnr = phase_slice(dev, ds, "ngp")
@@ -4451,6 +4649,7 @@ def main():
     phase_train_twins(trainer, state, batch, "ngp")
     phase_serve_trained(trainer, state, ds, untrained_psnr, "ngp")
     del trainer, state
+    mark("7-10")
 
     # 11-14: the TiNeuVox dynamic field on the moving scene
     t0 = time.perf_counter()
@@ -4469,6 +4668,7 @@ def main():
     psnr = phase_serve_trained(trainer, state, dyn_test, untrained_psnr, "tineuvox")
     del trainer, state
     phase_plain_quality(dev, "tineuvox", psnr)
+    mark("11-14b")
 
     # 15-18: the proposal-network path
     untrained_psnr = phase_prop_serve(dev, ds)
@@ -4477,6 +4677,7 @@ def main():
     psnr = phase_prop_serve(dev, ds, trainer, state, untrained_psnr)
     del trainer, state
     phase_plain_quality(dev, "prop", psnr)
+    mark("15-18b")
 
     # 19: the library API's quick start, and its proposal leg
     qs_launches, qs_loop_ms = phase_quickstart(dev, ds)
@@ -4484,24 +4685,34 @@ def main():
     # 20-21: the proposal example's hash-grid path and its 360 cascade
     prop_ngp_launches = phase_prop_path(dev, "prop-ngp")
     prop360_launches = phase_prop_path(dev, "prop360")
+    mark("19-21")
     # 22: the occupancy example's unbounded branch; 22b: the update modes
     occ360_launches = phase_occ360(dev, *occ360, occ360_untrained)
     del occ360, occ360_untrained
     phase_occ_modes(dev)
+    mark("22-22b")
     # 23-23c: the dynamic example per field; 24: the vanilla example
     mlp_launches = [phase_mlp_example(dev, path) for path in ("tnerf", "kplanes", "tineuvox")]
     mlp_launches.append(phase_vanilla_example(dev))
+    mark("23-24")
     # 25: the occupancy example's other fields; 26: the BARF example
     mlp_launches += [phase_occ_field(dev, path) for path in OCC_FIELD_PATHS]
     mlp_launches.append(phase_barf(dev))
+    mark("25-26")
     # 27: the quick start's loop through the sparse estimator
     mlp_launches.append(phase_quickstart_vdb(dev, ds, qs_loop_ms))
+    mark("27")
     # 28: the distributed layer, its ranks' launches summed
     mlp_launches.append(phase_distributed(dev))
+    mark("28")
+    # 29: the windowed and pooled entry points on phase 4's trained field
+    mlp_launches.append(phase_pooled_entry_points(dev, *cp_trained))
+    del cp_trained
+    mark("29")
     # each kernel's launches over the training runs (phases 4, 8, 12, 16,
-    # 20, 21, 22, 23-23c, 24, 25, 26, 28), the occupancy example's (6d) and
-    # the quick start's loops (19, 27), and the gather kernels' over the
-    # gather probe's run
+    # 20, 21, 22, 23-23c, 24, 25, 26, 28), the occupancy example's (6d), the
+    # quick start's loops (19, 27) and the entry points of phase 29, and the
+    # gather kernels' over the gather probe's run
     launches = {k: v + ngp_launches[k] + tnv_launches[k] + prop_launches[k]
                 + example_launches[k] + qs_launches[k] + qs_prop_launches[k]
                 + prop_ngp_launches[k] + prop360_launches[k] + occ360_launches.get(k, 0)

@@ -6,7 +6,8 @@ dynamic scenes), the K-Planes space-time field, the CP field's tri-plane
 levels with TensoRF, and the dense voxel field, with the CP and hash-grid
 proposal fields, BARF's pose refinement and its trainer, the padded
 traversals, the sparse-grid (VDB and octree) estimators, the profiler, lens
-undistortion and the dataset loaders, ported to PyTorch and
+undistortion and the dataset loaders, the windowed and pooled traversals
+with their samplers and renderers, ported to PyTorch and
 hand-written CUDA kernels for NVIDIA Hopper.
 
 The functional ops take the JAX package's three layouts: batched rows, and
@@ -50,11 +51,13 @@ from .estimators.sparse_grid import (
 )
 from .grid import (
     TraversalResult,
+    WindowSamples,
     march,
     march_plain,
     ray_aabb_intersect,
     traverse_grids,
     traverse_grids_padded,
+    traverse_grids_pooled,
     traverse_grids_voxel,
 )
 from .losses import distortion
@@ -118,7 +121,7 @@ __all__ = [
     "PropNetEstimator", "PropTrainState", "RayIntervals", "RaySamples",
     "SinusoidalEncoder", "SparseGrid", "SparseGridEstimator", "TNeRFRadianceField", "TensoRFRadianceField",
     "TiNeuVoxRadianceField", "TrainState", "TraversalResult", "VDBEstimator", "VanillaNeRFRadianceField",
-    "VoxelGridEncoder", "VoxelRadianceField", "coarse_to_fine_alpha", "compose_pose",
+    "VoxelGridEncoder", "VoxelRadianceField", "WindowSamples", "coarse_to_fine_alpha", "compose_pose",
     "perturb_poses", "pose_registration_errors", "se3_exp", "umeyama_alignment",
     "__version__",
     "accumulate_along_rays", "accumulate_along_rays_", "compact_samples", "cuda",
@@ -134,5 +137,5 @@ __all__ = [
     "render_weight_from_alpha", "render_weight_from_density", "rendering",
     "sampling", "save_checkpoint", "searchsorted", "sparse_grid_from_dense",
     "sparse_grid_from_ijk", "traverse_grids", "traverse_grids_padded",
-    "traverse_grids_voxel", "traverse_vdbs", "update_occ_grid",
+    "traverse_grids_pooled", "traverse_grids_voxel", "traverse_vdbs", "update_occ_grid",
 ]

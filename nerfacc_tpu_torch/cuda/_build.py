@@ -22,7 +22,8 @@ from typing import Optional
 
 _PKG = Path(__file__).resolve().parent.parent
 SRC_DIR = _PKG / "csrc"
-BUILD_DIR = _PKG.parent / "build" / "nerfacc_tpu_torch"
+DEFAULT_BUILD_DIR = _PKG.parent / "build" / "nerfacc_tpu_torch"
+BUILD_DIR = DEFAULT_BUILD_DIR  # utils.setup_compilation_cache moves it
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v",

@@ -4,9 +4,13 @@ PyTorch counterpart of nerfacc_tpu/estimators/occ_grid.py: the state and
 its initialisation; ``update_occ_grid``'s three modes (the dense refresh of
 warmup, the sampled update with its duplicate-safe EMA-max scatter, the
 striped dense refresh with decay^S) and the binarisation; ``sampling`` (the
-trainers' march, kernel G2); and :class:`OccGridEstimator`, the stateful
-``nn.Module`` of the reference's API, whose ``sampling`` returns the
-exact-size flattened samples after the visibility filter.  Every random draw
+trainers' march, kernel G2); the JAX package's functional samplers
+``sampling_padded`` (the padded or windowed layout, with the visibility
+filter) and ``sampling_pooled`` (the flat window pool), both through G2; and
+:class:`OccGridEstimator`, the stateful ``nn.Module`` of the reference's
+API, whose ``sampling`` returns the exact-size flattened samples after the
+visibility filter, and whose ``sampling_padded`` / ``sampling_pooled`` run
+the functional samplers on its grid.  Every random draw
 (cell jitter, cell ids, near-plane jitter) is an argument or comes from a
 ``torch.Generator``, so a test can feed the JAX package's draws.
 """
@@ -17,7 +21,16 @@ from typing import Callable, Optional, Sequence, Tuple, Union
 
 import torch
 
-from ..grid import MarchResult, _enlarge_aabb, march
+from ..grid import (
+    MarchResult,
+    TraversalResult,
+    WindowSamples,
+    _enlarge_aabb,
+    march,
+    traverse_grids_padded,
+    traverse_grids_pooled,
+    traverse_grids_windowed,
+)
 from ..volrend import render_visibility_from_alpha, render_visibility_from_density
 from .base import AbstractEstimator
 
@@ -306,6 +319,136 @@ def sampling(
     )
 
 
+def _near_far(n_rays, like, near_plane, far_plane, t_min, t_max, render_step_size,
+              stratified, key, near_jitter):
+    """The near and far planes of the JAX package's ``sampling_padded``:
+    ``t_min`` / ``t_max`` move them in, and ``stratified`` moves each near
+    plane by ``jitter * render_step_size``, ``jitter`` uniform in [0, 1):
+    ``near_jitter`` (n_rays,) when given, else a draw from the generator
+    ``key`` (None: PyTorch's default generator)."""
+    near_planes = torch.full((n_rays,), near_plane, **like)
+    far_planes = torch.full((n_rays,), far_plane, **like)
+    if t_min is not None:
+        near_planes = torch.maximum(near_planes, t_min)
+    if t_max is not None:
+        far_planes = torch.minimum(far_planes, t_max)
+    if stratified:
+        if near_jitter is None:
+            near_jitter = torch.rand(n_rays, generator=key, **like)
+        near_planes = near_planes + near_jitter * render_step_size
+    return near_planes, far_planes
+
+
+def sampling_padded(
+    state: OccGridState,
+    rays_o: torch.Tensor,
+    rays_d: torch.Tensor,
+    sigma_fn: Optional[Callable] = None,
+    alpha_fn: Optional[Callable] = None,
+    near_plane: float = 0.0,
+    far_plane: float = 1e10,
+    t_min: Optional[torch.Tensor] = None,
+    t_max: Optional[torch.Tensor] = None,
+    render_step_size: float = 1e-3,
+    early_stop_eps: float = 1e-4,
+    alpha_thre: float = 0.0,
+    stratified: bool = False,
+    cone_angle: float = 0.0,
+    key: Optional[torch.Generator] = None,
+    max_samples: Optional[int] = 1024,
+    windowed: bool = False,
+    n_windows: int = 48,
+    window_size: int = 8,
+    max_coarse: int = 160,
+    near_jitter: Optional[torch.Tensor] = None,
+) -> TraversalResult:
+    """Sampling with spatial skipping in the padded layout: the JAX
+    package's ``sampling_padded``, with its arguments and its
+    :class:`~nerfacc_tpu_torch.grid.TraversalResult`.
+
+    The candidates are the first ``max_samples`` of each ray's orbit (None:
+    the whole orbit) through :func:`~nerfacc_tpu_torch.grid.traverse_grids_padded`,
+    or with ``windowed`` its first ``n_windows`` windows of ``window_size``
+    candidates that hold a sample
+    (:func:`~nerfacc_tpu_torch.grid.traverse_grids_windowed`); on the card
+    the samples come from kernel G2.  Given ``sigma_fn`` or ``alpha_fn``
+    (``(t_starts, t_ends, ray_indices) -> values`` on the padded (n_rays, K)
+    layout, ``ray_indices`` broadcast; run without gradients), ``valid``
+    keeps only the visible samples: transmittance at least
+    ``early_stop_eps`` and, where ``min(alpha_thre, mean(occs))`` is
+    positive, alpha at least it.  ``key`` is a ``torch.Generator`` for the
+    stratified jitter (JAX's PRNG key), or ``near_jitter`` gives the draw.
+    """
+    n_rays = rays_o.shape[0]
+    near_planes, far_planes = _near_far(
+        n_rays, dict(dtype=rays_o.dtype, device=rays_o.device), near_plane, far_plane, t_min,
+        t_max, render_step_size, stratified, key, near_jitter)
+    if windowed:
+        res = traverse_grids_windowed(
+            rays_o, rays_d, state.binaries, state.aabbs, near_planes, far_planes,
+            step_size=render_step_size, cone_angle=cone_angle, n_windows=n_windows,
+            window_size=window_size, max_coarse=max_coarse,
+        )
+    else:
+        res = traverse_grids_padded(
+            rays_o, rays_d, state.binaries, state.aabbs, near_planes, far_planes,
+            step_size=render_step_size, cone_angle=cone_angle, max_samples=max_samples,
+            through_march=True,
+        )
+    fn = sigma_fn if sigma_fn is not None else alpha_fn
+    if fn is None or (alpha_thre <= 0.0 and early_stop_eps <= 0.0):
+        return res
+    with torch.no_grad():
+        thre = torch.clamp(state.occs.mean(), max=alpha_thre)
+        ray_indices = torch.arange(n_rays, device=rays_o.device)[:, None].expand_as(res.valid)
+        out = fn(res.t_starts, res.t_ends, ray_indices)
+        if sigma_fn is not None:
+            vis = render_visibility_from_density(
+                res.t_starts, res.t_ends, out, early_stop_eps=early_stop_eps,
+                alpha_thre=thre, masks=res.valid)
+        else:
+            vis = render_visibility_from_alpha(
+                out, early_stop_eps=early_stop_eps, alpha_thre=thre, masks=res.valid)
+    return res._replace(valid=res.valid & vis)
+
+
+def sampling_pooled(
+    state: OccGridState,
+    rays_o: torch.Tensor,
+    rays_d: torch.Tensor,
+    near_plane: float = 0.0,
+    far_plane: float = 1e10,
+    t_min: Optional[torch.Tensor] = None,
+    t_max: Optional[torch.Tensor] = None,
+    render_step_size: float = 1e-3,
+    stratified: bool = False,
+    cone_angle: float = 0.0,
+    key: Optional[torch.Generator] = None,
+    window_budget: int = 1 << 16,
+    window_size: int = 8,
+    max_coarse: int = 160,
+    fine_probes: int = 0,
+    compaction: str = "onehot",
+    near_jitter: Optional[torch.Tensor] = None,
+) -> WindowSamples:
+    """Sampling with spatial skipping into one flat window pool: the JAX
+    package's ``sampling_pooled`` (the planes of :func:`sampling_padded`,
+    then :func:`~nerfacc_tpu_torch.grid.traverse_grids_pooled`, kernel G2
+    on the card), with no visibility filter.  Feed the pool to
+    :func:`~nerfacc_tpu_torch.utils.rendering.compact_samples_from_windows`.
+    ``fine_probes`` and ``compaction`` are JAX's TPU options: taken and
+    ignored."""
+    n_rays = rays_o.shape[0]
+    near_planes, far_planes = _near_far(
+        n_rays, dict(dtype=rays_o.dtype, device=rays_o.device), near_plane, far_plane, t_min,
+        t_max, render_step_size, stratified, key, near_jitter)
+    return traverse_grids_pooled(
+        rays_o, rays_d, state.binaries, state.aabbs, near_planes, far_planes,
+        step_size=render_step_size, cone_angle=cone_angle, window_budget=window_budget,
+        window_size=window_size, max_coarse=max_coarse,
+    )
+
+
 def grid_samples(
     binaries: torch.Tensor,
     aabbs: torch.Tensor,
@@ -335,17 +478,9 @@ def grid_samples(
     ``near_jitter`` or, where it is None, by a draw from ``generator``.
     Returns int64 ray ids and the bounds, exact-size."""
     n_rays = rays_o.shape[0]
-    like = dict(dtype=rays_o.dtype, device=rays_o.device)
-    near_planes = torch.full((n_rays,), near_plane, **like)
-    far_planes = torch.full((n_rays,), far_plane, **like)
-    if t_min is not None:
-        near_planes = torch.maximum(near_planes, t_min)
-    if t_max is not None:
-        far_planes = torch.minimum(far_planes, t_max)
-    if stratified:
-        if near_jitter is None:
-            near_jitter = torch.rand(n_rays, generator=generator, **like)
-        near_planes = near_planes + near_jitter * render_step_size
+    near_planes, far_planes = _near_far(
+        n_rays, dict(dtype=rays_o.dtype, device=rays_o.device), near_plane, far_plane, t_min,
+        t_max, render_step_size, stratified, generator, near_jitter)
     res = march(
         rays_o, rays_d, binaries, aabbs, near_planes=near_planes, far_planes=far_planes,
         step_size=render_step_size, cone_angle=cone_angle, max_samples=max_samples,
@@ -495,6 +630,23 @@ class OccGridEstimator(AbstractEstimator):
             alpha_thre, stratified, cone_angle, near_jitter, self.max_samples,
             self.generator,
         )
+
+    def sampling_padded(self, rays_o: torch.Tensor, rays_d: torch.Tensor,
+                        **kwargs) -> TraversalResult:
+        """:func:`sampling_padded` on the estimator's grid, its
+        ``max_samples`` candidates a ray unless given, the stratified jitter
+        from its generator unless ``key`` or ``near_jitter`` is given."""
+        kwargs.setdefault("max_samples", self.max_samples)
+        kwargs.setdefault("key", self.generator)
+        return sampling_padded(self.state, rays_o, rays_d, **kwargs)
+
+    def sampling_pooled(self, rays_o: torch.Tensor, rays_d: torch.Tensor,
+                        **kwargs) -> WindowSamples:
+        """:func:`sampling_pooled` on the estimator's grid, the stratified
+        jitter from its generator unless ``key`` or ``near_jitter`` is
+        given."""
+        kwargs.setdefault("key", self.generator)
+        return sampling_pooled(self.state, rays_o, rays_d, **kwargs)
 
     @torch.no_grad()
     def update_every_n_steps(

@@ -709,3 +709,297 @@ def traverse_grids(
         is_valid=res.valid,
     )
     return intervals, samples, res.termination_planes
+
+
+def _orbit_index(
+    near: torch.Tensor, t: torch.Tensor, step_size: float, cone_angle: float
+) -> torch.Tensor:
+    """The smallest orbit index whose midpoint is at least ``t``, in the JAX
+    package's closed form (its ``_orbit_index``): (n_rays,) int64."""
+    if cone_angle <= 0.0:
+        return torch.ceil((t - near) / step_size - 0.5).clamp_min(0.0).long()
+    n_lin = torch.ceil((step_size / cone_angle - near) / step_size).clamp_min(0.0)
+    t_lin_end = near + n_lin * step_size
+    k_lin = torch.ceil((t - near) / step_size - 0.5)
+    ratio = (t / (1.0 + 0.5 * cone_angle) / t_lin_end.clamp_min(1e-10)).clamp_min(1e-10)
+    k_geo = n_lin + torch.ceil(torch.log(ratio) / math.log(1.0 + cone_angle))
+    k = torch.where(t <= t_lin_end * (1.0 + 0.5 * cone_angle), k_lin, k_geo)
+    return k.clamp_min(0.0).long()
+
+
+def pool_binaries(binaries: torch.Tensor, pool: int, dilation: int = 1) -> torch.Tensor:
+    """Conservative coarse occupancy, as the JAX package builds the
+    ``coarse_binaries`` of its windowed and pooled traversals: (m, rx, ry,
+    rz) bool max-pooled by ``pool`` along each axis, then dilated by
+    ``dilation`` cells (a coarse cell is set if any set cell lies within
+    reach)."""
+    m, rx, ry, rz = binaries.shape
+    if rx % pool or ry % pool or rz % pool:
+        raise ValueError(f"pool {pool} must divide the resolution {(rx, ry, rz)}")
+    x = binaries.reshape(m, rx // pool, pool, ry // pool, pool, rz // pool, pool)
+    x = x.any(dim=6).any(dim=4).any(dim=2)
+    if dilation > 0:
+        w = 2 * dilation + 1
+        x = torch.nn.functional.max_pool3d(
+            x[:, None].to(torch.float32), w, stride=1, padding=dilation
+        )[:, 0] > 0.0
+    return x
+
+
+class WindowSamples(NamedTuple):
+    """The flat window pool of :func:`traverse_grids_pooled`: the windows of
+    ``window_size`` consecutive orbit candidates that hold a sample, of all
+    rays in (ray, window) order, ``window_budget`` slots in all.
+
+    Attributes:
+        t_starts / t_ends: (window_budget, window_size) candidate bounds.
+        valid: same shape; the candidate is a sample.
+        ray_ids: (window_budget,) int32 ray of each window (``n_rays`` on
+            the empty slots after the last window; nondecreasing).
+        counts: (n_rays,) int32 samples of each ray within the pool.
+        termination_planes / terminated: (n_rays,), the resume contract of
+            :class:`TraversalResult`.
+        window_overflow: windows dropped past ``window_budget`` (0-d).
+        rays_o / rays_d: (window_budget, 3) the ray of each window.
+        near / wk: (window_budget,) the window's ray near plane and the
+            int32 orbit index of its first candidate.
+    """
+
+    t_starts: torch.Tensor
+    t_ends: torch.Tensor
+    valid: torch.Tensor
+    ray_ids: torch.Tensor
+    counts: torch.Tensor
+    termination_planes: torch.Tensor
+    terminated: torch.Tensor
+    window_overflow: torch.Tensor
+    rays_o: torch.Tensor
+    rays_d: torch.Tensor
+    near: Optional[torch.Tensor] = None
+    wk: Optional[torch.Tensor] = None
+
+
+class _Windows(NamedTuple):
+    """The windows that hold a sample, of every ray's coarse sweep, in
+    (ray, window) order: ``ray`` (W,), ``wk`` (W,) the window's first orbit
+    index, ``valid`` (W, f); per ray ``counts_w`` (windows), ``j0`` (the
+    sweep's first window), ``t_hi_last`` (the far end of the farthest
+    segment), ``has_seg`` and ``sweep_exhausted`` (segments reach past the
+    sweep's ``max_coarse`` windows)."""
+
+    ray: torch.Tensor
+    wk: torch.Tensor
+    valid: torch.Tensor
+    counts_w: torch.Tensor
+    j0: torch.Tensor
+    t_hi_last: torch.Tensor
+    has_seg: torch.Tensor
+    sweep_exhausted: torch.Tensor
+
+
+def _occupied_windows(
+    rays_o, rays_d, binaries, aabbs, near_planes, far_planes, step_size, cone_angle,
+    window_size, max_coarse, rays_mask,
+) -> _Windows:
+    """Every ray's samples on its whole orbit (kernel G2 on the card), cut
+    into windows of ``window_size`` candidates aligned at multiples of it.
+    A ray's sweep covers ``max_coarse`` windows from the one holding its
+    first segment's entry, as the JAX package's coarse phase does; the
+    windows with no sample are left out, which that phase, testing a
+    conservative pooled grid, may keep."""
+    f = window_size
+    seg_lo, seg_hi, _, seg_valid = _segments(rays_o, rays_d, aabbs, near_planes, far_planes)
+    t_entry = torch.where(seg_valid, seg_lo, math.inf).amin(dim=-1)
+    finite = torch.isfinite(t_entry)
+    k_entry = _orbit_index(near_planes, torch.where(finite, t_entry, near_planes), step_size,
+                           cone_angle)
+    j0 = torch.where(finite, k_entry // f, 0)
+    res = traverse_grids_padded(
+        rays_o, rays_d, binaries, aabbs, near_planes, far_planes, step_size=step_size,
+        cone_angle=cone_angle, rays_mask=rays_mask, through_march=True,
+    )
+    n_rays, K = res.valid.shape
+    n_win = -(-K // f)
+    valid = torch.nn.functional.pad(res.valid, (0, n_win * f - K)).view(n_rays, n_win, f)
+    w = torch.arange(n_win, device=valid.device)
+    occupied = valid.any(dim=-1) & (w[None, :] < (j0 + max_coarse)[:, None])
+    ray, win = occupied.nonzero(as_tuple=True)  # row-major: (ray, window) order
+    t_hi_last = torch.where(seg_valid, seg_hi, -math.inf).amax(dim=-1)
+    sweep_end = _orbit_t(near_planes, ((j0 + max_coarse) * f)[:, None], step_size,
+                         cone_angle)[:, 0]
+    return _Windows(
+        ray, win * f, valid[ray, win], occupied.sum(dim=-1), j0, t_hi_last,
+        seg_valid.any(dim=-1), t_hi_last > sweep_end,
+    )
+
+
+def _window_bounds(near: torch.Tensor, wk: torch.Tensor, f: int, step_size: float,
+                   cone_angle: float):
+    """(W, f) starts and ends of the candidates of windows starting at
+    orbit indices ``wk`` on rays with near planes ``near``: the orbit values
+    of :func:`traverse_grids_padded` and kernel G2 (``near + fl(k *
+    step)``; XLA fuses the two into one rounding, an ulp apart at most)."""
+    k = wk[:, None] + torch.arange(f, device=wk.device)[None, :]
+    return _orbit_t(near, k, step_size, cone_angle), _orbit_t(near, k + 1, step_size, cone_angle)
+
+
+def _stop_planes(wins: _Windows, k_cut, cut, near_planes, rays_mask, step_size, cone_angle,
+                 max_coarse, f):
+    """The JAX traversals' termination: a ray cut at orbit index ``k_cut``
+    (where ``cut``) resumes there; a ray whose segments outran the sweep
+    resumes at its end; the others stop at the first candidate past their
+    farthest segment, terminated.  The plane is the orbit value in one
+    fused multiply-add, as XLA and kernel G2 compute it."""
+    k_natural = _orbit_index(near_planes, wins.t_hi_last, step_size, cone_angle)
+    k_stop = torch.where(
+        cut, k_cut, torch.where(wins.sweep_exhausted, (wins.j0 + max_coarse) * f, k_natural)
+    )
+    planes = _orbit_t(near_planes, k_stop[:, None], step_size, cone_angle, fused=True)[:, 0]
+    planes = torch.where(wins.has_seg, planes, near_planes)
+    terminated = torch.where(wins.has_seg, ~(cut | wins.sweep_exhausted), True)
+    if rays_mask is not None:
+        planes = torch.where(rays_mask, planes, near_planes)
+        terminated = torch.where(rays_mask, terminated, True)
+    return planes, terminated
+
+
+def _default_planes(rays_o, near_planes, far_planes):
+    n_rays = rays_o.shape[0]
+    like = dict(dtype=rays_o.dtype, device=rays_o.device)
+    if near_planes is None:
+        near_planes = torch.zeros(n_rays, **like)
+    if far_planes is None:
+        far_planes = torch.full((n_rays,), math.inf, **like)
+    return near_planes, far_planes
+
+
+def traverse_grids_windowed(
+    rays_o: torch.Tensor,
+    rays_d: torch.Tensor,
+    binaries: torch.Tensor,
+    aabbs: torch.Tensor,
+    near_planes: Optional[torch.Tensor] = None,
+    far_planes: Optional[torch.Tensor] = None,
+    step_size: float = 1e-3,
+    cone_angle: float = 0.0,
+    n_windows: int = 40,
+    window_size: int = 8,
+    max_coarse: int = 192,
+    pool: int = 4,
+    dilation: int = 1,
+    rays_mask: Optional[torch.Tensor] = None,
+    coarse_binaries=None,
+) -> TraversalResult:
+    """Each ray's first ``n_windows`` windows of ``window_size`` orbit
+    candidates that hold a sample: a :class:`TraversalResult` of
+    ``(n_rays, n_windows * window_size)`` candidates, as the JAX package's
+    ``traverse_grids_windowed`` returns.
+
+    The samples come from the march of the whole orbit (kernel G2 on the
+    card), so they are :func:`traverse_grids_padded`'s; the sweep covers
+    ``max_coarse`` windows from the one holding the ray's first segment
+    entry, as in JAX.  A ray with more windows than ``n_windows`` is not
+    terminated and resumes at its next window; a ray whose segments outrun
+    the sweep resumes at its end.  JAX picks its windows by a conservative
+    test of a pooled grid, which may also keep windows with no sample; the
+    port keeps only windows with a sample, so where JAX's ray runs out of
+    windows the port's may not, and reaches farther.  Unused window slots
+    hold the candidates of the ray's first window, none valid.
+    ``pool``, ``dilation`` and ``coarse_binaries`` choose JAX's pooled grid:
+    they are taken and ignored.
+    """
+    near_planes, far_planes = _default_planes(rays_o, near_planes, far_planes)
+    f, W = window_size, n_windows
+    wins = _occupied_windows(rays_o, rays_d, binaries, aabbs, near_planes, far_planes,
+                             step_size, cone_angle, f, max_coarse, rays_mask)
+    n_rays = rays_o.shape[0]
+    first = torch.cumsum(wins.counts_w, 0) - wins.counts_w  # each ray's first window
+    slot = torch.arange(W, device=rays_o.device)[None, :]
+    used = slot < wins.counts_w[:, None]
+    idx = (first[:, None] + slot).clamp(max=max(wins.ray.numel() - 1, 0))
+    if wins.ray.numel():
+        wk = torch.where(used, wins.wk[idx], (wins.j0 * f)[:, None])
+        valid = used[..., None] & wins.valid[idx]
+    else:
+        wk = (wins.j0 * f)[:, None].expand(n_rays, W)
+        valid = torch.zeros((n_rays, W, f), dtype=torch.bool, device=rays_o.device)
+    k = (wk[..., None] + torch.arange(f, device=wk.device)).reshape(n_rays, W * f)
+    t0 = _orbit_t(near_planes, k, step_size, cone_angle)
+    t1 = _orbit_t(near_planes, k + 1, step_size, cone_angle)
+    cut = wins.counts_w > W
+    k_next = wins.wk[(first + W).clamp(max=max(wins.ray.numel() - 1, 0))] if wins.ray.numel() \
+        else wins.j0
+    planes, terminated = _stop_planes(wins, k_next, cut, near_planes, rays_mask, step_size,
+                                      cone_angle, max_coarse, f)
+    return TraversalResult(t0, t1, valid.reshape(n_rays, W * f), planes, terminated)
+
+
+def traverse_grids_pooled(
+    rays_o: torch.Tensor,
+    rays_d: torch.Tensor,
+    binaries: torch.Tensor,
+    aabbs: torch.Tensor,
+    near_planes: Optional[torch.Tensor] = None,
+    far_planes: Optional[torch.Tensor] = None,
+    step_size: float = 1e-3,
+    cone_angle: float = 0.0,
+    window_budget: int = 1 << 16,
+    window_size: int = 8,
+    max_coarse: int = 160,
+    pool: int = 4,
+    dilation: int = 1,
+    rays_mask: Optional[torch.Tensor] = None,
+    fine_probes: int = 0,
+    coarse_binaries=None,
+    compaction: str = "onehot",
+) -> WindowSamples:
+    """The windows of ``window_size`` orbit candidates that hold a sample,
+    of all rays, in one flat pool of ``window_budget`` windows in (ray,
+    window) order: the JAX package's ``traverse_grids_pooled``, whose pool
+    feeds :func:`~nerfacc_tpu_torch.utils.rendering.compact_samples_from_windows`.
+
+    The samples come from the march of the whole orbit (kernel G2 on the
+    card): :func:`traverse_grids_padded`'s within each ray's sweep of
+    ``max_coarse`` windows, as in JAX.  When the windows outnumber the
+    budget, the pool keeps a prefix of them, so it cuts a suffix of rays:
+    each cut ray is not terminated and resumes at its first dropped window,
+    and ``window_overflow`` counts the dropped windows.  JAX's pool also
+    holds the windows with no sample that its conservative pooled grid
+    passes, so it fills sooner; below that the two pools hold the same
+    samples.  Empty slots have ray id ``n_rays``, zero bounds and rays.
+    ``pool``, ``dilation``, ``coarse_binaries`` (JAX's pooled grid),
+    ``fine_probes`` (its approximate occupancy probes) and ``compaction``
+    (its sort or cumsum inversion) choose TPU mechanisms: they are taken and
+    ignored, and every sample is exact.
+    """
+    near_planes, far_planes = _default_planes(rays_o, near_planes, far_planes)
+    f, Wb = window_size, window_budget
+    n_rays = rays_o.shape[0]
+    dev = rays_o.device
+    wins = _occupied_windows(rays_o, rays_d, binaries, aabbs, near_planes, far_planes,
+                             step_size, cone_angle, f, max_coarse, rays_mask)
+    total = wins.ray.numel()
+    keep = min(total, Wb)
+    ray, wk, valid = wins.ray[:keep], wins.wk[:keep], wins.valid[:keep]
+    near = near_planes[ray]
+    t0, t1 = _window_bounds(near, wk, f, step_size, cone_angle)
+    counts = torch.zeros(n_rays, dtype=torch.int32, device=dev).index_add_(
+        0, ray, valid.sum(dim=-1, dtype=torch.int32))
+    # windows kept per ray, and each cut ray's first dropped window
+    ends = torch.cumsum(wins.counts_w, 0)
+    kept_w = (Wb - (ends - wins.counts_w)).clamp(min=0)
+    cut = kept_w < wins.counts_w
+    first_dropped = (ends - wins.counts_w + kept_w).clamp(max=max(total - 1, 0))
+    k_cut = wins.wk[first_dropped] if total else wins.j0
+    planes, terminated = _stop_planes(wins, k_cut, cut, near_planes, rays_mask, step_size,
+                                      cone_angle, max_coarse, f)
+
+    def fill(x, value=0):
+        pad = (0, 0) * (x.dim() - 1) + (0, Wb - keep)
+        return torch.nn.functional.pad(x, pad, value=value)
+
+    return WindowSamples(
+        fill(t0), fill(t1), fill(valid, False), fill(ray.to(torch.int32), n_rays), counts,
+        planes, terminated, torch.tensor(total - keep, device=dev),
+        fill(rays_o[ray]), fill(rays_d[ray]), fill(near), fill(wk.to(torch.int32)),
+    )

@@ -42,6 +42,18 @@ PLANE_PAIRS = ((0, 1), (0, 2), (1, 2))
 PLANE_LINE_AXES = (2, 1, 0)
 
 
+def _take_rows(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """``table[idx]`` for a (k, N) row index: (k, N, width).  On the CPU its
+    backward sums each row's cotangents serially, in sample order
+    (``index_add_`` over the (N, k) flattening), where ``index_put_``'s
+    accumulation adds in parallel and rounds differently from run to run.
+    On the card ``index_put_`` sorts and sums in a fixed order."""
+    if table.is_cuda:
+        return table[idx]
+    k, n = idx.shape
+    return table.index_select(0, idx.t().reshape(-1)).view(n, k, -1).transpose(0, 1)
+
+
 class CPGridEncoder(nn.Module):
     """Multi-resolution CP line encoder, with optional tri-plane levels.
 
@@ -156,8 +168,11 @@ class CPGridEncoder(nn.Module):
         trip through the compute dtype before the output's f32 convert),
         its cotangent rounded to the compute dtype (autodiff hands it back
         through that convert); VM mode rounds the line's lerp once (its dot)
-        and each plane feature's product with it.  In bf16 the forward and
-        both table gradients are bitwise the jitted JAX level's
+        and each plane feature's product with it.  In bf16 the forward is
+        bitwise the jitted JAX level's, and so are both table gradients
+        unless a row's f32 sum lies within a summation-order rounding of a
+        bf16 tie: XLA's dot sums the samples in its own blocked order, the
+        port in sample order, the same from run to run
         (tests/test_torch_planes.py)."""
         R = plane.shape[1]
         rank = plane.shape[-1]
@@ -174,7 +189,7 @@ class CPGridEncoder(nn.Module):
         feats = []
         for p, (a, b) in enumerate(PLANE_PAIRS):
             base = p * R * R + i0[a] * R + i0[b]  # (N,): texel (i0_a, i0_b)
-            texels = table[torch.stack([base, base + R, base + 1, base + R + 1])]
+            texels = _take_rows(table, torch.stack([base, base + R, base + 1, base + R + 1]))
             t0 = _round(w[0, a, :, None] * texels[0] + w[1, a, :, None] * texels[1], cd)
             t1 = _round(w[0, a, :, None] * texels[2] + w[1, a, :, None] * texels[3], cd)
             feats.append(_round(t0 * w[0, b, :, None] + t1 * w[1, b, :, None], cd))
@@ -185,7 +200,8 @@ class CPGridEncoder(nn.Module):
         out = []
         for p, c in enumerate(PLANE_LINE_AXES):
             row = p * R + i0[c]
-            lf = _round(w[0, c, :, None] * lines[row] + w[1, c, :, None] * lines[row + 1], cd)
+            l0, l1 = _take_rows(lines, torch.stack([row, row + 1]))
+            lf = _round(w[0, c, :, None] * l0 + w[1, c, :, None] * l1, cd)
             out.append(_round(feats[p] * lf, cd))
         return torch.cat(out, dim=-1)
 
@@ -246,6 +262,13 @@ class TPAllReduce(torch.autograd.Function):
         return g, None
 
 
+def tp_allreduce(x: torch.Tensor, group) -> torch.Tensor:
+    """Sum a tensor-parallel partial product over the model ``group``, its
+    cotangent passed through unchanged (JAX's ``tp_allreduce(x,
+    axis_name)``, the group in place of the mesh axis's name)."""
+    return TPAllReduce.apply(x, group)
+
+
 class _TPReduce:
     """``_mlp_apply``'s ``reduce0`` for a model group."""
 
@@ -253,7 +276,7 @@ class _TPReduce:
         self.group = group
 
     def __call__(self, x):
-        return TPAllReduce.apply(x, self.group)
+        return tp_allreduce(x, self.group)
 
 
 def _tp_ranks(ranks, tp_group, planes) -> tuple:

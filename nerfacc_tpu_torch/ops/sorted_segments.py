@@ -21,6 +21,22 @@ from .. import cuda
 from ..volrend import render_weight_from_density
 
 
+def segment_starts(ids: torch.Tensor, n_rays: int) -> torch.Tensor:
+    """(n_rays,) int32 index of the first element of each segment of the
+    nondecreasing ``ids``: for an empty segment, where its first element
+    would be (fill ids ``n_rays`` sort after every segment)."""
+    queries = torch.arange(n_rays, dtype=ids.dtype, device=ids.device)
+    return torch.searchsorted(ids.contiguous(), queries).to(torch.int32)
+
+
+def segment_ends(ids: torch.Tensor, n_rays: int) -> torch.Tensor:
+    """(n_rays,) int32 index of the last element of each segment of the
+    nondecreasing ``ids``: ends are nondecreasing, and an empty segment
+    ends one before its start (-1 before the first element)."""
+    queries = torch.arange(n_rays, dtype=ids.dtype, device=ids.device)
+    return torch.searchsorted(ids.contiguous(), queries, right=True).to(torch.int32) - 1
+
+
 def exclusive_sum_sorted(
     vals: torch.Tensor,
     ids: torch.Tensor,

@@ -111,6 +111,29 @@ def shard_params(params: Dict[str, torch.Tensor], n_model: int, m: int) -> Dict[
     return {name: _slice(name, value, n_model, m) for name, value in params.items()}
 
 
+def make_state_specs(state, data_axis: str = "data", model_axis: str = "model"
+                     ) -> Dict[str, tuple]:
+    """The placement of every entry of ``state``'s checkpoint
+    (``utils.checkpoint``'s names: ``params/<name>``, ``adam/<name>/<moment>``,
+    ``adam/count``, ``occ/...``, ``step``) under tensor parallelism, JAX's
+    ``PartitionSpec`` tree as a dict: a tuple naming, for each dimension,
+    the mesh axis it is cut along (None: whole), and ``()`` for a
+    replicated entry.  The line tables are cut along their rank dimension
+    and W1 along its rows, with their Adam moments; everything else is
+    replicated.  ``data_axis`` is accepted as in JAX and cuts nothing."""
+    from ..utils.checkpoint import _flatten
+
+    specs = {}
+    for key, value in _flatten(state).items():
+        parts = key.split("/")
+        dim = _is_sharded(parts[1]) if parts[0] in ("params", "adam") and len(parts) > 1 else None
+        if dim is None or (parts[0] == "adam" and parts[-1] == "step"):
+            specs[key] = ()
+        else:
+            specs[key] = tuple(model_axis if i == dim else None for i in range(value.ndim))
+    return specs
+
+
 def make_tp_field(field, mesh: Mesh):
     """The same CP field (``CPRadianceField`` or ``CPDensityField``) sharded
     over ``mesh``'s model group: its line tables and first weight hold this

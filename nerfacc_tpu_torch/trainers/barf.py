@@ -38,7 +38,7 @@ from ..estimators.occ_grid import (
 from ..models.pose import _numpy, coarse_to_fine_alpha, compose_pose, matvec3, se3_exp
 from ..utils.metrics import psnr, ssim
 from ..volrend import rendering
-from .ngp_occ import OptState, disable_tf32
+from .ngp_occ import OptState, disable_tf32, smooth_l1_loss
 
 
 class BARFTrainState(NamedTuple):
@@ -307,8 +307,7 @@ class BARFTrainer:
                                               {"pe_alpha": alpha})
 
         colors = self._render(field_fn, rays_o, rays_d, ids, t0, t1, batch["color_bkgd"])
-        diff = (colors - batch["rgb"]).abs()
-        loss = torch.where(diff < 1.0, 0.5 * diff**2, diff - 0.5).mean()
+        loss = smooth_l1_loss(colors, batch["rgb"])
         loss.backward()
         for p in leaves:  # Adam moves a leaf by its momentum on a zero gradient
             if p.grad is None:
@@ -322,7 +321,7 @@ class BARFTrainer:
         opt.step()
         aux = {
             "loss": loss.detach(),
-            "mse": (diff.detach() ** 2).mean(),
+            "mse": ((colors.detach() - batch["rgb"]) ** 2).mean(),
             "n_total_samples": int(ids.shape[0]),
             "pose_grad_norm": pose_grad_norm,
         }

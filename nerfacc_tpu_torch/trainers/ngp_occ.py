@@ -15,7 +15,9 @@ in evaluation.  Ported beside it: the learning-rate schedule,
 the evaluation (PSNR/SSIM through the early-stopping eval renderer), the
 distortion regulariser, the update clip and the table learning-rate
 multiplier (:class:`ChainAdam`).  Not ported (see ROADMAP.md): the dynamic
-budget buckets and the pooled and windowed traversals.  ``alpha_thre`` is
+budget buckets; the step marches every orbit whole, the sample set of the
+JAX step's pooled and windowed traversals (which are entry points of
+:mod:`nerfacc_tpu_torch.grid`, not options of the step).  ``alpha_thre`` is
 taken and changes no sample, as in the JAX trainer (see the class).
 """
 from __future__ import annotations
@@ -92,6 +94,15 @@ def make_lr_schedule(max_steps: int, base_lr: float = LR,
         return lr
 
     return schedule
+
+
+def smooth_l1_loss(pred: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
+    """``torch.nn.functional.smooth_l1_loss`` with beta 1 and the mean
+    reduction, in the JAX package's form; the proposal and BARF trainers
+    take their loss from it (this trainer's loss is its masked sum over
+    the rays the budget left whole)."""
+    diff = (pred - target).abs()
+    return torch.where(diff < 1.0, 0.5 * diff**2, diff - 0.5).mean()
 
 
 class OptState(NamedTuple):

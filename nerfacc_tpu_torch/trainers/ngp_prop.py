@@ -21,7 +21,6 @@ from typing import Any, Dict, List, NamedTuple, Optional, Sequence, Union
 import numpy as np
 import torch
 import torch.distributed as dist
-import torch.nn.functional as F
 
 from ..estimators.prop_net import propnet_loss, propnet_sampling
 from ..parallel.mesh import take_block
@@ -34,6 +33,7 @@ from .ngp_occ import (
     disable_tf32,
     make_adam,
     make_lr_schedule,
+    smooth_l1_loss,
 )
 
 class PropTrainState(NamedTuple):
@@ -219,7 +219,7 @@ class NGPPropTrainer:
             requires_grad, self.stratified, gen, biases,
         )
         pixels = batch["rgb"]
-        loss = F.smooth_l1_loss(colors, pixels)
+        loss = smooth_l1_loss(colors, pixels)
         mse = ((colors.detach() - pixels) ** 2).mean()
         if requires_grad:
             p_loss = propnet_loss(cache, extras["trans"], self.prop_loss_scaler)

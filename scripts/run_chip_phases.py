@@ -1,13 +1,15 @@
 """Runs some of chip_smoke.py's phases alone on the card:
 
-    python3 scripts/run_chip_phases.py [25] [26] [6b] [27] [28]
+    python3 scripts/run_chip_phases.py [25] [26] [6b] [27] [28] [29]
 
 25: the occupancy example's tensorf, voxel and cp-planes fields; 26: the
 BARF example; 6b: five times, the CP field trained as phase 4 trains it,
 then its test views through the early-stop and the exact renderers (the
 sample-set classification and its worst rays); 27: the quick start's loop
-(phase 19), then the same loop through ``VDBEstimator``; 28: the
-distributed layer (its five sub-phases).  Each phase is caught and
+(phase 19), then the same loop through ``VDBEstimator``, on the
+translucent and the hard-surface scene; 28: the distributed layer (its five
+sub-phases); 29: the CP field trained as phase 4 trains it, then the
+windowed and pooled entry points on it.  Each phase is caught and
 reported, so that the others still run, and the exit code is 1 if one
 failed.  No argument runs 25, 26 and 6b.
 """
@@ -60,6 +62,12 @@ def main():
             _, loop_ms = cs.phase_quickstart(dev, ds)
             cs.phase_quickstart_vdb(dev, ds, loop_ms)
         run("19 + 27", twenty_seven, failed)
+    if "29" in which:
+        def twenty_nine():
+            trainer, state, batch, _ = cs.phase_train(dev)
+            print("launches of phase 29:", cs.phase_pooled_entry_points(dev, trainer, state, batch),
+                  flush=True)
+        run("29", twenty_nine, failed)
     for i in range(5 if "6b" in which else 0):
         def six_b():
             trainer, state, _, _ = cs.phase_train(dev)
