@@ -208,7 +208,18 @@ It builds the CUDA kernels from ``nerfacc_tpu_torch/csrc`` and runs:
     one round, must give the exact renderer's image on those rays bit for
     bit, and with its default early stop, like ``make_cursor_eval_chunk``,
     within 2e-3 of it; G1, G2 and G3 must launch; each call timed beside
-    the exact renderer.
+    the exact renderer;
+30. the public options the port takes as the JAX package does, at full
+    width: ``render_image_with_occgrid`` at JAX's defaults (1024 orbit
+    candidates a ray, a 2^18 budget a chunk) on phase 4's trained field,
+    view 0, through the kernels against the plain versions, the share of
+    rays the window cuts printed; two ``render_rays_with_occgrid`` rounds
+    carrying ``prefix_trans`` against one round, gradients through G3/G5;
+    the bench CP field at hidden 128, 31 geometry features and no view
+    directions trained 50 steps (the loss must fall); NGP at hidden 128;
+    TiNeuVox with a 64^2 x 16 tri-plane level; and the trainer's
+    ``traversal="padded"`` at 256 candidates a ray: each with a step
+    through the kernels against the plain versions; G1-G10 must launch.
 
 Phase 6b classifies a ray by its sample set: the early-stop renderer's
 rounds against the ray's whole orbit, the same count and every bound
@@ -284,7 +295,8 @@ Every check raises on failure, so the exit code is nonzero and the result
 line is not printed.  The last line of standard output is a JSON object with
 ``"ok": true`` and the device; the line before it lists each kernel's launch
 count (over the training phases 4, 6d, 8, 12, 16, 19, 20, 21, 22, 23-23c,
-24, 25, 26, 27 and 28, every rank of 28; for G11-G13, over
+24, 25, 26, 27 and 28, every rank of 28, and the paths of 29 and 30; for
+G11-G13, over
 the gather probe's run), error, times and bound.  Without a CUDA device the
 script fails at once.
 """
@@ -373,9 +385,8 @@ from nerfacc_tpu_torch.ops.sorted_segments import (  # noqa: E402
     composite_sorted_plain,
 )
 from nerfacc_tpu_torch.trainers.ngp_occ import (  # noqa: E402
-    EVAL_EARLY_STOP_EPS,
-    EVAL_MAX_ROUNDS,
     EVAL_WINDOW,
+    NGPOccTrainer,
     TrainState,
 )
 from nerfacc_tpu_torch.trainers.ngp_prop import PropTrainState  # noqa: E402
@@ -472,6 +483,10 @@ F32_STEP_FRO = 1e-4
 F32_HAT_STEP_FRO = 5e-4
 HAT_ALONE_STEP_FRO = 1e-5
 BF16_STEP_FRO = 5e-3
+# the eval renderer's rounds and early stop at the trainer's defaults:
+# max_samples_per_ray // 32 rounds, a ray retired past 1 - max(eps, 1e-4)
+EVAL_MAX_ROUNDS = NGPOccTrainer.max_samples_per_ray // 32
+EVAL_EARLY_STOP_EPS = max(NGPOccTrainer.early_stop_eps, 1e-4)
 # Phase 1e: the gather probe's shapes (scripts/pallas_gather_probe.py and
 # pallas_gather_probe2.py): K5's summary and lookups, P1's table and index
 # count, P2's table heights with 64 blocks of T rows each, and its NGP-shaped
@@ -2303,7 +2318,7 @@ def phase_opaque_frames(dev):
     def exact(data):
         colors, _, _, n = render_image_with_occgrid(
             field_fn, occ, data["rays_o"], data["rays_d"], data["color_bkgd"],
-            render_step_size=step,
+            render_step_size=step, max_samples=None, sample_budget=None,
         )
         return colors, n
 
@@ -3610,6 +3625,302 @@ def phase_pooled_entry_points(dev, trainer, state, batch):
     return total
 
 
+# Phase 30: the public options the port takes as the JAX package does
+OPTIONS_FIRST_ROUND = 700  # (b): the first round's orbit candidates a ray
+OPTIONS_STEPS = 50  # (c): steps of the bench CP field at other widths
+OPTIONS_TNV_STEPS = 12  # (e): TiNeuVox steps with a tri-plane level
+OPTIONS_PADDED = 256  # (f): the padded step's max_samples_per_ray
+OPTIONS_NEAR = 2.0  # (f): its near plane, the scene's, so 256 candidates reach the box
+OPTIONS_ERR = 2e-3  # (a): kernels vs plain versions, phase 2's exact renderer's bound
+OPTIONS_SUM_ERR = 1e-5  # (b): two rounds vs one, of the largest output
+OPTIONS_GRAD_ERR = 1e-4  # (b): the second round's gradients vs one round's, of the largest
+OPTIONS_KERNELS = ("cp_level_fwd", "cp_level_bwd", "march", "composite_fwd", "composite_bwd",
+                   "hash_fwd", "hash_bwd", "hat_fwd", "hat_bwd_line", "hat_bwd_x")
+
+
+def _leaf_rounds(field_fn, o, d, rounds):
+    """(b)'s renders: ``render_rays_with_occgrid`` on each ``(name, samples,
+    prefix_fn)`` of ``rounds`` in turn, the field's colours and densities
+    made leaves that ask for a gradient (``prefix_fn(outputs, leaves so
+    far)`` gives the carried transmittance or None); unnormalised depths.  Returns the
+    outputs and the leaves by name."""
+    from nerfacc_tpu_torch.utils import rendering
+
+    outs, leaves = {}, {}
+    for name, samples, prefix_fn in rounds:
+        def fn(positions, dirs, _ids, name=name):
+            with torch.no_grad():
+                rgb, sigma = field_fn(positions, dirs)
+            leaves[name] = (rgb.requires_grad_(True), sigma.requires_grad_(True))
+            return leaves[name]
+
+        outs[name] = rendering.render_rays_with_occgrid(
+            fn, o, d, samples, expected_depths=False, prefix_trans=prefix_fn(outs, leaves))[:3]
+    return outs, leaves
+
+
+def split_rounds(whole, counts):
+    """A march's samples split into two rounds: each ray's first ``counts``
+    (n_rays,) samples, then the rest, as two ``MarchResult`` tuples, and the
+    mask of the first round's samples in ``whole``.  Both rounds keep the
+    whole march's bounds, so that the field sees the same points."""
+    n = whole.counts.long()
+    ray_of = whole.ray_indices.long()
+    slot = torch.arange(ray_of.shape[0], device=ray_of.device) - (torch.cumsum(n, 0) - n)[ray_of]
+    in_first = slot < counts.long()[ray_of]
+
+    def part(mask, c):
+        return whole._replace(ray_indices=whole.ray_indices[mask], t_starts=whole.t_starts[mask],
+                              t_ends=whole.t_ends[mask], counts=c.to(whole.counts.dtype))
+
+    return part(in_first, counts), part(~in_first, n - counts.long()), in_first
+
+
+def carried_transmittance(samples, sigmas, n_rays):
+    """(n_rays, 1) ``exp(-sum min(sigma delta, 40))`` over each ray's
+    ``samples`` (a round's transmittance as kernel G3 forms it, in place of
+    ``1 - opacity``, whose sum of ``1 - exp(-x)`` terms loses digits where
+    many samples are nearly empty)."""
+    sd = (sigmas.detach() * (samples.t_ends - samples.t_starts)).clamp(max=40.0)
+    total = torch.zeros(n_rays, dtype=sd.dtype, device=sd.device)
+    total.index_add_(0, samples.ray_indices.long(), sd)
+    return torch.exp(-total)[:, None]
+
+
+def _backward_sums(outs, names, cot):
+    """Backward of ``sum(cot . (colour, opacity, depth))`` of the rounds
+    ``names`` summed; returns the summed outputs."""
+    total = [sum(outs[n][i] for n in names) for i in range(3)]
+    sum((x * cot[:, i : i + w]).sum() for x, i, w in zip(total, (0, 3, 4), (3, 1, 1))).backward()
+    return [t.detach() for t in total]
+
+
+def phase_options(dev, trainer, state, batch, ds):
+    """30. The options the port takes as the JAX package does, at full
+    width, each path driven with the launch counts zeroed before it and read
+    after it (the comparisons with the plain versions are not counted): a)
+    ``render_image_with_occgrid`` at JAX's defaults (1024 orbit candidates a
+    ray, a 2^18 budget a chunk) on phase 4's trained bench CP field and its
+    grid, test view 0, through the kernels against the plain versions
+    (within ``OPTIONS_ERR``), the share of rays the candidate window cuts
+    and the difference from the whole orbit's image printed; b) on phase 4's
+    train batch, ``render_rays_with_occgrid`` over each ray's first
+    ``OPTIONS_FIRST_ROUND`` candidates, then over the rest of the whole
+    orbit's samples (:func:`split_rounds`) carrying
+    the first round's transmittance (:func:`carried_transmittance`) as
+    ``prefix_trans``, against one round over the whole orbit: the sums
+    within ``OPTIONS_SUM_ERR`` of the largest, and through G3/G5
+    (and again on their plain versions) the gradients of the second round's
+    colours and densities within ``OPTIONS_GRAD_ERR`` of the one round's
+    largest, the first round's colours' within 1e-6; c) the bench CP field
+    (lines 32/128/512 x rank 32, bf16) at hidden 128, 31 geometry features
+    and no view directions, trained ``OPTIONS_STEPS`` steps on 2048 rays
+    with a 2^18 budget (the loss must fall), then one step through the
+    kernels against the plain versions (phase 5's bf16 bound); d) the
+    full-width NGP field at hidden 128, one step, then a step through G6/G7
+    against the plain versions; e) TiNeuVox (f32) with a 64^2 x 16
+    tri-plane level, ``OPTIONS_TNV_STEPS`` steps with G8-G10 launching, then
+    a step within ``F32_HAT_STEP_FRO`` of the plain versions; f) the bench
+    trainer with ``traversal="padded"`` and
+    ``max_samples_per_ray=OPTIONS_PADDED`` from phase 4's state, near plane
+    ``OPTIONS_NEAR``: no ray's march holds more than that many samples,
+    some rays are cut, and the step matches the plain versions.  G1-G10
+    must launch.  Returns the phase's launches."""
+    from nerfacc_tpu_torch.estimators.occ_grid import sampling
+
+    occ_grid = port_module("trainers.ngp_occ")
+    fields = port_module("models.cp_field")
+    print(f"options: {card()}")
+    t_phase = time.perf_counter()
+    total = {}
+
+    def driven(what, fn, kernels):
+        """``fn()`` with the launch counts zeroed before and read after; each
+        of ``kernels`` must launch."""
+        cuda.reset_launches()
+        out = fn()
+        torch.cuda.synchronize()
+        launched = dict(cuda.LAUNCHES)
+        for k in kernels:
+            require(launched[k] > 0, f"30 {what}: no launch of {k}")
+        for k, v in launched.items():
+            total[k] = total.get(k, 0) + v
+        return out, launched
+
+    # a) the chunked image renderer at JAX's defaults
+    occ, step = state.occ_state, trainer.render_step_size
+    data = ds[0]
+    field_fn = trainer._field_fn(state, data)
+    serving = ("cp_level_fwd", "march", "composite_fwd")
+
+    def render():
+        with torch.no_grad():
+            return render_image_with_occgrid(field_fn, occ, data["rays_o"], data["rays_d"],
+                                             data["color_bkgd"], render_step_size=step)
+
+    (colors, _, _, n), launched = driven("a", render, serving)
+    with plain_kernels(serving):
+        plain = render()[0]
+    diff = float((colors - plain).abs().max())
+    whole = trainer.render_rays(state, data)
+    with torch.no_grad():
+        window = sampling(occ, data["rays_o"], data["rays_d"], render_step_size=step,
+                          max_samples=1024)
+    cut = float((~window.terminated).float().mean())
+    off = (colors - whole[0]).abs().amax(dim=-1)
+    print(f"options a: render_image_with_occgrid at JAX's defaults, view 0: {n} samples "
+          f"(the whole orbit {whole[3]}), {cut:.4f} of {colors.shape[0]} rays cut by "
+          f"max_samples=1024; kernels vs plain versions max colour difference {diff:.3g} "
+          f"(limit {OPTIONS_ERR}); from the whole orbit's image {float(off.max()):.3g} at "
+          f"most, {float((off > 1e-3).float().mean()):.4f} of the pixels by more than 1e-3; "
+          f"launches {launched['march']} march, {launched['composite_fwd']} composite_fwd "
+          f"({card()})")
+    require(diff <= OPTIONS_ERR, f"30 a: kernels and plain versions differ by {diff}")
+    require(0.0 < cut < 1.0, f"30 a: max_samples cut {cut} of the rays")
+
+    # b) two rounds carrying the transmittance against one round
+    o, d = batch["rays_o"], batch["rays_d"]
+    field_fn = trainer._field_fn(state, batch)
+    with torch.no_grad():
+        first = sampling(occ, o, d, render_step_size=step, max_samples=OPTIONS_FIRST_ROUND)
+        whole = sampling(occ, o, d, render_step_size=step)
+    first, rest, in_a = split_rounds(whole, first.counts)
+    first_samples = compact_samples(first)
+    rounds = [("one", compact_samples(whole), lambda outs, leaves: None),
+              ("a", first_samples, lambda outs, leaves: None),
+              ("b", compact_samples(rest), lambda outs, leaves: carried_transmittance(
+                  first_samples, leaves["a"][1], o.shape[0]))]
+    cot = torch.rand(o.shape[0], 5, device=dev,
+                     generator=torch.Generator(device=dev).manual_seed(30))
+
+    def two_rounds():
+        outs, leaves = _leaf_rounds(field_fn, o, d, rounds)
+        return (_backward_sums(outs, ["one"], cot), _backward_sums(outs, ["a", "b"], cot),
+                {k: (v[0].grad, v[1].grad) for k, v in leaves.items()})
+
+    (one, two, grads), launched = driven("b", two_rounds, ("composite_fwd", "composite_bwd"))
+    with plain_kernels(("march", "composite_fwd", "composite_bwd")):
+        _, two_plain, grads_plain = two_rounds()
+    sums = max(float((x - y).abs().max() / y.abs().max()) for x, y in zip(two, one))
+    plain_sums = max(float((x - y).abs().max() / y.abs().max()) for x, y in zip(two_plain, one))
+    readings = {}
+    for k, name in ((0, "rgb"), (1, "sigma")):
+        g_one = grads["one"][k]
+        scale = float(g_one.abs().max())
+        readings[f"second round {name}"] = float(
+            (grads["b"][k] - g_one[~in_a]).abs().max()) / scale
+        readings[f"second round {name}, plain"] = float(
+            (grads_plain["b"][k] - g_one[~in_a]).abs().max()) / scale
+    first_rgb = float((grads["a"][0] - grads["one"][0][in_a]).abs().max()) / float(
+        grads["one"][0].abs().max())
+    print(f"options b: {first.ray_indices.shape[0]} + {rest.ray_indices.shape[0]} samples in "
+          f"two rounds against {whole.ray_indices.shape[0]} in one, {o.shape[0]} rays: sums "
+          f"within {sums:.3g} of the largest output (plain versions {plain_sums:.3g}, limit "
+          f"{OPTIONS_SUM_ERR}); gradients, of the largest: first round rgb {first_rgb:.3g} "
+          f"(limit 1e-6), " + ", ".join(f"{k} {v:.3g}" for k, v in readings.items())
+          + f" (limit {OPTIONS_GRAD_ERR}); launches {launched['composite_fwd']} composite_fwd, "
+          f"{launched['composite_bwd']} composite_bwd ({card()})")
+    require(max(sums, plain_sums) <= OPTIONS_SUM_ERR, f"30 b: rounds' sums off by {sums}")
+    require(first_rgb <= 1e-6, f"30 b: first round's colour gradients off by {first_rgb}")
+    require(max(readings.values()) <= OPTIONS_GRAD_ERR, f"30 b: gradients {readings}")
+
+    # c) the bench CP field at other widths, without view directions
+    train = train_loader(dev, "cp")
+    wide = occ_grid.NGPOccTrainer(
+        field=fields.CPRadianceField(AABB, hidden_dim=128, geo_feat_dim=31, use_viewdirs=False),
+        aabb=AABB, device=dev, max_steps=TRAIN_STEPS,
+    )
+    batches = [train[0] for _ in range(OPTIONS_STEPS + 1)]
+
+    def steps(tr, st, bs):
+        losses = []
+        for b in bs:
+            st, aux = tr.train_step(st, b)
+            losses.append(aux["loss"])
+        return st, torch.stack(losses).cpu()
+
+    (st, losses), launched = driven("c", lambda: steps(wide, wide.init_state(), batches[:-1]),
+                                    CP_PATH_KERNELS)
+    first_loss, last_loss = float(losses[:10].mean()), float(losses[-10:].mean())
+    print(f"options c: CP field hidden 128, geo 31, no view directions (head "
+          f"{wide.field.head_dims}): {OPTIONS_STEPS} steps, mean loss of the first 10 "
+          f"{first_loss:.6f}, of the last 10 {last_loss:.6f}; launches per step "
+          + ", ".join(f"{k} {launched[k] / OPTIONS_STEPS:.3f}" for k in CP_PATH_KERNELS)
+          + f" ({card()})")
+    require(bool(torch.isfinite(losses).all()) and last_loss < first_loss,
+            f"30 c: loss {first_loss} -> {last_loss} did not fall")
+    phase_step_vs_plain(wide, st, batches[-1], "30 c cp hidden 128 geo 31 no viewdirs",
+                        CP_PATH_KERNELS)
+    del wide, st
+
+    # d) NGP at hidden 128
+    ngp_kernels = ("hash_fwd", "hash_bwd", "march", "composite_fwd", "composite_bwd")
+    ngp = occ_grid.NGPOccTrainer(
+        field=port_module("models.ngp").NGPRadianceField(AABB, hidden_dim=128), aabb=AABB,
+        device=dev, max_steps=TRAIN_STEPS,
+    )
+    (st, _), launched = driven("d", lambda: ngp.train_step(ngp.init_state(), batches[0]),
+                               ngp_kernels)
+    print("options d: NGP field hidden 128 (16 levels, T = 2^19), one step: launches "
+          + ", ".join(f"{k} {launched[k]}" for k in ngp_kernels) + f" ({card()})")
+    phase_step_vs_plain(ngp, st, batches[1], "30 d ngp hidden 128", ngp_kernels)
+    del ngp, st
+
+    # e) TiNeuVox with a tri-plane level, f32
+    dyn = port_module("data.procedural").ProceduralDynamicSceneLoader(
+        split="train", n_train=6, width=128, height=128, num_rays=TRAIN["tineuvox"][1],
+        device=dev)
+    tnv = occ_grid.NGPOccTrainer(
+        field=port_module("models.tineuvox").TiNeuVoxRadianceField(
+            AABB, compute_dtype=torch.float32, plane_resolutions=(64,), plane_ranks=(16,),
+            device=dev),
+        aabb=AABB, device=dev, timestamps=dyn.timestamps, max_steps=TRAIN_STEPS,
+        sample_budget=TRAIN["tineuvox"][2], **TRAIN["tineuvox"][0],
+    )
+    dyn_batches = [dyn[0] for _ in range(OPTIONS_TNV_STEPS + 1)]
+    (st, losses), launched = driven(
+        "e", lambda: steps(tnv, tnv.init_state(), dyn_batches[:-1]), PATH_KERNELS_TINEUVOX)
+    print(f"options e: TiNeuVox f32 with a 64^2 x 16 tri-plane level: {OPTIONS_TNV_STEPS} "
+          f"steps, losses {float(losses[0]):.6f} -> {float(losses[-1]):.6f}; launches "
+          + ", ".join(f"{k} {launched[k]}" for k in PATH_KERNELS_TINEUVOX) + f" ({card()})")
+    require(bool(torch.isfinite(losses).all()), "30 e: non-finite loss")
+    phase_step_vs_plain(tnv, st, dyn_batches[-1], "30 e tineuvox plane (64, 16)",
+                        PATH_KERNELS_TINEUVOX, limit=F32_HAT_STEP_FRO)
+    del tnv, st
+
+    # f) the padded traversal from phase 4's state
+    padded = make_trainer(dev, near_plane=OPTIONS_NEAR, traversal="padded",
+                          max_samples_per_ray=OPTIONS_PADDED, max_steps=TRAIN_STEPS)
+    params = {k: v.detach().clone().requires_grad_(True) for k, v in state.params.items()}
+    pstate = TrainState(params, padded.init_optimizer(params), state.occ_state, state.step)
+    marched, sampler = [], occ_grid.sampling
+
+    def recording(*args, **kwargs):
+        res = sampler(*args, **kwargs)
+        marched.append(res.counts)
+        return res
+
+    occ_grid.sampling = recording
+    try:
+        (_, aux), launched = driven("f", lambda: padded.train_step(pstate, batch),
+                                    CP_PATH_KERNELS)
+    finally:
+        occ_grid.sampling = sampler
+    worst = int(marched[0].max())
+    print(f"options f: padded step, max_samples_per_ray {OPTIONS_PADDED} from near "
+          f"{OPTIONS_NEAR}: at most {worst} samples a ray, {int(aux['n_rays_truncated'])} "
+          f"of {batch['rays_o'].shape[0]} rays cut, {int(aux['n_rays_ok'])} in the loss, "
+          f"{aux['n_rendering_samples']} samples ({card()})")
+    require(0 < worst <= OPTIONS_PADDED, f"30 f: a ray holds {worst} samples")
+    require(int(aux["n_rays_truncated"]) > 0, "30 f: the candidate window cut no ray")
+    phase_step_vs_plain(padded, pstate, batch, "30 f padded cp", CP_PATH_KERNELS)
+    for k in OPTIONS_KERNELS:
+        require(total.get(k, 0) > 0, f"30: no launch of {k}")
+    print(f"options: phase 30 took {time.perf_counter() - t_phase:.1f} s, launches {total} "
+          f"({card()})")
+    return total
+
+
 def prop_example(path, steps, seed=QUALITY_SEEDS[0], extra=()):
     """The proposal example's module and its arguments for ``path``."""
     ex = port_module("examples.train_ngp_nerf_prop")
@@ -3948,18 +4259,19 @@ def phase_mlp_example(dev, path):
     return launches
 
 
-def phase_step_vs_plain(trainer, state, batch, name, kernels):
+def phase_step_vs_plain(trainer, state, batch, name, kernels, limit=None):
     """One train step through the kernels against the same step with
     ``kernels`` on their plain versions (:func:`plain_kernels`), from
     ``state``, with the same batch and near-plane jitter, ``STEP_REPEATS``
-    times (atomics reorder the sums), held to phase 5's bound for the
-    field's compute dtype; the plain step against itself is printed beside
-    it."""
+    times (atomics reorder the sums), held to ``limit`` (None: phase 5's
+    bound for the field's compute dtype); the plain step against itself is
+    printed beside it."""
     require(state.step % trainer.update_interval != 0, f"{name}: the step refreshes")
     gen = torch.Generator(device=trainer.device).manual_seed(5)
     near = torch.rand(batch["rays_o"].shape[0], generator=gen, device=trainer.device)
     bf16 = trainer.field.compute_dtype == torch.bfloat16
-    limit = BF16_STEP_FRO if bf16 else F32_STEP_FRO
+    if limit is None:
+        limit = BF16_STEP_FRO if bf16 else F32_STEP_FRO
 
     def kernel_step():
         return kernel_step_grads(trainer, state, batch, near)
@@ -4707,12 +5019,16 @@ def main():
     mark("28")
     # 29: the windowed and pooled entry points on phase 4's trained field
     mlp_launches.append(phase_pooled_entry_points(dev, *cp_trained))
-    del cp_trained
     mark("29")
+    # 30: the public options taken as the JAX package takes them
+    mlp_launches.append(phase_options(dev, *cp_trained, ds))
+    del cp_trained
+    mark("30")
     # each kernel's launches over the training runs (phases 4, 8, 12, 16,
     # 20, 21, 22, 23-23c, 24, 25, 26, 28), the occupancy example's (6d), the
-    # quick start's loops (19, 27) and the entry points of phase 29, and the
-    # gather kernels' over the gather probe's run
+    # quick start's loops (19, 27), the entry points of phase 29 and the
+    # options' paths of phase 30, and the gather kernels' over the gather
+    # probe's run
     launches = {k: v + ngp_launches[k] + tnv_launches[k] + prop_launches[k]
                 + example_launches[k] + qs_launches[k] + qs_prop_launches[k]
                 + prop_ngp_launches[k] + prop360_launches[k] + occ360_launches.get(k, 0)

@@ -45,6 +45,7 @@ class ProceduralSceneLoader:
 
     Args:
         split: "train" or "test" camera ring.
+        num_blobs: Gaussian density blobs (``NUM_BLOBS`` by default).
         n_train / n_test: camera counts on a ring, looking at the origin.
         width / height: image resolution.
         num_rays: train-split ray batch; None (or the test split) makes
@@ -52,8 +53,14 @@ class ProceduralSceneLoader:
         color_bkgd_aug: background of a train batch, "white", "black" or
             "random" (one colour per batch).
         seed: seeds the batches' pixel draws.
+        aabb_half: the scene box's half side (``AABB_HALF``); the blob
+            centres lie within 0.8 of it.
+        gt_samples: uniform samples per ray of the analytic render
+            (``GT_SAMPLES``).
         device: where the ground truth is rendered and items are returned
             (the card unless the caller asks for another).
+
+    The JAX loader's arguments, in its order, and ``device``.
     """
 
     NEAR, FAR = 2.0, 6.0
@@ -65,6 +72,7 @@ class ProceduralSceneLoader:
     def __init__(
         self,
         split: str = "train",
+        num_blobs: int = NUM_BLOBS,
         n_train: int = 24,
         n_test: int = 4,
         width: int = 320,
@@ -72,8 +80,12 @@ class ProceduralSceneLoader:
         num_rays: Optional[int] = None,
         color_bkgd_aug: str = "white",
         seed: int = 42,
+        aabb_half: float = AABB_HALF,
+        gt_samples: int = GT_SAMPLES,
         device: Union[str, torch.device] = "cuda",
     ):
+        self.NUM_BLOBS, self.AABB_HALF = int(num_blobs), float(aabb_half)
+        self.GT_SAMPLES = int(gt_samples)
         self.split = split
         self.WIDTH, self.HEIGHT = width, height
         self.num_rays = num_rays
@@ -272,11 +284,14 @@ class ProceduralDynamicSceneLoader(ProceduralSceneLoader):
     (n_rays, 1); ``timestamps`` (n_views, 1) holds all frame times, for the
     trainer's occupancy refresh.  Takes the arguments of
     :class:`ProceduralSceneLoader`, and ``motion_amp``.
+    ``query_density_t(x, t)`` / ``query_rgb_t(x, t)`` read the scene at
+    time ``t``.
     """
 
     def __init__(
         self,
         split: str = "train",
+        num_blobs: int = ProceduralSceneLoader.NUM_BLOBS,
         n_train: int = 24,
         n_test: int = 4,
         width: int = 320,
@@ -284,28 +299,43 @@ class ProceduralDynamicSceneLoader(ProceduralSceneLoader):
         num_rays: Optional[int] = None,
         color_bkgd_aug: str = "white",
         seed: int = 42,
+        aabb_half: float = ProceduralSceneLoader.AABB_HALF,
+        gt_samples: int = ProceduralSceneLoader.GT_SAMPLES,
         motion_amp: float = 0.25,
         device: Union[str, torch.device] = "cuda",
     ):
         # the motion exists before the base constructor renders the ground
         # truth; its draws are the JAX loader's, normals then uniforms
         mrng = np.random.default_rng(4321)  # fixed across seeds, like the scene
-        dirs = mrng.normal(size=(self.NUM_BLOBS, 3))
+        dirs = mrng.normal(size=(num_blobs, 3))
         dirs /= np.linalg.norm(dirs, axis=-1, keepdims=True)
-        phase = mrng.uniform(0.0, 2 * np.pi, (self.NUM_BLOBS,))
+        phase = mrng.uniform(0.0, 2 * np.pi, (num_blobs,))
         self.motion_dirs = torch.tensor(dirs, dtype=torch.float32, device=device)
         self.motion_phase = torch.tensor(phase, dtype=torch.float32, device=device)
         self.motion_amp = float(motion_amp)
         n = n_train if split == "train" else n_test
         self.view_times = np.linspace(0.0, 1.0, max(n, 2))[:n].astype(np.float32)
-        super().__init__(split, n_train, n_test, width, height, num_rays,
-                         color_bkgd_aug, seed, device)
+        super().__init__(split, num_blobs, n_train, n_test, width, height, num_rays,
+                         color_bkgd_aug, seed, aabb_half, gt_samples, device)
         self.timestamps = torch.tensor(self.view_times[:, None], device=self.device)
 
-    def _centers(self, view: int) -> torch.Tensor:
-        t = torch.tensor(self.view_times[view], device=self.device)
+    def _centers(self, view: int):
+        return self._centers_at(torch.tensor(self.view_times[view], device=self.device))
+
+    def _centers_at(self, t: torch.Tensor):
+        """Blob centres (B, 3) at time ``t``."""
         osc = torch.sin(2 * np.pi * t + self.motion_phase)[:, None]
         return self.blob_centers + self.motion_amp * osc * self.motion_dirs
+
+    def query_density_t(self, x: torch.Tensor, t) -> torch.Tensor:
+        """sigma(x) at time ``t`` (a float or a 0-d tensor). (N, 3) -> (N, 1)."""
+        t = torch.as_tensor(t, dtype=torch.float32, device=self.device)
+        return self.query_density(x, self._centers_at(t))
+
+    def query_rgb_t(self, x: torch.Tensor, t) -> torch.Tensor:
+        """The blobs' colour mix at ``x`` at time ``t``. (N, 3) -> (N, 3)."""
+        t = torch.as_tensor(t, dtype=torch.float32, device=self.device)
+        return self.query_rgb(x, self._centers_at(t))
 
     def _item(self, image_id, x, y, color_bkgd):
         item = super()._item(image_id, x, y, color_bkgd)
@@ -329,6 +359,7 @@ class ProceduralOpaqueSceneLoader(ProceduralSceneLoader):
     def __init__(
         self,
         split: str = "train",
+        num_blobs: int = ProceduralSceneLoader.NUM_BLOBS,
         n_train: int = 24,
         n_test: int = 4,
         width: int = 320,
@@ -336,12 +367,14 @@ class ProceduralOpaqueSceneLoader(ProceduralSceneLoader):
         num_rays: Optional[int] = None,
         color_bkgd_aug: str = "white",
         seed: int = 42,
+        aabb_half: float = ProceduralSceneLoader.AABB_HALF,
+        gt_samples: int = ProceduralSceneLoader.GT_SAMPLES,
         edge_width: float = 0.01,
         device: Union[str, torch.device] = "cuda",
     ):
         self.edge_width = float(np.float32(edge_width))
-        super().__init__(split, n_train, n_test, width, height, num_rays,
-                         color_bkgd_aug, seed, device)
+        super().__init__(split, num_blobs, n_train, n_test, width, height, num_rays,
+                         color_bkgd_aug, seed, aabb_half, gt_samples, device)
 
     def _blob_density(self, rng: np.random.Generator) -> np.ndarray:
         super()._blob_density(rng)  # the scene's later draws stay the same
@@ -485,7 +518,9 @@ class ProceduralUnboundedSceneLoader(ProceduralSceneLoader):
     colour); the object blobs from the base class's ``default_rng(1234)``.
     The ground truth integrates ``GT_SAMPLES`` uniform samples from NEAR to
     ``T_SPLIT`` and ``GT_FAR_SAMPLES`` uniform in disparity from there to
-    FAR.  Takes the arguments of :class:`ProceduralSceneLoader`.
+    FAR.  Takes the JAX loader's arguments, in its order (``num_blobs``,
+    ``gt_samples``, ``gt_far_samples``, ``content_radius`` and
+    ``num_far_blobs`` default to the class constants), and ``device``.
     """
 
     NEAR, FAR = 0.05, 20.0
@@ -500,6 +535,7 @@ class ProceduralUnboundedSceneLoader(ProceduralSceneLoader):
     def __init__(
         self,
         split: str = "train",
+        num_blobs: int = NUM_BLOBS,
         n_train: int = 24,
         n_test: int = 4,
         width: int = 320,
@@ -507,8 +543,14 @@ class ProceduralUnboundedSceneLoader(ProceduralSceneLoader):
         num_rays: Optional[int] = None,
         color_bkgd_aug: str = "white",
         seed: int = 42,
+        gt_samples: int = ProceduralSceneLoader.GT_SAMPLES,
+        gt_far_samples: int = GT_FAR_SAMPLES,
+        content_radius: float = CONTENT_RADIUS,
+        num_far_blobs: int = NUM_FAR_BLOBS,
         device: Union[str, torch.device] = "cuda",
     ):
+        self.GT_FAR_SAMPLES, self.CONTENT_RADIUS = int(gt_far_samples), float(content_radius)
+        self.NUM_FAR_BLOBS = int(num_far_blobs)
         # the far content exists before the base constructor renders the
         # ground truth.  Centres 4 or more from the axis with scales of at
         # most 0.45 leave the camera ring (radius 1.8) in free space.
@@ -527,8 +569,8 @@ class ProceduralUnboundedSceneLoader(ProceduralSceneLoader):
         self.far_scales = f32(scale)
         self.far_density = f32(rng.uniform(100.0, 250.0, n))
         self.far_colors = f32(rng.uniform(0.1, 1.0, (n, 3)))
-        super().__init__(split, n_train, n_test, width, height, num_rays,
-                         color_bkgd_aug, seed, device)
+        super().__init__(split, num_blobs, n_train, n_test, width, height, num_rays,
+                         color_bkgd_aug, seed, self.AABB_HALF, gt_samples, device)
 
     def _poses(self, n_views: int, phase: float) -> np.ndarray:
         poses = []
@@ -593,7 +635,7 @@ class ProceduralLocalDynamicSceneLoader(ProceduralDynamicSceneLoader):
 
     def __init__(self, *args, motion_amp: float = 0.22, **kwargs):
         rng = np.random.default_rng(5555)  # fixed across seeds
-        n = self.NUM_BLOBS
+        n = kwargs.get("num_blobs", self.NUM_BLOBS)
         freq = rng.integers(1, 5, (n,)).astype(np.float32)
         gated = rng.random(n) < 0.4
         t0 = np.where(gated, rng.uniform(0.1, 0.55, n), -1.0)
@@ -603,9 +645,8 @@ class ProceduralLocalDynamicSceneLoader(ProceduralDynamicSceneLoader):
         self.motion_freq, self.appear_t0, self.appear_t1 = f32(freq), f32(t0), f32(t1)
         super().__init__(*args, motion_amp=motion_amp, **kwargs)
 
-    def _centers(self, view: int):
-        """(centres (B, 3), density gates (B,)) at view ``view``'s time."""
-        t = torch.tensor(self.view_times[view], device=self.device)
+    def _centers_at(self, t: torch.Tensor):
+        """(centres (B, 3), density gates (B,)) at time ``t``."""
         osc = torch.sin(2 * np.pi * self.motion_freq * t + self.motion_phase)[:, None]
         s = self.APPEAR_SHARP
         gate = torch.sigmoid((t - self.appear_t0) / s) * torch.sigmoid((self.appear_t1 - t) / s)

@@ -44,14 +44,16 @@ becomes ``num_rays * budget / n_total_samples``, growing at most 2x, rounded
 down to the 1k-128k buckets.  Its aux reads lag two calls, so that reading
 them never waits on the call just dispatched.
 
-Flags of the JAX script that the port leaves out:
+``--traversal`` is the trainer's: "padded" cuts each ray at 1024 orbit
+candidates, as the JAX script's trainer does; "pooled" and "windowed" march
+every orbit whole (see :class:`~nerfacc_tpu_torch.trainers.ngp_occ.
+NGPOccTrainer`).  ``--window_budget`` and ``--fine_probes`` size the JAX
+traversals' TPU window pools and are taken and ignored, as the trainer
+takes them.
 
-- ``--traversal``, ``--window_budget`` and ``--fine_probes``: the pooled and
-  windowed traversals and their approximate fine probes reorganise one
-  sample set for the TPU's gathers; the port's march (kernel G2) emits that
-  set exactly, with no window to size.
-- ``--encoder_remat``: rematerialisation under XLA's memory planning;
-  autograd here keeps the encoder's inputs and nothing to recompute.
+The flag of the JAX script that the port leaves out, ``--encoder_remat``,
+chooses a rematerialisation under XLA's memory planning; autograd here
+keeps the encoder's inputs and nothing to recompute.
 
 In process, :func:`build` makes the trainer and the loaders (its keyword
 arguments shrink them, as the tests do) and :func:`train_loop` runs the
@@ -129,6 +131,11 @@ def parser() -> argparse.ArgumentParser:
     ap.add_argument("--target_sample_batch_size", type=int, default=1 << 18)
     ap.add_argument("--init_batch_size", type=int, default=1024)
     ap.add_argument("--steps_per_call", type=int, default=8)
+    ap.add_argument("--traversal", default="pooled", choices=["pooled", "windowed", "padded"])
+    ap.add_argument("--window_budget", type=int, default=None,
+                    help="the JAX traversal's window pool; taken and ignored")
+    ap.add_argument("--fine_probes", type=lambda v: v if v == "auto" else int(v),
+                    default="auto", help="the JAX traversal's fine probes; taken and ignored")
     ap.add_argument("--device_sampler", type=int, default=1,
                     help="draw ray batches on the device (0: the host loader)")
     ap.add_argument("--eval_every", type=int, default=0)
@@ -211,7 +218,11 @@ def build(args, scene_kwargs: Optional[Dict] = None, field_kwargs: Optional[Dict
         weight_decay=weight_decay,
         field_reg_weight=args.field_reg_weight,
         sample_budget=args.target_sample_batch_size,
+        max_samples_per_ray=1024,
         seed=args.seed,
+        traversal=args.traversal,
+        window_budget=args.window_budget,
+        fine_probes=args.fine_probes,
         dense_occ_update=not args.sampled_occ_update,
         occ_refresh_stripes=args.occ_stripes,
         device=args.device,

@@ -38,17 +38,25 @@ _MAX_STEPS = 1 << 24
 
 
 def ray_aabb_intersect(
-    rays_o: torch.Tensor, rays_d: torch.Tensor, aabbs: torch.Tensor
+    rays_o: torch.Tensor,
+    rays_d: torch.Tensor,
+    aabbs: torch.Tensor,
+    near_plane: float = -math.inf,
+    far_plane: float = math.inf,
+    miss_value: float = math.inf,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Slab-method ray-AABB intersection.
 
     Args:
         rays_o, rays_d: (n_rays, 3) origins and normalized directions.
         aabbs: (m, 6) boxes {xmin, ymin, zmin, xmax, ymax, zmax}.
+        near_plane / far_plane: the hit distances are clamped to this range
+            (before the miss fill, as in the JAX package).
+        miss_value: the distances of a missed pair.
 
     Returns:
-        t_mins (n_rays, m), t_maxs (n_rays, m) (inf where missed), and
-        hits (n_rays, m) bool.
+        t_mins (n_rays, m), t_maxs (n_rays, m) (``miss_value`` where
+        missed), and hits (n_rays, m) bool.
     """
     inv_dir = 1.0 / rays_d  # inf where a component is 0
     t1 = (aabbs[None, :, :3] - rays_o[:, None, :]) * inv_dir[:, None, :]
@@ -56,8 +64,10 @@ def ray_aabb_intersect(
     t_mins = torch.minimum(t1, t2).amax(dim=-1)
     t_maxs = torch.maximum(t1, t2).amin(dim=-1)
     hits = (t_maxs > t_mins) & (t_maxs > 0)
+    t_mins = t_mins.clamp(near_plane, far_plane)
+    t_maxs = t_maxs.clamp(near_plane, far_plane)
     return (
-        torch.where(hits, t_mins, math.inf), torch.where(hits, t_maxs, math.inf), hits
+        torch.where(hits, t_mins, miss_value), torch.where(hits, t_maxs, miss_value), hits
     )
 
 

@@ -22,7 +22,9 @@ rank / n), and the matching rows of the first base-MLP weight in
 shard-major order (``parallel.tp.tp_w1_permutation``); layer 0's partial
 products are summed over the group (:class:`TPAllReduce`, whose backward is
 the identity) before the activation, and every later layer is replicated.
-Not ported: the TPU layout options.
+Not ported: the TPU layout options (``kernel``, ``block_size``,
+``block_min_res``, ``remat``, ``fused_levels``) and the mesh axis name
+``tp_axis``, whose role ``tp_group`` takes.
 """
 from __future__ import annotations
 
@@ -230,6 +232,19 @@ class CPGridEncoder(nn.Module):
         return sum(terms)
 
 
+def plane_eval_chunk(encoder: CPGridEncoder) -> int:
+    """The occupancy refresh's chunk of a field on ``encoder``, the JAX
+    fields': the whole grid (2^21) for line levels alone; with planes at
+    most 2.5e8 over the sum of ``R * rank`` (JAX materialises a (3, N, R *
+    rank) dot output a plane level), at least 2^12, rounded down to a power
+    of 2."""
+    per = sum(R * r for R, r in zip(encoder.plane_resolutions, encoder.plane_ranks))
+    if per == 0:
+        return 2**21
+    cap = max(2**12, int(2.5e8) // per)
+    return 1 << (cap.bit_length() - 1)
+
+
 class _RoundGrad(torch.autograd.Function):
     """The identity, whose backward rounds the cotangent to bf16: JAX's
     ``astype(f32)`` of a bf16 value hands the cotangent back in bf16."""
@@ -331,6 +346,10 @@ class CPRadianceField(_TensorParallel, MLPField):
         tp_group: shard the line levels and the first base-MLP weight over
             this ``torch.distributed`` group (see the module docstring);
             None: the whole field.  Raises with tri-plane levels.
+        num_dim: taken for the JAX field's signature, which declares it and
+            reads it nowhere.
+        use_viewdirs / geo_feat_dim / hidden_dim: the MLPs' (see
+            :class:`~nerfacc_tpu_torch.models.ngp.MLPField`).
     """
 
     def __init__(
@@ -344,30 +363,32 @@ class CPRadianceField(_TensorParallel, MLPField):
         plane_ranks: Sequence[int] = (),
         plane_mode: str = "product",
         tp_group=None,
+        num_dim: int = 3,
+        use_viewdirs: bool = True,
+        geo_feat_dim: int = 15,
+        hidden_dim: int = 64,
     ):
         config = dict(aabb=[float(a) for a in aabb], unbounded=unbounded,
                       resolutions=tuple(resolutions), ranks=tuple(ranks),
                       compute_dtype=compute_dtype, plane_resolutions=tuple(plane_resolutions),
-                      plane_ranks=tuple(plane_ranks), plane_mode=plane_mode)
+                      plane_ranks=tuple(plane_ranks), plane_mode=plane_mode,
+                      num_dim=num_dim, use_viewdirs=use_viewdirs,
+                      geo_feat_dim=geo_feat_dim, hidden_dim=hidden_dim)
         local, n, m = _tp_ranks(ranks, tp_group, plane_resolutions)
         encoder = CPGridEncoder(resolutions, local, compute_dtype,
                                 plane_resolutions=plane_resolutions,
                                 plane_ranks=plane_ranks, plane_mode=plane_mode)
-        super().__init__(list(aabb), unbounded, encoder, compute_dtype)
+        super().__init__(list(aabb), unbounded, encoder, compute_dtype,
+                         hidden_dim=hidden_dim, geo_feat_dim=geo_feat_dim,
+                         use_viewdirs=use_viewdirs)
+        self.num_dim = num_dim
         self._set_tp(config, tp_group, n, m)
 
     @property
     def max_eval_chunk(self) -> int:
-        """The occupancy refresh's chunk, the JAX field's: the whole grid
-        (2^21) for line levels alone; with planes at most 2.5e8 over the sum
-        of ``R * rank`` (JAX materialises a (3, N, R * rank) dot output a
-        plane level), at least 2^12, rounded down to a power of 2."""
-        enc = self.encoder
-        per = sum(R * r for R, r in zip(enc.plane_resolutions, enc.plane_ranks))
-        if per == 0:
-            return 2**21
-        cap = max(2**12, int(2.5e8) // per)
-        return 1 << (cap.bit_length() - 1)
+        """The occupancy refresh's chunk, the JAX field's
+        (:func:`plane_eval_chunk`)."""
+        return plane_eval_chunk(self.encoder)
 
     def param_regularizer(self, params: Optional[Dict[str, torch.Tensor]] = None):
         """The encoder's total variation (weigh it with the trainer's
@@ -398,9 +419,15 @@ class TensoRFRadianceField(CPRadianceField):
         plane_resolutions: Sequence[int] = (64, 128),
         plane_ranks: Sequence[int] = (16, 16),
         plane_mode: str = "product",
+        num_dim: int = 3,
+        use_viewdirs: bool = True,
+        geo_feat_dim: int = 15,
+        hidden_dim: int = 64,
     ):
         super().__init__(aabb, unbounded, resolutions, ranks, compute_dtype,
-                         plane_resolutions, plane_ranks, plane_mode)
+                         plane_resolutions, plane_ranks, plane_mode, num_dim=num_dim,
+                         use_viewdirs=use_viewdirs, geo_feat_dim=geo_feat_dim,
+                         hidden_dim=hidden_dim)
 
 
 class CPDensityField(_TensorParallel, DensityField):

@@ -69,10 +69,17 @@ class HashGridEncoder(nn.Module):
         )
 
     @torch.no_grad()
-    def init(self, generator: torch.Generator) -> "HashGridEncoder":
-        """Table ``U(-1e-4, 1e-4)`` (tcnn's hash-grid init)."""
+    def init(self, generator: torch.Generator, dtype=torch.float32) -> "HashGridEncoder":
+        """Table ``U(-1e-4, 1e-4)`` (tcnn's hash-grid init), drawn in f32
+        and held in ``dtype``, the table's dtype from then on as in the JAX
+        encoder's ``init(key, dtype)``.  Kernels G6/G7 read f32 tables and
+        raise on another; the plain versions on the CPU take any."""
         u = torch.rand(self.table.shape, generator=generator, device=generator.device)
-        self.table.copy_(u * 2e-4 - 1e-4)
+        u = u * 2e-4 - 1e-4
+        if self.table.dtype != dtype:
+            self.table.data = u.to(device=self.table.device, dtype=dtype)
+        else:
+            self.table.copy_(u)
         return self
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:

@@ -12,8 +12,7 @@ The JAX level is a one-hot "hat" matmul, ``hat_u @ P`` and then a ``hat_v``
 contraction, which avoids gathers on the TPU.  It computes a bilinear lookup
 of four texels a plane, which this module takes as plain PyTorch gathers
 (their backward an ``index_put_`` accumulation), in the rounding of the
-jitted JAX level (see :meth:`KPlanesEncoder.level`).  Not ported:
-``use_viewdirs=False``.
+jitted JAX level (see :meth:`KPlanesEncoder.level`).
 """
 from __future__ import annotations
 
@@ -144,7 +143,8 @@ class KPlanesRadianceField(FrameQuery, MLPField):
     """Dynamic radiance field over :class:`KPlanesEncoder` (levels 32/64 x
     rank 16/16), with :class:`~nerfacc_tpu_torch.models.ngp.MLPField`'s
     bias-free MLPs (density ``trunc_exp(raw - 1)``, zeroed outside the box
-    when bounded; rgb from SH-16 of the view beside 15 geometry features).
+    when bounded; rgb from SH-16 of the view beside ``geo_feat_dim``
+    geometry features, or from those alone without view directions).
 
     Args:
         aabb: the scene box (not cubified); bounded points are scaled to its
@@ -154,6 +154,8 @@ class KPlanesRadianceField(FrameQuery, MLPField):
         compute_dtype: the encoder's and the MLPs' operand dtype.
         device: where the parameters live: the card unless the caller asks
             for another (the tests pass "cpu").
+        geo_feat_dim / hidden_dim / use_viewdirs: the MLPs' (see
+            :class:`~nerfacc_tpu_torch.models.ngp.MLPField`).
     """
 
     def __init__(
@@ -166,10 +168,15 @@ class KPlanesRadianceField(FrameQuery, MLPField):
         plane_activation: str = "none",
         amp_prior: float = 0.0,
         device="cuda",
+        geo_feat_dim: int = 15,
+        hidden_dim: int = 64,
+        use_viewdirs: bool = True,
     ):
         encoder = KPlanesEncoder(resolutions, ranks, compute_dtype, plane_activation,
                                  amp_prior)
-        super().__init__(list(aabb), unbounded, encoder, compute_dtype)
+        super().__init__(list(aabb), unbounded, encoder, compute_dtype,
+                         hidden_dim=hidden_dim, geo_feat_dim=geo_feat_dim,
+                         use_viewdirs=use_viewdirs)
         self.to(device)
 
     @property
@@ -182,8 +189,8 @@ class KPlanesRadianceField(FrameQuery, MLPField):
         return 1 << (cap.bit_length() - 1)
 
     def query_density(self, x: torch.Tensor, t: torch.Tensor, return_feat: bool = False):
-        """(N, 3) points at times (N, 1) or (N,) -> (N, 1) density [, (N, 15)
-        geometry features]."""
+        """(N, 3) points at times (N, 1) or (N,) -> (N, 1) density [, (N,
+        geo_feat_dim) geometry features]."""
         u, selector = self.normalize(x)
         tt = t.reshape(-1, 1).to(torch.float32).clamp(0.0, 1.0)
         feats = self.encoder(torch.cat([u, tt], dim=-1))
@@ -198,8 +205,10 @@ class KPlanesRadianceField(FrameQuery, MLPField):
             planes = [params[f"encoder.planes.{i}"] for i in range(len(self.encoder.planes))]
         return self.encoder.param_regularizer(planes)
 
-    def forward(self, positions: torch.Tensor, t: torch.Tensor, directions: torch.Tensor):
-        """(N, 3) points at times (N, 1) seen along unit directions -> (rgb
-        (N, 3), density (N, 1))."""
-        density, embedding = self.query_density(positions, t, return_feat=True)
-        return self.query_rgb(directions, embedding), density
+    def forward(self, x: torch.Tensor, t: torch.Tensor,
+                condition: Optional[torch.Tensor] = None):
+        """(N, 3) points ``x`` at times (N, 1) seen along unit directions
+        ``condition`` (None without view directions) -> (rgb (N, 3),
+        density (N, 1))."""
+        density, embedding = self.query_density(x, t, return_feat=True)
+        return self.query_rgb(condition, embedding), density

@@ -208,12 +208,13 @@ class VanillaNeRFRadianceField(nn.Module):
         * step_size)`` the JAX field uses."""
         return self.query_density(x) * step_size
 
-    def forward(self, positions: torch.Tensor, directions: Optional[torch.Tensor] = None,
+    def forward(self, x: torch.Tensor, condition: Optional[torch.Tensor] = None,
                 pe_alpha=None):
-        """(N, 3) points seen along unit directions -> (rgb (N, 3), density
-        (N, 1)); ``pe_alpha`` as in :meth:`query_density`."""
-        cond = self.view_encoder(directions) if directions is not None else None
-        rgb, sigma = self.mlp(self.posi_encoder(positions, pe_alpha), cond)
+        """(N, 3) points ``x`` seen along unit directions ``condition`` ->
+        (rgb (N, 3), density (N, 1)); ``pe_alpha`` as in
+        :meth:`query_density`."""
+        cond = self.view_encoder(condition) if condition is not None else None
+        rgb, sigma = self.mlp(self.posi_encoder(x, pe_alpha), cond)
         return torch.sigmoid(rgb), torch.relu(sigma)
 
 
@@ -228,11 +229,11 @@ class _DynamicField(FrameQuery, nn.Module):
         """(N, 3) points at times (N, 1) -> (N, 1) density."""
         return self.nerf.query_density(self.warp(x, t.reshape(-1, 1)))
 
-    def forward(self, positions: torch.Tensor, t: torch.Tensor,
-                directions: Optional[torch.Tensor] = None):
-        """(N, 3) points at times (N, 1) seen along unit directions -> (rgb
-        (N, 3), density (N, 1))."""
-        return self.nerf(self.warp(positions, t.reshape(-1, 1)), directions)
+    def forward(self, x: torch.Tensor, t: torch.Tensor,
+                condition: Optional[torch.Tensor] = None):
+        """(N, 3) points ``x`` at times (N, 1) seen along unit directions
+        ``condition`` -> (rgb (N, 3), density (N, 1))."""
+        return self.nerf(self.warp(x, t.reshape(-1, 1)), condition)
 
 
 class TNeRFRadianceField(_DynamicField):

@@ -3,7 +3,7 @@ activations, contraction, MLPs and the field around an encoder.
 
 PyTorch counterpart of nerfacc_tpu/models/ngp.py.  Ported: ``trunc_exp``,
 ``contract_to_unisphere``, the bias-free MLPs, ``_cubify_aabb`` and
-``NGPRadianceField`` (view directions always on) and the proposal path's
+``NGPRadianceField`` (with or without view directions) and the proposal path's
 ``NGPDensityField``, both on :class:`DensityField`'s and :class:`MLPField`'s
 shared pieces, and the time-dependent fields' :class:`FrameQuery`.
 """
@@ -69,10 +69,15 @@ def _box_form(aabb: torch.Tensor) -> str:
     return form
 
 
-def contract_to_unisphere(x: torch.Tensor, aabb: torch.Tensor) -> torch.Tensor:
+def contract_to_unisphere(
+    x: torch.Tensor, aabb: torch.Tensor, eps: float = 1e-6, derivative: bool = False
+) -> torch.Tensor:
     """Mip-NeRF 360 scene contraction to the unit sphere, remapped to [0, 1],
     with the box map ``(x - lo) / (hi - lo) * 2 - 1`` in the rounding of the
-    jitted JAX fields (:func:`_box_form`)."""
+    jitted JAX fields (:func:`_box_form`).  ``eps`` floors the magnitude the
+    contraction divides by; with ``derivative`` the result is the JAX
+    function's per-axis derivative factor of the contraction at the mapped
+    points instead (1 inside the unit sphere), clamped below at ``eps``."""
     lo, hi = aabb[..., :3], aabb[..., 3:]
     form = _box_form(aabb)
     s = 2.0 * (1.0 / (hi - lo))
@@ -84,7 +89,10 @@ def contract_to_unisphere(x: torch.Tensor, aabb: torch.Tensor) -> torch.Tensor:
         x = (x - lo) * (1.0 / (hi - lo)) * 2 - 1  # aabb is at [-1, 1]
     mag = torch.linalg.norm(x, dim=-1, keepdim=True)
     mask = mag[..., 0] > 1
-    safe_mag = mag.clamp_min(1e-6)
+    if derivative:
+        dev = (2 * mag - 1) / mag**2 + 2 * x**2 * (1 / mag**3 - (2 * mag - 1) / mag**4)
+        return torch.where(mask[..., None], dev, 1.0).clamp_min(eps)
+    safe_mag = mag.clamp_min(eps)
     contracted = (2 - 1 / safe_mag) * (x / safe_mag)
     x = torch.where(mask[..., None], contracted, x)
     return x / 4 + 0.5  # [-inf, inf] is at [0, 1]
@@ -191,8 +199,10 @@ class MLPField(nn.Module):
 
     ``density = trunc_exp(raw - 1)`` of the base MLP on the encoder's
     features, zeroed outside the AABB (bounded scenes); rgb is a sigmoid of
-    the head MLP on [SH-16(dir), geo feats].  The MLPs are 64 wide with 15
-    geometry features, as in the JAX package.
+    the head MLP on [SH-16(dir), geo feats], or on the geo feats alone
+    without view directions.  The base MLP is ``[in, hidden_dim, 1 +
+    geo_feat_dim]``, the head ``[(16 if use_viewdirs else 0) +
+    geo_feat_dim, hidden_dim, hidden_dim, 3]``, as in the JAX package.
 
     Args:
         aabb: the scene box (6 floats) the encoder's [0, 1]^3 spans.
@@ -203,13 +213,16 @@ class MLPField(nn.Module):
         compute_dtype: the MLPs' operand dtype (f32 results).
         base_extra_dim: inputs of the base MLP after the encoder's features
             (a time embedding).
+        hidden_dim / geo_feat_dim: the MLPs' width and the geometry
+            features the base MLP hands the head (JAX's 64 and 15).
+        use_viewdirs: feed the head the view's SH-16 encoding; False: the
+            head reads the geometry features alone and the directions are
+            ignored.
     """
 
-    HIDDEN_DIM = 64
-    GEO_FEAT_DIM = 15
-
     def __init__(self, aabb, unbounded: bool, encoder: nn.Module, compute_dtype,
-                 base_extra_dim: int = 0):
+                 base_extra_dim: int = 0, hidden_dim: int = 64, geo_feat_dim: int = 15,
+                 use_viewdirs: bool = True):
         super().__init__()
         self.register_buffer(
             "aabb", torch.as_tensor(aabb, dtype=torch.float32), persistent=False
@@ -217,9 +230,11 @@ class MLPField(nn.Module):
         self.unbounded = unbounded
         self.compute_dtype = compute_dtype
         self.encoder = encoder
-        hidden, geo = self.HIDDEN_DIM, self.GEO_FEAT_DIM
+        self.hidden_dim, self.geo_feat_dim = int(hidden_dim), int(geo_feat_dim)
+        self.use_viewdirs = bool(use_viewdirs)
+        hidden, geo = self.hidden_dim, self.geo_feat_dim
         self.base_dims = [encoder.output_dim + base_extra_dim, hidden, 1 + geo]
-        self.head_dims = [16 + geo, hidden, hidden, 3]
+        self.head_dims = [(16 if self.use_viewdirs else 0) + geo, hidden, hidden, 3]
         self.mlp_base = _weights(self.base_dims)
         self.mlp_head = _weights(self.head_dims)
         self.base_reduce = None  # see _mlp_apply's reduce0
@@ -254,12 +269,21 @@ class MLPField(nn.Module):
             return density, geo_feat
         return density
 
-    def query_rgb(self, dirs: torch.Tensor, embedding: torch.Tensor) -> torch.Tensor:
-        h = torch.cat([spherical_harmonics_16(dirs), embedding], dim=-1)
+    def query_rgb(self, dirs: Optional[torch.Tensor], embedding: torch.Tensor) -> torch.Tensor:
+        """The head on [SH-16(dirs), embedding], or on the embedding alone
+        without view directions (``dirs`` is then not read)."""
+        h = embedding
+        if self.use_viewdirs:
+            h = torch.cat([spherical_harmonics_16(dirs), embedding], dim=-1)
         return torch.sigmoid(_mlp_apply(self.mlp_head, h, self.compute_dtype))
 
-    def forward(self, positions: torch.Tensor, directions: torch.Tensor):
-        """(N, 3) points and unit directions -> (rgb (N, 3), density (N, 1))."""
+    def query_opacity(self, x: torch.Tensor, step_size: float) -> torch.Tensor:
+        """``density * step_size`` (N, 1): the occupancy refresh's query."""
+        return self.query_density(x) * step_size
+
+    def forward(self, positions: torch.Tensor, directions: Optional[torch.Tensor] = None):
+        """(N, 3) points and unit directions (None without view directions)
+        -> (rgb (N, 3), density (N, 1))."""
         density, embedding = self.query_density(positions, return_feat=True)
         return self.query_rgb(directions, embedding), density
 
@@ -290,10 +314,15 @@ class FrameQuery:
 class NGPRadianceField(MLPField):
     """Instant-NGP radiance field: a hash grid (16 levels x 2 features,
     2^19 rows per level, resolutions 16..4096) through kernels G6/G7 on the
-    card, a 32 -> 64 -> 16 density MLP and a 31 -> 64 -> 64 -> 3 colour MLP.
+    card, a 32 -> 64 -> 16 density MLP and a 31 -> 64 -> 64 -> 3 colour MLP
+    at the default widths (see :class:`MLPField`).
 
     The AABB is cubified (its centre and longest side), as in the JAX
-    package; encoder coordinates are not clamped.
+    package; encoder coordinates are not clamped.  ``num_dim`` is taken for
+    the JAX field's signature, which declares it and reads it nowhere.
+    ``max_eval_chunk`` caps the occupancy refresh's chunk: JAX's 2^15 bounds
+    its encoder's tile-padded TPU intermediates, which G6 does not form, so
+    the port refreshes the whole grid (2^21 points) at once by default.
     """
 
     def __init__(
@@ -305,6 +334,11 @@ class NGPRadianceField(MLPField):
         n_levels: int = 16,
         log2_hashmap_size: int = 19,
         compute_dtype=torch.bfloat16,
+        num_dim: int = 3,
+        use_viewdirs: bool = True,
+        geo_feat_dim: int = 15,
+        hidden_dim: int = 64,
+        max_eval_chunk: int = 2**21,
     ):
         encoder = HashGridEncoder(
             n_levels=n_levels,
@@ -313,7 +347,11 @@ class NGPRadianceField(MLPField):
             base_resolution=base_resolution,
             max_resolution=max_resolution,
         )
-        super().__init__(_cubify_aabb(aabb), unbounded, encoder, compute_dtype)
+        super().__init__(_cubify_aabb(aabb), unbounded, encoder, compute_dtype,
+                         hidden_dim=hidden_dim, geo_feat_dim=geo_feat_dim,
+                         use_viewdirs=use_viewdirs)
+        self.num_dim = num_dim
+        self.max_eval_chunk = int(max_eval_chunk)
 
 
 class DensityField(nn.Module):
@@ -356,8 +394,10 @@ class NGPDensityField(DensityField):
     """Instant-NGP density field for proposal resampling (PyTorch
     counterpart of nerfacc_tpu/models/ngp.py::NGPDensityField): a hash grid
     of 5 levels x 2 features, 2^17 rows per level, resolutions 16..128,
-    through kernels G6/G7 on the card, and a 10 -> 64 -> 1 MLP.  Unlike
-    :class:`NGPRadianceField` the AABB is taken as given (not cubified).
+    through kernels G6/G7 on the card, and a 10 -> ``hidden_dim`` -> 1 MLP.
+    Unlike :class:`NGPRadianceField` the AABB is taken as given (not
+    cubified).  ``num_dim`` and ``max_eval_chunk`` as there (JAX's
+    ``max_eval_chunk`` default here is 2^16).
     """
 
     def __init__(
@@ -370,6 +410,8 @@ class NGPDensityField(DensityField):
         log2_hashmap_size: int = 17,
         hidden_dim: int = 64,
         compute_dtype=torch.bfloat16,
+        num_dim: int = 3,
+        max_eval_chunk: int = 2**21,
     ):
         encoder = HashGridEncoder(
             n_levels=n_levels,
@@ -379,3 +421,5 @@ class NGPDensityField(DensityField):
             max_resolution=max_resolution,
         )
         super().__init__(aabb, unbounded, encoder, hidden_dim, compute_dtype)
+        self.num_dim = num_dim
+        self.max_eval_chunk = int(max_eval_chunk)

@@ -146,13 +146,16 @@ class VoxelRadianceField(MLPField):
     with :class:`~nerfacc_tpu_torch.models.ngp.MLPField`'s bias-free MLPs
     (density ``trunc_exp(raw - 1)``, zeroed outside the box when bounded,
     which maps points by the quotient ``(x - lo) / (hi - lo)``; rgb from
-    SH-16 of the view beside 15 geometry features).
+    SH-16 of the view beside ``geo_feat_dim`` geometry features, or from
+    those alone without view directions).
 
     Args:
         aabb: the scene box (not cubified).
         unbounded: contract instead of zeroing the density outside ``aabb``.
         resolutions / channels: the encoder's.
         compute_dtype: the MLPs' operand dtype (the grids are f32).
+        geo_feat_dim / hidden_dim / use_viewdirs: the MLPs' (see
+            :class:`~nerfacc_tpu_torch.models.ngp.MLPField`).
     """
 
     def __init__(
@@ -162,9 +165,13 @@ class VoxelRadianceField(MLPField):
         resolutions: Sequence[int] = (64, 128),
         channels: Sequence[int] = (4, 4),
         compute_dtype=torch.bfloat16,
+        geo_feat_dim: int = 15,
+        hidden_dim: int = 64,
+        use_viewdirs: bool = True,
     ):
         super().__init__(list(aabb), unbounded, VoxelGridEncoder(resolutions, channels),
-                         compute_dtype)
+                         compute_dtype, hidden_dim=hidden_dim, geo_feat_dim=geo_feat_dim,
+                         use_viewdirs=use_viewdirs)
 
     @property
     def max_eval_chunk(self) -> int:

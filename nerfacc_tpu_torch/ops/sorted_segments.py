@@ -41,8 +41,9 @@ def exclusive_sum_sorted(
     vals: torch.Tensor,
     ids: torch.Tensor,
     n_rays: int,
-    seg_starts: torch.Tensor,
-    seg_ends: torch.Tensor,
+    seg_starts: Optional[torch.Tensor] = None,
+    seg_ends: Optional[torch.Tensor] = None,
+    nonnegative: bool = False,
     reverse: bool = False,
 ) -> torch.Tensor:
     """``out[i] = sum_{j < i, ids[j] == ids[i]} vals[j]`` (``j > i`` with
@@ -50,7 +51,16 @@ def exclusive_sum_sorted(
 
     Each segment is laid out as one row of an (n_rays, longest segment)
     table and scanned along the row, so the sums are segment-local.
+    ``seg_starts`` / ``seg_ends`` (n_rays,) are each segment's first and
+    last slot (None: found from ``ids``).  ``nonnegative`` is the JAX
+    package's promise that ``vals >= 0``, which switches it to a
+    segment-local evaluation; this one is segment-local for every input,
+    so the flag changes nothing.
     """
+    if seg_starts is None:
+        seg_starts = segment_starts(ids, n_rays)
+    if seg_ends is None:
+        seg_ends = segment_ends(ids, n_rays)
     n = vals.shape[0]
     out = torch.zeros_like(vals)
     valid = ids < n_rays
@@ -70,10 +80,16 @@ def exclusive_sum_sorted(
 
 
 def segment_sum_sorted(
-    src: torch.Tensor, ids: torch.Tensor, n_rays: int
+    src: torch.Tensor,
+    ids: torch.Tensor,
+    n_rays: int,
+    seg_starts: Optional[torch.Tensor] = None,
+    seg_ends: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """Per-segment sums ``out[r] = sum_{ids[i] == r} src[i]``; ``src`` is
-    (n,) or (n, C); fill slots are dropped."""
+    (n,) or (n, C); fill slots are dropped.  ``seg_starts`` / ``seg_ends``
+    are taken for the JAX package's signature, where they spare a search;
+    the sum here reads the ids alone."""
     valid = ids < n_rays
     out = src.new_zeros((n_rays,) + tuple(src.shape[1:]))
     return out.index_add_(0, ids[valid].long(), src[valid])

@@ -14,11 +14,14 @@ in evaluation.  Ported beside it: the learning-rate schedule,
 ``train_steps``, ``train_steps_sampled`` (batches drawn on the device) and
 the evaluation (PSNR/SSIM through the early-stopping eval renderer), the
 distortion regulariser, the update clip and the table learning-rate
-multiplier (:class:`ChainAdam`).  Not ported (see ROADMAP.md): the dynamic
-budget buckets; the step marches every orbit whole, the sample set of the
-JAX step's pooled and windowed traversals (which are entry points of
-:mod:`nerfacc_tpu_torch.grid`, not options of the step).  ``alpha_thre`` is
-taken and changes no sample, as in the JAX trainer (see the class).
+multiplier (:class:`ChainAdam`).  The step's traversal is JAX's
+``traversal``: "padded" cuts each ray at ``max_samples_per_ray`` orbit
+candidates; "pooled" and "windowed" march every orbit whole, the sample set
+of JAX's pooled and windowed traversals where their window budgets hold.
+The TPU's compile buckets and window layouts (``dynamic_budget``,
+``n_windows``, ``fine_probes``, ...) are taken and ignored, and
+``alpha_thre`` is taken and changes no sample, as in the JAX trainer (see
+the class).
 """
 from __future__ import annotations
 
@@ -56,12 +59,12 @@ from ..volrend import render_weight_from_density
 LR = 1e-2
 WARMUP_STEPS = 100
 ADAM_EPS = 1e-15
-# The eval renderer's settings, the JAX trainer's defaults: rounds of 128
-# orbit candidates, at most max_samples_per_ray (1024) // 32 of them, a ray
-# retired once its opacity passes 1 - 1e-4.
+# The eval renderer's window, the JAX trainer's: rounds of 128 orbit
+# candidates (the rounds and the early stop follow the trainer's
+# max_samples_per_ray and early_stop_eps)
 EVAL_WINDOW = 128
-EVAL_MAX_ROUNDS = 1024 // 32
-EVAL_EARLY_STOP_EPS = 1e-4
+# the JAX trainer's traversal modes
+TRAVERSALS = ("pooled", "windowed", "padded")
 
 
 def disable_tf32() -> None:
@@ -260,6 +263,27 @@ class NGPOccTrainer:
             with one of them (nerfacc_tpu/estimators/occ_grid.py:408-431);
             its default pooled traversal and its eval renderer never read
             it.  So the port runs no density pre-pass for it either.
+        early_stop_eps: the eval renderer retires a ray once its opacity
+            passes ``1 - max(early_stop_eps, 1e-4)``, as JAX's does (the
+            train step's ``sampling_padded`` gets no callback to read it).
+        max_samples_per_ray: the padded traversal's orbit candidates a ray
+            in training, and ``max_samples_per_ray // 32`` the eval
+            renderer's rounds of ``EVAL_WINDOW`` candidates.
+        traversal / windowed: JAX's traversal mode, ``traversal`` unless
+            ``windowed`` is False, which asks for "padded".  "padded" keeps
+            each ray's occupied candidates among its first
+            ``max_samples_per_ray`` (kernel G2 with its candidate window),
+            and a ray whose orbit runs past them counts as not terminated:
+            once more than a quarter of the rays terminate or saturate, the
+            others leave the loss, as in JAX.  "pooled" (the default) and
+            "windowed" march every orbit whole, JAX's samples wherever its
+            window budgets are not exhausted.
+        n_windows / window_size / window_budget / fine_probes / compaction:
+            the TPU layouts of JAX's windowed and pooled traversals; taken
+            and ignored.
+        dynamic_budget / budget_granularity / budget_headroom: JAX's XLA
+            compile buckets for the sample buffer; taken and ignored (the
+            step renders exactly ``min(total, sample_budget)`` samples).
         occ_thre / ema_decay / update_interval: occupancy updates.
         warmup_steps: every update before this step refreshes every cell.
         dense_occ_update: after warmup, refresh every cell (or a stripe, see
@@ -274,6 +298,9 @@ class NGPOccTrainer:
         timestamps: (n_frames, 1) frame times, the refresh's draw; given,
             the field is time-dependent and every batch carries
             ``timestamps`` (n_rays, 1).
+        time_dependent: the field takes a time (JAX's flag; ``timestamps``
+            sets it too).  The occupancy update raises without
+            ``timestamps``, as JAX's assert does.
         field_reg_weight: weight of ``field.param_regularizer`` in the loss
             (0: off).
         distortion_loss_weight: weight of the Mip-NeRF 360 distortion
@@ -286,6 +313,14 @@ class NGPOccTrainer:
         seed: seeds the parameters and every step's noise.
         device: where the state lives and everything runs: the card
             unless the caller asks for another (the tests pass "cpu").
+        eval_renderer / cursor_max_windows / eval_sample_budget: JAX's
+            choice of eval renderer and its buffers.  Every value renders
+            through :func:`render_rays_occgrid_test`, JAX's classic
+            renderer: JAX's cursor and pooled renderers reorganise that
+            renderer's rounds for the TPU, and the port's ones
+            (``make_cursor_eval_chunk``, ``render_rays_occgrid_pooled``)
+            measured within 1.8e-7 of it at 5-14x its host time on the
+            card, so none of them is another image.
     """
 
     field: Any
@@ -298,6 +333,7 @@ class NGPOccTrainer:
     far_plane: float = 1e10
     cone_angle: float = 0.0
     alpha_thre: float = 0.0
+    early_stop_eps: float = 1e-4
     occ_thre: float = 1e-2
     ema_decay: float = 0.95
     warmup_steps: int = 256
@@ -305,11 +341,20 @@ class NGPOccTrainer:
     dense_occ_update: bool = True
     occ_refresh_stripes: int = 1
     sample_budget: int = 2**18
+    max_samples_per_ray: int = 1024
+    traversal: str = "pooled"
+    windowed: bool = True
+    n_windows: int = 64
+    window_size: int = 8
+    window_budget: Optional[int] = None
+    fine_probes: Any = "auto"
+    compaction: str = "onehot"
     stratified: bool = True
     weight_decay: float = 1e-6
     lr: float = LR
     adam_eps: float = ADAM_EPS
     warmup_lr_steps: int = WARMUP_STEPS
+    time_dependent: bool = False
     timestamps: Any = None
     field_reg_weight: float = 0.0
     distortion_loss_weight: float = 0.0
@@ -317,8 +362,16 @@ class NGPOccTrainer:
     table_lr_mult: float = 1.0
     seed: int = 42
     device: Union[str, torch.device] = "cuda"
+    eval_renderer: str = "cursor"
+    cursor_max_windows: int = 1 << 18
+    eval_sample_budget: Optional[int] = None
+    dynamic_budget: bool = True
+    budget_granularity: int = 32768
+    budget_headroom: float = 1.15
 
     def __post_init__(self):
+        if self.traversal not in TRAVERSALS:
+            raise ValueError(f"traversal {self.traversal!r}: one of {TRAVERSALS}")
         self.device = torch.device(self.device)
         disable_tf32()
         self.field = self.field.to(self.device)
@@ -328,6 +381,7 @@ class NGPOccTrainer:
             if not isinstance(ts, torch.Tensor):
                 ts = torch.tensor(np.asarray(ts, np.float32))
             self.timestamps = ts.to(self.device, torch.float32).reshape(-1, 1)
+            self.time_dependent = True
 
     def init_state(self) -> TrainState:
         """Parameters drawn from ``torch.Generator().manual_seed(seed)`` (on
@@ -405,7 +459,9 @@ class NGPOccTrainer:
         mode = update_mode(step, self.warmup_steps, self.dense_occ_update,
                            self.occ_refresh_stripes)
         n_eval = cells_evaluated(mode, occ.cells_per_lvl, self.occ_refresh_stripes)
-        if self.timestamps is None:
+        if self.time_dependent and self.timestamps is None:
+            raise ValueError("time_dependent trainers need the dataset's frame timestamps")
+        if not self.time_dependent:
             def occ_eval_fn(x):
                 return field.query_density(x)[..., 0] * self.render_step_size
         else:
@@ -484,19 +540,19 @@ class NGPOccTrainer:
             near_jitter = torch.rand(
                 n_rays * world, generator=self._generator(step, 1), device=self.device
             )[rank * n_rays : (rank + 1) * n_rays]
-        samples = compact_samples(
-            sampling(
-                state.occ_state, rays_o, rays_d,
-                near_plane=self.near_plane, far_plane=self.far_plane,
-                render_step_size=self.render_step_size,
-                cone_angle=self.cone_angle, near_jitter=near_jitter,
-            ),
-            self.sample_budget,
+        padded = (self.traversal if self.windowed else "padded") == "padded"
+        res = sampling(
+            state.occ_state, rays_o, rays_d,
+            near_plane=self.near_plane, far_plane=self.far_plane,
+            render_step_size=self.render_step_size,
+            cone_angle=self.cone_angle, near_jitter=near_jitter,
+            max_samples=self.max_samples_per_ray if padded else None,
         )
-        # The march walks every orbit to its end, so every ray terminates and
-        # the JAX package's window mask below is all true; it stays so that
-        # the loss reads like its counterpart.
-        terminated = torch.ones(n_rays, dtype=torch.bool, device=rays_o.device)
+        samples = compact_samples(res, self.sample_budget)
+        # A march over the whole orbit terminates every ray, and the window
+        # mask below is then all true; the padded lattice leaves the rays
+        # that run past it unterminated.
+        terminated = res.terminated
         # Rays cut by the sample budget render wrong colours: no loss there.
         budget_ok = (
             torch.arange(n_rays, device=rays_o.device) < samples.first_incomplete_ray
@@ -504,7 +560,7 @@ class NGPOccTrainer:
 
         def rgb_sigma_fn(positions, dirs, ray_indices):
             # a time-dependent field reads each sample's ray time
-            times = () if self.timestamps is None else (batch["timestamps"][ray_indices.long()],)
+            times = (batch["timestamps"][ray_indices.long()],) if self.time_dependent else ()
             rgb, density = torch.func.functional_call(
                 self.field, params, (positions, *times, dirs)
             )
@@ -586,7 +642,7 @@ class NGPOccTrainer:
         aux values come back stacked, as from :meth:`train_steps`.  With a
         ``group`` (see :meth:`train_step`) every rank draws the global batch
         and trains on its block of it."""
-        if self.timestamps is not None:
+        if self.time_dependent:
             raise ValueError(
                 "train_steps_sampled draws no ray times: use train_steps for a "
                 "time-dependent field"
@@ -612,7 +668,7 @@ class NGPOccTrainer:
         (rgb, sigma)``; a time-dependent field sees every sample at the
         view's time, ``data["timestamps"]``'s first entry."""
         field = self._bind(state)
-        t = data["timestamps"].reshape(-1)[:1] if self.timestamps is not None else None
+        t = data["timestamps"].reshape(-1)[:1] if self.time_dependent else None
 
         def field_fn(positions, dirs):
             if t is None:
@@ -625,8 +681,8 @@ class NGPOccTrainer:
 
     @torch.inference_mode()
     def render_rays(self, state: TrainState, data: Dict, chunk: int = 8192):
-        """Render ``data``'s rays with every occupied sample (the exact
-        renderer): (colors, opacities, depths, n_samples)."""
+        """Render ``data``'s rays with every occupied sample of every orbit
+        (the exact renderer): (colors, opacities, depths, n_samples)."""
         return render_image_with_occgrid(
             self._field_fn(state, data),
             state.occ_state,
@@ -637,19 +693,23 @@ class NGPOccTrainer:
             far_plane=self.far_plane,
             render_step_size=self.render_step_size,
             cone_angle=self.cone_angle,
+            max_samples=None,
             chunk=chunk,
+            sample_budget=None,
         )
 
     @torch.inference_mode()
     def render_view(self, state: TrainState, data: Dict, chunk: int = 8192):
         """Render ``data``'s rays through the eval renderer,
         :func:`render_rays_occgrid_test` with windows of ``EVAL_WINDOW``
-        candidates, at most ``EVAL_MAX_ROUNDS`` rounds per chunk of rays, and
-        early stopping at ``1 - EVAL_EARLY_STOP_EPS``: (colors, opacities,
-        depths, n_samples over the rounds).  The JAX trainer's three eval
-        renderers ("cursor", "pooled" and "") render this image: its cursor
-        and pooled renderers are TPU reorganisations of it (one coarse pass
-        per chunk, a pooled window list), not other images."""
+        candidates, at most ``max_samples_per_ray // 32`` rounds per chunk
+        of rays, and early stopping at ``1 - max(early_stop_eps, 1e-4)``,
+        as the JAX trainer's ``_render_chunk``: (colors, opacities, depths,
+        n_samples over the rounds).  The JAX trainer's three eval renderers
+        ("cursor", "pooled" and "", its ``eval_renderer``) render this
+        image: its cursor and pooled renderers are TPU reorganisations of it
+        (one coarse pass per chunk, a pooled window list), not other
+        images."""
         field_fn = self._field_fn(state, data)
         rays_o = data["rays_o"].reshape(-1, 3)
         rays_d = data["rays_d"].reshape(-1, 3)
@@ -660,8 +720,8 @@ class NGPOccTrainer:
                 render_bkgd=data["color_bkgd"], near_plane=self.near_plane,
                 far_plane=self.far_plane, render_step_size=self.render_step_size,
                 cone_angle=self.cone_angle,
-                early_stop_eps=EVAL_EARLY_STOP_EPS, window=EVAL_WINDOW,
-                max_iters=EVAL_MAX_ROUNDS, return_stats=True,
+                early_stop_eps=max(self.early_stop_eps, 1e-4), window=EVAL_WINDOW,
+                max_iters=self.max_samples_per_ray // 32, return_stats=True,
             )
             outs.append(out)
             n_samples += stats["n_samples"]

@@ -34,15 +34,16 @@ def cp_encoder_flops_per_sample(encoder) -> int:
     return total
 
 
-def cp_field_flops_per_sample(field) -> int:
+def cp_field_flops_per_sample(field, backward: bool = True) -> int:
     """FLOPs/sample of a full CPRadianceField evaluation (encoder, base MLP,
-    view head) and its gradient pass, which counts twice the forward."""
+    view head), with its gradient pass, which counts twice the forward,
+    when ``backward``."""
     fwd = (
         cp_encoder_flops_per_sample(field.encoder)
         + _mlp_flops(field.base_dims)
         + _mlp_flops(field.head_dims)
     )
-    return fwd * 3
+    return fwd * (3 if backward else 1)
 
 
 def cp_density_flops_per_sample(field, backward: bool = False) -> int:

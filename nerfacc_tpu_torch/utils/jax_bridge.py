@@ -109,9 +109,12 @@ def ngp_field_params_to_numpy(params: Dict[str, torch.Tensor]) -> Dict:
 def tineuvox_field_params_from_numpy(
     tree: Dict, device: Union[str, torch.device] = "cuda"
 ) -> Dict[str, torch.Tensor]:
-    """``{"deform": [W...], "encoder": {"lines": [(3, R, rank)...]},
-    "mlp_base": [W...], "mlp_head": [W...]}`` -> a TiNeuVoxRadianceField
-    state dict (f32 tensors)."""
+    """``{"deform": [W...], "encoder": {"lines": [(3, R, rank)...], "planes":
+    [(3, R, R, rank)...]}, "mlp_base": [W...], "mlp_head": [W...]}``
+    (``planes`` where the field has tri-plane levels) -> a
+    TiNeuVoxRadianceField state dict (f32 tensors).  The MLPs' widths are
+    read off the weights, whatever ``hidden_dim``, ``geo_feat_dim`` and
+    ``use_viewdirs`` made them."""
     deform = {f"deform.{i}": _tensor(w, device) for i, w in enumerate(tree["deform"])}
     return {**deform, **cp_field_params_from_numpy(tree, device)}
 

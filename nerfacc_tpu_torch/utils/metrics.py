@@ -7,11 +7,11 @@ import math
 import torch
 
 
-def psnr(img: torch.Tensor, ref: torch.Tensor) -> float:
-    """Peak signal-to-noise ratio between two images in [0, 1], computed in
-    float64."""
+def psnr(img: torch.Tensor, ref: torch.Tensor, data_range: float = 1.0) -> float:
+    """Peak signal-to-noise ratio between two images in [0, data_range],
+    computed in float64."""
     mse = float(torch.mean((img.double() - ref.double()) ** 2))
-    return -10.0 * math.log10(max(mse, 1e-10))
+    return -10.0 * math.log10(max(mse, 1e-10) / data_range**2)
 
 
 def _gaussian_kernel(size: int, sigma: float, device) -> torch.Tensor:

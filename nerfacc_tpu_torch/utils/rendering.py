@@ -23,6 +23,7 @@ import torch
 
 from ..grid import (
     MarchResult,
+    TraversalResult,
     WindowSamples,
     _occupied_windows,
     _orbit_t,
@@ -30,6 +31,7 @@ from ..grid import (
     march,
     traverse_grids_pooled,
 )
+from ..estimators.occ_grid import sampling
 from ..ops.sorted_segments import composite_sorted
 
 
@@ -41,6 +43,9 @@ class CompactSamples(NamedTuple):
             leaves no fill slots; consumers still treat an id ``n_rays`` as
             fill, as in the JAX package's budgeted buffers.
         t_starts / t_ends: (n,) f32 sample bounds.
+        valid: (n,) bool, the slots that hold a sample: all true, since the
+            exact packing has no fill slots (the JAX package's fixed-size
+            buffer marks its filled prefix).
         num_valid: samples kept, ``min(total, budget)``.
         overflow: samples dropped past the budget.
         first_incomplete_ray: the first ray whose samples were cut by the
@@ -56,6 +61,7 @@ class CompactSamples(NamedTuple):
     ray_indices: torch.Tensor
     t_starts: torch.Tensor
     t_ends: torch.Tensor
+    valid: torch.Tensor
     num_valid: int
     overflow: int
     first_incomplete_ray: int
@@ -66,31 +72,41 @@ class CompactSamples(NamedTuple):
     extras: Optional[torch.Tensor] = None
 
 
-def compact_samples(samples: MarchResult, budget: Optional[int] = None) -> CompactSamples:
+def compact_samples(res, budget: Optional[int] = None) -> CompactSamples:
     """Segment bounds of a march's packed samples, from its per-ray counts,
     keeping the first ``min(total, budget)`` samples (all with no budget).
 
-    The march packs in (ray, orbit) order, so the cut drops a suffix of
-    rays: ``first_incomplete_ray`` is the ray of the last kept sample when
-    anything was dropped (the JAX package's ``compact_samples`` contract),
-    and ``seg_starts = min(ends - counts, budget)``, ``seg_ends =
-    min(ends, budget) - 1``.
+    ``res`` is a :class:`~nerfacc_tpu_torch.grid.MarchResult`, or a padded
+    :class:`~nerfacc_tpu_torch.grid.TraversalResult` (``sampling_padded``'s,
+    as the JAX package takes), whose valid candidates are packed in (ray,
+    orbit) order first.  The march packs in (ray, orbit) order, so the cut
+    drops a suffix of rays: ``first_incomplete_ray`` is the ray of the last
+    kept sample when anything was dropped (the JAX package's
+    ``compact_samples`` contract), and ``seg_starts = min(ends - counts,
+    budget)``, ``seg_ends = min(ends, budget) - 1``.
     """
-    n_rays = samples.counts.shape[0]
-    total = samples.ray_indices.shape[0]
+    if isinstance(res, TraversalResult):
+        ray_ids, _ = res.valid.nonzero(as_tuple=True)
+        res = MarchResult(
+            ray_ids.to(torch.int32), res.t_starts[res.valid], res.t_ends[res.valid],
+            res.valid.sum(dim=-1, dtype=torch.int32), res.termination_planes, res.terminated,
+        )
+    n_rays = res.counts.shape[0]
+    total = res.ray_indices.shape[0]
     keep = total if budget is None else min(total, budget)
-    ends = torch.cumsum(samples.counts, 0, dtype=torch.int64)
+    ends = torch.cumsum(res.counts, 0, dtype=torch.int64)
     first_incomplete = n_rays
     if keep < total:
-        first_incomplete = int(samples.ray_indices[keep - 1]) if keep else n_rays
+        first_incomplete = int(res.ray_indices[keep - 1]) if keep else n_rays
     return CompactSamples(
-        ray_indices=samples.ray_indices[:keep],
-        t_starts=samples.t_starts[:keep],
-        t_ends=samples.t_ends[:keep],
+        ray_indices=res.ray_indices[:keep],
+        t_starts=res.t_starts[:keep],
+        t_ends=res.t_ends[:keep],
+        valid=torch.ones(keep, dtype=torch.bool, device=res.t_starts.device),
         num_valid=keep,
         overflow=total - keep,
         first_incomplete_ray=first_incomplete,
-        seg_starts=(ends - samples.counts).clamp(max=keep).to(torch.int32),
+        seg_starts=(ends - res.counts).clamp(max=keep).to(torch.int32),
         seg_ends=(ends.clamp(max=keep) - 1).to(torch.int32),
     )
 
@@ -100,7 +116,10 @@ def render_rays_with_occgrid(
     rays_o: torch.Tensor,
     rays_d: torch.Tensor,
     samples: CompactSamples,
-    render_bkgd: torch.Tensor,
+    render_bkgd: Optional[torch.Tensor] = None,
+    expected_depths: bool = True,
+    prefix_trans: Optional[torch.Tensor] = None,
+    prefix_trans_samples: Optional[torch.Tensor] = None,
 ):
     """Composite a packed sample buffer, differentiably in whatever
     ``rgb_sigma_fn`` computes from its parameters.
@@ -111,12 +130,23 @@ def render_rays_with_occgrid(
             (``ray_indices``, int64, lets a time- or appearance-conditioned
             field look up per-ray inputs).
         rays_o / rays_d: (n_rays, 3).
-        render_bkgd: (3,) background colour, blended in by 1 - opacity.
+        render_bkgd: (3,) background colour, blended in by 1 - opacity
+            (None: no blend).
+        expected_depths: divide the depth sums by the opacities (the
+            weighted mean of the sample midpoints); False keeps the sums.
+        prefix_trans: (n_rays, 1) transmittance carried in from earlier
+            rounds of the same rays: every sample's weight is scaled by its
+            ray's, and the outputs are this round's shares (the JAX
+            package's resumable ``prefix_trans``).  It goes into kernel G3
+            (and G5) as :func:`render_rays_occgrid_test` hands it, and
+            carries no gradient.
+        prefix_trans_samples: the same, one value a sample (n,), as JAX's
+            pooled renderers carry it; each ray's samples hold its one
+            value.  Preferred over ``prefix_trans``.
 
     Returns:
-        colors (n_rays, 3), opacities (n_rays, 1), depths (n_rays, 1)
-        (expected depth: the weighted mean of sample midpoints), and extras
-        ``{"weights": (n,) per-sample weights (no gradient; the JAX
+        colors (n_rays, 3), opacities (n_rays, 1), depths (n_rays, 1), and
+        extras ``{"weights": (n,) per-sample weights (no gradient; the JAX
         package's carry one), "sigmas", "rgbs": the field's outputs,
         "n_rendering_samples": int}``.
     """
@@ -126,14 +156,24 @@ def render_rays_with_occgrid(
     d = rays_d[ids]
     positions = rays_o[ids] + t_mid[:, None] * d
     rgbs, sigmas = rgb_sigma_fn(positions, d, ids)
+    pt = None
+    if prefix_trans_samples is not None:
+        pt = torch.ones(n_rays, dtype=t_mid.dtype, device=t_mid.device)
+        pt[ids] = prefix_trans_samples.to(t_mid.dtype)
+    elif prefix_trans is not None:
+        pt = prefix_trans.reshape(n_rays).contiguous()
     colors, opacities, depths, weights = composite_sorted(
         samples.t_starts, samples.t_ends, sigmas, rgbs, samples.ray_indices,
-        n_rays, samples.seg_starts, samples.seg_ends, return_weights=True,
+        n_rays, samples.seg_starts, samples.seg_ends, prefix_trans=pt,
+        return_weights=True,
     )
-    depths = depths / opacities.clamp_min(torch.finfo(colors.dtype).eps)
+    if expected_depths:
+        depths = depths / opacities.clamp_min(torch.finfo(colors.dtype).eps)
+    if render_bkgd is not None:
+        colors = colors + render_bkgd * (1.0 - opacities)
     extras = {"weights": weights, "sigmas": sigmas, "rgbs": rgbs,
               "n_rendering_samples": samples.num_valid}
-    return colors + render_bkgd * (1.0 - opacities), opacities, depths, extras
+    return colors, opacities, depths, extras
 
 
 def render_image_with_occgrid(
@@ -141,20 +181,35 @@ def render_image_with_occgrid(
     occ_state,
     rays_o: torch.Tensor,
     rays_d: torch.Tensor,
-    render_bkgd: torch.Tensor,
+    render_bkgd: Optional[torch.Tensor] = None,
     near_plane: float = 0.0,
     far_plane: float = 1e10,
     render_step_size: float = 5e-3,
     cone_angle: float = 0.0,
+    alpha_thre: float = 0.0,
+    early_stop_eps: float = 1e-4,
+    max_samples: Optional[int] = 1024,
     chunk: int = 8192,
+    sample_budget: Optional[int] = 2**18,
 ):
-    """Chunked full-image rendering.
+    """Chunked full-image rendering, the JAX package's: per chunk of
+    ``chunk`` rays, the occupied samples among each ray's first
+    ``max_samples`` orbit candidates from the near plane (the padded
+    lattice of ``sampling_padded``; here kernel G2 with that candidate
+    window, packed exactly), cut at ``sample_budget`` samples
+    (:func:`compact_samples`: the rays from the first one cut on render
+    wrong, as in JAX), then the field and kernel G3.  ``max_samples`` and
+    ``sample_budget`` None march every orbit whole and keep every sample
+    (the exact renderer).  ``alpha_thre`` and ``early_stop_eps`` are taken
+    as JAX takes them, and change no sample: its ``sampling_padded`` filters
+    by them only given a density or alpha callback, which this renderer
+    does not pass.
 
     Args:
         field_fn: ``(positions, dirs) -> (rgbs (N, 3), sigmas (N,))``.
         occ_state: an :class:`~nerfacc_tpu_torch.estimators.occ_grid.OccGridState`.
         rays_o / rays_d: (n_pixels, 3) rays.
-        render_bkgd: (3,) background colour.
+        render_bkgd: (3,) background colour (None: none blended in).
 
     Returns:
         colors (n, 3), opacities (n, 1), depths (n, 1), and the total number
@@ -165,14 +220,13 @@ def render_image_with_occgrid(
     for s in range(0, n, chunk):
         o = rays_o[s : s + chunk]
         d = rays_d[s : s + chunk]
-        n_chunk = o.shape[0]
         samples = compact_samples(
-            march(
-                o, d, occ_state.binaries, occ_state.aabbs,
-                near_planes=torch.full((n_chunk,), near_plane, device=o.device),
-                far_planes=torch.full((n_chunk,), far_plane, device=o.device),
-                step_size=render_step_size, cone_angle=cone_angle,
-            )
+            sampling(
+                occ_state, o, d, near_plane=near_plane, far_plane=far_plane,
+                render_step_size=render_step_size, cone_angle=cone_angle,
+                max_samples=max_samples,
+            ),
+            sample_budget,
         )
         n_samples += samples.num_valid
         outs.append(

@@ -1,6 +1,6 @@
 """Runs some of chip_smoke.py's phases alone on the card:
 
-    python3 scripts/run_chip_phases.py [25] [26] [6b] [27] [28] [29]
+    python3 scripts/run_chip_phases.py [25] [26] [6b] [27] [28] [29] [30]
 
 25: the occupancy example's tensorf, voxel and cp-planes fields; 26: the
 BARF example; 6b: five times, the CP field trained as phase 4 trains it,
@@ -9,9 +9,10 @@ sample-set classification and its worst rays); 27: the quick start's loop
 (phase 19), then the same loop through ``VDBEstimator``, on the
 translucent and the hard-surface scene; 28: the distributed layer (its five
 sub-phases); 29: the CP field trained as phase 4 trains it, then the
-windowed and pooled entry points on it.  Each phase is caught and
-reported, so that the others still run, and the exit code is 1 if one
-failed.  No argument runs 25, 26 and 6b.
+windowed and pooled entry points on it; 30: the CP field trained as phase
+4 trains it, then the public options on it (phase 30's six paths).  Each
+phase is caught and reported, so that the others still run, and the exit
+code is 1 if one failed.  No argument runs 25, 26 and 6b.
 """
 import os
 import sys
@@ -68,6 +69,12 @@ def main():
             print("launches of phase 29:", cs.phase_pooled_entry_points(dev, trainer, state, batch),
                   flush=True)
         run("29", twenty_nine, failed)
+    if "30" in which:
+        def thirty():
+            trainer, state, batch, _ = cs.phase_train(dev)
+            print("launches of phase 30:", cs.phase_options(dev, trainer, state, batch, ds),
+                  flush=True)
+        run("30", thirty, failed)
     for i in range(5 if "6b" in which else 0):
         def six_b():
             trainer, state, _, _ = cs.phase_train(dev)

@@ -41,6 +41,7 @@ from nerfacc_tpu_torch.utils.jax_bridge import (
     barf_params_to_numpy,
     occ_state_from_numpy,
 )
+from torch_threads import one_thread  # noqa: F401 (autouse: one PyTorch thread)
 
 AABB = (-1.5, -1.5, -1.5, 1.5, 1.5, 1.5)
 TINY = dict(net_depth=2, net_width=32, net_depth_condition=1, net_width_condition=16)

@@ -14,6 +14,7 @@ from nerfacc_tpu_torch.ops.cp_level import (
     cp_level_encode,
     cp_level_encode_plain,
 )
+from torch_threads import one_thread  # noqa: F401 (autouse: one PyTorch thread)
 
 
 def _inputs(seed, n, R, rank):

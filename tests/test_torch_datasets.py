@@ -10,6 +10,7 @@ import sys
 import numpy as np
 import pytest
 import torch
+from torch_threads import one_thread  # noqa: F401 (autouse: one PyTorch thread)
 
 imageio = pytest.importorskip("imageio.v2")
 

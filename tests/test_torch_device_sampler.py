@@ -10,6 +10,7 @@ from nerfacc_tpu.data import DeviceRaySampler as JaxSampler
 from nerfacc_tpu.data.procedural import ProceduralSceneLoader as JaxLoader
 from nerfacc_tpu_torch.data.device_sampler import DeviceRaySampler
 from nerfacc_tpu_torch.data.procedural import ProceduralSceneLoader
+from torch_threads import one_thread  # noqa: F401 (autouse: one PyTorch thread)
 
 
 def _loader():

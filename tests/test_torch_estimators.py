@@ -26,6 +26,7 @@ from nerfacc_tpu_torch.utils.jax_bridge import (
     occ_state_from_numpy,
     prop_fields_from_numpy,
 )
+from torch_threads import one_thread  # noqa: F401 (autouse: one PyTorch thread)
 
 AABB = (-1.0, -1.0, -1.0, 1.0, 1.0, 1.0)
 RES = 16

@@ -11,6 +11,7 @@ import torch
 
 from nerfacc_tpu_torch.examples import train_ngp_nerf_occ as ex
 from nerfacc_tpu_torch.utils.checkpoint import load_checkpoint, save_checkpoint
+from torch_threads import one_thread  # noqa: F401 (autouse: one PyTorch thread)
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 JAX_SCRIPT = ROOT / "examples" / "train_ngp_nerf_occ.py"
@@ -223,7 +224,8 @@ def _jax_branch(monkeypatch, argv):
 
 TRAINER_KEYS = ("grid_nlvl", "render_step_size", "cone_angle", "alpha_thre", "near_plane",
                 "weight_decay", "sample_budget", "seed", "max_steps", "dense_occ_update",
-                "occ_refresh_stripes", "field_reg_weight")
+                "occ_refresh_stripes", "field_reg_weight", "max_samples_per_ray", "traversal",
+                "window_budget", "fine_probes")
 # each field kind's widths in the branch test (the hash grid's otherwise)
 SMALL_FIELDS = {
     "cp": FIELD,
@@ -244,8 +246,10 @@ SMALL_FIELDS = {
     ["--scene", "proceduralopaque", "--field", "voxel", "--field_reg_weight", "1e-4"],
     ["--scene", "procedural", "--field", "cp", "--plane_res", "8", "--plane_rank", "4",
      "--field_reg_weight", "1e-3"],
+    ["--scene", "procedural", "--traversal", "padded", "--window_budget", "4096",
+     "--fine_probes", "4"],
 ], ids=["procedural360", "garden-procedural", "opaque-stripes", "lego-data", "ficus-data",
-        "garden-data", "tensorf", "voxel", "cp-planes"])
+        "garden-data", "tensorf", "voxel", "cp-planes", "padded"])
 def test_branches_match_the_jax_script(monkeypatch, tmp_path, argv):
     """``build`` for each of the JAX script's branches: the trainer's
     marching, occupancy-update and optimiser settings and box, the field's

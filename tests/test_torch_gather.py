@@ -13,6 +13,7 @@ from nerfacc_tpu.ops.lane_gather import lane_gather as jax_lane_gather
 from nerfacc_tpu_torch.ops.coarse_occ import coarse_occ_lookup
 from nerfacc_tpu_torch.ops.lane_gather import lane_gather, lane_gather_plain, lane_gather_route
 from nerfacc_tpu_torch.ops.row_gather import row_gather
+from torch_threads import one_thread  # noqa: F401 (autouse: one PyTorch thread)
 
 
 def _bits(a):

@@ -10,6 +10,7 @@ from nerfacc_tpu import grid as jgrid
 from nerfacc_tpu.utils.rendering import compact_samples as jax_compact_samples
 from nerfacc_tpu_torch import grid as tgrid
 from nerfacc_tpu_torch.utils.rendering import compact_samples
+from torch_threads import one_thread  # noqa: F401 (autouse: one PyTorch thread)
 
 STEP = 5e-3
 # A candidate whose midpoint lands within rounding of a voxel face or segment

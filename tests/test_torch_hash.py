@@ -19,6 +19,7 @@ from nerfacc_tpu_torch.ops.hash_encode import (
     hash_encode_forward,
     hash_encode_plain,
 )
+from torch_threads import one_thread  # noqa: F401 (autouse: one PyTorch thread)
 
 # (n_levels, log2_hashmap_size, base_resolution, max_resolution)
 NGP = (16, 12, 16, 4096)  # the NGP field's levels and resolutions, T cut

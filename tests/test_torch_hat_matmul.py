@@ -22,6 +22,7 @@ from nerfacc_tpu_torch.ops.hat_matmul import (
     hat_level_plain,
     hat_taps,
 )
+from torch_threads import one_thread  # noqa: F401 (autouse: one PyTorch thread)
 
 
 def _inputs(R, rank, n, seed=0):

@@ -9,6 +9,7 @@ import subprocess
 import sys
 
 import pytest
+from torch_threads import one_thread  # noqa: F401 (autouse: one PyTorch thread)
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 

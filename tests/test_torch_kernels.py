@@ -65,6 +65,7 @@ from nerfacc_tpu_torch.pdf import importance_sampling, importance_sampling_plain
 from nerfacc_tpu_torch.trainers.ngp_occ import NGPOccTrainer
 from nerfacc_tpu_torch.trainers.ngp_prop import NGPPropTrainer
 from nerfacc_tpu_torch.utils.rendering import compact_samples
+from torch_threads import one_thread  # noqa: F401 (autouse: one PyTorch thread)
 
 pytestmark = pytest.mark.cuda
 

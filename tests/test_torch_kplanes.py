@@ -26,6 +26,7 @@ from nerfacc_tpu_torch.utils.jax_bridge import (
     field_params_to_numpy,
     kplanes_field_params_from_numpy,
 )
+from torch_threads import one_thread  # noqa: F401 (autouse: one PyTorch thread)
 
 AABB = (-1.5, -1.5, -1.5, 1.5, 1.5, 1.5)
 SMALL = dict(resolutions=(8, 16), ranks=(4, 4))

@@ -7,6 +7,7 @@ import pytest
 import torch
 
 from nerfacc_tpu_torch.parallel import dryrun, launch, mesh, spawn
+from torch_threads import one_thread  # noqa: F401 (autouse: one PyTorch thread)
 
 
 def test_spawn_runs_only_the_ports_functions():

@@ -8,6 +8,7 @@ import torch
 
 from nerfacc_tpu.losses import distortion as jax_distortion
 from nerfacc_tpu_torch.losses import distortion
+from torch_threads import one_thread  # noqa: F401 (autouse: one PyTorch thread)
 
 
 @pytest.mark.parametrize("order", ["sorted", "runs"])

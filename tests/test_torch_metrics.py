@@ -9,6 +9,7 @@ from nerfacc_tpu_torch.data.procedural import ProceduralSceneLoader
 from nerfacc_tpu_torch.models.cp_field import CPRadianceField
 from nerfacc_tpu_torch.trainers.ngp_occ import NGPOccTrainer
 from nerfacc_tpu_torch.utils.metrics import psnr, ssim
+from torch_threads import one_thread  # noqa: F401 (autouse: one PyTorch thread)
 
 AABB = (-1.5, -1.5, -1.5, 1.5, 1.5, 1.5)
 

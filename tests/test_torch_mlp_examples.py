@@ -21,6 +21,7 @@ from nerfacc_tpu_torch.data.procedural import (
 )
 from nerfacc_tpu_torch.examples import train_mlp_nerf as exv
 from nerfacc_tpu_torch.examples import train_mlp_tnerf as ex
+from torch_threads import one_thread  # noqa: F401 (autouse: one PyTorch thread)
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 SCRIPTS = {"tnerf": ROOT / "examples" / "train_mlp_tnerf.py",
@@ -28,17 +29,6 @@ SCRIPTS = {"tnerf": ROOT / "examples" / "train_mlp_tnerf.py",
            "occ": ROOT / "examples" / "train_ngp_nerf_occ.py"}
 PORTS = {"tnerf": ex, "nerf": exv}
 SCENE = dict(n_train=3, n_test=1, width=16, height=16)
-
-
-@pytest.fixture(autouse=True)
-def one_thread():
-    """One intra-op thread a test: the loops here run thousands of small
-    ops, which PyTorch's thread pool slows ~5-50x when other test workers
-    hold the cores (measured under the tier-1 run's six workers)."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 class _Captured(Exception):

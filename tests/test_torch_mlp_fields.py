@@ -46,6 +46,7 @@ from nerfacc_tpu_torch.utils.jax_bridge import (
     tnerf_field_params_from_numpy,
     vanilla_field_params_from_numpy,
 )
+from torch_threads import one_thread  # noqa: F401 (autouse: one PyTorch thread)
 
 N = 256
 NARROW = dict(net_depth=4, net_width=32, skip_layer=2, net_width_condition=16)

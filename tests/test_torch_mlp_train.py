@@ -35,6 +35,7 @@ from nerfacc_tpu_torch.trainers.ngp_occ import (
 from nerfacc_tpu_torch.utils import jax_bridge
 from nerfacc_tpu_torch.utils.jax_bridge import field_params_from_numpy, occ_state_from_numpy
 from nerfacc_tpu_torch.utils.rendering import compact_samples, render_rays_with_occgrid
+from torch_threads import one_thread  # noqa: F401 (autouse: one PyTorch thread)
 
 AABB = (-1.5, -1.5, -1.5, 1.5, 1.5, 1.5)
 GRID = 16

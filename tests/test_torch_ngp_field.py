@@ -24,6 +24,7 @@ from nerfacc_tpu_torch.utils.jax_bridge import (
     ngp_field_params_from_numpy,
     ngp_field_params_to_numpy,
 )
+from torch_threads import one_thread  # noqa: F401 (autouse: one PyTorch thread)
 
 AABB = (-1.5, -1.5, -1.5, 1.5, 1.5, 1.5)
 SMALL = dict(n_levels=4, log2_hashmap_size=12, max_resolution=64)

@@ -19,6 +19,7 @@ from nerfacc_tpu_torch.estimators.occ_grid import cells_evaluated, update_mode
 from nerfacc_tpu_torch.models.cp_field import CPRadianceField
 from nerfacc_tpu_torch.trainers.ngp_occ import NGPOccTrainer, TrainState
 from nerfacc_tpu_torch.utils.jax_bridge import cp_field_params_from_numpy, occ_state_from_numpy
+from torch_threads import one_thread  # noqa: F401 (autouse: one PyTorch thread)
 
 AABB = (-1.0, -1.0, -1.0, 1.0, 1.0, 1.0)
 SMALL = dict(resolutions=(8, 16), ranks=(4, 4))

@@ -17,6 +17,7 @@ from nerfacc_tpu_torch.utils.jax_bridge import (
     occ_state_from_numpy,
     occ_state_to_numpy,
 )
+from torch_threads import one_thread  # noqa: F401 (autouse: one PyTorch thread)
 
 AABB = (-1.5, -1.5, -1.5, 1.5, 1.5, 1.5)
 STEP = 5e-3

@@ -36,6 +36,7 @@ from nerfacc_tpu.trainers import NGPPropTrainer as JaxPropTrainer
 from nerfacc_tpu_torch import parallel
 from nerfacc_tpu_torch.parallel import dryrun
 from nerfacc_tpu_torch.utils.jax_bridge import cp_field_params_from_numpy, prop_params_from_numpy
+from torch_threads import one_thread  # noqa: F401 (autouse: one PyTorch thread)
 
 AABB = (-1.5, -1.5, -1.5, 1.5, 1.5, 1.5)
 SMALL = dict(resolutions=(16, 64), ranks=(8, 8))

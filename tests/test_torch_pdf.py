@@ -26,6 +26,7 @@ from nerfacc_tpu_torch.pdf import (
     searchsorted,
 )
 from nerfacc_tpu_torch.utils.fp import fma_f32
+from torch_threads import one_thread  # noqa: F401 (autouse: one PyTorch thread)
 
 
 def _round_f32(q: fractions.Fraction) -> np.float32:

@@ -37,6 +37,7 @@ from nerfacc_tpu_torch.models.cp_field import (
 )
 from nerfacc_tpu_torch.utils import flops
 from nerfacc_tpu_torch.utils.jax_bridge import field_params_from_numpy, field_params_to_numpy
+from torch_threads import one_thread  # noqa: F401 (autouse: one PyTorch thread)
 
 AABB = (-1.5, -1.5, -1.5, 1.5, 1.5, 1.5)
 DTYPES = {"f32": (jnp.float32, torch.float32), "bf16": (jnp.bfloat16, torch.bfloat16)}

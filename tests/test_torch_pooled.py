@@ -45,6 +45,7 @@ from nerfacc_tpu_torch.estimators.occ_grid import sampling_padded, sampling_pool
 from nerfacc_tpu_torch.ops.sorted_segments import segment_ends, segment_starts
 from nerfacc_tpu_torch.trainers import smooth_l1_loss
 from nerfacc_tpu_torch.utils import rendering, setup_compilation_cache
+from torch_threads import one_thread  # noqa: F401 (autouse: one PyTorch thread)
 
 STEP = 2e-2
 F = 8

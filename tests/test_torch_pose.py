@@ -22,6 +22,7 @@ from nerfacc_tpu.models import pose as jax_pose
 from nerfacc_tpu.models.encoders import SinusoidalEncoder as JaxSinusoidal
 from nerfacc_tpu_torch.models import pose
 from nerfacc_tpu_torch.models.encoders import SinusoidalEncoder
+from torch_threads import one_thread  # noqa: F401 (autouse: one PyTorch thread)
 
 
 def _twists(seed=0, n=64, scale=0.5):

@@ -7,6 +7,7 @@ import torch
 
 from nerfacc_tpu.data.procedural import ProceduralSceneLoader as JaxLoader
 from nerfacc_tpu_torch.data.procedural import ProceduralSceneLoader
+from torch_threads import one_thread  # noqa: F401 (autouse: one PyTorch thread)
 
 
 @pytest.mark.parametrize("color_bkgd_aug", ["white", "black", "random"])

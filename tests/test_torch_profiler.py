@@ -7,6 +7,7 @@ import pytest
 import torch
 
 from nerfacc_tpu_torch.utils import profiler
+from torch_threads import one_thread  # noqa: F401 (autouse: one PyTorch thread)
 
 
 @pytest.mark.parametrize("out", ["tensor", "nested", "none"])

@@ -41,6 +41,7 @@ from nerfacc_tpu_torch.utils.jax_bridge import (
     prop_params_from_numpy,
 )
 from nerfacc_tpu_torch.volrend import rendering
+from torch_threads import one_thread  # noqa: F401 (autouse: one PyTorch thread)
 
 AABB = (-1.5, -1.5, -1.5, 1.5, 1.5, 1.5)
 FIELD = dict(resolutions=(8, 16), ranks=(4, 4))

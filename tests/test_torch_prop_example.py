@@ -19,6 +19,7 @@ from nerfacc_tpu_torch.data.procedural import (
 from nerfacc_tpu_torch.examples import train_ngp_nerf_prop as ex
 from nerfacc_tpu_torch.models.cp_field import CPDensityField, CPRadianceField
 from nerfacc_tpu_torch.models.ngp import NGPDensityField, NGPRadianceField
+from torch_threads import one_thread  # noqa: F401 (autouse: one PyTorch thread)
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 JAX_SCRIPT = ROOT / "examples" / "train_ngp_nerf_prop.py"

@@ -30,6 +30,7 @@ from nerfacc_tpu_torch.utils.jax_bridge import (
     cp_field_params_from_numpy,
     occ_state_from_numpy,
 )
+from torch_threads import one_thread  # noqa: F401 (autouse: one PyTorch thread)
 
 AABB = (-1.5, -1.5, -1.5, 1.5, 1.5, 1.5)
 SMALL = dict(resolutions=(16, 32, 64), ranks=(8, 8, 8))
@@ -177,7 +178,7 @@ def test_early_stop_renderer_matches_jax(loaders, carried_field, view, window):
     assert any(not np.array_equal(a, b) for a, b in zip(jax_render(rounds - 1), ref))
     exact = render_image_with_occgrid_port(
         dense(port_fn), state.occ_state, data["rays_o"], data["rays_d"],
-        data["color_bkgd"], render_step_size=STEP,
+        data["color_bkgd"], render_step_size=STEP, max_samples=None, sample_budget=None,
     )
     assert (opacities > 1 - 1e-4).float().mean() > 0.1
     assert stats["n_samples"] < exact[3]

@@ -14,6 +14,7 @@ from nerfacc_tpu import scan as jax_scan
 from nerfacc_tpu.pack import pack_info as jax_pack_info
 from nerfacc_tpu_torch import scan
 from nerfacc_tpu_torch.pack import pack_info
+from torch_threads import one_thread  # noqa: F401 (autouse: one PyTorch thread)
 
 SUMS = ("inclusive_sum", "exclusive_sum")
 PRODS = ("inclusive_prod", "exclusive_prod")

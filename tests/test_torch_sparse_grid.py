@@ -27,6 +27,7 @@ from nerfacc_tpu_torch.estimators.sparse_grid import (
 )
 from nerfacc_tpu_torch.grid import march, ray_aabb_intersect
 from nerfacc_tpu_torch.utils.jax_bridge import sparse_grid_estimator_from_numpy
+from torch_threads import one_thread  # noqa: F401 (autouse: one PyTorch thread)
 
 AABB = [-1.0, -1.0, -1.0, 1.0, 1.0, 1.0]
 STEP = 1e-2

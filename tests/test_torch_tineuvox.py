@@ -21,6 +21,7 @@ from nerfacc_tpu_torch.utils.jax_bridge import (
     tineuvox_field_params_from_numpy,
     tineuvox_field_params_to_numpy,
 )
+from torch_threads import one_thread  # noqa: F401 (autouse: one PyTorch thread)
 
 AABB = (-1.5, -1.5, -1.5, 1.5, 1.5, 1.5)
 SMALL = dict(resolutions=(16, 32, 64), ranks=(8, 8, 16))

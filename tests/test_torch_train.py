@@ -34,6 +34,7 @@ from nerfacc_tpu_torch.utils.jax_bridge import (
     tineuvox_field_params_from_numpy,
 )
 from nerfacc_tpu_torch.utils.rendering import compact_samples, render_rays_with_occgrid
+from torch_threads import one_thread  # noqa: F401 (autouse: one PyTorch thread)
 
 AABB = (-1.5, -1.5, -1.5, 1.5, 1.5, 1.5)
 SMALL = dict(resolutions=(16, 32, 64), ranks=(8, 8, 8))
@@ -125,9 +126,11 @@ def _port_field(kind, dtype):
 FROM_NUMPY = {"cp": cp_field_params_from_numpy, "ngp": ngp_field_params_from_numpy}
 
 
-def _jax_step(batch, stratified, budget, bf16, kind):
-    """The JAX trainer's padded-traversal step; returns its aux, gradients,
-    refreshed grid, its initial state as numpy, and the step's noise."""
+def _jax_step(batch, stratified, budget, bf16, kind, max_samples=1400):
+    """The JAX trainer's padded-traversal step, each ray's lattice
+    ``max_samples`` candidates (1400 reach past every orbit); returns its
+    aux, gradients, refreshed grid, its initial state as numpy, and the
+    step's noise."""
     dtype = jnp.bfloat16 if bf16 else jnp.float32
     if kind == "cp":
         jfield = JaxField(aabb=AABB, compute_dtype=dtype, **SMALL)
@@ -144,7 +147,7 @@ def _jax_step(batch, stratified, budget, bf16, kind):
         )
     trainer = JaxTrainer(
         field=jfield, aabb=AABB, max_steps=100, grid_resolution=GRID,
-        traversal="padded", windowed=False, max_samples_per_ray=1400,
+        traversal="padded", windowed=False, max_samples_per_ray=max_samples,
         dynamic_budget=False, sample_budget=budget, stratified=stratified,
     )
     trainer.optimizer = _gradient_recorder()
@@ -292,6 +295,49 @@ def test_train_step_matches_jax(batch, monkeypatch, kind, stratified, budget, bf
             # ~2e-3 of their max from it, the port no farther than JAX
             atol = max(atol, 1.1 * np.abs(ref_grads[name].numpy() - g64).max())
         np.testing.assert_allclose(p.grad.numpy(), g64, rtol=0, atol=atol)
+
+
+@pytest.mark.parametrize("traversal,windowed", [("padded", True), ("pooled", False)],
+                         ids=["padded", "windowed-false"])
+def test_padded_train_step_matches_jax(batch, traversal, windowed):
+    """``traversal="padded"`` (or ``windowed=False``, which asks for it)
+    cuts each ray at ``max_samples_per_ray`` orbit candidates, as the JAX
+    trainer's padded step does: at 1000 candidates from the near plane
+    some rays stop short of their orbit's end and are not terminated, and
+    once more than a quarter of the rays terminate or saturate, the others
+    leave the loss.  Against JAX's padded step (:func:`_jax_step`) from the
+    same state, batch and noise: the counts equal (the truncated rays and
+    the rays in the loss included), loss and mse within 1e-5 relative, and
+    each gradient leaf within 3e-4 in relative Frobenius norm and 1e-3 of
+    its largest entry, :func:`test_train_step_matches_jax`'s f32 bounds."""
+    ref, ref_grads, _, (jparams, jocc), near, cells = _jax_step(
+        batch, True, 2**18, False, "cp", max_samples=1000
+    )
+    trainer = NGPOccTrainer(
+        field=_port_field("cp", torch.float32), aabb=AABB, max_steps=100,
+        grid_resolution=GRID, traversal=traversal, windowed=windowed,
+        max_samples_per_ray=1000, device="cpu",
+    )
+    params = cp_field_params_from_numpy(jparams, device="cpu")
+    for p in params.values():
+        p.requires_grad_(True)
+    state = TrainState(params, trainer.init_optimizer(params),
+                       occ_state_from_numpy(*jocc, device="cpu"), 0)
+    _, aux = trainer.train_step(
+        state, {k: torch.tensor(v) for k, v in batch.items()},
+        near_jitter=torch.tensor(near), cell_jitter=torch.tensor(cells),
+    )
+    for key in ("n_rays_ok", "n_rendering_samples", "n_total_samples", "overflow",
+                "n_rays_truncated"):
+        assert int(aux[key]) == int(ref[key]), key
+    assert 0 < int(aux["n_rays_truncated"]) < N_RAYS
+    assert int(aux["n_rays_ok"]) == N_RAYS - int(aux["n_rays_truncated"])
+    for key in ("loss", "mse"):
+        assert float(aux[key]) == pytest.approx(float(ref[key]), rel=1e-5), key
+    for name, p in params.items():
+        g, want = p.grad.numpy(), ref_grads[name].numpy()
+        assert np.linalg.norm(g - want) <= 3e-4 * np.linalg.norm(want), name
+        np.testing.assert_allclose(g, want, rtol=0, atol=1e-3 * np.abs(want).max())
 
 
 TNV_SMALL = dict(resolutions=(16, 32, 64), ranks=(8, 8, 8))

@@ -19,6 +19,7 @@ from nerfacc_tpu_torch import (
     traverse_grids,
     traverse_grids_voxel,
 )
+from torch_threads import one_thread  # noqa: F401 (autouse: one PyTorch thread)
 
 
 def _scene(n_rays=32, res=16, seed=0, occ_frac=0.3, levels=1):

@@ -27,6 +27,7 @@ from nerfacc_tpu.estimators import sparse_grid as jsg
 from nerfacc_tpu.models.cp_field import CPRadianceField as JaxField
 from nerfacc_tpu_torch.models.cp_field import CPRadianceField
 from nerfacc_tpu_torch.utils.jax_bridge import cp_field_params_from_numpy
+from torch_threads import one_thread  # noqa: F401 (autouse: one PyTorch thread)
 
 ROI = [-1.5] * 3 + [1.5] * 3
 SMALL = dict(resolutions=(16, 32, 64), ranks=(8, 8, 8))

@@ -16,6 +16,7 @@ from nerfacc_tpu_torch.ops.sorted_segments import (
     composite_sorted_plain,
     exclusive_sum_sorted,
 )
+from torch_threads import one_thread  # noqa: F401 (autouse: one PyTorch thread)
 
 
 def _buffer(seed, n_rays, n_fill, max_sigma_exp):

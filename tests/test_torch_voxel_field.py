@@ -30,6 +30,7 @@ from nerfacc_tpu_torch.utils.jax_bridge import (
     field_params_to_numpy,
     voxel_field_params_from_numpy,
 )
+from torch_threads import one_thread  # noqa: F401 (autouse: one PyTorch thread)
 
 AABB = (-1.5, -1.5, -1.5, 1.5, 1.5, 1.5)
 SMALL = dict(resolutions=(6, 9), channels=(3, 2))
