@@ -20,13 +20,16 @@ It builds the CUDA kernels from ``nerfacc_tpu_torch/csrc`` and runs:
    1b. the backward kernels (G4 CP level, G5 composite) likewise, and at
    the train steps' shapes: G5 on the CP train buffer (that batch cut at the
    2^18 budget), G4 on the proposal field's coordinates in ray order (4096
-   rays x 128 samples, (R, rank) = (16, 16), both compute dtypes);
+   rays x 128 samples, (R, rank) = (16, 16), both compute dtypes); G4
+   bitwise its plain version and over two calls at each (both sum in
+   fixed point);
    1c. the hash-encode kernels (G6 forward, G7 table gradient) at the NGP
    field's full width (2^18 points, 16 levels, 2^19 rows per level), with
    ``F.embedding_bag`` and ``index_add_`` timed on the precomputed corner
    rows as the library's gather and scatter stages, and both again on the
    NGP train step's sample positions in ray order, G6 also on the dense
-   refresh's 2^21 points in cell order (G6 bitwise at each);
+   refresh's 2^21 points in cell order (G6 bitwise at each, G7 bitwise its
+   plain version over two calls and within 1e-6 of the exact sum);
 2. the serving slice: ``NGPOccTrainer`` with the full-width
    ``CPRadianceField`` (resolutions 32/128/512, rank 32, bf16), parameters
    from seed 42, four dense refreshes of the 128^3 occupancy grid, then
@@ -189,9 +192,8 @@ It builds the CUDA kernels from ``nerfacc_tpu_torch/csrc`` and runs:
     bit for bit to ``OccGridEstimator``'s as above;
 28. the distributed layer (``nerfacc_tpu_torch.parallel``) at the bench
     widths, ranks started by ``spawn``: a) NCCL at world size 1,
-    ``make_dp_train_step`` against ``train_step`` bit for bit (G4 on its
-    plain version; through every kernel, within phase 5's bound), NCCL
-    with two ranks on one card refused; b) gloo, two ranks on the card: a
+    ``make_dp_train_step`` against ``train_step`` bit for bit through every
+    kernel, NCCL with two ranks on one card refused; b) gloo, two ranks on the card: a
     stratified DP step against the single-process step, 200 DP steps (the
     loss must halve; ms/step, the collectives' share), a DP step through
     the kernels against the plain versions; c) gloo, four ranks on a
@@ -219,7 +221,16 @@ It builds the CUDA kernels from ``nerfacc_tpu_torch/csrc`` and runs:
     directions trained 50 steps (the loss must fall); NGP at hidden 128;
     TiNeuVox with a 64^2 x 16 tri-plane level; and the trainer's
     ``traversal="padded"`` at 256 candidates a ray: each with a step
-    through the kernels against the plain versions; G1-G10 must launch.
+    through the kernels against the plain versions; G1-G10 must launch;
+31. repeat: each train path trained twice from one seed in one process,
+    ``REPEAT_STEPS`` steps through every kernel, with PyTorch's
+    deterministic algorithms off (the bench CP trainer of phase 4,
+    ``bench_prop`` of 16, NGP of 8, TiNeuVox of 12, the occupancy
+    example's ``tensorf`` and ``voxel`` of 25, the dynamic example's
+    K-Planes of 23b, BARF of 26 and the quick start's loop of 19): every
+    parameter, the Adam moments, the occupancy grid and every step's loss
+    must be equal bit for bit, else the first leaf and step that differ
+    are named.
 
 Phase 6b classifies a ray by its sample set: the early-stop renderer's
 rounds against the ray's whole orbit, the same count and every bound
@@ -256,8 +267,8 @@ route its table took.  Phase 1f holds G14
 path's shapes and the 360 cascade's three (E = 2 -> 256, 257 -> 96,
 97 -> 48); phase 1c also G6 (bitwise) and G7 at ``NGPDensityField``'s
 shape (5 levels, T = 2^17) on both proposal paths' first-level points, G7
-and its plain version each within the error bound of f32 summation of the
-exact sum, and phase 1 G1 at the 360 cascade's first level (N = 2^20).
+bitwise its plain version over two calls and within 1e-6 of the exact
+sum's largest entry, and phase 1 G1 at the 360 cascade's first level (N = 2^20).
 Phase 1 also holds G2 bitwise against its plain version on a train batch
 of phase 22's unbounded configuration (``G2_TRAIN_RAYS`` rays, 4 levels,
 step 1e-3, cone 0.004, near 0.2 + jitter * step) and times it there.
@@ -295,7 +306,7 @@ Every check raises on failure, so the exit code is nonzero and the result
 line is not printed.  The last line of standard output is a JSON object with
 ``"ok": true`` and the device; the line before it lists each kernel's launch
 count (over the training phases 4, 6d, 8, 12, 16, 19, 20, 21, 22, 23-23c,
-24, 25, 26, 27 and 28, every rank of 28, and the paths of 29 and 30; for
+24, 25, 26, 27, 28 and 31, every rank of 28, and the paths of 29 and 30; for
 G11-G13, over
 the gather probe's run), error, times and bound.  Without a CUDA device the
 script fails at once.
@@ -442,7 +453,8 @@ EXAMPLE_STEPS, EXAMPLE_CKPT, EXAMPLE_CALL = 3200, 1600, 8  # multiples of a call
 TRAIN_STEPS = 1000  # not a multiple of the refresh interval: phase 5's step
 # Phase 5: each gradient leaf of a kernel step against the twin step, by
 # relative Frobenius norm, worst of STEP_REPEATS runs.  f32: only the order of
-# the atomic sums differs (readings up to 2.5e-5 on an H100, PERF.md §6).
+# the sums differs, a kernel's against its plain version's (readings up to
+# 2.5e-5 on an H100 when the kernels summed by atomics, PERF.md §6).
 # bf16: the field rounds each MLP weight gradient to bf16 last, so order-only
 # differences of ~1e-5 flip a few entries by one bf16 ulp, which is at most
 # 2^-7 of the entry: a leaf reads below 2^-7 = 7.8e-3 even if every entry
@@ -452,8 +464,8 @@ TRAIN_STEPS = 1000  # not a multiple of the refresh interval: phase 5's step
 # phase 1b.
 # An f32 TiNeuVox field is not f32 throughout: its hat kernels round the
 # cotangent g to bf16 (the TPU kernels' contract), so last-bit differences
-# upstream (G3 and G5 against their plain versions, and index_add_'s atomic
-# order inside those) flip a few of those roundings and move the
+# upstream (G3 and G5 against their plain versions) flip a few of those
+# roundings and move the
 # deformation leaves, whose only signal is G10's: the plain step against
 # itself reads up to 3.8e-5, the kernel step up to 1.3e-4 on an H100
 # (PERF.md §6), hence F32_HAT_STEP_FRO.  With the composite on its plain
@@ -466,16 +478,17 @@ STEP_REPEATS = 8
 # run) and through the plain versions of their kernels; the kernel route's
 # mean trained PSNR may fall at most PSNR_MARGIN below the plain route's.
 # One run is no measure: by seed and by last-bit differences the TiNeuVox
-# run ends anywhere in 17.7-21.9 dB (most near 18.3 or 21.3), and the
-# proposal path's atomic sums (G4) move one seed's PSNR by ~1.4 dB from
-# call to call.  On the TiNeuVox path the plain route runs PyTorch's
-# scatter-adds in a fixed order (:func:`quality_run`), so that both routes
-# repeat from call to call there.  Across three seeds each route's PSNR spread
-# over 0.8-1.9 dB on an H100 (PERF.md §6); 1.5 dB between the means of
-# three is ~2 standard errors of their difference, and a kernel that cost
-# every seed ~3 dB would fail it.  The default run takes the first
-# SMOKE_QUALITY_SEEDS of them, all three; ``--quality`` takes every seed it
-# is given.
+# run ends anywhere in 17.7-21.9 dB (most near 18.3 or 21.3), and before
+# G4 summed in a fixed order the proposal path's PSNR moved ~1.4 dB a seed
+# from call to call.  Each route repeats from call to call (phase 31; on the
+# TiNeuVox path the plain route runs PyTorch's scatter-adds in a fixed
+# order, :func:`quality_run`), but a kernel and its plain version still
+# round differently, and one seed's run amplifies that.  Across three seeds
+# each route's PSNR spread over 0.8-1.9 dB on an H100 (PERF.md §6); 1.5 dB
+# between the means of three is ~2 standard errors of their difference,
+# and a kernel that cost every seed ~3 dB would fail it.  The default run
+# takes the first SMOKE_QUALITY_SEEDS of them, all three; ``--quality``
+# takes every seed it is given.
 QUALITY_SEEDS = (42, 7, 1234)  # the first is the trainers' default
 SMOKE_QUALITY_SEEDS = 3
 PSNR_MARGIN = 1.5
@@ -967,21 +980,24 @@ def phase_kernels(dev, trainer, state, ds):
           f"{device_ms(lambda: composite_sorted(*ct_args)):.4f} ms, bound {t_bound:.4f} ms")
 
     # 1b. G4: every level at N = 2^18, both compute dtypes, seeded cotangent;
-    # its sums run in atomic order, hence 1e-4 of the largest entry
+    # it sums in fixed point: two calls and the plain version bit for bit
     worst, g4_ms, g4_plain_ms = 0.0, None, None
     cot = torch.randn((G1_N, 32), generator=g, device=dev)
     for line in trainer.field.encoder.lines:
         R = line.shape[1]
         for dtype in (torch.float32, torch.bfloat16):
-            out = cp_level_backward(u, cot, line, dtype)
-            ref = cp_level_backward_plain(u, cot, line, dtype)
+            out, ref = held_bitwise(f"G4 R={R} {dtype}",
+                                    lambda: cp_level_backward(u, cot, line, dtype),
+                                    lambda: cp_level_backward_plain(u, cot, line, dtype))
             err = float((out - ref).abs().max())
             scale = float(ref.abs().max())
-            require(err <= 1e-4 * scale, f"G4 R={R} {dtype}: err {err} scale {scale}")
             ms = cuda_ms(lambda: cp_level_backward(u, cot, line, dtype))
             plain = cuda_ms(lambda: cp_level_backward_plain(u, cot, line, dtype))
             print(f"G4 cp_level_bwd R={R} {str(dtype)[6:]}: max_abs_err={err:.3g} "
-                  f"(scale {scale:.3g}) kernel {ms:.4f} ms, twin {plain:.4f} ms")
+                  f"(scale {scale:.3g}), two calls and the plain version bitwise equal, "
+                  f"kernel {ms:.4f} ms, alone "
+                  f"{device_ms(lambda: cp_level_backward(u, cot, line, dtype)):.4f} ms, twin "
+                  f"{plain:.4f} ms")
             worst = max(worst, err)
             if R == 512 and dtype == torch.bfloat16:
                 g4_ms, g4_plain_ms, g4_bytes = ms, plain, nbytes(u, cot, line, out)
@@ -1053,14 +1069,12 @@ def phase_kernels(dev, trainer, state, ds):
     lines_prop = 1 + 0.1 * torch.randn((3, 16, 16), generator=g, device=dev)
     cot_prop = torch.randn((u_prop.shape[0], 16), generator=g, device=dev)
     for dtype in (torch.float32, torch.bfloat16):
-        out = cp_level_backward(u_prop, cot_prop, lines_prop, dtype)
-        ref = cp_level_backward_plain(u_prop, cot_prop, lines_prop, dtype)
-        err = float((out - ref).abs().max())
-        scale = float(ref.abs().max())
-        require(err <= 1e-4 * scale, f"G4 ray order (16, 16) {dtype}: err {err} scale {scale}")
+        held_bitwise(f"G4 ray order (16, 16) {dtype}",
+                     lambda: cp_level_backward(u_prop, cot_prop, lines_prop, dtype),
+                     lambda: cp_level_backward_plain(u_prop, cot_prop, lines_prop, dtype))
         print(f"G4 cp_level_bwd, proposal field's coordinates in ray order, N = "
-              f"{u_prop.shape[0]}, (R, rank) = (16, 16), {str(dtype)[6:]}: "
-              f"{err / scale:.3g} of the largest entry, kernel "
+              f"{u_prop.shape[0]}, (R, rank) = (16, 16), {str(dtype)[6:]}: two calls and "
+              f"the plain version bitwise equal, kernel "
               f"{cuda_ms(lambda: cp_level_backward(u_prop, cot_prop, lines_prop, dtype)):.4f}"
               f" ms, alone "
               f"{device_ms(lambda: cp_level_backward(u_prop, cot_prop, lines_prop, dtype)):.4f}"
@@ -1102,22 +1116,15 @@ def phase_kernels(dev, trainer, state, ds):
     return report
 
 
-def g7_order_bound(x, cot, table_shape, resolutions):
-    """G7's function summed exactly (f64) from the f32 products ``w_c * cot``
-    it adds, and the error bound of f32 summation of each entry in any
-    order: (terms - 1) x 2^-24 x the sum of the terms' magnitudes."""
+def exact_table_grad(x, cot, table_shape, resolutions):
+    """G7's function summed exactly enough (f64) from the f32 products
+    ``w_c * cot`` it adds."""
     L, T, F = table_shape
     idx, w = hash_corners_plain(x, resolutions, T)
     rows = (idx + T * torch.arange(L, device=x.device)[None, :, None]).reshape(-1)
     upd = (w[..., None] * cot.reshape(-1, L, 1, F)).reshape(-1, F)
     exact = torch.zeros((L * T, F), dtype=torch.float64, device=x.device)
-    magnitude = torch.zeros_like(exact)
-    exact.index_add_(0, rows, upd.double())
-    magnitude.index_add_(0, rows, upd.abs().double())
-    terms = torch.zeros(L * T, dtype=torch.float64, device=x.device)
-    terms.index_add_(0, rows, torch.ones_like(rows, dtype=torch.float64))
-    allowed = (terms - 1).clamp(min=0)[:, None] * 2.0**-24 * magnitude
-    return exact.reshape(L, T, F), allowed.reshape(L, T, F)
+    return exact.index_add_(0, rows, upd.double()).reshape(L, T, F)
 
 
 def proposal_points(dev, g, config):
@@ -1204,12 +1211,13 @@ def phase_hash_kernels(dev):
           f"precomputed rows (gather stage only) {r['library_ms']:.4f} ms, "
           f"max_abs_err {bag_err:.3g}")
 
-    # G7: its f32 sums run in atomic order (as index_add_'s on the card),
-    # hence 1e-5 of the largest entry
-    out = hash_encode_backward(x, cot, (L, T, 2), res)
-    ref = hash_encode_backward_plain(x, cot, (L, T, 2), res)
-    err, scale = float((out - ref).abs().max()), float(ref.abs().max())
-    require(err <= 1e-5 * scale, f"G7: err {err} scale {scale}")
+    # G7: it sums in fixed point: two calls and the plain version bit for
+    # bit, within 1e-6 of the largest entry of the exact (f64) sum
+    out, ref = held_bitwise("G7", lambda: hash_encode_backward(x, cot, (L, T, 2), res),
+                            lambda: hash_encode_backward_plain(x, cot, (L, T, 2), res))
+    exact = exact_table_grad(x, cot, (L, T, 2), res)
+    err, scale = float((out - exact).abs().max()), float(exact.abs().max())
+    require(err <= 1e-6 * scale, f"G7: err {err} from the exact sum, scale {scale}")
     upd = (w[:, :, None] * cot.reshape(-1, 1, 2)).reshape(-1, 2)
     acc = torch.zeros_like(flat)
     # per point and level: the forward's 28 for the corners, 16 products
@@ -1221,8 +1229,9 @@ def phase_hash_kernels(dev):
         cuda_ms(lambda: acc.index_add_(0, rows.reshape(-1), upd)),
     )
     r = report["hash_bwd"]
-    print(f"G7 hash_bwd N={HASH_N} L={L} T={T}: max_abs_err={err:.3g} (scale "
-          f"{scale:.3g}), kernel {r['ms']:.4f} ms, alone "
+    print(f"G7 hash_bwd N={HASH_N} L={L} T={T}: two calls and the plain version bitwise "
+          f"equal, max_abs_err={err:.3g} from the exact sum (scale {scale:.3g}), kernel "
+          f"{r['ms']:.4f} ms, alone "
           f"{device_ms(lambda: hash_encode_backward(x, cot, (L, T, 2), res)):.4f} ms, "
           f"twin {r['plain_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms; index_add_ on "
           f"the precomputed rows and updates (scatter stage only) "
@@ -1263,15 +1272,18 @@ def phase_hash_kernels(dev):
               f"ms, alone {device_ms(lambda: hash_encode_forward(xs, table, res)):.4f} ms, "
               f"bound {bound_ms(nbytes(xs, out), 0):.4f} ms (x and the output alone)")
     del x_refresh, out
-    out = hash_encode_backward(x_ray, cot_ray, (L, T, 2), res)
-    ref = hash_encode_backward_plain(x_ray, cot_ray, (L, T, 2), res)
-    err, scale = float((out - ref).abs().max()), float(ref.abs().max())
-    require(err <= 1e-5 * scale, f"G7 ray order: err {err} scale {scale}")
+    out, _ = held_bitwise(
+        "G7 ray order", lambda: hash_encode_backward(x_ray, cot_ray, (L, T, 2), res),
+        lambda: hash_encode_backward_plain(x_ray, cot_ray, (L, T, 2), res))
+    exact = exact_table_grad(x_ray, cot_ray, (L, T, 2), res)
+    err, scale = float((out - exact).abs().max()), float(exact.abs().max())
+    require(err <= 1e-6 * scale, f"G7 ray order: err {err} from the exact sum, scale {scale}")
     level0 = hash_corners_plain(x_ray, res[:1], T)[0][:, 0, 0]
     same = float((level0[1:] == level0[:-1]).float().mean())
     print(f"G7 hash_bwd, NGP train step's positions in ray order, N={x_ray.shape[0]} "
-          f"({same:.3f} of samples on the previous sample's level-0 row): "
-          f"{err / scale:.3g} of the largest entry, kernel "
+          f"({same:.3f} of samples on the previous sample's level-0 row): two calls and "
+          f"the plain version bitwise equal, {err / scale:.3g} of the largest entry from "
+          f"the exact sum, kernel "
           f"{cuda_ms(lambda: hash_encode_backward(x_ray, cot_ray, (L, T, 2), res)):.4f} ms, "
           f"alone "
           f"{device_ms(lambda: hash_encode_backward(x_ray, cot_ray, (L, T, 2), res)):.4f} ms, "
@@ -1280,12 +1292,10 @@ def phase_hash_kernels(dev):
     # G6 and G7 at the proposal field's shape (NGPDensityField: 5 levels,
     # one more than a multiple of G6's group of 4, T = 2^17; phase 20) on
     # the bounded path's first proposal level (N = 2^19) and the 360
-    # cascade's (N = 2^20) in ray order, an O(1) table: G6 bitwise; G7 and
-    # its plain version (both atomic sums on the card) each within the
-    # error bound of f32 summation in any order of the exact sum
-    # (g7_order_bound): the contracted far samples pile thousands of terms
-    # onto a row, where two orders part by more than 1e-5 of the largest
-    # entry (2.3e-5 read on an H100, PERF.md §6)
+    # cascade's (N = 2^20) in ray order, an O(1) table: G6 bitwise; G7
+    # bitwise its plain version and within 1e-6 of the largest entry of the
+    # exact sum, where the contracted far samples pile thousands of terms
+    # onto a row
     enc = NGPDensityField(AABB).encoder
     L, T, res = enc.n_levels, enc.table_size, enc.resolutions
     table = torch.rand((L, T, 2), generator=g, device=dev) * 2.0 - 1.0
@@ -1296,14 +1306,13 @@ def phase_hash_kernels(dev):
         unequal = int((out.view(torch.int32) != hash_encode_plain(xs, table, res).view(
             torch.int32)).sum())
         require(unequal == 0, f"G6 proposal field {config}: {unequal} entries unequal")
-        grad = hash_encode_backward(xs, cot, (L, T, 2), res)
-        ref = hash_encode_backward_plain(xs, cot, (L, T, 2), res)
-        err, scale = float((grad - ref).abs().max()), float(ref.abs().max())
-        exact, allowed = g7_order_bound(xs, cot, (L, T, 2), res)
-        for what, g7 in (("G7", grad), ("its plain version", ref)):
-            over = int(((g7.double() - exact).abs() > allowed).sum())
-            require(over == 0, f"{what}, proposal field {config}: {over} entries past the "
-                               f"f32 summation bound of the exact sum")
+        grad, _ = held_bitwise(
+            f"G7 proposal field {config}", lambda: hash_encode_backward(xs, cot, (L, T, 2), res),
+            lambda: hash_encode_backward_plain(xs, cot, (L, T, 2), res))
+        exact = exact_table_grad(xs, cot, (L, T, 2), res)
+        err, scale = float((grad - exact).abs().max()), float(exact.abs().max())
+        require(err <= 1e-6 * scale, f"G7 proposal field {config}: err {err} from the exact "
+                                     f"sum, scale {scale}")
         idx = hash_corners_plain(xs, res, T)[0]
         touched = int(torch.unique(idx + T * torch.arange(L, device=dev)[None, :, None]).numel())
         fwd = measured(0.0, cuda_ms(lambda: hash_encode_forward(xs, table, res)),
@@ -1317,8 +1326,8 @@ def phase_hash_kernels(dev):
               f"kernel {fwd['ms']:.4f} ms, alone "
               f"{device_ms(lambda: hash_encode_forward(xs, table, res)):.4f} ms, plain "
               f"{fwd['plain_ms']:.4f} ms, bound {fwd['bound_ms']:.4f} ms ({touched} rows "
-              f"touched); G7 hash_bwd {err / scale:.3g} of the largest entry from the plain "
-              f"version, both within the f32 summation bound of the exact sum, kernel "
+              f"touched); G7 hash_bwd bitwise its plain version over two calls, "
+              f"{err / scale:.3g} of the largest entry from the exact sum, kernel "
               f"{bwd['ms']:.4f} ms, alone "
               f"{device_ms(lambda: hash_encode_backward(xs, cot, (L, T, 2), res)):.4f} ms, "
               f"plain {bwd['plain_ms']:.4f} ms, bound {bwd['bound_ms']:.4f} ms")
@@ -1505,12 +1514,31 @@ def phase_hat_kernels(dev):
     return report
 
 
+def unequal_bits(a, b):
+    """The entries of ``a`` whose bits differ from ``b``'s (NaNs with one
+    payload equal)."""
+    view = torch.int16 if a.element_size() == 2 else torch.int32
+    return int((a.view(view) != b.view(view)).sum())
+
+
+def held_bitwise(what, kernel, plain):
+    """``kernel()`` twice and ``plain()`` once: a kernel that sums in fixed
+    point gives the same bits on both calls and equals its plain version.
+    Returns the first call's output and the plain version's."""
+    out, again, ref = kernel(), kernel(), plain()
+    repeat, unequal = unequal_bits(out, again), unequal_bits(out, ref)
+    require(repeat == 0 and unequal == 0,
+            f"{what}: {repeat} entries differ between two calls, {unequal} from the plain "
+            "version")
+    return out, ref
+
+
 def same_bits(a, b):
-    """Bitwise equality, NaNs included."""
+    """Bitwise equality of two tensors of any dtype, NaNs included."""
     if a.shape != b.shape or a.dtype != b.dtype:
         return False
-    view = torch.int16 if a.element_size() == 2 else torch.int32
-    return torch.equal(a.view(view), b.view(view))
+    return torch.equal(a.reshape(-1).contiguous().view(torch.uint8),
+                       b.reshape(-1).contiguous().view(torch.uint8))
 
 
 def with_outside(g, idx, low, high):
@@ -2024,9 +2052,12 @@ def relative_fro(grads, ref):
 @contextlib.contextmanager
 def hat_kernels_alone():
     """Inside: the differentiable composite runs its plain versions in place
-    of G3 and G5, and PyTorch's own scatter-adds (``index_add_``) run in a
-    fixed order, so that a kernel train step and the plain step hand the hat
-    kernels and their plain versions the same cotangents, bit for bit."""
+    of G3 and G5, so that a kernel train step and the plain step hand the hat
+    kernels and their plain versions the same cotangents, bit for bit.  The
+    deterministic flag is for those plain versions, which run on the card
+    here: they are written for the CPU, and a PyTorch op they call may add
+    atomically on the card unless the flag is set.  The kernels and the
+    port's own scatters sum in a fixed order without it (phase 31)."""
     torch.use_deterministic_algorithms(True, warn_only=True)
     try:
         with plain_kernels(("composite_fwd", "composite_bwd")):
@@ -2062,7 +2093,7 @@ def phase_train_twins(trainer, state, batch, kind="cp", f32=None, name=None):
     plain twins: the same state, batch and near-plane jitter, for the
     trained bf16 field and for the same parameters in an f32 field (``f32``,
     by default ``kind``'s bench trainer; printed as ``name``).  Each
-    kernel step runs ``STEP_REPEATS`` times, since atomics reorder its sums
+    kernel step runs ``STEP_REPEATS`` times, as it did when atomics reordered its sums
     from run to run.  For the hat route's f32 field also the plain step
     against itself, and the kernel step under :func:`hat_kernels_alone`
     against the plain step there (held to ``HAT_ALONE_STEP_FRO``)."""
@@ -2608,10 +2639,12 @@ def quality_run(dev, path, seed, plain=()):
     cuda_mod = port_module("cuda")
     t0 = time.perf_counter()
     cuda_mod.reset_launches()
-    # on the TiNeuVox path, whose kernels sum in a fixed order, the plain
-    # versions' scatter-adds run in a fixed order too, so that both routes
-    # repeat from call to call (the proposal path's G4 sums by atomics, and
-    # its plain version's fixed-order scatter-adds take ~10x as long)
+    # the kernels sum in a fixed order by themselves (phase 31); on the
+    # TiNeuVox path the plain versions, which run on the card here, need
+    # PyTorch's deterministic algorithms for it (G9's plain version adds in
+    # f64 with index_add_, atomic on the card without the flag), so that
+    # both routes repeat from call to call.  The proposal path's plain
+    # versions need no flag: G4's sums in int64, whose order does not matter
     torch.use_deterministic_algorithms(bool(plain) and path == "tineuvox", warn_only=True)
     try:
         with plain_kernels(plain):
@@ -3306,12 +3339,10 @@ def phase_distributed(dev):
     """28. The distributed layer on the card (``nerfacc_tpu_torch.parallel``,
     ranks started by ``spawn``, the rank bodies of ``parallel.dryrun``):
     a) NCCL, one rank: ``make_dp_train_step`` over ``DIST_STEPS`` steps of
-    the bench CP trainer against ``train_step`` from the same state, bit
-    for bit (parameters, gradients, grid, aux) with G4 on its plain version
-    and PyTorch's deterministic algorithms (G4's atomics reorder its sums
-    from run to run), then through every kernel: the first step's loss,
-    aux and grid bit for bit, the parameters after ``DIST_STEPS`` steps
-    within ``BF16_STEP_FRO``; NCCL with two ranks on one card must raise.
+    the bench CP trainer against ``train_step`` from the same state, through
+    every kernel, bit for bit (parameters, gradients, grid, aux): every sum
+    of the step runs in a fixed order; NCCL with two ranks on one card must
+    raise.
     b) gloo, two ranks on ``cuda:0``: one stratified DP step against the
     single-process step on the global batch (tests/test_parallel.py's DP
     bounds, binaries equal, the ranks bitwise equal), then
@@ -3348,33 +3379,21 @@ def phase_distributed(dev):
         require(False, "NCCL with two ranks on one card did not raise")
     except ValueError as e:
         print(f"distributed a: NCCL with two ranks on one card raises: {e}")
-    g4_plain = {"cp_level_bwd": PLAIN_SWAPS["cp_level_bwd"]}
     t0 = time.perf_counter()
     a = parallel.spawn(1, dryrun.run_cases, None, [
-        ("bitwise", "occ", dist_occ_spec(DIST_STEPS, single=True, plain_route=g4_plain)),
         ("kernels", "occ", dist_occ_spec(DIST_STEPS, single=True)),
     ], backend="nccl", timeout=DIST_TIMEOUT)[0]
     print(f"distributed a: one rank ran in {time.perf_counter() - t0:.1f} s ({card()})")
-    dp, single = a["bitwise"]["dp"], a["bitwise"]["single"]
+    dp, single = a["kernels"]["dp"], a["kernels"]["single"]
     same = [all(np.array_equal(dp[part][k], single[part][k]) for k in single[part])
             for part in ("params", "grads")]
     same += [np.array_equal(dp[k], single[k]) for k in ("occs", "binaries")]
     same.append(all(np.array_equal(np.asarray(x[k]), np.asarray(y[k]))
                     for x, y in zip(dp["aux"], single["aux"]) for k in y))
-    print(f"distributed a: NCCL, 1 rank, {DIST_STEPS} DP steps vs train_step, G4 on its "
-          f"plain version: parameters, gradients, occs, binaries, aux bit for bit {same}; "
-          f"launches a step {per_rank_step(a['bitwise']['launches'], DIST_STEPS)}")
+    print(f"distributed a: NCCL, 1 rank, {DIST_STEPS} DP steps vs train_step through every "
+          f"kernel: parameters, gradients, occs, binaries, aux bit for bit {same}; "
+          f"launches a step {per_rank_step(a['kernels']['launches'], DIST_STEPS)}")
     require(all(same), "a: the DP step at world size 1 moved a bit")
-    dp, single = a["kernels"]["dp"], a["kernels"]["single"]
-    first = (all(np.array_equal(np.asarray(dp["aux"][0][k]), np.asarray(single["aux"][0][k]))
-                 for k in single["aux"][0]))
-    fro = leaf_fro(dp["params"], single["params"])
-    print(f"distributed a: NCCL, 1 rank, through every kernel: step 0's aux bitwise {first}; "
-          f"parameters after {DIST_STEPS} steps {fro:.3g} relative Frobenius at most (limit "
-          f"{BF16_STEP_FRO}: G4's atomic order); launches a step "
-          f"{per_rank_step(a['kernels']['launches'], DIST_STEPS)}")
-    require(first and fro <= BF16_STEP_FRO, "a: the DP step through the kernels drifted")
-    add(a["bitwise"]["launches"], "a", [k for k in DIST_KERNELS if k != "cp_level_bwd"])
     add(a["kernels"]["launches"], "a")
 
     # b) gloo, two ranks sharing the card; they run d) too
@@ -4263,7 +4282,7 @@ def phase_step_vs_plain(trainer, state, batch, name, kernels, limit=None):
     """One train step through the kernels against the same step with
     ``kernels`` on their plain versions (:func:`plain_kernels`), from
     ``state``, with the same batch and near-plane jitter, ``STEP_REPEATS``
-    times (atomics reorder the sums), held to ``limit`` (None: phase 5's
+    times (as when atomics reordered the sums), held to ``limit`` (None: phase 5's
     bound for the field's compute dtype); the plain step against itself is
     printed beside it."""
     require(state.step % trainer.update_interval != 0, f"{name}: the step refreshes")
@@ -4581,6 +4600,156 @@ def phase_barf(dev):
     require(loss_rel <= 1e-5, f"{what}: losses differ by {loss_rel}")
     pose_floor_on_card(dev)
     return launches
+
+
+# Phase 31: each train path trained twice from one seed.  REPEAT_STEPS
+# holds three occupancy refreshes (every 16 steps from step 0) and, on the
+# proposal path, steps that train the proposal field.
+REPEAT_STEPS = 40
+
+
+def state_leaves(obj, prefix="state"):
+    """A train state's tensors by name: the parameters, the occupancy grid
+    and an optimizer's moments (``torch.optim`` state per parameter),
+    walking NamedTuples, dicts, lists and tuples; other values are left
+    out."""
+    if torch.is_tensor(obj):
+        yield prefix, obj
+    elif isinstance(obj, torch.optim.Optimizer):
+        for i, group in enumerate(obj.param_groups):
+            for j, p in enumerate(group["params"]):
+                for k, v in sorted(obj.state.get(p, {}).items()):
+                    if torch.is_tensor(v):
+                        yield f"{prefix}.adam[{i}][{j}].{k}", v
+    elif hasattr(obj, "_fields"):
+        for k in obj._fields:
+            yield from state_leaves(getattr(obj, k), f"{prefix}.{k}")
+    elif isinstance(obj, dict):
+        for k, v in obj.items():
+            yield from state_leaves(v, f"{prefix}.{k}")
+    elif isinstance(obj, (list, tuple)):
+        for i, v in enumerate(obj):
+            yield from state_leaves(v, f"{prefix}[{i}]")
+
+
+def occ_repeat(trainer, batches):
+    """``run()`` for phase 31: ``trainer.train_step`` from ``init_state`` on
+    ``batches``; the state and the (steps,) losses."""
+    def run():
+        state, losses = trainer.init_state(), []
+        for batch in batches:
+            state, aux = trainer.train_step(state, batch)
+            losses.append(aux["loss"])
+        return state, torch.stack(losses)
+    return run
+
+
+def repeat_paths(dev):
+    """Phase 31's paths, built one at a time: (name, ``run()``, kernels),
+    each ``run()`` training from the trainer's seed on the same batches."""
+    for kind in ("cp", "ngp", "tineuvox"):  # phases 4, 8, 12
+        ds = train_loader(dev, kind)
+        trainer = make_trainer(dev, kind, timestamps=getattr(ds, "timestamps", None),
+                               max_steps=TRAIN_STEPS, sample_budget=TRAIN[kind][2])
+        kernels = (*ENCODER_KERNELS[kind], "march", "composite_fwd", "composite_bwd")
+        yield kind, occ_repeat(trainer, [ds[0] for _ in range(REPEAT_STEPS)]), kernels
+
+    # phase 16: bench_prop, batches drawn on the card from each step's generator
+    trainer = make_prop_trainer(dev, max_steps=TRAIN_STEPS)
+    sampler = DeviceRaySampler.from_loader(train_loader(dev, "prop"))
+    rg_fn = port_module("estimators.prop_net").get_proposal_requires_grad_fn()
+    rgs = [rg_fn(step) for step in range(REPEAT_STEPS)]
+    require(0 < sum(rgs) < REPEAT_STEPS, f"repeat bench_prop: {sum(rgs)} proposal steps")
+
+    def prop_run():
+        state, aux = trainer.train_steps_sampled(trainer.init_state(), sampler, rgs)
+        return state, torch.stack([aux["loss"], aux["prop_loss"]], -1)
+    yield "bench_prop", prop_run, PATH_KERNELS["prop"]
+
+    for path in ("tensorf", "voxel"):  # phase 25
+        ex, args = occ_field_example(path, REPEAT_STEPS)
+        trainer, train_ds, _ = ex.build(args)
+        yield (path, occ_repeat(trainer, [train_ds[0] for _ in range(REPEAT_STEPS)]),
+               OCC_FIELD_PATHS[path][1])
+    ex, args = mlp_example("kplanes", REPEAT_STEPS)  # phase 23b
+    trainer, train_ds, _ = ex.build(args)
+    yield ("kplanes", occ_repeat(trainer, [train_ds[0] for _ in range(REPEAT_STEPS)]),
+           MLP_PATHS["kplanes"][1])
+    ex, args = barf_example(REPEAT_STEPS)  # phase 26
+    trainer, train_ds, _ = ex.build(args)
+    batches = [train_ds.pixel_batch(0) for _ in range(REPEAT_STEPS)]
+    yield "barf", occ_repeat(trainer, batches), BARF_KERNELS
+
+    # phase 19: the quick start's loop, its draws from PyTorch's default
+    # generators, seeded before each run
+    train = train_loader(dev, "cp")
+    batches = [train[0] for _ in range(REPEAT_STEPS)]
+
+    def qs_run():
+        torch.manual_seed(QUALITY_SEEDS[0])
+        field = port_module("models.cp_field").CPRadianceField(AABB).to(dev)
+        field.init(torch.Generator().manual_seed(QUALITY_SEEDS[0]))
+        estimator = nerfacc_tpu_torch.OccGridEstimator(roi_aabb=AABB, resolution=QS_RES,
+                                                       device=dev)
+        optimizer = torch.optim.Adam(field.parameters(), lr=1e-2, eps=1e-15)
+
+        def occ_eval_fn(x):
+            return field.query_density(x)[..., 0] * QS_STEP
+        losses = []
+        for step, batch in enumerate(batches):
+            estimator.update_every_n_steps(step, occ_eval_fn, warmup_steps=QS_WARMUP)
+            loss, _ = qs_loss(field, estimator, batch)
+            optimizer.zero_grad()
+            loss.backward()
+            optimizer.step()
+            losses.append(loss.detach())
+        state = {"field": dict(field.named_parameters()), "adam": optimizer,
+                 "grid": {"occs": estimator.occs, "binaries": estimator.binaries}}
+        return state, torch.stack(losses)
+    yield "quick start", qs_run, QS_KERNELS
+
+
+def phase_repeat(dev):
+    """31. Each train path of ``repeat_paths`` trained twice from one seed
+    for ``REPEAT_STEPS`` steps through every kernel, PyTorch's deterministic
+    algorithms off: every parameter, the Adam moments, the occupancy grid
+    and every step's loss must be equal bit for bit, else the first leaf and
+    step that differ are named.  Returns the launches of the first runs."""
+    t_phase = time.perf_counter()
+    require(not torch.are_deterministic_algorithms_enabled(),
+            "repeat: PyTorch's deterministic algorithms are on")
+    total = {}
+    for name, run, kernels in repeat_paths(dev):
+        t0 = time.perf_counter()
+        runs = []
+        for i in range(2):
+            cuda.reset_launches()
+            state, losses = run()
+            runs.append(({k: v.detach().clone() for k, v in state_leaves(state)},
+                         losses.detach().clone()))
+            if i == 0:
+                launches = dict(cuda.LAUNCHES)
+            del state
+        (leaves, losses), (leaves2, losses2) = runs
+        require(list(leaves) == list(leaves2), f"repeat {name}: the states' leaves differ")
+        leaf = next((k for k in leaves if not same_bits(leaves[k], leaves2[k])), None)
+        step = next((i for i in range(losses.shape[0])
+                     if not same_bits(losses[i], losses2[i])), None)
+        entries = sum(v.numel() for v in leaves.values())
+        print(f"repeat {name}: {REPEAT_STEPS} steps twice in {time.perf_counter() - t0:.1f} s; "
+              f"{len(leaves)} leaves ({entries} entries: parameters, Adam moments, grid) and "
+              f"{losses.shape[0]} steps' losses bit for bit: {leaf is None and step is None} "
+              f"(first leaf that differs: {leaf}; first step: {step}); launches a run "
+              + ", ".join(f"{k} {launches[k]}" for k in kernels))
+        require(leaf is None and step is None,
+                f"repeat {name}: two runs from one seed differ, first at leaf {leaf}, "
+                f"step {step}")
+        for k in kernels:
+            require(launches.get(k, 0) > 0, f"repeat {name}: kernel {k} never launched")
+        for k, v in launches.items():
+            total[k] = total.get(k, 0) + v
+    print(f"repeat: every path bit for bit over two runs, {time.perf_counter() - t_phase:.1f} s")
+    return total
 
 
 def _plain_for(route, kernels):
@@ -5024,8 +5193,11 @@ def main():
     mlp_launches.append(phase_options(dev, *cp_trained, ds))
     del cp_trained
     mark("30")
+    # 31: each train path twice from one seed, bit for bit
+    mlp_launches.append(phase_repeat(dev))
+    mark("31")
     # each kernel's launches over the training runs (phases 4, 8, 12, 16,
-    # 20, 21, 22, 23-23c, 24, 25, 26, 28), the occupancy example's (6d), the
+    # 20, 21, 22, 23-23c, 24, 25, 26, 28, 31), the occupancy example's (6d), the
     # quick start's loops (19, 27), the entry points of phase 29 and the
     # options' paths of phase 30, and the gather kernels' over the gather
     # probe's run

@@ -35,8 +35,8 @@ _F = ctypes.c_float
 _SIGNATURES = {
     # (u, lines, out, n, R, rank, bf16, stream)
     "cp_level_fwd": [_P, _P, _P, ctypes.c_int64, _I, _I, _I, _P],
-    # (u, g, lines, dlines, n, R, rank, bf16, stream)
-    "cp_level_bwd": [_P] * 4 + [ctypes.c_int64, _I, _I, _I, _P],
+    # (u, g, lines, dlines, work, n, R, rank, bf16, stream)
+    "cp_level_bwd": [_P] * 5 + [ctypes.c_int64, _I, _I, _I, _P],
     # (rays_o, rays_d, near, far, mask, binaries, aabbs, n_rays, m, rx, ry,
     #  rz, step, cone, tau, base, max_samples, counts, term, terminated,
     #  stream)
@@ -53,8 +53,8 @@ _SIGNATURES = {
     "composite_bwd": [_P] * 7 + [_I] + [_P] * 7,
     # (x, table, res, out, n, L, log2T, stream)
     "hash_fwd": [_P] * 4 + [ctypes.c_int64, _I, _I, _P],
-    # (x, cot, res, g_table, n, L, log2T, stream)
-    "hash_bwd": [_P] * 4 + [ctypes.c_int64, _I, _I, _P],
+    # (x, cot, res, g_table, work, n, L, log2T, stream)
+    "hash_bwd": [_P] * 5 + [ctypes.c_int64, _I, _I, _P],
     # (x, line, out, n, R, rank, stream)
     "hat_fwd": [_P] * 3 + [ctypes.c_int64, _I, _I, _P],
     # (x, lines, prod, axes, n, R, rank, stream)

@@ -19,6 +19,7 @@ from typing import Callable, List, Optional, Sequence, Tuple, Union
 import torch
 
 from ..data_specs import RayIntervals
+from ..ops.ordered_sums import take_along_last
 from ..pdf import importance_sampling, searchsorted
 from ..utils.fp import fma_f32
 from ..volrend import render_transmittance_from_density
@@ -53,10 +54,12 @@ def _pdf_loss(
     """Interlevel PDF-matching loss per query interval: the query weights'
     excess over the key CDF's outer measure of the same interval, squared,
     over the weight.  The JAX package reads the key CDF through one-hot
-    selections; the gather here gives the same values."""
+    selections; the gather here gives the same values, and its backward
+    sums each CDF entry's cotangents in a fixed order."""
     w = cdfs_query[..., 1:] - cdfs_query[..., :-1]
     ids_left, ids_right = searchsorted(segments_key, segments_query)
-    w_outer = cdfs_key.gather(-1, ids_right[..., 1:]) - cdfs_key.gather(-1, ids_left[..., :-1])
+    w_outer = (take_along_last(cdfs_key, ids_right[..., 1:])
+               - take_along_last(cdfs_key, ids_left[..., :-1]))
     return (w - w_outer).clamp(min=0) ** 2 / (w + eps)
 
 

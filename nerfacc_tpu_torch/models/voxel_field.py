@@ -18,6 +18,7 @@ from typing import Dict, Optional, Sequence
 import torch
 from torch import nn
 
+from ..ops.ordered_sums import index_add_rows
 from .ngp import MLPField
 
 
@@ -66,7 +67,8 @@ class _Trilinear(torch.autograd.Function):
         dgrid = None
         if ctx.needs_input_grad[0]:
             dgrid = torch.zeros(X * Y * Z, C, dtype=g.dtype, device=g.device)
-            dgrid.index_add_(0, flat.reshape(-1), (w[..., None] * g[:, None, :]).reshape(-1, C))
+            # each voxel's terms summed in sample order on every device
+            index_add_rows(dgrid, flat.reshape(-1), (w[..., None] * g[:, None, :]).reshape(-1, C))
             dgrid = dgrid.reshape(X, Y, Z, C)
         du = None
         if ctx.needs_input_grad[1]:

@@ -28,6 +28,7 @@ from __future__ import annotations
 import torch
 
 from .. import cuda
+from . import ordered_sums
 
 
 def _taps(u: torch.Tensor, R: int, bf16: bool):
@@ -75,7 +76,10 @@ def cp_level_backward_plain(
     u: torch.Tensor, g: torch.Tensor, lines: torch.Tensor, compute_dtype=torch.bfloat16
 ) -> torch.Tensor:
     """PyTorch twin of kernel G4, on any device: the closed-form line-table
-    gradient of :func:`cp_level_encode_plain` for the cotangent ``g``.
+    gradient of :func:`cp_level_encode_plain` for the cotangent ``g``,
+    summed in fixed point (:func:`scale_exponents`), so that its result
+    does not depend on the order of the samples and the kernel's equals it
+    bit for bit.
 
     Args:
         u: (N, 3) f32 coordinates, as in the forward.
@@ -88,16 +92,35 @@ def cp_level_backward_plain(
     """
     bf16 = compute_dtype == torch.bfloat16
     f, (i0, i1, w0, w1) = _axis_features(u, lines, bf16)
-    dlines = torch.zeros_like(lines)
+    k = scale_exponents(g, lines)
+    acc = torch.zeros(lines.shape, dtype=torch.int64, device=lines.device)
+    special = torch.zeros(lines.shape, dtype=torch.float64, device=lines.device)
     # the TPU kernel's product order: (g * f_first) * f_second
     others = ((1, 2), (0, 2), (0, 1))
     for a, (b, c) in enumerate(others):
         da = g * f[b] * f[c]
         if bf16:
             da = _round_bf16(da)
-        dlines[a].index_add_(0, i0[:, a], w0[:, a : a + 1] * da)
-        dlines[a].index_add_(0, i1[:, a], w1[:, a : a + 1] * da)
-    return dlines
+        da = ordered_sums.scale(da, k[a])
+        for i, w in ((i0, w0), (i1, w1)):
+            q, s = ordered_sums.quantize(w[:, a : a + 1] * da)
+            acc[a].index_add_(0, i[:, a], q)
+            special[a].index_add_(0, i[:, a], s)
+    return ordered_sums.from_fixed(acc, special, k[:, None, None])
+
+
+def scale_exponents(g: torch.Tensor, lines: torch.Tensor) -> torch.Tensor:
+    """G4's fixed-point scales, one an axis: (3,) int64 ``k``, each term of
+    axis ``a`` summed as ``round(w * (da * 2^k[a]))``.  A term is ``w * (g * f_b)
+    * f_c`` with ``w <= 1`` and ``|f_b| <= (w0 + w1) max |L_b|`` (bf16
+    roundings included, within 1%), so it lies below ``2^(e_g + e_b + e_c
+    + 1)`` for the exponent bounds ``e`` of the largest finite ``|g|`` and
+    ``|L_b|``; an entry takes at most two terms a sample."""
+    n = g.shape[0]
+    e_g = ordered_sums.exponent_bound(ordered_sums.finite_abs_max(g))
+    e_l = ordered_sums.exponent_bound(ordered_sums.finite_abs_max(lines, dim=(1, 2)))
+    e = torch.stack([e_l[1] + e_l[2], e_l[0] + e_l[2], e_l[0] + e_l[1]]) + e_g + 1
+    return ordered_sums.scale_exponent(e, 2 * n)
 
 
 def _check(u, lines, compute_dtype, g=None):
@@ -136,16 +159,21 @@ def cp_level_backward(
 ) -> torch.Tensor:
     """The line-table gradient: kernel G4 for CUDA tensors, the twin
     :func:`cp_level_backward_plain` for CPU tensors.  Same contract as the
-    twin; on the card the f32 sums run in no fixed order (atomics)."""
+    twin, and bitwise equal to it: both sum in fixed point."""
     if not cuda.on_card(u, g, lines):
         return cp_level_backward_plain(u, g, lines, compute_dtype)
     _check(u, lines, compute_dtype, g)
     u, g, lines = u.contiguous(), g.contiguous(), lines.contiguous()
     _, R, rank = lines.shape
-    dlines = torch.zeros_like(lines)
+    entries = 3 * R * rank
+    # the tables rounded to bf16, int64 sums, a flag byte an entry, and the
+    # largest magnitudes with the kernel's control words
+    work = torch.zeros((entries + 1) // 2 + entries + (entries + 7) // 8 + 3,
+                       dtype=torch.int64, device=u.device)
+    dlines = torch.empty_like(lines)
     err = cuda.load().cp_level_bwd(
-        cuda.ptr(u), cuda.ptr(g), cuda.ptr(lines), cuda.ptr(dlines), u.shape[0],
-        R, rank, int(compute_dtype == torch.bfloat16), cuda.stream_ptr(u),
+        cuda.ptr(u), cuda.ptr(g), cuda.ptr(lines), cuda.ptr(dlines), cuda.ptr(work),
+        u.shape[0], R, rank, int(compute_dtype == torch.bfloat16), cuda.stream_ptr(u),
     )
     cuda.check(err, "cp_level_bwd")
     cuda.LAUNCHES["cp_level_bwd"] += 1

@@ -41,6 +41,7 @@ from typing import Dict, Sequence, Tuple
 import torch
 
 from .. import cuda
+from . import ordered_sums
 from ..utils.fp import fma_f32
 
 # tcnn's spatial hash primes (public constants)
@@ -122,14 +123,35 @@ def hash_encode_backward_plain(
     x: torch.Tensor, cot: torch.Tensor, table_shape, resolutions: Sequence[int]
 ) -> torch.Tensor:
     """PyTorch twin of kernel G7, on any device: the table gradient of
-    :func:`hash_encode_plain` for the cotangent ``cot`` (N, L*F), by
-    ``index_add_``.  Returns an (L, T, F) tensor in ``cot``'s dtype."""
+    :func:`hash_encode_plain` for the cotangent ``cot`` (N, L*F).  Returns an
+    (L, T, F) tensor in ``cot``'s dtype.  An f32 gradient is summed in fixed
+    point (:func:`scale_exponent`), so that it does not depend on the order
+    of the samples and the kernel's equals it bit for bit; another dtype is
+    summed row by row in sample order
+    (:func:`~nerfacc_tpu_torch.ops.ordered_sums.index_add_rows`)."""
     L, T, F = table_shape
     idx, w = hash_corners_plain(x, resolutions, T)
-    upd = w[..., None] * cot.reshape(-1, L, 1, F)  # (N, L, 8, F)
-    g = torch.zeros((L * T, F), dtype=cot.dtype, device=cot.device)
-    g.index_add_(0, _flat_rows(idx, T).reshape(-1), upd.reshape(-1, F))
-    return g.reshape(L, T, F)
+    rows = _flat_rows(idx, T).reshape(-1)
+    if cot.dtype != torch.float32:
+        upd = (w[..., None] * cot.reshape(-1, L, 1, F)).reshape(-1, F)  # (N L 8, F)
+        g = torch.zeros((L * T, F), dtype=cot.dtype, device=cot.device)
+        return ordered_sums.index_add_rows(g, rows, upd).reshape(L, T, F)
+    k = scale_exponent(cot)
+    upd = w[..., None] * ordered_sums.scale(cot, k).reshape(-1, L, 1, F)
+    q, special = ordered_sums.quantize(upd.reshape(-1, F))
+    acc = torch.zeros((L * T, F), dtype=torch.int64, device=cot.device).index_add_(0, rows, q)
+    special = torch.zeros((L * T, F), dtype=torch.float64, device=cot.device).index_add_(
+        0, rows, special)
+    return ordered_sums.from_fixed(acc, special, k).reshape(L, T, F)
+
+
+def scale_exponent(cot: torch.Tensor) -> torch.Tensor:
+    """G7's fixed-point scale: the int64 ``k``, each term summed as
+    ``round(w_c * (cot * 2^k))``.  A term ``w_c * cot`` with ``w_c <= 1`` lies below
+    the exponent bound of the largest finite ``|cot|``, and an entry takes
+    at most eight terms a sample (every corner on one row)."""
+    e = ordered_sums.exponent_bound(ordered_sums.finite_abs_max(cot))
+    return ordered_sums.scale_exponent(e, 8 * cot.shape[0])
 
 
 # per-level resolutions as f32 device tensors, made once per device: a copy
@@ -186,17 +208,20 @@ def hash_encode_backward(
     x: torch.Tensor, cot: torch.Tensor, table_shape, resolutions: Sequence[int]
 ) -> torch.Tensor:
     """The table gradient: kernel G7 for CUDA tensors, the twin
-    :func:`hash_encode_backward_plain` for CPU tensors.  Same contract; on
-    the card the f32 sums run in no fixed order (atomics)."""
+    :func:`hash_encode_backward_plain` for CPU tensors.  Same contract, and
+    bitwise equal to the twin: both sum in fixed point."""
     if not cuda.on_card(x, cot):
         return hash_encode_backward_plain(x, cot, table_shape, resolutions)
     _check(x, table_shape, resolutions, cot.dtype, cot)
     x, cot = x.contiguous(), cot.contiguous()
     L, T, F = table_shape
-    g = torch.zeros((L, T, F), dtype=torch.float32, device=x.device)
+    entries = L * T * F
+    # the int64 twin of the table, a flag byte an entry, and the largest |cot|
+    work = torch.zeros(entries + (entries + 7) // 8 + 1, dtype=torch.int64, device=x.device)
+    g = torch.empty((L, T, F), dtype=torch.float32, device=x.device)
     err = cuda.load().hash_bwd(
         cuda.ptr(x), cuda.ptr(cot), cuda.ptr(_resolutions(resolutions, x.device)),
-        cuda.ptr(g), x.shape[0], L, T.bit_length() - 1, cuda.stream_ptr(x),
+        cuda.ptr(g), cuda.ptr(work), x.shape[0], L, T.bit_length() - 1, cuda.stream_ptr(x),
     )
     cuda.check(err, "hash_bwd")
     cuda.LAUNCHES["hash_bwd"] += 1

@@ -19,6 +19,7 @@ import torch
 
 from .. import cuda
 from ..volrend import render_weight_from_density
+from .ordered_sums import index_add_rows
 
 
 def segment_starts(ids: torch.Tensor, n_rays: int) -> torch.Tensor:
@@ -89,10 +90,11 @@ def segment_sum_sorted(
     """Per-segment sums ``out[r] = sum_{ids[i] == r} src[i]``; ``src`` is
     (n,) or (n, C); fill slots are dropped.  ``seg_starts`` / ``seg_ends``
     are taken for the JAX package's signature, where they spare a search;
-    the sum here reads the ids alone."""
+    the sum here reads the ids alone, and adds each segment's terms in their
+    order (:func:`~nerfacc_tpu_torch.ops.ordered_sums.index_add_rows`)."""
     valid = ids < n_rays
     out = src.new_zeros((n_rays,) + tuple(src.shape[1:]))
-    return out.index_add_(0, ids[valid].long(), src[valid])
+    return index_add_rows(out, ids[valid].long(), src[valid])
 
 
 def composite_sorted_plain(

@@ -474,9 +474,7 @@ def run_cases(info: RankInfo, shape, cases) -> Dict:
     a 1-D data-parallel mesh or (n_data, n_model); each case a (name, kind,
     spec) with kind "occ" (:func:`case_occ`), "prop" (:func:`case_prop`),
     "tp" (:func:`case_tp`) or "dryrun" (:func:`case_dryrun`, spec ``n``).
-    A spec's ``plain_route`` (swaps as :func:`case_occ`'s ``plain_swaps``)
-    runs the whole case with those kernels on their plain versions and
-    PyTorch's deterministic algorithms.  Returns ``{name: result}``."""
+    Returns ``{name: result}``."""
     mesh = _mesh(info, shape)
     out, loaders = {}, {}
     for name, kind, spec in cases:
@@ -484,14 +482,7 @@ def run_cases(info: RankInfo, shape, cases) -> Dict:
             out[name] = case_dryrun(info, spec)
             continue
         fn = {"occ": case_occ, "prop": case_prop, "tp": case_tp}[kind]
-        if not spec.get("plain_route"):
-            out[name] = fn(mesh, spec, loaders)
-            continue
-        torch.use_deterministic_algorithms(True, warn_only=True)
-        try:
-            out[name] = _with_plain(spec["plain_route"], lambda: fn(mesh, spec, loaders))
-        finally:
-            torch.use_deterministic_algorithms(False)
+        out[name] = fn(mesh, spec, loaders)
     return out
 
 

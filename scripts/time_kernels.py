@@ -588,6 +588,8 @@ def g4_rows(inp):
             "index_add_ms": cuda_ms(scatter), "index_add_device_ms": device_ms(scatter),
             "share_same_row_as_previous": runs,
             "err_of_max": err_of_max([out], [ref]),
+            "unequal_to_plain": unequal(out, ref),
+            "unequal_between_two_calls": unequal(out, cp_level_backward(u, cot, lines, dt)),
             "ms": cuda_ms(lambda: cp_level_backward(u, cot, lines, dt)),
             "device_ms": device_ms(lambda: cp_level_backward(u, cot, lines, dt)),
             "plain_ms": cuda_ms(lambda: cp_level_backward_plain(u, cot, lines, dt), reps=5),
@@ -822,6 +824,10 @@ def g7_rows(inp):
             "kernel": "G7 hash_bwd", "case": name, "N": n, "L": L, "T": T,
             "share_level0_row_as_previous": float((idx[1:, 0, 0] == idx[:-1, 0, 0]).float().mean()),
             "err_of_max": err_of_max([out], [ref]),
+            "unequal_to_plain": unequal(out, ref),
+            "unequal_between_two_calls": unequal(
+                out, hash_encode_backward(x, cot, (L, T, 2), res)),
+            "atomics": g7_atomics(x, L, T, res),
             "ms": cuda_ms(lambda: hash_encode_backward(x, cot, (L, T, 2), res)),
             "device_ms": device_ms(lambda: hash_encode_backward(x, cot, (L, T, 2), res)),
             "plain_ms": cuda_ms(lambda: hash_encode_backward_plain(x, cot, (L, T, 2), res),
@@ -831,6 +837,68 @@ def g7_rows(inp):
             # x and the cotangent read once, the table gradient written once
             "bound_ms": bytes_bound_ms(x, cot, out),
         }
+
+
+def g7_atomics(x, L, T, res, block=4096):
+    """The atomics G7 issues on ``x``, counted by replaying its blocks and
+    warps in PyTorch: ``fixed_point`` (this design: per corner, one 64-bit
+    atomic a feature for each run of equal rows on neighbouring lanes, the
+    cube of a level whose int64 pairs fit 80 KiB summed in shared memory)
+    and ``float_pairs`` (its parent: per pair of corners dx = 0, 1, one
+    float4 atomic for each run of equal row pairs, and one more for each
+    run where the two corners lie on different pairs; the cube of a level
+    whose float2s fit 48 KiB in shared memory, one float2 atomic a nonzero
+    cell).  Each counts global (the L2's) and shared atomics; a zero term
+    is counted as if it were not."""
+    from nerfacc_tpu_torch.ops.hash_encode import hash_corners_plain
+
+    n, dev = x.shape[0], x.device
+    idx, _ = hash_corners_plain(x, res, T)  # (n, L, 8)
+    lane = torch.arange(n, device=dev) % 32
+    blk = torch.arange(n, device=dev) // block
+    counts = {"fixed_point": {"global": 0, "shared": 0},
+              "float_pairs": {"global": 0, "shared": 0}}
+
+    def heads(key, valid=None):
+        """Lanes that start a run of equal keys (among ``valid`` lanes)."""
+        prev = torch.cat([key[:1], key[:-1]])
+        h = (lane == 0) | (key != prev)
+        if valid is not None:
+            pv = torch.cat([valid[:1], valid[:-1]])
+            h = valid & (h | ~pv)
+        return h
+
+    for level in range(L):
+        r = float(res[level])
+        i0 = torch.floor(x * r).long()
+        dim = int(r) + 1
+        rows = idx[:, level, :] + level * T
+        for design, cube_bytes, entry in (("fixed_point", 80 * 1024, 16),
+                                          ("float_pairs", 48 * 1024, 8)):
+            c = counts[design]
+            staged = dim**3 * entry <= cube_bytes
+            if staged:
+                cells = []
+                for k in range(8):
+                    off = torch.tensor([(k >> 2) & 1, (k >> 1) & 1, k & 1], device=dev)
+                    cell = i0 + off
+                    inside = ((cell >= 0) & (cell < dim)).all(-1)
+                    h = heads(rows[:, k])
+                    per = 2 if design == "fixed_point" else 1  # atomics a global add
+                    c["shared"] += 2 * int((h & inside).sum())
+                    c["global"] += per * int((h & ~inside).sum())
+                    flat = (cell[:, 0] * dim + cell[:, 1]) * dim + cell[:, 2]
+                    cells.append((blk * dim**3 + flat)[h & inside])
+                nonzero = int(torch.unique(torch.cat(cells)).numel())
+                c["global"] += (2 if design == "fixed_point" else 1) * nonzero
+            elif design == "fixed_point":
+                c["global"] += 2 * sum(int(heads(rows[:, k]).sum()) for k in range(8))
+            else:
+                for k in range(4):
+                    p0, p1 = rows[:, k] >> 1, rows[:, k + 4] >> 1
+                    c["global"] += int(heads(p0).sum())
+                    c["global"] += int(heads(p1, p1 != p0).sum())
+    return counts
 
 
 def g9_rows(inp):

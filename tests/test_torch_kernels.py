@@ -287,9 +287,8 @@ def test_packed_samples_feed_the_composite(dev):
 @pytest.mark.parametrize("R", [32, 128, 512])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_cp_level_backward_kernel_matches_twin(dev, R, dtype):
-    """G4 against the closed-form twin; the kernel's f32 sums run in atomic
-    order, so 1e-4 of the largest entry (a reordered sum, and in bf16 a rare
-    flip of one product's rounding)."""
+    """G4 against the closed-form twin, bit for bit: both sum in fixed point
+    (ops/ordered_sums.py), so the order of the adds does not matter."""
     g = torch.Generator(device=dev).manual_seed(R + 1)
     u = torch.rand((2**16 + 3, 3), generator=g, device=dev)
     u[:2] = torch.tensor([[0.0, 0.0, 0.0], [1.0, 1.0, 1.0]], device=dev)
@@ -298,14 +297,18 @@ def test_cp_level_backward_kernel_matches_twin(dev, R, dtype):
     n0 = cuda.LAUNCHES["cp_level_bwd"]
     out = cp_level_backward(u, cot, lines, dtype)
     assert cuda.LAUNCHES["cp_level_bwd"] == n0 + 1
-    ref = cp_level_backward_plain(u, cot, lines, dtype)
-    torch.testing.assert_close(out, ref, rtol=0, atol=1e-4 * float(ref.abs().max()))
+    assert _bits_equal(out, cp_level_backward_plain(u, cot, lines, dtype))
+
+
+def _bits_equal(a, b):
+    return a.shape == b.shape and torch.equal(a.view(torch.int32), b.view(torch.int32))
 
 
 def test_cp_level_backward_refuses_a_table_past_shared_memory(dev):
-    """G4 keeps the three axes' (R, rank) f32 tables in shared memory, or one
-    at a time where three do not fit; a single table larger than the card's
-    opt-in limit (256 KiB here) raises, uncounted."""
+    """G4 keeps int64 copies of the three axes' tables in shared memory, over
+    slices of the features or one axis at a time where the whole do not fit;
+    a table whose f32 size is past the card's opt-in limit (256 KiB here)
+    raises, uncounted."""
     u = torch.rand((1024, 3), device=dev)
     lines = torch.ones((3, 2048, 32), device=dev)
     n0 = cuda.LAUNCHES["cp_level_bwd"]
@@ -347,7 +350,7 @@ def _ray_ordered_u(dev, n, layout, seed, clamp=True):
 def test_cp_level_backward_kernel_on_ray_ordered_coordinates(dev, R, rank, layout, dtype):
     """G4 on a train step's coordinates: long runs of samples on one row
     (merged in registers before the shared add), many exactly at u = 0 or
-    1; 1e-4 of the largest entry, as on uniform coordinates."""
+    1; bit for bit, as on uniform coordinates."""
     u = _ray_ordered_u(dev, 2**16 + 5, layout, R + rank)
     assert bool(((u == 0) | (u == 1)).any()) and bool(((u > 0) & (u < 1)).all(1).any())
     g = torch.Generator(device=dev).manual_seed(R)
@@ -356,8 +359,7 @@ def test_cp_level_backward_kernel_on_ray_ordered_coordinates(dev, R, rank, layou
     n0 = cuda.LAUNCHES["cp_level_bwd"]
     out = cp_level_backward(u, cot, lines, dtype)
     assert cuda.LAUNCHES["cp_level_bwd"] == n0 + 1
-    ref = cp_level_backward_plain(u, cot, lines, dtype)
-    torch.testing.assert_close(out, ref, rtol=0, atol=1e-4 * float(ref.abs().max()))
+    assert _bits_equal(out, cp_level_backward_plain(u, cot, lines, dtype))
 
 
 @pytest.mark.parametrize("rank", [6, 8, 24, 34, 48])
@@ -371,21 +373,78 @@ def test_cp_level_backward_kernel_at_other_ranks(dev, rank):
     cot = torch.randn((u.shape[0], rank), generator=g, device=dev)
     for dtype in (torch.float32, torch.bfloat16):
         out = cp_level_backward(u, cot, lines, dtype)
-        ref = cp_level_backward_plain(u, cot, lines, dtype)
-        torch.testing.assert_close(out, ref, rtol=0, atol=1e-4 * float(ref.abs().max()))
+        assert _bits_equal(out, cp_level_backward_plain(u, cot, lines, dtype))
 
 
+@pytest.mark.parametrize("R,rank", [(1024, 32), (16384, 3)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_cp_level_backward_kernel_takes_the_axes_in_turn(dev, dtype):
-    """At (R, rank) = (1024, 32) the three tables (384 KiB) exceed shared
-    memory but one (128 KiB) fits: G4 keeps one axis per block."""
+def test_cp_level_backward_kernel_takes_the_axes_in_turn(dev, R, rank, dtype):
+    """Where the three int64 tables exceed shared memory: at (1024, 32) a
+    block keeps the three axes over a slice of 8 features (192 KiB); at
+    (16384, 3) not even one feature of three axes fits (384 KiB), so a block
+    keeps one axis's table of one feature (128 KiB), the axes in turn.  Bit
+    for bit, and the same bits from two calls."""
     g = torch.Generator(device=dev).manual_seed(7)
     u = torch.rand((2**15 + 1, 3), generator=g, device=dev)
-    lines = 1 + 0.1 * torch.randn((3, 1024, 32), generator=g, device=dev)
-    cot = torch.randn((u.shape[0], 32), generator=g, device=dev)
+    lines = 1 + 0.1 * torch.randn((3, R, rank), generator=g, device=dev)
+    cot = torch.randn((u.shape[0], rank), generator=g, device=dev)
     out = cp_level_backward(u, cot, lines, dtype)
-    ref = cp_level_backward_plain(u, cot, lines, dtype)
-    torch.testing.assert_close(out, ref, rtol=0, atol=1e-4 * float(ref.abs().max()))
+    assert _bits_equal(out, cp_level_backward(u, cot, lines, dtype))
+    assert _bits_equal(out, cp_level_backward_plain(u, cot, lines, dtype))
+
+
+def _g4_shape(dev, case, g):
+    """Coordinates, tables and a cotangent at one of G4's timed shapes:
+    ``uniform`` N = 2^18 at the CP field's R = 512; ``ray`` the CP train
+    step's samples in ray order at R = 32, 128, 512 (rank 32); ``proposal``
+    the proposal field's 4096 rays x 128 samples at (16, 16) and (64, 16);
+    ``rows16`` every sample on 16 rows an axis (u in [0.5, 0.53] at R = 512)."""
+    kind, R, rank = case
+    if kind == "uniform":
+        u = torch.rand((2**18, 3), generator=g, device=dev)
+    elif kind == "ray":
+        u = _ray_ordered_u(dev, 2**18, "march", R)
+    elif kind == "proposal":
+        u = _ray_ordered_u(dev, 4096 * 128, "proposal", R)
+    else:
+        u = 0.5 + 0.03 * torch.rand((2**18, 3), generator=g, device=dev)
+    lines = 1 + 0.1 * torch.randn((3, R, rank), generator=g, device=dev)
+    cot = torch.randn((u.shape[0], rank), generator=g, device=dev)
+    return u, lines, cot
+
+
+@pytest.mark.parametrize("case", [
+    ("uniform", 512, 32), ("ray", 32, 32), ("ray", 128, 32), ("ray", 512, 32),
+    ("proposal", 16, 16), ("proposal", 64, 16), ("rows16", 512, 32),
+])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cp_level_backward_is_deterministic(dev, case, dtype):
+    """G4 at each of its timed shapes: two calls give the same bits, and they
+    are the plain version's (both sum in fixed point)."""
+    g = torch.Generator(device=dev).manual_seed(case[1] + case[2])
+    u, lines, cot = _g4_shape(dev, case, g)
+    if case[0] == "rows16":
+        rows = torch.floor(u * (case[1] - 1))
+        assert all(int(torch.unique(rows[:, a]).numel()) <= 16 for a in range(3))
+    first = cp_level_backward(u, cot, lines, dtype)
+    assert _bits_equal(first, cp_level_backward(u, cot, lines, dtype))
+    assert _bits_equal(first, cp_level_backward_plain(u, cot, lines, dtype))
+
+
+def test_cp_level_backward_keeps_infinities_and_nans(dev):
+    """A +-inf or NaN product makes its entries what an f64 sum makes them,
+    as in the plain version; the other entries stay bitwise equal."""
+    g = torch.Generator(device=dev).manual_seed(5)
+    u = torch.rand((4096, 3), generator=g, device=dev)
+    lines = 1 + 0.1 * torch.randn((3, 64, 16), generator=g, device=dev)
+    cot = torch.randn((4096, 16), generator=g, device=dev)
+    u[:3] = torch.tensor([[0.2, 0.2, 0.2], [0.2, 0.2, 0.2], [0.7, 0.7, 0.7]], device=dev)
+    cot[0, 0], cot[1, 0], cot[2, 1] = math.inf, -math.inf, math.nan
+    for dtype in (torch.float32, torch.bfloat16):
+        out = cp_level_backward(u, cot, lines, dtype)
+        ref = cp_level_backward_plain(u, cot, lines, dtype)
+        assert int((~torch.isfinite(ref)).sum()) >= 6
+        assert _bits_equal(out, ref)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -583,8 +642,9 @@ def _hash_inputs(dev, n=2**15, levels=16, log2_t=14):
 @pytest.mark.parametrize("levels,log2_t", [(16, 14), (5, 19), (5, 17)])
 def test_hash_encode_kernels_match_twins(dev, levels, log2_t):
     """G6 bitwise: the twin rounds each fused multiply-add once, as the
-    kernel does.  G7 within 1e-5 (atomic order).  (5, 17) is the proposal
-    field's ``NGPDensityField``: G6's last group of four levels runs one."""
+    kernel does.  G7 bitwise: both sum in fixed point.  (5, 17) is the
+    proposal field's ``NGPDensityField``: G6's last group of four levels runs
+    one."""
     x, table, cot, res = _hash_inputs(dev, levels=levels, log2_t=log2_t)
     n0 = dict(cuda.LAUNCHES)
     out = hash_encode_forward(x, table, res)
@@ -593,8 +653,7 @@ def test_hash_encode_kernels_match_twins(dev, levels, log2_t):
     assert cuda.LAUNCHES["hash_bwd"] == n0["hash_bwd"] + 1
     ref = hash_encode_plain(x, table, res)
     assert torch.equal(out.view(torch.int32), ref.view(torch.int32))
-    ref = hash_encode_backward_plain(x, cot, table.shape, res)
-    torch.testing.assert_close(g_table, ref, rtol=0, atol=1e-5 * float(ref.abs().max()))
+    assert _bits_equal(g_table, hash_encode_backward_plain(x, cot, table.shape, res))
 
 
 @pytest.mark.parametrize("levels,log2_t", [(16, 19), (16, 8), (3, 12)])
@@ -606,7 +665,7 @@ def test_hash_table_gradient_on_ray_ordered_positions(dev, levels, log2_t, n):
     levels: res 16, whose cube of corner cells a block stages in shared
     memory, and res 23 onwards, which go to global atomics), with a table of
     2^8 rows (corners of many cells collide after the mask) and one of 3
-    levels; G6 beside it, bitwise.  G7 within 1e-5 (atomic order)."""
+    levels; G6 beside it, bitwise.  G7 bitwise too."""
     # the cloud widened about its centre, so that the rays' ends leave the box
     x = (_ray_ordered_u(dev, n, "march", levels + n, clamp=False) - 0.5) * 1.2 + 0.5
     assert bool(((x < 0) | (x > 1)).any()) and bool(((x > 0) & (x < 1)).all(1).any())
@@ -622,8 +681,32 @@ def test_hash_table_gradient_on_ray_ordered_positions(dev, levels, log2_t, n):
     assert cuda.LAUNCHES["hash_bwd"] == n0["hash_bwd"] + 1
     ref = hash_encode_plain(x, table, res)
     assert torch.equal(out.view(torch.int32), ref.view(torch.int32))
-    ref = hash_encode_backward_plain(x, cot, table.shape, res)
-    torch.testing.assert_close(g_table, ref, rtol=0, atol=1e-5 * float(ref.abs().max()))
+    assert _bits_equal(g_table, hash_encode_backward_plain(x, cot, table.shape, res))
+
+
+@pytest.mark.parametrize("case", ["uniform", "ray", "proposal", "proposal360"])
+def test_hash_table_gradient_is_deterministic(dev, case):
+    """G7 at its timed shapes: the NGP field's (16 levels, T = 2^19) on
+    N = 2^18 points in [-0.1, 1.1]^3 and on a train step's positions in ray
+    order, and the proposal field's (5 levels, T = 2^17) on 2^19 and 2^20
+    ray-ordered points: two calls give the same bits, and they are the
+    plain version's (both sum in fixed point)."""
+    if case.startswith("proposal"):
+        levels, log2_t = 5, 17
+        n = 2**19 if case == "proposal" else 2**20
+        x = (_ray_ordered_u(dev, n, "proposal", n, clamp=False) - 0.5) * 0.8 + 0.5
+    else:
+        levels, log2_t = 16, 19
+        x = (_ray_ordered_u(dev, 2**18, "march", 3, clamp=False) - 0.5) * 1.2 + 0.5
+    g = torch.Generator(device=dev).manual_seed(levels + log2_t)
+    if case == "uniform":
+        x = torch.rand((2**18, 3), generator=g, device=dev) * 1.2 - 0.1
+    res = HashGridEncoder(n_levels=levels, log2_hashmap_size=log2_t).resolutions
+    cot = torch.randn((x.shape[0], 2 * levels), generator=g, device=dev)
+    shape = (levels, 1 << log2_t, 2)
+    first = hash_encode_backward(x, cot, shape, res)
+    assert _bits_equal(first, hash_encode_backward(x, cot, shape, res))
+    assert _bits_equal(first, hash_encode_backward_plain(x, cot, shape, res))
 
 
 def _refresh_order_x(dev, cells, seed):
@@ -702,6 +785,7 @@ def test_hash_table_gradient_keeps_nan_and_sums_a_cell_of_many(dev):
     g_table = hash_encode_backward(x, cot, (2, 1024, 2), res)
     ref = hash_encode_backward_plain(x, cot, (2, 1024, 2), res)
     assert torch.equal(g_table.isnan(), ref.isnan())
+    assert _bits_equal(g_table, ref)
 
 
 def test_hash_encode_carries_the_table_gradient_on_the_card(dev):
