@@ -29,7 +29,9 @@ It builds the CUDA kernels from ``nerfacc_tpu_torch/csrc`` and runs:
    rows as the library's gather and scatter stages, and both again on the
    NGP train step's sample positions in ray order, G6 also on the dense
    refresh's 2^21 points in cell order (G6 bitwise at each, G7 bitwise its
-   plain version over two calls and within 1e-6 of the exact sum);
+   plain version over two calls and within 1e-6 of the exact sum, with its
+   operations counted by replay: bulk reductions, 64-bit atomics, adds in
+   shared memory);
 2. the serving slice: ``NGPOccTrainer`` with the full-width
    ``CPRadianceField`` (resolutions 32/128/512, rank 32, bf16), parameters
    from seed 42, four dense refreshes of the 128^3 occupancy grid, then
@@ -230,7 +232,8 @@ It builds the CUDA kernels from ``nerfacc_tpu_torch/csrc`` and runs:
     K-Planes of 23b, BARF of 26 and the quick start's loop of 19): every
     parameter, the Adam moments, the occupancy grid and every step's loss
     must be equal bit for bit, else the first leaf and step that differ
-    are named.
+    are named; each path's SHA-256 of them is printed
+    (``scripts/tree_phases.py digest`` prints it for another tree).
 
 Phase 6b classifies a ray by its sample set: the early-stop renderer's
 rounds against the ray's whole orbit, the same count and every bound
@@ -315,6 +318,7 @@ import argparse
 import contextlib
 import copy
 import dataclasses
+import hashlib
 import importlib
 import json
 import math
@@ -1116,6 +1120,14 @@ def phase_kernels(dev, trainer, state, ds):
     return report
 
 
+def g7_operations(x, resolutions, table_size):
+    """G7's operations on ``x`` by its replay, as one phrase."""
+    ops = port_module("ops.hash_encode").hash_bwd_operations(x, resolutions, table_size)
+    return (f"{ops['bulk_32'] + ops['bulk_16'] + ops['atomics']} global operations by replay "
+            f"({ops['bulk_32']} 32-byte and {ops['bulk_16']} 16-byte bulk reductions, "
+            f"{ops['atomics']} 64-bit atomics; {ops['shared']} adds in shared memory)")
+
+
 def exact_table_grad(x, cot, table_shape, resolutions):
     """G7's function summed exactly enough (f64) from the f32 products
     ``w_c * cot`` it adds."""
@@ -1236,7 +1248,8 @@ def phase_hash_kernels(dev):
           f"twin {r['plain_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms; index_add_ on "
           f"the precomputed rows and updates (scatter stage only) "
           f"{r['library_ms']:.4f} ms, alone "
-          f"{device_ms(lambda: acc.index_add_(0, rows.reshape(-1), upd)):.4f} ms")
+          f"{device_ms(lambda: acc.index_add_(0, rows.reshape(-1), upd)):.4f} ms; "
+          f"{g7_operations(x, res, T)}")
 
     # G7 on the NGP train step's positions in ray order: a train batch of
     # G2_TRAIN_RAYS rays at the trainer's near planes, marched on the
@@ -1287,7 +1300,8 @@ def phase_hash_kernels(dev):
           f"{cuda_ms(lambda: hash_encode_backward(x_ray, cot_ray, (L, T, 2), res)):.4f} ms, "
           f"alone "
           f"{device_ms(lambda: hash_encode_backward(x_ray, cot_ray, (L, T, 2), res)):.4f} ms, "
-          f"bound {bound_ms(nbytes(x_ray, cot_ray, out), 0):.4f} ms")
+          f"bound {bound_ms(nbytes(x_ray, cot_ray, out), 0):.4f} ms; "
+          f"{g7_operations(x_ray, res, T)}")
 
     # G6 and G7 at the proposal field's shape (NGPDensityField: 5 levels,
     # one more than a multiple of G6's group of 4, T = 2^17; phase 20) on
@@ -1330,7 +1344,8 @@ def phase_hash_kernels(dev):
               f"{err / scale:.3g} of the largest entry from the exact sum, kernel "
               f"{bwd['ms']:.4f} ms, alone "
               f"{device_ms(lambda: hash_encode_backward(xs, cot, (L, T, 2), res)):.4f} ms, "
-              f"plain {bwd['plain_ms']:.4f} ms, bound {bwd['bound_ms']:.4f} ms")
+              f"plain {bwd['plain_ms']:.4f} ms, bound {bwd['bound_ms']:.4f} ms; "
+              f"{g7_operations(xs, res, T)}")
     return report
 
 
@@ -1539,6 +1554,18 @@ def same_bits(a, b):
         return False
     return torch.equal(a.reshape(-1).contiguous().view(torch.uint8),
                        b.reshape(-1).contiguous().view(torch.uint8))
+
+
+def repeat_digest(leaves, losses):
+    """SHA-256 of a phase-31 run: each leaf's name, dtype, shape and bytes
+    in ``leaves``' order (parameters, Adam moments, occupancy grid), then
+    the losses' bytes."""
+    h = hashlib.sha256()
+    for name, v in list(leaves.items()) + [("losses", losses)]:
+        v = v.detach().contiguous().cpu()
+        h.update(f"{name} {v.dtype} {tuple(v.shape)}".encode())
+        h.update(v.reshape(-1).view(torch.uint8).numpy().tobytes())
+    return h.hexdigest()
 
 
 def with_outside(g, idx, low, high):
@@ -4736,6 +4763,8 @@ def phase_repeat(dev):
         step = next((i for i in range(losses.shape[0])
                      if not same_bits(losses[i], losses2[i])), None)
         entries = sum(v.numel() for v in leaves.values())
+        print(f"repeat {name} sha256 {repeat_digest(leaves, losses)} (second run "
+              f"{repeat_digest(leaves2, losses2)})")
         print(f"repeat {name}: {REPEAT_STEPS} steps twice in {time.perf_counter() - t0:.1f} s; "
               f"{len(leaves)} leaves ({entries} entries: parameters, Adam moments, grid) and "
               f"{losses.shape[0]} steps' losses bit for bit: {leaf is None and step is None} "

@@ -23,8 +23,8 @@
 // corners dx-major (c = 4 dx + 2 dy + dz).  No position gradient: the contract
 // of the TPU kernel's path; sample positions carry none.
 //
-// Bound on this card: random 8-byte row gathers (G6) and random 8-byte atomic
-// adds (G7).  At the field's shape (2^18 samples, 16 levels, T = 2^19) a call
+// Bound on this card: random 8-byte row gathers (G6) and random atomic adds
+// (G7).  At the field's shape (2^18 samples, 16 levels, T = 2^19) a call
 // touches 2^25 corner rows spread over a 64 MiB table: each costs a 32-byte
 // sector of which 8 bytes are used, and the table exceeds the 50 MB L2.  The
 // bytes the function itself must move (x, the output or cotangent, the table
@@ -50,41 +50,66 @@
 // groups of two and of one levels were slower (more passes over x, sectors
 // written in pieces), as were one thread a sample looping over its group's
 // levels, level 0 gathered into shared memory, and loads that skip L1.
-// G7: level-major, with merged updates, summed in fixed point.  Each term
-// w_c * cot becomes the int64 round(w_c * (cot * 2^k)), with one scale 2^k
-// a launch (ops/ordered_sums.py): a first pass takes the largest finite
-// |cot| (atomicMax on its bits), w_c <= 1 bounds every term by it, and 2^k
-// puts that bound times eight times the sample count (every corner of every
-// sample on one row) below 2^62.  Integer sums do not depend on their
-// order, so two calls give the same bits and the kernel equals its plain
-// version (ops/hash_encode.py::hash_encode_backward_plain) bit for bit.  A
-// +-inf or NaN term is kept apart, as flags per entry, and the entry comes
-// out as an f64 sum of its terms would; a last pass writes each entry as
-// f32(f64(sum) * 2^-k), or its flagged value.  The sums go to a zeroed
-// int64 twin of the table (128 MiB at the field's shape).  Its parent
-// design summed f32 with float4 and float2 atomics, whose order varied from
-// run to run.  Here:
-// - a block takes kBwdSamples consecutive samples at one level, and the
-//   blocks are numbered level-major, so the blocks resident at once share one
-//   or a few levels' slices, which stay in L2;
-// - a warp holds 32 consecutive samples at one level.  In the ray order of a
-//   train step neighbouring samples share corner rows at the coarse and
-//   middle levels: per corner, each run of equal rows on neighbouring lanes
-//   is summed by a segmented shuffle scan (as many steps as the longest run
-//   needs, none where no two neighbours agree) and issues one 64-bit atomic
-//   a feature;
+// G7: summed in fixed point by bulk reductions, one persistent launch.  The
+// contract: each term w_c * cot becomes the int64 round(w_c * (cot * 2^k)),
+// with one scale 2^k a call (ops/ordered_sums.py): a first pass takes the
+// largest finite |cot| (atomicMax on its bits), w_c <= 1 bounds every term
+// by it, and 2^k puts that bound times eight times the sample count below
+// 2^62.  Integer sums do not depend on their order, so two calls give the
+// same bits and the kernel equals its plain version
+// (ops/hash_encode.py::hash_encode_backward_plain) bit for bit.  A +-inf or
+// NaN term is kept apart, as flags per entry, and the entry comes out as an
+// f64 sum of its terms would; each entry is written as f32(f64(sum) *
+// 2^-k), or its flagged value.
+//
+// What bounds it on this card: operations, not bytes.  At the field's
+// shape a call adds 2^18 x 16 x 8 x 2 = 67M int64 terms at random
+// rows.  There is no 64-bit vector atomic; 64-bit reductions into an
+// L2-resident table retire ~88 G a second, whatever their width, and
+// 17 G a second once the table spills to DRAM (scripts/atomics_probe.py on
+// an H100, 700 W).  The tensor memory accelerator's bulk
+// reduction (cp.reduce.async.bulk .add.u64) adds a whole 16- or 32-byte
+// record as one operation, 56-57 G a second into an L2-resident table; but
+// its operands go through uniform registers, one lane at a time (~9
+// instructions of the warp a record), and each block waits for its records
+// to be read before it reuses their shared memory: at ~36 G records a
+// second this design is bound by their issue.  Adds into another
+// block's shared memory across a cluster (distributed shared memory)
+// retire 37-47 G a second at 8-16 blocks: no better than the L2's, so the
+// design keeps the rows in the L2, not on the chip.  Here:
+// - the x prime is 1, so a cell with even x index has its corners dx = 0, 1
+//   on one row pair (2 m, 2 m + 1): their four sums are one 32-byte record;
+//   an odd cell's two rows are two 16-byte records (add_records).  Runs of
+//   equal records on neighbouring lanes (ray order) are merged by a
+//   segmented shuffle scan first.  ~6 reductions a sample and level, where
+//   the parent design took 16 64-bit atomics;
 // - a level whose cube of corner cells, (res + 1)^3 int64 pairs, fits
 //   kStageBytes (res 16: 4,913 cells, 78,608 bytes) is summed in shared
-//   memory, indexed by the unhashed cell; at the end each nonzero cell goes
-//   to its hashed row with one atomic a feature (cells that hash to one row
-//   still add there).  A corner outside the cube (x is not clamped) goes
-//   straight to the global atomics.
-// There are no 64-bit vector atomics, so where the parent design took one
-// float4 atomic for the two corners of a row pair (6 a sample on average),
-// this one takes one a feature and corner (16 a sample, fewer where runs
-// merge).  What bounds it is the count of atomics the L2 retires (60-65 G a
-// second on an H100 at the field's shape for the parent design, PERF.md),
-// not bytes.
+//   memory, indexed by the unhashed cell, with split 32-bit adds; each item
+//   (kStagedItems times the samples of another level's) writes its nonzero
+//   cells to their hashed rows by 64-bit atomics (a corner outside the cube
+//   goes straight to them);
+// - the sums live in min(L, kMaxSlots) level slots, not in an int64 twin of
+//   the whole table: persistent blocks take items in order (zero a level's
+//   slot, add its samples, write its f32 gradient), so a slot is zeroed
+//   just before its level's reductions and read soon after, mostly in L2,
+//   and the parent's 128 MiB memset and separate conversion pass go.
+// Timed on an H100, 700 W (device ms at N = 2^18 uniform, the NGP train
+// step's ray order, and L = 5, T = 2^17 at N = 2^19 and 2^20 in ray order;
+// scripts/time_kernels.py G7; PERF.md): the parent (64-bit atomics
+// into an int64 twin) 1.26 / 0.82 / 0.34 / 0.45; this design 0.70 / 0.60 /
+// 0.27 / 0.41.  Variants timed on the way: these records into the twin
+// with a separate conversion 0.82 / 0.61 / 0.25 / 0.38; an odd cell's rows
+// as 64-bit atomics 0.93 / 0.67 / 0.24 / 0.41 (more L2 operations); the
+// res-16 level not staged, three blocks an SM 0.93 / 0.67 / 0.25 / 0.34;
+// three slots reused in turn 0.78 / 0.65 / 0.28 / 0.43 (levels wait on
+// each other); sum items of 1024, 2048, 4096, 8192 samples 0.83-0.85,
+// 0.70, 0.80, 1.01 uniform and 0.44, 0.42, 0.41, 0.42 at N = 2^20; each
+// lane waiting for its records to be read only at its first store 0.72 /
+// 0.62 / 0.29 / 0.44; a 32-byte record for any two neighbouring rows (a
+// third of the odd cells too: 11% fewer reductions) 0.70 / 0.60 / 0.29 /
+// 0.42; a staged item writing out only the cells it touched 0.71 / 0.60 /
+// 0.28 / 0.41.  None of these was kept.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -201,13 +226,30 @@ __device__ __forceinline__ void add_from(longlong2& v, int d, bool take) {
   }
 }
 
+// G7's record for one bulk reduction: the int64 sums of a row pair (2m,
+// 2m + 1), both features of row 2m then of row 2m + 1 (32 bytes), or of
+// one row in v[0..1] (16 bytes).
+struct Rec {
+  long long v[4];
+};
+
+__device__ __forceinline__ void add_from(Rec& r, int d, bool take) {
+  long long p[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) p[i] = __shfl_down_sync(kFull, r.v[i], d);
+  if (take) {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) r.v[i] += p[i];
+  }
+}
+
 // Sums v over each run of equal `key` on neighbouring lanes of the warp
 // (`valid` lanes only; every lane must call it).  Returns true on the lane
 // that starts a run, which then holds the run's sum in v: a segmented
 // suffix scan, step d adding lane + d's partial where lanes lane + 1 ..
 // lane + d continue the run, for as many steps as the longest run needs.
-__device__ __forceinline__ bool merge_run(uint32_t key, longlong2& v, unsigned valid,
-                                          int lane) {
+template <class V>
+__device__ __forceinline__ bool merge_run(uint32_t key, V& v, unsigned valid, int lane) {
   const uint32_t prev = __shfl_up_sync(kFull, key, 1);
   // a lane that is not valid, or follows one, starts a run
   const unsigned heads =
@@ -257,55 +299,240 @@ __device__ __forceinline__ void shared_add(long long* p, long long v) {
   atomicAdd(w + 1, hi + (old + lo < old ? 1u : 0u));
 }
 
-constexpr int kBwdThreads = 512;    // G7
-constexpr int kBwdSamples = 4096;   // consecutive samples a G7 block takes
+constexpr int kBwdThreads = 512;   // G7
+constexpr int kMaxItemSamples = 16384;  // samples of one level a sum item may take
+constexpr int kConvRows = 16384;   // table rows a zero or a write item takes
 // Shared memory a G7 block may stage a level's cube of corner cells in, as
 // int64 pairs: res 16 (4,913 cells, 78,608 bytes) fits.
 constexpr int kStageBytes = 80 * 1024;
+// G7's records in shared memory: four a thread, one a (dy, dz) corner pair
+constexpr int kSlotBytes = kBwdThreads * 4 * (int)sizeof(Rec);
+// An item either stages a cube or keeps records: they share the memory
+constexpr int kBwdSmem = kSlotBytes > kStageBytes ? kSlotBytes : kStageBytes;
 
-// Block b takes samples kBwdSamples * (b % blocks_per_level) onwards at level
-// b / blocks_per_level; kStageBytes of dynamic shared memory hold the cube
-// where the level's fits.  sums: the (L * 2^log2T, 2) int64 twin of the
-// table.
-__global__ void __launch_bounds__(kBwdThreads) hash_bwd_kernel(
-    const float* __restrict__ x, const float2* __restrict__ cot,
-    const float* __restrict__ res, unsigned long long* __restrict__ sums,
-    unsigned* __restrict__ flags, const unsigned* __restrict__ maxima, int64_t n,
-    int L, int log2T, int blocks_per_level, int bits) {
-  extern __shared__ longlong2 cube[];
-  const int l = blockIdx.x / blocks_per_level;
-  const int64_t first = (int64_t)(blockIdx.x - l * blocks_per_level) * kBwdSamples;
-  const int lane = threadIdx.x & 31;
-  const float scale = __int_as_float((127 + scale_exp(maxima, bits)) << 23);  // 2^k
-  // corner cells 0 .. res of the points in [0, 1)^3, per axis
+// One bulk reduction of `bytes` (16 or 32) from shared memory at src into
+// the int64 words at dst, by the tensor memory accelerator.
+__device__ __forceinline__ void bulk_add(unsigned long long* dst, const Rec* src,
+                                         unsigned bytes) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(src);
+  asm volatile(
+      "cp.reduce.async.bulk.global.shared::cta.bulk_group.add.u64 [%0], [%1], %2;" ::"l"(dst),
+      "r"(s), "r"(bytes)
+      : "memory");
+}
+
+// One sample's terms at a level that is not staged, into the level's slot
+// `sums` (rows local to the level; `base` the level's first flat row): for
+// each pair of corners dx = 0, 1 (same dy, dz), a cell with even x index
+// puts both on one row pair (the x prime is 1), one 32-byte record; an odd
+// one puts them on two rows, two 16-byte records.  Runs of equal records
+// on neighbouring lanes are merged, and each run's sum is one bulk
+// reduction.
+__device__ __forceinline__ void add_records(const Corners& c, float2 g, bool pairs,
+                                            unsigned valid, int lane, uint32_t base,
+                                            Rec* slot, unsigned long long* sums,
+                                            unsigned* flags) {
+  // the bulk reductions of the last sample have read this thread's records
+  asm volatile("cp.async.bulk.wait_group.read 0;" ::: "memory");
+  const bool paired = pairs && !(c.i0[0] & 1);
+  const unsigned odd = __ballot_sync(kFull, !paired) & valid;
+  unsigned issue = 0;
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    const uint32_t r0 = c.row[k] - base, r1 = c.row[k + 4] - base;
+    const int64_t e0 = 2 * (int64_t)r0, e1 = 2 * (int64_t)r1;
+    const long long t0x = fixed_term(__fmul_rn(c.w[k], g.x), flags, e0);
+    const long long t0y = fixed_term(__fmul_rn(c.w[k], g.y), flags, e0 + 1);
+    const long long t1x = fixed_term(__fmul_rn(c.w[k + 4], g.x), flags, e1);
+    const long long t1y = fixed_term(__fmul_rn(c.w[k + 4], g.y), flags, e1 + 1);
+    Rec a;
+    uint32_t key;  // a pair's with bit 31 set, a row's below 2^31
+    if (paired) {
+      const bool hi = r0 & 1u;
+      a.v[0] = hi ? t1x : t0x;
+      a.v[1] = hi ? t1y : t0y;
+      a.v[2] = hi ? t0x : t1x;
+      a.v[3] = hi ? t0y : t1y;
+      key = 0x80000000u | (r0 >> 1);
+    } else {
+      a.v[0] = t0x;
+      a.v[1] = t0y;
+      a.v[2] = 0;
+      a.v[3] = 0;
+      key = r0;
+    }
+    if (merge_run(key, a, valid, lane) && (a.v[0] | a.v[1] | a.v[2] | a.v[3]) != 0) {
+      slot[k] = a;
+      issue |= 1u << (2 * k);
+    }
+    if (odd != 0) {  // warp-uniform
+      longlong2 b = make_longlong2(t1x, t1y);
+      if (merge_run(r1, b, odd, lane) && (b.x | b.y) != 0) {
+        slot[k].v[2] = b.x;
+        slot[k].v[3] = b.y;
+        issue |= 2u << (2 * k);
+      }
+    }
+  }
+  if (issue == 0) return;
+  asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    const uint32_t r0 = c.row[k] - base, r1 = c.row[k + 4] - base;
+    if ((issue >> (2 * k)) & 1u)
+      bulk_add(sums + 2 * (int64_t)(paired ? r0 & ~1u : r0), slot + k, paired ? 32u : 16u);
+    if ((issue >> (2 * k + 1)) & 1u)
+      bulk_add(sums + 2 * (int64_t)r1, reinterpret_cast<const Rec*>(&slot[k].v[2]), 16u);
+  }
+  asm volatile("cp.async.bulk.commit_group;" ::: "memory");
+}
+
+// The inputs of one launch.  Its items, taken in order by the persistent
+// blocks: a zero item zeroes kConvRows rows of a level's slot of int64 sums
+// and their flags; a sum item adds `item_samples` samples' terms at one level
+// into the slot; a write item writes kConvRows rows of the level's gradient
+// from the slot.  Level l takes slot l % slots, slots = min(L, kMaxSlots).
+// The order is by stages s = 0 .. L + kLag - 1: the zero and the sum items
+// of level s (s < L), then the write items of level s - kLag (s >= kLag).
+// A zero item of level l waits for the write items of level l - slots
+// (taken at stage l - slots + kLag < l: slots > kLag wherever a slot is
+// reused), a sum item for the zero items of its level, a write item for
+// its level's zero and sum items: every wait is on items taken before it,
+// so the launch cannot deadlock.  A slot is zeroed just before its level's
+// sums and read soon after them, mostly in L2.
+constexpr int kMaxSlots = 8;
+constexpr int kLag = 2;
+
+struct BwdArgs {
+  const float* x;
+  const float2* cot;
+  const float* res;
+  float* g_table;
+  unsigned long long* sums;  // `slots` slots of 2 Tp int64, Tp = max(T, 2)
+  unsigned* flags;           // `slots` slots of 2 Tp flag bytes
+  unsigned* head;            // [0] largest |cot| bits, [1] next item, then 3 L counts
+  int64_t n;
+  int L, log2T, bits, slots;
+  int item_samples;  // samples a sum item takes, a multiple of kBwdThreads; 4x at a staged level
+  int row_items;     // a level's zero items, and its write items
+};
+
+// Whether level l's cube of corner cells, (res + 1)^3 int64 pairs, fits
+// kStageBytes: its sum items add into the cube in shared memory.
+__device__ __forceinline__ bool staged_level(const float* res, int l) {
   const int dim = (int)res[l] + 1;
-  const bool staged =
-      dim >= 1 && (int64_t)dim * dim * dim * (int64_t)sizeof(longlong2) <= kStageBytes;
+  return dim >= 1 && dim <= 64 && dim * dim * dim * (int)sizeof(longlong2) <= kStageBytes;
+}
+
+// The samples of one of level l's sum items: a staged level's items take
+// kStagedItems times as many, as each zeroes and writes out its cube.
+constexpr int kStagedItems = 4;
+__device__ __forceinline__ int level_samples(const BwdArgs& p, int l) {
+  return staged_level(p.res, l) ? min(kStagedItems * p.item_samples, kMaxItemSamples)
+                                : p.item_samples;
+}
+
+__device__ __forceinline__ int sum_items(const BwdArgs& p, int l) {
+  const int s = level_samples(p, l);
+  return (int)((p.n + s - 1) / s);
+}
+
+enum Kind { kZero, kSum, kWrite };
+
+__device__ __forceinline__ void decode(const BwdArgs& p, int i, Kind& kind, int& l,
+                                       int& chunk) {
+  const int z = p.row_items, c = p.row_items;
+  kind = kWrite, l = 0, chunk = 0;
+  for (int s = 0; s < p.L + kLag; ++s) {
+    if (s < p.L) {
+      const int a = sum_items(p, s);
+      if (i < z) {
+        kind = kZero, l = s, chunk = i;
+        return;
+      }
+      i -= z;
+      if (i < a) {
+        kind = kSum, l = s, chunk = i;
+        return;
+      }
+      i -= a;
+    }
+    if (s >= kLag) {
+      if (i < c) {
+        kind = kWrite, l = s - kLag, chunk = i;
+        return;
+      }
+      i -= c;
+    }
+  }
+}
+
+// Thread 0 waits until *count reaches target, then the block goes on.
+__device__ __forceinline__ void wait_count(const unsigned* count, unsigned target) {
+  if (threadIdx.x == 0) {
+    while (true) {
+      unsigned v;
+      asm volatile("ld.acquire.gpu.global.u32 %0, [%1];" : "=r"(v) : "l"(count) : "memory");
+      if (v >= target) break;
+      __nanosleep(64);
+    }
+  }
+  __syncthreads();
+}
+
+// Every thread's writes made visible, then one more item counted done.
+__device__ __forceinline__ void count_done(unsigned* count) {
+  __threadfence();
+  __syncthreads();
+  if (threadIdx.x == 0) atomicAdd(count, 1u);
+}
+
+// A sum item: samples chunk * item_samples onwards at level l, into slot
+// `sums` with its flags.  A staged level sums into the cube, which the item
+// zeroes first (the records of other items share its memory) and writes
+// out at its end.
+__device__ void sum_item(const BwdArgs& p, int l, int chunk, unsigned char* smem,
+                         unsigned long long* sums, unsigned* flags, float scale) {
+  const int samples = level_samples(p, l);
+  const int64_t first = (int64_t)chunk * samples;
+  const int lane = threadIdx.x & 31;
+  const uint32_t base = (uint32_t)l << p.log2T;
+  // corner cells 0 .. res of the points in [0, 1)^3, per axis
+  const int dim = (int)p.res[l] + 1;
+  const bool staged = staged_level(p.res, l);
+  longlong2* cube = reinterpret_cast<longlong2*>(smem);
   const int cells = staged ? dim * dim * dim : 0;
   for (int i = threadIdx.x; i < cells; i += kBwdThreads) cube[i] = make_longlong2(0, 0);
   if (staged) __syncthreads();
-
-  for (int it = 0; it < kBwdSamples / kBwdThreads; ++it) {
+  Rec* slot = reinterpret_cast<Rec*>(smem) + 4 * threadIdx.x;
+  for (int it = 0; it < samples / kBwdThreads; ++it) {
     const int64_t s = first + it * kBwdThreads + threadIdx.x;
-    const unsigned valid = __ballot_sync(kFull, s < n);
+    const unsigned valid = __ballot_sync(kFull, s < p.n);
     if (valid == 0) break;  // warp-uniform: later samples lie past n too
-    Corners c = {};
+    Corners c;
     float2 g = make_float2(0.0f, 0.0f);
-    if (s < n) {
-      c = corners(x, res, s, l, log2T);
-      g = cot[s * L + l];
+    if (s < p.n) {
+      c = corners(p.x, p.res, s, l, p.log2T);
+      g = p.cot[s * p.L + l];
       g = make_float2(__fmul_rn(g.x, scale), __fmul_rn(g.y, scale));
+    } else {
+      c = Corners{};
+      for (int k = 0; k < 8; ++k) c.row[k] = base;
+    }
+    if (!staged) {
+      add_records(c, g, p.log2T > 0, valid, lane, base, slot, sums, flags);
+      continue;
     }
 #pragma unroll
     for (int k = 0; k < 8; ++k) {
-      const int64_t e = 2 * (int64_t)c.row[k];
+      const int64_t e = 2 * (int64_t)(c.row[k] - base);
       longlong2 v;
       v.x = fixed_term(__fmul_rn(c.w[k], g.x), flags, e);
       v.y = fixed_term(__fmul_rn(c.w[k], g.y), flags, e + 1);
       if (!merge_run(c.row[k], v, valid, lane)) continue;
       const int cx = c.i0[0] + ((k >> 2) & 1), cy = c.i0[1] + ((k >> 1) & 1),
                 cz = c.i0[2] + (k & 1);
-      if (staged && (unsigned)cx < (unsigned)dim && (unsigned)cy < (unsigned)dim &&
+      if ((unsigned)cx < (unsigned)dim && (unsigned)cy < (unsigned)dim &&
           (unsigned)cz < (unsigned)dim) {
         long long* cell = reinterpret_cast<long long*>(cube + ((cx * dim) + cy) * dim + cz);
         shared_add(cell, v.x);
@@ -315,13 +542,104 @@ __global__ void __launch_bounds__(kBwdThreads) hash_bwd_kernel(
       }
     }
   }
-  if (!staged) return;
-  __syncthreads();
-  const uint32_t mask = (1u << log2T) - 1u;
-  const uint32_t base = (uint32_t)l << log2T;
-  for (int i = threadIdx.x; i < cells; i += kBwdThreads) {
-    const int cz = i % dim, cy = (i / dim) % dim, cx = i / (dim * dim);
-    add_pair(sums + 2 * (int64_t)(base + (spatial_hash(cx, cy, cz) & mask)), cube[i]);
+  if (staged) {
+    // each nonzero cell to its hashed row (cells that hash to one row still add there)
+    __syncthreads();
+    const uint32_t mask = (1u << p.log2T) - 1u;
+    for (int i = threadIdx.x; i < cells; i += kBwdThreads) {
+      const int cz = i % dim, cy = (i / dim) % dim, cx = i / (dim * dim);
+      add_pair(sums + 2 * (int64_t)(spatial_hash(cx, cy, cz) & mask), cube[i]);
+    }
+  }
+  // every reduction done (and this block's records read) before the count
+  asm volatile("cp.async.bulk.wait_group 0;" ::: "memory");
+  asm volatile("fence.proxy.async.global;" ::: "memory");
+}
+
+__device__ __forceinline__ float from_fixed(long long s, unsigned f, double unit) {
+  if (f == 0u) return __double2float_rn(__dmul_rn(__ll2double_rn(s), unit));
+  return (f & 4u) || (f & 3u) == 3u ? __int_as_float(0x7fc00000)
+                                    : ((f & 1u) ? INFINITY : -INFINITY);
+}
+
+// A write item: rows chunk * kConvRows onwards of level l, g = f32(f64(sum) *
+// 2^-k) or the value its flags give, two rows a thread.  The slot is read
+// past L1, which may hold lines of its earlier levels.
+__device__ void write_item(const BwdArgs& p, int l, int chunk, longlong2* sums,
+                           unsigned* flags, double unit) {
+  const int64_t T = int64_t(1) << p.log2T;
+  const int64_t row0 = (int64_t)chunk * kConvRows;
+  const int64_t rows = min((int64_t)kConvRows, T - row0);
+  float* g = p.g_table + 2 * ((int64_t)l * T + row0);
+  for (int64_t i = threadIdx.x; 2 * i < rows; i += kBwdThreads) {
+    const int64_t r = row0 + 2 * i;
+    const longlong2 s0 = __ldcg(sums + r), s1 = __ldcg(sums + r + 1);
+    const unsigned f = __ldcg(flags + r / 2);  // the four entries' bytes
+    const float a = from_fixed(s0.x, f & 0xffu, unit), b = from_fixed(s0.y, (f >> 8) & 0xffu, unit);
+    if (2 * i + 1 < rows) {
+      const float c = from_fixed(s1.x, (f >> 16) & 0xffu, unit);
+      const float d = from_fixed(s1.y, f >> 24, unit);
+      reinterpret_cast<float4*>(g)[i] = make_float4(a, b, c, d);
+    } else {
+      reinterpret_cast<float2*>(g)[2 * i] = make_float2(a, b);
+    }
+  }
+}
+
+// A zero item: rows chunk * kConvRows onwards of a slot, and their flags.
+__device__ void zero_item(const BwdArgs& p, int chunk, longlong2* sums, unsigned* flags) {
+  const int64_t Tp = int64_t(2) << max(p.log2T - 1, 0);
+  const int64_t row0 = (int64_t)chunk * kConvRows;
+  const int64_t rows = min((int64_t)kConvRows, Tp - row0);
+  for (int64_t i = threadIdx.x; 2 * i < rows; i += kBwdThreads) {
+    const int64_t r = row0 + 2 * i;
+    __stcg(sums + r, make_longlong2(0, 0));
+    __stcg(sums + r + 1, make_longlong2(0, 0));
+    __stcg(flags + r / 2, 0u);
+  }
+}
+
+// G7's persistent blocks: take items in order until none is left.
+__global__ void __launch_bounds__(kBwdThreads, 2) hash_bwd_kernel(BwdArgs p) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  __shared__ int next;
+  int items = 0;
+  for (int l = 0; l < p.L; ++l) items += sum_items(p, l) + 2 * p.row_items;
+  unsigned* done_zero = p.head + 2;
+  unsigned* done_sum = done_zero + p.L;
+  unsigned* done_write = done_sum + p.L;
+  const int k = scale_exp(p.head, p.bits);
+  const float scale = __int_as_float((127 + k) << 23);                   // 2^k
+  const double unit = __longlong_as_double((long long)(1023 - k) << 52);  // 2^-k
+  const int64_t Tp = int64_t(2) << max(p.log2T - 1, 0);
+  while (true) {
+    if (threadIdx.x == 0) next = atomicAdd(p.head + 1, 1);
+    __syncthreads();
+    const int i = next;
+    __syncthreads();
+    if (i >= items) break;
+    Kind kind;
+    int l, chunk;
+    decode(p, i, kind, l, chunk);
+    unsigned long long* sums = p.sums + (l % p.slots) * 2 * Tp;
+    unsigned* flags = p.flags + (l % p.slots) * (Tp / 2);
+    if (kind == kZero) {
+      if (l >= p.slots) wait_count(done_write + l - p.slots, p.row_items);
+      zero_item(p, chunk, reinterpret_cast<longlong2*>(sums), flags);
+      count_done(done_zero + l);
+    } else if (kind == kSum) {
+      wait_count(done_zero + l, p.row_items);
+      // the slot's zeroes, written by other blocks, before this block's reductions
+      asm volatile("fence.proxy.async.global;" ::: "memory");
+      sum_item(p, l, chunk, smem, sums, flags, scale);
+      count_done(done_sum + l);
+    } else {
+      // with no sample, only the zero items come before
+      wait_count(done_zero + l, p.row_items);
+      wait_count(done_sum + l, sum_items(p, l));
+      write_item(p, l, chunk, reinterpret_cast<longlong2*>(sums), flags, unit);
+      count_done(done_write + l);
+    }
   }
 }
 
@@ -350,34 +668,25 @@ __device__ __forceinline__ unsigned finite_abs_max_bits(const float* __restrict_
   return __reduce_max_sync(kFull, m);
 }
 
-// The largest finite |cot| as bits, by atomicMax: the order of a maximum
-// does not change it.
+// The largest finite |cot| as bits, by one atomicMax a block (one a warp,
+// all on one address, took 20.8-21.3 us at the field's shape against
+// 16.8): the order of a maximum does not change it.
 __global__ void abs_max_kernel(const float* __restrict__ v, int64_t count,
                                unsigned* __restrict__ maxima) {
+  __shared__ unsigned warp_max[32];
   const unsigned m = finite_abs_max_bits(v, count);
-  if (threadIdx.x % 32 == 0 && m != 0u) atomicMax(maxima, m);
-}
-
-// g_table[e] = f32(f64(sums[e]) * 2^-k), or the value its flags give.
-__global__ void from_fixed_kernel(const long long* __restrict__ sums,
-                                  const unsigned* __restrict__ flags,
-                                  const unsigned* __restrict__ maxima,
-                                  float* __restrict__ g_table, int64_t entries,
-                                  int bits) {
-  const double unit = __longlong_as_double((long long)(1023 - scale_exp(maxima, bits)) << 52);
-  for (int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; i < entries;
-       i += (int64_t)gridDim.x * blockDim.x) {
-    const unsigned f = (flags[i / 4] >> (8 * (i % 4))) & 0xffu;
-    float v = __double2float_rn(__dmul_rn(__ll2double_rn(sums[i]), unit));
-    if (f != 0u)
-      v = (f & 4u) || (f & 3u) == 3u ? __int_as_float(0x7fc00000)
-                                     : ((f & 1u) ? INFINITY : -INFINITY);
-    g_table[i] = v;
+  if (threadIdx.x % 32 == 0) warp_max[threadIdx.x / 32] = m;
+  __syncthreads();
+  if (threadIdx.x < 32) {
+    const unsigned b = __reduce_max_sync(
+        kFull, threadIdx.x < blockDim.x / 32 ? warp_max[threadIdx.x] : 0u);
+    if (threadIdx.x == 0 && b != 0u) atomicMax(maxima, b);
   }
 }
 
-// The SM count and the opt-in for G7's staged cube, once per device.
-cudaError_t bwd_limits(int* sms) {
+// The SM count and G7's resident blocks an SM, once per device (with the
+// opt-in for its shared memory).
+cudaError_t bwd_limits(int* blocks) {
   constexpr int kMaxDevices = 64;
   static int cache[kMaxDevices];
   int dev = 0;
@@ -385,15 +694,19 @@ cudaError_t bwd_limits(int* sms) {
   if (err != cudaSuccess) return err;
   if (dev >= kMaxDevices) return cudaErrorInvalidDevice;
   if (cache[dev] == 0) {
-    int count = 0;
-    err = cudaDeviceGetAttribute(&count, cudaDevAttrMultiProcessorCount, dev);
+    int sms = 0, per_sm = 0;
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
     if (err == cudaSuccess)
       err = cudaFuncSetAttribute((const void*)hash_bwd_kernel,
-                                 cudaFuncAttributeMaxDynamicSharedMemorySize, kStageBytes);
+                                 cudaFuncAttributeMaxDynamicSharedMemorySize, kBwdSmem);
+    if (err == cudaSuccess)
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, hash_bwd_kernel,
+                                                          kBwdThreads, kBwdSmem);
     if (err != cudaSuccess) return err;
-    cache[dev] = count;
+    if (per_sm < 1) return cudaErrorInvalidConfiguration;
+    cache[dev] = sms * per_sm;
   }
-  *sms = cache[dev];
+  *blocks = cache[dev];
   return cudaSuccess;
 }
 
@@ -401,6 +714,17 @@ cudaError_t bwd_limits(int* sms) {
 bool shape_ok(int L, int log2T) {
   return L > 0 && log2T >= 0 && log2T <= 31 &&
          ((int64_t)L << log2T) <= (int64_t(1) << 32);
+}
+
+// G7's workspace in int64 words (ops/hash_encode.py::hash_bwd_workspace_words):
+// the head (2 + 3 L u32, in 32-byte units), then min(L, kMaxSlots) slots of
+// sums (2 Tp int64 each) and of flags (2 Tp bytes each), Tp = max(T, 2).
+int64_t bwd_head_words(int L) { return ((2 + 3 * (int64_t)L + 7) / 8) * 4; }
+
+int64_t bwd_workspace_words(int L, int log2T) {
+  const int64_t Tp = int64_t(2) << (log2T > 0 ? log2T - 1 : 0);
+  const int64_t slots = L < kMaxSlots ? L : kMaxSlots;
+  return bwd_head_words(L) + slots * 2 * Tp + (slots * 2 * Tp + 7) / 8;
 }
 
 }  // namespace
@@ -421,42 +745,55 @@ extern "C" int hash_fwd(const void* x, const void* table, const void* res,
   return (int)cudaGetLastError();
 }
 
-// x (n, 3) f32, cot (n, 2L) f32, res (L,) f32; g_table (L, 2^log2T, 2) f32
-// receives the gradient.  work: zeroed int64 words, 2 L 2^log2T for the
-// sums, (2 L 2^log2T + 7) / 8 for the flags (a byte an entry) and 1 for the
-// largest |cot|.
+// x (n, 3) f32, cot (n, 2L) f32, res (L,) f32; g_table (L, 2^log2T, 2) f32,
+// 16-byte aligned, receives the gradient.  work: work_words int64 words, at
+// least bwd_workspace_words(L, log2T), 32-byte aligned; its head is zeroed
+// here, its slots by the kernel.  item_samples: the samples of one level a
+// sum item takes (ops/hash_encode.py::hash_bwd_item_samples), a multiple of
+// kBwdThreads up to kMaxItemSamples.
 extern "C" int hash_bwd(const void* x, const void* cot, const void* res,
-                        void* g_table, void* work, int64_t n, int L, int log2T,
-                        void* stream) {
-  if (!shape_ok(L, log2T)) return (int)cudaErrorInvalidValue;
-  const int64_t per_level = (n + kBwdSamples - 1) / kBwdSamples;
-  if (per_level * L > 0x7fffffff) return (int)cudaErrorInvalidValue;
-  int sms = 0;
-  cudaError_t err = bwd_limits(&sms);
+                        void* g_table, void* work, int64_t work_words, int64_t n, int L,
+                        int log2T, int item_samples, void* stream) {
+  if (!shape_ok(L, log2T) || work_words < bwd_workspace_words(L, log2T) ||
+      (uintptr_t)work % 32 != 0 || (uintptr_t)g_table % 16 != 0 || item_samples <= 0 ||
+      item_samples % kBwdThreads != 0 || item_samples > kMaxItemSamples)
+    return (int)cudaErrorInvalidValue;
+  const int64_t Tp = int64_t(2) << (log2T > 0 ? log2T - 1 : 0);
+  const int64_t most_sum_items = (n + item_samples - 1) / item_samples;  // a level's, at most
+  const int64_t row_items = (Tp + kConvRows - 1) / kConvRows;
+  const int64_t items = (most_sum_items + 2 * row_items) * L;
+  if (items > 0x7fffffff) return (int)cudaErrorInvalidValue;
+  int resident = 0;
+  cudaError_t err = bwd_limits(&resident);
   if (err != cudaSuccess) return (int)err;
-  const int64_t entries = ((int64_t)L << log2T) * 2;
-  unsigned long long* sums = (unsigned long long*)work;
-  unsigned* flags = (unsigned*)(sums + entries);
-  unsigned* maxima = (unsigned*)(sums + entries + (entries + 7) / 8);
-  int bits = 1;  // the bit length of 8 n, plus one
-  for (int64_t c = 8 * n; c != 0; c >>= 1) ++bits;
   cudaStream_t st = (cudaStream_t)stream;
+  err = cudaMemsetAsync(work, 0, bwd_head_words(L) * 8, st);
+  if (err != cudaSuccess) return (int)err;
+  BwdArgs p;
+  p.x = (const float*)x;
+  p.cot = (const float2*)cot;
+  p.res = (const float*)res;
+  p.g_table = (float*)g_table;
+  p.head = (unsigned*)work;
+  p.slots = L < kMaxSlots ? L : kMaxSlots;
+  p.sums = (unsigned long long*)work + bwd_head_words(L);
+  p.flags = (unsigned*)(p.sums + p.slots * 2 * Tp);
+  p.n = n;
+  p.L = L;
+  p.log2T = log2T;
+  p.bits = 1;  // the bit length of 8 n, plus one
+  for (int64_t c = 8 * n; c != 0; c >>= 1) ++p.bits;
+  p.item_samples = item_samples;
+  p.row_items = (int)row_items;
   if (n > 0) {
     const int64_t count = n * 2 * L;
     int64_t blocks = (count + 255) / 256;
-    blocks = blocks < 8 * sms ? blocks : 8 * sms;
-    abs_max_kernel<<<(unsigned)blocks, 256, 0, st>>>((const float*)cot, count, maxima);
-    err = cudaGetLastError();
-    if (err != cudaSuccess) return (int)err;
-    hash_bwd_kernel<<<(unsigned)(per_level * L), kBwdThreads, kStageBytes, st>>>(
-        (const float*)x, (const float2*)cot, (const float*)res, sums, flags, maxima, n, L,
-        log2T, (int)per_level, bits);
+    blocks = blocks < 4 * resident ? blocks : 4 * resident;
+    abs_max_kernel<<<(unsigned)blocks, 256, 0, st>>>((const float*)cot, count, p.head);
     err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
   }
-  int64_t out_blocks = (entries + 255) / 256;
-  out_blocks = out_blocks < 16 * sms ? out_blocks : 16 * sms;
-  from_fixed_kernel<<<(unsigned)out_blocks, 256, 0, st>>>(
-      (const long long*)sums, flags, maxima, (float*)g_table, entries, bits);
+  const int grid = (int)(items < resident ? items : resident);
+  hash_bwd_kernel<<<grid, kBwdThreads, kBwdSmem, st>>>(p);
   return (int)cudaGetLastError();
 }

@@ -53,8 +53,8 @@ _SIGNATURES = {
     "composite_bwd": [_P] * 7 + [_I] + [_P] * 7,
     # (x, table, res, out, n, L, log2T, stream)
     "hash_fwd": [_P] * 4 + [ctypes.c_int64, _I, _I, _P],
-    # (x, cot, res, g_table, work, n, L, log2T, stream)
-    "hash_bwd": [_P] * 5 + [ctypes.c_int64, _I, _I, _P],
+    # (x, cot, res, g_table, work, work_words, n, L, log2T, item_samples, stream)
+    "hash_bwd": [_P] * 5 + [ctypes.c_int64, ctypes.c_int64, _I, _I, _I, _P],
     # (x, line, out, n, R, rank, stream)
     "hat_fwd": [_P] * 3 + [ctypes.c_int64, _I, _I, _P],
     # (x, lines, prod, axes, n, R, rank, stream)

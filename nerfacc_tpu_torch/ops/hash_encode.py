@@ -154,6 +154,88 @@ def scale_exponent(cot: torch.Tensor) -> torch.Tensor:
     return ordered_sums.scale_exponent(e, 8 * cot.shape[0])
 
 
+# G7's blocking (csrc/hash_encode.cu): level l is summed into slot
+# l % min(L, BWD_MAX_SLOTS) of int64 sums by items of
+# hash_bwd_item_samples(n) samples; a level whose cube of corner cells,
+# (res + 1)^3 int64 pairs, fits BWD_STAGE_BYTES is staged in shared memory
+BWD_MAX_SLOTS = 8
+BWD_STAGE_BYTES = 80 * 1024
+
+
+def hash_bwd_item_samples(n: int) -> int:
+    """The samples of one level that one of G7's sum items takes (four
+    times as many at a level staged in shared memory): 2048, and 4096 from
+    2^20 samples on, where the items' fixed costs (the drain of the block's
+    reductions) weigh more than the balance of smaller items
+    (``scripts/time_kernels.py G7 --g7-item-samples``)."""
+    return 4096 if n >= 2**20 else 2048
+
+
+def hash_bwd_workspace_words(levels: int, table_size: int) -> int:
+    """Int64 words of G7's workspace for an (L, T, 2) table, whatever the
+    sample count: a head of counts (2 + 3 L u32, in 32-byte units), then
+    min(L, :data:`BWD_MAX_SLOTS`) level slots of sums (2 max(T, 2) int64
+    each) and of their non-finite flags (a byte an entry).  The kernel
+    refuses less."""
+    rows = max(int(table_size), 2)
+    slots = min(int(levels), BWD_MAX_SLOTS)
+    head = (2 + 3 * int(levels) + 7) // 8 * 4
+    return head + slots * 2 * rows + (slots * 2 * rows + 7) // 8
+
+
+def hash_bwd_operations(
+    x: torch.Tensor, resolutions: Sequence[int], table_size: int
+) -> Dict[str, int]:
+    """G7's operations on ``x``, counted by replaying its warps (32
+    consecutive samples) and items in PyTorch, on any device.  Keys:
+    ``bulk_32`` and ``bulk_16``, the bulk reductions of a level that is not
+    staged (a row pair's four sums, for the corners dx = 0, 1 of a cell
+    with even x index; one row's two, for each of an odd cell's);
+    ``atomics``, the 64-bit atomics of a staged level, one a feature (a
+    corner outside its cube, and each cell of the cube an item touched);
+    ``shared``, its adds into its cube, one a feature.  Runs of equal
+    records on neighbouring lanes count once; a sum of zero counts as if it
+    were not."""
+    T = int(table_size)
+    n = x.shape[0]
+    idx, _ = hash_corners_plain(x, resolutions, T)  # (n, L, 8), level-local rows
+    lane = torch.arange(n, device=x.device) % 32
+    # a staged level's sum items take four times the samples, up to 16384
+    item = torch.arange(n, device=x.device) // min(4 * hash_bwd_item_samples(n), 16384)
+    everyone = torch.ones(n, dtype=torch.bool, device=x.device)
+
+    def heads(key, valid):
+        """Valid lanes that start a run of equal keys among valid lanes."""
+        h = (lane == 0) | (key != torch.roll(key, 1)) | ~torch.roll(valid, 1)
+        return h & valid
+
+    counts = {"bulk_32": 0, "bulk_16": 0, "atomics": 0, "shared": 0}
+    for level, r in enumerate(resolutions):
+        i0 = torch.floor(x * x.new_tensor(float(r))).long()
+        dim = int(r) + 1
+        rows = idx[:, level]
+        if dim**3 * 16 <= BWD_STAGE_BYTES:
+            cells = []
+            for dx, dy, dz in _CORNERS:
+                k = 4 * dx + 2 * dy + dz
+                cell = i0 + torch.tensor([dx, dy, dz], device=x.device)
+                inside = ((cell >= 0) & (cell < dim)).all(-1)
+                h = heads(rows[:, k], everyone)
+                counts["shared"] += 2 * int((h & inside).sum())
+                counts["atomics"] += 2 * int((h & ~inside).sum())
+                flat = (cell[:, 0] * dim + cell[:, 1]) * dim + cell[:, 2]
+                cells.append((item * dim**3 + flat)[h & inside])
+            counts["atomics"] += 2 * int(torch.unique(torch.cat(cells)).numel())
+            continue
+        paired = (i0[:, 0] % 2 == 0) & (T > 1)
+        for k in range(4):
+            r0, r1 = rows[:, k], rows[:, k + 4]
+            h = heads(torch.where(paired, (1 << 31) | (r0 >> 1), r0), everyone)
+            counts["bulk_32"] += int((h & paired).sum())
+            counts["bulk_16"] += int((h & ~paired).sum()) + int(heads(r1, ~paired).sum())
+    return counts
+
+
 # per-level resolutions as f32 device tensors, made once per device: a copy
 # from host memory at every call would wait for the stream
 _RES: Dict[Tuple[Tuple[int, ...], torch.device], torch.Tensor] = {}
@@ -215,13 +297,13 @@ def hash_encode_backward(
     _check(x, table_shape, resolutions, cot.dtype, cot)
     x, cot = x.contiguous(), cot.contiguous()
     L, T, F = table_shape
-    entries = L * T * F
-    # the int64 twin of the table, a flag byte an entry, and the largest |cot|
-    work = torch.zeros(entries + (entries + 7) // 8 + 1, dtype=torch.int64, device=x.device)
+    # the kernel zeroes it: counts, and the level slots of int64 sums
+    work = torch.empty(hash_bwd_workspace_words(L, T), dtype=torch.int64, device=x.device)
     g = torch.empty((L, T, F), dtype=torch.float32, device=x.device)
     err = cuda.load().hash_bwd(
         cuda.ptr(x), cuda.ptr(cot), cuda.ptr(_resolutions(resolutions, x.device)),
-        cuda.ptr(g), cuda.ptr(work), x.shape[0], L, T.bit_length() - 1, cuda.stream_ptr(x),
+        cuda.ptr(g), cuda.ptr(work), work.numel(), x.shape[0], L, T.bit_length() - 1,
+        hash_bwd_item_samples(x.shape[0]), cuda.stream_ptr(x),
     )
     cuda.check(err, "hash_bwd")
     cuda.LAUNCHES["hash_bwd"] += 1

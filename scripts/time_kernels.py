@@ -4,7 +4,7 @@ paths give them.
 
 Run from the root of a checkout:
 
-    python3 scripts/time_kernels.py [G1 G2 G3 G4 G5 G6 G7 G8 G9 G10 G11 G12 G14] [--root DIR] [--label NAME] [--out build/time_kernels]
+    python3 scripts/time_kernels.py [G1 G2 G3 G4 G5 G6 G7 G8 G9 G10 G11 G12 G14] [--root DIR] [--label NAME] [--out build/time_kernels] [--g7-item-samples N ...]
 
 The positional arguments pick the kernels (all of these by default).
 ``--root`` names the tree whose ``nerfacc_tpu_torch`` is imported and built
@@ -82,8 +82,14 @@ The shapes:
   trainer's grid after four dense refreshes, cut at the 2^18 budget, the
   sample midpoints mapped to [0, 1]^3 as ``models/ngp.py::normalize_points``
   maps them; with each, the share of samples whose level-0 corner row
-  equals the previous sample's, and ``index_add_`` on the precomputed rows
-  and updates (the scatter stage alone).
+  equals the previous sample's, ``index_add_`` and ``index_put_(...,
+  accumulate=True)`` (sorted, the fixed-order PyTorch sum) on the
+  precomputed rows and updates (the scatter stage alone), the operations of
+  the tree's design by its own replay (``hash_bwd_operations``, where the
+  tree has it) and of the earlier designs, the allocator's peak bytes
+  during a call beyond its inputs (the gradient included), the device time
+  of each kernel of a call, and with ``--g7-item-samples N ...`` G7's
+  device time with its sum items of each size.
 - G9 (hat table gradient): TiNeuVox's levels (R, rank) = (32, 16), (128,
   16), (512, 32) at N = 2^16 and 2^18, uniform coordinates and a seeded
   cotangent; whether two calls give the same bits, and ``index_add_`` on
@@ -150,6 +156,7 @@ from torch.profiler import ProfilerActivity, profile
 AABB = [-1.5, -1.5, -1.5, 1.5, 1.5, 1.5]
 HBM_BYTES_PER_S = 3.35e12
 HAT_LEVELS = ((32, 16), (128, 16), (512, 32))
+G7_ITEM_SAMPLES = []  # --g7-item-samples
 HAT_X_SHAPES = ((2**18, 512, 32), (2**16, 32, 16), (2**16, 128, 16), (2**16, 512, 32))
 G8_SIZES = (2**16, 2**21)  # the TiNeuVox train step's budget; the refresh
 G8_AXIS_N = 2**18  # PERF.md's earlier G8 row
@@ -186,6 +193,23 @@ def device_ms(fn, reps=20):
             break
     us = sum(e.time_range.end - e.time_range.start for e in kernels)
     return us / reps / 1e3
+
+
+def device_ms_by_kernel(fn, reps=10):
+    """Mean device time of each kernel of one call, by name, from
+    torch.profiler."""
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    by = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            key = e.name[:60]
+            by[key] = by.get(key, 0.0) + (e.time_range.end - e.time_range.start) / reps / 1e3
+    return by
 
 
 def host_us(fn, reps=200):
@@ -787,8 +811,22 @@ def g8_rows(inp):
     yield from g8_level_rows(g)
 
 
+def peak_bytes(fn):
+    """Bytes the card's allocator holds at its peak during ``fn()`` beyond
+    what it held before (``fn``'s output included)."""
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    out = fn()
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - before
+    del out
+    return peak
+
+
 def g7_rows(inp):
     from nerfacc_tpu_torch.models.encoders import HashGridEncoder
+    from nerfacc_tpu_torch.ops import hash_encode as he
     from nerfacc_tpu_torch.ops.hash_encode import (
         hash_corners_plain,
         hash_encode_backward,
@@ -811,9 +849,18 @@ def g7_rows(inp):
     prop = HashGridEncoder(n_levels=5, log2_hashmap_size=17, max_resolution=128)
     cases += [(name, x, prop.n_levels, prop.table_size, prop.resolutions)
               for name, x in prop_hash_points(inp).items()]
+    sizes = G7_ITEM_SAMPLES if hasattr(he, "hash_bwd_item_samples") else []
     for name, x, L, T, res in cases:
         n = x.shape[0]
         cot = torch.randn((n, 2 * L), generator=g, device=dev)
+        # the sum items' size: the tree's own choice, then each one asked for
+        chosen = getattr(he, "hash_bwd_item_samples", None)
+        by_size = {}
+        for size in sizes:
+            he.hash_bwd_item_samples = lambda n, s=size: s
+            by_size[size] = device_ms(lambda: hash_encode_backward(x, cot, (L, T, 2), res))
+        if chosen is not None:
+            he.hash_bwd_item_samples = chosen
         out = hash_encode_backward(x, cot, (L, T, 2), res)
         ref = hash_encode_backward_plain(x, cot, (L, T, 2), res)
         idx, w = hash_corners_plain(x, res, T)
@@ -828,21 +875,33 @@ def g7_rows(inp):
             "unequal_between_two_calls": unequal(
                 out, hash_encode_backward(x, cot, (L, T, 2), res)),
             "atomics": g7_atomics(x, L, T, res),
+            # the tree's own replay of its operations, where it has one
+            "operations": (he.hash_bwd_operations(x, res, T)
+                           if hasattr(he, "hash_bwd_operations") else None),
+            "peak_bytes": peak_bytes(lambda: hash_encode_backward(x, cot, (L, T, 2), res)),
             "ms": cuda_ms(lambda: hash_encode_backward(x, cot, (L, T, 2), res)),
             "device_ms": device_ms(lambda: hash_encode_backward(x, cot, (L, T, 2), res)),
+            "device_ms_by_kernel": device_ms_by_kernel(
+                lambda: hash_encode_backward(x, cot, (L, T, 2), res)),
+            "device_ms_by_item_samples": by_size,
             "plain_ms": cuda_ms(lambda: hash_encode_backward_plain(x, cot, (L, T, 2), res),
                                 reps=5),
             "index_add_ms": cuda_ms(lambda: acc.index_add_(0, rows, upd)),
             "index_add_device_ms": device_ms(lambda: acc.index_add_(0, rows, upd)),
+            # the sorted, fixed-order PyTorch sum
+            "index_put_ms": cuda_ms(lambda: acc.index_put_((rows,), upd, accumulate=True)),
+            "index_put_device_ms": device_ms(
+                lambda: acc.index_put_((rows,), upd, accumulate=True)),
             # x and the cotangent read once, the table gradient written once
             "bound_ms": bytes_bound_ms(x, cot, out),
         }
 
 
 def g7_atomics(x, L, T, res, block=4096):
-    """The atomics G7 issues on ``x``, counted by replaying its blocks and
-    warps in PyTorch: ``fixed_point`` (this design: per corner, one 64-bit
-    atomic a feature for each run of equal rows on neighbouring lanes, the
+    """The atomics of G7's earlier designs on ``x``, counted by replaying
+    their blocks and warps in PyTorch: ``fixed_point`` (the int64 design
+    before the bulk reductions: per corner, one 64-bit atomic a feature for
+    each run of equal rows on neighbouring lanes, the
     cube of a level whose int64 pairs fit 80 KiB summed in shared memory)
     and ``float_pairs`` (its parent: per pair of corners dx = 0, 1, one
     float4 atomic for each run of equal row pairs, and one more for each
@@ -1156,7 +1215,11 @@ def main():
     ap.add_argument("--root", default=os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
     ap.add_argument("--label", default="change")
     ap.add_argument("--out", default="build/time_kernels")
+    ap.add_argument("--g7-item-samples", type=int, nargs="*", default=[],
+                    help="G7 also timed with its sum items of these sizes (a tree whose "
+                         "wrapper has hash_bwd_item_samples)")
     args = ap.parse_args()
+    G7_ITEM_SAMPLES[:] = args.g7_item_samples
     sys.path.insert(0, os.path.abspath(args.root))
     import nerfacc_tpu_torch
 

@@ -12,6 +12,10 @@ from nerfacc_tpu.models.encoders import HashGridEncoder as JaxEncoder
 from nerfacc_tpu.models.encoders import _hash_corners
 from nerfacc_tpu_torch.models.encoders import HashGridEncoder
 from nerfacc_tpu_torch.ops.hash_encode import (
+    BWD_MAX_SLOTS,
+    hash_bwd_item_samples,
+    hash_bwd_operations,
+    hash_bwd_workspace_words,
     hash_corners_plain,
     hash_encode,
     hash_encode_backward,
@@ -160,3 +164,68 @@ def test_init_draws_the_tcnn_range():
     assert table.shape == (4, 4096, 2)
     assert float(table.abs().max()) <= 1e-4 and float(table.abs().max()) > 0.99e-4
     assert abs(float(table.mean())) < 2e-6
+
+
+@pytest.mark.parametrize("levels,log2_t,want", [
+    (16, 19, 28 + 8 * 2 * 2**19 + 8 * 2**19 // 4),  # the NGP field: 72 MiB
+    (5, 17, 12 + 5 * 2 * 2**17 + 5 * 2**17 // 4),  # NGPDensityField
+    (1, 4, 4 + 2 * 16 + 4),  # T = 2^4
+    (3, 0, 8 + 3 * 2 * 2 + 2),  # T = 1 takes two rows a slot, the flags round up
+])
+def test_g7_workspace_holds_a_slot_a_level_up_to_eight(levels, log2_t, want):
+    """G7's workspace (the kernel refuses less): a head of counts in 32-byte
+    units, then min(L, BWD_MAX_SLOTS) level slots of int64 sums and their
+    flag bytes, whatever the sample count; at the NGP field's shape 75.5
+    MB, where the int64 twin of the whole table and its flags took 151 MB."""
+    assert BWD_MAX_SLOTS == 8
+    words = hash_bwd_workspace_words(levels, 1 << log2_t)
+    assert words == want
+    head = (2 + 3 * levels + 7) // 8 * 4
+    assert head * 2 >= 2 + 3 * levels and head % 4 == 0
+    if (levels, log2_t) == (16, 19):
+        entries = 16 * 2**19 * 2
+        assert round(8 * words / 1e6, 1) == 75.5
+        assert round(8 * (entries + entries // 8 + 1) / 1e6, 1) == 151.0
+
+
+def test_g7_operations_replay_counts_records_and_runs():
+    """The replay of G7's operations on hand-placed points: a level that is
+    not staged takes one 32-byte bulk reduction for each pair of corners of
+    a cell with even x index, two 16-byte ones for an odd one, and a run of
+    lanes on one record counts once; a staged level (res 16) adds into its
+    cube and writes each touched cell out, and a corner outside the cube is
+    one atomic a feature."""
+    res = (16, 100)
+    # level 1 (res 100): cells x = 10 (even) for lanes 0-2, 11 (odd) for lane 3
+    x = torch.tensor([[0.101, 0.5, 0.5], [0.102, 0.5, 0.5], [0.103, 0.5, 0.5],
+                      [0.115, 0.5, 0.5]])
+    rows = hash_corners_plain(x, res[1:], 2**12)[0][:, 0]  # (4, 8)
+    assert bool(((rows[:3, 4:] ^ rows[:3, :4]) == 1).all())  # even: row pairs
+    ops = hash_bwd_operations(x, res, 2**12)
+    assert ops["bulk_32"] == 4 and ops["bulk_16"] == 8
+    # level 0: all four samples in one cell: eight runs, all inside the
+    # cube, its eight cells written out
+    assert ops["shared"] == 2 * 8 and ops["atomics"] == 2 * 8
+    # a point below 0 puts its level-0 corners with x index -1 outside the
+    # cube; at level 1 its cell's x index is -1, odd (uint32 wrap)
+    y = torch.tensor([[-0.01, 0.5, 0.5]])
+    ops = hash_bwd_operations(y, res, 2**12)
+    assert ops["shared"] == 2 * 4 and ops["atomics"] == 2 * 4 + 2 * 4
+    assert ops["bulk_32"] == 0 and ops["bulk_16"] == 8
+    # lanes 31 and 32 lie in different warps: no run across them
+    z = torch.full((33, 3), 0.5)
+    ops = hash_bwd_operations(z, res, 2**12)
+    assert ops["bulk_32"] == 2 * 4 and ops["bulk_16"] == 0
+    # cells of one cube in two items (four times the other levels' samples)
+    # are written out by each
+    w = torch.full((4 * hash_bwd_item_samples(5000) + 1, 3), 0.5)
+    assert hash_bwd_operations(w, (16,), 2**12)["atomics"] == 2 * 2 * 8
+
+
+@pytest.mark.parametrize("n,want", [(0, 2048), (2**18, 2048), (2**20 - 1, 2048),
+                                    (2**20, 4096), (2**22, 4096)])
+def test_g7_item_samples(n, want):
+    """The samples of a level one G7 sum item takes: a multiple of the
+    kernel's 512 threads (it refuses others), 2048, and 4096 from 2^20
+    samples on (the 360 cascade's first proposal level)."""
+    assert hash_bwd_item_samples(n) == want and want % 512 == 0

@@ -28,6 +28,7 @@ from nerfacc_tpu_torch.ops.cp_level import (
     cp_level_encode_plain,
 )
 from nerfacc_tpu_torch.ops.hash_encode import (
+    hash_bwd_item_samples,
     hash_corners_plain,
     hash_encode,
     hash_encode_backward,
@@ -786,6 +787,81 @@ def test_hash_table_gradient_keeps_nan_and_sums_a_cell_of_many(dev):
     ref = hash_encode_backward_plain(x, cot, (2, 1024, 2), res)
     assert torch.equal(g_table.isnan(), ref.isnan())
     assert _bits_equal(g_table, ref)
+
+
+# G7's edges: (levels, log2 T, n, resolutions base/top); the design sums
+# hash_bwd_item_samples(n) samples of a level an item into one of min(L, 8)
+# level slots, reused in turn past 8 levels, and zeroes and writes 16384
+# rows an item
+_ITEM = hash_bwd_item_samples(2**15)
+_G7_EDGES = {
+    "rows past one write item, levels past the slots": (10, 15, 3 * _ITEM + 1, 16, 4096),
+    "T = 2^4, every corner collides": (9, 4, 5000, 16, 4096),
+    "L = 1": (1, 19, 5000, 16, 16),
+    "L = 1, res 512": (1, 12, 5000, 512, 512),
+    "n = 0": (16, 12, 0, 16, 4096),
+    "n = 1": (16, 12, 1, 16, 4096),
+    "n one past an item": (16, 12, _ITEM + 1, 16, 4096),
+    "n one past a staged level's item": (16, 12, 4 * _ITEM + 1, 16, 4096),
+    "n one past an item of 2^20 samples": (5, 12, 2**20 + 1, 16, 128),
+    "T = 1": (4, 0, 3000, 16, 128),
+}
+
+
+@pytest.mark.parametrize("case", list(_G7_EDGES))
+def test_hash_table_gradient_at_the_designs_edges(dev, case):
+    """G7 bitwise its plain version and itself over two calls at the edges
+    of its design: more levels than slots (a slot's sums and flags zeroed
+    for its next level), rows past one write item, samples past one item
+    (of each size), a table so small that every corner collides (and one
+    row), one level, no sample and one; points in [-0.1, 1.1]^3, whose
+    corners below 0 wrap in uint32.  One launch a call."""
+    levels, log2_t, n, base, top = _G7_EDGES[case]
+    g = torch.Generator(device=dev).manual_seed(log2_t + n)
+    res = HashGridEncoder(n_levels=levels, log2_hashmap_size=log2_t, base_resolution=base,
+                          max_resolution=top).resolutions
+    x = torch.rand((n, 3), generator=g, device=dev) * 1.2 - 0.1
+    cot = torch.randn((n, 2 * levels), generator=g, device=dev)
+    shape = (levels, 1 << log2_t, 2)
+    n0 = cuda.LAUNCHES["hash_bwd"]
+    first = hash_encode_backward(x, cot, shape, res)
+    assert cuda.LAUNCHES["hash_bwd"] == n0 + 1
+    assert _bits_equal(first, hash_encode_backward(x, cot, shape, res))
+    ref = hash_encode_backward_plain(x, cot, shape, res)
+    assert _bits_equal(first, ref)
+    if n == 0:
+        assert not bool(first.any())
+
+
+def test_hash_table_gradient_keeps_infinities_apart_in_every_slot(dev):
+    """+inf, -inf and NaN cotangents at levels that share a slot (0, 8, 16:
+    eight slots for 17 levels) and at levels that do not, in different
+    sum items and write items, one entry taking both infinities (NaN), the
+    rest finite: bitwise the plain version, whose entries are the f64 sums
+    of their terms; the flags of a slot do not reach its next level."""
+    levels, T = 17, 2**15
+    g = torch.Generator(device=dev).manual_seed(11)
+    res = HashGridEncoder(n_levels=levels, log2_hashmap_size=15).resolutions
+    n = 3 * _ITEM + 5
+    x = torch.rand((n, 3), generator=g, device=dev) * 1.2 - 0.1
+    cot = torch.randn((n, 2 * levels), generator=g, device=dev)
+    cot[7, 0] = float("inf")  # level 0, slot 0
+    cot[_ITEM + 3, 2 * 8] = -float("inf")  # level 8, slot 0 again
+    cot[n - 1, 2 * 4 + 1] = float("nan")  # level 4, slot 4
+    cot[100, 2 * 5] = float("inf")  # level 5: one sample's two signs meet
+    x[101] = x[100]
+    cot[101, 2 * 5] = -float("inf")
+    shape = (levels, T, 2)
+    out = hash_encode_backward(x, cot, shape, res)
+    ref = hash_encode_backward_plain(x, cot, shape, res)
+    assert _bits_equal(out, ref)
+    assert _bits_equal(out, hash_encode_backward(x, cot, shape, res))
+    for level, want in ((0, 1), (8, 1), (4, 1), (5, 1), (6, 0), (16, 0)):
+        bad = ~torch.isfinite(out[level])
+        assert (int(bad.sum()) > 0) == bool(want), level
+    assert bool(torch.isnan(out[5]).any()) and bool(torch.isnan(out[4]).any())
+    assert not bool(torch.isnan(out[0]).any()) and bool(torch.isposinf(out[0]).any())
+    assert bool(torch.isneginf(out[8]).any()) and not bool(torch.isposinf(out[8]).any())
 
 
 def test_hash_encode_carries_the_table_gradient_on_the_card(dev):
